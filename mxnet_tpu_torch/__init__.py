@@ -10,7 +10,7 @@ Entry points run on ``cuda:0`` unless the caller passes a CPU device.
 from . import base, context, random
 from .base import MXNetError
 from .context import cpu, gpu, num_gpus
-from . import convert, gluon, ops, serving
+from . import convert, gluon, ops, optimizer, parallel, serving
 
 __all__ = ["MXNetError", "base", "context", "convert", "cpu", "gluon", "gpu",
-           "num_gpus", "ops", "random", "serving"]
+           "num_gpus", "ops", "optimizer", "parallel", "random", "serving"]

@@ -29,6 +29,7 @@ BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 #: kernel name -> source file, relative to the package
 SOURCES = {
     "flash_attention_fwd": "csrc/flash_attention_fwd.cu",
+    "flash_attention_bwd": "csrc/flash_attention_bwd.cu",
 }
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

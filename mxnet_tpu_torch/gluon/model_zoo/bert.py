@@ -1,12 +1,14 @@
-"""Transformer encoder trunk over stacked per-layer parameters.
+"""Transformer encoder trunk over stacked per-layer parameters, and the
+zoo's masked token cross-entropy.
 
-Counterpart of ``ScanTransformerEncoder`` in
+Counterpart of ``ScanTransformerEncoder`` and ``masked_token_ce`` in
 ``mxnet_tpu/gluon/model_zoo/bert.py``: the same twelve ``*_stack_*``
 parameters plus ``lnf_gamma``/``lnf_beta``, under the same names, so the
 serving-checkpoint convention (match by suffix) carries weights across.
-BERTModel and the per-layer ``TransformerEncoder`` come with later
-slices; the JAX package's two trunk layouts run the same math, so the
-port holds the stacked one only.
+The trunk honours ``self.training``: in training mode its dropout draws
+from ``random.current_generator``.  BERTModel and the per-layer
+``TransformerEncoder`` come with later slices; the JAX package's two
+trunk layouts run the same math, so the port holds the stacked one only.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
+from ... import random as _random
 from ...ops.attention import scan_transformer_encoder
 
 
@@ -50,11 +53,9 @@ class ScanTransformerEncoder(nn.Module):
             raise ValueError(f"units {units} not divisible by num_heads "
                              f"{num_heads}")
         if lora_rank:
-            raise NotImplementedError("LoRA adapters come with the "
-                                      "training slice")
+            raise NotImplementedError("LoRA adapters are not ported yet")
         if remat:
-            raise NotImplementedError("rematerialisation comes with the "
-                                      "training slice")
+            raise NotImplementedError("rematerialisation is not ported yet")
         self._num_layers = num_layers
         self._units = units
         self._num_heads = num_heads
@@ -73,13 +74,16 @@ class ScanTransformerEncoder(nn.Module):
         self.reset_parameters()
 
     @torch.no_grad()
-    def reset_parameters(self):
-        """Weights ~ N(0, 0.02); biases and LayerNorm shifts 0; LayerNorm
+    def reset_parameters(self, generator=None):
+        """Weights ~ N(0, 0.02) from ``generator`` (default: the next of
+        the package chain); biases and LayerNorm shifts 0; LayerNorm
         scales 1.  Served weights are loaded over these (``convert``)."""
+        if generator is None:
+            generator = _random.step_generator(self.lnf_gamma.device)
         for name in self._stack_names:
             p = getattr(self, name)
             if name.endswith("_weight"):
-                p.normal_(0.0, 0.02)
+                p.normal_(0.0, 0.02, generator=generator)
             elif name.endswith("_gamma"):
                 p.fill_(1.0)
             else:
@@ -94,3 +98,15 @@ class ScanTransformerEncoder(nn.Module):
             num_heads=self._num_heads, dropout=self._dropout,
             activation=self._activation, impl=self._attention_impl,
             causal=self._causal, training=self.training)
+
+
+def masked_token_ce(logits, labels):
+    """Mean token cross-entropy over valid (label >= 0) positions, from
+    the f32 log-softmax, the denominator at least 1: the zoo's one
+    masked CE (``gpt.GPTLMLoss`` delegates here)."""
+    labels = labels.long()
+    valid = labels >= 0
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
+    denom = valid.sum().clamp_min(1)
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum() / denom

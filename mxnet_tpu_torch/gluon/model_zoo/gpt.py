@@ -1,16 +1,18 @@
-"""Decoder-only (GPT-style) language model and its full-recompute decode.
+"""Decoder-only (GPT-style) language model, its LM loss and its
+full-recompute decode.
 
 Counterpart of ``mxnet_tpu/gluon/model_zoo/gpt.py``: ``GPTModel`` (token +
 position embedding, causal pre-LN trunk, LM head tied to the token
-embedding), the ``gpt2_small``/``gpt2_medium``/``gpt_tiny`` configs,
-``STACK_NAMES``, and ``generate`` with its helpers ``_windowed_last_logits``
-and ``_sample``.  With ``attention_impl="flash"`` the trunk runs the
-hand-written flash-attention kernel on a CUDA device.
+embedding), ``GPTLMLoss``, the ``gpt2_small``/``gpt2_medium``/``gpt_tiny``
+configs, ``STACK_NAMES``, and ``generate`` with its helpers
+``_windowed_last_logits`` and ``_sample``.  With ``attention_impl="flash"``
+the trunk runs the hand-written flash-attention kernels on a CUDA device,
+forward and backward.
 
-The port serves only, for now: models start in eval mode, and a forward
-in training mode with dropout raises NotImplementedError.  The cached
-decoder, speculative and beam decoding, the LM loss and the pipeline
-parts come with later slices.
+Models start in eval mode; ``model.train()`` turns on the embedding and
+trunk dropout, whose masks come from ``random.current_generator`` (the
+trainer's per-step generator).  The cached decoder, speculative and beam
+decoding and the pipeline parts come with later slices.
 """
 
 from __future__ import annotations
@@ -19,7 +21,9 @@ import torch
 from torch import nn
 
 from ... import context
-from .bert import ScanTransformerEncoder, stack_shapes
+from ... import random as _random
+from ...ops.nn import dropout as _dropout
+from .bert import ScanTransformerEncoder, masked_token_ce, stack_shapes
 
 #: the trunk's parameter stacks every serving decoder runs on
 STACK_NAMES = tuple(stack_shapes(0, 0, 0))
@@ -59,18 +63,35 @@ class GPTModel(nn.Module):
 
     @torch.no_grad()
     def reset_parameters(self):
-        self.tok_embed_weight.normal_(0.0, 0.02)
-        self.pos_embed_weight.normal_(0.0, 0.02)
-        self.encoder.reset_parameters()
+        """Weights ~ N(0, 0.02) drawn from one generator of the package
+        chain (``random.seed`` makes them reproducible)."""
+        g = _random.step_generator(self.tok_embed_weight.device)
+        self.tok_embed_weight.normal_(0.0, 0.02, generator=g)
+        self.pos_embed_weight.normal_(0.0, 0.02, generator=g)
+        self.encoder.reset_parameters(g)
 
     def forward(self, ids):
-        if self.training and self._dropout:
-            raise NotImplementedError("training-mode dropout comes with the "
-                                      "training slice; call .eval()")
         T = ids.shape[1]
         x = self.tok_embed_weight[ids.long()] + self.pos_embed_weight[:T]
+        if self.training and self._dropout:
+            x = _dropout(x, self._dropout,
+                         _random.current_generator(x.device))
         h = self.encoder(x)                                   # (B, T, C)
         return torch.matmul(h, self.tok_embed_weight.t())     # tied head
+
+
+def _lm_loss_pure(logits, labels):
+    """Shifted next-token cross-entropy; labels < 0 are ignored: the shift
+    plus the zoo's shared masked CE."""
+    return masked_token_ce(logits[:, :-1], labels[:, 1:])
+
+
+class GPTLMLoss(nn.Module):
+    """Causal LM loss: mean next-token NLL over valid (>= 0) labels.  Call
+    with (logits, token_ids); the shift happens inside."""
+
+    def forward(self, logits, labels):
+        return _lm_loss_pure(logits, labels)
 
 
 def _windowed_last_logits(model, flat):

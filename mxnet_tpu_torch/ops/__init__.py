@@ -1,4 +1,5 @@
-"""Operators: plain PyTorch functions on tensors, and the wrappers of the
-hand-written kernels (``flash_attention``)."""
+"""Operators: plain PyTorch functions on tensors (``optimizer_op``'s
+update rules among them), and the wrappers of the hand-written kernels
+(``flash_attention``)."""
 
-from . import attention, flash_attention, nn
+from . import attention, flash_attention, nn, optimizer_op

@@ -2,41 +2,47 @@
 
 Counterpart of ``mxnet_tpu/ops/attention.py``: ``scaled_dot_product_attention``
 (``impl`` "dense" or "flash"), ``multi_head_attention`` with the packed
-qkv projection, and ``scan_transformer_encoder`` for inference, where the
-JAX package's ``lax.scan`` over the (L, ...) stacks is a Python loop.
+qkv projection, and ``scan_transformer_encoder``, where the JAX package's
+``lax.scan`` over the (L, ...) stacks is a Python loop.  Every op is
+differentiable: the flash impl through its autograd Function, the rest
+through torch's autograd.
 
-Left for later slices, and refused loudly: the "ring"/"ulysses" impls
-(sequence parallelism), attention and residual dropout, LoRA adapters and
-rematerialisation (training).
+Training mode draws its dropout masks from an explicit generator: the one
+passed in, else ``random.current_generator`` (the trainer's per-step
+generator).  Left for later slices, and refused loudly: the
+"ring"/"ulysses" impls (sequence parallelism), LoRA adapters and
+rematerialisation.
 """
 
 from __future__ import annotations
 
 import torch
 
+from .. import random as _random
 from .flash_attention import flash_attention
 from .nn import activation as _activation
+from .nn import dropout as _dropout
 from .nn import layer_norm
 
 _NEG = -1e30
 
 
 def scaled_dot_product_attention(query, key, value, mask=None, causal=False,
-                                 scale=None, impl="dense", dropout_p=0.0):
+                                 scale=None, impl="dense", dropout_p=0.0,
+                                 training=True, generator=None):
     """q, k, v: (B, H, T, D).  mask: broadcastable to (B, H, Tq, Tk),
     1 = keep.  Dense causal masking is bottom-right aligned (``tril`` with
     offset Tk - Tq); the flash kernel's is top-left and needs Tq == Tk,
-    where the two agree."""
+    where the two agree.  ``dropout_p`` drops attention probabilities on
+    the dense path when ``training`` (the JAX op's ``_is_training``, True
+    for a direct call); the fused impls refuse masks and dropout."""
     if scale is None:
         scale = query.shape[-1] ** -0.5
-    if dropout_p > 0.0:
+    if impl != "dense" and (mask is not None or dropout_p > 0.0):
         raise NotImplementedError(
-            "attention dropout comes with the training slice")
+            f"attention impl={impl!r} supports only causal masking; "
+            "explicit masks / attention dropout require impl='dense'")
     if impl == "flash":
-        if mask is not None:
-            raise NotImplementedError(
-                "attention impl='flash' supports only causal masking; "
-                "explicit masks require impl='dense'")
         return flash_attention(query, key, value, causal=causal, scale=scale)
     if impl != "dense":
         raise NotImplementedError(
@@ -50,6 +56,10 @@ def scaled_dot_product_attention(query, key, value, mask=None, causal=False,
     if mask is not None:
         s = s.masked_fill(~mask.bool(), _NEG)
     p = torch.softmax(s, dim=-1)
+    if dropout_p > 0.0 and training:
+        if generator is None:
+            generator = _random.current_generator(p.device)
+        p = _dropout(p, dropout_p, generator)
     return torch.matmul(p, value.float()).to(query.dtype)
 
 
@@ -101,32 +111,38 @@ def scan_transformer_encoder(data, qkv_w, qkv_b, proj_w, proj_b, ffn1_w,
                              ln2_b, lnf_g, lnf_b, qkv_lora_a=None,
                              qkv_lora_b=None, num_heads=1, dropout=0.0,
                              activation="gelu", impl="dense", causal=False,
-                             remat=False, training=False):
+                             remat=False, training=False, generator=None):
     """Pre-LN transformer trunk over stacked (L, ...) per-layer
-    parameters, for inference: one loop iteration per layer, then the
-    final LayerNorm.  The FFN products run in f32 and are cast back to
-    the stream's dtype, as the JAX op's ``preferred_element_type``."""
+    parameters: one loop iteration per layer, then the final LayerNorm.
+    The FFN products run in f32 and are cast back to the stream's dtype,
+    as the JAX op's ``preferred_element_type``.  In ``training`` mode with
+    ``dropout`` the attention output and the FFN output of every layer are
+    dropped (scaled by 1/keep), masks drawn from ``generator`` (default:
+    ``random.current_generator``)."""
     if qkv_lora_a is not None or qkv_lora_b is not None:
-        raise NotImplementedError("LoRA adapters come with the training "
-                                  "slice")
+        raise NotImplementedError("LoRA adapters are not ported yet")
     if remat:
-        raise NotImplementedError("rematerialisation comes with the "
-                                  "training slice")
-    if dropout and training:
-        raise NotImplementedError("training-mode dropout comes with the "
-                                  "training slice")
+        raise NotImplementedError("rematerialisation is not ported yet")
+    use_drop = bool(dropout) and training
+    if use_drop and generator is None:
+        generator = _random.current_generator(data.device)
     x = data
     for i in range(qkv_w.shape[0]):
         h = layer_norm(x, ln1_g[i], ln1_b[i])
-        x = x + multi_head_attention(
+        attn = multi_head_attention(
             h, h, h, qkv_weight=qkv_w[i], qkv_bias=qkv_b[i],
             proj_weight=proj_w[i], proj_bias=proj_b[i],
             num_heads=num_heads, impl=impl, causal=causal)
+        if use_drop:
+            attn = _dropout(attn, dropout, generator)
+        x = x + attn
         h = layer_norm(x, ln2_g[i], ln2_b[i])
         h = torch.matmul(h.float(), ffn1_w[i].float().t()).to(x.dtype) \
             + ffn1_b[i]
         h = _activation(h, activation)
         h = torch.matmul(h.float(), ffn2_w[i].float().t()).to(x.dtype) \
             + ffn2_b[i]
+        if use_drop:
+            h = _dropout(h, dropout, generator)
         x = x + h
     return layer_norm(x, lnf_g, lnf_b)

@@ -1,22 +1,26 @@
-"""Flash attention forward: a hand-written Hopper kernel and its plain
-PyTorch version.
+"""Flash attention, forward and backward: hand-written Hopper kernels,
+their plain PyTorch versions, and the autograd Function around them.
 
-Counterpart of ``mxnet_tpu/ops/pallas_attention.py`` (the forward,
-``_fwd_kernel`` / ``_flash_call`` / ``flash_attention``).  The kernel is
-``csrc/flash_attention_fwd.cu``; its source note gives the design and the
-bound.  The backward (``_dq_kernel``/``_dkv_kernel``) comes with the
-training slice.
+Counterpart of ``mxnet_tpu/ops/pallas_attention.py``: the forward
+(``_fwd_kernel`` / ``_flash_call``), the backward (``_dq_kernel`` and
+``_dkv_kernel`` in ``_flash_bwd_call``) and the ``custom_vjp``
+``_flash_core`` that joins them.  The kernels are
+``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``; their
+source notes give the designs and the bounds.
 
-``flash_attention`` takes (B, H, T, D) tensors.  On a CPU tensor it runs
-``flash_attention_plain``, a blockwise online-softmax loop that repeats
-the kernel's arithmetic at the requested ``block_q``/``block_k`` tiles.
-On a CUDA tensor it launches the kernel through ``flash_attention_fwd``
-or raises; there is no fallback and no dense path for ragged lengths (the
-kernel masks a ragged tail itself).  The kernel picks its own tiles, so
-``block_q``/``block_k`` only tile the plain version; they are checked on
+``flash_attention`` takes (B, H, T, D) tensors and always goes through
+``FlashAttention``, the ``torch.autograd.Function``, on every device.  On a
+CPU tensor the Function runs the plain versions (``flash_attention_plain``
+forward, ``flash_attention_bwd_plain`` backward), blockwise loops that
+repeat the kernels' arithmetic at the requested ``block_q``/``block_k``
+tiles.  On a CUDA tensor it launches the kernels through
+``flash_attention_fwd`` and ``flash_attention_bwd`` or raises; there is
+no fallback and no dense path for ragged lengths (the kernels mask a
+ragged tail themselves).  The kernels pick their own tiles, so
+``block_q``/``block_k`` only tile the plain versions; they are checked on
 every device so a bad value fails the same way everywhere.
 
-TPU artifacts left behind: the 128-lane replication of m and l, the x8
+TPU artifacts left behind: the 128-lane replication of m, l and D, the x8
 LSE padding (LSE is (B*H, T) f32 here), the 256-row VMEM cap on q tiles,
 and ``vma``.
 """
@@ -51,6 +55,25 @@ def _check(q, k, v):
         raise ValueError("flash_attention: q, k, v on different devices")
 
 
+def _check_bwd(q, rows, like_q):
+    """The backward's other inputs: ``rows`` (LSE, D) must be (B*H, T)
+    f32, ``like_q`` (O, dO) shaped and typed as q, all on q's device."""
+    B, H, T, _ = q.shape
+    for t in like_q:
+        if t.shape != q.shape or t.dtype != q.dtype:
+            raise ValueError(f"flash_attention backward: O and dO must be "
+                             f"{tuple(q.shape)} {q.dtype}, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+    for t in rows:
+        if t.shape != (B * H, T) or t.dtype != torch.float32:
+            raise ValueError(f"flash_attention backward: LSE and D must be "
+                             f"({B * H}, {T}) float32, got {tuple(t.shape)} "
+                             f"{t.dtype}")
+    if any(t.device != q.device for t in (*rows, *like_q)):
+        raise ValueError("flash_attention backward: inputs on different "
+                         "devices")
+
+
 def _block_sizes(T, block_q, block_k):
     default = _TILE if T % _TILE == 0 else T
     bq, bk = int(block_q or default), int(block_k or default)
@@ -62,14 +85,18 @@ def _block_sizes(T, block_q, block_k):
     return bq, bk
 
 
+def _scale(q, scale):
+    return q.shape[-1] ** -0.5 if scale is None else float(scale)
+
+
 def flash_attention_plain(q, k, v, causal=False, scale=None, block_q=None,
                           block_k=None):
-    """Plain PyTorch version of the kernel: the TPU kernel's blockwise
-    online softmax, (block_q x block_k) tiles at a time.  Returns
-    ``(O, LSE)`` with O like q and LSE (B*H, T) f32."""
+    """Plain PyTorch version of the forward kernel: the TPU kernel's
+    blockwise online softmax, (block_q x block_k) tiles at a time.
+    Returns ``(O, LSE)`` with O like q and LSE (B*H, T) f32."""
     _check(q, k, v)
     B, H, T, D = q.shape
-    scale = D ** -0.5 if scale is None else float(scale)
+    scale = _scale(q, scale)
     bq, bk = _block_sizes(T, block_q, block_k)
     qf, kf = q.float(), k.float()
     out = torch.empty_like(q)
@@ -101,42 +128,105 @@ def flash_attention_plain(q, k, v, causal=False, scale=None, block_q=None,
     return out, lse.reshape(B * H, T)
 
 
-def _lib():
+def flash_attention_bwd_plain(q, k, v, o, lse, do, causal=False, scale=None,
+                              block_q=None, block_k=None):
+    """Plain PyTorch version of both backward kernels, (block_q x block_k)
+    tiles at a time with the kernels' causal skip.  ``lse`` is the
+    forward's (B*H, T) f32 LSE, read as given (ring attention passes a
+    global one).  Per tile pair, as the TPU kernels:
+
+    - S = q.k^T * scale in f32 (q, k upcast), masked to -1e30;
+      P = exp(S - L), zeroed where S <= -5e29;
+    - D = rowsum(dO * O) in f32; dP = dO.V^T in f32;
+      dS = P * (dP - D) * scale;
+    - dQ += dS.K with dS rounded to K's dtype; dV += P^T.dO with P
+      rounded to dO's dtype; dK += dS^T.Q with dS rounded to Q's dtype;
+      all sums in f32.
+
+    Returns ``(dQ, dK, dV)`` as (B, H, T, D) in q's, k's and v's dtypes."""
+    _check(q, k, v)
+    _check_bwd(q, (lse,), (o, do))
+    B, H, T, D = q.shape
+    scale = _scale(q, scale)
+    bq, bk = _block_sizes(T, block_q, block_k)
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), do.float()
+    L = lse.reshape(B, H, T, 1)
+    delta = (gf * o.float()).sum(dim=-1, keepdim=True)
+    dq = torch.zeros((B, H, T, D), device=q.device)
+    dk = torch.zeros_like(dq)
+    dv = torch.zeros_like(dq)
+    for q0 in range(0, T, bq):
+        qs = slice(q0, q0 + bq)
+        rows = torch.arange(q0, q0 + bq, device=q.device)[:, None]
+        stop = min(T, q0 + bq) if causal else T
+        for k0 in range(0, stop, bk):
+            ks = slice(k0, k0 + bk)
+            s = torch.matmul(qf[:, :, qs], kf[:, :, ks].transpose(-1, -2)) \
+                * scale
+            if causal:
+                cols = torch.arange(k0, k0 + bk, device=q.device)[None, :]
+                s = s.masked_fill(cols > rows, _NEG)
+            p = torch.exp(s - L[:, :, qs]).masked_fill(s <= _NEG / 2, 0.0)
+            dp = torch.matmul(gf[:, :, qs], vf[:, :, ks].transpose(-1, -2))
+            ds = p * (dp - delta[:, :, qs]) * scale
+            dq[:, :, qs] += torch.matmul(ds.to(k.dtype).float(), kf[:, :, ks])
+            dv[:, :, ks] += torch.matmul(
+                p.to(do.dtype).float().transpose(-1, -2), gf[:, :, qs])
+            dk[:, :, ks] += torch.matmul(
+                ds.to(q.dtype).float().transpose(-1, -2), qf[:, :, qs])
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+# -- the CUDA kernels ------------------------------------------------------
+
+
+def _fn(lib_name, fn_name, n_ptrs):
     from .. import _kernels
 
-    lib = _kernels.load("flash_attention_fwd")
-    fn = lib.flash_attention_fwd
+    fn = getattr(_kernels.load(lib_name), fn_name)
     if fn.argtypes is None:
-        fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [
+        fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [
             ctypes.c_float, ctypes.c_void_p]
         fn.restype = ctypes.c_int
     return fn
 
 
+def _launch(name, fn, ptrs, q, causal, scale):
+    """Call a kernel's C entry on the current stream of q's device; raise
+    on a non-zero cudaError."""
+    B, H, T, D = q.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(*(t.data_ptr() for t in ptrs), B * H, T, D,
+                _DTYPE_CODE[q.dtype], int(bool(causal)), scale, stream)
+    if rc != 0:
+        raise MXNetError(f"{name}: launch failed, cudaError {rc} (shape "
+                         f"{(B, H, T, D)}, {q.dtype})")
+
+
+def _needs_cuda(name, *tensors):
+    for t in tensors:
+        if t.device.type != "cuda":
+            raise MXNetError(f"{name}: needs CUDA tensors, got {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: the kernel takes contiguous tensors")
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
-    """Launch the CUDA kernel on (B, H, T, D) CUDA tensors; returns
+    """Launch the forward kernel on (B, H, T, D) CUDA tensors; returns
     ``(O, LSE)`` as ``flash_attention_plain`` does.  ``launches`` counts
     the launches this wrapper made."""
     _check(q, k, v)
-    if q.device.type != "cuda":
-        raise MXNetError(f"flash_attention_fwd: needs CUDA tensors, got "
-                         f"{q.device}")
-    B, H, T, D = q.shape
-    scale = D ** -0.5 if scale is None else float(scale)
     # contiguous (B*H, T, D): the trunk's head split hands us transposed
     # views; one copy each is cheap beside the attention itself
     q, k, v = (x.contiguous() for x in (q, k, v))
+    _needs_cuda("flash_attention_fwd", q)
+    B, H, T, _ = q.shape
     out = torch.empty_like(q)
     lse = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    fn = _lib()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                lse.data_ptr(), B * H, T, D, _DTYPE_CODE[q.dtype],
-                int(bool(causal)), scale, stream)
-    if rc != 0:
-        raise MXNetError(f"flash_attention_fwd: launch failed, cudaError "
-                         f"{rc} (shape {(B, H, T, D)}, {q.dtype})")
+    _launch("flash_attention_fwd",
+            _fn("flash_attention_fwd", "flash_attention_fwd", 5),
+            (q, k, v, out, lse), q, causal, _scale(q, scale))
     flash_attention_fwd.launches += 1
     return out, lse
 
@@ -144,22 +234,106 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
 flash_attention_fwd.launches = 0
 
 
+def flash_attention_dq(q, k, v, o, lse, do, causal=False, scale=None):
+    """Launch the dQ kernel on contiguous (B, H, T, D) CUDA tensors.
+    Returns ``(dQ, D)``: dQ in q's dtype and D = rowsum(dO * O) as a
+    (B*H, T) f32 side output for ``flash_attention_dkv``.  ``launches``
+    counts the launches this wrapper made."""
+    _check(q, k, v)
+    _check_bwd(q, (lse,), (o, do))
+    _needs_cuda("flash_attention_dq", q, k, v, o, lse, do)
+    B, H, T, _ = q.shape
+    dq = torch.empty_like(q)
+    delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
+    _launch("flash_attention_dq",
+            _fn("flash_attention_bwd", "flash_attention_dq", 8),
+            (q, k, v, o, lse, do, dq, delta), q, causal, _scale(q, scale))
+    flash_attention_dq.launches += 1
+    return dq, delta
+
+
+flash_attention_dq.launches = 0
+
+
+def flash_attention_dkv(q, k, v, lse, do, delta, causal=False, scale=None):
+    """Launch the dK/dV kernel on contiguous (B, H, T, D) CUDA tensors,
+    with ``delta`` from ``flash_attention_dq``.  Returns ``(dK, dV)`` in
+    k's and v's dtypes.  ``launches`` counts the launches this wrapper
+    made."""
+    _check(q, k, v)
+    _check_bwd(q, (lse, delta), (do,))
+    _needs_cuda("flash_attention_dkv", q, k, v, lse, do, delta)
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    _launch("flash_attention_dkv",
+            _fn("flash_attention_bwd", "flash_attention_dkv", 8),
+            (q, k, v, lse, do, delta, dk, dv), q, causal, _scale(q, scale))
+    flash_attention_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_dkv.launches = 0
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
+    """The backward on CUDA tensors: the dQ kernel, then the dK/dV kernel
+    on the same stream (it reads the dQ kernel's D).  Takes and returns
+    what ``flash_attention_bwd_plain`` does; ``dO`` may be any layout (it
+    is made contiguous here, as are q, k, v and O)."""
+    _check(q, k, v)
+    _check_bwd(q, (lse,), (o, do))
+    q, k, v, o, do, lse = (x.contiguous() for x in (q, k, v, o, do, lse))
+    dq, delta = flash_attention_dq(q, k, v, o, lse, do, causal, scale)
+    dk, dv = flash_attention_dkv(q, k, v, lse, do, delta, causal, scale)
+    return dq, dk, dv
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its gradient, the counterpart of the JAX
+    package's ``custom_vjp`` ``_flash_core``.  Forward returns ``(O, LSE)``
+    and saves q, k, v, O and LSE; LSE is not differentiable (the JAX core
+    returns O only).  Backward runs the kernels on CUDA and the plain
+    version on the CPU."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, block_q, block_k):
+        if q.device.type == "cpu":
+            out, lse = flash_attention_plain(q, k, v, causal, scale, block_q,
+                                             block_k)
+        elif q.device.type == "cuda":
+            q, k, v = (x.contiguous() for x in (q, k, v))
+            out, lse = flash_attention_fwd(q, k, v, causal, scale)
+        else:
+            raise MXNetError(f"flash_attention: no kernel for device "
+                             f"{q.device}")
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = (causal, scale, block_q, block_k)
+        ctx.mark_non_differentiable(lse)
+        return out, lse
+
+    @staticmethod
+    def backward(ctx, dout, _dlse):
+        q, k, v, out, lse = ctx.saved_tensors
+        causal, scale, block_q, block_k = ctx.args
+        if q.device.type == "cpu":
+            grads = flash_attention_bwd_plain(q, k, v, out, lse, dout, causal,
+                                              scale, block_q, block_k)
+        else:
+            grads = flash_attention_bwd(q, k, v, out, lse, dout, causal,
+                                        scale)
+        return (*grads, None, None, None, None)
+
+
 def flash_attention(q, k, v, causal=False, scale=None, block_q=None,
                     block_k=None, return_lse=False):
-    """Blockwise fused attention; q, k, v: (B, H, T, D), Tq == Tk.
+    """Blockwise fused attention with its gradient; q, k, v: (B, H, T, D),
+    Tq == Tk.
 
     ``causal`` is the top-left square mask (key j visible to query i iff
     j <= i).  Returns O, or ``(O, LSE)`` with LSE (B*H, T) f32 when
     ``return_lse``."""
     _check(q, k, v)
-    T = q.shape[2]
-    _block_sizes(T, block_q, block_k)
-    if q.device.type == "cpu":
-        out, lse = flash_attention_plain(q, k, v, causal, scale, block_q,
-                                         block_k)
-    elif q.device.type == "cuda":
-        out, lse = flash_attention_fwd(q, k, v, causal, scale)
-    else:
-        raise MXNetError(f"flash_attention: no kernel for device "
-                         f"{q.device}")
+    _block_sizes(q.shape[2], block_q, block_k)
+    out, lse = FlashAttention.apply(q, k, v, bool(causal), _scale(q, scale),
+                                    block_q, block_k)
     return (out, lse) if return_lse else out

@@ -1,10 +1,10 @@
-"""Normalisation and activation for the transformer trunk.
+"""Normalisation, activation and dropout for the transformer trunk.
 
 Counterpart of the pieces of ``mxnet_tpu/ops/nn.py`` the decoder path
 uses: ``layer_norm`` (biased variance, eps 1e-5, computed in the input's
-dtype as the JAX op does) and the trunk's GELU.  ``jax.nn.gelu``
-defaults to the tanh approximation, so ``gelu`` here is the tanh form;
-the erf form differs by up to ~1e-3 and fails parity.
+dtype as the JAX op does), the trunk's GELU and inverted ``dropout``.
+``jax.nn.gelu`` defaults to the tanh approximation, so ``gelu`` here is
+the tanh form; the erf form differs by up to ~1e-3 and fails parity.
 """
 
 from __future__ import annotations
@@ -33,3 +33,16 @@ def activation(x, act_type):
     if act_type == "relu":
         return torch.relu(x)
     raise ValueError(f"unsupported activation {act_type!r}")
+
+
+def dropout(x, p, generator):
+    """Inverted dropout in training mode: keep each element with
+    probability ``1 - p`` and scale it by ``1 / (1 - p)``, as the JAX op's
+    ``where(bernoulli(keep), x / keep, 0)``.  The mask is drawn from
+    ``generator``, which must live on x's device type."""
+    if p <= 0.0:
+        return x
+    keep = 1.0 - p
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))

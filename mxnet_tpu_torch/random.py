@@ -2,14 +2,36 @@
 
 Counterpart of ``mxnet_tpu/random.py``.  JAX threads PRNG keys through
 traced code; eager PyTorch passes a ``torch.Generator`` to the call that
-draws (sampling at a temperature in ``gpt._sample``).  The two packages
-give different numbers from the same seed, so parity tests make their
-inputs with numpy and compare greedy decodes only.
+draws (sampling at a temperature in ``gpt._sample``, dropout in the
+trunk).  The two packages give different numbers from the same seed, so
+parity tests make their inputs with numpy and compare greedy decodes and
+dropout-free training only.
+
+The package seed (``seed``) plays the part of the JAX package's global key
+chain: ``step_generator`` draws a fresh generator from it for each
+training step (the trainer's ``next_key()``), and ``generator_scope`` makes
+that generator the one ``current_generator`` returns while the step's
+forward runs (the counterpart of ``key_scope``).  Nothing here touches
+torch's global RNG.
 """
 
 from __future__ import annotations
 
+import os
+import threading
+
+import numpy as np
 import torch
+
+
+class _State(threading.local):
+    def __init__(self):
+        self.seed = None
+        self.count = 0
+        self.scope: list = []
+
+
+_STATE = _State()
 
 
 def generator(seed_state: int, device=None) -> torch.Generator:
@@ -19,3 +41,49 @@ def generator(seed_state: int, device=None) -> torch.Generator:
     g.manual_seed(int(seed_state))
     return g
 
+
+def seed(seed_state: int) -> None:
+    """Reseed the package's generator chain (``mx.random.seed``): the
+    generators ``step_generator`` draws afterwards are a function of
+    ``seed_state`` and their order."""
+    _STATE.seed = int(seed_state)
+    _STATE.count = 0
+
+
+def step_generator(device=None) -> torch.Generator:
+    """The next generator of the package chain, on ``device``.  Unseeded,
+    the chain starts from the operating system's entropy, as the JAX
+    package's does."""
+    if _STATE.seed is None:
+        _STATE.seed = int.from_bytes(os.urandom(8), "little") >> 1
+    _STATE.count += 1
+    ss = np.random.SeedSequence([_STATE.seed, _STATE.count])
+    return generator(int(ss.generate_state(1, np.uint64)[0] >> 1), device)
+
+
+class generator_scope:
+    """Context manager making ``gen`` the generator ``current_generator``
+    returns, as ``key_scope`` routes ``next_key()`` in the JAX package."""
+
+    def __init__(self, gen: torch.Generator):
+        self.gen = gen
+
+    def __enter__(self):
+        _STATE.scope.append(self.gen)
+        return self.gen
+
+    def __exit__(self, *exc):
+        _STATE.scope.pop()
+
+
+def current_generator(device=None) -> torch.Generator:
+    """The generator of the innermost ``generator_scope``, else the next
+    one of the package chain.  Raises if the scope's generator lives on
+    another device type than ``device``."""
+    if not _STATE.scope:
+        return step_generator(device)
+    gen = _STATE.scope[-1]
+    if device is not None and gen.device.type != torch.device(device).type:
+        raise ValueError(f"generator_scope holds a generator on "
+                         f"{gen.device}, the draw is on {device}")
+    return gen

@@ -11,7 +11,8 @@ device, without a mesh.  It keeps the JAX engine's contract:
   and its own causal mask, so a coalesced batch may mix prompt lengths
   and pad rows never leak into real rows;
 - weights are swapped under a lock by ``reload_from_state``, the
-  serving-checkpoint convention;
+  serving-checkpoint convention that ``state_for_serving`` writes (so a
+  model trained by the port goes straight to the engine);
 - ``dtype=torch.bfloat16`` keeps the weight matrices, embedding tables
   and cache in bf16 while LayerNorm, biases and every reduction stay f32.
 
@@ -63,6 +64,15 @@ def prefill_buckets_for(window, floor=8):
         s *= 2
     buckets.append(window)
     return tuple(buckets)
+
+
+def state_for_serving(model):
+    """Flat host state ``{param_name: np.ndarray}`` of a port model, the
+    serving-checkpoint convention that ``convert.load_state`` and
+    ``ServingEngine.reload_from_state`` read (matched by name suffix).
+    Arrays are float32 copies: numpy has no bfloat16."""
+    return {name: p.detach().to("cpu", torch.float32).numpy().copy()
+            for name, p in model.named_parameters()}
 
 
 def _sync(device):

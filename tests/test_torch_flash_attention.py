@@ -1,8 +1,11 @@
-"""The port's flash attention (plain PyTorch version, which a CPU tensor
-takes) against the JAX package's Pallas kernel in interpret mode, as the
-JAX package's own tests run it on the CPU.  Same numpy inputs through
-both; rtol 2e-4 / atol 2e-5 as tests/test_parallel.py's flash tests."""
+"""The port's flash attention (plain PyTorch versions, which a CPU tensor
+takes, behind the autograd Function) against the JAX package's Pallas
+kernels in interpret mode, as the JAX package's own tests run them on the
+CPU.  Same numpy inputs through both; outputs at rtol 2e-4 / atol 2e-5 and
+gradients at rtol 2e-3 / atol 2e-4, as tests/test_parallel.py's flash
+tests."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +16,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import flash_attention as tflash
 
 RTOL, ATOL = 2e-4, 2e-5
+GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
 
 
 def _qkv(shape, seed):
@@ -82,6 +86,127 @@ def test_bf16_tile_size_bound():
     one_step = 2 ** -7 * b.float().abs() + 1e-6
     assert bool((diff <= one_step + 2 ** -8 * mag.float()).all())
     assert not bool((diff <= one_step).all())
+
+
+BWD_CASES = [
+    (128, 16, None),    # one default tile
+    (256, 32, 64),      # 4x4 blocks: multi-block backward
+    (192, 16, None),    # odd length: a single full-length block
+]
+
+
+def _jax_fwd(q, k, v, causal, block, dtype=jnp.float32):
+    """O and the x8-lane LSE from the JAX forward kernel."""
+    T, D = q.shape[2], q.shape[3]
+    bq = block or (128 if T % 128 == 0 else T)
+    jq, jk, jv = (jnp.asarray(x, dtype) for x in (q, k, v))
+    o, lse = jflash._flash_call(jq, jk, jv, causal, D ** -0.5, bq, bq)
+    return (jq, jk, jv), o, lse, bq
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,D,block", BWD_CASES)
+def test_flash_bwd_plain_matches_jax_interpret(causal, T, D, block):
+    """The plain version of the backward kernels against _flash_bwd_call
+    (_dq_kernel and _dkv_kernel) on the same q, k, v, O, L and dO: the
+    JAX forward's O and its x8-lane L, lane 0 for the port."""
+    q, k, v, g = _qkv((2, 2, T, D), seed=T + D + 1) + \
+        _qkv((2, 2, T, D), seed=T + D + 2)[:1]
+    (jq, jk, jv), o, lse, bq = _jax_fwd(q, k, v, causal, block)
+    want = jflash._flash_bwd_call(jq, jk, jv, o, lse, jnp.asarray(g), causal,
+                                  D ** -0.5, bq, bq)
+    got = tflash.flash_attention_bwd_plain(
+        torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+        torch.from_numpy(np.array(o)),
+        torch.from_numpy(np.asarray(lse)[..., 0].copy()),
+        torch.from_numpy(g), causal, block_q=block, block_k=block)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL,
+                                   atol=ATOL, err_msg=name)
+
+
+def test_flash_bwd_plain_bf16_matches_jax_interpret():
+    """bf16: both sides round dS to q's/k's dtype and P to dO's before
+    their products and store bf16 gradients; the f32 sums differ in order
+    only, so a stored gradient may differ by one bf16 step (2^-7
+    relative) where that order tips a rounding."""
+    q, k, v, g = _qkv((1, 2, 128, 32), seed=11) + _qkv((1, 2, 128, 32),
+                                                       seed=12)[:1]
+    (jq, jk, jv), o, lse, bq = _jax_fwd(q, k, v, True, None, jnp.bfloat16)
+    want = jflash._flash_bwd_call(jq, jk, jv, o, lse,
+                                  jnp.asarray(g, jnp.bfloat16), True,
+                                  32 ** -0.5, bq, bq)
+    tq, tk, tv, tg = (torch.from_numpy(x).bfloat16() for x in (q, k, v, g))
+    to = torch.from_numpy(np.array(o.astype(jnp.float32))).bfloat16()
+    got = tflash.flash_attention_bwd_plain(
+        tq, tk, tv, to, torch.from_numpy(np.asarray(lse)[..., 0].copy()), tg,
+        True)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16, name
+        np.testing.assert_allclose(a.float().numpy(),
+                                   np.asarray(b.astype(jnp.float32)),
+                                   rtol=2 ** -7, atol=1e-6, err_msg=name)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("T,D,block", BWD_CASES[1:])
+def test_flash_grad_matches_jax_grad(causal, T, D, block):
+    """torch.autograd.grad through the port's flash_attention (the
+    Function's plain backward on the CPU) against jax.grad of the JAX
+    flash_attention, as tests/test_parallel.py's test_flash_attention_grad;
+    the output's grad_fn is the port's Function."""
+    q, k, v = _qkv((2, 2, T, D), seed=T + D + 3)
+
+    def jloss(q, k, v):
+        return jnp.sum(jflash.flash_attention(
+            q, k, v, causal=causal, block_q=block, block_k=block) ** 2)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = tflash.flash_attention(tq, tk, tv, causal=causal, block_q=block,
+                                 block_k=block)
+    assert isinstance(out.grad_fn, tflash.FlashAttention._backward_cls)
+    got = torch.autograd.grad((out ** 2).sum(), (tq, tk, tv))
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=name)
+
+
+def test_flash_function_on_the_cpu():
+    """Every call goes through the Function: the LSE it returns is not
+    differentiable, a CPU backward launches no kernel, and gradients
+    arrive in the inputs' shapes and dtype, also from transposed views."""
+    g = torch.Generator().manual_seed(4)
+    x = torch.randn((2, 32, 3, 2, 16), generator=g, requires_grad=True)
+    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+    out, lse = tflash.flash_attention(q, k, v, causal=True, return_lse=True)
+    assert type(out.grad_fn).__name__ == "FlashAttentionBackward"
+    assert not lse.requires_grad
+    before = (tflash.flash_attention_dq.launches,
+              tflash.flash_attention_dkv.launches)
+    (gx,) = torch.autograd.grad(out.sum(), x)
+    assert gx.shape == x.shape and gx.dtype == x.dtype
+    assert (tflash.flash_attention_dq.launches,
+            tflash.flash_attention_dkv.launches) == before
+    bq, bk, bv = (b.bfloat16() for b in (q, k, v))
+    ob = tflash.flash_attention(bq.detach().requires_grad_(), bk, bv)
+    assert ob.dtype == torch.bfloat16
+    with torch.inference_mode():
+        assert tflash.flash_attention(q, k, v).grad_fn is None
+
+
+def test_flash_bwd_wrappers_need_cuda_tensors():
+    q = torch.zeros((1, 1, 64, 16))
+    lse = torch.zeros((1, 64))
+    with pytest.raises(MXNetError, match="needs CUDA"):
+        tflash.flash_attention_bwd(q, q, q, q, lse, q)
+    with pytest.raises(MXNetError, match="needs CUDA"):
+        tflash.flash_attention_dq(q, q, q, q, lse, q)
+    with pytest.raises(MXNetError, match="needs CUDA"):
+        tflash.flash_attention_dkv(q, q, q, lse, q, lse)
+    with pytest.raises(ValueError, match="LSE and D must be"):
+        tflash.flash_attention_bwd_plain(q, q, q, q, lse.T, q)
 
 
 def test_flash_rejects_non_dividing_blocks():

@@ -144,12 +144,24 @@ def test_load_stacks_rejects_bad_entries():
 
 
 def test_model_refuses_training_features():
+    """LoRA and remat are not ported and still raise; dropout now trains:
+    eval mode ignores it, training mode drops with the scope's generator
+    (the same generator seed gives the same logits)."""
+    from mxnet_tpu_torch import random
+
     with pytest.raises(NotImplementedError):
         tgpt.gpt_tiny(device=cpu(), lora_rank=4)
     with pytest.raises(NotImplementedError):
         tgpt.gpt_tiny(device=cpu(), remat=True)
     model = tgpt.gpt_tiny(device=cpu(), dropout=0.1)
-    model(torch.zeros((1, 4), dtype=torch.int64))     # eval: no dropout
+    ids = torch.randint(0, 128, (2, 8), generator=random.generator(0))
+    ref = model(ids)                                    # eval: no dropout
+    assert torch.equal(ref, model(ids))
     model.train()
-    with pytest.raises(NotImplementedError, match="dropout"):
-        model(torch.zeros((1, 4), dtype=torch.int64))
+    runs = []
+    for seed in (1, 1, 2):
+        with random.generator_scope(random.generator(seed)):
+            runs.append(model(ids))
+    assert torch.equal(runs[0], runs[1])
+    assert not torch.allclose(runs[0], ref)
+    assert not torch.allclose(runs[0], runs[2])

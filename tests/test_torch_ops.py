@@ -90,19 +90,46 @@ def test_multi_head_attention_matches_jax(self_attention):
 
 
 def test_attention_refuses_unported_features():
+    """Sequence-parallel impls, masks or dropout on the flash impl, remat
+    and LoRA still raise; dropout on the dense path and in the trunk now
+    trains (``test_dropout_draws_from_the_generator``)."""
     q = torch.zeros((1, 1, 4, 8))
     for kwargs in ({"impl": "ring"}, {"impl": "ulysses"},
-                   {"dropout_p": 0.1},
+                   {"impl": "flash", "dropout_p": 0.1},
                    {"impl": "flash", "mask": torch.ones((4, 4))}):
         with pytest.raises(NotImplementedError):
             tatt.scaled_dot_product_attention(q, q, q, **kwargs)
     stacks = [torch.zeros(1)] * 14
-    for kwargs in ({"remat": True}, {"dropout": 0.1, "training": True},
+    for kwargs in ({"remat": True},
                    {"qkv_lora_a": torch.zeros(1),
                     "qkv_lora_b": torch.zeros(1)}):
         with pytest.raises(NotImplementedError):
             tatt.scan_transformer_encoder(torch.zeros((1, 2, 4)), *stacks,
                                           **kwargs)
+
+
+def test_dropout_draws_from_the_generator():
+    """Dense attention dropout and the trunk's dropout: masks come from
+    the given generator (else the generator scope's), kept values are
+    scaled by 1/keep, and eval mode drops nothing."""
+    from mxnet_tpu_torch import random
+
+    rng = np.random.RandomState(9)
+    q, k, v = (torch.from_numpy(_rand(rng, 2, 2, 16, 8)) for _ in range(3))
+    plain = tatt.scaled_dot_product_attention(q, k, v, causal=True)
+    a = tatt.scaled_dot_product_attention(
+        q, k, v, causal=True, dropout_p=0.5, generator=random.generator(3))
+    with random.generator_scope(random.generator(3)):
+        b = tatt.scaled_dot_product_attention(q, k, v, causal=True,
+                                              dropout_p=0.5)
+    assert torch.equal(a, b) and not torch.allclose(a, plain)
+    assert torch.equal(plain, tatt.scaled_dot_product_attention(
+        q, k, v, causal=True, dropout_p=0.5, training=False))
+    x = torch.ones((4, 1000))
+    y = tnn.dropout(x, 0.25, random.generator(0))
+    kept = y != 0
+    assert torch.allclose(y[kept], torch.full_like(y[kept], 1 / 0.75))
+    assert abs(float(kept.float().mean()) - 0.75) < 0.03
 
 
 @pytest.mark.parametrize("raw", [None, "4,1,2", "8", "x,2", ","])

@@ -26,8 +26,17 @@ bad = sorted(n for n in sys.modules
              if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
 print("IMPORTED", len([n for n in sys.modules
                        if n.startswith("mxnet_tpu_torch")]))
+print("MODULES", " ".join(sorted(n for n in sys.modules
+                                 if n.startswith("mxnet_tpu_torch"))))
 print("BAD", bad)
 """
+
+#: modules the training slice added; each must be walked and clean
+TRAINING_MODULES = ("mxnet_tpu_torch.parallel",
+                    "mxnet_tpu_torch.parallel.trainer",
+                    "mxnet_tpu_torch.optimizer",
+                    "mxnet_tpu_torch.optimizer.lr_scheduler",
+                    "mxnet_tpu_torch.ops.optimizer_op")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -38,6 +47,8 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert res.returncode == 0, res.stderr
     assert "BAD []" in res.stdout, res.stdout
     assert int(res.stdout.split("IMPORTED ")[1].split()[0]) >= 10
+    walked = set(res.stdout.split("MODULES ")[1].split("\n")[0].split())
+    assert set(TRAINING_MODULES) <= walked, sorted(walked)
 
 
 def _imported_roots(path):
