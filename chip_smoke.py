@@ -41,6 +41,19 @@ Phases; any failure raises, exits non-zero and prints no result line:
    ServingEngine.reload_from_state agree with generate().
 5f. Where a training step's device time goes: three f32 steps under
    torch.profiler, kernel time by family, and the device's busy share.
+7. The imperative path (``mx.nd`` + ``autograd``) through the user's entry
+   points: a linear regression with X (65536, 4096) f32 on gpu(0) by
+   default, 20 steps whose SGD update is the NVRTC-compiled ``axpy``
+   (``rtc.CudaModule``, [2] compiles both sources): the loss falls, the
+   kernel's update equals ``w - lr * w.grad`` by nd ops, ms per step and
+   peak memory; then nd.save/nd.load bit-exact, grad_req="add" and
+   create_graph at a small size.
+7b. The runtime-compiled kernels ``scale2`` (the JAX package's PallasModule
+   test kernel) and ``axpy`` against their plain versions at 2^26 elements
+   and at 1000003; a write reaches only the non-const pointer's array; a
+   wrong dtype, a CPU array and a syntax error raise MXNetError; CUDA-event
+   times beside the byte bounds and the library calls; the host cost of
+   one launch.
 6. The kernel JSON line, the nvidia-smi line, then the result line.
 """
 
@@ -91,6 +104,40 @@ BF16_STEP = 2 ** -7
 # error per parameter (attention sums differ in order only).
 GRAD_REL_L2 = 1e-3
 LOSS_RTOL = 1e-5
+
+# -- the imperative path ([7]) and the runtime-compiled kernels ([7b]) -------
+# Hand-written CUDA C++ sources compiled at runtime by rtc.CudaModule
+# (NVRTC, sm_90a); tests/test_torch_kernels_gpu.py holds the same two.
+# scale2 is the counterpart of the JAX package's PallasModule kernel
+# (tests/test_aux.py:256-272): y = 2x, any length, grid-stride loop.  axpy
+# is MXNet's rtc example: y += alpha * x with an n bound.
+SCALE2_SRC = r"""
+extern "C" __global__ void scale2(const float *__restrict__ x,
+                                  float *__restrict__ y, long long n)
+{
+    long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < n; i += stride)
+        y[i] = 2.0f * x[i];
+}
+"""
+AXPY_SRC = r"""
+extern "C" __global__ void axpy(const float *x, float *y, float alpha, int n)
+{
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] += alpha * x[i];
+}
+"""
+REG_SHAPE = (65536, 4096)          # X of the linear regression: 1 GiB f32
+REG_STEPS = 20
+REG_LR = 0.25                      # stable: 2 * lr * max eig(X^T X / N) < 2
+RTC_N = 1 << 26                    # 2^26 f32 elements, 256 MiB an array
+RTC_ODD = 1000003
+# axpy against w - lr * w.grad by nd ops, elementwise: the kernel may fuse
+# y + alpha * x into one FMA (one rounding, 2^-24 |y + ax|) where torch
+# rounds alpha * x and then the sum (2^-24 |ax| + 2^-24 |y + ax|), so they
+# differ by at most 2^-24 (|ax| + 2 |y + ax|) <= 2^-22 (|y| + |ax|).
+AXPY_TOL = 2 ** -22
 
 
 def log(*args):
@@ -645,7 +692,8 @@ def phase_train(dev, card):
 
 
 # kernel-name fragments -> family, first match wins
-FAMILIES = (("flash_dq", "flash dQ kernel"),
+FAMILIES = (("axpy", "rtc axpy kernel"), ("scale2", "rtc scale2 kernel"),
+            ("flash_dq", "flash dQ kernel"),
             ("flash_dkv", "flash dK/dV kernel"),
             ("flash_fwd", "flash forward kernel"),
             ("gemm", "GEMM"), ("gemv", "GEMM"), ("cutlass", "GEMM"),
@@ -662,8 +710,6 @@ def phase_profile(dev, card, steps=3):
     device's busy share (its kernel time over the wall time)."""
     import numpy as np
     import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
     from mxnet_tpu_torch import convert
     from mxnet_tpu_torch.gluon.model_zoo import gpt
@@ -679,12 +725,24 @@ def phase_profile(dev, card, steps=3):
                              {"learning_rate": 3e-4})
     for _ in range(2):
         trainer.step(ids, ids)
+    what = f"{steps} f32 steps at B={B}, T={T}"
+    profile_steps(lambda: trainer.step(ids, ids), steps, what, card)
+
+
+def profile_steps(step, steps, what, card, top=12):
+    """torch.profiler over ``steps`` calls of ``step``: device kernel time
+    by family and by kernel, host wall time, and the device's busy share
+    (its kernel time over the wall time).  Returns (wall ms, busy ms)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            trainer.step(ids, ids)
+            step()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) / steps * 1e3
     fam, names = {}, {}
@@ -704,14 +762,308 @@ def phase_profile(dev, card, steps=3):
     busy = sum(fam.values())
     if busy <= 0:
         raise AssertionError("torch.profiler recorded no device time")
-    log(f"  {steps} f32 steps at B={B}, T={T}: host wall {wall:.2f} ms per "
-        f"step, device kernel time {busy:.2f} ms per step, busy share "
-        f"{busy / wall:.3f}  [{card}]")
+    log(f"  {what}: host wall {wall:.3f} ms per step, device kernel time "
+        f"{busy:.3f} ms per step, busy share {busy / wall:.3f}  [{card}]")
     for f, ms in sorted(fam.items(), key=lambda x: -x[1]):
         log(f"    {f:24s} {ms:9.3f} ms per step  {ms / busy:6.1%}")
     log("    top kernels:")
-    for k, ms in sorted(names.items(), key=lambda x: -x[1])[:12]:
+    for k, ms in sorted(names.items(), key=lambda x: -x[1])[:top]:
         log(f"      {ms:9.3f} ms  {k[:110]}")
+    return wall, busy
+
+
+def _grid(n, block=256):
+    """A grid-stride launch: enough 256-thread blocks to fill the card."""
+    return (max(1, min((n + block - 1) // block, 132 * 16)), 1, 1)
+
+
+def _rtc_kernels():
+    """Compile both sources at runtime; returns the kernels and the NVRTC
+    seconds each took."""
+    from mxnet_tpu_torch import rtc
+
+    m_s2 = rtc.CudaModule(SCALE2_SRC)
+    m_ax = rtc.CudaModule(AXPY_SRC)
+    s2 = m_s2.get_kernel("scale2", "const float *x, float *y, int64_t n")
+    ax = m_ax.get_kernel("axpy",
+                         "const float *x, float *y, float alpha, int n")
+    return s2, ax, {"scale2": m_s2.compile_seconds,
+                    "axpy": m_ax.compile_seconds}
+
+
+def phase_imperative(dev, card):
+    """[7] The imperative path through the user's entry points: an
+    nd/autograd linear regression at REG_SHAPE whose SGD update is the
+    runtime-compiled axpy kernel; then nd.save/nd.load, grad_req="add"
+    and create_graph at a small size.  Returns the path's numbers."""
+    import math
+
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+
+    rng = np.random.default_rng(SEED + 17)
+    N, D = REG_SHAPE
+    X_np = rng.standard_normal(REG_SHAPE, dtype=np.float32)
+    w_true = rng.standard_normal((D, 1), dtype=np.float32) / math.sqrt(D)
+    y_np = X_np @ w_true + 0.5 + 0.01 * rng.standard_normal(
+        (N, 1), dtype=np.float32)
+    X = nd.array(X_np)                   # no ctx: gpu(0) by default
+    y = nd.array(y_np)
+    del X_np
+    if X.context != mx.gpu(0) or X._data.device != dev:
+        raise AssertionError(f"nd.array landed on {X._data.device}")
+    w, b = nd.zeros((D, 1)), nd.zeros((1,))
+    for p in (w, b):
+        p.attach_grad()
+    ax = mx.rtc.CudaModule(AXPY_SRC).get_kernel(
+        "axpy", "const float *x, float *y, float alpha, int n")
+    lr = REG_LR
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ax.launches = 0                      # the path's count, from 0
+    losses, worst, t1 = [], 0.0, None
+    t0 = time.perf_counter()
+    for step in range(REG_STEPS):
+        if step == 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        with autograd.record():
+            loss = nd.mean(nd.square(nd.dot(X, w) + b - y))
+        loss.backward()
+        check = step in (0, REG_STEPS - 1)
+        if check:                        # the update by nd ops, to compare
+            refs = [(p - lr * p.grad, p.asnumpy(), p.grad.asnumpy())
+                    for p in (w, b)]
+        for p in (w, b):                 # SGD by the runtime-compiled kernel
+            axpy_launch(ax, p.grad, p, -lr, p.size, mx)
+        if check:
+            for p, (ref, p0, g0) in zip((w, b), refs):
+                diff = np.abs(p.asnumpy() - ref.asnumpy())
+                tol = AXPY_TOL * (np.abs(p0) + lr * np.abs(g0))
+                worst = max(worst, float(diff.max()))
+                if not (diff <= tol).all():
+                    raise AssertionError(
+                        f"axpy update differs from w - lr * w.grad by "
+                        f"{diff.max():.3e} at step {step}")
+        losses.append(float(loss.asscalar()))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t1
+    launches = ax.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = wall / (REG_STEPS - 1) * 1e3
+    log(f"  linear regression X {REG_SHAPE} f32 on {X._data.device}, "
+        f"{REG_STEPS} steps, lr {lr}: loss {losses[0]:.6f} (step 0) -> "
+        f"{losses[-1]:.6f} (step {REG_STEPS - 1}); every 5th "
+        f"{[round(v, 6) for v in losses[::5]]}")
+    log(f"  axpy update vs nd's w - lr*w.grad: max abs diff {worst:.3e} "
+        f"(tol 2^-22 * (|w| + lr |grad|) elementwise); axpy launches "
+        f"{launches} (want 2 x {REG_STEPS})")
+    log(f"  {ms:.3f} ms per step (steps 2-{REG_STEPS}, host wall after "
+        f"synchronize, the per-step loss readback included); peak device "
+        f"memory {peak:.3f} GiB  [{card}]")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the loss did not fall: {losses}")
+    if launches != 2 * REG_STEPS:
+        raise AssertionError(f"axpy launched {launches} times, not "
+                             f"{2 * REG_STEPS}")
+
+    def one_step():
+        with autograd.record():
+            loss = nd.mean(nd.square(nd.dot(X, w) + b - y))
+        loss.backward()
+        for p in (w, b):
+            axpy_launch(ax, p.grad, p, -lr, p.size, mx)
+        return float(loss.asscalar())
+
+    prof_wall, prof_busy = profile_steps(
+        one_step, 5, f"5 more imperative steps at X {REG_SHAPE}", card,
+        top=8)
+
+    # nd.save / nd.load round trip, bit-exact, back onto the card
+    out_dir = Path(__file__).resolve().parent / "build" / "smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    f = str(out_dir / "linreg.params")
+    nd.save(f, {"w": w, "b": b})
+    back = nd.load(f)
+    exact = all(torch.equal(back[k]._data, v._data)
+                for k, v in (("w", w), ("b", b)))
+    log(f"  nd.save/nd.load: keys {sorted(back)}, on "
+        f"{back['w']._data.device}, bit-exact {exact}")
+    if not (exact and back["w"]._data.device == dev):
+        raise AssertionError("nd.save/nd.load round trip is not bit-exact")
+
+    # grad_req="add" and create_graph at a small size
+    xs = nd.array(rng.standard_normal(1000))
+    xs.attach_grad(grad_req="add")
+    for _ in range(3):
+        with autograd.record():
+            yv = (xs * xs * xs).sum()
+        yv.backward()
+    xv = xs.asnumpy().astype(np.float64)
+    add_err = float(np.abs(xs.grad.asnumpy() - 9 * xv ** 2).max())
+    xc = nd.array(rng.standard_normal(1000))
+    xc.attach_grad()
+    with autograd.record():
+        yc = xc * xc * xc
+        dy = autograd.grad(yc, xc, create_graph=True)
+    dy.backward()
+    xcv = xc.asnumpy().astype(np.float64)
+    cg_err = float(np.abs(xc.grad.asnumpy() - 6 * xcv).max())
+    cg_d1 = float(np.abs(dy.asnumpy() - 3 * xcv ** 2).max())
+    log(f"  grad_req='add' over 3 backward passes vs 9x^2: max abs err "
+        f"{add_err:.3e}; create_graph d/dx of 3x^2 vs 6x: {cg_err:.3e} "
+        f"(first grad vs 3x^2: {cg_d1:.3e}); tol rtol 2e-3 atol 2e-4")
+    if not (np.allclose(xs.grad.asnumpy(), 9 * xv ** 2, 2e-3, 2e-4)
+            and np.allclose(xc.grad.asnumpy(), 6 * xcv, 2e-3, 2e-4)
+            and np.allclose(dy.asnumpy(), 3 * xcv ** 2, 2e-3, 2e-4)):
+        raise AssertionError("grad_req='add' or create_graph disagree")
+    del X, y
+    torch.cuda.empty_cache()
+    return {"launches": launches, "max_abs_err": worst, "ms_step": ms,
+            "peak_gib": peak, "loss0": losses[0], "loss_last": losses[-1],
+            "busy_share": prof_busy / prof_wall}
+
+
+def axpy_launch(ax, x, y, alpha, n, mx):
+    """y += alpha * x through the axpy kernel, one thread an element."""
+    ax.launch([x, y, alpha, n], mx.gpu(0), ((n + 255) // 256, 1, 1),
+              (256, 1, 1))
+
+
+def phase_rtc(dev, card, s2, ax):
+    """[7b] The runtime-compiled kernels: scale2 and axpy driven through
+    CudaModule at 2^26 elements and at an odd length, each result held
+    against its plain version; the write, dtype, device and compile-error
+    checks; then CUDA-event times beside the byte bounds and the library
+    calls, and the host cost of one launch."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd, rtc
+    from mxnet_tpu_torch.base import MXNetError
+
+    res = {}
+    g = torch.Generator(device=dev).manual_seed(SEED + 23)
+    s2.launches = ax.launches = 0        # the path's counts, from 0
+    outs = {}
+    for n in (RTC_N, RTC_ODD):
+        x = nd.NDArray(torch.randn(n, device=dev, generator=g))
+        y = nd.NDArray(torch.randn(n, device=dev, generator=g))
+        y0 = y._data.clone()
+        out = nd.zeros((n,))
+        s2.launch([x, out, n], mx.gpu(0), _grid(n), (256, 1, 1))
+        axpy_launch(ax, x, y, -0.75, n, mx)
+        outs[n] = (x, y, y0, out)
+    torch.cuda.synchronize()
+    path = {"rtc_scale2": s2.launches, "rtc_axpy": ax.launches}
+    for n, (x, y, y0, out) in outs.items():
+        e_s2 = float((out._data - 2 * x._data).abs().max())
+        want = y0 + -0.75 * x._data
+        d = (y._data - want).abs()
+        ratio = float((d / (AXPY_TOL * (y0.abs() + 0.75 * x._data.abs())
+                            ).clamp_min(1e-30)).max())
+        e_ax = float(d.max())
+        res[n] = (e_s2, e_ax)
+        log(f"  n={n}: scale2 vs 2*x max abs err {e_s2:.3e} (tol 0: one "
+            f"exact multiply); axpy vs y + a*x max abs err {e_ax:.3e}, "
+            f"err/tol {ratio:.3f} (tol 2^-22 (|y| + |a x|))")
+        if e_s2 != 0.0 or ratio > 1.0:
+            raise AssertionError(f"rtc kernels disagree at n={n}")
+    del outs
+    log(f"  path launches {path} (want 2 each)")
+    if path != {"rtc_scale2": 2, "rtc_axpy": 2}:
+        raise AssertionError(f"rtc path launches {path}")
+
+    # a write reaches only the non-const pointer's array
+    x = nd.array(np.arange(4096, dtype=np.float32))
+    y = nd.ones((4096,))
+    aliases = [y[0:100], y.detach(), y.reshape((64, 64)), y.copy(),
+               y.astype("float32")]
+    snaps = [a.asnumpy().copy() for a in aliases]
+    versions = (x.version, y.version)
+    axpy_launch(ax, x, y, 2.0, 4096, mx)
+    torch.cuda.synchronize()
+    only = (np.array_equal(y.asnumpy(), 1 + 2 * np.arange(4096))
+            and all(np.array_equal(a.asnumpy(), s)
+                    for a, s in zip(aliases, snaps))
+            and np.array_equal(x.asnumpy(), np.arange(4096))
+            and (x.version, y.version) == (versions[0], versions[1] + 1))
+    errors_seen = []
+    for what, fn in (
+            ("wrong dtype", lambda: axpy_launch(ax, x, y.astype("float64"),
+                                                1.0, 8, mx)),
+            ("non-const CPU array", lambda: axpy_launch(
+                ax, x, y.as_in_context(mx.cpu()), 1.0, 8, mx)),
+            ("syntax error", lambda: rtc.CudaModule(
+                'extern "C" __global__ void k(float *y) { y[0] = ; }'))):
+        try:
+            fn()
+            errors_seen.append((what, None))
+        except MXNetError as e:
+            errors_seen.append((what, str(e)))
+    log(f"  a write reaches only y (aliases, x and versions unchanged): "
+        f"{only}")
+    for what, msg in errors_seen:
+        first = (msg or "NO ERROR").strip().splitlines()
+        log(f"  {what}: MXNetError: {first[0][:100]}"
+            + (f" ... [{len(first)} lines of log]" if len(first) > 1
+               else ""))
+    syntax = errors_seen[-1][1] or ""
+    if not (only and all(m for _, m in errors_seen) and "error" in syntax
+            and "log" in syntax):
+        raise AssertionError("an rtc write or error check failed")
+
+    # times at 2^26 f32, CUDA events; the bounds by bytes
+    n = RTC_N
+    x = nd.NDArray(torch.randn(n, device=dev, generator=g))
+    y = nd.NDArray(torch.randn(n, device=dev, generator=g))
+    alpha = 1e-3
+    t = {
+        "rtc_scale2": cuda_ms(lambda: s2.launch([x, y, n], mx.gpu(0),
+                                                _grid(n), (256, 1, 1)), 50),
+        "rtc_axpy": cuda_ms(lambda: axpy_launch(ax, x, y, alpha, n, mx), 50),
+    }
+    plain = {"rtc_scale2": cuda_ms(lambda: 2 * x._data, 50),
+             "rtc_axpy": cuda_ms(lambda: y._data + alpha * x._data, 50)}
+    lib = {"rtc_scale2": cuda_ms(lambda: torch.mul(x._data, 2,
+                                                   out=y._data), 50),
+           "rtc_axpy": cuda_ms(lambda: y._data.add_(x._data, alpha=alpha),
+                               50)}
+    bounds = {"rtc_scale2": bound(n, 8 * n, "float32"),
+              "rtc_axpy": bound(2 * n, 12 * n, "float32")}
+    for k in t:
+        log(f"  {k} at n=2^26 f32: kernel {t[k]:.4f} ms  plain "
+            f"{plain[k]:.4f} ms  library {lib[k]:.4f} ms  bound "
+            f"{bounds[k][0]:.4f} ms ({bounds[k][1]})  kernel/bound "
+            f"{t[k] / bounds[k][0]:.2f}x  [{card}]")
+
+    # the host's cost of one launch: checks, packing and cuLaunchKernel on
+    # a 256-element array (the device's share is negligible there)
+    xs, ys = nd.ones((256,)), nd.zeros((256,))
+    for _ in range(100):
+        axpy_launch(ax, xs, ys, 1.0, 256, mx)
+    torch.cuda.synchronize()
+    reps = 2000
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        axpy_launch(ax, xs, ys, 1.0, 256, mx)
+    host_us = (time.perf_counter() - t0) / reps * 1e6
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        ax._pack([xs, ys, 1.0, 256], dev)
+    pack_us = (time.perf_counter() - t0) / reps * 1e6
+    torch.cuda.synchronize()
+    log(f"  host cost of one launch: {host_us:.2f} us (of it the "
+        f"signature checks and argument packing {pack_us:.2f} us)  "
+        f"[{card}]")
+    return {"path": path, "err": {"rtc_scale2": res[RTC_N][0],
+                                  "rtc_axpy": res[RTC_N][1]},
+            "ms": t, "plain": plain, "lib": lib, "bounds": bounds,
+            "host_us": host_us, "pack_us": pack_us}
 
 
 def main():
@@ -743,6 +1095,9 @@ def main():
     for name, lines in _kernels.PTXAS_LOG.items():
         for ln in lines:
             log(f"    {name}: {ln.strip()}")
+    s2, ax, nvrtc_s = _rtc_kernels()
+    log(f"    NVRTC (rtc.CudaModule, sm_90a) compile seconds: "
+        f"{ {k: round(v, 4) for k, v in nvrtc_s.items()} }")
 
     log("[3] forward kernel against its plain version")
     phase_kernels(dev)
@@ -799,8 +1154,43 @@ def main():
     log("[5f] where a training step's device time goes (torch.profiler)")
     phase_profile(dev, card)
 
+    log("[7] imperative path: nd + autograd linear regression, SGD by the "
+        "NVRTC-compiled axpy")
+    reg = phase_imperative(dev, card)
+
+    log("[7b] runtime-compiled kernels (rtc.CudaModule) against their plain "
+        "versions")
+    rt = phase_rtc(dev, card, s2, ax)
+    rtc_launches = {"rtc_scale2": {"rtc_path": rt["path"]["rtc_scale2"]},
+                    "rtc_axpy": {"imperative_sgd": reg["launches"],
+                                 "rtc_path": rt["path"]["rtc_axpy"]}}
+    for name, replaces in (("rtc_scale2", "mxnet_tpu/rtc.py:53, "
+                                          "tests/test_aux.py:256"),
+                           ("rtc_axpy", "mxnet_tpu/rtc.py:53")):
+        kernels["kernels"].append({
+            "name": name,
+            "route": "cuda (NVRTC, runtime)",
+            "source": "chip_smoke.py:" + ("SCALE2_SRC" if name ==
+                                          "rtc_scale2" else "AXPY_SRC"),
+            "replaces": replaces,
+            "launches": (reg["launches"] if name == "rtc_axpy"
+                         else rt["path"][name]),
+            "max_abs_err": (reg["max_abs_err"] if name == "rtc_axpy"
+                            else rt["err"][name]),
+            "ms": rt["ms"][name],
+            "plain_ms": rt["plain"][name],
+            "bound_ms": rt["bounds"][name][0],
+            "bound_by": rt["bounds"][name][1],
+            "library_ms": rt["lib"][name],
+            "shape": f"({RTC_N},) float32",
+            "launches_by_path": rtc_launches[name],
+            "compile_s": nvrtc_s[name.split("_")[1]],
+            "host_launch_us": rt["host_us"],
+        })
+
     log(f"[6] done in {time.perf_counter() - t_start:.1f} s "
-        f"(train step {step_ms:.2f} ms)")
+        f"(train step {step_ms:.2f} ms; imperative step "
+        f"{reg['ms_step']:.3f} ms)")
     log(json.dumps(kernels))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -3,14 +3,20 @@
 The JAX package ``mxnet_tpu`` is the reference; this package follows its
 module layout and names, imports ``torch`` and never ``jax`` or
 ``mxnet_tpu``, and replaces each Pallas TPU kernel with a kernel written
-by hand for Hopper (``csrc/``, built at first use by ``_kernels``).
-Entry points run on ``cuda:0`` unless the caller passes a CPU device.
+by hand for Hopper (``csrc/``, built at first use by ``_kernels``; user
+kernels compiled at runtime by ``rtc.CudaModule``).  Entry points run on
+``gpu(0)`` unless the caller passes or scopes a CPU context.
 """
 
-from . import base, context, random
+from . import base, context, engine, random
 from .base import MXNetError
-from .context import cpu, gpu, num_gpus
-from . import convert, gluon, ops, optimizer, parallel, serving
+from .context import Context, cpu, current_context, gpu, num_gpus
+from . import ops
+from . import autograd, ndarray, rtc
+from . import ndarray as nd
+from . import convert, gluon, optimizer, parallel, serving
 
-__all__ = ["MXNetError", "base", "context", "convert", "cpu", "gluon", "gpu",
-           "num_gpus", "ops", "optimizer", "parallel", "random", "serving"]
+__all__ = ["Context", "MXNetError", "autograd", "base", "context",
+           "convert", "cpu", "current_context", "engine", "gluon", "gpu",
+           "nd", "ndarray", "num_gpus", "ops", "optimizer", "parallel",
+           "random", "rtc", "serving"]

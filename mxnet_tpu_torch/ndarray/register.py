@@ -1,0 +1,184 @@
+"""Generated NDArray op wrappers and the eager invoke path.
+
+Counterpart of ``mxnet_tpu/ndarray/register.py:49-58,104-289``
+(python/mxnet/ndarray/register.py's codegen and
+src/imperative/imperative.cc Imperative::Invoke).  The wrapper is
+polymorphic:
+
+- NDArray inputs: the eager path.  Unwrap, run the pure op on the tensors
+  (grad enabled only inside ``autograd.record()``, so torch's autograd is
+  the tape), wrap the outputs.  An output that shares storage with an
+  input is copied, so no two NDArrays share a buffer (``ndarray.py``).
+- raw tensors: pure pass-through, which Gluon's ``hybridize`` will use.
+
+Left out against the JAX module, and listed in ROADMAP: the sparse
+storage dispatch (the port has no sparse storage) and the profiler spans.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import autograd as _ag
+from .. import engine
+from ..ops import registry as _registry
+from ..ops.registry import OpDef
+from .ndarray import NDArray
+
+
+def _device_of(args, kwargs, req_ctx):
+    if req_ctx is not None:
+        return req_ctx.device
+    for a in (*args, *kwargs.values()):
+        if isinstance(a, NDArray):
+            return a._data.device
+    from ..context import current_context
+
+    return current_context().device
+
+
+def _inject(opdef: OpDef, args, kwargs: dict, req_ctx) -> dict:
+    if opdef.mode_dependent and kwargs.get("_is_training") is None:
+        kwargs = dict(kwargs)
+        kwargs["_is_training"] = _ag.is_training()
+    if opdef.random and kwargs.get("_key") is None:
+        from ..random import current_generator
+
+        kwargs = dict(kwargs)
+        kwargs["_key"] = current_generator(_device_of(args, kwargs, req_ctx))
+    return kwargs
+
+
+def invoke(opdef: OpDef, args: tuple, kwargs: dict):
+    # frontend-only kwargs accepted by every reference op wrapper
+    out_arr = kwargs.pop("out", None)
+    req_ctx = kwargs.pop("ctx", None)
+    kwargs.pop("name", None)  # symbol-compat: ignored eagerly
+    kwargs = _inject(opdef, args, kwargs, req_ctx)
+    result = _invoke_inner(opdef, args, kwargs)
+    if out_arr is not None or req_ctx is not None:
+        return _finalize(result, out_arr, req_ctx)
+    return result
+
+
+def _finalize(result, out_arr, req_ctx):
+    if req_ctx is not None and isinstance(result, NDArray):
+        result = result.as_in_context(req_ctx)
+    if out_arr is not None:
+        src = result[0] if isinstance(result, tuple) else result
+        if isinstance(src, NDArray):
+            out_arr._adopt(src)
+        else:
+            out_arr._set_data(src)
+        return out_arr
+    return result
+
+
+def _invoke_inner(opdef: OpDef, args: tuple, kwargs: dict):
+    fn = opdef.fn
+    if opdef.opaque:
+        return fn(*args, **kwargs)  # host-level op: handles NDArrays itself
+
+    slots = [i for i, a in enumerate(args) if isinstance(a, NDArray)]
+    kslots = [k for k, v in kwargs.items() if isinstance(v, NDArray)]
+    if not slots and not kslots:
+        if any(isinstance(a, torch.Tensor) for a in args) or any(
+                isinstance(v, torch.Tensor) for k, v in kwargs.items()
+                if not k.startswith("_")):
+            return fn(*args, **kwargs)          # raw tensors: pass through
+        # creation-style op called eagerly (no array inputs): wrap output
+        with torch.no_grad():
+            out = fn(*args, **kwargs)
+        if isinstance(out, (tuple, list)):
+            return tuple(_wrap(o, None, ()) for o in out)
+        return _wrap(out, None, ())
+
+    a2, k2 = list(args), dict(kwargs)
+    for i in slots:
+        a2[i] = args[i]._data
+    for k in kslots:
+        k2[k] = kwargs[k]._data
+    inputs = [a2[i] for i in slots] + [k2[k] for k in kslots]
+    ctx = (args[slots[0]] if slots else kwargs[kslots[0]])._ctx
+    with torch.set_grad_enabled(_ag.is_recording()):
+        out = fn(*a2, **k2)
+        if isinstance(out, (tuple, list)):
+            return tuple(_wrap(o, ctx, inputs) for o in out)
+        return _wrap(out, ctx, inputs)
+
+
+def _storage(t):
+    return t.untyped_storage().data_ptr()
+
+
+def _wrap(o, ctx, inputs):
+    """Wrap an op's tensor output; copy it first when it shares storage
+    with an input (one owner per buffer)."""
+    if not isinstance(o, torch.Tensor):
+        return o
+    if inputs and o.numel():
+        ptr = _storage(o)
+        if any(isinstance(t, torch.Tensor) and t.numel() and
+               _storage(t) == ptr for t in inputs):
+            o = o.clone()
+    return NDArray(engine.maybe_sync(o), ctx)
+
+
+def invoke_registered(name: str, args: tuple, kwargs: dict):
+    return invoke(_registry.get(name), args, kwargs)
+
+
+def invoke_simple(fn, args: tuple, kwargs: dict | None = None, name=""):
+    """Invoke an unregistered pure function with full NDArray/autograd
+    handling (indexing and other ad-hoc dunder ops)."""
+    return invoke(OpDef(name or getattr(fn, "__name__", "fn"), fn),
+                  args, dict(kwargs or {}))
+
+
+def _make_wrapper(opdef: OpDef):
+    def wrapper(*args, **kwargs):
+        return invoke(opdef, args, kwargs)
+
+    wrapper.__name__ = opdef.name
+    wrapper.__qualname__ = opdef.name
+    wrapper.__doc__ = (opdef.fn.__doc__ or "") + \
+        f"\n\n(generated NDArray wrapper for op '{opdef.name}')"
+    return wrapper
+
+
+def populate(namespace: dict, names=None):
+    """Generate wrappers for every registered op into ``namespace``
+    (reference: _init_ops in python/mxnet/ndarray/register.py)."""
+    for name, opdef in _registry.all_ops().items():
+        if names is not None and name not in names:
+            continue
+        if name not in namespace:
+            namespace[name] = _make_wrapper(opdef)
+
+
+# NDArray instance methods generated from ops (mx.nd.NDArray method
+# surface); those whose op family is not ported yet are skipped.
+_METHOD_OPS = [
+    "sum", "mean", "prod", "max", "min", "argmax", "argmin", "norm",
+    "transpose", "flatten", "expand_dims", "squeeze", "clip", "abs",
+    "exp", "log", "sqrt", "square", "sigmoid", "tanh", "relu", "softmax",
+    "log_softmax", "slice_axis", "take", "flip", "tile", "repeat", "pad",
+    "round", "floor", "ceil", "split", "one_hot", "topk", "sort", "argsort",
+    "swapaxes", "broadcast_to", "broadcast_like", "slice_like", "sign",
+    "zeros_like", "ones_like", "stop_gradient", "diag", "cumsum",
+]
+
+
+def _attach_methods():
+    for name in _METHOD_OPS:
+        if name in _registry.all_ops() and not hasattr(NDArray, name):
+            opdef = _registry.get(name)
+
+            def method(self, *a, _opdef=opdef, **kw):
+                return invoke(_opdef, (self,) + a, kw)
+
+            method.__name__ = name
+            setattr(NDArray, name, method)
+
+
+_attach_methods()

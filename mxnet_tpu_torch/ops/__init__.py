@@ -1,5 +1,11 @@
-"""Operators: plain PyTorch functions on tensors (``optimizer_op``'s
-update rules among them), and the wrappers of the hand-written kernels
-(``flash_attention``)."""
+"""Operators: plain PyTorch functions on tensors.
 
+``registry`` holds the op families the imperative ``mx.nd`` surface
+wraps (``elemwise``, ``reduce``, ``matrix``, ``indexing``,
+``random_ops``); ``optimizer_op`` holds the trainer's update rules;
+``flash_attention`` wraps the hand-written attention kernels.
+"""
+
+from . import registry
+from . import elemwise, indexing, matrix, random_ops, reduce
 from . import attention, flash_attention, nn, optimizer_op

@@ -12,7 +12,8 @@ chain: ``step_generator`` draws a fresh generator from it for each
 training step (the trainer's ``next_key()``), and ``generator_scope`` makes
 that generator the one ``current_generator`` returns while the step's
 forward runs (the counterpart of ``key_scope``).  Nothing here touches
-torch's global RNG.
+torch's global RNG.  The module-level samplers (``uniform``, ``normal``
+...) delegate to ``mx.nd.random``, as the JAX package's do.
 """
 
 from __future__ import annotations
@@ -42,10 +43,12 @@ def generator(seed_state: int, device=None) -> torch.Generator:
     return g
 
 
-def seed(seed_state: int) -> None:
+def seed(seed_state: int, ctx="all") -> None:
     """Reseed the package's generator chain (``mx.random.seed``): the
-    generators ``step_generator`` draws afterwards are a function of
-    ``seed_state`` and their order."""
+    generators ``step_generator`` draws afterwards, and so every
+    ``mx.nd.random`` draw, are a function of ``seed_state`` and their
+    order.  ``ctx`` is kept for API parity: one chain serves every
+    device."""
     _STATE.seed = int(seed_state)
     _STATE.count = 0
 
@@ -87,3 +90,30 @@ def current_generator(device=None) -> torch.Generator:
         raise ValueError(f"generator_scope holds a generator on "
                          f"{gen.device}, the draw is on {device}")
     return gen
+
+
+# -- module-level samplers (reference: python/mxnet/random.py delegates
+# to the ndarray.random generated wrappers) --------------------------------
+
+def _delegate(name):
+    def fn(*args, **kwargs):
+        from .ndarray import random as _ndr
+
+        return getattr(_ndr, name)(*args, **kwargs)
+
+    fn.__name__ = name
+    fn.__doc__ = f"mx.random.{name} (delegates to mx.nd.random.{name})"
+    return fn
+
+
+uniform = _delegate("uniform")
+normal = _delegate("normal")
+randn = _delegate("randn")
+randint = _delegate("randint")
+poisson = _delegate("poisson")
+exponential = _delegate("exponential")
+gamma = _delegate("gamma")
+multinomial = _delegate("multinomial")
+negative_binomial = _delegate("negative_binomial")
+generalized_negative_binomial = _delegate("generalized_negative_binomial")
+shuffle = _delegate("shuffle")

@@ -6,6 +6,7 @@ runs on a host without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py -q
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -179,3 +180,186 @@ def test_flash_kernel_refuses_mixed_devices():
     q = torch.zeros((1, 1, 64, 16), device=dev)
     with pytest.raises((ValueError, MXNetError)):
         tflash.flash_attention(q, q.cpu(), q)
+
+
+# -- runtime-compiled kernels: mxnet_tpu_torch.rtc.CudaModule ----------------
+# The sources are hand-written CUDA C++ strings; chip_smoke.py holds the
+# same two.  scale2 is the counterpart of the JAX package's PallasModule
+# test kernel (tests/test_aux.py:256-272), axpy MXNet's rtc example.  Both
+# are one f32 multiply (and add) an element: scale2 equals 2 * x exactly,
+# and axpy may fuse y + alpha*x into one FMA where torch rounds alpha*x
+# and then the sum, so |diff| <= 2^-24 (|ax| + 2|y + ax|) <= 2^-22
+# (|y| + |alpha x|); chip_smoke.py states the same.
+
+SCALE2_SRC = r"""
+extern "C" __global__ void scale2(const float *__restrict__ x,
+                                  float *__restrict__ y, long long n)
+{
+    long long stride = (long long)gridDim.x * blockDim.x;
+    for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+         i < n; i += stride)
+        y[i] = 2.0f * x[i];
+}
+"""
+
+AXPY_SRC = r"""
+extern "C" __global__ void axpy(const float *x, float *y, float alpha, int n)
+{
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] += alpha * x[i];
+}
+"""
+
+TEMPLATE_SRC = r"""
+template <typename T>
+__global__ void scale_t(const T *x, T *y, T a, int n)
+{
+    int i = blockIdx.x * blockDim.x + threadIdx.x;
+    if (i < n) y[i] = a * x[i];
+}
+"""
+
+
+def _rtc_kernels():
+    from mxnet_tpu_torch import rtc
+
+    s2 = rtc.CudaModule(SCALE2_SRC).get_kernel(
+        "scale2", "const float *x, float *y, int64_t n")
+    ax = rtc.CudaModule(AXPY_SRC).get_kernel(
+        "axpy", "const float *x, float *y, float alpha, int n")
+    return s2, ax
+
+
+def _grid(n, block=256):
+    return (max(1, min((n + block - 1) // block, 132 * 16)), 1, 1)
+
+
+@pytest.mark.parametrize("n", [1, 255, 1000003, 1 << 22])
+def test_rtc_scale2_and_axpy_match_plain(n):
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+
+    dev = _card()
+    s2, ax = _rtc_kernels()
+    g = torch.Generator(device=dev).manual_seed(n)
+    x = nd.NDArray(torch.randn(n, device=dev, generator=g))
+    y = nd.NDArray(torch.randn(n, device=dev, generator=g))
+    y0 = y._data.clone()
+    before = (s2.launches, ax.launches)
+    out = nd.zeros((n,))
+    assert s2.launch([x, out, n], mx.gpu(0), _grid(n), (256, 1, 1)) is None
+    ax.launch([x, y, -0.25, n], mx.gpu(0), ((n + 255) // 256, 1, 1),
+              (256, 1, 1))
+    torch.cuda.synchronize()
+    assert (s2.launches, ax.launches) == (before[0] + 1, before[1] + 1)
+    assert torch.equal(out._data, 2 * x._data)
+    want = y0 + -0.25 * x._data
+    tol = 2 ** -22 * (y0.abs() + 0.25 * x._data.abs())
+    assert bool(((y._data - want).abs() <= tol).all())
+
+
+def test_rtc_templated_kernel_through_exports():
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd, rtc
+
+    dev = _card()
+    mod = rtc.CudaModule(TEMPLATE_SRC,
+                         exports=["scale_t<float>", "scale_t<double>"])
+    assert set(mod.lowered) == {"scale_t<float>", "scale_t<double>"}
+    for ctype, dt in (("float", torch.float32), ("double", torch.float64)):
+        k = mod.get_kernel(f"scale_t<{ctype}>",
+                           f"const {ctype} *x, {ctype} *y, {ctype} a, int n")
+        x = nd.NDArray(torch.arange(1000, dtype=dt, device=dev))
+        y = nd.NDArray(torch.zeros(1000, dtype=dt, device=dev))
+        k.launch([x, y, 1.5, 1000], mx.gpu(0), (4, 1, 1), (256, 1, 1))
+        torch.cuda.synchronize()
+        assert torch.equal(y._data, 1.5 * x._data)
+    with pytest.raises(MXNetError, match="no kernel"):
+        mod.get_kernel("scale_t<int>", "const int *x, int *y, int a, int n")
+
+
+def test_rtc_orders_with_torch_on_a_side_stream():
+    """Launched on the current stream: a torch op before and after, on a
+    non-default stream, with no sync between."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+
+    _card()
+    s2, _ = _rtc_kernels()
+    n = 1 << 24
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        x = nd.ones((n,)) * 3.0                  # queued on `side`
+        y = nd.zeros((n,))
+        s2.launch([x, y, n], mx.gpu(0), _grid(n), (256, 1, 1))
+        z = y + 1.0                              # reads the kernel's y
+    side.synchronize()
+    assert float(nd.min(z)) == 7.0 and float(nd.max(z)) == 7.0
+
+
+def test_rtc_writes_reach_only_the_written_array():
+    """Item 5's aliasing check on CUDA tensors: aliases of the written
+    array (slice, detach, reshape, copy) and the const input keep their
+    values; only the written array and its version move."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd
+
+    _card()
+    _, ax = _rtc_kernels()
+    x = nd.array(np.arange(4096, dtype=np.float32))
+    y = nd.ones((4096,))
+    aliases = [y[0:100], y.detach(), y.reshape((64, 64)), y.copy(),
+               y.as_in_context(mx.cpu()), y.astype("float32")]
+    snaps = [a.asnumpy().copy() for a in aliases]
+    xv, yv = x.version, y.version
+    ax.launch([x, y, 2.0, 4096], mx.gpu(0), (16, 1, 1), (256, 1, 1))
+    torch.cuda.synchronize()
+    np.testing.assert_array_equal(y.asnumpy(), 1 + 2 * np.arange(4096))
+    for a, s in zip(aliases, snaps):
+        np.testing.assert_array_equal(a.asnumpy(), s)
+    np.testing.assert_array_equal(x.asnumpy(), np.arange(4096))
+    assert (x.version, y.version) == (xv, yv + 1)
+
+
+def test_rtc_refuses_bad_arguments_and_sources():
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import nd, rtc
+
+    _card()
+    _, ax = _rtc_kernels()
+    x, y = nd.ones((8,)), nd.zeros((8,))
+    with pytest.raises(MXNetError, match="float32"):
+        ax.launch([x, y.astype("float64"), 1.0, 8], mx.gpu(0), (1,), (8,))
+    with pytest.raises(MXNetError, match="is on cpu"):
+        ax.launch([x, y.as_in_context(mx.cpu()), 1.0, 8], mx.gpu(0), (1,),
+                  (8,))
+    with pytest.raises(MXNetError, match="GPU context"):
+        ax.launch([x, y, 1.0, 8], mx.cpu(), (1,), (8,))
+    with pytest.raises(MXNetError, match="error") as err:
+        rtc.CudaModule('extern "C" __global__ void k(float *y) { y[0] = ; }')
+    assert "log" in str(err.value)
+
+
+def test_nd_autograd_on_the_card_matches_the_host():
+    """The imperative path with no context given lands on cuda:0; its
+    gradients equal the host's."""
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+
+    _card()
+    rng = np.random.default_rng(0)
+    X, y = rng.standard_normal((256, 32)), rng.standard_normal((256, 1))
+    grads = []
+    for ctx in (None, mx.cpu()):
+        Xn, yn = nd.array(X, ctx=ctx), nd.array(y, ctx=ctx)
+        w, b = nd.zeros((32, 1), ctx=ctx), nd.zeros((1,), ctx=ctx)
+        for p in (w, b):
+            p.attach_grad()
+        with autograd.record():
+            loss = nd.mean(nd.square(nd.dot(Xn, w + 0.1) + b - yn))
+        loss.backward()
+        grads.append((w.grad.asnumpy(), b.grad.asnumpy(),
+                      w._data.device.type))
+    assert grads[0][2] == "cuda" and grads[1][2] == "cpu"
+    for a, c in zip(grads[0][:2], grads[1][:2]):
+        np.testing.assert_allclose(a, c, rtol=2e-4, atol=2e-5)

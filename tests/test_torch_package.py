@@ -37,6 +37,19 @@ TRAINING_MODULES = ("mxnet_tpu_torch.parallel",
                     "mxnet_tpu_torch.optimizer",
                     "mxnet_tpu_torch.optimizer.lr_scheduler",
                     "mxnet_tpu_torch.ops.optimizer_op")
+#: modules the imperative slice added; each must be walked and clean
+IMPERATIVE_MODULES = ("mxnet_tpu_torch.engine", "mxnet_tpu_torch.autograd",
+                      "mxnet_tpu_torch.rtc", "mxnet_tpu_torch.ndarray",
+                      "mxnet_tpu_torch.ndarray.ndarray",
+                      "mxnet_tpu_torch.ndarray.register",
+                      "mxnet_tpu_torch.ndarray.utils",
+                      "mxnet_tpu_torch.ndarray.random",
+                      "mxnet_tpu_torch.ops.registry",
+                      "mxnet_tpu_torch.ops.elemwise",
+                      "mxnet_tpu_torch.ops.reduce",
+                      "mxnet_tpu_torch.ops.matrix",
+                      "mxnet_tpu_torch.ops.indexing",
+                      "mxnet_tpu_torch.ops.random_ops")
 
 
 def test_port_imports_no_jax_and_no_jax_package():
@@ -49,6 +62,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert int(res.stdout.split("IMPORTED ")[1].split()[0]) >= 10
     walked = set(res.stdout.split("MODULES ")[1].split("\n")[0].split())
     assert set(TRAINING_MODULES) <= walked, sorted(walked)
+    assert set(IMPERATIVE_MODULES) <= walked, sorted(walked)
 
 
 def _imported_roots(path):
