@@ -9,8 +9,11 @@ Phases; any failure raises, exits non-zero and prints no result line:
 
 1. Card report (name, count, power limit); TF32 off for matmuls and cuDNN.
 2. Build every kernel from the checkout's sources (one nvcc per source,
-   all started together); print build seconds and the ptxas register,
-   shared-memory and spill lines.
+   all started together); print build seconds, the ptxas register,
+   shared-memory and spill lines, and for each instantiation of the
+   tensor-core kernels its registers, spills and HMMA instructions (from
+   cuobjdump --dump-sass); fail if the forward or the dK/dV kernel has an
+   instantiation without HMMA.
 3. The forward kernel against its plain PyTorch version on the card, at
    the serving path's shape (4, 12, 1024, 64), causal and not, f32 and
    bf16, plus a ragged T=1000; max abs and rel error beside the
@@ -20,11 +23,11 @@ Phases; any failure raises, exits non-zero and prints no result line:
    plus a ragged T=1000, with dO random and O, L from the forward kernel
    (itself checked there against its plain version).
 4. Forward timing with CUDA events: kernel, plain version, the PyTorch
-   library call as a yardstick (the port never calls it), and the bound
-   reckoned from shapes.
+   library call as a yardstick (the port never calls it; the median of 5
+   timed loops, with their min-max), and the bound reckoned from shapes.
 4b. Backward timing at (8, 12, 1024, 64) causal, f32 and bf16: each
    kernel, their sum, the plain backward, the bounds, and the backward of
-   F.scaled_dot_product_attention as a yardstick.
+   F.scaled_dot_product_attention as a yardstick (median of 5 loops).
 5. The serving path at GPT-2 small's full width (random f32 weights from
    a numpy seed, loaded through convert.load_state): (a) generate() over
    the flash trunk, with the kernel's launch count checked; (b) the
@@ -54,7 +57,9 @@ Phases; any failure raises, exits non-zero and prints no result line:
    wrong dtype, a CPU array and a syntax error raise MXNetError; CUDA-event
    times beside the byte bounds and the library calls; the host cost of
    one launch.
-6. The kernel JSON line, the nvidia-smi line, then the result line.
+6. The kernel JSON line (f32 numbers at the training shape, and the
+   bf16 ones under *_bf16 keys), the nvidia-smi line, then the result
+   line.
 """
 
 from __future__ import annotations
@@ -71,12 +76,15 @@ TRAIN_SHAPE = (8, 12, 1024, 64)    # ... at the training batch, B=8
 TRAIN_STEPS = 20
 NEW_TOKENS = 16
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
-PEAK_FLOPS = {"float32": 67e12,    # FMA units: TF32 is off
-              "bfloat16": 989e12}  # dense tensor cores
+# f32: the flash kernels run f32 products as 3xTF32 on the tensor cores
+# (three TF32 products per f32 product, 495 / 3 = 165 TFLOP/s); at the
+# FMA units' 67 TFLOP/s a 3xTF32 kernel could read faster than its own
+# bound.  bf16: the dense tensor-core rate.
+PEAK_FLOPS = {"float32": 165e12, "bfloat16": 989e12}
 # f32: as the JAX package's flash tests.  bf16: each version rounds P to
-# bf16 relative to its running row maximum, and the kernel's 32-key tiles
-# reach other maxima than the plain version's 128-key tiles, so each
-# rounded p_j may differ by 2^-8 relative: O may differ by
+# bf16 relative to its running row maximum, and the kernel's 64-key tiles
+# (128-row q tiles) reach other maxima than the plain version's 128-key
+# tiles, so each rounded p_j may differ by 2^-8 relative: O may differ by
 # 2^-8 * sum_j p_j |v_j| / l (the plain version run on |v|), plus one bf16
 # step of O itself (2^-7 relative).  Two tilings of the plain version on
 # the CPU differ the same way and stay within half this bound.
@@ -91,9 +99,11 @@ TIE_GAP = 1e-3
 # Flash and dense trunks over 12 f32 layers: attention sums differ in
 # order; logits are O(1).
 TRUNK_TOL = (1e-3, 1e-3)
-# Backward kernels against their plain version.  f32: the JAX package's
-# gradient tolerance (tests/test_parallel.py:346-348).  bf16: both versions
-# round P and dS to bf16 before their products, from f32 values summed in
+# Backward kernels against their plain version (the dK/dV kernel streams
+# 64-row q tiles, 32 at D = 128, past 64-row kv tiles; the plain version
+# takes 128 x 128 tiles).  f32: the JAX package's gradient tolerance
+# (tests/test_parallel.py:346-348).  bf16: both versions round P and dS
+# to bf16 before their products, from f32 values summed in
 # different orders, so a rounding may tip: each term of a sum may differ
 # by one bf16 step (2^-7 relative), so a gradient by at most 2^-7 times the
 # sum of |term| behind it (``bwd_magnitudes``), plus one bf16 step of the
@@ -167,6 +177,14 @@ def cuda_ms(fn, iters, warmup=3):
     return start.elapsed_time(stop) / iters
 
 
+def cuda_ms_spread(fn, iters, loops=5):
+    """(median, min, max) of ``loops`` timed loops of ``iters`` calls each:
+    a library call's time wanders between runs of the same code, so a
+    yardstick is a median with its spread."""
+    times = sorted(cuda_ms(fn, iters) for _ in range(loops))
+    return times[len(times) // 2], times[0], times[-1]
+
+
 def errors(got, want, rtol, atol):
     """(max abs err, max rel err, max of err / tolerance); ``atol`` may
     be a tensor of per-element tolerances."""
@@ -206,6 +224,60 @@ def flash_bound(B, H, T, D, causal, dtype, fn="fwd"):
     nbytes = tensors * B * H * T * D * elem + rows * B * H * T * 4
     pairs = T * (T + 1) // 2 if causal else T * T
     return bound(per_pair * D * B * H * pairs, nbytes, dtype)
+
+
+# mangled template arguments of the two element types
+DTYPE_MANGLE = (("float32", "If"), ("bfloat16", "I13__nv_bfloat16"))
+
+
+def ptxas_table(lines):
+    """{kernel: [registers, spill store bytes]} from ptxas' -v lines (the
+    spill line comes before the register line of the same kernel)."""
+    import re
+
+    rows, kernel = {}, None
+    for ln in lines:
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            kernel = m.group(1)
+            rows[kernel] = [None, None]
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and kernel:
+            rows[kernel][0] = int(m.group(1))
+        m = re.search(r"(\d+) bytes spill stores", ln)
+        if m and kernel:
+            rows[kernel][1] = int(m.group(1))
+    return rows
+
+
+def phase_build_report():
+    """[2] registers and spills of the tensor-core kernels, and the HMMA
+    instructions in each of their instantiations; raises if the forward
+    or the dK/dV kernel has none in either dtype."""
+    import re
+
+    from mxnet_tpu_torch import _kernels
+
+    for name, lines in _kernels.PTXAS_LOG.items():
+        for kernel, (regs, spill) in ptxas_table(lines).items():
+            m = re.search(r"(flash_(?:fwd|dkv)_kernel)(I\w+?)Li(\d+)E", kernel)
+            if m:
+                dtype = dict((b, a) for a, b in DTYPE_MANGLE)[m.group(2)]
+                log(f"    {m.group(1)} {dtype} D={m.group(3)}: {regs} "
+                    f"registers, {spill} bytes spill stores")
+    for lib, family in (("flash_attention_fwd", "flash_fwd_kernel"),
+                        ("flash_attention_bwd", "flash_dkv_kernel"),
+                        ("flash_attention_bwd", "flash_dq_kernel")):
+        counts = {k: n for k, n in _kernels.sass_counts(lib).items()
+                  if family in k}
+        for dtype, mangled in DTYPE_MANGLE:
+            mine = {k: n for k, n in counts.items() if family + mangled in k}
+            log(f"    HMMA instructions in {family} {dtype}: "
+                f"{sorted(mine.values())} over {len(mine)} head dims")
+            if family != "flash_dq_kernel" and (
+                    not mine or min(mine.values()) == 0):
+                raise AssertionError(f"{family} ({dtype}) has an "
+                                     f"instantiation without HMMA")
 
 
 def phase_kernels(dev):
@@ -260,11 +332,13 @@ def phase_timing(dev):
             ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal), 50)
             plain = cuda_ms(
                 lambda: fa.flash_attention_plain(q, k, v, causal), 5, 1)
-            lib = cuda_ms(lambda: F.scaled_dot_product_attention(
-                q, k, v, is_causal=causal), 50)
+            lib, lo, hi = cuda_ms_spread(
+                lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=causal), 20)
             bound, by = flash_bound(B, H, T, D, causal, name)
             log(f"  {SHAPE} {name:8s} causal={causal!s:5s}  kernel "
-                f"{ms:.4f} ms  plain {plain:.4f} ms  sdpa {lib:.4f} ms  "
+                f"{ms:.4f} ms  plain {plain:.4f} ms  sdpa {lib:.4f} ms "
+                f"(median of 5, {lo:.4f}-{hi:.4f})  "
                 f"bound {bound:.4f} ms ({by})  kernel/bound "
                 f"{ms / bound:.1f}x")
 
@@ -373,11 +447,12 @@ def phase_bwd_timing(dev):
                             3, 1)
         plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(
             q, k, v, o, lse, do, True), 3, 1)
-        lib_fwd = cuda_ms(lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True), 20)
+        lib_fwd, *fwd_spread = cuda_ms_spread(
+            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
+            20)
         qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
         out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        lib_bwd = cuda_ms(lambda: torch.autograd.grad(
+        lib_bwd, *bwd_spread = cuda_ms_spread(lambda: torch.autograd.grad(
             out, (qg, kg, vg), do, retain_graph=True), 20)
         b = {fn: flash_bound(B, H, T, D, True, name, fn)
              for fn in ("fwd", "dq", "dkv", "bwd")}
@@ -390,10 +465,12 @@ def phase_bwd_timing(dev):
             f"{t_dq + t_dkv:.4f} ms against the backward's bound "
             f"{b['bwd'][0]:.4f} ms ({b['bwd'][1]}; sum/bound "
             f"{(t_dq + t_dkv) / b['bwd'][0]:.1f}x)  plain backward "
-            f"{plain_bwd:.4f} ms  sdpa backward {lib_bwd:.4f} ms")
+            f"{plain_bwd:.4f} ms  sdpa backward {lib_bwd:.4f} ms (median "
+            f"of 5, {bwd_spread[0]:.4f}-{bwd_spread[1]:.4f})")
         log(f"  {TRAIN_SHAPE} {name:8s} causal  forward kernel {t_fwd:.4f} "
             f"ms (bound {b['fwd'][0]:.4f}, {b['fwd'][1]})  plain "
-            f"{plain_fwd:.4f} ms  sdpa {lib_fwd:.4f} ms")
+            f"{plain_fwd:.4f} ms  sdpa {lib_fwd:.4f} ms (median of 5, "
+            f"{fwd_spread[0]:.4f}-{fwd_spread[1]:.4f})")
         del q, k, v, do, o, lse, delta, qg, kg, vg, out
         torch.cuda.empty_cache()
     return rows
@@ -1095,6 +1172,7 @@ def main():
     for name, lines in _kernels.PTXAS_LOG.items():
         for ln in lines:
             log(f"    {name}: {ln.strip()}")
+    phase_build_report()
     s2, ax, nvrtc_s = _rtc_kernels()
     log(f"    NVRTC (rtc.CudaModule, sm_90a) compile seconds: "
         f"{ {k: round(v, 4) for k, v in nvrtc_s.items()} }")
@@ -1119,7 +1197,7 @@ def main():
         "full width")
     train_launches, step_ms = phase_train(dev, card)
 
-    f32 = bwd_rows["float32"]
+    f32, bf16 = bwd_rows["float32"], bwd_rows["bfloat16"]
     T0 = TRAIN_SHAPE[2]
     sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
                        ":78", "lib_fwd", "plain_fwd"),
@@ -1143,7 +1221,12 @@ def main():
         "bound_ms": f32["bound"][fn][0],
         "bound_by": f32["bound"][fn][1],
         "library_ms": f32[lib],
-        "shape": f"{TRAIN_SHAPE} float32 causal",
+        "ms_bf16": bf16[fn],
+        "bound_ms_bf16": bf16["bound"][fn][0],
+        "bound_by_bf16": bf16["bound"][fn][1],
+        "library_ms_bf16": bf16[lib],
+        "plain_ms_bf16": bf16[plain],
+        "shape": f"{TRAIN_SHAPE} causal (float32; *_bf16: bfloat16)",
         "launches_by_path": ({"generate": gen_launches,
                               "train_step": train_launches[name]}
                              if fn == "fwd" else

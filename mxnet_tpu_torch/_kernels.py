@@ -5,8 +5,9 @@ by ``nvcc`` for ``sm_90a`` into a shared library and loaded with
 ``ctypes`` (seconds to build, where a source that includes PyTorch's
 headers takes minutes).  Builds happen at first use, from the sources in
 the checkout only, into ``build/kernels/`` beside the package (listed in
-``.gitignore``).  A library's file name carries a hash of its source and
-flags, so an edited source is rebuilt and a stale one is never loaded.
+``.gitignore``).  A library's file name carries a hash of its source, of
+every header in ``csrc/`` and of the flags, so an edited source or header
+is rebuilt and a stale library is never loaded.
 
 Nothing here runs at import: the CPU test host has no ``nvcc``.
 """
@@ -55,8 +56,10 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> Path:
-    src = (PACKAGE_DIR / SOURCES[name]).read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode())
+    digest = hashlib.sha256((PACKAGE_DIR / SOURCES[name]).read_bytes())
+    for header in sorted((PACKAGE_DIR / "csrc").glob("*.cuh")):
+        digest.update(header.name.encode() + header.read_bytes())
+    digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:12]}.so"
 
 
@@ -97,6 +100,26 @@ def build(names=None) -> dict[str, float]:
     if failed:
         raise MXNetError("kernel build failed:\n" + "\n".join(failed))
     return seconds
+
+
+def sass_counts(name: str, opcode: str = "HMMA") -> dict[str, int]:
+    """Instructions of ``opcode`` in each kernel of the built library
+    ``name``, by mangled kernel name, from ``cuobjdump --dump-sass`` (in
+    the toolkit beside ``nvcc``)."""
+    tool = Path(_nvcc()).parent / "cuobjdump"
+    out = subprocess.run([str(tool), "--dump-sass", str(_lib_path(name))],
+                         capture_output=True, text=True, check=True,
+                         timeout=300).stdout
+    counts: dict[str, int] = {}
+    kernel = None
+    for line in out.splitlines():
+        line = line.strip()
+        if line.startswith("Function : "):
+            kernel = line.split(" : ", 1)[1]
+            counts[kernel] = 0
+        elif kernel is not None and f" {opcode}." in line:
+            counts[kernel] += 1
+    return counts
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -9,7 +9,7 @@
 // causal keeps j <= i, the top-left square mask of the TPU kernels), from
 // q, k, v, O, dO and the forward's L = LSE, read as given (ring attention
 // hands in a global L):
-//   s_ij = (q_i . k_j) * scale in f32 (inputs upcast), -1e30 where masked;
+//   s_ij = (q_i . k_j) * scale with f32 accumulation, -1e30 where masked;
 //   p_ij = exp(s_ij - L_i), zeroed where s_ij <= -5e29, so a fully masked
 //   row (L = -1e30) gives zero gradients;
 //   D_i = rowsum(dO_i * O_i) in f32;  dp_ij = dO_i . v_j in f32;
@@ -20,100 +20,79 @@
 //   each product) and the sums are stored in the inputs' dtype.
 //
 // Layout: q, k, v, O, dO, dQ, dK, dV are contiguous (B*H, T, D), D in
-// {16, 32, 64, 128}, f32 or bf16; L and D are (B*H, T) f32.  The Python
-// wrapper makes every input contiguous (the trunk's head split hands in
-// transposed views and autograd may hand in a strided dO) and allocates
-// the outputs; this file allocates nothing and never synchronises.
+// {16, 32, 64, 128}, f32 or bf16, 16-byte aligned; L and D are (B*H, T)
+// f32.  The Python wrapper makes every input contiguous and aligned (the
+// trunk's head split hands in transposed views and autograd may hand in a
+// strided dO) and allocates the outputs; this file allocates nothing and
+// never synchronises.
 //
-// Design, simple and right first.  Two kernels on two grids, each output
-// tile with exactly one writer block and no atomics:
-// - dQ: one block per (b*h, 64-row q tile), kv streamed through shared
-//   memory in 32-row tiles up to the diagonal's tile when causal; the q
-//   tiles with the most causal work are scheduled first.  It computes D
-//   for its rows from dO and O and also writes D as a (B*H, T) f32 side
-//   output: 4 bytes a row, where the TPU's dK/dV kernel recomputes D for
-//   every (kv tile, q tile) pair (:271).  The wrapper launches it first,
-//   on the same stream as the dK/dV kernel that reads D.
-// - dK/dV: one block per (b*h, kv tile of 64 rows, 32 at D = 128), q, dO,
-//   L and D streamed through shared memory in 32-row tiles, starting at
-//   the tile's first row k0 when causal (no row above k0 sees these keys;
-//   tiles need not be aligned) and running to T; early kv tiles carry the
-//   most causal work and run first.
-// Each row of a block is split over neighbouring threads of one warp, 32
-// head dims a thread (one thread at D <= 32, two at D = 64, four at
-// D = 128), each holding its slice of the row and of the f32 accumulators
-// in registers (q, dO, dQ in the dQ kernel; k, v, dK, dV in the dK/dV
-// kernel) and summing dot products with shuffles.  Blocks stay at 256
-// threads or fewer.  With L given, no tile-wide maximum is needed: each
-// (row, streamed row) pair is finished on its own, two streamed rows at a
-// time.  All threads holding the same slice read the same streamed element
-// at once, so shared-memory reads are broadcasts, and the slices of a row
-// are padded apart to fall in different banks.  A ragged tail (T not a
-// multiple of the tiles) is masked here: rows >= T are loaded as zeros,
-// masked as keys, and never stored.  FMA loops only: mma.sync, wgmma, TMA
-// and a fused single-pass backward with dQ by atomics are later work.
-// The split and the group size come from tools/sweep_flash_bwd.py at the
-// slice's shape: of 18 variants (16 or 32 dims a thread in the dQ kernel,
-// 8, 16 or 32 in the dK/dV kernel, groups of 2, 4 or 8 rows) this one is
-// the fastest in f32 and bf16; with groups of 8 the dK/dV kernel spills
-// registers and runs 12x slower.
+// Two kernels on two grids, each output tile with exactly one writer block
+// and no atomics.  The wrapper launches the dQ kernel first, on the same
+// stream as the dK/dV kernel that reads its D.
 //
-// Bound at the slice's shape (B=8, H=12, T=1024, D=64, causal), reckoned
+// Bound at the training shape (B=8, H=12, T=1024, D=64, causal), reckoned
 // from shapes: 50.4 M visible (query, key) pairs.  The function needs
-// 10*D flops a pair (S, dP, dV, dK, dQ): 32.2 GFLOP.  f32 (TF32 off, so
-// no tensor cores): 0.481 ms at the 67 TFLOP/s FMA peak against 0.060 ms
-// for 201 MB of q, k, v, O, dO, dQ, dK, dV: operation-bound.  bf16:
-// 0.033 ms of tensor-core time at 989 TFLOP/s against 0.030 ms for
-// 101 MB: operation-bound by a hair.  This split design does 14*D a pair
-// (S and dP in both kernels): 45.1 GFLOP, 0.674 ms at the f32 FMA peak,
-// of which dQ 6*D (0.289 ms) and dK/dV 8*D (0.385 ms).  Both kernels run
-// on the FMA units in both types, so their own ceiling is the f32 FMA
-// peak; closing the bf16 gap needs tensor cores.
+// 10*D flops a pair (S, dP, dV, dK, dQ): 32.2 GFLOP; this split design
+// does 14*D (S and dP in both kernels), of which dQ 6*D and dK/dV 8*D
+// (25.8 GFLOP).  dK/dV alone: f32 (3xTF32, ~165 TFLOP/s) 0.156 ms against
+// 0.046 ms for 151 MB of q, k, v, dO, dK, dV, L, D: operation-bound; bf16
+// 0.026 ms at 989 TFLOP/s against 0.023 ms for 76 MB: operation-bound by
+// a hair.
+//
+// dQ kernel (FMA loops, as designed in the training slice; the next to be
+// redesigned): one block per (b*h, 64-row q tile), kv streamed through
+// shared memory in 32-row tiles up to the diagonal's tile when causal; the
+// q tiles with the most causal work are scheduled first.  It computes D
+// for its rows from dO and O and also writes D as a (B*H, T) f32 side
+// output: 4 bytes a row, where the TPU's dK/dV kernel recomputes D for
+// every (kv tile, q tile) pair (:271).  Each row is split over
+// neighbouring threads of one warp, 32 head dims a thread (one thread at
+// D <= 32, two at D = 64, four at D = 128), each holding its slice of q,
+// dO and dQ in f32 registers and summing dot products with shuffles, two
+// streamed rows at a time; the split and the group size came from a sweep
+// of 18 variants.
+// Runs on the FMA units in both types, so its ceiling is the f32 FMA peak.
+//
+// dK/dV kernel, on mma.sync (flash_tile.cuh gives the atoms, the swizzled
+// shared memory and the copies): one block per (b*h, 64-row kv tile),
+// early kv tiles (the most causal work) first; four warps, each owning 16
+// kv rows.  K and V fragments stay in registers in bf16 up to D = 64, and
+// are re-read from shared memory per k-step otherwise (the 3xTF32 pairs
+// of both, beside the dK and dV accumulators, would spill).  Q, dO, L and
+// D stream through a two-stage cp.async ring in 64-row q tiles (32 at
+// D = 128), from the tile's first row k0 when causal (no row above k0
+// sees these keys) to T.  Per q tile and warp, all in f32 accumulators:
+// S^T = K.Q^T and dP^T = V.dO^T; P^T = exp(S^T - L), masked only in tiles
+// that cross the diagonal or the ragged tail; dS^T = P^T (dP^T - D) scale;
+// then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T converted in
+// registers into A operands (rounded to bf16 there in bf16).  Rows >= T
+// are loaded as zeros by the copies and never stored.  Tiles:
+// tools/sweep_flash_bwd.py varies kDkvBlockQ and kDkvStages.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-
-#include <cstddef>
+#include "flash_tile.cuh"
 
 namespace {
 
-constexpr float kNeg = -1e30f;
+using flash::Elem;
+using flash::kNeg;
+using flash::kZeroBelow;
+
+// dQ kernel
 constexpr int kTile = 32;   // streamed rows per shared-memory tile
 constexpr int kGroup = 2;   // streamed rows whose dot products run together
-// head dims a thread holds in each kernel (mxnet_tpu_torch/tools/
-// sweep_flash_bwd.py varies these three constants)
-constexpr int kDqDims = 32;
-constexpr int kDkvDims = 32;
+constexpr int kDqDims = 32; // head dims a thread holds
 
-template <typename T>
-struct Elem;
-
-template <>
-struct Elem<float> {
-  static __device__ __forceinline__ float load(float x) { return x; }
-  static __device__ __forceinline__ float store(float x) { return x; }
-  static __device__ __forceinline__ float round(float x) { return x; }
-};
-
-template <>
-struct Elem<__nv_bfloat16> {
-  static __device__ __forceinline__ float load(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-  }
-  static __device__ __forceinline__ __nv_bfloat16 store(float x) {
-    return __float2bfloat16(x);
-  }
-  static __device__ __forceinline__ float round(float x) {
-    return __bfloat162float(__float2bfloat16(x));
-  }
-};
+// dK/dV kernel
+constexpr int kDkvBlockN = 64;  // kv rows per block, 16 per warp
+constexpr int kDkvBlockQ = 64;  // q rows per ring stage (at most 32 at D = 128)
+constexpr int kDkvStages = 2;   // ring depth
 
 template <int D, int kMaxDims>
 struct Cfg {
   static constexpr int kDimsPerThread = D < kMaxDims ? D : kMaxDims;
   static constexpr int kThreadsPerRow = D / kDimsPerThread;
-  // rows (q rows for dQ, kv rows for dK/dV) per block: 64, fewer where
-  // that would take more than 256 threads
+  // q rows per block: 64, fewer where that would take more than 256
+  // threads
   static constexpr int kRows = 256 / kThreadsPerRow < 64
                                    ? 256 / kThreadsPerRow : 64;
   static constexpr int kThreads = kRows * kThreadsPerRow;
@@ -262,72 +241,199 @@ flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(Cfg<D, kDkvDims>::kThreads)
+struct DkvCfg {
+  static constexpr int kWarps = kDkvBlockN / 16;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kBQ = D > 64 && kDkvBlockQ > 32 ? 32 : kDkvBlockQ;
+  static constexpr bool kKVInRegs = sizeof(T) == 2 && D <= 64;
+  static constexpr int kKVElems = kDkvBlockN * D;
+  static constexpr int kQElems = kBQ * D;
+  // a ring stage: the Q tile, the dO tile, then kBQ values of L and of D
+  static constexpr int kStageBytes =
+      static_cast<int>(2 * kQElems * sizeof(T)) + 2 * kBQ * 4;
+  static constexpr int bytes(int stages) {
+    return static_cast<int>(2 * kKVElems * sizeof(T)) + stages * kStageBytes;
+  }
+  // two stages where a deeper ring would not fit the 227 KB of a block
+  static constexpr int kStages =
+      bytes(kDkvStages) <= 232448 ? kDkvStages : 2;
+  static constexpr int kSmemBytes = bytes(kStages);
+  static_assert(kDkvBlockN % kBQ == 0, "causal q tiles start at k0");
+};
+
+template <typename T, int D>
+__global__ void __launch_bounds__(DkvCfg<T, D>::kThreads)
 flash_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ lse,
                  const T* __restrict__ dout, const float* __restrict__ delta,
                  T* __restrict__ dk, T* __restrict__ dv, int seq, float scale,
                  int causal) {
+  using At = flash::Atom<T>;
   using E = Elem<T>;
-  using C = Cfg<D, kDkvDims>;
-  constexpr int DPT = C::kDimsPerThread;
-  __shared__ __align__(16) float qs[kTile][C::kRow];
-  __shared__ __align__(16) float gs[kTile][C::kRow];
-  __shared__ float ls[kTile];
-  __shared__ float dls[kTile];
+  using C = DkvCfg<T, D>;
+  constexpr int BN = kDkvBlockN, BQ = C::kBQ, S = C::kStages;
+  constexpr int NB = BQ / 8;          // 8-column blocks of S^T and dP^T
+  constexpr int KS = D / At::kK;      // k-steps of K.Q^T and V.dO^T
+  constexpr int DB = D / 8;           // 8-column blocks of dK and dV
+  constexpr int PK = BQ / At::kK;     // k-steps of P^T.dO and dS^T.Q
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* ksm = reinterpret_cast<T*>(smem_raw);
+  T* vsm = ksm + C::kKVElems;
+  unsigned char* ring = smem_raw + 2 * C::kKVElems * sizeof(T);
 
   const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * C::kRows;
-  const int tid = threadIdx.x;
-  const int part = tid % C::kThreadsPerRow;
-  const int kpos = k0 + tid / C::kThreadsPerRow;
-  const bool live = kpos < seq;
+  const int k0 = blockIdx.y * BN;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int wr0 = warp * 16;                  // the warp's rows in the tile
+  const int kr[2] = {k0 + wr0 + (lane >> 2), k0 + wr0 + (lane >> 2) + 8};
   const size_t base = static_cast<size_t>(bh) * seq * D;
   const size_t lbase = static_cast<size_t>(bh) * seq;
-  const int dsh = part * (DPT + C::kPad);
-  const size_t row = base + static_cast<size_t>(live ? kpos : 0) * D +
-                     part * DPT;
+  const int r_begin = causal ? k0 : 0;
+  const int n_tiles = (seq - r_begin + BQ - 1) / BQ;
 
-  float kr[DPT], vr[DPT], dka[DPT], dva[DPT];
-#pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    kr[i] = live ? E::load(k[row + i]) : 0.f;
-    vr[i] = live ? E::load(v[row + i]) : 0.f;
-    dka[i] = dva[i] = 0.f;
-  }
-
-  for (int r0 = causal ? k0 : 0; r0 < seq; r0 += kTile) {
-    __syncthreads();  // every thread is done with the previous tile
-    stage<T, D, C>(qs, q, base, r0, seq);
-    stage<T, D, C>(gs, dout, base, r0, seq);
-    for (int j = tid; j < kTile; j += C::kThreads) {
-      const int r = r0 + j;
-      ls[j] = r < seq ? lse[lbase + r] : 0.f;
-      dls[j] = r < seq ? delta[lbase + r] : 0.f;
+  flash::load_tile<T, BN, D, C::kThreads>(ksm, k + base, k0, seq);
+  flash::load_tile<T, BN, D, C::kThreads>(vsm, v + base, k0, seq);
+  auto prefetch = [&](int it) {
+    if (it < n_tiles) {
+      unsigned char* st = ring + (it % S) * C::kStageBytes;
+      T* qt = reinterpret_cast<T*>(st);
+      float* lv = reinterpret_cast<float*>(st + 2 * C::kQElems * sizeof(T));
+      const int r0 = r_begin + it * BQ;
+      flash::load_tile<T, BQ, D, C::kThreads>(qt, q + base, r0, seq);
+      flash::load_tile<T, BQ, D, C::kThreads>(qt + C::kQElems, dout + base,
+                                              r0, seq);
+      flash::load_vec<BQ, C::kThreads>(lv, lse + lbase, r0, seq);
+      flash::load_vec<BQ, C::kThreads>(lv + BQ, delta + lbase, r0, seq);
     }
-    __syncthreads();
-#pragma unroll 1
-    for (int j0 = 0; j0 < kTile; j0 += kGroup) {
-      float s[kGroup], dp[kGroup];
-      dots<C>(kr, vr, qs + j0, gs + j0, dsh, s, dp);
+    flash::cp_async_commit();   // empty groups keep the count uniform
+  };
 #pragma unroll
-      for (int j = 0; j < kGroup; ++j) {
-        const int qp = r0 + j0 + j;
-        const bool masked = !live || qp >= seq || (causal && qp < kpos);
-        const float sv = masked ? kNeg : s[j] * scale;
-        const float p = sv <= 0.5f * kNeg ? 0.f : expf(sv - ls[j0 + j]);
-        const float ds = p * (dp[j] - dls[j0 + j]) * scale;
-        axpy<DPT>(dva, E::round(p), &gs[j0 + j][dsh]);
-        axpy<DPT>(dka, E::round(ds), &qs[j0 + j][dsh]);
+  for (int s = 0; s < S - 1; ++s) prefetch(s);
+
+  typename At::A kf[C::kKVInRegs ? KS : 1], vf[C::kKVInRegs ? KS : 1];
+  float dka[DB][4], dva[DB][4];
+#pragma unroll
+  for (int db = 0; db < DB; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[db][e] = dva[db][e] = 0.f;
+  const bool warp_live = k0 + wr0 < seq;
+
+  for (int it = 0; it < n_tiles; ++it) {
+    prefetch(it + S - 1);
+    flash::cp_async_wait<S - 1>();
+    __syncthreads();
+    if constexpr (C::kKVInRegs) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          At::template load_a<D>(ksm, wr0, kk * At::kK, kf[kk]);
+          At::template load_a<D>(vsm, wr0, kk * At::kK, vf[kk]);
+        }
       }
     }
+    const int r0 = r_begin + it * BQ;
+    if (warp_live && !(causal && r0 + BQ - 1 < k0 + wr0)) {
+      const unsigned char* st = ring + (it % S) * C::kStageBytes;
+      const T* qs = reinterpret_cast<const T*>(st);
+      const T* gs = qs + C::kQElems;
+      const float* ls =
+          reinterpret_cast<const float*>(st + 2 * C::kQElems * sizeof(T));
+      const float* ds = ls + BQ;
+      float s[NB][4], dp[NB][4];
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        typename At::A ktmp, vtmp;
+        if constexpr (!C::kKVInRegs) {
+          At::template load_a<D>(ksm, wr0, kk * At::kK, ktmp);
+          At::template load_a<D>(vsm, wr0, kk * At::kK, vtmp);
+        }
+        const int ki = C::kKVInRegs ? kk : 0;
+        const typename At::A& ka = C::kKVInRegs ? kf[ki] : ktmp;
+        const typename At::A& va = C::kKVInRegs ? vf[ki] : vtmp;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb) {
+          typename At::B b;
+          At::template load_b_nk<D>(qs, nb * 8, kk * At::kK, b);
+          At::mma(s[nb], ka, b);
+          At::template load_b_nk<D>(gs, nb * 8, kk * At::kK, b);
+          At::mma(dp[nb], va, b);
+        }
+      }
+
+      // Tiles that cross the diagonal or the ragged tail mask element by
+      // element in natural units.  The others fold the scale into the
+      // exponent's FMA, p = 2^(s scale log2 e - L log2 e); the zeroing of
+      // p where s <= -5e29 can only bite where L is that low too
+      // (otherwise exp underflows to 0 anyway), so they check it only then.
+      const bool need_mask =
+          r0 + BQ > seq || (causal && r0 < k0 + wr0 + 15);
+      bool low = false;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+        low |= ls[nb * 8 + 2 * t] <= kZeroBelow ||
+               ls[nb * 8 + 2 * t + 1] <= kZeroBelow;
+      if (need_mask || __any_sync(0xffffffffu, low)) {
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = nb * 8 + 2 * t + (e & 1);
+            const int qp = r0 + i;
+            float x = s[nb][e] * scale;
+            if (need_mask && (qp >= seq || (causal && qp < kr[e >> 1])))
+              x = kNeg;
+            const float p = x <= kZeroBelow
+                                ? 0.f
+                                : flash::exp_from(x, ls[i] * flash::kLog2e);
+            s[nb][e] = p;
+            dp[nb][e] = p * (dp[nb][e] - ds[i]) * scale;
+          }
+      } else {
+        const float sl = scale * flash::kLog2e;
+#pragma unroll
+        for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = nb * 8 + 2 * t + (e & 1);
+            const float p = flash::exp2_of(
+                fmaf(s[nb][e], sl, -ls[i] * flash::kLog2e));
+            s[nb][e] = p;
+            dp[nb][e] = p * (dp[nb][e] - ds[i]) * scale;
+          }
+      }
+#pragma unroll
+      for (int kk = 0; kk < PK; ++kk) {
+        typename At::A pa, da;
+        At::a_from_c(s, kk, pa);
+        At::a_from_c(dp, kk, da);
+#pragma unroll
+        for (int db = 0; db < DB; ++db) {
+          typename At::B b;
+          At::template load_b_kn<D>(gs, kk * At::kK, db * 8, b);
+          At::mma(dva[db], pa, b);
+          At::template load_b_kn<D>(qs, kk * At::kK, db * 8, b);
+          At::mma(dka[db], da, b);
+        }
+      }
+    }
+    __syncthreads();   // every warp is done with this stage
   }
 
-  if (live) {
+  if (warp_live) {
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) {
-      dk[row + i] = E::store(dka[i]);
-      dv[row + i] = E::store(dva[i]);
+    for (int r = 0; r < 2; ++r) {
+      if (kr[r] >= seq) continue;
+      const size_t off = base + static_cast<size_t>(kr[r]) * D + 2 * t;
+#pragma unroll
+      for (int db = 0; db < DB; ++db) {
+        E::store2(dk + off + db * 8, dka[db][2 * r], dka[db][2 * r + 1]);
+        E::store2(dv + off + db * 8, dva[db][2 * r], dva[db][2 * r + 1]);
+      }
     }
   }
 }
@@ -363,10 +469,12 @@ int launch_dq(const Args& a) {
 
 template <typename T, int D>
 int launch_dkv(const Args& a) {
-  using C = Cfg<D, kDkvDims>;
-  const int tiles = (a.seq + C::kRows - 1) / C::kRows;
+  using C = DkvCfg<T, D>;
+  const int tiles = (a.seq + kDkvBlockN - 1) / kDkvBlockN;
   if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  flash_dkv_kernel<T, D><<<dim3(a.bh, tiles), C::kThreads, 0, a.stream>>>(
+  auto kernel = flash_dkv_kernel<T, D>;
+  if (int rc = flash::allow_smem(kernel, C::kSmemBytes)) return rc;
+  kernel<<<dim3(a.bh, tiles), C::kThreads, C::kSmemBytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const float*>(a.lse),
       static_cast<const T*>(a.dout), static_cast<const float*>(a.delta),

@@ -208,8 +208,17 @@ def _needs_cuda(name, *tensors):
     for t in tensors:
         if t.device.type != "cuda":
             raise MXNetError(f"{name}: needs CUDA tensors, got {t.device}")
-        if not t.is_contiguous():
-            raise ValueError(f"{name}: the kernel takes contiguous tensors")
+        if not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name}: the kernel takes contiguous tensors "
+                             f"that start on a 16-byte boundary")
+
+
+def _dense(x):
+    """``x`` contiguous and 16-byte aligned, as the kernels' 16-byte copies
+    need: a copy only where it is not (a view, or a slice at an odd
+    offset)."""
+    x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
@@ -219,7 +228,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
     _check(q, k, v)
     # contiguous (B*H, T, D): the trunk's head split hands us transposed
     # views; one copy each is cheap beside the attention itself
-    q, k, v = (x.contiguous() for x in (q, k, v))
+    q, k, v = (_dense(x) for x in (q, k, v))
     _needs_cuda("flash_attention_fwd", q)
     B, H, T, _ = q.shape
     out = torch.empty_like(q)
@@ -235,7 +244,8 @@ flash_attention_fwd.launches = 0
 
 
 def flash_attention_dq(q, k, v, o, lse, do, causal=False, scale=None):
-    """Launch the dQ kernel on contiguous (B, H, T, D) CUDA tensors.
+    """Launch the dQ kernel on contiguous, 16-byte aligned (B, H, T, D)
+    CUDA tensors.
     Returns ``(dQ, D)``: dQ in q's dtype and D = rowsum(dO * O) as a
     (B*H, T) f32 side output for ``flash_attention_dkv``.  ``launches``
     counts the launches this wrapper made."""
@@ -256,7 +266,8 @@ flash_attention_dq.launches = 0
 
 
 def flash_attention_dkv(q, k, v, lse, do, delta, causal=False, scale=None):
-    """Launch the dK/dV kernel on contiguous (B, H, T, D) CUDA tensors,
+    """Launch the dK/dV kernel on contiguous, 16-byte aligned (B, H, T, D)
+    CUDA tensors,
     with ``delta`` from ``flash_attention_dq``.  Returns ``(dK, dV)`` in
     k's and v's dtypes.  ``launches`` counts the launches this wrapper
     made."""
@@ -282,7 +293,7 @@ def flash_attention_bwd(q, k, v, o, lse, do, causal=False, scale=None):
     is made contiguous here, as are q, k, v and O)."""
     _check(q, k, v)
     _check_bwd(q, (lse,), (o, do))
-    q, k, v, o, do, lse = (x.contiguous() for x in (q, k, v, o, do, lse))
+    q, k, v, o, do, lse = (_dense(x) for x in (q, k, v, o, do, lse))
     dq, delta = flash_attention_dq(q, k, v, o, lse, do, causal, scale)
     dk, dv = flash_attention_dkv(q, k, v, lse, do, delta, causal, scale)
     return dq, dk, dv
@@ -301,7 +312,7 @@ class FlashAttention(torch.autograd.Function):
             out, lse = flash_attention_plain(q, k, v, causal, scale, block_q,
                                              block_k)
         elif q.device.type == "cuda":
-            q, k, v = (x.contiguous() for x in (q, k, v))
+            q, k, v = (_dense(x) for x in (q, k, v))
             out, lse = flash_attention_fwd(q, k, v, causal, scale)
         else:
             raise MXNetError(f"flash_attention: no kernel for device "

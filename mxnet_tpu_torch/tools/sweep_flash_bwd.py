@@ -1,16 +1,21 @@
-"""Sweep the flash-attention backward kernels' thread split on the card.
+"""Sweep the tiles of the tensor-core flash kernels (the forward and dK/dV)
+on the card.
 
 Run from the root of a checkout, on a host with a CUDA card and nvcc:
 
     python3 -m mxnet_tpu_torch.tools.sweep_flash_bwd
 
-Builds variants of ``csrc/flash_attention_bwd.cu`` that differ in three
-constants (head dims a thread holds in the dQ kernel and in the dK/dV
-kernel, and streamed rows per group), one nvcc per variant, all started
-together, into ``build/sweep/``.  Each variant is checked against
-``flash_attention_bwd_plain`` at a ragged T=1000 and timed with CUDA
-events at (8, 12, 1024, 64) f32 and bf16, causal.  Prints ptxas' register
-and spill counts at D=64 and one line per variant and dtype.
+Builds variants of ``csrc/flash_attention_fwd.cu`` (q rows per block
+``kFwdBlockM``, kv rows per ring stage ``kFwdBlockN``, ring depth
+``kFwdStages``, the largest f32 head dim whose Q fragments stay in
+registers ``kFwdQRegsF32``) and of ``csrc/flash_attention_bwd.cu`` (the
+dK/dV kernel's q rows per ring stage ``kDkvBlockQ`` and ring depth
+``kDkvStages``), one nvcc per variant, at most ``JOBS`` at a time, into
+``build/sweep/``.  Each
+variant is checked against its plain version at a ragged T=1000 and timed
+with CUDA events at (8, 12, 1024, 64) f32 and bf16, causal.  Prints
+ptxas' register and spill counts at D=64 and one line per variant and
+dtype.
 """
 
 from __future__ import annotations
@@ -27,82 +32,104 @@ from .. import _kernels
 from ..ops import flash_attention as fa
 
 SHAPE = (8, 12, 1024, 64)
-GRID = {"kDqDims": (16, 32), "kDkvDims": (8, 16, 32), "kGroup": (2, 4, 8)}
+JOBS = 16          # nvcc processes at a time
+GRIDS = {
+    "flash_attention_fwd": {"kFwdBlockM": (64, 128), "kFwdBlockN": (32, 64),
+                            "kFwdStages": (2, 3), "kFwdQRegsF32": (0, 64)},
+    "flash_attention_bwd": {"kDkvBlockQ": (32, 64), "kDkvStages": (2, 3)},
+}
 
 
-def variants():
-    src = (_kernels.PACKAGE_DIR / _kernels.SOURCES["flash_attention_bwd"]
-           ).read_text()
-    for values in itertools.product(*GRID.values()):
+def variants(lib):
+    src = (_kernels.PACKAGE_DIR / _kernels.SOURCES[lib]).read_text()
+    grid = GRIDS[lib]
+    for values in itertools.product(*grid.values()):
         text = src
-        for name, value in zip(GRID, values):
+        for name, value in zip(grid, values):
             text, n = re.subn(rf"constexpr int {name} = \d+;",
                               f"constexpr int {name} = {value};", text)
             if n != 1:
                 raise RuntimeError(f"{name} not found once in the source")
-        yield values, text
+        yield dict(zip(grid, values)), text
 
 
 def build_all(out_dir):
+    """Every variant of both sources, built together; returns
+    [(lib, values, CDLL)]."""
     out_dir.mkdir(parents=True, exist_ok=True)
     nvcc = _kernels._nvcc()
-    procs = {}
-    for values, text in variants():
-        stem = out_dir / ("bwd_" + "_".join(map(str, values)))
-        stem.with_suffix(".cu").write_text(text)
-        procs[values] = (subprocess.Popen(
-            [nvcc, *_kernels.NVCC_FLAGS, "-o", str(stem.with_suffix(".so")),
-             str(stem.with_suffix(".cu"))], stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT, text=True), stem)
-    libs = {}
-    for values, (proc, stem) in procs.items():
+    csrc = _kernels.PACKAGE_DIR / "csrc"
+    todo = []
+    for lib in GRIDS:
+        for values, text in variants(lib):
+            stem = out_dir / (lib + "_" + "_".join(map(str, values.values())))
+            stem.with_suffix(".cu").write_text(text)
+            todo.append((lib, values, stem))
+
+    def start(stem):
+        return subprocess.Popen(
+            [nvcc, *_kernels.NVCC_FLAGS, "-I", str(csrc), "-o",
+             str(stem.with_suffix(".so")), str(stem.with_suffix(".cu"))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+    running = [(lib, v, stem, start(stem)) for lib, v, stem in todo[:JOBS]]
+    todo = todo[JOBS:]
+    libs = []
+    while running:
+        lib, values, stem, proc = running.pop(0)
         log, _ = proc.communicate()
+        if todo:
+            nxt = todo.pop(0)
+            running.append((*nxt, start(nxt[2])))
         if proc.returncode:
-            print(values, "build failed:", log[-2000:])
+            print(lib, values, "build failed:", log[-2000:])
             continue
         entries = re.findall(r"Compiling entry function '(\S+)'", log)
-        stats = re.findall(r"Used (\d+) registers", log)
+        regs = re.findall(r"Used (\d+) registers", log)
         spills = re.findall(r"(\d+) bytes spill stores", log)
-        for e, r, sp in zip(entries, stats, spills):
-            m = re.search(r"flash_(dq|dkv)_kernelI(f|13__nv_bfloat16)Li64E", e)
-            if m and m.group(2) == "f":
-                print(f"{values} {m.group(1)} f32 D=64: {r} registers, "
-                      f"{sp} bytes spilled")
-        libs[values] = ctypes.CDLL(str(stem.with_suffix(".so")))
+        for e, r, sp in zip(entries, regs, spills):
+            m = re.search(r"flash_(fwd|dkv)_kernelI(f|13__nv_bfloat16)Li64E", e)
+            if m:
+                print(f"{values} {m.group(1)} "
+                      f"{'f32' if m.group(2) == 'f' else 'bf16'} D=64: {r} "
+                      f"registers, {sp} bytes spilled")
+        libs.append((lib, values, ctypes.CDLL(str(stem.with_suffix(".so")))))
     return libs
 
 
-def _entry(lib, name):
+def _entry(lib, name, n_ptrs):
     fn = getattr(lib, name)
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 5 + [
+    fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 5 + [
         ctypes.c_float, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return fn
 
 
-def launchers(lib, q, k, v, o, lse, do):
-    """Closures launching the variant's two kernels (causal) into fresh
-    outputs, and those outputs."""
+def launcher(lib, which, q, k, v, o, lse, do, delta):
+    """A closure launching the variant's forward or dK/dV kernel (causal)
+    into fresh outputs, and those outputs."""
     B, H, T, D = q.shape
-    dq, dk, dv = (torch.empty_like(q) for _ in range(3))
-    delta = torch.empty((B * H, T), device=q.device)
     tail = (B * H, T, D, 0 if q.dtype == torch.float32 else 1, 1, D ** -0.5,
             torch.cuda.current_stream().cuda_stream)
-    f_dq, f_dkv = _entry(lib, "flash_attention_dq"), _entry(
-        lib, "flash_attention_dkv")
-    ptr = [t.data_ptr() for t in (q, k, v, o, lse, do, dq, delta, dk, dv)]
+    if which == "fwd":
+        outs = (torch.empty_like(q),
+                torch.empty((B * H, T), device=q.device))
+        fn = _entry(lib, "flash_attention_fwd", 5)
+        ptrs = [t.data_ptr() for t in (q, k, v, *outs)]
+    else:
+        outs = (torch.empty_like(k), torch.empty_like(v))
+        fn = _entry(lib, "flash_attention_dkv", 8)
+        ptrs = [t.data_ptr() for t in (q, k, v, lse, do, delta, *outs)]
 
-    def run_dq():
-        assert f_dq(*ptr[:8], *tail) == 0
+    def run():
+        rc = fn(*ptrs, *tail)
+        if rc:
+            raise RuntimeError(f"launch refused, cudaError {rc}")
 
-    def run_dkv():
-        assert f_dkv(ptr[0], ptr[1], ptr[2], ptr[4], ptr[5], ptr[7], ptr[8],
-                     ptr[9], *tail) == 0
-
-    return run_dq, run_dkv, (dq, dk, dv)
+    return run, outs
 
 
-def cuda_ms(fn, iters=10):
+def cuda_ms(fn, iters=20):
     fn()
     fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -125,25 +152,30 @@ def main():
         q, k, v, do = (torch.randn(SHAPE, device=dev, generator=g).to(dtype)
                        for _ in range(4))
         o, lse = fa.flash_attention_fwd(q, k, v, True)
+        _, delta = fa.flash_attention_dq(q, k, v, o, lse, do, True)
         small = [x[:1, :2, :1000].contiguous() for x in (q, k, v, do)]
-        so, slse = fa.flash_attention_fwd(*small[:3], True)
-        want = fa.flash_attention_bwd_plain(*small[:3], so, slse, small[3],
-                                            True)
-        for values, lib in libs.items():
-            run_dq, run_dkv, got = launchers(lib, *small[:3], so, slse,
-                                             small[3])
-            run_dq()
-            run_dkv()
-            torch.cuda.synchronize()
-            err = max(float((a.float() - b.float()).abs().max())
-                      for a, b in zip(got, want))
-            run_dq, run_dkv, _ = launchers(lib, q, k, v, o, lse, do)
-            t_dq, t_dkv = cuda_ms(run_dq), cuda_ms(run_dkv)
-            print(f"{str(dtype)[6:]:8s} kDqDims={values[0]:2d} "
-                  f"kDkvDims={values[1]:2d} kGroup={values[2]}  dQ "
-                  f"{t_dq:.4f} ms  dK/dV {t_dkv:.4f} ms  sum "
-                  f"{t_dq + t_dkv:.4f} ms  max abs err (T=1000) {err:.2e}",
-                  flush=True)
+        so, slse = fa.flash_attention_plain(*small[:3], True)
+        _, sdelta = fa.flash_attention_dq(*small[:3], so, slse, small[3],
+                                          True)
+        want = {"fwd": (so, slse),
+                "dkv": fa.flash_attention_bwd_plain(
+                    *small[:3], so, slse, small[3], True)[1:]}
+        for lib, values, cdll in libs:
+            which = "fwd" if lib == "flash_attention_fwd" else "dkv"
+            try:
+                run, got = launcher(cdll, which, *small[:3], so, slse,
+                                    small[3], sdelta)
+                run()
+                torch.cuda.synchronize()
+                err = max(float((a.float() - b.float()).abs().max())
+                          for a, b in zip(got, want[which]))
+                run, _ = launcher(cdll, which, q, k, v, o, lse, do, delta)
+                ms = cuda_ms(run)
+            except RuntimeError as e:
+                print(f"{str(dtype)[6:]:8s} {which} {values}  {e}")
+                continue
+            print(f"{str(dtype)[6:]:8s} {which:3s} {values}  {ms:.4f} ms  "
+                  f"max abs err vs plain (T=1000) {err:.2e}", flush=True)
 
 
 if __name__ == "__main__":

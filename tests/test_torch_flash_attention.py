@@ -237,3 +237,57 @@ def test_flash_refuses_a_device_without_kernel():
         tflash.flash_attention_fwd(torch.zeros((1, 1, 64, 16)),
                                    torch.zeros((1, 1, 64, 16)),
                                    torch.zeros((1, 1, 64, 16)))
+
+
+# -- the error budget of 3xTF32 --------------------------------------------
+# The CUDA kernels run f32 products on the tensor cores as 3xTF32: each
+# operand x is split into big = rna_tf32(x) and small = rna_tf32(x - big)
+# and a product is small*big + big*small + big*big.  Emulated here (TF32
+# rounding on the int32 view, products summed in f64) for Q.K^T and P.V, so
+# the design's error budget is pinned where the CPU tests run: the split
+# holds the f32 tolerance against the JAX package's kernel, one TF32
+# product per f32 product does not.
+
+
+def _tf32(x):
+    """Round f32 to TF32 (10 mantissa bits), to nearest with ties away from
+    zero, as cvt.rna.tf32.f32 does."""
+    i = x.contiguous().view(torch.int32)
+    return ((i + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, products):
+    """a @ b from TF32 operands: ``products`` 1 (big*big) or 3 (3xTF32)."""
+    ab, bb = _tf32(a), _tf32(b)
+    out = ab.double() @ bb.double()
+    if products == 3:
+        out = out + (_tf32(a - ab).double() @ bb.double()
+                     + ab.double() @ _tf32(b - bb).double())
+    return out
+
+
+def _tf32_attention(q, k, v, causal, products):
+    T, D = q.shape[-2:]
+    s = _tf32_matmul(q, k.transpose(-1, -2), products) * D ** -0.5
+    if causal:
+        s = s.masked_fill(torch.ones(T, T, dtype=torch.bool).triu(1), -1e30)
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = _tf32_matmul(p.float(), v, products) / l
+    return o.float(), (m + torch.log(l)).float().reshape(-1, T)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("products", [1, 3])
+def test_3xtf32_holds_the_f32_tolerance(causal, products):
+    q, k, v = _qkv((1, 2, 512, 64), seed=512)
+    want, want_lse = jflash._flash_call(
+        jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal, 64 ** -0.5,
+        128, 128)
+    want, want_lse = np.asarray(want), np.asarray(want_lse)[..., 0]
+    got, got_lse = _tf32_attention(*map(torch.from_numpy, (q, k, v)), causal,
+                                   products)
+    close = (np.allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+             and np.allclose(got_lse.numpy(), want_lse, rtol=RTOL, atol=ATOL))
+    assert close == (products == 3)

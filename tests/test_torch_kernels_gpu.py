@@ -17,7 +17,7 @@ pytestmark = pytest.mark.gpu
 
 # f32: rtol 2e-4 / atol 2e-5 as the JAX flash tests.  bf16: each version
 # rounds P to bf16 relative to its running row maximum, and the kernel's
-# 32-key tiles reach other maxima than the plain version's tiles, so O
+# 64-key tiles reach other maxima than the plain version's tiles, so O
 # may differ by 2^-8 * sum_j p_j |v_j| / l (the plain version on |v|)
 # plus one bf16 step of O (2^-7 relative); chip_smoke.py states the same.
 TOL = {torch.float32: (2e-4, 2e-5), torch.bfloat16: (2 ** -7, 1e-6)}
@@ -58,6 +58,88 @@ def test_flash_kernel_matches_plain(B, H, T, D, causal, dtype):
     assert bool((diff <= atol + rtol * want.float().abs()).all()), \
         float(diff.max())
     torch.testing.assert_close(got_lse, want_lse, rtol=2e-4, atol=2e-5)
+
+
+def _assert_fwd_close(got, got_lse, want, want_lse, q, k, v, causal):
+    rtol, atol = TOL[q.dtype]
+    if q.dtype == torch.bfloat16:
+        mag, _ = tflash.flash_attention_plain(q, k, v.abs(), causal)
+        atol = atol + 2 ** -8 * mag.float()
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= atol + rtol * want.float().abs()).all()), \
+        float(diff.max())
+    torch.testing.assert_close(got_lse, want_lse, rtol=2e-4, atol=2e-5)
+
+
+# The edges of the kernels' tiles: the forward's 128-row q tiles and 64-row
+# kv tiles, the dK/dV kernel's 64-row kv tiles and 64-row q tiles (32 at
+# D = 128), one row either side of each, and T = 1.
+TILE_EDGES = (1, 15, 63, 64, 65, 127, 129)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("T", TILE_EDGES)
+def test_flash_kernel_at_tile_edges(T, D, causal, dtype):
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(7 * T + D)
+    q, k, v = (torch.randn((1, 2, T, D), device=dev, generator=g)
+               .to(dtype) for _ in range(3))
+    got, got_lse = tflash.flash_attention_fwd(q, k, v, causal)
+    want, want_lse = tflash.flash_attention_plain(q, k, v, causal)
+    torch.cuda.synchronize()
+    _assert_fwd_close(got, got_lse, want, want_lse, q, k, v, causal)
+
+
+def test_flash_f32_at_scale_30_needs_3xtf32():
+    """At inputs x30 the scores reach ~1e3, and one TF32 product per f32
+    product (the plain version with TF32 matmuls) misses the f32 LSE
+    tolerance, where the kernel's 3xTF32 holds it.  O is ill-conditioned
+    there (an f32 rounding of s moves p by ~1e-3 relative, so even the
+    exact answer misses rtol 2e-4 against the plain version): the kernel's
+    O must be as close to an f64 reference as the plain f32 version's."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(30)
+    q, k, v = (30 * torch.randn((1, 2, 512, 64), device=dev, generator=g)
+               for _ in range(3))
+    got, got_lse = tflash.flash_attention_fwd(q, k, v, True)
+    want, want_lse = tflash.flash_attention_plain(q, k, v, True)
+    s = torch.matmul(q.double(), k.double().transpose(-1, -2)) / 8.0
+    s = s.masked_fill(torch.ones((512, 512), dtype=torch.bool,
+                                 device=dev).triu(1), float("-inf"))
+    exact = torch.matmul(torch.softmax(s, -1), v.double())
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        _, tf32_lse = tflash.flash_attention_plain(q, k, v, True)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got_lse, want_lse, rtol=2e-4, atol=2e-5)
+    assert not torch.allclose(tf32_lse, want_lse, rtol=2e-4, atol=2e-5)
+    err_kernel = float((got.double() - exact).abs().max())
+    err_plain = float((want.double() - exact).abs().max())
+    assert err_kernel <= 4 * err_plain + 2e-5, (err_kernel, err_plain)
+
+
+def test_flash_kernels_take_unaligned_tensors():
+    """The kernels copy 16-byte chunks: flash_attention copies a tensor
+    that starts off a 16-byte boundary, and the raw dK/dV entry refuses
+    one."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(5)
+    flat = [torch.randn(2 * 3 * 130 * 32 + 1, device=dev, generator=g)
+            for _ in range(4)]
+    q, k, v, do = (x[1:].view(2, 3, 130, 32) for x in flat)
+    assert q.is_contiguous() and q.data_ptr() % 16
+    got = tflash.flash_attention(q, k, v, causal=True)
+    want, _ = tflash.flash_attention_plain(q, k, v, True)
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-5)
+    o, lse = tflash.flash_attention_fwd(q, k, v, True)
+    dq, delta = tflash.flash_attention_dq(*(x.clone() for x in (q, k, v, o)),
+                                          lse, do.clone(), True)
+    with pytest.raises(ValueError, match="16-byte"):
+        tflash.flash_attention_dkv(q, k, v, lse, do, delta, True)
 
 
 def test_flash_kernel_takes_transposed_views():
@@ -139,6 +221,19 @@ def test_flash_bwd_kernels_match_plain(B, H, T, D, causal, dtype):
     torch.cuda.synchronize()
     assert tflash.flash_attention_dq.launches == n_dq + 1
     assert tflash.flash_attention_dkv.launches == n_dkv + 1
+    want = tflash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
+    _assert_bwd_close(got, want, _bwd_magnitudes(q, k, v, o, lse, do, causal),
+                      dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [16, 32, 64, 128])
+@pytest.mark.parametrize("T", TILE_EDGES)
+def test_flash_bwd_kernels_at_tile_edges(T, D, causal, dtype):
+    q, k, v, o, lse, do = _bwd_case(1, 2, T, D, causal, dtype, 7 * T + D)
+    got = tflash.flash_attention_bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
     want = tflash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
     _assert_bwd_close(got, want, _bwd_magnitudes(q, k, v, o, lse, do, causal),
                       dtype)

@@ -121,3 +121,33 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
                              timeout=120)
         assert res.returncode != 0, (script, res.stdout)
         assert '"ok": true' not in res.stdout, res.stdout
+
+
+def test_kernel_library_name_follows_its_headers(tmp_path, monkeypatch):
+    """A library's file name hashes its source and every csrc/*.cuh, so an
+    edited header rebuilds instead of loading a stale library."""
+    import shutil
+
+    from mxnet_tpu_torch import _kernels
+
+    pkg = tmp_path / "mxnet_tpu_torch"
+    shutil.copytree(Path(mxnet_tpu_torch.__file__).parent, pkg,
+                    ignore=shutil.ignore_patterns("__pycache__"))
+    monkeypatch.setattr(_kernels, "PACKAGE_DIR", pkg)
+    monkeypatch.setattr(_kernels, "BUILD_DIR", tmp_path / "build")
+    headers = sorted((pkg / "csrc").glob("*.cuh"))
+    assert headers, "the kernels share a header"
+    before = {n: _kernels._lib_path(n) for n in _kernels.SOURCES}
+    text = headers[0].read_bytes()
+    headers[0].write_bytes(text + b"\n// edited\n")
+    after = {n: _kernels._lib_path(n) for n in _kernels.SOURCES}
+    assert all(after[n] != before[n] for n in _kernels.SOURCES)
+    assert all(p.parent == tmp_path / "build" for p in after.values())
+    headers[0].write_bytes(text)
+    assert {n: _kernels._lib_path(n) for n in _kernels.SOURCES} == before
+    src = pkg / _kernels.SOURCES["flash_attention_fwd"]
+    src.write_bytes(src.read_bytes() + b"\n")
+    assert _kernels._lib_path("flash_attention_fwd") != \
+        before["flash_attention_fwd"]
+    assert _kernels._lib_path("flash_attention_bwd") == \
+        before["flash_attention_bwd"]
