@@ -11,9 +11,9 @@ Phases; any failure raises, exits non-zero and prints no result line:
 2. Build every kernel from the checkout's sources (one nvcc per source,
    all started together); print build seconds, the ptxas register,
    shared-memory and spill lines, and for each instantiation of the
-   tensor-core kernels its registers, spills and HMMA instructions (from
-   cuobjdump --dump-sass); fail if the forward or the dK/dV kernel has an
-   instantiation without HMMA.
+   tensor-core kernels (forward, dQ, dK/dV) its registers, spills and HMMA
+   instructions (from cuobjdump --dump-sass); fail if any of the three has
+   an instantiation without HMMA.
 3. The forward kernel against its plain PyTorch version on the card, at
    the serving path's shape (4, 12, 1024, 64), causal and not, f32 and
    bf16, plus a ragged T=1000; max abs and rel error beside the
@@ -99,7 +99,8 @@ TIE_GAP = 1e-3
 # Flash and dense trunks over 12 f32 layers: attention sums differ in
 # order; logits are O(1).
 TRUNK_TOL = (1e-3, 1e-3)
-# Backward kernels against their plain version (the dK/dV kernel streams
+# Backward kernels against their plain version (the dQ kernel streams
+# 64-row kv tiles, 32 at D = 128, past 64-row q tiles, and the dK/dV kernel
 # 64-row q tiles, 32 at D = 128, past 64-row kv tiles; the plain version
 # takes 128 x 128 tiles).  f32: the JAX package's gradient tolerance
 # (tests/test_parallel.py:346-348).  bf16: both versions round P and dS
@@ -252,15 +253,17 @@ def ptxas_table(lines):
 
 def phase_build_report():
     """[2] registers and spills of the tensor-core kernels, and the HMMA
-    instructions in each of their instantiations; raises if the forward
-    or the dK/dV kernel has none in either dtype."""
+    instructions in each of their instantiations; raises if the forward,
+    dQ or dK/dV kernel has an instantiation without HMMA in either
+    dtype."""
     import re
 
     from mxnet_tpu_torch import _kernels
 
     for name, lines in _kernels.PTXAS_LOG.items():
         for kernel, (regs, spill) in ptxas_table(lines).items():
-            m = re.search(r"(flash_(?:fwd|dkv)_kernel)(I\w+?)Li(\d+)E", kernel)
+            m = re.search(r"(flash_(?:fwd|dq|dkv)_kernel)(I\w+?)Li(\d+)E",
+                          kernel)
             if m:
                 dtype = dict((b, a) for a, b in DTYPE_MANGLE)[m.group(2)]
                 log(f"    {m.group(1)} {dtype} D={m.group(3)}: {regs} "
@@ -274,8 +277,7 @@ def phase_build_report():
             mine = {k: n for k, n in counts.items() if family + mangled in k}
             log(f"    HMMA instructions in {family} {dtype}: "
                 f"{sorted(mine.values())} over {len(mine)} head dims")
-            if family != "flash_dq_kernel" and (
-                    not mine or min(mine.values()) == 0):
+            if not mine or min(mine.values()) == 0:
                 raise AssertionError(f"{family} ({dtype}) has an "
                                      f"instantiation without HMMA")
 

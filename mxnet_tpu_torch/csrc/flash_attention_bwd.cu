@@ -33,41 +33,53 @@
 // Bound at the training shape (B=8, H=12, T=1024, D=64, causal), reckoned
 // from shapes: 50.4 M visible (query, key) pairs.  The function needs
 // 10*D flops a pair (S, dP, dV, dK, dQ): 32.2 GFLOP; this split design
-// does 14*D (S and dP in both kernels), of which dQ 6*D and dK/dV 8*D
-// (25.8 GFLOP).  dK/dV alone: f32 (3xTF32, ~165 TFLOP/s) 0.156 ms against
+// does 14*D (S and dP in both kernels), of which dQ 6*D (19.4 GFLOP) and
+// dK/dV 8*D (25.8 GFLOP).  dQ alone: f32 (3xTF32, ~165 TFLOP/s) 0.117 ms
+// against 0.045 ms for 151 MB of q, k, v, O, dO, dQ, L, D:
+// operation-bound; bf16 0.020 ms at 989 TFLOP/s against 0.023 ms for
+// 76 MB: bytes-bound by a hair.  dK/dV alone: f32 0.156 ms against
 // 0.046 ms for 151 MB of q, k, v, dO, dK, dV, L, D: operation-bound; bf16
-// 0.026 ms at 989 TFLOP/s against 0.023 ms for 76 MB: operation-bound by
-// a hair.
+// 0.026 ms against 0.023 ms for 76 MB: operation-bound by a hair.
 //
-// dQ kernel (FMA loops, as designed in the training slice; the next to be
-// redesigned): one block per (b*h, 64-row q tile), kv streamed through
-// shared memory in 32-row tiles up to the diagonal's tile when causal; the
-// q tiles with the most causal work are scheduled first.  It computes D
-// for its rows from dO and O and also writes D as a (B*H, T) f32 side
-// output: 4 bytes a row, where the TPU's dK/dV kernel recomputes D for
-// every (kv tile, q tile) pair (:271).  Each row is split over
-// neighbouring threads of one warp, 32 head dims a thread (one thread at
-// D <= 32, two at D = 64, four at D = 128), each holding its slice of q,
-// dO and dQ in f32 registers and summing dot products with shuffles, two
-// streamed rows at a time; the split and the group size came from a sweep
-// of 18 variants.
-// Runs on the FMA units in both types, so its ceiling is the f32 FMA peak.
+// Both kernels run on mma.sync (flash_tile.cuh gives the atoms, the
+// swizzled shared memory and the copies) into f32 accumulators, bf16
+// products directly and f32 ones as 3xTF32; each mirrors the other with
+// the roles of q and kv swapped.
 //
-// dK/dV kernel, on mma.sync (flash_tile.cuh gives the atoms, the swizzled
-// shared memory and the copies): one block per (b*h, 64-row kv tile),
+// dQ kernel: one block per (b*h, 64-row q tile), the q tiles with the most
+// causal work first; four warps, each owning 16 q rows.  Q and dO tiles
+// land once in swizzled shared memory; their fragments stay in registers
+// in bf16 up to D = 64 and are re-read per k-step otherwise (the 3xTF32
+// pairs of both, beside the dQ accumulator, would spill).  While they land
+// each lane quad computes D = rowsum(dO * O) in f32 for the two rows its
+// accumulator holds (16-byte loads of dO and O, summed over the quad), and
+// writes it as a (B*H, T) f32 side output: 4 bytes a row, where the TPU's
+// dK/dV kernel recomputes D for every (kv tile, q tile) pair (:271).  L
+// and D stay in registers by accumulator row.  K and V stream through a
+// two-stage cp.async ring in 64-row kv tiles (32 at D = 128) up to the
+// diagonal's tile when causal; a warp skips the tiles wholly above its
+// rows.  Per kv tile and warp: S = Q.K^T and dP = dO.V^T; P = exp(S - L),
+// masked only in tiles that cross the diagonal or the ragged tail;
+// dS = P (dP - D) scale; dQ += dS.K with dS converted in registers into
+// the A operand (rounded to bf16 there in bf16) and K read down its rows.
+// dQ is stored from the accumulator; each output row has one writer.
+//
+// dK/dV kernel: one block per (b*h, 64-row kv tile),
 // early kv tiles (the most causal work) first; four warps, each owning 16
 // kv rows.  K and V fragments stay in registers in bf16 up to D = 64, and
 // are re-read from shared memory per k-step otherwise (the 3xTF32 pairs
 // of both, beside the dK and dV accumulators, would spill).  Q, dO, L and
 // D stream through a two-stage cp.async ring in 64-row q tiles (32 at
 // D = 128), from the tile's first row k0 when causal (no row above k0
-// sees these keys) to T.  Per q tile and warp, all in f32 accumulators:
+// sees these keys) to T.  Per q tile and warp:
 // S^T = K.Q^T and dP^T = V.dO^T; P^T = exp(S^T - L), masked only in tiles
 // that cross the diagonal or the ragged tail; dS^T = P^T (dP^T - D) scale;
 // then dV += P^T.dO and dK += dS^T.Q with P^T and dS^T converted in
 // registers into A operands (rounded to bf16 there in bf16).  Rows >= T
-// are loaded as zeros by the copies and never stored.  Tiles:
-// tools/sweep_flash_bwd.py varies kDkvBlockQ and kDkvStages.
+// are loaded as zeros by the copies and never stored.
+//
+// Tiles: tools/sweep_flash_bwd.py varies kDqBlockM, kDqBlockN, kDqStages,
+// kDkvBlockQ and kDkvStages.
 
 #include "flash_tile.cuh"
 
@@ -78,165 +90,240 @@ using flash::kNeg;
 using flash::kZeroBelow;
 
 // dQ kernel
-constexpr int kTile = 32;   // streamed rows per shared-memory tile
-constexpr int kGroup = 2;   // streamed rows whose dot products run together
-constexpr int kDqDims = 32; // head dims a thread holds
+constexpr int kDqBlockM = 64;   // q rows per block, 16 per warp
+constexpr int kDqBlockN = 64;   // kv rows per ring stage (at most 32 at D = 128)
+constexpr int kDqStages = 2;    // ring depth
 
 // dK/dV kernel
 constexpr int kDkvBlockN = 64;  // kv rows per block, 16 per warp
 constexpr int kDkvBlockQ = 64;  // q rows per ring stage (at most 32 at D = 128)
 constexpr int kDkvStages = 2;   // ring depth
 
-template <int D, int kMaxDims>
-struct Cfg {
-  static constexpr int kDimsPerThread = D < kMaxDims ? D : kMaxDims;
-  static constexpr int kThreadsPerRow = D / kDimsPerThread;
-  // q rows per block: 64, fewer where that would take more than 256
-  // threads
-  static constexpr int kRows = 256 / kThreadsPerRow < 64
-                                   ? 256 / kThreadsPerRow : 64;
-  static constexpr int kThreads = kRows * kThreadsPerRow;
-  // A thread's slice of a streamed row starts kPad floats after the
-  // previous slice, so the slices of one row fall in different banks.
-  static constexpr int kPad = kThreadsPerRow > 1 ? 4 : 0;
-  static constexpr int kRow = D + kPad * (kThreadsPerRow - 1);
-  static_assert(kDimsPerThread % 4 == 0, "float4 reads of a row slice");
-  static_assert(32 % kThreadsPerRow == 0, "a row's threads share a warp");
+template <typename T, int D>
+struct DqCfg {
+  static constexpr int kWarps = kDqBlockM / 16;
+  static constexpr int kThreads = kWarps * 32;
+  static constexpr int kBN = D > 64 && kDqBlockN > 32 ? 32 : kDqBlockN;
+  static constexpr bool kQInRegs = sizeof(T) == 2 && D <= 64;
+  static constexpr int kQElems = kDqBlockM * D;
+  static constexpr int kKVElems = kBN * D;
+  // the Q and dO tiles, then the ring: K then V in each stage
+  static constexpr int kSmemBytes = static_cast<int>(
+      (2 * kQElems + 2 * kDqStages * kKVElems) * sizeof(T));
+  static_assert(kSmemBytes <= 232448, "the tiles fit the 227 KB of a block");
 };
 
-// Rows [r0, r0 + kTile) of a (T, D) slab into shared memory as f32, in the
-// padded layout; rows >= seq are zeros.
-template <typename T, int D, typename C>
-__device__ __forceinline__ void stage(float (*dst)[C::kRow],
-                                      const T* __restrict__ src, size_t base,
-                                      int r0, int seq) {
-  constexpr int DPT = C::kDimsPerThread;
-  for (int idx = threadIdx.x; idx < kTile * D; idx += C::kThreads) {
-    const int j = idx / D, d = idx % D;
-    const int r = r0 + j;
-    dst[j][d + (d / DPT) * C::kPad] =
-        r < seq ? Elem<T>::load(src[base + static_cast<size_t>(r) * D + d])
-                : 0.f;
-  }
+// acc + the dot product of two 16-byte chunks of T, in f32.
+template <typename T>
+__device__ __forceinline__ float chunk_dot(uint4 a, uint4 b, float acc);
+
+template <>
+__device__ __forceinline__ float chunk_dot<float>(uint4 a, uint4 b,
+                                                  float acc) {
+  acc = fmaf(__uint_as_float(a.x), __uint_as_float(b.x), acc);
+  acc = fmaf(__uint_as_float(a.y), __uint_as_float(b.y), acc);
+  acc = fmaf(__uint_as_float(a.z), __uint_as_float(b.z), acc);
+  return fmaf(__uint_as_float(a.w), __uint_as_float(b.w), acc);
 }
 
-// Sums x over the kThreadsPerRow neighbouring lanes that share a row.
-template <int TPR>
-__device__ __forceinline__ float row_sum(float x) {
+template <>
+__device__ __forceinline__ float chunk_dot<__nv_bfloat16>(uint4 a, uint4 b,
+                                                          float acc) {
+  const uint32_t wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-  for (int off = 1; off < TPR; off <<= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
-// For each of kGroup streamed rows: s[j] = a . A[j], t[j] = b . B[j] over
-// this thread's slice, then summed over the row's threads.
-template <typename C>
-__device__ __forceinline__ void dots(const float* a, const float* b,
-                                     float (*A)[C::kRow], float (*B)[C::kRow],
-                                     int dsh, float* s, float* t) {
-  constexpr int DPT = C::kDimsPerThread;
-#pragma unroll
-  for (int j = 0; j < kGroup; ++j) s[j] = t[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < DPT; i += 4) {
-#pragma unroll
-    for (int j = 0; j < kGroup; ++j) {
-      const float4 x = *reinterpret_cast<const float4*>(&A[j][dsh + i]);
-      const float4 y = *reinterpret_cast<const float4*>(&B[j][dsh + i]);
-      s[j] = fmaf(a[i], x.x, s[j]);
-      s[j] = fmaf(a[i + 1], x.y, s[j]);
-      s[j] = fmaf(a[i + 2], x.z, s[j]);
-      s[j] = fmaf(a[i + 3], x.w, s[j]);
-      t[j] = fmaf(b[i], y.x, t[j]);
-      t[j] = fmaf(b[i + 1], y.y, t[j]);
-      t[j] = fmaf(b[i + 2], y.z, t[j]);
-      t[j] = fmaf(b[i + 3], y.w, t[j]);
-    }
+  for (int i = 0; i < 4; ++i) {
+    const float2 x =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wa[i]));
+    const float2 y =
+        __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wb[i]));
+    acc = fmaf(x.x, y.x, acc);
+    acc = fmaf(x.y, y.y, acc);
   }
-#pragma unroll
-  for (int j = 0; j < kGroup; ++j) {
-    s[j] = row_sum<C::kThreadsPerRow>(s[j]);
-    t[j] = row_sum<C::kThreadsPerRow>(t[j]);
-  }
-}
-
-// acc += w * x over this thread's slice.
-template <int DPT>
-__device__ __forceinline__ void axpy(float* acc, float w, const float* x) {
-#pragma unroll
-  for (int i = 0; i < DPT; i += 4) {
-    const float4 v = *reinterpret_cast<const float4*>(x + i);
-    acc[i] = fmaf(w, v.x, acc[i]);
-    acc[i + 1] = fmaf(w, v.y, acc[i + 1]);
-    acc[i + 2] = fmaf(w, v.z, acc[i + 2]);
-    acc[i + 3] = fmaf(w, v.w, acc[i + 3]);
-  }
+  return acc;
 }
 
 template <typename T, int D>
-__global__ void __launch_bounds__(Cfg<D, kDqDims>::kThreads)
+__global__ void __launch_bounds__(DqCfg<T, D>::kThreads)
 flash_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                 const T* __restrict__ v, const T* __restrict__ o,
                 const float* __restrict__ lse, const T* __restrict__ dout,
                 T* __restrict__ dq, float* __restrict__ delta, int seq,
                 float scale, int causal) {
+  using At = flash::Atom<T>;
   using E = Elem<T>;
-  using C = Cfg<D, kDqDims>;
-  constexpr int DPT = C::kDimsPerThread;
-  __shared__ __align__(16) float ks[kTile][C::kRow];
-  __shared__ __align__(16) float vs[kTile][C::kRow];
+  using C = DqCfg<T, D>;
+  using Lay = flash::Layout<T, D>;
+  constexpr int BM = kDqBlockM, BN = C::kBN, S = kDqStages;
+  constexpr int NB = BN / 8;          // 8-column blocks of S and dP
+  constexpr int KS = D / At::kK;      // k-steps of Q.K^T and dO.V^T
+  constexpr int DB = D / 8;           // 8-column blocks of dQ
+  constexpr int PK = BN / At::kK;     // k-steps of dS.K
+  extern __shared__ __align__(128) unsigned char smem_raw[];
+  T* qs = reinterpret_cast<T*>(smem_raw);
+  T* gs = qs + C::kQElems;
+  T* kvs = gs + C::kQElems;   // stage s: K at kvs + 2 s kKVElems, V after
+  auto k_stage = [&](int it) { return kvs + (it % S) * 2 * C::kKVElems; };
 
   const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * C::kRows;
-  const int tid = threadIdx.x;
-  const int part = tid % C::kThreadsPerRow;
-  const int qpos = q0 + tid / C::kThreadsPerRow;
-  const bool live = qpos < seq;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * BM;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int wr0 = warp * 16;                  // the warp's rows in the tile
+  const int row[2] = {q0 + wr0 + (lane >> 2), q0 + wr0 + (lane >> 2) + 8};
   const size_t base = static_cast<size_t>(bh) * seq * D;
-  const int dsh = part * (DPT + C::kPad);
-  const size_t row = base + static_cast<size_t>(live ? qpos : 0) * D +
-                     part * DPT;
+  const size_t lbase = static_cast<size_t>(bh) * seq;
 
-  float qr[DPT], gr[DPT], acc[DPT];
-  float di = 0.f;
+  const int kv_end = causal ? min(seq, q0 + BM) : seq;
+  const int n_tiles = (kv_end + BN - 1) / BN;
+  // kv tiles [0, n_act) hold a key some row of this warp may see
+  const int n_act = q0 + wr0 >= seq ? 0
+                    : causal ? min(n_tiles, (q0 + wr0 + 15) / BN + 1)
+                             : n_tiles;
+
+  flash::load_tile<T, BM, D, C::kThreads>(qs, q + base, q0, seq);
+  flash::load_tile<T, BM, D, C::kThreads>(gs, dout + base, q0, seq);
+  auto prefetch = [&](int it) {
+    if (it < n_tiles) {
+      T* st = k_stage(it);
+      flash::load_tile<T, BN, D, C::kThreads>(st, k + base, it * BN, seq);
+      flash::load_tile<T, BN, D, C::kThreads>(st + C::kKVElems, v + base,
+                                              it * BN, seq);
+    }
+    flash::cp_async_commit();   // empty groups keep the count uniform
+  };
 #pragma unroll
-  for (int i = 0; i < DPT; ++i) {
-    qr[i] = live ? E::load(q[row + i]) : 0.f;
-    gr[i] = live ? E::load(dout[row + i]) : 0.f;
-    di = fmaf(gr[i], live ? E::load(o[row + i]) : 0.f, di);
-    acc[i] = 0.f;
+  for (int s = 0; s < S - 1; ++s) prefetch(s);
+
+  // While the copies fly: D = rowsum(dO * O) for rows g and g + 8 of the
+  // lane's accumulator (the quad's four lanes take every fourth 16-byte
+  // chunk of the row and sum over the quad), written once by lane t = 0;
+  // L, in log2 units, for the same rows.  Rows >= T keep D = L = 0.
+  float dl[2], lb[2];
+  bool low = false;
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const bool live = row[h] < seq;
+    float acc = 0.f;
+    if (live) {
+      const size_t off = base + static_cast<size_t>(row[h]) * D;
+      const uint4* gr = reinterpret_cast<const uint4*>(dout + off);
+      const uint4* orow = reinterpret_cast<const uint4*>(o + off);
+#pragma unroll
+      for (int c0 = 0; c0 < Lay::kChunks; c0 += 4)
+        if (c0 + t < Lay::kChunks)
+          acc = chunk_dot<T>(gr[c0 + t], orow[c0 + t], acc);
+    }
+    dl[h] = flash::quad_sum(acc);
+    if (live && t == 0) delta[lbase + row[h]] = dl[h];
+    const float lr = live ? lse[lbase + row[h]] : 0.f;
+    low |= lr <= kZeroBelow;
+    lb[h] = lr * flash::kLog2e;
   }
-  di = row_sum<C::kThreadsPerRow>(di);
-  const size_t lrow_at = static_cast<size_t>(bh) * seq + qpos;
-  const float lrow = live ? lse[lrow_at] : 0.f;
-  if (live && part == 0) delta[lrow_at] = di;
+  low = __any_sync(0xffffffffu, low);
 
-  const int kv_end = causal ? min(seq, q0 + C::kRows) : seq;
-  for (int k0 = 0; k0 < kv_end; k0 += kTile) {
-    __syncthreads();  // every thread is done with the previous tile
-    stage<T, D, C>(ks, k, base, k0, seq);
-    stage<T, D, C>(vs, v, base, k0, seq);
-    __syncthreads();
-#pragma unroll 1
-    for (int j0 = 0; j0 < kTile; j0 += kGroup) {
-      float s[kGroup], dp[kGroup];
-      dots<C>(qr, gr, ks + j0, vs + j0, dsh, s, dp);
+  typename At::A qf[C::kQInRegs ? KS : 1], gf[C::kQInRegs ? KS : 1];
+  float acc[DB][4];
 #pragma unroll
-      for (int j = 0; j < kGroup; ++j) {
-        const int kp = k0 + j0 + j;
-        const bool masked = !live || kp >= seq || (causal && kp > qpos);
-        const float sv = masked ? kNeg : s[j] * scale;
-        const float p = sv <= 0.5f * kNeg ? 0.f : expf(sv - lrow);
-        const float ds = E::round(p * (dp[j] - di) * scale);
-        axpy<DPT>(acc, ds, &ks[j0 + j][dsh]);
+  for (int db = 0; db < DB; ++db)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[db][e] = 0.f;
+
+  // Tile it: S = Q.K^T and dP = dO.V^T, dS, dQ += dS.K.
+  auto step = [&](int it) {
+    const int k0 = it * BN;
+    const T* ks = k_stage(it);
+    const T* vs = ks + C::kKVElems;
+    float s[NB][4], dp[NB][4];
+#pragma unroll
+    for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[nb][e] = dp[nb][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < KS; ++kk) {
+      typename At::A qtmp, gtmp;
+      if constexpr (!C::kQInRegs) {
+        At::template load_a<D>(qs, wr0, kk * At::kK, qtmp);
+        At::template load_a<D>(gs, wr0, kk * At::kK, gtmp);
+      }
+      const int qi = C::kQInRegs ? kk : 0;
+      const typename At::A& qa = C::kQInRegs ? qf[qi] : qtmp;
+      const typename At::A& ga = C::kQInRegs ? gf[qi] : gtmp;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb) {
+        typename At::B b;
+        At::template load_b_nk<D>(ks, nb * 8, kk * At::kK, b);
+        At::mma(s[nb], qa, b);
+        At::template load_b_nk<D>(vs, nb * 8, kk * At::kK, b);
+        At::mma(dp[nb], ga, b);
       }
     }
+
+    // Tiles that cross the diagonal or the ragged tail mask element by
+    // element in natural units.  The others fold the scale into the
+    // exponent's FMA, p = 2^(s scale log2 e - L log2 e); the zeroing of p
+    // where s <= -5e29 can only bite where L is that low too (otherwise
+    // exp underflows to 0 anyway), so they check it only then.
+    const bool need_mask =
+        k0 + BN > seq || (causal && k0 + BN - 1 > q0 + wr0);
+    if (need_mask || low) {
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + nb * 8 + 2 * t + (e & 1);
+          float x = s[nb][e] * scale;
+          if (need_mask && (kp >= seq || (causal && kp > row[e >> 1])))
+            x = kNeg;
+          const float p =
+              x <= kZeroBelow ? 0.f : flash::exp_from(x, lb[e >> 1]);
+          dp[nb][e] = p * (dp[nb][e] - dl[e >> 1]) * scale;
+        }
+    } else {
+      const float sl = scale * flash::kLog2e;
+#pragma unroll
+      for (int nb = 0; nb < NB; ++nb)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float p = flash::exp2_of(fmaf(s[nb][e], sl, -lb[e >> 1]));
+          dp[nb][e] = p * (dp[nb][e] - dl[e >> 1]) * scale;
+        }
+    }
+#pragma unroll
+    for (int kk = 0; kk < PK; ++kk) {
+      typename At::A da;
+      At::a_from_c(dp, kk, da);
+#pragma unroll
+      for (int db = 0; db < DB; ++db) {
+        typename At::B b;
+        At::template load_b_kn<D>(ks, kk * At::kK, db * 8, b);
+        At::mma(acc[db], da, b);
+      }
+    }
+  };
+  for (int it = 0; it < n_tiles; ++it) {
+    prefetch(it + S - 1);
+    flash::cp_async_wait<S - 1>();   // tile it (and Q, dO) have landed ...
+    __syncthreads();                 // ... for every thread
+    if constexpr (C::kQInRegs) {
+      if (it == 0) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+          At::template load_a<D>(qs, wr0, kk * At::kK, qf[kk]);
+          At::template load_a<D>(gs, wr0, kk * At::kK, gf[kk]);
+        }
+      }
+    }
+    if (it < n_act) step(it);
+    __syncthreads();   // every warp is done with this stage
   }
 
-  if (live) {
 #pragma unroll
-    for (int i = 0; i < DPT; ++i) dq[row + i] = E::store(acc[i]);
+  for (int h = 0; h < 2; ++h) {
+    if (row[h] >= seq) continue;
+    T* out = dq + base + static_cast<size_t>(row[h]) * D + 2 * t;
+#pragma unroll
+    for (int db = 0; db < DB; ++db)
+      E::store2(out + db * 8, acc[db][2 * h], acc[db][2 * h + 1]);
   }
 }
 
@@ -455,10 +542,12 @@ struct Args {
 
 template <typename T, int D>
 int launch_dq(const Args& a) {
-  using C = Cfg<D, kDqDims>;
-  const int tiles = (a.seq + C::kRows - 1) / C::kRows;
+  using C = DqCfg<T, D>;
+  const int tiles = (a.seq + kDqBlockM - 1) / kDqBlockM;
   if (tiles > 65535) return static_cast<int>(cudaErrorInvalidValue);
-  flash_dq_kernel<T, D><<<dim3(a.bh, tiles), C::kThreads, 0, a.stream>>>(
+  auto kernel = flash_dq_kernel<T, D>;
+  if (int rc = flash::allow_smem(kernel, C::kSmemBytes)) return rc;
+  kernel<<<dim3(a.bh, tiles), C::kThreads, C::kSmemBytes, a.stream>>>(
       static_cast<const T*>(a.q), static_cast<const T*>(a.k),
       static_cast<const T*>(a.v), static_cast<const T*>(a.o),
       static_cast<const float*>(a.lse), static_cast<const T*>(a.dout),

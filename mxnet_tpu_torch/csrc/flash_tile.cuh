@@ -1,7 +1,8 @@
 // Shared tile layer of the flash-attention kernels for Hopper (sm_90a):
 // tensor-core atoms, fragment loads, the swizzled shared-memory layout and
-// the asynchronous copies.  Included by flash_attention_fwd.cu and
-// flash_attention_bwd.cu.
+// the asynchronous copies.  Its users: the forward kernel
+// (flash_attention_fwd.cu) and the dQ and dK/dV kernels
+// (flash_attention_bwd.cu).
 //
 // Atoms (one warp, a 16 x 8 f32 accumulator tile per product):
 // - bf16: mma.sync m16n8k16 bf16 x bf16 -> f32.

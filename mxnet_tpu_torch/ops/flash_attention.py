@@ -5,7 +5,9 @@ Counterpart of ``mxnet_tpu/ops/pallas_attention.py``: the forward
 (``_fwd_kernel`` / ``_flash_call``), the backward (``_dq_kernel`` and
 ``_dkv_kernel`` in ``_flash_bwd_call``) and the ``custom_vjp``
 ``_flash_core`` that joins them.  The kernels are
-``csrc/flash_attention_fwd.cu`` and ``csrc/flash_attention_bwd.cu``; their
+``csrc/flash_attention_fwd.cu`` (the forward) and
+``csrc/flash_attention_bwd.cu`` (the dQ and dK/dV kernels), all three on
+the tensor cores through the tile layer ``csrc/flash_tile.cuh``; their
 source notes give the designs and the bounds.
 
 ``flash_attention`` takes (B, H, T, D) tensors and always goes through

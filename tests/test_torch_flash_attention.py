@@ -243,10 +243,11 @@ def test_flash_refuses_a_device_without_kernel():
 # The CUDA kernels run f32 products on the tensor cores as 3xTF32: each
 # operand x is split into big = rna_tf32(x) and small = rna_tf32(x - big)
 # and a product is small*big + big*small + big*big.  Emulated here (TF32
-# rounding on the int32 view, products summed in f64) for Q.K^T and P.V, so
-# the design's error budget is pinned where the CPU tests run: the split
-# holds the f32 tolerance against the JAX package's kernel, one TF32
-# product per f32 product does not.
+# rounding on the int32 view, products summed in f64) for the forward's
+# Q.K^T and P.V and for the dQ kernel's Q.K^T, dO.V^T and dS.K, so the
+# design's error budget is pinned where the CPU tests run: the split holds
+# the f32 tolerances against the JAX package's kernels, one TF32 product
+# per f32 product does not.
 
 
 def _tf32(x):
@@ -291,3 +292,46 @@ def test_3xtf32_holds_the_f32_tolerance(causal, products):
     close = (np.allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
              and np.allclose(got_lse.numpy(), want_lse, rtol=RTOL, atol=ATOL))
     assert close == (products == 3)
+
+
+def _tf32_dq(q, k, v, o, lse, do, causal, products):
+    """The dQ kernel's arithmetic with its three products (Q.K^T, dO.V^T,
+    dS.K) from TF32 operands, everything else in f32: S, P, D and dS as
+    the kernel forms them, on the given O and L."""
+    T, D = q.shape[-2:]
+    scale = D ** -0.5
+    s = _tf32_matmul(q, k.transpose(-1, -2), products).float() * scale
+    if causal:
+        s = s.masked_fill(torch.ones(T, T, dtype=torch.bool).triu(1), -1e30)
+    p = torch.exp(s - lse.reshape(*q.shape[:2], T, 1))
+    p = p.masked_fill(s <= -5e29, 0.0)
+    delta = (do * o).sum(-1, keepdim=True)
+    dp = _tf32_matmul(do, v.transpose(-1, -2), products).float()
+    ds = p * (dp - delta) * scale
+    return _tf32_matmul(ds, k, products).float()
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_3xtf32_holds_the_gradient_tolerance_for_dq(causal):
+    """dQ from 3xTF32 products against _dq_kernel in interpret mode
+    (_flash_bwd_call) on the JAX forward's O and L, at the size of the
+    forward's case above: the split holds the gradient tolerance (worst
+    err/tol 8.2e-4 without the causal mask, 3.1e-3 with it).  One TF32
+    product per f32 product does not hold it at this size: err/tol 1.08
+    without the mask, 5.46 with it."""
+    q, k, v = _qkv((1, 2, 512, 64), seed=512)
+    g = _qkv((1, 2, 512, 64), seed=513)[0]
+    (jq, jk, jv), o, lse, bq = _jax_fwd(q, k, v, causal, None)
+    want = np.asarray(jflash._flash_bwd_call(
+        jq, jk, jv, o, lse, jnp.asarray(g), causal, 64 ** -0.5, bq, bq)[0])
+    args = [torch.from_numpy(x) for x in (q, k, v)] + [
+        torch.from_numpy(np.array(o)),
+        torch.from_numpy(np.asarray(lse)[..., 0].copy()), torch.from_numpy(g)]
+    ratio = {}
+    for products in (1, 3):
+        got = _tf32_dq(*args, causal, products).numpy()
+        ratio[products] = float(
+            (np.abs(got - want) / (GRAD_ATOL + GRAD_RTOL * np.abs(want)))
+            .max())
+    assert ratio[3] <= 1.0, ratio
+    assert ratio[3] < ratio[1] / 100, ratio

@@ -72,7 +72,8 @@ def _assert_fwd_close(got, got_lse, want, want_lse, q, k, v, causal):
 
 
 # The edges of the kernels' tiles: the forward's 128-row q tiles and 64-row
-# kv tiles, the dK/dV kernel's 64-row kv tiles and 64-row q tiles (32 at
+# kv tiles, the dQ kernel's 64-row q tiles and 64-row kv tiles (32 at
+# D = 128), the dK/dV kernel's 64-row kv tiles and 64-row q tiles (32 at
 # D = 128), one row either side of each, and T = 1.
 TILE_EDGES = (1, 15, 63, 64, 65, 127, 129)
 
@@ -237,6 +238,49 @@ def test_flash_bwd_kernels_at_tile_edges(T, D, causal, dtype):
     want = tflash.flash_attention_bwd_plain(q, k, v, o, lse, do, causal)
     _assert_bwd_close(got, want, _bwd_magnitudes(q, k, v, o, lse, do, causal),
                       dtype)
+
+
+def test_flash_bwd_f32_at_scale_30_needs_3xtf32():
+    """The backward at inputs x30, as the forward's case above: the scores
+    reach ~1e3 and dQ is ill-conditioned (an f32 rounding of s moves p by
+    ~1e-4 relative), so the dQ kernel is held to an f64 reference (softmax,
+    O and D in f64) beside the plain f32 backward, by relative L2 error.
+    3xTF32 keeps 22 of f32's 24 significand bits, so its error may be 4x
+    the plain version's, and 2x more for the f32 sums taken in another
+    order; one TF32 product per f32 product (the plain backward with TF32
+    matmuls) misses that bound.  D, a sum of 64 products of ~900, may
+    differ from the plain version's by the order of the sum: it is held
+    to the backward's f32 tolerance."""
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(30)
+    q, k, v, do = (30 * torch.randn((1, 2, 512, 64), device=dev,
+                                    generator=g) for _ in range(4))
+    o, lse = tflash.flash_attention_plain(q, k, v, True)
+    got, delta = tflash.flash_attention_dq(q, k, v, o, lse, do, True)
+    want = tflash.flash_attention_bwd_plain(q, k, v, o, lse, do, True)[0]
+    qd, kd, vd, gd = (x.double() for x in (q, k, v, do))
+    s = torch.matmul(qd, kd.transpose(-1, -2)) / 8.0
+    s = s.masked_fill(torch.ones((512, 512), dtype=torch.bool,
+                                 device=dev).triu(1), float("-inf"))
+    p = torch.softmax(s, -1)
+    d_exact = (gd * torch.matmul(p, vd)).sum(-1, keepdim=True)
+    exact = torch.matmul(
+        p * (torch.matmul(gd, vd.transpose(-1, -2)) - d_exact) / 8.0, kd)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = tflash.flash_attention_bwd_plain(q, k, v, o, lse, do, True)[0]
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+    torch.cuda.synchronize()
+
+    def rel(x):
+        return float((x.double() - exact).norm() / exact.norm())
+
+    rtol, atol = BWD_TOL[torch.float32]
+    torch.testing.assert_close(delta, (do * o).sum(-1).reshape(2, 512),
+                               rtol=rtol, atol=atol)
+    assert rel(got) <= 8 * rel(want), (rel(got), rel(want))
+    assert rel(tf32) > 8 * rel(want), (rel(tf32), rel(want))
 
 
 def test_flash_grads_through_function_on_cuda():
