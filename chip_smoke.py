@@ -16,18 +16,22 @@ Phases; any failure raises, exits non-zero and prints no result line:
    an instantiation without HMMA.
 3. The forward kernel against its plain PyTorch version on the card, at
    the serving path's shape (4, 12, 1024, 64), causal and not, f32 and
-   bf16, plus a ragged T=1000; max abs and rel error beside the
-   tolerance.
+   bf16, plus a ragged T=1000 and BERT's shape (32, 12, 512, 64)
+   non-causal; max abs and rel error beside the tolerance.
 3b. The backward kernels (dQ, dK/dV) against their plain version at the
    training path's shape (8, 12, 1024, 64), causal and not, f32 and bf16,
-   plus a ragged T=1000, with dO random and O, L from the forward kernel
-   (itself checked there against its plain version).
-4. Forward timing with CUDA events: kernel, plain version, the PyTorch
-   library call as a yardstick (the port never calls it; the median of 5
-   timed loops, with their min-max), and the bound reckoned from shapes.
-4b. Backward timing at (8, 12, 1024, 64) causal, f32 and bf16: each
-   kernel, their sum, the plain backward, the bounds, and the backward of
-   F.scaled_dot_product_attention as a yardstick (median of 5 loops).
+   plus a ragged T=1000 and BERT's shape non-causal, with dO random and
+   O, L from the forward kernel (itself checked there against its plain
+   version).
+4. Forward timing with CUDA events at the serving shape and BERT's:
+   kernel, plain version, the PyTorch library call as a yardstick (the
+   port never calls it; SDPA pinned to one backend, flash for bf16 and
+   memory-efficient for f32, its name printed; the median of 5 timed
+   loops, with their min-max), and the bound reckoned from shapes.
+4b. Backward timing at (8, 12, 1024, 64) causal and at BERT's shape
+   non-causal, f32 and bf16: each kernel, their sum, the plain backward,
+   the bounds, and the backward of the pinned SDPA as a yardstick
+   (median of 5 loops).
 5. The serving path at GPT-2 small's full width (random f32 weights from
    a numpy seed, loaded through convert.load_state): (a) generate() over
    the flash trunk, with the kernel's launch count checked; (b) the
@@ -39,8 +43,9 @@ Phases; any failure raises, exits non-zero and prints no result line:
    B=8, T=1024 on the permutation corpus of
    examples/gpt_pretrain_sharded.py: (i) loss and every gradient against a
    dense trunk's at B=2; (ii) one step launches each kernel once per
-   layer; (iii) 20 steps, loss falls, ms per step; (iv) 3 bf16 steps;
-   (v) the trained weights through state_for_serving into
+   layer; (iii) 20 steps, loss falls, ms per step; (iv) 3 bf16 steps and
+   a torch.profiler split of one (GEMM and the other families); (v) the
+   trained weights through state_for_serving into
    ServingEngine.reload_from_state agree with generate().
 5f. Where a training step's device time goes: three f32 steps under
    torch.profiler, kernel time by family, and the device's busy share.
@@ -57,9 +62,19 @@ Phases; any failure raises, exits non-zero and prints no result line:
    wrong dtype, a CPU array and a syntax error raise MXNetError; CUDA-event
    times beside the byte bounds and the library calls; the host cost of
    one launch.
+8. BERT-base pretraining at bench_bert's configuration (bench.py:179-183,
+   3432-3500): bert_base(scan_layers=True, attention_impl="flash"),
+   Xavier, bf16, ShardedTrainer(adamw, mesh=data_parallel_mesh(1)) at
+   B=32, T=512: (i) the f32 flash trunk's loss and gradients against the
+   dense trunk's at B=2; (ii) one bf16 step launches each flash kernel
+   once per layer; (iii) mxnet_tpu_torch.tools.bench_bert.run, 10 timed
+   steps: the loss falls, ms per step, tokens/s, MFU, peak memory;
+   (iv) bf16 outputs and loss against f32 at B=2; (v) torch.profiler over
+   three bf16 steps.
 6. The kernel JSON line (f32 numbers at the training shape, and the
-   bf16 ones under *_bf16 keys), the nvidia-smi line, then the result
-   line.
+   bf16 ones under *_bf16 keys; the same at BERT's shape under
+   ``at_bert_shape``; launches by path), the nvidia-smi line, then the
+   result line.
 """
 
 from __future__ import annotations
@@ -74,6 +89,10 @@ SEED = 0
 SHAPE = (4, 12, 1024, 64)          # (B, H, T, D) of GPT-2 small at B=4
 TRAIN_SHAPE = (8, 12, 1024, 64)    # ... at the training batch, B=8
 TRAIN_STEPS = 20
+# bench_bert's configuration (bench.py:179-183): BERT-base at B=32, T=512,
+# bf16, flash trunk, non-causal; its attention runs at (32, 12, 512, 64)
+BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 512, 10
+BERT_SHAPE = (BERT_BATCH, 12, BERT_SEQ, 64)
 NEW_TOKENS = 16
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 # f32: the flash kernels run f32 products as 3xTF32 on the tensor cores
@@ -283,66 +302,101 @@ def phase_build_report():
 
 
 def phase_kernels(dev):
+    """[3] the forward kernel against its plain version: the serving
+    shape causal and not, a ragged T=1000, and BERT's shape non-causal.
+    Returns O's max abs error by (shape, dtype name, causal)."""
     import torch
 
     from mxnet_tpu_torch.ops import flash_attention as fa
 
-    for T in (SHAPE[2], 1000):
+    ragged = SHAPE[:2] + (1000, SHAPE[3])
+    cases = [(SHAPE, True), (SHAPE, False), (ragged, True),
+             (BERT_SHAPE, False)]
+    errs = {}
+    for shape, causal in cases:
+        T = shape[2]
         for dtype in (torch.float32, torch.bfloat16):
-            for causal in ((True, False) if T == SHAPE[2] else (True,)):
-                g = torch.Generator(device=dev).manual_seed(SEED + T)
-                q, k, v = (torch.randn(SHAPE[:2] + (T, SHAPE[3]),
-                                       device=dev, generator=g).to(dtype)
-                           for _ in range(3))
-                got, got_lse = fa.flash_attention_fwd(q, k, v, causal)
-                want, want_lse = fa.flash_attention_plain(q, k, v, causal)
-                torch.cuda.synchronize()
-                name = str(dtype).split(".")[1]
-                rtol, atol = TOL[name]
-                tol_note = f"rtol {rtol:.2e} atol {atol:.0e}"
-                if dtype == torch.bfloat16:
-                    mag, _ = fa.flash_attention_plain(q, k, v.abs(), causal)
-                    atol = atol + P_ROUND * mag.double()
-                    tol_note += " + 2^-8 * plain(q, k, |v|)"
-                o_abs, o_rel, o_ratio = errors(got, want, rtol, atol)
-                l_abs, l_rel, l_ratio = errors(got_lse, want_lse, *LSE_TOL)
-                finite = bool(torch.isfinite(got.float()).all())
-                log(f"  T={T} {name:8s} causal={causal!s:5s}  O max abs "
-                    f"{o_abs:.3e} rel {o_rel:.3e}, err/tol {o_ratio:.3f} "
-                    f"({tol_note})  LSE max abs {l_abs:.3e} rel {l_rel:.3e}, "
-                    f"err/tol {l_ratio:.3f} (rtol {LSE_TOL[0]:.0e} atol "
-                    f"{LSE_TOL[1]:.0e})")
-                if not (o_ratio <= 1 and l_ratio <= 1 and finite):
-                    raise AssertionError(
-                        f"flash_attention_fwd disagrees with its plain "
-                        f"version at T={T} {name} causal={causal}")
+            g = torch.Generator(device=dev).manual_seed(SEED + T)
+            q, k, v = (torch.randn(shape, device=dev, generator=g).to(dtype)
+                       for _ in range(3))
+            got, got_lse = fa.flash_attention_fwd(q, k, v, causal)
+            want, want_lse = fa.flash_attention_plain(q, k, v, causal)
+            torch.cuda.synchronize()
+            name = str(dtype).split(".")[1]
+            rtol, atol = TOL[name]
+            tol_note = f"rtol {rtol:.2e} atol {atol:.0e}"
+            if dtype == torch.bfloat16:
+                mag, _ = fa.flash_attention_plain(q, k, v.abs(), causal)
+                atol = atol + P_ROUND * mag.double()
+                tol_note += " + 2^-8 * plain(q, k, |v|)"
+            o_abs, o_rel, o_ratio = errors(got, want, rtol, atol)
+            l_abs, l_rel, l_ratio = errors(got_lse, want_lse, *LSE_TOL)
+            finite = bool(torch.isfinite(got.float()).all())
+            errs[(shape, name, causal)] = o_abs
+            log(f"  {shape} {name:8s} causal={causal!s:5s}  O max abs "
+                f"{o_abs:.3e} rel {o_rel:.3e}, err/tol {o_ratio:.3f} "
+                f"({tol_note})  LSE max abs {l_abs:.3e} rel {l_rel:.3e}, "
+                f"err/tol {l_ratio:.3f} (rtol {LSE_TOL[0]:.0e} atol "
+                f"{LSE_TOL[1]:.0e})")
+            if not (o_ratio <= 1 and l_ratio <= 1 and finite):
+                raise AssertionError(
+                    f"flash_attention_fwd disagrees with its plain version "
+                    f"at {shape} {name} causal={causal}")
+            del q, k, v, got, got_lse, want, want_lse
+    torch.cuda.empty_cache()
+    return errs
+
+
+def sdpa_pinned(q, k, v, causal):
+    """F.scaled_dot_product_attention pinned to one backend, so that the
+    yardstick does not change kernels between runs: flash for bf16,
+    memory-efficient (else math) for f32, which flash does not take.
+    Returns (the call, the backend's name)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    order = ((SDPBackend.FLASH_ATTENTION,) if q.dtype == torch.bfloat16
+             else (SDPBackend.EFFICIENT_ATTENTION, SDPBackend.MATH))
+    for backend in order:
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(q, k, v,
+                                                      is_causal=causal)
+        try:
+            call()
+        except RuntimeError:
+            continue
+        return call, backend.name
+    raise AssertionError(f"no pinned SDPA backend ran for {q.dtype}")
 
 
 def phase_timing(dev):
+    """[4] the forward kernel, its plain version and pinned SDPA at the
+    serving shape (causal and not) and at BERT's (non-causal)."""
     import torch
-    import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import flash_attention as fa
 
-    B, H, T, D = SHAPE
+    cases = [(SHAPE, True), (SHAPE, False), (BERT_SHAPE, False)]
     for dtype in (torch.float32, torch.bfloat16):
-        for causal in (True, False):
+        for shape, causal in cases:
             g = torch.Generator(device=dev).manual_seed(SEED)
-            q, k, v = (torch.randn(SHAPE, device=dev, generator=g).to(dtype)
+            q, k, v = (torch.randn(shape, device=dev, generator=g).to(dtype)
                        for _ in range(3))
             name = str(dtype).split(".")[1]
             ms = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal), 50)
             plain = cuda_ms(
                 lambda: fa.flash_attention_plain(q, k, v, causal), 5, 1)
-            lib, lo, hi = cuda_ms_spread(
-                lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=causal), 20)
-            bound, by = flash_bound(B, H, T, D, causal, name)
-            log(f"  {SHAPE} {name:8s} causal={causal!s:5s}  kernel "
-                f"{ms:.4f} ms  plain {plain:.4f} ms  sdpa {lib:.4f} ms "
-                f"(median of 5, {lo:.4f}-{hi:.4f})  "
+            sdpa, backend = sdpa_pinned(q, k, v, causal)
+            lib, lo, hi = cuda_ms_spread(sdpa, 20)
+            bound, by = flash_bound(*shape, causal, name)
+            log(f"  {shape} {name:8s} causal={causal!s:5s}  kernel "
+                f"{ms:.4f} ms  plain {plain:.4f} ms  sdpa[{backend}] "
+                f"{lib:.4f} ms (median of 5, {lo:.4f}-{hi:.4f})  "
                 f"bound {bound:.4f} ms ({by})  kernel/bound "
                 f"{ms / bound:.1f}x")
+            del q, k, v
 
 
 def bwd_magnitudes(q, k, v, o, lse, do, causal):
@@ -375,106 +429,113 @@ def phase_bwd_kernels(dev):
 
     from mxnet_tpu_torch.ops import flash_attention as fa
 
-    B, H, T0, D = TRAIN_SHAPE
+    ragged = TRAIN_SHAPE[:2] + (1000, TRAIN_SHAPE[3])
+    cases = [(TRAIN_SHAPE, True), (TRAIN_SHAPE, False), (ragged, True),
+             (BERT_SHAPE, False)]
     results = {}
-    for T in (T0, 1000):
+    for shape, causal in cases:
+        T = shape[2]
         for dtype in (torch.float32, torch.bfloat16):
-            for causal in ((True, False) if T == T0 else (True,)):
-                name = str(dtype).split(".")[1]
-                g = torch.Generator(device=dev).manual_seed(SEED + 7 + T)
-                q, k, v, do = (torch.randn((B, H, T, D), device=dev,
-                                           generator=g).to(dtype)
-                               for _ in range(4))
-                o, lse = fa.flash_attention_fwd(q, k, v, causal)
-                o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal)
-                got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
-                want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
-                                                    causal)
-                torch.cuda.synchronize()
-                rtol, atol = BWD_TOL[name]
-                note = f"rtol {rtol:.2e} atol {atol:.0e}"
-                mags = (bwd_magnitudes(q, k, v, o, lse, do, causal)
-                        if dtype == torch.bfloat16 else (0.0,) * 3)
-                if dtype == torch.bfloat16:
-                    note += " + 2^-7 * sum|term|"
-                line, ok = [], True
-                for gname, a, b, m in zip(("dQ", "dK", "dV"), got, want,
-                                          mags):
-                    tol_a = atol + BF16_STEP * m \
-                        if dtype == torch.bfloat16 else atol
-                    e_abs, e_rel, ratio = errors(a, b, rtol, tol_a)
-                    ok &= ratio <= 1 and bool(torch.isfinite(a.float()).all())
-                    line.append(f"{gname} max abs {e_abs:.3e} rel "
-                                f"{e_rel:.3e} err/tol {ratio:.3f}")
-                    results[(gname, T, name, causal)] = e_abs
-                del mags
-                f_abs = float((o.float() - o_ref.float()).abs().max())
-                l_abs = float((lse - lse_ref).abs().max())
-                results[("O", T, name, causal)] = f_abs
-                log(f"  T={T} {name:8s} causal={causal!s:5s}  "
-                    + "; ".join(line) + f"  ({note}); forward O max abs "
-                    f"{f_abs:.3e}, LSE {l_abs:.3e}")
-                if not ok:
-                    raise AssertionError(
-                        f"backward kernels disagree with their plain version "
-                        f"at T={T} {name} causal={causal}")
-                del q, k, v, do, o, lse, o_ref, lse_ref, got, want
-                torch.cuda.empty_cache()
+            name = str(dtype).split(".")[1]
+            g = torch.Generator(device=dev).manual_seed(SEED + 7 + T)
+            q, k, v, do = (torch.randn(shape, device=dev,
+                                       generator=g).to(dtype)
+                           for _ in range(4))
+            o, lse = fa.flash_attention_fwd(q, k, v, causal)
+            o_ref, lse_ref = fa.flash_attention_plain(q, k, v, causal)
+            got = fa.flash_attention_bwd(q, k, v, o, lse, do, causal)
+            want = fa.flash_attention_bwd_plain(q, k, v, o, lse, do,
+                                                causal)
+            torch.cuda.synchronize()
+            rtol, atol = BWD_TOL[name]
+            note = f"rtol {rtol:.2e} atol {atol:.0e}"
+            mags = (bwd_magnitudes(q, k, v, o, lse, do, causal)
+                    if dtype == torch.bfloat16 else (0.0,) * 3)
+            if dtype == torch.bfloat16:
+                note += " + 2^-7 * sum|term|"
+            line, ok = [], True
+            for gname, a, b, m in zip(("dQ", "dK", "dV"), got, want,
+                                      mags):
+                tol_a = atol + BF16_STEP * m \
+                    if dtype == torch.bfloat16 else atol
+                e_abs, e_rel, ratio = errors(a, b, rtol, tol_a)
+                ok &= ratio <= 1 and bool(torch.isfinite(a.float()).all())
+                line.append(f"{gname} max abs {e_abs:.3e} rel "
+                            f"{e_rel:.3e} err/tol {ratio:.3f}")
+                results[(gname, T, name, causal)] = e_abs
+            del mags
+            f_abs = float((o.float() - o_ref.float()).abs().max())
+            l_abs = float((lse - lse_ref).abs().max())
+            results[("O", T, name, causal)] = f_abs
+            log(f"  {shape} {name:8s} causal={causal!s:5s}  "
+                + "; ".join(line) + f"  ({note}); forward O max abs "
+                f"{f_abs:.3e}, LSE {l_abs:.3e}")
+            if not ok:
+                raise AssertionError(
+                    f"backward kernels disagree with their plain version "
+                    f"at {shape} {name} causal={causal}")
+            del q, k, v, do, o, lse, o_ref, lse_ref, got, want
+            torch.cuda.empty_cache()
     return results
 
 
 def phase_bwd_timing(dev):
     """[4b] each backward kernel, the plain backward, the bounds and the
-    SDPA backward yardstick, plus the forward at the training shape."""
+    pinned SDPA backward yardstick, plus the forward, at the training
+    shape (causal) and at BERT's (non-causal).  Returns the numbers by
+    (shape, dtype name)."""
     import torch
-    import torch.nn.functional as F
 
     from mxnet_tpu_torch.ops import flash_attention as fa
 
-    B, H, T, D = TRAIN_SHAPE
     rows = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        name = str(dtype).split(".")[1]
-        g = torch.Generator(device=dev).manual_seed(SEED + 11)
-        q, k, v, do = (torch.randn(TRAIN_SHAPE, device=dev,
-                                   generator=g).to(dtype) for _ in range(4))
-        o, lse = fa.flash_attention_fwd(q, k, v, True)
-        _, delta = fa.flash_attention_dq(q, k, v, o, lse, do, True)
-        t_fwd = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, True), 20)
-        t_dq = cuda_ms(lambda: fa.flash_attention_dq(q, k, v, o, lse, do,
-                                                     True), 20)
-        t_dkv = cuda_ms(lambda: fa.flash_attention_dkv(q, k, v, lse, do,
-                                                       delta, True), 20)
-        plain_fwd = cuda_ms(lambda: fa.flash_attention_plain(q, k, v, True),
-                            3, 1)
-        plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(
-            q, k, v, o, lse, do, True), 3, 1)
-        lib_fwd, *fwd_spread = cuda_ms_spread(
-            lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True),
-            20)
-        qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
-        out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-        lib_bwd, *bwd_spread = cuda_ms_spread(lambda: torch.autograd.grad(
-            out, (qg, kg, vg), do, retain_graph=True), 20)
-        b = {fn: flash_bound(B, H, T, D, True, name, fn)
-             for fn in ("fwd", "dq", "dkv", "bwd")}
-        rows[name] = {"fwd": t_fwd, "dq": t_dq, "dkv": t_dkv,
-                      "plain_fwd": plain_fwd, "plain_bwd": plain_bwd,
-                      "lib_fwd": lib_fwd, "lib_bwd": lib_bwd, "bound": b}
-        log(f"  {TRAIN_SHAPE} {name:8s} causal  dQ kernel {t_dq:.4f} ms "
-            f"(bound {b['dq'][0]:.4f}, {b['dq'][1]})  dK/dV kernel "
-            f"{t_dkv:.4f} ms (bound {b['dkv'][0]:.4f}, {b['dkv'][1]})  sum "
-            f"{t_dq + t_dkv:.4f} ms against the backward's bound "
-            f"{b['bwd'][0]:.4f} ms ({b['bwd'][1]}; sum/bound "
-            f"{(t_dq + t_dkv) / b['bwd'][0]:.1f}x)  plain backward "
-            f"{plain_bwd:.4f} ms  sdpa backward {lib_bwd:.4f} ms (median "
-            f"of 5, {bwd_spread[0]:.4f}-{bwd_spread[1]:.4f})")
-        log(f"  {TRAIN_SHAPE} {name:8s} causal  forward kernel {t_fwd:.4f} "
-            f"ms (bound {b['fwd'][0]:.4f}, {b['fwd'][1]})  plain "
-            f"{plain_fwd:.4f} ms  sdpa {lib_fwd:.4f} ms (median of 5, "
-            f"{fwd_spread[0]:.4f}-{fwd_spread[1]:.4f})")
-        del q, k, v, do, o, lse, delta, qg, kg, vg, out
-        torch.cuda.empty_cache()
+    for shape, causal in ((TRAIN_SHAPE, True), (BERT_SHAPE, False)):
+        mask = "causal" if causal else "non-causal"
+        for dtype in (torch.float32, torch.bfloat16):
+            name = str(dtype).split(".")[1]
+            g = torch.Generator(device=dev).manual_seed(SEED + 11)
+            q, k, v, do = (torch.randn(shape, device=dev,
+                                       generator=g).to(dtype)
+                           for _ in range(4))
+            o, lse = fa.flash_attention_fwd(q, k, v, causal)
+            _, delta = fa.flash_attention_dq(q, k, v, o, lse, do, causal)
+            t_fwd = cuda_ms(lambda: fa.flash_attention_fwd(q, k, v, causal),
+                            20)
+            t_dq = cuda_ms(lambda: fa.flash_attention_dq(
+                q, k, v, o, lse, do, causal), 20)
+            t_dkv = cuda_ms(lambda: fa.flash_attention_dkv(
+                q, k, v, lse, do, delta, causal), 20)
+            plain_fwd = cuda_ms(
+                lambda: fa.flash_attention_plain(q, k, v, causal), 3, 1)
+            plain_bwd = cuda_ms(lambda: fa.flash_attention_bwd_plain(
+                q, k, v, o, lse, do, causal), 3, 1)
+            sdpa, backend = sdpa_pinned(q, k, v, causal)
+            lib_fwd, *fwd_spread = cuda_ms_spread(sdpa, 20)
+            qg, kg, vg = (x.detach().requires_grad_() for x in (q, k, v))
+            out = sdpa_pinned(qg, kg, vg, causal)[0]()
+            lib_bwd, *bwd_spread = cuda_ms_spread(lambda: torch.autograd.grad(
+                out, (qg, kg, vg), do, retain_graph=True), 20)
+            b = {fn: flash_bound(*shape, causal, name, fn)
+                 for fn in ("fwd", "dq", "dkv", "bwd")}
+            rows[(shape, name)] = {
+                "fwd": t_fwd, "dq": t_dq, "dkv": t_dkv,
+                "plain_fwd": plain_fwd, "plain_bwd": plain_bwd,
+                "lib_fwd": lib_fwd, "lib_bwd": lib_bwd, "bound": b,
+                "sdpa_backend": backend}
+            log(f"  {shape} {name:8s} {mask}  dQ kernel {t_dq:.4f} ms "
+                f"(bound {b['dq'][0]:.4f}, {b['dq'][1]})  dK/dV kernel "
+                f"{t_dkv:.4f} ms (bound {b['dkv'][0]:.4f}, {b['dkv'][1]})  "
+                f"sum {t_dq + t_dkv:.4f} ms against the backward's bound "
+                f"{b['bwd'][0]:.4f} ms ({b['bwd'][1]}; sum/bound "
+                f"{(t_dq + t_dkv) / b['bwd'][0]:.1f}x)  plain backward "
+                f"{plain_bwd:.4f} ms  sdpa[{backend}] backward {lib_bwd:.4f} "
+                f"ms (median of 5, {bwd_spread[0]:.4f}-{bwd_spread[1]:.4f})")
+            log(f"  {shape} {name:8s} {mask}  forward kernel {t_fwd:.4f} "
+                f"ms (bound {b['fwd'][0]:.4f}, {b['fwd'][1]})  plain "
+                f"{plain_fwd:.4f} ms  sdpa[{backend}] {lib_fwd:.4f} ms "
+                f"(median of 5, {fwd_spread[0]:.4f}-{fwd_spread[1]:.4f})")
+            del q, k, v, do, o, lse, delta, qg, kg, vg, out
+            torch.cuda.empty_cache()
     return rows
 
 
@@ -732,7 +793,9 @@ def phase_train(dev, card):
     if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
         raise AssertionError(f"training did not lower the loss: {losses}")
 
-    # (iv) the model cast to bf16: three finite steps
+    # (iv) the model cast to bf16: three finite steps, then one under the
+    # profiler (its FFN products run as bf16 GEMMs since ops/nn.py's
+    # fully_connected keeps the stream dtype)
     bf = gpt.gpt2_small(scan_layers=True, attention_impl="flash",
                         dropout=0.0)
     convert.load_state(bf, state)
@@ -742,16 +805,25 @@ def phase_train(dev, card):
     before = _counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    bl = [float(btr.step(ids, ids)) for _ in range(3)]
+    bl = [float(btr.step(ids, ids))]
     torch.cuda.synchronize()
-    bms = (time.perf_counter() - t0) / 3 * 1e3
+    t1 = time.perf_counter()
+    bl += [float(btr.step(ids, ids)) for _ in range(2)]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    bms = (t2 - t0) / 3 * 1e3
+    bms_warm = (t2 - t1) / 2 * 1e3
     dtypes = {p.dtype for p in bf.parameters()}
     after = _counts()
     log(f"  (iv) bf16: losses {[round(x, 4) for x in bl]}, {bms:.2f} ms per "
-        f"step (first included), parameters {sorted(map(str, dtypes))}, "
-        f"kernel launches {({k: after[k] - before[k] for k in after})}")
+        f"step (first included), {bms_warm:.2f} ms per step (steps 2-3), "
+        f"{B * T / bms_warm * 1e3:.0f} tokens/s, parameters "
+        f"{sorted(map(str, dtypes))}, kernel launches "
+        f"{({k: after[k] - before[k] for k in after})}  [{card}]")
     if not (all(np.isfinite(bl)) and dtypes == {torch.bfloat16}):
         raise AssertionError(f"bf16 training failed: {bl}, {dtypes}")
+    profile_steps(lambda: btr.step(ids, ids), 1,
+                  f"(iv) one bf16 step at B={B}, T={T}", card, top=8)
     del bf, btr
     torch.cuda.empty_cache()
 
@@ -770,12 +842,146 @@ def phase_train(dev, card):
     return launches, ms
 
 
+def _bert_loss_and_grads(model, tokens, labels):
+    """The pretraining loss and every parameter's gradient, in training
+    mode (no dropout here, so deterministic)."""
+    import torch
+
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    model.train()
+    try:
+        loss = bert.BERTPretrainLoss()(model(tokens), labels)
+        names, params = zip(*model.named_parameters())
+        grads = torch.autograd.grad(loss, params)
+    finally:
+        model.eval()
+    return float(loss.detach()), dict(zip(names, grads))
+
+
+def phase_bert(dev, card):
+    """[8] BERT-base pretraining at bench_bert's configuration: (i) the
+    flash trunk's f32 loss and gradients against a dense trunk's at B=2;
+    (iv) the bf16 model's outputs and loss against the f32 ones at B=2;
+    (ii) one bf16 step of the bench's path launches each flash kernel once
+    per layer; (v) three bf16 steps under torch.profiler; (iii)
+    tools.bench_bert.run at B=32, T=512 for BERT_STEPS timed steps.
+    Returns the launches of (ii) and the bench's result."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.tools import bench_bert
+
+    B, T = BERT_BATCH, BERT_SEQ
+    # (i) N(0, 0.02) weights (Xavier's stacked-trunk scale, ~0.002, leaves
+    # attention uniform to 0.1% and would hide the attention gradients)
+    flash = bert.bert_base(dropout=0.0, max_length=T, scan_layers=True,
+                           attention_impl="flash")
+    if flash.word_embed_weight.device != dev:
+        raise AssertionError(f"bert_base() landed on "
+                             f"{flash.word_embed_weight.device}, not {dev}")
+    flash.initialize(initializer.Normal(0.02),
+                     torch.Generator(device=dev).manual_seed(SEED + 31))
+    dense = bert.bert_base(dropout=0.0, max_length=T, scan_layers=True,
+                           attention_impl="dense")
+    dense.load_state_dict(flash.state_dict())
+    tokens, mlm, nsp = bench_bert.make_data(2, T, flash._vocab, dev, seed=1)
+    lf, gf = _bert_loss_and_grads(flash, tokens, (mlm, nsp))
+    ld, gd = _bert_loss_and_grads(dense, tokens, (mlm, nsp))
+    worst = max(((float((gf[n] - gd[n]).norm() / gd[n].norm()), n)
+                 for n in gd), key=lambda x: x[0])
+    finite = all(bool(torch.isfinite(g).all()) for g in gf.values())
+    tied = float((gf["word_embed_weight"] - gd["word_embed_weight"]).norm()
+                 / gd["word_embed_weight"].norm())
+    log(f"  (i) f32 B=2 T={T} loss flash {lf:.6f} dense {ld:.6f} (rel diff "
+        f"{abs(lf - ld) / abs(ld):.2e}, tol {LOSS_RTOL:.0e}); largest "
+        f"per-parameter gradient rel L2 error {worst[0]:.3e} ({worst[1]}; "
+        f"tol {GRAD_REL_L2:.0e}) over {len(gd)} parameters, the tied "
+        f"word_embed_weight's {tied:.3e}; finite {finite}")
+    if not (abs(lf - ld) <= LOSS_RTOL * abs(ld) and worst[0] <= GRAD_REL_L2
+            and finite):
+        raise AssertionError("BERT's flash trunk: loss or gradients disagree "
+                             "with the dense trunk's")
+    del gf, gd, dense
+    torch.cuda.empty_cache()
+
+    # (iv) bf16 against f32 on the same weights.  Each output is held at
+    # 0.05 max|f32| (tests/test_model_zoo.py's bf16 tolerance).  The loss
+    # then follows: per token |d(lse(z) - z_y)| <= 2 max_j |d z_j| (lse is
+    # 1-Lipschitz in the max norm), and a mean keeps the bound, so
+    # |d loss| <= 2 tol_mlm + 2 tol_nsp, plus LOSS_RTOL for the f32 sums.
+    bf = copy.deepcopy(flash).cast("bfloat16")
+    with torch.inference_mode():
+        ref, got = flash(tokens), bf(tokens)
+        loss32 = float(bert.BERTPretrainLoss()(ref, (mlm, nsp)))
+        loss16 = float(bert.BERTPretrainLoss()(got, (mlm, nsp)))
+    worst_ratio, tols = 0.0, {}
+    for name, a, b in zip(("seq", "pooled", "nsp", "mlm"), got, ref):
+        tols[name] = 0.05 * float(b.abs().max())
+        err = float((a.float() - b).abs().max())
+        worst_ratio = max(worst_ratio, err / tols[name])
+        log(f"  (iv) bf16 vs f32 {name} {tuple(a.shape)}: max abs err "
+            f"{err:.3e} (tol 0.05 max|f32| = {tols[name]:.3e})")
+    loss_tol = 2 * tols["mlm"] + 2 * tols["nsp"] + LOSS_RTOL * abs(loss32)
+    log(f"  (iv) first-step loss bf16 {loss16:.6f} f32 {loss32:.6f}: diff "
+        f"{abs(loss16 - loss32):.3e} (tol 2 tol_mlm + 2 tol_nsp + 1e-5 "
+        f"|loss| = {loss_tol:.3e})")
+    if not (worst_ratio <= 1 and abs(loss16 - loss32) <= loss_tol
+            and np.isfinite(loss16)):
+        raise AssertionError("bf16 BERT disagrees with f32")
+    del flash, bf, ref, got
+    torch.cuda.empty_cache()
+
+    # (ii) one step of the bench's path (bf16): each kernel once per layer
+    trainer, btok, blabels = bench_bert.build(B, T, "flash", "bfloat16")
+    L = trainer.block.encoder._num_layers
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    first = float(trainer.step(btok, blabels))
+    launches = _counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  (ii) one bf16 ShardedTrainer.step at B={B}, T={T}: loss "
+        f"{first:.4f}, launches {launches} (want {L} each); peak device "
+        f"memory {peak:.2f} GiB")
+    if any(n != L for n in launches.values()):
+        raise AssertionError("a BERT step did not launch each flash kernel "
+                             "once per layer")
+
+    # (v) where a bf16 step's device time goes
+    for _ in range(2):
+        trainer.step(btok, blabels)
+    profile_steps(lambda: trainer.step(btok, blabels), 3,
+                  f"(v) 3 bf16 BERT steps at B={B}, T={T}", card)
+    del trainer, btok, blabels
+    torch.cuda.empty_cache()
+
+    # (iii) the bench
+    res = bench_bert.run(B, T, BERT_STEPS)
+    mfu = res["mfu"]
+    log(f"  (iii) bench_bert.run: loss {[round(x, 4) for x in res['losses']]}"
+        f" (2 warm-up + {BERT_STEPS} timed); {res['ms_per_step']:.2f} ms per "
+        f"step, {res['value']:.0f} tokens/s, mfu "
+        f"{'null' if mfu is None else format(mfu, '.4f')}, peak device memory "
+        f"{res['peak_mem_gib']:.2f} GiB  [{res['nvidia_smi']}]")
+    log("  (iii) " + json.dumps(res))
+    losses = res["losses"]
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError(f"the BERT bench failed: {losses}")
+    return launches, res
+
+
 # kernel-name fragments -> family, first match wins
 FAMILIES = (("axpy", "rtc axpy kernel"), ("scale2", "rtc scale2 kernel"),
             ("flash_dq", "flash dQ kernel"),
             ("flash_dkv", "flash dK/dV kernel"),
             ("flash_fwd", "flash forward kernel"),
             ("gemm", "GEMM"), ("gemv", "GEMM"), ("cutlass", "GEMM"),
+            ("nvjet", "GEMM"),
             ("softmax", "softmax / log-softmax"),
             ("reduce", "reductions"), ("elementwise", "elementwise"),
             ("vectorized", "elementwise"), ("index", "gather / scatter"),
@@ -1180,7 +1386,7 @@ def main():
         f"{ {k: round(v, 4) for k, v in nvrtc_s.items()} }")
 
     log("[3] forward kernel against its plain version")
-    phase_kernels(dev)
+    fwd_errs = phase_kernels(dev)
 
     log("[3b] backward kernels against their plain version")
     bwd_errs = phase_bwd_kernels(dev)
@@ -1199,43 +1405,6 @@ def main():
         "full width")
     train_launches, step_ms = phase_train(dev, card)
 
-    f32, bf16 = bwd_rows["float32"], bwd_rows["bfloat16"]
-    T0 = TRAIN_SHAPE[2]
-    sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
-                       ":78", "lib_fwd", "plain_fwd"),
-               "dq": ("flash_attention_dq", "flash_attention_bwd.cu", ":190",
-                      "lib_bwd", "plain_bwd"),
-               "dkv": ("flash_attention_dkv", "flash_attention_bwd.cu",
-                       ":241", "lib_bwd", "plain_bwd")}
-    errs_by = {"fwd": bwd_errs[("O", T0, "float32", True)],
-               "dq": bwd_errs[("dQ", T0, "float32", True)],
-               "dkv": max(bwd_errs[("dK", T0, "float32", True)],
-                          bwd_errs[("dV", T0, "float32", True)])}
-    kernels = {"kernels": [{
-        "name": name,
-        "route": "cuda",
-        "source": f"mxnet_tpu_torch/csrc/{src}",
-        "replaces": f"mxnet_tpu/ops/pallas_attention.py{line}",
-        "launches": train_launches[name],
-        "max_abs_err": errs_by[fn],
-        "ms": f32[fn],
-        "plain_ms": f32[plain],
-        "bound_ms": f32["bound"][fn][0],
-        "bound_by": f32["bound"][fn][1],
-        "library_ms": f32[lib],
-        "ms_bf16": bf16[fn],
-        "bound_ms_bf16": bf16["bound"][fn][0],
-        "bound_by_bf16": bf16["bound"][fn][1],
-        "library_ms_bf16": bf16[lib],
-        "plain_ms_bf16": bf16[plain],
-        "shape": f"{TRAIN_SHAPE} causal (float32; *_bf16: bfloat16)",
-        "launches_by_path": ({"generate": gen_launches,
-                              "train_step": train_launches[name]}
-                             if fn == "fwd" else
-                             {"train_step": train_launches[name]}),
-        "plain_and_library_cover": ("the forward" if fn == "fwd" else
-                                    "the whole backward (dQ, dK, dV)"),
-    } for fn, (name, src, line, lib, plain) in sources.items()]}
     log("[5f] where a training step's device time goes (torch.profiler)")
     phase_profile(dev, card)
 
@@ -1246,6 +1415,61 @@ def main():
     log("[7b] runtime-compiled kernels (rtc.CudaModule) against their plain "
         "versions")
     rt = phase_rtc(dev, card, s2, ax)
+
+    log("[8] BERT-base pretraining path: bert_base, flash trunk, bf16, "
+        "ShardedTrainer on a one-device mesh, bench_bert's configuration")
+    bert_launches, bert_res = phase_bert(dev, card)
+
+    T0, Tb = TRAIN_SHAPE[2], BERT_SHAPE[2]
+    sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
+                       ":78", "lib_fwd", "plain_fwd"),
+               "dq": ("flash_attention_dq", "flash_attention_bwd.cu", ":190",
+                      "lib_bwd", "plain_bwd"),
+               "dkv": ("flash_attention_dkv", "flash_attention_bwd.cu",
+                       ":241", "lib_bwd", "plain_bwd")}
+
+    def errs_by(fn, T, dtype, causal):
+        if fn == "fwd":
+            return bwd_errs[("O", T, dtype, causal)]
+        if fn == "dq":
+            return bwd_errs[("dQ", T, dtype, causal)]
+        return max(bwd_errs[("dK", T, dtype, causal)],
+                   bwd_errs[("dV", T, dtype, causal)])
+
+    def numbers(fn, lib, plain, shape, T, causal):
+        f32, bf16 = bwd_rows[(shape, "float32")], bwd_rows[(shape, "bfloat16")]
+        return {
+            "max_abs_err": errs_by(fn, T, "float32", causal),
+            "ms": f32[fn], "plain_ms": f32[plain],
+            "bound_ms": f32["bound"][fn][0], "bound_by": f32["bound"][fn][1],
+            "library_ms": f32[lib],
+            "max_abs_err_bf16": errs_by(fn, T, "bfloat16", causal),
+            "ms_bf16": bf16[fn], "plain_ms_bf16": bf16[plain],
+            "bound_ms_bf16": bf16["bound"][fn][0],
+            "bound_by_bf16": bf16["bound"][fn][1],
+            "library_ms_bf16": bf16[lib],
+            "sdpa_backend": f32["sdpa_backend"],
+            "sdpa_backend_bf16": bf16["sdpa_backend"],
+        }
+
+    kernels = {"kernels": [{
+        "name": name,
+        "route": "cuda",
+        "source": f"mxnet_tpu_torch/csrc/{src}",
+        "replaces": f"mxnet_tpu/ops/pallas_attention.py{line}",
+        "launches": train_launches[name],
+        **numbers(fn, lib, plain, TRAIN_SHAPE, T0, True),
+        "shape": f"{TRAIN_SHAPE} causal (float32; *_bf16: bfloat16)",
+        "at_bert_shape": dict(
+            numbers(fn, lib, plain, BERT_SHAPE, Tb, False),
+            shape=f"{BERT_SHAPE} non-causal"),
+        "launches_by_path": dict(
+            {"generate": gen_launches} if fn == "fwd" else {},
+            train_step=train_launches[name],
+            bert_train_step=bert_launches[name]),
+        "plain_and_library_cover": ("the forward" if fn == "fwd" else
+                                    "the whole backward (dQ, dK, dV)"),
+    } for fn, (name, src, line, lib, plain) in sources.items()]}
     rtc_launches = {"rtc_scale2": {"rtc_path": rt["path"]["rtc_scale2"]},
                     "rtc_axpy": {"imperative_sgd": reg["launches"],
                                  "rtc_path": rt["path"]["rtc_axpy"]}}
@@ -1275,7 +1499,10 @@ def main():
 
     log(f"[6] done in {time.perf_counter() - t_start:.1f} s "
         f"(train step {step_ms:.2f} ms; imperative step "
-        f"{reg['ms_step']:.3f} ms)")
+        f"{reg['ms_step']:.3f} ms; BERT bf16 step "
+        f"{bert_res['ms_per_step']:.2f} ms, forward O max abs err at BERT's "
+        f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
+        f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")
     log(json.dumps(kernels))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -79,8 +79,7 @@ class Context:
 
     @classmethod
     def default_ctx(cls):
-        stack = cls._stack.stack
-        return stack[-1] if stack else gpu(0)
+        return scoped_context() or gpu(0)
 
 
 def cpu(device_id: int = 0) -> Context:
@@ -92,6 +91,12 @@ def cpu(device_id: int = 0) -> Context:
 def gpu(device_id: int = 0) -> Context:
     """CUDA card ``device_id``; raises MXNetError when it is absent."""
     return Context("gpu", device_id)
+
+
+def scoped_context():
+    """The innermost ``with ctx:`` scope, or None when none is open."""
+    stack = Context._stack.stack
+    return stack[-1] if stack else None
 
 
 def current_context() -> Context:

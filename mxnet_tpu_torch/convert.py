@@ -1,6 +1,6 @@
-"""Carry a GPT model's weights from the JAX package into the port.
+"""Carry a GPT or BERT model's weights from the JAX package into the port.
 
-Both loaders take numpy arrays only (the port never imports JAX), check
+The loaders take numpy arrays only (the port never imports JAX), check
 every entry before copying any, and raise on a missing, duplicate or
 mis-shaped entry, so a model is never left half loaded.
 
@@ -12,6 +12,8 @@ mis-shaped entry, so a model is never left half loaded.
   ``mxnet_tpu.gluon.model_zoo.gpt.extract_decoder_stacks`` returns, which
   covers the per-layer trunk too: its LayerNorm names (``layernorm0_...``)
   cannot be told apart by suffix.
+- ``load_bert_params`` takes the flat ``{name: np.ndarray}`` of a JAX
+  ``BERTModel``'s ``collect_params()``, either trunk layout.
 """
 
 from __future__ import annotations
@@ -37,14 +39,23 @@ def _targets(model):
 def as_tensor(arr, name, what):
     """A float32 host tensor holding a copy of a numpy array (float32
     first: numpy has no native bfloat16 for torch to take)."""
-    if not isinstance(arr, np.ndarray):
-        raise TypeError(f"{what}: {name!r} is a {type(arr).__name__}, "
-                        f"expected a numpy array")
+    _check_array(arr, name, what)
     return torch.from_numpy(np.array(arr, np.float32))
 
 
+def _check_array(arr, name, what):
+    if not isinstance(arr, np.ndarray):
+        raise TypeError(f"{what}: {name!r} is a {type(arr).__name__}, "
+                        f"expected a numpy array")
+
+
 def _assign(model, arrays, what):
-    targets = _targets(model)
+    _copy_checked(_targets(model), arrays, what)
+
+
+def _copy_checked(targets, arrays, what):
+    """Copy ``arrays[name]`` into each ``targets[name]`` parameter after
+    checking every shape."""
     tensors = {}
     for name, param in targets.items():
         t = tensors[name] = as_tensor(arrays[name], name, what)
@@ -95,3 +106,87 @@ def load_stacks(model, stacks, lnf, tok, pos):
     arrays = dict(stacks, lnf_gamma=lnf[0], lnf_beta=lnf[1],
                   tok_embed_weight=tok, pos_embed_weight=pos)
     _assign(model, arrays, "load_stacks")
+
+
+#: the port BERTModel's parameter names that differ from the JAX
+#: model's, which follow the model's prefix (``bertmodel0_``); the Gluon
+#: LayerNorms are numbered in creation order (``embed_ln`` first)
+BERT_NAMES = {
+    "embed_ln.gamma": "layernorm0_gamma",
+    "embed_ln.beta": "layernorm0_beta",
+    "decoder_ln.gamma": "layernorm1_gamma",
+    "decoder_ln.beta": "layernorm1_beta",
+    "pooler.weight": "pooler_weight",
+    "pooler.bias": "pooler_bias",
+    "nsp_classifier.weight": "nsp_weight",
+    "nsp_classifier.bias": "nsp_bias",
+    "decoder_transform.weight": "dec_transform_weight",
+    "decoder_transform.bias": "dec_transform_bias",
+}
+#: a per-layer (``scan_layers=False``) trunk's names for a stack's slice i
+#: (``enc_layer{i}_`` + name) and for the final LayerNorm (``enc_`` + name)
+_LAYER_NAMES = {"ln1_stack_gamma": "layernorm0_gamma",
+                "ln1_stack_beta": "layernorm0_beta",
+                "ln2_stack_gamma": "layernorm1_gamma",
+                "ln2_stack_beta": "layernorm1_beta",
+                "lnf_gamma": "layernorm0_gamma",
+                "lnf_beta": "layernorm0_beta"}
+
+
+def _bert_keys(name, prefix, per_layer, num_layers):
+    """The JAX names that make up port parameter ``name``: one, or a
+    per-layer trunk's ``num_layers`` slices of a stack."""
+    if not name.startswith("encoder."):
+        return [prefix + BERT_NAMES.get(name, name)]
+    short = name[len("encoder."):]
+    if not per_layer:
+        return [prefix + "enc_" + short]
+    if short.startswith("lnf_"):
+        return [prefix + "enc_" + _LAYER_NAMES[short]]
+    layer = _LAYER_NAMES.get(short, short.replace("_stack", ""))
+    return [f"{prefix}enc_layer{i}_{layer}" for i in range(num_layers)]
+
+
+def load_bert_params(model, params):
+    """Load a JAX ``BERTModel``'s ``{name: np.ndarray}`` (its
+    ``collect_params()`` as numpy) into a port ``BERTModel``.  The JAX
+    model's prefix is read off its one ``*word_embed_weight`` entry; every
+    port parameter then takes the entry of the JAX name after that prefix
+    (``BERT_NAMES``), a per-layer trunk's ``enc_layer{i}_*`` entries
+    stacked into the ``*_stack_*`` tensors.  Raises on a missing,
+    duplicate, mis-shaped or unused entry under the prefix before copying
+    anything."""
+    what = "load_bert_params"
+    roots = [k for k in params if k.endswith("word_embed_weight")]
+    if len(roots) != 1:
+        raise MXNetError(f"{what}: want one entry ending 'word_embed_weight', "
+                         f"found {sorted(roots)}")
+    prefix = roots[0][:-len("word_embed_weight")]
+    per_layer = prefix + "enc_qkv_stack_weight" not in params
+    num_layers = model.encoder._num_layers
+    if per_layer and prefix + "enc_layer0_qkv_weight" not in params:
+        raise MXNetError(f"{what}: no trunk under {prefix + 'enc_'!r} "
+                         f"(neither a scanned nor a per-layer encoder)")
+    targets = dict(model.named_parameters())
+    arrays, used = {}, set()
+    for name in targets:
+        keys = _bert_keys(name, prefix, per_layer, num_layers)
+        missing = [k for k in keys if k not in params]
+        if missing:
+            raise MXNetError(f"{what}: {name!r} wants {missing}, not given")
+        for k in keys:
+            _check_array(params[k], k, what)
+        stacked = per_layer and name.startswith("encoder.") \
+            and not name.startswith("encoder.lnf_")
+        if stacked and len({params[k].shape for k in keys}) > 1:
+            raise MXNetError(f"{what}: the layers of {name!r} differ in "
+                             f"shape: {[params[k].shape for k in keys]}")
+        arrays[name] = (np.stack([params[k] for k in keys]) if stacked
+                        else params[keys[0]])
+        used.update(keys)
+    unused = sorted(k for k in params if k.startswith(prefix) and
+                    k not in used)
+    if unused:
+        raise MXNetError(f"{what}: entries the port model has no parameter "
+                         f"for: {unused}")
+    _copy_checked(targets, arrays, what)

@@ -22,7 +22,7 @@ from .. import random as _random
 from .flash_attention import flash_attention
 from .nn import activation as _activation
 from .nn import dropout as _dropout
-from .nn import layer_norm
+from .nn import fully_connected, layer_norm
 
 _NEG = -1e30
 
@@ -114,8 +114,9 @@ def scan_transformer_encoder(data, qkv_w, qkv_b, proj_w, proj_b, ffn1_w,
                              remat=False, training=False, generator=None):
     """Pre-LN transformer trunk over stacked (L, ...) per-layer
     parameters: one loop iteration per layer, then the final LayerNorm.
-    The FFN products run in f32 and are cast back to the stream's dtype,
-    as the JAX op's ``preferred_element_type``.  In ``training`` mode with
+    The FFN products are ``fully_connected``'s: operands in the stream's
+    dtype, an f32 accumulator, the result in the stream's dtype, as the
+    JAX op's ``preferred_element_type``.  In ``training`` mode with
     ``dropout`` the attention output and the FFN output of every layer are
     dropped (scaled by 1/keep), masks drawn from ``generator`` (default:
     ``random.current_generator``)."""
@@ -137,11 +138,9 @@ def scan_transformer_encoder(data, qkv_w, qkv_b, proj_w, proj_b, ffn1_w,
             attn = _dropout(attn, dropout, generator)
         x = x + attn
         h = layer_norm(x, ln2_g[i], ln2_b[i])
-        h = torch.matmul(h.float(), ffn1_w[i].float().t()).to(x.dtype) \
-            + ffn1_b[i]
+        h = fully_connected(h, ffn1_w[i], ffn1_b[i], flatten=False)
         h = _activation(h, activation)
-        h = torch.matmul(h.float(), ffn2_w[i].float().t()).to(x.dtype) \
-            + ffn2_b[i]
+        h = fully_connected(h, ffn2_w[i], ffn2_b[i], flatten=False)
         if use_drop:
             h = _dropout(h, dropout, generator)
         x = x + h

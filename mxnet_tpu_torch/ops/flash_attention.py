@@ -20,7 +20,10 @@ tiles.  On a CUDA tensor it launches the kernels through
 no fallback and no dense path for ragged lengths (the kernels mask a
 ragged tail themselves).  The kernels pick their own tiles, so
 ``block_q``/``block_k`` only tile the plain versions; they are checked on
-every device so a bad value fails the same way everywhere.
+every device so a bad value fails the same way everywhere.  The plain
+versions take any head dim D, as the JAX op does off the TPU; the kernels
+are instantiated for D in ``HEAD_DIMS``, and a launch at another D raises
+``MXNetError`` (no fallback to the plain version).
 
 TPU artifacts left behind: the 128-lane replication of m, l and D, the x8
 LSE padding (LSE is (B*H, T) f32 here), the 256-row VMEM cap on q tiles,
@@ -47,9 +50,6 @@ def _check(q, k, v):
             f"flash_attention: q, k, v must share one (B, H, T, D) shape "
             f"(Tq == Tk), got {tuple(q.shape)}, {tuple(k.shape)}, "
             f"{tuple(v.shape)}")
-    if q.shape[-1] not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {q.shape[-1]} not in "
-                         f"{HEAD_DIMS}")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention: q, k, v must all be float32 or "
                          f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
@@ -206,8 +206,14 @@ def _launch(name, fn, ptrs, q, causal, scale):
                          f"{(B, H, T, D)}, {q.dtype})")
 
 
-def _needs_cuda(name, *tensors):
-    for t in tensors:
+def _needs_cuda(name, q, *tensors):
+    """What a kernel launch needs: q's head dim one the kernels are built
+    for, and CUDA tensors, contiguous and 16-byte aligned."""
+    if q.shape[-1] not in HEAD_DIMS:
+        raise MXNetError(f"{name}: head dim {q.shape[-1]} has no kernel; "
+                         f"the kernels take D in {HEAD_DIMS} (the plain "
+                         f"version, which CPU tensors take, any D)")
+    for t in (q, *tensors):
         if t.device.type != "cuda":
             raise MXNetError(f"{name}: needs CUDA tensors, got {t.device}")
         if not t.is_contiguous() or t.data_ptr() % 16:

@@ -17,9 +17,11 @@ with the same arithmetic:
   own parameters in place, so the module always holds the trained weights;
 - the module's previous train/eval mode restored.
 
-Multi-device meshes, sharding rules and ``mode`` (tp/fsdp) come with the
-multi-GPU slice and raise ``NotImplementedError``; ``state_dict`` waits for
-the checkpoint slice.
+``mesh`` may be a ``parallel.Mesh`` of one device (``data_parallel_mesh(1)``,
+as the JAX package's bench passes), which must be the device the module's
+parameters live on.  Multi-device meshes, sharding rules and ``mode``
+(tp/fsdp) come with the multi-GPU slice and raise ``NotImplementedError``;
+``state_dict`` waits for the checkpoint slice.
 """
 
 from __future__ import annotations
@@ -31,6 +33,7 @@ import torch
 from .. import random as _random
 from ..base import MXNetError
 from ..ops import optimizer_op as _op
+from .mesh import Mesh
 
 
 class _PureOptimizer:
@@ -188,21 +191,26 @@ class ShardedTrainer:
                                           {'learning_rate': 3e-4})
         loss = trainer.step(x, y)     # forward, backward, update
 
-    ``mesh``, ``rules`` and ``mode`` must be None: the multi-GPU trainer
-    is a later slice."""
+    ``mesh`` is None or a ``Mesh`` of one device; ``rules`` and ``mode``
+    must be None: the multi-GPU trainer is a later slice.  Outputs and
+    labels may be tuples (BERT's four outputs, its two label arrays): they
+    reach ``loss_fn`` as they came."""
 
     def __init__(self, block, loss_fn, optimizer="sgd",
                  optimizer_params=None, mesh=None, rules=None,
                  batch_axis="dp", grad_accum=1, remat=None, mode=None):
-        if mesh is not None or rules is not None or mode is not None:
+        if rules is not None or mode is not None or not (
+                mesh is None or (isinstance(mesh, Mesh) and mesh.size == 1)):
             raise NotImplementedError(
-                "ShardedTrainer: meshes, sharding rules and tp/fsdp modes "
-                "are not ported yet; the port trains on one device")
+                "ShardedTrainer: meshes of more than one device, sharding "
+                "rules and tp/fsdp modes are not ported yet; the port "
+                "trains on one device")
         if remat:
             raise NotImplementedError("ShardedTrainer: rematerialisation is "
                                       "not ported yet")
         self.block = block
         self.loss_fn = loss_fn
+        self.mesh = mesh
         self.batch_axis = batch_axis
         opt_kwargs = dict(optimizer_params or {})
         lr = opt_kwargs.pop("learning_rate", opt_kwargs.pop("lr", 0.01))
@@ -223,6 +231,12 @@ class ShardedTrainer:
             raise MXNetError("ShardedTrainer: the block has no trainable "
                              "parameters")
         self._device = self._trainable[0][1].device
+        if self.mesh is not None:
+            (mesh_dev,) = self.mesh.devices.flat
+            if torch.device(mesh_dev) != self._device:
+                raise MXNetError(f"ShardedTrainer: the mesh holds "
+                                 f"{mesh_dev}, the block's parameters are on "
+                                 f"{self._device}")
         self._opt_state = self.optimizer.init_state(
             [p.detach() for _, p in self._trainable])
         self._wd_mults = [getattr(p, "wd_mult", 1.0)

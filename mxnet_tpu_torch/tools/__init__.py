@@ -1,2 +1,3 @@
-"""Scripts for the card: kernel tuning sweeps (run as modules, never
-imported by the package itself)."""
+"""Scripts for the card, run as modules and never imported by the package
+itself: the flash kernels' tile sweep (``sweep_flash_bwd``) and the BERT-base
+pretraining bench (``bench_bert``)."""

@@ -54,6 +54,27 @@ def test_flash_matches_jax_interpret(causal, T, D, block):
     assert tflash.flash_attention_fwd.launches == before
 
 
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("D", [8, 48])
+def test_flash_takes_any_head_dim_on_the_host(D, causal):
+    """The plain version, forward and backward, at head dims the kernels
+    are not built for, against the JAX flash op in interpret mode, which
+    takes any D off the TPU."""
+    q, k, v = _qkv((2, 2, 64, D), seed=D)
+    g = _qkv((2, 2, 64, D), seed=D + 1)[0]
+    jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
+    want, vjp = jax.vjp(lambda a, b, c: jflash.flash_attention(
+        a, b, c, causal=causal), jq, jk, jv)
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    got = tflash.flash_attention(tq, tk, tv, causal=causal)
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+                               rtol=RTOL, atol=ATOL)
+    grads = torch.autograd.grad(got, (tq, tk, tv), torch.from_numpy(g))
+    for name, a, b in zip(("dq", "dk", "dv"), grads, vjp(jnp.asarray(g))):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_RTOL,
+                                   atol=GRAD_ATOL, err_msg=name)
+
+
 def test_flash_bf16_matches_jax_interpret():
     """bf16: q and k upcast for QK^T, P rounded to bf16 before P.V, O
     rounded to bf16.  Both sides round at the same points over the same
@@ -223,6 +244,13 @@ def test_flash_rejects_non_dividing_blocks():
 def test_flash_rejects_what_the_kernel_does_not_take(shapes, dtype, match):
     q = torch.zeros(shapes[0], dtype=dtype)
     k = torch.zeros(shapes[1], dtype=dtype)
+    if match == "head dim":
+        # the plain version takes any D, as the JAX op off the TPU; only a
+        # kernel launch refuses a D it was not built for
+        assert tflash.flash_attention(q, k, k).shape == q.shape
+        with pytest.raises(MXNetError, match="head dim 24 has no kernel"):
+            tflash.flash_attention_fwd(q, k, k)
+        return
     with pytest.raises(ValueError, match=match):
         tflash.flash_attention(q, k, k)
 

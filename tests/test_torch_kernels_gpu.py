@@ -321,6 +321,23 @@ def test_flash_kernel_refuses_mixed_devices():
         tflash.flash_attention(q, q.cpu(), q)
 
 
+@pytest.mark.parametrize("D", [8, 48])
+def test_flash_kernels_refuse_a_head_dim_they_lack(D):
+    """The plain version takes any D (the CPU tests hold it against the
+    JAX op); on the card a D outside HEAD_DIMS raises, never falling back
+    to the plain version."""
+    dev = _card()
+    q = torch.randn((1, 2, 64, D), device=dev, requires_grad=True)
+    with pytest.raises(MXNetError, match=f"head dim {D} has no kernel"):
+        tflash.flash_attention(q, q, q)
+    lse = torch.zeros((2, 64), device=dev)
+    x = q.detach()
+    with pytest.raises(MXNetError, match="has no kernel"):
+        tflash.flash_attention_dq(x, x, x, x, lse, x)
+    with pytest.raises(MXNetError, match="has no kernel"):
+        tflash.flash_attention_dkv(x, x, x, lse, x, lse)
+
+
 # -- runtime-compiled kernels: mxnet_tpu_torch.rtc.CudaModule ----------------
 # The sources are hand-written CUDA C++ strings; chip_smoke.py holds the
 # same two.  scale2 is the counterpart of the JAX package's PallasModule

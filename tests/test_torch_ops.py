@@ -43,6 +43,83 @@ def test_gelu_is_the_tanh_form():
     assert np.abs(erf - want).max() > 1e-4
 
 
+@pytest.mark.parametrize("flatten,bias", [(True, True), (False, True),
+                                          (False, False)])
+def test_fully_connected_matches_jax(flatten, bias):
+    rng = np.random.RandomState(5)
+    x, w, b = _rand(rng, 3, 4, 6), _rand(rng, 7, 24 if flatten else 6), \
+        _rand(rng, 7)
+    want = np.asarray(jnn.fully_connected(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray(b) if bias else None,
+        flatten=flatten))
+    got = tnn.fully_connected(torch.from_numpy(x), torch.from_numpy(w),
+                              torch.from_numpy(b) if bias else None,
+                              flatten=flatten)
+    np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
+
+
+def test_fully_connected_bf16_keeps_bf16_operands():
+    """bf16 operands, an f32 accumulator, a bf16 result, as the JAX op's
+    preferred_element_type=float32 then astype: the two sums differ in
+    order only, so the results differ by at most one bf16 step (2^-7
+    relative) where a rounding tips."""
+    rng = np.random.RandomState(6)
+    x, w, b = _rand(rng, 5, 64), _rand(rng, 32, 64), _rand(rng, 32)
+    jb = [jnp.asarray(a, jnp.bfloat16) for a in (x, w, b)]
+    want = np.asarray(jnn.fully_connected(*jb).astype(jnp.float32))
+    tb = [torch.from_numpy(a).bfloat16() for a in (x, w, b)]
+    got = tnn.fully_connected(*tb)
+    assert got.dtype == torch.bfloat16
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=2 ** -7,
+                               atol=1e-6)
+
+
+def test_tanh_activation_matches_jax():
+    x = np.linspace(-5, 5, 101).astype(np.float32)
+    want = np.asarray(jnn.activation(jnp.asarray(x), act_type="tanh"))
+    got = tnn.activation(torch.from_numpy(x), "tanh").numpy()
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+    with pytest.raises(ValueError, match="unsupported activation"):
+        tnn.activation(torch.from_numpy(x), "softsign")
+
+
+def test_bf16_trunk_multiplies_in_bf16():
+    """Every product of a bf16 scan_transformer_encoder that takes a weight
+    (qkv, projection, both FFN products) receives bf16 operands; the
+    attention products on (B, H, T, D) run in f32, as in the JAX op."""
+    from torch.overrides import TorchFunctionMode
+
+    fns = {torch.matmul, torch.mm, torch.bmm, torch.addmm,
+           torch.nn.functional.linear, torch.Tensor.matmul,
+           torch.Tensor.__matmul__}
+    seen = []
+
+    class Record(TorchFunctionMode):
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            if func in fns:
+                seen.append([(a.dtype, a.dim()) for a in args
+                             if isinstance(a, torch.Tensor)])
+            return func(*args, **(kwargs or {}))
+
+    rng = np.random.RandomState(7)
+    L, C, Hd = 3, 16, 32
+    shapes = [(L, 3 * C, C), (L, 3 * C), (L, C, C), (L, C), (L, Hd, C),
+              (L, Hd), (L, C, Hd), (L, C), (L, C), (L, C), (L, C), (L, C),
+              (C,), (C,)]
+    args = [torch.from_numpy(_rand(rng, *s)).bfloat16() for s in shapes]
+    x = torch.from_numpy(_rand(rng, 2, 8, C)).bfloat16()
+    for impl in ("dense", "flash"):
+        seen.clear()
+        with Record():
+            out = tatt.scan_transformer_encoder(x, *args, num_heads=4,
+                                                impl=impl, causal=True)
+        assert out.dtype == torch.bfloat16
+        weights = [ops for ops in seen if not all(d == 4 for _, d in ops)]
+        assert len(weights) == 4 * L, seen
+        for ops in weights:
+            assert [dt for dt, _ in ops] == [torch.bfloat16] * 2, ops
+
+
 @pytest.mark.parametrize("Tq,Tk,causal,masked", [
     (16, 16, True, False),
     (8, 16, True, False),       # bottom-right causal alignment

@@ -51,6 +51,11 @@ IMPERATIVE_MODULES = ("mxnet_tpu_torch.engine", "mxnet_tpu_torch.autograd",
                       "mxnet_tpu_torch.ops.indexing",
                       "mxnet_tpu_torch.ops.random_ops")
 
+#: modules the BERT slice added; each must be walked and clean
+BERT_MODULES = ("mxnet_tpu_torch.initializer",
+                "mxnet_tpu_torch.parallel.mesh",
+                "mxnet_tpu_torch.tools.bench_bert")
+
 
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -63,6 +68,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     walked = set(res.stdout.split("MODULES ")[1].split("\n")[0].split())
     assert set(TRAINING_MODULES) <= walked, sorted(walked)
     assert set(IMPERATIVE_MODULES) <= walked, sorted(walked)
+    assert set(BERT_MODULES) <= walked, sorted(walked)
 
 
 def _imported_roots(path):
