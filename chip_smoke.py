@@ -71,6 +71,20 @@ Phases; any failure raises, exits non-zero and prints no result line:
    steps: the loss falls, ms per step, tokens/s, MFU, peak memory;
    (iv) bf16 outputs and loss against f32 at B=2; (v) torch.profiler over
    three bf16 steps.
+9. ResNet-50 v1 training at bench_resnet's configuration (bench.py:150-154,
+   2100-2184): (i) the card against the host, in training mode, on the
+   same weights: a ResNetV1(BottleneckV1, [1, 1, 1, 1]) in f32 and
+   resnet50_v1 in f64 (outputs, loss, every gradient, the moved running
+   statistics, at rtol 2e-4 / atol 2e-5 and 2e-3 / 2e-4), resnet50_v1 in
+   f32 against the host's f64 run; (ii) resnet50_v1 at (8, 3, 224, 224):
+   in predict mode (drawn running statistics) bf16 against f32 on the
+   card, in training mode the card's bf16 error against the host's;
+   (iii) mxnet_tpu_torch.tools.bench_resnet.run at B=256 (B=64 if that runs out of memory, said so), NCHW then NHWC: the
+   loss falls, ms per step, samples/s, MFU, peak memory, and the kernel
+   launches of one step (none: the path runs cuDNN, cuBLAS and PyTorch's
+   own kernels); (iv) torch.profiler over three bf16 steps by family
+   (convolutions, BN reductions, elementwise, the optimizer update);
+   (v) mxnet_tpu_torch.entry.entry()'s forward on the card.
 6. The kernel JSON line (f32 numbers at the training shape, and the
    bf16 ones under *_bf16 keys; the same at BERT's shape under
    ``at_bert_shape``; launches by path), the nvidia-smi line, then the
@@ -134,6 +148,47 @@ BF16_STEP = 2 ** -7
 # error per parameter (attention sums differ in order only).
 GRAD_REL_L2 = 1e-3
 LOSS_RTOL = 1e-5
+
+# -- ResNet-50 v1 training ([9]) ----------------------------------------------
+# bench_resnet's configuration (bench.py:150-154, 2100-2184): B=256, 224x224,
+# bf16, SGD (lr 0.1, momentum 0.9, wd 1e-4), NCHW then NHWC; B=64 is
+# bench.py's own fallback should B=256 not fit.
+RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 256, 224, 10
+RESNET_FALLBACK_BATCH = 64
+RESNET_SMALL = ([1, 1, 1, 1], [16, 32, 64, 128, 256])
+# Card against host, f32 (TF32 off): tests/test_parallel.py's tolerances.
+RESNET_OUT_TOL = (2e-4, 2e-5)
+RESNET_GRAD_TOL = (2e-3, 2e-4)
+# ResNet-50 at (2, 3, 64, 64) in training mode is ill-conditioned in f32:
+# its last stage's BatchNorms normalise over 8 values a channel, and on the
+# host alone an f32 run stands from an f64 run by more than the gradient
+# tolerance (by 5.2 where gradients reach 289, reckoned on the CPU).  So
+# (i) holds it in f64, card against host, at the tolerances above, and
+# holds the card's f32 run against the host's f64 run within F32_NOISE
+# times the host's own f32 error (plus the tolerance), for the logits, the
+# loss and the worst gradient element: two f32 runs that sum in other
+# orders land at comparable distances from f64, and the worst of ~27 M
+# gradient elements lands elsewhere for each order of summation (the card
+# run: 9.0 against the host's 6.5, largest |gradient| 406).
+F32_NOISE = 2.0
+# (ii) bf16 at (8, 3, 224, 224).  In predict mode, with drawn running
+# statistics, ResNet-50's bf16 logits stand ~0.007 max|f32| from its f32
+# ones, held within RESNET_BF16_TOL max|f32|, the tolerance [8](iv) holds
+# BERT to (tests/test_model_zoo.py's), and the loss within one bf16 step
+# (2^-7) of the f32 loss.  In training mode, at Xavier weights, batch
+# statistics carry bf16 rounding much further in both packages (~0.1
+# relative L2 here; the JAX package's own run at 2 x 64x64: 0.33), and
+# any change in the order of a sum sends a bf16 run elsewhere: the card's
+# bf16 logits stand 0.078 (relative L2) from the host's bf16 run on the
+# same weights and input, 0.72 of their distance from f32.  So there the
+# size of the error is what is held: the card's bf16-vs-f32 relative L2
+# error within BF16_VS_HOST times the host's (the two read alike to four
+# digits; on the host, six inputs 1e-3 apart read 0.1018-0.1064), and the
+# layer-level card tests hold training-mode BatchNorm in bf16 card
+# against host.
+RESNET_BF16_TOL = 0.05
+RESNET_BF16_LOSS_RTOL = BF16_STEP
+BF16_VS_HOST = 1.1
 
 # -- the imperative path ([7]) and the runtime-compiled kernels ([7b]) -------
 # Hand-written CUDA C++ sources compiled at runtime by rtc.CudaModule
@@ -975,6 +1030,304 @@ def phase_bert(dev, card):
     return launches, res
 
 
+def _resnet_small(v, layout="NCHW"):
+    return v.ResNetV1(v.BottleneckV1, *RESNET_SMALL, classes=1000,
+                      layout=layout)
+
+
+def _resnet_numpy(net, rng):
+    """The net's parameters as numpy, BatchNorm's scales, shifts and
+    running statistics drawn from ``rng`` (so inference mode is not the
+    identity and every parameter matters)."""
+    import numpy as np
+
+    out = {}
+    for name, p in net.collect_params().items():
+        a = p.data().asnumpy()
+        if name.endswith(("gamma", "running_var")):
+            a = rng.uniform(0.5, 1.5, a.shape).astype(np.float32)
+        elif name.endswith(("beta", "running_mean")):
+            a = rng.uniform(-0.2, 0.2, a.shape).astype(np.float32)
+        out[name] = a
+    return out
+
+
+def _resnet_pass(net, x, y):
+    """A training-mode forward, the mean loss and every gradient; the
+    forward moves the running statistics.  Returns (logits, loss,
+    {name: grad}, {name: running stat}) as f64 host tensors."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+
+    with autograd.train_mode():
+        out = net(x)
+        loss = SoftmaxCrossEntropyLoss()(out, y).mean()
+    params = net.collect_params()
+    train = [(k[len(net.prefix):], p._value()) for k, p in params.items()
+             if p.grad_req != "null"]
+    grads = torch.autograd.grad(loss, [t for _, t in train])
+    stats = {k[len(net.prefix):]: p._value().detach().double().cpu()
+             for k, p in params.items() if p.grad_req == "null"}
+    return (out.detach().double().cpu(), float(loss),
+            {n: g.double().cpu() for (n, _), g in zip(train, grads)}, stats)
+
+
+def _excess(got, want, rtol, atol):
+    """max(|got - want| - rtol |want|) / atol: <= 1 passes allclose."""
+    return float(((got - want).abs() - rtol * want.abs()).max()) / atol
+
+
+def _resnet_card_vs_host(make, shape, dev, rng, dtypes):
+    """(i) One model, the same weights on the host and the card; returns
+    {dtype: result on the card, result on the host} of ``_resnet_pass``."""
+    import numpy as np
+
+    import torch
+
+    from mxnet_tpu_torch import convert, initializer
+    from mxnet_tpu_torch.context import context_of, cpu
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32))
+    y = torch.as_tensor(rng.randint(0, 1000, shape[0]).astype(np.float32))
+    with cpu():
+        host = make(vision)
+        host.initialize(init=initializer.Xavier(),
+                        generator=torch.Generator().manual_seed(SEED))
+        host._ensure_initialized(x)
+    params = _resnet_numpy(host, rng)
+    convert.load_gluon_params(host, params)
+    res = {}
+    for dt in dtypes:
+        card = make(vision)
+        card.initialize(ctx=context_of(dev))
+        convert.load_gluon_params(card, params)
+        h = make(vision)
+        with cpu():
+            h.initialize()
+        convert.load_gluon_params(h, params)
+        card.cast(dt)
+        h.cast(dt)
+        tdt = getattr(torch, dt)
+        res[dt] = (_resnet_pass(card, x.to(dev, tdt), y.to(dev)),
+                   _resnet_pass(h, x.to(tdt), y))
+    return res
+
+
+def _resnet_report(what, card_run, host_run):
+    """Print and return the worst err/tol ratio of outputs, loss, gradients
+    and running statistics, card against host."""
+    (o1, l1, g1, s1), (o0, l0, g0, s0) = card_run, host_run
+    worst = {
+        "logits": _excess(o1, o0, *RESNET_OUT_TOL),
+        "loss": (abs(l1 - l0) - RESNET_OUT_TOL[0] * abs(l0))
+        / RESNET_OUT_TOL[1],
+        "grads": max(_excess(g1[k], g0[k], *RESNET_GRAD_TOL) for k in g0),
+        "running stats": max(_excess(s1[k], s0[k], *RESNET_OUT_TOL)
+                             for k in s0),
+    }
+    log(f"  (i) {what}: loss card {l1:.8f} host {l0:.8f}; excess over "
+        f"tolerance (<= 1 passes): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()))
+    return max(worst.values())
+
+
+def phase_resnet(dev, card, rtc_kernels):
+    """[9] ResNet-50 v1 at bench_resnet's configuration: (i) card against
+    host in f32 (ResNet-50 in f64 too, see RESNET_*_TOL); (ii) bf16 against
+    f32 on the card at (8, 3, 224, 224); (iii) tools.bench_resnet.run at
+    B=256, NCHW then NHWC, with the launches of one of its steps; (iv)
+    torch.profiler over three bf16 steps; (v) entry() on the card.
+    Returns (launches of one bench step, {layout: bench result})."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import autograd, convert, initializer
+    from mxnet_tpu_torch.context import context_of, cpu
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.tools import bench_resnet
+
+    rng = np.random.RandomState(SEED + 9)
+    # (i) the small net in f32; ResNet-50 in f64 and f32
+    res = _resnet_card_vs_host(_resnet_small, (2, 3, 64, 64), dev, rng,
+                               ("float32",))
+    bad = _resnet_report("ResNetV1(BottleneckV1, [1,1,1,1]) f32 at "
+                         "(2, 3, 64, 64)", *res["float32"]) > 1
+    res = _resnet_card_vs_host(lambda v: v.resnet50_v1(classes=1000),
+                               (2, 3, 64, 64), dev, rng,
+                               ("float64", "float32"))
+    bad |= _resnet_report("resnet50_v1 f64 at (2, 3, 64, 64)",
+                          *res["float64"]) > 1
+    card32, host32 = res["float32"]
+    host64 = res["float64"][1]
+    for what, (o, l, g, s) in (("card", card32), ("host", host32)):
+        log(f"  (i) resnet50_v1 f32 {what} against host f64: logits max abs "
+            f"err {float((o - host64[0]).abs().max()):.3e}, loss "
+            f"{abs(l - host64[1]):.3e}, worst gradient abs err "
+            f"{max(float((g[k] - host64[2][k]).abs().max()) for k in g):.3e}"
+            f" (largest |grad| "
+            f"{max(float(v.abs().max()) for v in host64[2].values()):.1f})")
+
+    def err_over(run, ref):
+        o, l, g, _ = run
+        return [float((o - ref[0]).abs().max()), abs(l - ref[1]),
+                max(float((g[k] - ref[2][k]).abs().max()) for k in g)]
+
+    card_err, host_err = err_over(card32, host64), err_over(host32, host64)
+    tols = [RESNET_OUT_TOL[1], RESNET_OUT_TOL[1], RESNET_GRAD_TOL[1]]
+    ratio = max(c / (F32_NOISE * h + t) for c, h, t in zip(card_err, host_err,
+                                                         tols))
+    log(f"  (i) resnet50_v1 f32: card error against host f64 over "
+        f"({F32_NOISE} x the host f32's own error + tol) for logits, loss "
+        f"and the worst gradient, worst {ratio:.3f} (<= 1 passes)")
+    if bad or ratio > 1:
+        raise AssertionError("ResNet on the card disagrees with the host")
+    del res, card32, host32, host64
+    torch.cuda.empty_cache()
+
+    # (ii) bf16 at (8, 3, 224, 224), same weights and input throughout:
+    # predict mode (drawn running statistics) bf16 against f32 on the card;
+    # training mode, the card's bf16 error against the host's
+    x = rng.standard_normal((8, 3, 224, 224)).astype(np.float32)
+    y = rng.randint(0, 1000, 8).astype(np.float32)
+    f32 = vision.resnet50_v1(classes=1000)
+    f32.initialize(init=initializer.Xavier(), ctx=context_of(dev),
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+    f32._ensure_initialized(torch.as_tensor(x[:1], device=dev))
+    drawn = copy.deepcopy(f32)
+    convert.load_gluon_params(drawn, _resnet_numpy(drawn, rng))
+    host32 = copy.deepcopy(f32)
+    host32.collect_params().reset_ctx(cpu())
+    if any(t.device.type != "cpu" for t in host32.state_dict().values()):
+        raise AssertionError("reset_ctx(cpu()) left a tensor on the card")
+
+    def bf16_vs_f32(net, d, mode):
+        """(f32 logits, bf16 logits as f32, f32 loss, bf16 loss)."""
+        bf = copy.deepcopy(net).cast("bfloat16")
+        xt, yt = torch.as_tensor(x, device=d), torch.as_tensor(y, device=d)
+        with torch.no_grad(), mode():
+            ref, got = net(xt), bf(xt.bfloat16()).float()
+            return (ref, got, float(SoftmaxCrossEntropyLoss()(ref, yt).mean()),
+                    float(SoftmaxCrossEntropyLoss()(got, yt).mean()))
+
+    ref, got, loss32, loss16 = bf16_vs_f32(drawn, dev, autograd.predict_mode)
+    peak = float(ref.abs().max())
+    err = float((got - ref).abs().max())
+    ok = err <= RESNET_BF16_TOL * peak and abs(loss16 - loss32) <= \
+        RESNET_BF16_LOSS_RTOL * abs(loss32) and np.isfinite(loss16)
+    log(f"  (ii) predict mode, drawn running statistics: bf16 against f32 "
+        f"logits max abs err {err:.4e} = {err / peak:.4f} max|f32| (tol "
+        f"{RESNET_BF16_TOL}), relative L2 "
+        f"{float((got - ref).norm() / ref.norm()):.4f}; loss bf16 "
+        f"{loss16:.6f} f32 {loss32:.6f} (rtol 2^-7)")
+    del drawn, ref, got
+    rel, b16 = {}, {}
+    for where, net, d in (("card", f32, dev), ("host", host32,
+                                               torch.device("cpu"))):
+        r32, r16, l32, l16 = bf16_vs_f32(net, d, autograd.train_mode)
+        r32, b16[where] = r32.cpu(), r16.cpu()
+        diff = b16[where] - r32
+        rel[where] = float(diff.norm() / r32.norm())
+        log(f"  (ii) training mode, {where}: bf16 against f32 logits "
+            f"relative L2 {rel[where]:.4f}, max abs "
+            f"{float(diff.abs().max()):.4e} = "
+            f"{float(diff.abs().max() / r32.abs().max()):.4f} max|f32|; "
+            f"loss bf16 {l16:.6f} f32 {l32:.6f}")
+    apart = float((b16["card"] - b16["host"]).norm() / b16["host"].norm())
+    log(f"  (ii) training mode: card bf16 against host bf16 logits relative "
+        f"L2 {apart:.4f} (not held: the order of a sum moves a bf16 run); "
+        f"the card's bf16 error {rel['card'] / rel['host']:.4f} x the "
+        f"host's (want <= {BF16_VS_HOST})")
+    ok &= rel["card"] <= BF16_VS_HOST * rel["host"]
+    if not ok:
+        raise AssertionError("bf16 ResNet-50 disagrees with its reference")
+    del f32, host32, b16
+    torch.cuda.empty_cache()
+
+    # (iii) the bench, both layouts; the launches of one of its steps
+    batch = RESNET_BATCH
+    results, launches = {}, None
+    for layout in ("NCHW", "NHWC"):
+        try:
+            r = bench_resnet.run(batch, RESNET_IMAGE, RESNET_STEPS, layout)
+        except torch.cuda.OutOfMemoryError as e:
+            if batch == RESNET_FALLBACK_BATCH:
+                raise
+            log(f"  (iii) FINDING: B={batch} {layout} ran out of device "
+                f"memory ({str(e).splitlines()[0]}); running bench.py's "
+                f"fallback B={RESNET_FALLBACK_BATCH}")
+            batch = RESNET_FALLBACK_BATCH
+            torch.cuda.empty_cache()
+            r = bench_resnet.run(batch, RESNET_IMAGE, RESNET_STEPS, layout)
+        results[layout] = r
+        log(f"  (iii) bench_resnet.run {layout} B={batch}: loss "
+            f"{[round(v, 4) for v in r['losses']]} (2 warm-up + "
+            f"{RESNET_STEPS} timed); {r['ms_per_step']:.2f} ms per step, "
+            f"{r['value']:.1f} samples/s, mfu "
+            f"{'null' if r['mfu'] is None else format(r['mfu'], '.4f')}, "
+            f"peak device memory {r['peak_mem_gib']:.2f} GiB, cudnn.benchmark "
+            f"{r['cudnn_benchmark']}  [{r['nvidia_smi']}]")
+        log("  (iii) " + json.dumps(r))
+        losses = r["losses"]
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"the ResNet bench failed: {losses}")
+        torch.cuda.empty_cache()
+
+    # one step of the bench's path, NCHW, counted; then the profile
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        trainer, bx, by = bench_resnet.build(batch, RESNET_IMAGE, "NCHW")
+        trainer.step(bx, by)
+        torch.cuda.synchronize()
+        _zero_counts()
+        for k in rtc_kernels:
+            k.launches = 0
+        float(trainer.step(bx, by))
+        launches = dict(_counts(), rtc_scale2=rtc_kernels[0].launches,
+                        rtc_axpy=rtc_kernels[1].launches)
+        log(f"  (iii) one bench step's kernel launches {launches} (the "
+            f"ResNet path runs no kernel of the port's own)")
+        # (iv) where a bf16 step's device time goes
+        apply = trainer.optimizer.apply
+
+        def timed_apply(*a, **kw):
+            with torch.profiler.record_function("optimizer update"):
+                return apply(*a, **kw)
+
+        trainer.optimizer.apply = timed_apply
+        trainer.step(bx, by)
+        profile_steps(lambda: trainer.step(bx, by), 3,
+                      f"(iv) 3 bf16 ResNet-50 steps at B={batch}, NCHW",
+                      card, families=RESNET_FAMILIES,
+                      ranges=("optimizer update",))
+    finally:
+        torch.backends.cudnn.benchmark = prev
+    del trainer, bx, by
+    torch.cuda.empty_cache()
+
+    # (v) the entry point on the card
+    from mxnet_tpu_torch.entry import entry
+
+    fn, (example,) = entry()
+    with torch.no_grad():
+        out = fn(example)
+    torch.cuda.synchronize()
+    ok = tuple(out.shape) == (8, 1000) and out.device == dev and \
+        bool(torch.isfinite(out).all())
+    log(f"  (v) entry(): ResNet-50 forward of {tuple(example.shape)} "
+        f"{example.dtype} on {out.device}: {tuple(out.shape)}, finite "
+        f"{bool(torch.isfinite(out).all())}")
+    if not ok:
+        raise AssertionError("entry() failed on the card")
+    return launches, results
+
+
 # kernel-name fragments -> family, first match wins
 FAMILIES = (("axpy", "rtc axpy kernel"), ("scale2", "rtc scale2 kernel"),
             ("flash_dq", "flash dQ kernel"),
@@ -1014,10 +1367,27 @@ def phase_profile(dev, card, steps=3):
     profile_steps(lambda: trainer.step(ids, ids), steps, what, card)
 
 
-def profile_steps(step, steps, what, card, top=12):
+# the ResNet step's kernel families: cuDNN's convolutions (and its layout
+# transforms), reductions (BatchNorm's statistics and their backward
+# sums, the loss), and the rest
+RESNET_FAMILIES = (("conv", "conv / cuDNN"), ("xmma", "conv / cuDNN"),
+                   ("implicit", "conv / cuDNN"), ("cudnn", "conv / cuDNN"),
+                   ("sm90", "conv / cuDNN"), ("cutlass", "conv / cuDNN"),
+                   ("nhwc", "conv / cuDNN"), ("nchw", "conv / cuDNN"),
+                   ("gemm", "GEMM"), ("nvjet", "GEMM"),
+                   ("reduce", "reductions (BN statistics)"),
+                   ("max_pool", "pooling"), ("pool", "pooling"),
+                   ("elementwise", "elementwise"),
+                   ("vectorized", "elementwise"), ("copy", "copies"))
+
+
+def profile_steps(step, steps, what, card, top=12, families=FAMILIES,
+                  ranges=()):
     """torch.profiler over ``steps`` calls of ``step``: device kernel time
     by family and by kernel, host wall time, and the device's busy share
-    (its kernel time over the wall time).  Returns (wall ms, busy ms)."""
+    (its kernel time over the wall time); for each name in ``ranges`` (a
+    ``record_function`` range), the device time of the kernels it
+    launched.  Returns (wall ms, busy ms)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1032,8 +1402,9 @@ def profile_steps(step, steps, what, card, top=12):
         wall = (time.perf_counter() - t0) / steps * 1e3
     fam, names = {}, {}
     for evt in prof.key_averages():
-        # kernels only: a CPU op's entry repeats its kernels' device time
-        if evt.device_type != DeviceType.CUDA:
+        # kernels only: a CPU op's entry repeats its kernels' device time,
+        # and a range's annotation on the device timeline spans its kernels
+        if evt.device_type != DeviceType.CUDA or evt.key in ranges:
             continue
         dev_us = getattr(evt, "self_device_time_total", None)
         if dev_us is None:
@@ -1041,7 +1412,7 @@ def profile_steps(step, steps, what, card, top=12):
         if not dev_us:
             continue
         key = evt.key.lower()
-        f = next((v for k, v in FAMILIES if k in key), "other")
+        f = next((v for k, v in families if k in key), "other")
         fam[f] = fam.get(f, 0.0) + dev_us / 1e3 / steps
         names[evt.key] = dev_us / 1e3 / steps
     busy = sum(fam.values())
@@ -1051,6 +1422,22 @@ def profile_steps(step, steps, what, card, top=12):
         f"{busy:.3f} ms per step, busy share {busy / wall:.3f}  [{card}]")
     for f, ms in sorted(fam.items(), key=lambda x: -x[1]):
         log(f"    {f:24s} {ms:9.3f} ms per step  {ms / busy:6.1%}")
+    for r in ranges:
+        # the CPU range: the device time of the kernels it launched; the
+        # device annotation: the span they took on the device timeline
+        spans = {e.device_type: e for e in prof.key_averages()
+                 if e.key == r}
+        cpu_evt, dev_evt = spans.get(DeviceType.CPU), spans.get(
+            DeviceType.CUDA)
+        kern = 0.0 if cpu_evt is None else getattr(
+            cpu_evt, "device_time_total",
+            getattr(cpu_evt, "cuda_time_total", 0.0))
+        span = 0.0 if dev_evt is None else getattr(
+            dev_evt, "self_device_time_total",
+            getattr(dev_evt, "self_cuda_time_total", 0.0))
+        log(f"    of which in {r!r}: kernels {kern / 1e3 / steps:9.3f} ms "
+            f"per step, spanning {span / 1e3 / steps:9.3f} ms of the device "
+            f"timeline")
     log("    top kernels:")
     for k, ms in sorted(names.items(), key=lambda x: -x[1])[:top]:
         log(f"      {ms:9.3f} ms  {k[:110]}")
@@ -1420,6 +1807,11 @@ def main():
         "ShardedTrainer on a one-device mesh, bench_bert's configuration")
     bert_launches, bert_res = phase_bert(dev, card)
 
+    log("[9] ResNet-50 v1 training path: resnet50_v1, bf16, ShardedTrainer "
+        "(SGD) on a one-device mesh, bench_resnet's configuration, NCHW "
+        "and NHWC")
+    resnet_launches, resnet_res = phase_resnet(dev, card, (s2, ax))
+
     T0, Tb = TRAIN_SHAPE[2], BERT_SHAPE[2]
     sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
                        ":78", "lib_fwd", "plain_fwd"),
@@ -1466,13 +1858,18 @@ def main():
         "launches_by_path": dict(
             {"generate": gen_launches} if fn == "fwd" else {},
             train_step=train_launches[name],
-            bert_train_step=bert_launches[name]),
+            bert_train_step=bert_launches[name],
+            resnet_train_step=resnet_launches[name]),
         "plain_and_library_cover": ("the forward" if fn == "fwd" else
                                     "the whole backward (dQ, dK, dV)"),
     } for fn, (name, src, line, lib, plain) in sources.items()]}
-    rtc_launches = {"rtc_scale2": {"rtc_path": rt["path"]["rtc_scale2"]},
+    rtc_launches = {"rtc_scale2": {"rtc_path": rt["path"]["rtc_scale2"],
+                                   "resnet_train_step":
+                                       resnet_launches["rtc_scale2"]},
                     "rtc_axpy": {"imperative_sgd": reg["launches"],
-                                 "rtc_path": rt["path"]["rtc_axpy"]}}
+                                 "rtc_path": rt["path"]["rtc_axpy"],
+                                 "resnet_train_step":
+                                     resnet_launches["rtc_axpy"]}}
     for name, replaces in (("rtc_scale2", "mxnet_tpu/rtc.py:53, "
                                           "tests/test_aux.py:256"),
                            ("rtc_axpy", "mxnet_tpu/rtc.py:53")):
@@ -1500,7 +1897,10 @@ def main():
     log(f"[6] done in {time.perf_counter() - t_start:.1f} s "
         f"(train step {step_ms:.2f} ms; imperative step "
         f"{reg['ms_step']:.3f} ms; BERT bf16 step "
-        f"{bert_res['ms_per_step']:.2f} ms, forward O max abs err at BERT's "
+        f"{bert_res['ms_per_step']:.2f} ms; ResNet-50 bf16 step "
+        f"{resnet_res['NCHW']['ms_per_step']:.2f} ms NCHW, "
+        f"{resnet_res['NHWC']['ms_per_step']:.2f} ms NHWC at "
+        f"B={resnet_res['NCHW']['batch']}; forward O max abs err at BERT's "
         f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")
     log(json.dumps(kernels))

@@ -14,9 +14,11 @@ from .context import Context, cpu, current_context, gpu, num_gpus
 from . import ops
 from . import autograd, ndarray, rtc
 from . import ndarray as nd
+from . import initializer, name
+from . import initializer as init
 from . import convert, gluon, optimizer, parallel, serving
 
 __all__ = ["Context", "MXNetError", "autograd", "base", "context",
            "convert", "cpu", "current_context", "engine", "gluon", "gpu",
-           "nd", "ndarray", "num_gpus", "ops", "optimizer", "parallel",
-           "random", "rtc", "serving"]
+           "init", "initializer", "name", "nd", "ndarray", "num_gpus",
+           "ops", "optimizer", "parallel", "random", "rtc", "serving"]

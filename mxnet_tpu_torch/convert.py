@@ -1,4 +1,4 @@
-"""Carry a GPT or BERT model's weights from the JAX package into the port.
+"""Carry a model's weights from the JAX package into the port.
 
 The loaders take numpy arrays only (the port never imports JAX), check
 every entry before copying any, and raise on a missing, duplicate or
@@ -14,6 +14,9 @@ mis-shaped entry, so a model is never left half loaded.
   cannot be told apart by suffix.
 - ``load_bert_params`` takes the flat ``{name: np.ndarray}`` of a JAX
   ``BERTModel``'s ``collect_params()``, either trunk layout.
+- ``load_gluon_params`` takes the same of any JAX Gluon block (ResNet ...)
+  for the port's block of the same structure, running statistics
+  included.
 """
 
 from __future__ import annotations
@@ -21,7 +24,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .base import MXNetError
+from .base import MXNetError, torch_dtype
 from .gluon.model_zoo.gpt import STACK_NAMES
 
 
@@ -190,3 +193,62 @@ def load_bert_params(model, params):
         raise MXNetError(f"{what}: entries the port model has no parameter "
                          f"for: {unused}")
     _copy_checked(targets, arrays, what)
+
+
+def _dtype_name(arr):
+    return np.dtype(arr.dtype).name
+
+
+def load_gluon_params(block, params):
+    """Load ``{name: np.ndarray}`` (a JAX Gluon block's
+    ``collect_params()`` as numpy) into the port's ``block`` of the same
+    structure, aux state (BatchNorm's running statistics) included.  Names
+    are compared with each side's top-level prefix stripped, since the
+    name counters are per process (``resnetv10_`` against
+    ``resnetv11_``): the JAX prefix is the one under which every port
+    name has an entry.  Each entry must match its parameter's shape and
+    dtype (bfloat16 arrays come as ``ml_dtypes.bfloat16``); a deferred
+    parameter takes the entry as its value.  Raises on a missing,
+    mis-shaped, mis-typed or unused entry before copying anything."""
+    what = "load_gluon_params"
+    ports = {p.name[len(block.prefix):]: p
+             for p in block.collect_params().values()}
+    if not ports:
+        if params:
+            raise MXNetError(f"{what}: the port block has no parameters, "
+                             f"given {sorted(params)}")
+        return
+    prefixes = {k[:-len(s)] for k in params for s in ports if k.endswith(s)}
+    found = [pre for pre in prefixes
+             if all(pre + s in params for s in ports)]
+    if len(found) != 1:
+        missing = sorted(s for s in ports
+                         if not any(k.endswith(s) for k in params))
+        raise MXNetError(f"{what}: no single prefix under which every "
+                         f"parameter has an entry (candidates {sorted(found)}"
+                         f"; names with no entry {missing[:8]})")
+    prefix = found[0]
+    unused = sorted(k for k in params
+                    if k.startswith(prefix) and k[len(prefix):] not in ports)
+    if unused:
+        raise MXNetError(f"{what}: entries the port block has no parameter "
+                         f"for: {unused}")
+    for short, p in ports.items():
+        arr = params[prefix + short]
+        _check_array(arr, prefix + short, what)
+        if p.shape is not None and (len(p.shape) != arr.ndim or any(
+                d not in (0, a) for d, a in zip(p.shape, arr.shape))):
+            raise MXNetError(f"{what}: {prefix + short!r} has shape "
+                             f"{arr.shape}, the block wants {p.shape}")
+        want = str(torch_dtype(p.dtype)).split(".")[-1]
+        if _dtype_name(arr) != want:
+            raise MXNetError(f"{what}: {prefix + short!r} is "
+                             f"{_dtype_name(arr)}, the block holds {want}")
+    for short, p in ports.items():
+        arr = params[prefix + short]
+        t = torch.from_numpy(np.array(arr, np.float32))
+        if p._tensor is None:
+            p._init_impl(t)
+            p._shape = tuple(arr.shape)
+        else:
+            p.set_data(t)

@@ -1,3 +1,8 @@
-"""Gluon counterparts: the model zoo as ``torch.nn.Module``s."""
+"""Gluon: ``Parameter``, ``Block``, the ``nn`` layers, the losses and the
+model zoo (counterpart of ``mxnet_tpu/gluon/``)."""
 
+from . import block, loss, nn, parameter
+from .block import Block, HybridBlock
+from .parameter import (Constant, DeferredInitializationError, Parameter,
+                        ParameterDict)
 from . import model_zoo

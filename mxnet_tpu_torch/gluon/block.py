@@ -1,0 +1,385 @@
+"""Gluon ``Block`` and ``HybridBlock`` as ``torch.nn.Module``s.
+
+Counterpart of ``mxnet_tpu/gluon/block.py`` (reference:
+python/mxnet/gluon/block.py): name scopes and prefixes, child
+registration, ``collect_params``, ``initialize``, ``cast``,
+``save_parameters``/``load_parameters``, and ``HybridBlock.forward``
+calling ``hybrid_forward(F, x, **params)``.
+
+A Block is a ``torch.nn.Module``: its children are torch submodules and
+its Gluon parameters' tensors are torch parameters or buffers under their
+attribute names (``parameter.py``), so ``named_parameters()``,
+``state_dict()`` and ``train()`` work on it as on any module.  The Gluon
+state stays the reference: ``collect_params()`` names parameters as the
+JAX package does (``resnetv10_stage1_conv0_weight``), and the mode a
+layer runs in (BatchNorm, Dropout) is ``autograd.is_training()``, not
+``Module.training``.
+
+``F`` is ``mxnet_tpu_torch.ndarray``: its generated op wrappers pass raw
+tensors straight to the ops, so a JAX ``hybrid_forward`` body carries over
+line by line and runs on tensors.  Called with tensors, a block runs under
+torch's own grad mode (the trainer's path).  Called with NDArrays, it
+unwraps them, runs with gradients only inside ``autograd.record()``, and
+wraps the outputs back: the imperative path, on the same tape as ``nd``.
+``hybridize`` records its flag and changes nothing else: whole-step
+capture is not ported yet; nor are ``SymbolBlock``, ``export``,
+``optimize_for`` and ``shard_activations``.
+"""
+
+from __future__ import annotations
+
+import re
+import threading
+import warnings
+from collections import OrderedDict
+
+import torch
+
+from .. import autograd as _ag
+from .. import name as _name
+from ..ndarray.ndarray import NDArray
+from ..ndarray.register import _wrap
+from .parameter import Parameter, ParameterDict
+
+
+class _BlockScope:
+    """Name and parameter scoping for child blocks (reference:
+    _BlockScope); the counters are this package's own."""
+
+    _current = threading.local()
+
+    def __init__(self, block):
+        self._block = block
+        self._counter = {}
+        self._old_scope = None
+        self._name_scope = None
+
+    @staticmethod
+    def create(prefix, params, hint):
+        current = getattr(_BlockScope._current, "value", None)
+        if current is None:
+            if prefix is None:
+                prefix = _name.current().get(None, hint) + "_"
+            if params is None:
+                params = ParameterDict(prefix)
+            else:
+                params = ParameterDict(params.prefix, params)
+            return prefix, params
+        if prefix is None:
+            count = current._counter.get(hint, 0)
+            prefix = f"{hint}{count}_"
+            current._counter[hint] = count + 1
+        if params is None:
+            parent = current._block.params
+            params = ParameterDict(parent.prefix + prefix, parent._shared)
+        else:
+            params = ParameterDict(params.prefix, params)
+        return current._block.prefix + prefix, params
+
+    def __enter__(self):
+        if self._block._empty_prefix:
+            return self
+        self._old_scope = getattr(_BlockScope._current, "value", None)
+        _BlockScope._current.value = self
+        self._name_scope = _name.Prefix(self._block.prefix)
+        self._name_scope.__enter__()
+        return self
+
+    def __exit__(self, ptype, value, trace):
+        if self._block._empty_prefix:
+            return
+        self._name_scope.__exit__(ptype, value, trace)
+        self._name_scope = None
+        _BlockScope._current.value = self._old_scope
+
+
+class Block(torch.nn.Module):
+    """Base of all layers and models (reference: gluon.Block)."""
+
+    def __init__(self, prefix=None, params=None):
+        torch.nn.Module.__init__(self)
+        self._empty_prefix = prefix == ""
+        self._prefix, self._params = _BlockScope.create(
+            prefix, params, self._alias())
+        self._name = self._prefix[:-1] if self._prefix.endswith("_") \
+            else self._prefix
+        self._scope = _BlockScope(self)
+        self._children = OrderedDict()
+        self._reg_params = {}
+
+    def __repr__(self):
+        modstr = "\n".join(
+            [f"  ({key}): " + repr(block).replace("\n", "\n  ")
+             for key, block in self._children.items()])
+        return f"{self.__class__.__name__}(\n{modstr}\n)"
+
+    def __setattr__(self, name, value):
+        existing = self.__dict__.get(name, self.__dict__.get(
+            "_modules", {}).get(name))
+        if isinstance(existing, (Parameter, Block)) and \
+                not isinstance(value, type(existing)):
+            raise TypeError(
+                f"Changing attribute type for {self.name} from "
+                f"{type(existing)} to {type(value)} is not allowed.")
+        if isinstance(value, Parameter):
+            assert name not in self._reg_params or \
+                self._reg_params[name] is value, \
+                "Overriding Parameter attribute %s is not allowed. " \
+                "If you want to share parameters between blocks, please " \
+                "set 'params' at Block construction instead." % name
+            self._reg_params[name] = value
+            object.__setattr__(self, name, value)
+            value._attach(self, name)
+            return
+        if isinstance(value, Block):
+            self.register_child(value, name)
+        super().__setattr__(name, value)
+
+    def _alias(self):
+        return self.__class__.__name__.lower()
+
+    @property
+    def prefix(self):
+        return self._prefix
+
+    @property
+    def name(self):
+        return self._name
+
+    def name_scope(self):
+        return self._scope
+
+    @property
+    def params(self):
+        return self._params
+
+    def collect_params(self, select=None):
+        """This block's and its children's Parameters, optionally those
+        whose name matches the regex ``select`` (reference:
+        Block.collect_params)."""
+        self._check_container_with_block()
+        ret = ParameterDict(self._params.prefix)
+        if not select:
+            ret.update(self.params)
+        else:
+            pattern = re.compile(select)
+            ret.update({name: value for name, value in self.params.items()
+                        if pattern.match(name)})
+        for cld in self._children.values():
+            ret.update(cld.collect_params(select=select))
+        return ret
+
+    def _check_container_with_block(self):
+        children = set(self._children.values())
+        for k, v in self.__dict__.items():
+            if isinstance(v, (list, tuple, dict)) and not k.startswith("_"):
+                flat = v.values() if isinstance(v, dict) else v
+                for item in flat:
+                    if isinstance(item, Block) and item not in children:
+                        warnings.warn(
+                            f'"{item}" is an unregistered container with '
+                            "Blocks. Note that Blocks inside the list, tuple "
+                            "or dict will not be registered automatically. "
+                            "Make sure to register them using "
+                            "register_child() or switching to "
+                            "nn.Sequential/nn.HybridSequential instead.")
+
+    def _collect_params_with_prefix(self, prefix=""):
+        if prefix:
+            prefix += "."
+        ret = {prefix + key: val for key, val in self._reg_params.items()}
+        for name, child in self._children.items():
+            ret.update(child._collect_params_with_prefix(prefix + name))
+        return ret
+
+    def save_parameters(self, filename, deduplicate=False):
+        """Save the parameters under their structural names
+        (``features.0.weight``), the reference's ``.params`` format."""
+        from ..ndarray import save as nd_save
+
+        params = self._collect_params_with_prefix()
+        if deduplicate:
+            unique = {}
+            for k, v in params.items():
+                if not any(v is u for u in unique.values()):
+                    unique[k] = v
+            params = unique
+        nd_save(filename, {key: val.data() for key, val in params.items()})
+
+    def load_parameters(self, filename, ctx=None, allow_missing=False,
+                        ignore_extra=False, cast_dtype=False,
+                        dtype_source="current"):
+        """Load a ``save_parameters`` file; a file of full names
+        (``ParameterDict.save``) loads too."""
+        from ..context import cpu
+        from ..ndarray import load as nd_load
+
+        loaded = nd_load(filename, ctx=cpu())     # staged on the host
+        params = self._collect_params_with_prefix()
+        if not loaded and not params:
+            return
+        if not any("." in i for i in loaded.keys()):
+            del loaded
+            self.collect_params().load(
+                filename, ctx, allow_missing, ignore_extra, self.prefix,
+                cast_dtype=cast_dtype, dtype_source=dtype_source)
+            return
+        if not allow_missing:
+            for name in params.keys():
+                assert name in loaded, \
+                    f"Parameter '{name}' is missing in file '{filename}', " \
+                    f"which contains parameters: " \
+                    f"{_brief_print_list(loaded.keys())}. Set " \
+                    "allow_missing=True to ignore missing parameters."
+        for name in loaded:
+            if not ignore_extra and name not in params:
+                raise ValueError(
+                    f"Parameter '{name}' loaded from file '{filename}' is "
+                    "not present in ParameterDict, which contains parameters "
+                    f"{_brief_print_list(params.keys())}. Set "
+                    "ignore_extra=True to ignore.")
+            if name in params:
+                params[name]._load_init(loaded[name], ctx,
+                                        cast_dtype=cast_dtype,
+                                        dtype_source=dtype_source)
+
+    save_params = save_parameters
+    load_params = load_parameters
+
+    def register_child(self, block, name=None):
+        if name is None:
+            name = str(len(self._children))
+        self._children[name] = block
+        self._modules[name] = block
+
+    def apply(self, fn):
+        """Apply ``fn`` to every child, recursively, then to this block
+        (reference: Block.apply)."""
+        for cld in self._children.values():
+            cld.apply(fn)
+        fn(self)
+        return self
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=False, generator=None):
+        """Initialise every parameter of this block and its children with
+        ``init`` (default ``Uniform()``) on ``ctx`` (default
+        ``current_context()``), drawing from ``generator`` (default the
+        next generator of the package chain); deferred parameters draw
+        when their shapes are known."""
+        from .. import initializer as _init
+
+        self.collect_params().initialize(
+            init if init is not None else _init.Uniform(), ctx, verbose,
+            force_reinit, generator=generator)
+
+    def hybridize(self, active=True, **kwargs):
+        for cld in self._children.values():
+            cld.hybridize(active, **kwargs)
+
+    def cast(self, dtype):
+        """Cast every parameter to ``dtype``; returns the block."""
+        for child in self._children.values():
+            child.cast(dtype)
+        for _, param in self.params.items():
+            param.cast(dtype)
+        return self
+
+    def forward(self, *args):
+        raise NotImplementedError
+
+
+def _brief_print_list(lst, limit=7):
+    lst = list(lst)
+    if len(lst) > limit:
+        return _brief_print_list(lst[:limit // 2], limit) + ", ..., " + \
+            _brief_print_list(lst[-limit // 2:], limit)
+    return ", ".join([f"'{str(i)}'" for i in lst])
+
+
+def _wrap_out(out, ctx, inputs):
+    if isinstance(out, (tuple, list)):
+        return type(out)(_wrap_out(o, ctx, inputs) for o in out)
+    return _wrap(out, ctx, inputs)
+
+
+class HybridBlock(Block):
+    """A Block whose computation is ``hybrid_forward(F, x, **params)``
+    (reference: gluon.HybridBlock)."""
+
+    def __init__(self, prefix=None, params=None):
+        super().__init__(prefix=prefix, params=params)
+        self._active = False
+
+    def register_child(self, block, name=None):
+        if not isinstance(block, HybridBlock):
+            raise ValueError(
+                f"Children of HybridBlock must also be HybridBlock, but "
+                f"{str(block)} has type {str(type(block))}. If you are using "
+                "Sequential, please try HybridSequential instead.")
+        super().register_child(block, name)
+
+    def hybridize(self, active=True, **kwargs):
+        """Record the flag; the block still runs op by op."""
+        self._active = active
+        super().hybridize(active, **kwargs)
+
+    def infer_shape(self, *args):
+        """Complete deferred parameter shapes from the inputs' shapes.  The
+        built-in layers override it; composite blocks resolve child by
+        child during their first forward."""
+        raise ValueError(
+            f"Deferred initialization failed because shape cannot be "
+            f"inferred for block {self.name}. Override infer_shape, or "
+            "construct the layer with explicit input dims.")
+
+    def _param_values(self, *args):
+        """This block's own parameters as tensors, materialising deferred
+        ones from the inputs' shapes first."""
+        params = self._reg_params
+        if any(p._tensor is None and p._deferred_init
+               for p in params.values()):
+            self.infer_shape(*args)
+            for p in params.values():
+                p._finish_deferred_init()
+        return {k: p._value() for k, p in params.items()}
+
+    def forward(self, x, *args, **kwargs):
+        if isinstance(x, NDArray) or any(
+                isinstance(a, NDArray) for a in (*args, *kwargs.values())):
+            return self._forward_nd(x, *args, **kwargs)
+        return self.hybrid_forward(_F(), x, *args, **kwargs,
+                                   **self._param_values(x, *args))
+
+    def _forward_nd(self, *args, **kwargs):
+        """NDArrays in, NDArrays out: the tensors run through
+        ``hybrid_forward``, recorded while ``autograd.record()`` is
+        open."""
+        ctx = next(a for a in (*args, *kwargs.values())
+                   if isinstance(a, NDArray))._ctx
+        raw = [a._data if isinstance(a, NDArray) else a for a in args]
+        kw = {k: v._data if isinstance(v, NDArray) else v
+              for k, v in kwargs.items()}
+        with torch.set_grad_enabled(_ag.is_recording()):
+            params = self._param_values(*raw)
+            out = self.hybrid_forward(_F(), *raw, **kw, **params)
+        inputs = [t for t in (*raw, *kw.values(), *params.values())
+                  if isinstance(t, torch.Tensor)]
+        return _wrap_out(out, ctx, inputs)
+
+    def _ensure_initialized(self, *args):
+        """Materialise every deferred parameter with one forward in
+        predict mode, outside the tape (the reference's InferShape
+        pass)."""
+        if any(p._deferred_init for p in self.collect_params().values()):
+            with _ag.pause(), torch.no_grad():
+                self(*args)
+
+    def hybrid_forward(self, F, x, *args, **kwargs):
+        raise NotImplementedError
+
+
+def _F():
+    from .. import ndarray
+
+    return ndarray

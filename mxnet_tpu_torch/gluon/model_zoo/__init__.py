@@ -1,3 +1,4 @@
-"""Model zoo: the GPT family and the stacked transformer trunk."""
+"""Model zoo: the GPT and BERT families (``torch.nn.Module``s) and the
+vision models (Gluon blocks)."""
 
-from . import bert, gpt
+from . import bert, gpt, vision

@@ -213,7 +213,7 @@ class LayerNorm(nn.Module):
         self.beta = nn.Parameter(torch.zeros(units, device=device))
 
     def forward(self, x):
-        return layer_norm(x, self.gamma, self.beta, self._epsilon)
+        return layer_norm(x, self.gamma, self.beta, eps=self._epsilon)
 
 
 class Dense(nn.Module):
@@ -233,7 +233,8 @@ class Dense(nn.Module):
                      if use_bias else None)
 
     def forward(self, x):
-        out = fully_connected(x, self.weight, self.bias, self._flatten)
+        out = fully_connected(x, self.weight, self.bias,
+                              flatten=self._flatten)
         return out if self._activation is None else _activation(
             out, self._activation)
 
@@ -309,7 +310,7 @@ class BERTModel(_Initialized):
         x = self.embed_ln(x)
         if self.training and self._dropout:
             x = _dropout(x, self._dropout,
-                         _random.current_generator(x.device))
+                         _key=_random.current_generator(x.device))
         seq = self.encoder(x)                                 # (B, T, C)
         outputs = [seq]
         if self._use_pooler:
@@ -354,7 +355,7 @@ class BERTEmbedding(_Initialized):
         x = self.embed_ln(x + self.position_embed_weight[:T])
         if self.training and self._dropout:
             x = _dropout(x, self._dropout,
-                         _random.current_generator(x.device))
+                         _key=_random.current_generator(x.device))
         return x
 
 

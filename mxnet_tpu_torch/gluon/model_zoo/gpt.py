@@ -75,7 +75,7 @@ class GPTModel(nn.Module):
         x = self.tok_embed_weight[ids.long()] + self.pos_embed_weight[:T]
         if self.training and self._dropout:
             x = _dropout(x, self._dropout,
-                         _random.current_generator(x.device))
+                         _key=_random.current_generator(x.device))
         h = self.encoder(x)                                   # (B, T, C)
         return torch.matmul(h, self.tok_embed_weight.t())     # tied head
 

@@ -1,0 +1,330 @@
+"""ResNet V1 and V2 (He et al. 2015/2016).
+
+Counterpart of ``mxnet_tpu/gluon/model_zoo/vision/resnet.py`` (reference:
+python/mxnet/gluon/model_zoo/vision/resnet.py), block for block, so the
+parameter names are the JAX model's.  ``layout="NCHW"`` (default) or
+``"NHWC"``: the input comes in the stated layout, every activation stays
+in it, and the parameters are the same in both (weights O-I-H-W).
+``pretrained`` weights wait for ``model_store``.
+"""
+
+from __future__ import annotations
+
+from ...block import HybridBlock
+from ... import nn
+
+
+def _conv3x3(channels, stride, in_channels, layout="NCHW"):
+    return nn.Conv2D(channels, kernel_size=3, strides=stride, padding=1,
+                     use_bias=False, in_channels=in_channels, layout=layout)
+
+
+def _bn_axis(layout):
+    return layout.index("C")
+
+
+class BasicBlockV1(HybridBlock):
+    r"""BasicBlock from ResNet V1 (resnet18/34)."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        ax = _bn_axis(layout)
+        self.body = nn.HybridSequential(prefix="")
+        self.body.add(_conv3x3(channels, stride, in_channels, layout))
+        self.body.add(nn.BatchNorm(axis=ax))
+        self.body.add(nn.Activation("relu"))
+        self.body.add(_conv3x3(channels, 1, channels, layout))
+        self.body.add(nn.BatchNorm(axis=ax))
+        if downsample:
+            self.downsample = nn.HybridSequential(prefix="")
+            self.downsample.add(nn.Conv2D(channels, kernel_size=1,
+                                          strides=stride, use_bias=False,
+                                          in_channels=in_channels,
+                                          layout=layout))
+            self.downsample.add(nn.BatchNorm(axis=ax))
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample:
+            residual = self.downsample(residual)
+        return F.Activation(residual + x, act_type="relu")
+
+
+class BottleneckV1(HybridBlock):
+    r"""Bottleneck from ResNet V1 (resnet50/101/152)."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        ax = _bn_axis(layout)
+        self.body = nn.HybridSequential(prefix="")
+        self.body.add(nn.Conv2D(channels // 4, kernel_size=1,
+                                strides=stride, layout=layout))
+        self.body.add(nn.BatchNorm(axis=ax))
+        self.body.add(nn.Activation("relu"))
+        self.body.add(_conv3x3(channels // 4, 1, channels // 4, layout))
+        self.body.add(nn.BatchNorm(axis=ax))
+        self.body.add(nn.Activation("relu"))
+        self.body.add(nn.Conv2D(channels, kernel_size=1, strides=1,
+                                layout=layout))
+        self.body.add(nn.BatchNorm(axis=ax))
+        if downsample:
+            self.downsample = nn.HybridSequential(prefix="")
+            self.downsample.add(nn.Conv2D(channels, kernel_size=1,
+                                          strides=stride, use_bias=False,
+                                          in_channels=in_channels,
+                                          layout=layout))
+            self.downsample.add(nn.BatchNorm(axis=ax))
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.body(x)
+        if self.downsample:
+            residual = self.downsample(residual)
+        return F.Activation(x + residual, act_type="relu")
+
+
+class BasicBlockV2(HybridBlock):
+    r"""BasicBlock from ResNet V2 (pre-activation)."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        ax = _bn_axis(layout)
+        self.bn1 = nn.BatchNorm(axis=ax)
+        self.conv1 = _conv3x3(channels, stride, in_channels, layout)
+        self.bn2 = nn.BatchNorm(axis=ax)
+        self.conv2 = _conv3x3(channels, 1, channels, layout)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels,
+                                        layout=layout)
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.bn1(x)
+        x = F.Activation(x, act_type="relu")
+        if self.downsample:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x)
+        x = F.Activation(x, act_type="relu")
+        x = self.conv2(x)
+        return x + residual
+
+
+class BottleneckV2(HybridBlock):
+    r"""Bottleneck from ResNet V2."""
+
+    def __init__(self, channels, stride, downsample=False, in_channels=0,
+                 layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        ax = _bn_axis(layout)
+        self.bn1 = nn.BatchNorm(axis=ax)
+        self.conv1 = nn.Conv2D(channels // 4, kernel_size=1, strides=1,
+                               use_bias=False, layout=layout)
+        self.bn2 = nn.BatchNorm(axis=ax)
+        self.conv2 = _conv3x3(channels // 4, stride, channels // 4, layout)
+        self.bn3 = nn.BatchNorm(axis=ax)
+        self.conv3 = nn.Conv2D(channels, kernel_size=1, strides=1,
+                               use_bias=False, layout=layout)
+        if downsample:
+            self.downsample = nn.Conv2D(channels, 1, stride, use_bias=False,
+                                        in_channels=in_channels,
+                                        layout=layout)
+        else:
+            self.downsample = None
+
+    def hybrid_forward(self, F, x):
+        residual = x
+        x = self.bn1(x)
+        x = F.Activation(x, act_type="relu")
+        if self.downsample:
+            residual = self.downsample(x)
+        x = self.conv1(x)
+        x = self.bn2(x)
+        x = F.Activation(x, act_type="relu")
+        x = self.conv2(x)
+        x = self.bn3(x)
+        x = F.Activation(x, act_type="relu")
+        x = self.conv3(x)
+        return x + residual
+
+
+class ResNetV1(HybridBlock):
+    r"""ResNet V1 (reference: ResNetV1)."""
+
+    def __init__(self, block, layers, channels, classes=1000,
+                 thumbnail=False, layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        assert len(layers) == len(channels) - 1
+        self._layout = layout
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0, layout))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False, layout=layout))
+                self.features.add(nn.BatchNorm(axis=_bn_axis(layout)))
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(self._make_layer(
+                    block, num_layer, channels[i + 1], stride, i + 1,
+                    in_channels=channels[i], layout=layout))
+            self.features.add(nn.GlobalAvgPool2D(layout=layout))
+            self.output = nn.Dense(classes, in_units=channels[-1])
+
+    def _make_layer(self, block, layers, channels, stride, stage_index,
+                    in_channels=0, layout="NCHW"):
+        layer = nn.HybridSequential(prefix=f"stage{stage_index}_")
+        with layer.name_scope():
+            layer.add(block(channels, stride, channels != in_channels,
+                            in_channels=in_channels, layout=layout,
+                            prefix=""))
+            for _ in range(layers - 1):
+                layer.add(block(channels, 1, False, in_channels=channels,
+                                layout=layout, prefix=""))
+        return layer
+
+    def hybrid_forward(self, F, x):
+        x = self.features(x)
+        x = self.output(x)
+        return x
+
+
+class ResNetV2(HybridBlock):
+    r"""ResNet V2 (reference: ResNetV2)."""
+
+    def __init__(self, block, layers, channels, classes=1000,
+                 thumbnail=False, layout="NCHW", **kwargs):
+        super().__init__(**kwargs)
+        assert len(layers) == len(channels) - 1
+        self._layout = layout
+        ax = _bn_axis(layout)
+        with self.name_scope():
+            self.features = nn.HybridSequential(prefix="")
+            self.features.add(nn.BatchNorm(scale=False, center=False,
+                                           axis=ax))
+            if thumbnail:
+                self.features.add(_conv3x3(channels[0], 1, 0, layout))
+            else:
+                self.features.add(nn.Conv2D(channels[0], 7, 2, 3,
+                                            use_bias=False, layout=layout))
+                self.features.add(nn.BatchNorm(axis=ax))
+                self.features.add(nn.Activation("relu"))
+                self.features.add(nn.MaxPool2D(3, 2, 1, layout=layout))
+            in_channels = channels[0]
+            for i, num_layer in enumerate(layers):
+                stride = 1 if i == 0 else 2
+                self.features.add(self._make_layer(
+                    block, num_layer, channels[i + 1], stride, i + 1,
+                    in_channels=in_channels, layout=layout))
+                in_channels = channels[i + 1]
+            self.features.add(nn.BatchNorm(axis=ax))
+            self.features.add(nn.Activation("relu"))
+            self.features.add(nn.GlobalAvgPool2D(layout=layout))
+            self.features.add(nn.Flatten())
+            self.output = nn.Dense(classes, in_units=in_channels)
+
+    def _make_layer(self, block, layers, channels, stride, stage_index,
+                    in_channels=0, layout="NCHW"):
+        layer = nn.HybridSequential(prefix=f"stage{stage_index}_")
+        with layer.name_scope():
+            layer.add(block(channels, stride, channels != in_channels,
+                            in_channels=in_channels, layout=layout,
+                            prefix=""))
+            for _ in range(layers - 1):
+                layer.add(block(channels, 1, False, in_channels=channels,
+                                layout=layout, prefix=""))
+        return layer
+
+    def hybrid_forward(self, F, x):
+        x = self.features(x)
+        x = self.output(x)
+        return x
+
+
+# spec: depth → (block config, channels)
+resnet_spec = {
+    18: ("basic_block", [2, 2, 2, 2], [64, 64, 128, 256, 512]),
+    34: ("basic_block", [3, 4, 6, 3], [64, 64, 128, 256, 512]),
+    50: ("bottle_neck", [3, 4, 6, 3], [64, 256, 512, 1024, 2048]),
+    101: ("bottle_neck", [3, 4, 23, 3], [64, 256, 512, 1024, 2048]),
+    152: ("bottle_neck", [3, 8, 36, 3], [64, 256, 512, 1024, 2048]),
+}
+
+resnet_net_versions = [ResNetV1, ResNetV2]
+resnet_block_versions = [
+    {"basic_block": BasicBlockV1, "bottle_neck": BottleneckV1},
+    {"basic_block": BasicBlockV2, "bottle_neck": BottleneckV2},
+]
+
+
+def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
+               **kwargs):
+    """A ResNet of ``version`` 1 or 2 and depth ``num_layers`` (reference:
+    get_resnet); ``kwargs`` go to ``ResNetV1``/``ResNetV2``."""
+    assert num_layers in resnet_spec, \
+        f"Invalid number of layers: {num_layers}. Options are " \
+        f"{str(list(resnet_spec.keys()))}"
+    block_type, layers, channels = resnet_spec[num_layers]
+    assert 1 <= version <= 2, \
+        f"Invalid resnet version: {version}. Options are 1 and 2."
+    resnet_class = resnet_net_versions[version - 1]
+    block_class = resnet_block_versions[version - 1][block_type]
+    net = resnet_class(block_class, layers, channels, **kwargs)
+    if pretrained:
+        raise NotImplementedError("get_resnet: pretrained weights need "
+                                  "model_store, which is not ported yet")
+    return net
+
+
+def resnet18_v1(**kwargs):
+    return get_resnet(1, 18, **kwargs)
+
+
+def resnet34_v1(**kwargs):
+    return get_resnet(1, 34, **kwargs)
+
+
+def resnet50_v1(**kwargs):
+    return get_resnet(1, 50, **kwargs)
+
+
+def resnet101_v1(**kwargs):
+    return get_resnet(1, 101, **kwargs)
+
+
+def resnet152_v1(**kwargs):
+    return get_resnet(1, 152, **kwargs)
+
+
+def resnet18_v2(**kwargs):
+    return get_resnet(2, 18, **kwargs)
+
+
+def resnet34_v2(**kwargs):
+    return get_resnet(2, 34, **kwargs)
+
+
+def resnet50_v2(**kwargs):
+    return get_resnet(2, 50, **kwargs)
+
+
+def resnet101_v2(**kwargs):
+    return get_resnet(2, 101, **kwargs)
+
+
+def resnet152_v2(**kwargs):
+    return get_resnet(2, 152, **kwargs)

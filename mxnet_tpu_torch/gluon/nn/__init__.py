@@ -1,0 +1,14 @@
+"""Neural network layers (counterpart of ``mxnet_tpu/gluon/nn/``)."""
+
+from ..block import Block, HybridBlock
+from .activations import (Activation, ELU, GELU, LeakyReLU, PReLU, SELU,
+                          Swish)
+from .basic_layers import (BatchNorm, Dense, Dropout, Embedding, Flatten,
+                           GroupNorm, HybridLambda, HybridSequential,
+                           InstanceNorm, Lambda, LayerNorm, Sequential)
+from .conv_layers import (AvgPool1D, AvgPool2D, AvgPool3D, Conv1D,
+                          Conv1DTranspose, Conv2D, Conv2DTranspose, Conv3D,
+                          Conv3DTranspose, GlobalAvgPool1D, GlobalAvgPool2D,
+                          GlobalAvgPool3D, GlobalMaxPool1D, GlobalMaxPool2D,
+                          GlobalMaxPool3D, MaxPool1D, MaxPool2D, MaxPool3D,
+                          ReflectionPad2D)

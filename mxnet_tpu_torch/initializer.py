@@ -5,9 +5,9 @@ its name-suffix dispatch (``*weight`` gets the initializer's own rule,
 ``*bias`` and ``*beta`` zeros, ``*gamma`` ones), the per-parameter
 override that a parameter's own ``init`` takes over it (the JAX package's
 ``InitDesc.attrs["__init__"]``, set by ``Parameter(init=...)``), the
-built-ins ``Zero``, ``One``, ``Uniform``, ``Normal`` and ``Xavier``, and
-``create``.  ``initialize`` walks a module's named parameters: the Gluon
-``Block`` of a later slice calls it, the zoo models call it today.
+built-ins ``Zero``, ``One``, ``Constant``, ``Uniform``, ``Normal`` and
+``Xavier``, and ``create``.  ``initialize`` walks a module's named
+parameters, or a Gluon ``Block``'s ``collect_params()``.
 
 The JAX package draws from numpy's global RNG; here every draw takes an
 explicit ``torch.Generator`` on the parameter's device.  The two never
@@ -98,6 +98,21 @@ class One(Initializer):
         _fill(arr, lambda t: t.fill_(1.0))
 
 
+@register
+class Constant(Initializer):
+    """Every element ``value`` (a number, or an array broadcast to the
+    parameter's shape)."""
+
+    def __init__(self, value):
+        super().__init__(value=value)
+        self.value = value
+
+    def _init_weight(self, name, arr, generator):
+        v = torch.as_tensor(getattr(self.value, "_data", self.value),
+                            dtype=torch.float32)
+        _fill(arr, lambda t: t.copy_(v.to(t.device).expand_as(t)))
+
+
 # the JAX package's alias names
 _INIT_REGISTRY["zeros"] = Zero
 _INIT_REGISTRY["ones"] = One
@@ -180,9 +195,25 @@ def initialize(module, init="uniform", inits_by_name=None, generator=None):
     every other by ``init``'s suffix dispatch (the JAX package's default
     global init is ``"uniform"``).  Draws come from ``generator``, default
     the next generator of the package chain on the parameters' device
-    (``random.seed`` makes them reproducible)."""
+    (``random.seed`` makes them reproducible).
+
+    A Gluon ``Block`` is initialised through its ``collect_params()``,
+    by Gluon name: the ``grad_req="null"`` parameters too (BatchNorm's
+    running statistics take their own ``zeros``/``ones``), and a deferred
+    parameter draws from ``generator`` when its shape is known."""
     init = create(init)
     inits_by_name = dict(inits_by_name or {})
+    if hasattr(module, "collect_params"):
+        params = module.collect_params()
+        unknown = sorted(set(inits_by_name) - set(params.keys()))
+        if unknown:
+            raise ValueError(f"initialize: no parameter named {unknown}")
+        for name, p in params.items():
+            ctx = p._ctx or (p._deferred_init[2] if p._deferred_init
+                             else None)
+            p.initialize(inits_by_name.get(name), ctx, init,
+                         force_reinit=True, generator=generator)
+        return
     params = dict(module.named_parameters())
     unknown = sorted(set(inits_by_name) - set(params))
     if unknown:

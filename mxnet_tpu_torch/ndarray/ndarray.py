@@ -106,12 +106,14 @@ class NDArray:
     wait_to_write = wait_to_read
 
     def asnumpy(self):
-        """A host copy; bfloat16 comes back as float32 (numpy has no
-        bfloat16)."""
+        """A host copy, never a view of the array's tensor (a Gluon
+        parameter's tensor is updated in place); bfloat16 comes back as
+        float32 (numpy has no bfloat16)."""
         t = self._data.detach()
         if t.dtype == torch.bfloat16:
-            t = t.float()
-        return t.cpu().numpy()
+            return t.float().cpu().numpy()
+        a = t.cpu().numpy()
+        return a.copy() if t.device.type == "cpu" else a
 
     def asscalar(self):
         if self.size != 1:

@@ -9,7 +9,8 @@ polymorphic:
   (grad enabled only inside ``autograd.record()``, so torch's autograd is
   the tape), wrap the outputs.  An output that shares storage with an
   input is copied, so no two NDArrays share a buffer (``ndarray.py``).
-- raw tensors: pure pass-through, which Gluon's ``hybridize`` will use.
+- raw tensors: pure pass-through, which Gluon's ``F`` namespace uses
+  (``gluon.block.HybridBlock``).
 
 Left out against the JAX module, and listed in ROADMAP: the sparse
 storage dispatch (the port has no sparse storage) and the profiler spans.
@@ -32,6 +33,8 @@ def _device_of(args, kwargs, req_ctx):
     for a in (*args, *kwargs.values()):
         if isinstance(a, NDArray):
             return a._data.device
+        if isinstance(a, torch.Tensor):
+            return a.device
     from ..context import current_context
 
     return current_context().device

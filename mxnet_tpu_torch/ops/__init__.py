@@ -1,11 +1,11 @@
 """Operators: plain PyTorch functions on tensors.
 
 ``registry`` holds the op families the imperative ``mx.nd`` surface
-wraps (``elemwise``, ``reduce``, ``matrix``, ``indexing``,
-``random_ops``); ``optimizer_op`` holds the trainer's update rules;
+and Gluon's ``F`` wrap (``elemwise``, ``reduce``, ``matrix``,
+``indexing``, ``random_ops``, ``nn``, ``ctc``); ``optimizer_op`` holds the trainer's update rules;
 ``flash_attention`` wraps the hand-written attention kernels.
 """
 
 from . import registry
 from . import elemwise, indexing, matrix, random_ops, reduce
-from . import attention, flash_attention, nn, optimizer_op
+from . import attention, ctc, flash_attention, nn, optimizer_op

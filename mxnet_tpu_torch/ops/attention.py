@@ -59,7 +59,7 @@ def scaled_dot_product_attention(query, key, value, mask=None, causal=False,
     if dropout_p > 0.0 and training:
         if generator is None:
             generator = _random.current_generator(p.device)
-        p = _dropout(p, dropout_p, generator)
+        p = _dropout(p, dropout_p, _key=generator)
     return torch.matmul(p, value.float()).to(query.dtype)
 
 
@@ -135,13 +135,13 @@ def scan_transformer_encoder(data, qkv_w, qkv_b, proj_w, proj_b, ffn1_w,
             proj_weight=proj_w[i], proj_bias=proj_b[i],
             num_heads=num_heads, impl=impl, causal=causal)
         if use_drop:
-            attn = _dropout(attn, dropout, generator)
+            attn = _dropout(attn, dropout, _key=generator)
         x = x + attn
         h = layer_norm(x, ln2_g[i], ln2_b[i])
         h = fully_connected(h, ffn1_w[i], ffn1_b[i], flatten=False)
         h = _activation(h, activation)
         h = fully_connected(h, ffn2_w[i], ffn2_b[i], flatten=False)
         if use_drop:
-            h = _dropout(h, dropout, generator)
+            h = _dropout(h, dropout, _key=generator)
         x = x + h
     return layer_norm(x, lnf_g, lnf_b)

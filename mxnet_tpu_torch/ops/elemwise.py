@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .nn import relu as _nn_relu
 from .registry import register
 
 
@@ -84,7 +85,8 @@ def rcbrt(data):
 
 @register("relu")
 def relu(data):
-    return torch.relu(data)
+    """max(x, 0) with the JAX package's gradient at 0, 1/2 (``nn.relu``)."""
+    return _nn_relu(data)
 
 
 @register("sigmoid")

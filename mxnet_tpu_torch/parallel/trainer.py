@@ -6,9 +6,12 @@ compiles forward, backward and the optimizer update into one program over
 a device mesh; here one device runs them eagerly, in the same order and
 with the same arithmetic:
 
-- forward in training mode, the trunk's dropout drawing from one
-  generator per step (``random.step_generator``, the step's
-  ``next_key()``);
+- forward in training mode (``Module.train()`` for the zoo's
+  ``nn.Module``s, ``autograd.train_mode()`` for Gluon blocks), dropout
+  drawing from one generator per step (``random.step_generator``, the
+  step's ``next_key()``); a Gluon block's BatchNorm moves its running
+  statistics in place, once per microbatch, as the JAX step's scan carry
+  does;
 - the mean loss and its gradients (``torch.autograd.grad``); with
   ``grad_accum=k`` dim 0 is split into k microbatches whose losses and
   gradients are averaged;
@@ -30,6 +33,7 @@ import math
 
 import torch
 
+from .. import autograd as _ag
 from .. import random as _random
 from ..base import MXNetError
 from ..ops import optimizer_op as _op
@@ -183,7 +187,8 @@ def _leaves(x):
 
 
 class ShardedTrainer:
-    """Train an ``nn.Module`` with one optimizer step per ``step`` call.
+    """Train an ``nn.Module`` or a Gluon ``Block`` with one optimizer step
+    per ``step`` call.
 
     Usage, as in the JAX package at one device::
 
@@ -222,11 +227,31 @@ class ShardedTrainer:
         self._num_update = 0
         self._initialized = False
 
-    def _stage(self):
-        """Collect the trainable parameters and zero the optimizer
-        state."""
-        self._trainable = [(n, p) for n, p in self.block.named_parameters()
-                           if p.requires_grad]
+    def _stage(self, example):
+        """Collect the trainable parameters and zero the optimizer state.
+        A Gluon block's deferred parameters first materialise from one
+        forward of ``example`` in predict mode, outside the tape, which
+        leaves BatchNorm's running statistics as they were; its trainable
+        parameters are those with ``grad_req != "null"``, each with its
+        own ``wd_mult``/``lr_mult``; the rest (running statistics) are its
+        aux state, which the forward updates in place."""
+        if hasattr(self.block, "collect_params"):
+            allp = list(self.block.collect_params().items())
+            ctx = next((c for _, p in allp for c in p.list_ctx()), None)
+            if ctx is not None:
+                self.block._ensure_initialized(_tree_map(
+                    lambda a: torch.as_tensor(a, device=ctx.device),
+                    example))
+            self._trainable = [(n, p._value()) for n, p in allp
+                               if p.grad_req != "null"]
+            mults = [(p.wd_mult, p.lr_mult) for _, p in allp
+                     if p.grad_req != "null"]
+        else:
+            self._trainable = [(n, p) for n, p in
+                               self.block.named_parameters()
+                               if p.requires_grad]
+            mults = [(getattr(p, "wd_mult", 1.0), getattr(p, "lr_mult", 1.0))
+                     for _, p in self._trainable]
         if not self._trainable:
             raise MXNetError("ShardedTrainer: the block has no trainable "
                              "parameters")
@@ -239,10 +264,8 @@ class ShardedTrainer:
                                  f"{self._device}")
         self._opt_state = self.optimizer.init_state(
             [p.detach() for _, p in self._trainable])
-        self._wd_mults = [getattr(p, "wd_mult", 1.0)
-                          for _, p in self._trainable]
-        self._lr_mults = [getattr(p, "lr_mult", 1.0)
-                          for _, p in self._trainable]
+        self._wd_mults = [w for w, _ in mults]
+        self._lr_mults = [lm for _, lm in mults]
         self._initialized = True
 
     def _to_device(self, x):
@@ -275,7 +298,7 @@ class ShardedTrainer:
         split into k microbatches and one update applies their averaged
         gradients."""
         if not self._initialized:
-            self._stage()
+            self._stage(data)
         x, y = self._to_device(data), self._to_device(label)
         self._num_update += 1
         t = self._num_update
@@ -284,7 +307,8 @@ class ShardedTrainer:
         self.block.train()
         try:
             with _random.generator_scope(
-                    _random.step_generator(self._device)):
+                    _random.step_generator(self._device)), \
+                    _ag.train_mode():
                 if self._grad_accum == 1:
                     loss, grads = self._loss_and_grads(x, y)
                 else:

@@ -115,53 +115,63 @@ def card_line():
     return out.strip().splitlines()[0]
 
 
+def measure(build, steps, device, work, flops, **fields):
+    """Time ``steps`` training steps as ``bench.py``'s ``_measure`` does and
+    return the result line as a dict.  ``build()`` makes the step function
+    (after the peak-memory counter is reset, so the peak counts the build);
+    two warm-up steps each end in a readback, then ``steps`` steps are
+    closed by ``torch.cuda.synchronize()`` and one readback.  ``value`` is
+    ``work`` units a step over the timed seconds; ``mfu`` counts ``flops``
+    a step.  ``fields`` (the metric, the unit, the configuration) open the
+    line."""
+    dev = context.resolve(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)   # the context the reset needs
+        torch.cuda.reset_peak_memory_stats(dev)
+    step = build()
+    warm = [float(step()) for _ in range(2)]    # each ends in a readback
+    t0 = time.perf_counter()
+    outs = [step() for _ in range(steps)]
+    if cuda:
+        torch.cuda.synchronize(dev)
+    float(outs[-1])
+    dt = time.perf_counter() - t0
+    losses = [float(x) for x in outs]
+    name = torch.cuda.get_device_name(dev) if cuda else None
+    return dict(
+        fields,
+        impl="torch",
+        value=work * steps / dt,
+        loss=losses[-1],
+        losses=warm + losses,
+        ms_per_step=dt / steps * 1e3,
+        steps=steps,
+        flops_per_step=flops,
+        mfu=mfu(flops * steps, dt, name),
+        peak_mem_gib=(torch.cuda.max_memory_allocated(dev) / 2 ** 30
+                      if cuda else None),
+        device=str(dev),
+        device_name=name,
+        nvidia_smi=card_line() if cuda else None,
+    )
+
+
 def run(batch=32, seq=512, steps=10, attn="flash", dtype="bfloat16",
         device=None):
     """Build the bench's path, time ``steps`` training steps after two
     warm-up steps, and return the result line as a dict."""
     dev = context.resolve(device)
-    cuda = dev.type == "cuda"
-    sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
-    if cuda:
-        torch.cuda.synchronize(dev)   # the context the reset needs
-        torch.cuda.reset_peak_memory_stats(dev)
-    trainer, tokens, labels = build(batch, seq, attn, dtype, dev)
 
-    def step():
-        return trainer.step(tokens, labels)
+    def build_step():
+        trainer, tokens, labels = build(batch, seq, attn, dtype, dev)
+        return lambda: trainer.step(tokens, labels)
 
-    warm = [float(step()) for _ in range(2)]    # each ends in a readback
-    t0 = time.perf_counter()
-    outs = [step() for _ in range(steps)]
-    sync()
-    float(outs[-1])
-    dt = time.perf_counter() - t0
-    losses = [float(x) for x in outs]
-    flops = flops_per_step(batch, seq)
-    name = torch.cuda.get_device_name(dev) if cuda else None
-    return {
-        "metric": METRIC,
-        "impl": "torch",
-        "value": batch * seq * steps / dt,
-        "unit": "tokens/sec/chip",
-        "loss": losses[-1],
-        "losses": warm + losses,
-        "ms_per_step": dt / steps * 1e3,
-        "batch": batch,
-        "seq": seq,
-        "attn": attn,
-        "dtype": dtype,
-        "steps": steps,
-        "flops_per_step": flops,
-        "mfu": mfu(flops * steps, dt, name),
-        "bf16_reduced_precision_reduction":
-            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction,
-        "peak_mem_gib": (torch.cuda.max_memory_allocated(dev) / 2 ** 30
-                         if cuda else None),
-        "device": str(dev),
-        "device_name": name,
-        "nvidia_smi": card_line() if cuda else None,
-    }
+    return measure(
+        build_step, steps, dev, batch * seq, flops_per_step(batch, seq),
+        metric=METRIC, unit="tokens/sec/chip", batch=batch, seq=seq,
+        attn=attn, dtype=dtype, bf16_reduced_precision_reduction=(
+            torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction))
 
 
 def main(argv=None):

@@ -1,0 +1,124 @@
+"""ResNet-50 v1 training throughput on one card: the port's counterpart of
+the JAX package's ``bench_resnet`` (``bench.py``), same configuration and
+timing.
+
+    python3 -m mxnet_tpu_torch.tools.bench_resnet [--batch 256] [--image 224]
+        [--steps 10] [--layout NCHW|NHWC]
+
+prints one JSON line: ``metric`` ``resnet50_train_samples_per_sec_per_chip``,
+``impl`` ``torch``, ``value`` (samples/s), the final ``loss`` and the whole
+trajectory, ``ms_per_step``, ``mfu``, ``peak_mem_gib``, the layout and
+batch, ``cudnn_benchmark`` (true), and the card's name and power limit as
+``nvidia-smi`` reads them.
+
+The path: ``resnet50_v1(classes=1000, layout=layout)``,
+``initialize(init=Xavier())`` (drawn from seed 0), ``cast("bfloat16")``, and
+``ShardedTrainer(net, SoftmaxCrossEntropyLoss(), "sgd", {"learning_rate":
+0.1, "momentum": 0.9, "wd": 1e-4}, mesh=data_parallel_mesh(1))`` stepped
+on ``bench_resnet``'s batch: x from ``RandomState(0).standard_normal``
+(N, 3, H, W) or, for NHWC, (N, H, W, 3), cast to bf16, and labels
+``randint(0, 1000, N)`` as float32, one batch repeated.  The timing is
+``bench_bert.measure``'s: two warm-up steps each ended by a readback, then
+``steps`` steps closed by ``torch.cuda.synchronize()`` and one readback.
+``torch.backends.cudnn.benchmark`` is this tool's setting: on for the
+run (cuDNN picks each convolution's algorithm by timing it in the
+warm-up steps) and restored after; the library never sets it.
+``bench_resnet``'s data-stall share needs the input prefetcher, which is
+not ported: it is left out.
+
+MFU counts ``bench_resnet``'s FLOPs, 3 * 2 * 4.089e9 per 224x224 image
+scaled by (image / 224)^2, against the H100's dense bf16 tensor-core peak
+(``bench_bert.mfu``); it is null on another card and on the host, and
+above ``bench_bert.MFU_GATE`` the run raises (the clock stopped before
+the card finished).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+
+import numpy as np
+import torch
+
+from .. import context
+from ..gluon.loss import SoftmaxCrossEntropyLoss
+from ..gluon.model_zoo import vision
+from ..initializer import Xavier
+from ..parallel import ShardedTrainer, data_parallel_mesh
+from .bench_bert import measure
+
+METRIC = "resnet50_train_samples_per_sec_per_chip"
+DTYPE = "bfloat16"                  # bench_resnet's only configuration
+#: bench_resnet's forward FLOPs of one 224x224 image, times 3 for the step
+RESNET50_TRAIN_FLOPS_224 = 3 * 2 * 4.089e9
+
+
+def flops_per_step(batch, image):
+    """``bench_resnet``'s FLOP count of one ResNet-50 training step."""
+    return RESNET50_TRAIN_FLOPS_224 * (image / 224.0) ** 2 * batch
+
+
+def make_data(batch, image, layout, device, seed=0):
+    """``bench_resnet``'s batch on ``device``: x (N, 3, H, W), or
+    (N, H, W, 3) for NHWC, in bf16, and float32 labels in [0, 1000)."""
+    rng = np.random.RandomState(seed)
+    shape = (batch, 3, image, image) if layout == "NCHW" else \
+        (batch, image, image, 3)
+    x = torch.as_tensor(rng.standard_normal(shape).astype(np.float32),
+                        device=device).to(getattr(torch, DTYPE))
+    y = torch.as_tensor(rng.randint(0, 1000, batch).astype(np.float32),
+                        device=device)
+    return x, y
+
+
+def build(batch=256, image=224, layout="NCHW", device=None, seed=0):
+    """The bench's trainer and batch: returns (trainer, x, y)."""
+    dev = context.resolve(device)
+    ctx = context.context_of(dev)
+    net = vision.resnet50_v1(classes=1000, layout=layout)
+    net.initialize(init=Xavier(), ctx=ctx,
+                   generator=torch.Generator(device=dev).manual_seed(seed))
+    net.cast(DTYPE)
+    with ctx:
+        mesh = data_parallel_mesh(1)
+    trainer = ShardedTrainer(
+        net, SoftmaxCrossEntropyLoss(), "sgd",
+        {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}, mesh=mesh)
+    x, y = make_data(batch, image, layout, dev, seed)
+    return trainer, x, y
+
+
+def run(batch=256, image=224, steps=10, layout="NCHW", device=None):
+    """Build the bench's path, time ``steps`` training steps after two
+    warm-up steps, and return the result line as a dict."""
+    dev = context.resolve(device)
+
+    def build_step():
+        trainer, x, y = build(batch, image, layout, dev)
+        return lambda: trainer.step(x, y)
+
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    try:
+        return measure(
+            build_step, steps, dev, batch, flops_per_step(batch, image),
+            metric=METRIC, unit="samples/sec/chip", batch=batch, image=image,
+            layout=layout, dtype=DTYPE, cudnn_benchmark=True)
+    finally:
+        torch.backends.cudnn.benchmark = prev
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--batch", type=int, default=256)
+    ap.add_argument("--image", type=int, default=224)
+    ap.add_argument("--steps", type=int, default=10)
+    ap.add_argument("--layout", default="NCHW", choices=("NCHW", "NHWC"))
+    args = ap.parse_args(argv)
+    print(json.dumps(run(args.batch, args.image, args.steps, args.layout)),
+          flush=True)
+
+
+if __name__ == "__main__":
+    main()

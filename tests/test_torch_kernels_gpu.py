@@ -519,3 +519,110 @@ def test_nd_autograd_on_the_card_matches_the_host():
     assert grads[0][2] == "cuda" and grads[1][2] == "cpu"
     for a, c in zip(grads[0][:2], grads[1][:2]):
         np.testing.assert_allclose(a, c, rtol=2e-4, atol=2e-5)
+
+
+# -- the NN op family on the card (cuDNN and PyTorch's kernels): the card
+# against the host on the same inputs, f32 with TF32 off, both layouts, at
+# tests/test_parallel.py's tolerances (outputs 2e-4 / 2e-5, gradients
+# 2e-3 / 2e-4) --------------------------------------------------------------
+
+def _to_layout(a, layout):
+    return a if layout == "NCHW" else a.permute(0, 2, 3, 1).contiguous()
+
+
+def _card_and_host(fn, arrays):
+    """fn's outputs and the gradients of sum(out * c) with respect to every
+    input, on the card and on the host."""
+    dev = _card()
+    g = torch.Generator().manual_seed(len(arrays))
+    res = []
+    for d in (dev, torch.device("cpu")):
+        xs = [a.to(d).requires_grad_(True) for a in arrays]
+        out = fn(*xs)
+        c = torch.randn(out.shape, generator=g).to(d)
+        grads = torch.autograd.grad((out * c).sum(), xs)
+        res.append([out.detach().cpu()] + [t.cpu() for t in grads])
+        g.manual_seed(len(arrays))
+    return res
+
+
+def _close(card, host):
+    torch.testing.assert_close(card[0], host[0], rtol=2e-4, atol=2e-5)
+    for a, b in zip(card[1:], host[1:]):
+        torch.testing.assert_close(a, b, rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("stride,pad,groups", [(1, 1, 1), (2, 3, 1),
+                                               (1, 0, 2)])
+def test_convolution_on_the_card_matches_the_host(layout, stride, pad,
+                                                  groups):
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    g = torch.Generator().manual_seed(stride + pad)
+    x = _to_layout(torch.randn(2, 8, 17, 17, generator=g), layout)
+    w = torch.randn(16, 8 // groups, 3, 3, generator=g) * 0.2
+    b = torch.randn(16, generator=g)
+
+    def conv(x, w, b):
+        return tnn.convolution(x, w, b, kernel=(3, 3), stride=stride,
+                               pad=pad, num_filter=16, num_group=groups,
+                               layout=layout)
+
+    _close(*_card_and_host(conv, [x, w, b]))
+
+
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("pool_type,convention", [
+    ("max", "valid"), ("avg", "valid"), ("avg", "full"), ("max", "full")])
+def test_pooling_on_the_card_matches_the_host(layout, pool_type,
+                                              convention):
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    g = torch.Generator().manual_seed(3)
+    x = _to_layout(torch.randn(2, 4, 15, 15, generator=g), layout)
+
+    def pool(x):
+        return tnn.pooling(x, kernel=(3, 3), stride=(2, 2), pad=(1, 1),
+                           pool_type=pool_type,
+                           pooling_convention=convention,
+                           count_include_pad=False, layout=layout)
+
+    _close(*_card_and_host(pool, [x]))
+
+
+@pytest.mark.parametrize("layout", ["NCHW", "NHWC"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_norm_on_the_card_matches_the_host(layout, dtype):
+    """Training mode: the output and the batch statistics, and the
+    gradients of x, gamma and beta; bf16 is held at one bf16 step of the
+    output's scale (2^-7 relative, the two sums round differently)."""
+    from mxnet_tpu_torch.ops import nn as tnn
+
+    dev = _card()
+    g = torch.Generator().manual_seed(5)
+    x = _to_layout(torch.randn(8, 16, 9, 9, generator=g) * 2 + 0.5, layout)
+    gamma = torch.rand(16, generator=g) + 0.5
+    beta = torch.randn(16, generator=g)
+    axis = 1 if layout == "NCHW" else 3
+    res = []
+    for d in (dev, torch.device("cpu")):
+        xs = x.to(d, dtype).requires_grad_(True)
+        gs, bs = (t.to(d, dtype).requires_grad_(True) for t in (gamma, beta))
+        mm, mv = torch.zeros(16, device=d, dtype=dtype), \
+            torch.ones(16, device=d, dtype=dtype)
+        out, mean, var = tnn.batch_norm(xs, gs, bs, mm, mv, fix_gamma=False,
+                                        output_mean_var=True, axis=axis,
+                                        _is_training=True)
+        c = torch.linspace(-1, 1, out.numel()).reshape(out.shape).to(d)
+        grads = torch.autograd.grad((out.float() * c).sum(), (xs, gs, bs))
+        res.append([t.detach().float().cpu() for t in (out, mean, var)
+                    + grads])
+    if dtype == torch.float32:
+        for i, (a, b) in enumerate(zip(*res)):
+            tol = (2e-4, 2e-5) if i < 3 else (2e-3, 2e-4)
+            torch.testing.assert_close(a, b, rtol=tol[0], atol=tol[1])
+    else:
+        for a, b in zip(*res):
+            scale = float(b.abs().max())
+            assert float((a - b).abs().max()) <= 2 ** -7 * scale + 1e-6

@@ -38,11 +38,14 @@ GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
 # jax.numpy / jax.scipy are ops/elemwise.py's _u/_b tables.
 PORTED = {"mxnet_tpu.ops.elemwise", "mxnet_tpu.ops.reduce",
           "mxnet_tpu.ops.matrix", "mxnet_tpu.ops.indexing",
-          "mxnet_tpu.ops.random_ops"}
+          "mxnet_tpu.ops.random_ops", "mxnet_tpu.ops.nn"}
 RANDOM = "mxnet_tpu.ops.random_ops"
 
 #: canonical JAX ops of the ported families the port leaves out, by reason
-PORT_SKIP = {}
+PORT_SKIP = {
+    "Custom": "needs operator.py's CustomOp registry, not ported yet",
+    "Cast_storage": "needs sparse storage, not ported yet",
+}
 
 
 def _family(name):
@@ -58,7 +61,8 @@ def _canonical(names):
 
 
 CANONICAL = _canonical({n for n in jax_ops() if _family(n) in PORTED})
-CASES = sorted(n for n in SPECS if n in jax_ops() and _family(n) in PORTED)
+CASES = sorted(n for n in SPECS if n in jax_ops() and _family(n) in PORTED
+               and n not in PORT_SKIP)
 
 
 def test_ported_families_fully_covered():

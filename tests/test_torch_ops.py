@@ -80,7 +80,7 @@ def test_tanh_activation_matches_jax():
     got = tnn.activation(torch.from_numpy(x), "tanh").numpy()
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
     with pytest.raises(ValueError, match="unsupported activation"):
-        tnn.activation(torch.from_numpy(x), "softsign")
+        tnn.activation(torch.from_numpy(x), "mish")
 
 
 def test_bf16_trunk_multiplies_in_bf16():

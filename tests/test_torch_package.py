@@ -56,6 +56,20 @@ BERT_MODULES = ("mxnet_tpu_torch.initializer",
                 "mxnet_tpu_torch.parallel.mesh",
                 "mxnet_tpu_torch.tools.bench_bert")
 
+#: modules the ResNet slice added; each must be walked and clean
+RESNET_MODULES = ("mxnet_tpu_torch.name", "mxnet_tpu_torch.entry",
+                  "mxnet_tpu_torch.ops.nn", "mxnet_tpu_torch.ops.ctc",
+                  "mxnet_tpu_torch.gluon.parameter",
+                  "mxnet_tpu_torch.gluon.block",
+                  "mxnet_tpu_torch.gluon.loss",
+                  "mxnet_tpu_torch.gluon.nn",
+                  "mxnet_tpu_torch.gluon.nn.activations",
+                  "mxnet_tpu_torch.gluon.nn.basic_layers",
+                  "mxnet_tpu_torch.gluon.nn.conv_layers",
+                  "mxnet_tpu_torch.gluon.model_zoo.vision",
+                  "mxnet_tpu_torch.gluon.model_zoo.vision.resnet",
+                  "mxnet_tpu_torch.tools.bench_resnet")
+
 
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
@@ -69,6 +83,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert set(TRAINING_MODULES) <= walked, sorted(walked)
     assert set(IMPERATIVE_MODULES) <= walked, sorted(walked)
     assert set(BERT_MODULES) <= walked, sorted(walked)
+    assert set(RESNET_MODULES) <= walked, sorted(walked)
 
 
 def _imported_roots(path):
