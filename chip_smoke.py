@@ -85,6 +85,23 @@ Phases; any failure raises, exits non-zero and prints no result line:
    own kernels); (iv) torch.profiler over three bf16 steps by family
    (convolutions, BN reductions, elementwise, the optimizer update);
    (v) mxnet_tpu_torch.entry.entry()'s forward on the card.
+10. ResNet-50 v1 through gluon.Trainer: (i) three Trainer.steps (SGD,
+   momentum 0.9, wd 1e-4) card against host, the small ResNet in f32 and
+   resnet50_v1 in f64 (losses, weights, running statistics, momenta);
+   (ii) under torch.use_deterministic_algorithms(True), the captured
+   train_step (one CUDA graph a step) against the eager one, bitwise in
+   losses, weights and states: Adam with the guard and a NaN batch (both
+   skip it), SGD with every step clipped, and a Dense/BatchNorm/Dropout
+   net at grad_accum=2; the captured counters (one dispatch and one
+   readback a step, no recording after the first); (iii)
+   tools.bench_resnet.run at B=256, 224x224, bf16, NCHW through the eager
+   Gluon loop (record, backward, Trainer.step(256), kvstore "device"),
+   the captured train_step and ShardedTrainer: the loss falls, ms per
+   step, samples/s, peak memory; each path's kernel launches (none of the
+   port's own) and torch.profiler over three steps of the first two (the
+   eager update's kernels against its span on the device timeline);
+   (iv) tools.bench_trainer.run: the captured, grouped and legacy steps'
+   microseconds.
 6. The kernel JSON line (f32 numbers at the training shape, and the
    bf16 ones under *_bf16 keys; the same at BERT's shape under
    ``at_bert_shape``; launches by path), the nvidia-smi line, then the
@@ -94,6 +111,7 @@ Phases; any failure raises, exits non-zero and prints no result line:
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
 import time
@@ -189,6 +207,24 @@ F32_NOISE = 2.0
 RESNET_BF16_TOL = 0.05
 RESNET_BF16_LOSS_RTOL = BF16_STEP
 BF16_VS_HOST = 1.1
+
+# -- ResNet-50 v1 through gluon.Trainer ([10]) --------------------------------
+# (i) Trainer.step against the host, at [9](i)'s tolerances on the losses,
+# the running statistics (RESNET_OUT_TOL) and the trained weights and
+# momenta (RESNET_GRAD_TOL): SGD, momentum 0.9, wd 1e-4, three steps of 4
+# images of 64x64 (16 values a channel in the last stage's BatchNorms), at
+# lr 0.02, PR 7's rate for three steps without amplified f32 rounding;
+# ResNet-50 runs in f64.
+TRAINER_SHAPE, TRAINER_STEPS, TRAINER_LR = (4, 3, 64, 64), 3, 0.02
+# (ii) captured against eager, bitwise, under deterministic algorithms
+# (cuDNN's weight-gradient algorithms are not deterministic otherwise, so
+# two eager runs already differ): six steps of the small ResNet with Adam,
+# the guard on and a NaN at CAPTURE_NAN_AT (both paths skip that step),
+# six with SGD and every step clipped at CAPTURE_CLIP, and test_captured_
+# step.py:122's Dense/BatchNorm/Dropout net with grad_accum=2.
+CAPTURE_STEPS, CAPTURE_NAN_AT, CAPTURE_CLIP = 6, 3, 0.5
+# (iv) tools.bench_trainer's timed steps
+TRAINER_BENCH_STEPS = 30
 
 # -- the imperative path ([7]) and the runtime-compiled kernels ([7b]) -------
 # Hand-written CUDA C++ sources compiled at runtime by rtc.CudaModule
@@ -1328,6 +1364,313 @@ def phase_resnet(dev, card, rtc_kernels):
     return launches, results
 
 
+def _trainer_steps(make, params, x, y, dev, dtype):
+    """TRAINER_STEPS eager Gluon steps (record, backward,
+    ``Trainer.step``) of ``make``'s net loaded with ``params``, in
+    ``dtype`` on ``dev``; returns (losses, trained weights, running
+    statistics, optimizer states) as f64 host tensors by name."""
+    import torch
+
+    from mxnet_tpu_torch import autograd, convert
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon import Trainer
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    ctx = context_of(dev)
+    net = make(vision)
+    net.initialize(ctx=ctx)
+    convert.load_gluon_params(net, params)
+    net.cast(dtype)
+    tr = Trainer(net.collect_params(), "sgd",
+                 {"learning_rate": TRAINER_LR, "momentum": 0.9, "wd": 1e-4})
+    xn = NDArray(torch.as_tensor(x, device=dev).to(getattr(torch, dtype)),
+                 ctx)
+    yn = NDArray(torch.as_tensor(y, device=dev), ctx)
+    losses = []
+    for _ in range(TRAINER_STEPS):
+        with autograd.record():
+            loss = SoftmaxCrossEntropyLoss()(net(xn), yn)
+        loss.backward()
+        tr.step(x.shape[0])
+        losses.append(float(loss.mean().asscalar()))
+    names = [k[len(net.prefix):] for k in net.collect_params()]
+    host = {n: p.data()._data.detach().double().cpu()
+            for n, p in zip(names, net.collect_params().values())}
+    trained = {n: host[n] for n, p in zip(names,
+                                          net.collect_params().values())
+               if p.grad_req != "null"}
+    stats = {n: v for n, v in host.items() if n not in trained}
+    states = {names[i]: st._data.detach().double().cpu()
+              for i, st in tr._updaters[0].states.items()}
+    return losses, trained, stats, states
+
+
+def _trainer_card_vs_host(make, what, dev, rng, dtype):
+    """(i) ``_trainer_steps`` on the card and on the host from the same
+    weights and batch; prints and returns the worst excess over the
+    tolerance (<= 1 passes)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.context import cpu
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    x = rng.standard_normal(TRAINER_SHAPE).astype(np.float32)
+    y = rng.randint(0, 1000, TRAINER_SHAPE[0]).astype(np.float32)
+    with cpu():
+        src = make(vision)
+        src.initialize(init=initializer.Xavier(),
+                       generator=torch.Generator().manual_seed(SEED))
+        src._ensure_initialized(torch.as_tensor(x[:1]))
+    params = _resnet_numpy(src, rng)
+    card = _trainer_steps(make, params, x, y, dev, dtype)
+    host = _trainer_steps(make, params, x, y, torch.device("cpu"), dtype)
+    (l1, w1, s1, m1), (l0, w0, s0, m0) = card, host
+    worst = {
+        "losses": max((abs(a - b) - RESNET_OUT_TOL[0] * abs(b))
+                      / RESNET_OUT_TOL[1] for a, b in zip(l1, l0)),
+        "weights": max(_excess(w1[k], w0[k], *RESNET_GRAD_TOL) for k in w0),
+        "running stats": max(_excess(s1[k], s0[k], *RESNET_OUT_TOL)
+                             for k in s0),
+        "momenta": max(_excess(m1[k], m0[k], *RESNET_GRAD_TOL) for k in m0),
+    }
+    log(f"  (i) {what}: {TRAINER_STEPS} Trainer.steps, losses card "
+        f"{[round(v, 6) for v in l1]} host {[round(v, 6) for v in l0]}; "
+        f"excess over tolerance (<= 1 passes): " + ", ".join(
+            f"{k} {v:.3e}" for k, v in worst.items()))
+    if not l1[-1] < l1[0]:
+        raise AssertionError(f"{what}: the loss did not fall: {l1}")
+    return max(worst.values())
+
+
+def _capture_net(kind, dev):
+    """The net of a (ii) run: the small ResNet, or test_captured_step.py's
+    Dense/BatchNorm/Dropout net; Xavier from a fixed seed, hybridized."""
+    import torch
+
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon import nn
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+
+    mxrandom.seed(SEED + 10)
+    if kind == "resnet":
+        net = _resnet_small(vision)
+    else:
+        net = nn.HybridSequential()
+        with net.name_scope():
+            net.add(nn.Dense(16, activation="relu"), nn.BatchNorm(axis=1),
+                    nn.Dropout(0.3), nn.Dense(3))
+    net.initialize(init=initializer.Xavier(), ctx=context_of(dev),
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+    net.hybridize()
+    return net
+
+
+def _capture_run(dev, captured_on, kind, opt, opt_params, guard, clip=None,
+                 nan_at=None, k=1):
+    """CAPTURE_STEPS ``train_step``s of a fresh ``_capture_net`` (eager
+    with ``captured_on`` False); returns (losses, weights, states, skipped
+    steps, counters) as host numpy."""
+    import os
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import gluon, numerics
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon import captured
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    from mxnet_tpu_torch.optimizer import grouped
+
+    os.environ["MXTPU_CAPTURED_STEP"] = "1" if captured_on else "0"
+    os.environ["MXTPU_GRAD_GUARD"] = guard
+    try:
+        net = _capture_net(kind, dev)
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+        loss_fn.hybridize()
+        tr = gluon.Trainer(net.collect_params(), opt, dict(opt_params),
+                           clip_global_norm=clip)
+        rng = np.random.RandomState(SEED + 11)
+        shape = (4, 3, 64, 64) if kind == "resnet" else (8, 6)
+        classes = 1000 if kind == "resnet" else 3
+        ctx = context_of(dev)
+        losses = []
+        for s in range(CAPTURE_STEPS):
+            x = rng.standard_normal(shape).astype(np.float32)
+            if s == nan_at:
+                x.flat[0] = np.nan
+            y = rng.randint(0, classes, shape[0]).astype(np.float32)
+            if s == 1:
+                captured.reset_counters()
+                grouped.reset_dispatch_count()
+                numerics.reset_readback_count()
+            out = tr.train_step(net, loss_fn,
+                                NDArray(torch.as_tensor(x, device=dev), ctx),
+                                NDArray(torch.as_tensor(y, device=dev), ctx),
+                                grad_accum=k)
+            losses.append(out.asnumpy())
+        counters = dict(captured.cache_stats(),
+                        dispatches=captured.dispatch_count(),
+                        traces=captured.trace_count(),
+                        grouped=grouped.dispatch_count(),
+                        readbacks=numerics.readback_count())
+        weights = [p.data().asnumpy() for p in net.collect_params().values()]
+        states = [st.asnumpy() for i in sorted(tr._updaters[0].states)
+                  for st in _flat_states(tr._updaters[0].states[i])]
+        return losses, weights, states, \
+            [r.step for r in tr.skipped_steps], counters
+    finally:
+        os.environ.pop("MXTPU_CAPTURED_STEP", None)
+        os.environ.pop("MXTPU_GRAD_GUARD", None)
+
+
+def _flat_states(state):
+    if state is None:
+        return []
+    if isinstance(state, (list, tuple)):
+        return [a for s in state for a in _flat_states(s)]
+    return [state]
+
+
+def _bitwise(a, b):
+    import numpy as np
+
+    return len(a) == len(b) and all(
+        x.shape == y.shape and np.array_equal(x, y, equal_nan=True)
+        for x, y in zip(a, b))
+
+
+def phase_trainer(dev, card, rtc_kernels):
+    """[10] ResNet-50 v1 through gluon.Trainer: (i) Trainer.step, card
+    against host (the small ResNet in f32, ResNet-50 in f64); (ii) the
+    captured train_step against the eager one, bitwise, under
+    deterministic algorithms, with its counters; (iii)
+    tools.bench_resnet.run at B=256 through the eager Gluon loop, the
+    captured train_step and ShardedTrainer, each path's kernel launches,
+    and torch.profiler over three steps of the first two; (iv)
+    tools.bench_trainer.run.  Returns (launches of one captured step,
+    {path: bench result})."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.tools import bench_resnet, bench_trainer
+
+    rng = np.random.RandomState(SEED + 10)
+    # (i) Trainer.step, card against host
+    worst = _trainer_card_vs_host(_resnet_small, "ResNetV1(BottleneckV1, "
+                                  "[1,1,1,1]) f32", dev, rng, "float32")
+    worst = max(worst, _trainer_card_vs_host(
+        lambda v: v.resnet50_v1(classes=1000), "resnet50_v1 f64", dev, rng,
+        "float64"))
+    if worst > 1:
+        raise AssertionError("Trainer.step on the card disagrees with the "
+                             "host")
+    torch.cuda.empty_cache()
+
+    # (ii) captured against eager, bitwise, deterministic algorithms
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        runs = (
+            ("small ResNet, Adam, guard on, NaN batch", "resnet", "adam",
+             {"learning_rate": 0.01}, "1", None, CAPTURE_NAN_AT, 1),
+            ("small ResNet, SGD, guard off, clip", "resnet", "sgd",
+             {"learning_rate": 0.1, "momentum": 0.9}, "0", CAPTURE_CLIP,
+             None, 1),
+            ("Dense/BatchNorm/Dropout, Adam, grad_accum=2", "dropout",
+             "adam", {"learning_rate": 0.01}, "1", None, None, 2),
+        )
+        for what, kind, opt, hp, guard, clip, nan_at, k in runs:
+            eager = _capture_run(dev, False, kind, opt, hp, guard, clip,
+                                 nan_at, k)
+            cap = _capture_run(dev, True, kind, opt, hp, guard, clip,
+                               nan_at, k)
+            same = [_bitwise(e, c) for e, c in zip(eager[:3], cap[:3])]
+            counters = cap[4]
+            n = CAPTURE_STEPS - 1
+            want = {"dispatches": n, "traces": 0, "grouped": 0,
+                    "hits": n, "misses": 0,
+                    "readbacks": n if guard == "1" else 0}
+            ok = all(same) and eager[3] == cap[3] and all(
+                counters[key] == v for key, v in want.items()) and \
+                (nan_at is None or eager[3] == [nan_at + 1])
+            log(f"  (ii) {what}: losses / weights / states bitwise "
+                f"{same}; skipped steps eager {eager[3]} captured {cap[3]}; "
+                f"captured counters over steps 2-{CAPTURE_STEPS} "
+                f"{counters} (want {want}); eager grouped dispatches "
+                f"{eager[4]['grouped']}; last loss "
+                f"{float(np.mean(cap[0][-1])):.6f}")
+            if not ok:
+                raise AssertionError(f"captured differs from eager: {what}")
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    torch.cuda.empty_cache()
+
+    # (iii) ResNet-50 at bench_resnet's configuration, three ways
+    results = {}
+    for path in ("gluon", "captured", "sharded"):
+        r = bench_resnet.run(RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS,
+                             "NCHW", path=path)
+        results[path] = r
+        log(f"  (iii) {path}: loss {[round(v, 4) for v in r['losses']]} "
+            f"(2 warm-up + {RESNET_STEPS} timed); {r['ms_per_step']:.2f} ms "
+            f"per step, {r['value']:.1f} samples/s, mfu "
+            f"{'null' if r['mfu'] is None else format(r['mfu'], '.4f')}, "
+            f"peak device memory {r['peak_mem_gib']:.2f} GiB  "
+            f"[{r['nvidia_smi']}]")
+        log("  (iii) " + json.dumps(r))
+        losses = r["losses"]
+        if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+            raise AssertionError(f"ResNet-50 {path}: {losses}")
+        torch.cuda.empty_cache()
+    prev = torch.backends.cudnn.benchmark
+    torch.backends.cudnn.benchmark = True
+    launches = {}
+    try:
+        for path in ("gluon", "captured"):
+            step = bench_resnet.step_fn(path, RESNET_BATCH, RESNET_IMAGE,
+                                        "NCHW")
+            for _ in range(2):
+                float(step())
+            torch.cuda.synchronize()
+            _zero_counts()
+            for kern in rtc_kernels:
+                kern.launches = 0
+            float(step())
+            launches[path] = dict(_counts(),
+                                  rtc_scale2=rtc_kernels[0].launches,
+                                  rtc_axpy=rtc_kernels[1].launches)
+            log(f"  (iii) one {path} step's kernel launches "
+                f"{launches[path]}")
+            profile_steps(step, 3, f"(iii) 3 bf16 ResNet-50 {path} steps "
+                          f"at B={RESNET_BATCH}, NCHW", card,
+                          families=TRAINER_FAMILIES,
+                          ranges=("optimizer_update",)
+                          if path == "gluon" else ())
+            del step
+            torch.cuda.empty_cache()
+    finally:
+        torch.backends.cudnn.benchmark = prev
+
+    # (iv) the Gluon step's host cost
+    bt = bench_trainer.run(160, TRAINER_BENCH_STEPS)
+    log(f"  (iv) bench_trainer: captured {bt['value']:.1f} us, grouped "
+        f"{bt['grouped_us']:.1f} us, legacy {bt['legacy_us']:.1f} us a "
+        f"step; first step {bt['first_step_ms']:.1f} ms  "
+        f"[{bt['nvidia_smi']}]")
+    log("  (iv) " + json.dumps(bt))
+    if not (bt["cache_misses"] == 0 and bt["traces"] == 0
+            and bt["dispatches"] == TRAINER_BENCH_STEPS):
+        raise AssertionError(f"bench_trainer's captured counters: {bt}")
+    results["bench_trainer"] = bt
+    return launches["captured"], results
+
+
 # kernel-name fragments -> family, first match wins
 FAMILIES = (("axpy", "rtc axpy kernel"), ("scale2", "rtc scale2 kernel"),
             ("flash_dq", "flash dQ kernel"),
@@ -1379,6 +1722,12 @@ RESNET_FAMILIES = (("conv", "conv / cuDNN"), ("xmma", "conv / cuDNN"),
                    ("max_pool", "pooling"), ("pool", "pooling"),
                    ("elementwise", "elementwise"),
                    ("vectorized", "elementwise"), ("copy", "copies"))
+
+
+# [10]'s families: [9]'s, with the multi-tensor (_foreach_*) kernels of the
+# grouped update and the health reduction apart
+TRAINER_FAMILIES = (("multi_tensor", "foreach (update, health)"),) + \
+    RESNET_FAMILIES
 
 
 def profile_steps(step, steps, what, card, top=12, families=FAMILIES,
@@ -1749,6 +2098,9 @@ def main():
     from mxnet_tpu_torch import _kernels
 
     t_start = time.perf_counter()
+    # cuBLAS's deterministic workspace, set before its first handle: [10](ii)
+    # runs under torch.use_deterministic_algorithms(True)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = torch.device("cuda", 0)
     card = smi_line()
     log("[1] card:", torch.cuda.get_device_name(0), "| count",
@@ -1812,6 +2164,12 @@ def main():
         "and NHWC")
     resnet_launches, resnet_res = phase_resnet(dev, card, (s2, ax))
 
+    log("[10] ResNet-50 v1 through gluon.Trainer: Trainer.step card "
+        "against host, the captured train_step against the eager one "
+        "(bitwise), bench_resnet's configuration through the eager loop, "
+        "the captured step and ShardedTrainer, bench_trainer")
+    trainer_launches, trainer_res = phase_trainer(dev, card, (s2, ax))
+
     T0, Tb = TRAIN_SHAPE[2], BERT_SHAPE[2]
     sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
                        ":78", "lib_fwd", "plain_fwd"),
@@ -1859,17 +2217,22 @@ def main():
             {"generate": gen_launches} if fn == "fwd" else {},
             train_step=train_launches[name],
             bert_train_step=bert_launches[name],
-            resnet_train_step=resnet_launches[name]),
+            resnet_train_step=resnet_launches[name],
+            gluon_captured_train_step=trainer_launches[name]),
         "plain_and_library_cover": ("the forward" if fn == "fwd" else
                                     "the whole backward (dQ, dK, dV)"),
     } for fn, (name, src, line, lib, plain) in sources.items()]}
     rtc_launches = {"rtc_scale2": {"rtc_path": rt["path"]["rtc_scale2"],
                                    "resnet_train_step":
-                                       resnet_launches["rtc_scale2"]},
+                                       resnet_launches["rtc_scale2"],
+                                   "gluon_captured_train_step":
+                                       trainer_launches["rtc_scale2"]},
                     "rtc_axpy": {"imperative_sgd": reg["launches"],
                                  "rtc_path": rt["path"]["rtc_axpy"],
                                  "resnet_train_step":
-                                     resnet_launches["rtc_axpy"]}}
+                                     resnet_launches["rtc_axpy"],
+                                 "gluon_captured_train_step":
+                                     trainer_launches["rtc_axpy"]}}
     for name, replaces in (("rtc_scale2", "mxnet_tpu/rtc.py:53, "
                                           "tests/test_aux.py:256"),
                            ("rtc_axpy", "mxnet_tpu/rtc.py:53")):
@@ -1900,7 +2263,11 @@ def main():
         f"{bert_res['ms_per_step']:.2f} ms; ResNet-50 bf16 step "
         f"{resnet_res['NCHW']['ms_per_step']:.2f} ms NCHW, "
         f"{resnet_res['NHWC']['ms_per_step']:.2f} ms NHWC at "
-        f"B={resnet_res['NCHW']['batch']}; forward O max abs err at BERT's "
+        f"B={resnet_res['NCHW']['batch']}; through gluon.Trainer "
+        f"{trainer_res['gluon']['ms_per_step']:.2f} ms eager, "
+        f"{trainer_res['captured']['ms_per_step']:.2f} ms captured; "
+        f"bench_trainer {trainer_res['bench_trainer']['value']:.1f} us "
+        f"captured; forward O max abs err at BERT's "
         f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")
     log(json.dumps(kernels))

@@ -16,9 +16,13 @@ from . import autograd, ndarray, rtc
 from . import ndarray as nd
 from . import initializer, name
 from . import initializer as init
-from . import convert, gluon, optimizer, parallel, serving
+from . import numerics, optimizer
+from . import kvstore
+from . import kvstore as kv
+from . import amp, convert, gluon, metric, parallel, serving
 
-__all__ = ["Context", "MXNetError", "autograd", "base", "context",
+__all__ = ["Context", "MXNetError", "amp", "autograd", "base", "context",
            "convert", "cpu", "current_context", "engine", "gluon", "gpu",
-           "init", "initializer", "name", "nd", "ndarray", "num_gpus",
-           "ops", "optimizer", "parallel", "random", "rtc", "serving"]
+           "init", "initializer", "kv", "kvstore", "metric", "name", "nd",
+           "ndarray", "num_gpus", "numerics", "ops", "optimizer", "parallel",
+           "random", "rtc", "serving"]

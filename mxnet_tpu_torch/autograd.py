@@ -22,6 +22,7 @@ they differ from torch's, are kept here:
 
 from __future__ import annotations
 
+import contextlib
 import threading
 
 import torch
@@ -101,6 +102,31 @@ def mark_variables(variables, gradients, grad_reqs="write"):
         v._grad = g
         v._grad_req = req
         v._make_leaf(v._data)
+
+
+@contextlib.contextmanager
+def accumulate_grads(params):
+    """Accumulate gradients over several ``backward()`` calls: the eager
+    side of gradient accumulation (``Trainer.train_step``'s oracle for
+    ``grad_accum > 1``).  Zeroes each trainable Parameter's gradient,
+    switches its ``grad_req`` to 'add' for the scope and restores it on
+    exit without touching the summed gradient, so the first microbatch
+    computes ``0 + g``, as the captured step's zero-initialised sum
+    does."""
+    params = [p for p in params if p.grad_req != "null"]
+    saved = [(p, p.grad_req) for p in params]
+    for p in params:
+        p.zero_grad()
+        p._grad_req = "add"
+        if p._nd is not None:
+            p._nd._grad_req = "add"
+    try:
+        yield
+    finally:
+        for p, req in saved:
+            p._grad_req = req
+            if p._nd is not None:
+                p._nd._grad_req = req
 
 
 # -- backward ------------------------------------------------------------------
@@ -197,6 +223,7 @@ def _apply_grad(var, g, seed_ptrs):
         g = grad._data + g
     grad._data = g
     grad._version += 1
+    var._fresh_grad = True
 
 
 def grad(heads, variables, head_grads=None, retain_graph=None,

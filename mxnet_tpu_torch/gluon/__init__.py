@@ -1,8 +1,11 @@
-"""Gluon: ``Parameter``, ``Block``, the ``nn`` layers, the losses and the
-model zoo (counterpart of ``mxnet_tpu/gluon/``)."""
+"""Gluon: ``Parameter``, ``Block``, the ``nn`` layers, the losses, the
+``Trainer`` with its whole-step capture, the utilities and the model zoo
+(counterpart of ``mxnet_tpu/gluon/``)."""
 
-from . import block, loss, nn, parameter
+from . import block, loss, nn, parameter, utils
 from .block import Block, HybridBlock
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
+from . import captured, trainer
+from .trainer import Trainer
 from . import model_zoo

@@ -21,9 +21,12 @@ line by line and runs on tensors.  Called with tensors, a block runs under
 torch's own grad mode (the trainer's path).  Called with NDArrays, it
 unwraps them, runs with gradients only inside ``autograd.record()``, and
 wraps the outputs back: the imperative path, on the same tape as ``nd``.
-``hybridize`` records its flag and changes nothing else: whole-step
-capture is not ported yet; nor are ``SymbolBlock``, ``export``,
-``optimize_for`` and ``shard_activations``.
+``hybridize`` records its flag, which ``gluon.captured`` reads (a
+Trainer's ``train_step`` captures a hybridized block's whole step), and
+makes the forward draw one generator a call; the block still runs op by
+op.  ``SymbolBlock``, ``export``, ``optimize_for`` and
+``shard_activations`` are not ported yet.  ``_cache_version`` counts the
+changes a captured step keys on.
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import torch
 
 from .. import autograd as _ag
 from .. import name as _name
+from .. import random as _random
 from ..ndarray.ndarray import NDArray
 from ..ndarray.register import _wrap
 from .parameter import Parameter, ParameterDict
@@ -106,6 +110,10 @@ class Block(torch.nn.Module):
         self._scope = _BlockScope(self)
         self._children = OrderedDict()
         self._reg_params = {}
+        # bumped by whatever changes what a captured step recorded: a
+        # parameter or child registered, a parameter's tensor replaced
+        # (cast, deferred init, load), hybridize (gluon.captured keys on it)
+        self._cache_version = 0
 
     def __repr__(self):
         modstr = "\n".join(
@@ -130,6 +138,7 @@ class Block(torch.nn.Module):
             self._reg_params[name] = value
             object.__setattr__(self, name, value)
             value._attach(self, name)
+            self._cache_version += 1
             return
         if isinstance(value, Block):
             self.register_child(value, name)
@@ -251,6 +260,7 @@ class Block(torch.nn.Module):
             name = str(len(self._children))
         self._children[name] = block
         self._modules[name] = block
+        self._cache_version += 1
 
     def apply(self, fn):
         """Apply ``fn`` to every child, recursively, then to this block
@@ -283,6 +293,7 @@ class Block(torch.nn.Module):
             child.cast(dtype)
         for _, param in self.params.items():
             param.cast(dtype)
+        self._cache_version += 1
         return self
 
     def forward(self, *args):
@@ -320,8 +331,14 @@ class HybridBlock(Block):
         super().register_child(block, name)
 
     def hybridize(self, active=True, **kwargs):
-        """Record the flag; the block still runs op by op."""
+        """Record the flag; the block still runs op by op.  A hybridized
+        block's forward draws one generator from the package chain for
+        all its random ops (unless a ``generator_scope`` is open), as the
+        reference's CachedOp draws one key a call: the captured step
+        (``gluon.captured``) draws the same generators, in the same
+        order."""
         self._active = active
+        self._cache_version += 1
         super().hybridize(active, **kwargs)
 
     def infer_shape(self, *args):
@@ -345,6 +362,13 @@ class HybridBlock(Block):
         return {k: p._value() for k, p in params.items()}
 
     def forward(self, x, *args, **kwargs):
+        if self._active and not _random.scoped():
+            with _random.generator_scope(_random.step_generator(
+                    _device_of((x, *args)))):
+                return self._forward(x, *args, **kwargs)
+        return self._forward(x, *args, **kwargs)
+
+    def _forward(self, x, *args, **kwargs):
         if isinstance(x, NDArray) or any(
                 isinstance(a, NDArray) for a in (*args, *kwargs.values())):
             return self._forward_nd(x, *args, **kwargs)
@@ -372,11 +396,24 @@ class HybridBlock(Block):
         predict mode, outside the tape (the reference's InferShape
         pass)."""
         if any(p._deferred_init for p in self.collect_params().values()):
-            with _ag.pause(), torch.no_grad():
+            # a generator of its own: this pass draws nothing of the chain
+            with _ag.pause(), torch.no_grad(), _random.generator_scope(
+                    torch.Generator(device=_device_of(args))):
                 self(*args)
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+
+def _device_of(args):
+    for a in args:
+        if isinstance(a, NDArray):
+            return a._data.device
+        if isinstance(a, torch.Tensor):
+            return a.device
+    from ..context import current_context
+
+    return current_context().device
 
 
 def _F():

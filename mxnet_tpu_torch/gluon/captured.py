@@ -1,0 +1,545 @@
+"""Whole-step capture for the Gluon Trainer: ``Trainer.train_step`` as one
+CUDA graph.
+
+Counterpart of ``mxnet_tpu/gluon/captured.py``.  The JAX package traces
+forward, loss, backward, gradient accumulation, health guard, clip and
+optimizer update into one donated program; here the same step is recorded
+once as a ``torch.cuda.CUDAGraph`` per capture signature and replayed:
+
+    forward (training mode) -> loss -> torch.autograd.grad
+    -> (sum over grad_accum microbatches, unrolled) -> health -> clip
+    -> grouped update (optimizer.grouped.build_group_step, in place)
+
+BatchNorm's running statistics move in place inside the graph, once a
+microbatch, as they do eagerly.  One replay is one dispatch; the guard's
+decision is the step's one host readback, after the replay.  Per-step
+scalars live in device buffers that the host refills before each replay:
+the dyn columns of every group (lr, wd, rescale_grad, the step-count
+coefficients), the loss scale, and the seeds of the step's generators
+(one a microbatch for a hybridized block, one for a hybridized loss,
+drawn from the package chain in the order the eager forward draws them,
+and registered with the graph so each replay draws as a fresh generator
+of that seed does).  So LR schedules, loss-scale changes and optimizer
+time steps replay the same graph.  The batch is copied into the graph's
+static input buffers.  Before recording, the step runs once on a side
+stream (cuDNN's autotuner and the allocator settle there) and every
+tensor it wrote is restored.
+
+Bitwise discipline: the eager path (``MXTPU_CAPTURED_STEP=0``) is the
+oracle.  Both run the same forward, the same ``torch.autograd.grad``,
+``numerics.health_of`` and ``build_group_step``, so captured equals eager
+to the bit wherever the kernels are deterministic (on the card, under
+``torch.use_deterministic_algorithms(True)``).  On the host there is no
+graph: ``CapturedStep`` runs the same step function directly, with the
+same cache, counters and eligibility, so the CPU tests hold captured
+against eager.
+
+A capture failure raises ``MXNetError``; it never falls back to the eager
+path.  What cannot be captured runs eagerly, per step, for the
+reference's reasons (``ineligible_reason``): the fused step disabled, a
+kvstore that reduces outside the step, ``update_on_kvstore``, an
+optimizer without a grouped plan, a block that is not a hybridized
+HybridBlock, a batch not divisible by ``grad_accum``, or parameters the
+grouped rules cannot express.  The reference's pipeline, mesh, sparse
+embedding, LoRA and rematerialisation captures wait for those features'
+slices.
+"""
+
+from __future__ import annotations
+
+import os
+
+import torch
+
+from ..base import MXNetError
+
+
+def captured_step_enabled() -> bool:
+    """MXTPU_CAPTURED_STEP gate (default on); 0/false/off routes
+    ``Trainer.train_step`` to the eager oracle."""
+    return os.environ.get("MXTPU_CAPTURED_STEP", "1").lower() \
+        not in ("0", "false", "off", "")
+
+
+# -- accounting ----------------------------------------------------------------
+#
+# dispatch: one per captured step.  trace: one per recording of the step
+# (a capture on the card, the first run of a signature on the host), so a
+# schedule tick must leave it unchanged.  hits/misses: the capture cache.
+
+_DISPATCH_COUNT = 0
+_TRACE_COUNT = 0
+_CACHE_HITS = 0
+_CACHE_MISSES = 0
+
+
+def dispatch_count() -> int:
+    return _DISPATCH_COUNT
+
+
+def trace_count() -> int:
+    return _TRACE_COUNT
+
+
+def cache_stats() -> dict:
+    return {"hits": _CACHE_HITS, "misses": _CACHE_MISSES}
+
+
+def reset_counters() -> None:
+    global _DISPATCH_COUNT, _TRACE_COUNT, _CACHE_HITS, _CACHE_MISSES
+    _DISPATCH_COUNT = 0
+    _TRACE_COUNT = 0
+    _CACHE_HITS = 0
+    _CACHE_MISSES = 0
+
+
+# -- eligibility ---------------------------------------------------------------
+
+def ineligible_reason(trainer, block, loss_fn, data, grad_accum):
+    """Why this (trainer, block, loss) combination cannot be captured, or
+    None when it can.  Cheap checks only: ``get_step`` plans the groups."""
+    from .. import kvstore as _kvs
+    from ..optimizer import grouped as _grouped
+    from . import block as _blockmod
+
+    if not _grouped.fused_step_enabled():
+        return "fused step disabled (MXTPU_FUSED_STEP=0)"
+    if not _kvs.captured_step_compatible(trainer._kvstore):
+        return "kvstore reduction outside the step"
+    if trainer._update_on_kvstore:
+        return "update_on_kvstore"
+    if not _grouped.has_plan(trainer._optimizer):
+        return f"optimizer {type(trainer._optimizer).__name__} has no " \
+               "grouped plan"
+    if not isinstance(block, _blockmod.HybridBlock):
+        return "block is not a HybridBlock"
+    if not block._active:
+        return "block is not hybridized"
+    if not callable(loss_fn):
+        return "loss is not callable"
+    if isinstance(loss_fn, _blockmod.Block) \
+            and not isinstance(loss_fn, _blockmod.HybridBlock):
+        return "loss block is not a HybridBlock"
+    k = int(grad_accum)
+    if k < 1:
+        return "grad_accum < 1"
+    if data.shape[0] % k != 0:
+        return f"batch {data.shape[0]} not divisible by grad_accum {k}"
+    return None
+
+
+def _tree_version(block):
+    """DFS tuple of ``_cache_version`` over a block tree: any change a
+    block records (a parameter or child registered, a tensor replaced by
+    cast or deferred init, hybridize) anywhere in the tree changes it,
+    and so misses the capture cache."""
+    versions = [getattr(block, "_cache_version", 0)]
+    for child in getattr(block, "_children", {}).values():
+        versions.extend(_tree_version(child))
+    return tuple(versions)
+
+
+def _collect_blocks_params(block, loss_fn):
+    """Ordered (name, param) pairs over the block's and the loss's
+    parameters, deduplicated by identity."""
+    from . import block as _blockmod
+
+    pairs, seen = [], set()
+    sources = [block.collect_params()]
+    if isinstance(loss_fn, _blockmod.Block):
+        sources.append(loss_fn.collect_params())
+    for params in sources:
+        for name, p in params.items():
+            if id(p) not in seen:
+                seen.add(id(p))
+                pairs.append((name, p))
+    return pairs
+
+
+def _raw(x):
+    return getattr(x, "_data", x)
+
+
+# -- capture cache -------------------------------------------------------------
+
+#: capture signatures a trainer keeps, first in first out
+CACHE_SIZE = 8
+
+
+# optimizer attributes that enter the step as data (dyn columns) or count
+# steps: a change in them must not re-capture
+_DATA_ATTRS = frozenset(("lr", "wd", "rescale_grad", "num_update",
+                         "begin_num_update", "m_schedule"))
+
+
+def _hyper(optimizer):
+    """The optimizer's scalar hyper-parameters a group plan may read."""
+    return tuple(sorted(
+        (k, v) for k, v in vars(optimizer).items()
+        if isinstance(v, (bool, int, float, str, type(None)))
+        and k not in _DATA_ATTRS))
+
+
+def _fast_key(trainer, block, loss_fn, data, label, k):
+    """What decides a capture, read cheaply each step: the block's and the
+    loss's cache versions, the grad_req layout, the optimizer's type and
+    scalar hyper-parameters and its state dict, the guard, clip and amp
+    flags, the batch's shapes, dtypes and device, ``grad_accum``.  A miss
+    falls through to ``get_step``'s full planning."""
+    from .. import numerics
+
+    upd = trainer._updaters[0]
+    return (
+        id(block), _tree_version(block),
+        id(loss_fn), _tree_version(loss_fn),
+        bool(getattr(loss_fn, "_active", False)),
+        tuple(p.grad_req for p in trainer._params),
+        type(trainer._optimizer), _hyper(trainer._optimizer),
+        id(upd.states), len(upd.states),
+        numerics.grad_guard_enabled(), trainer._clip_norm(),
+        getattr(trainer, "_amp_loss_scaler", None) is not None, int(k),
+        tuple(data.shape), str(_raw(data).dtype), str(_raw(data).device),
+        None if label is None else (tuple(label.shape),
+                                    str(_raw(label).dtype)),
+    )
+
+
+def get_step(trainer, block, loss_fn, data, label, grad_accum):
+    """The (possibly cached) ``CapturedStep`` for this call, or None when
+    the step must run eagerly.
+
+    The key: the block's and the loss's cache versions, the grad_req
+    layout, the group plans (rule, static hyper-params, dtype, indices),
+    the guard, clip and amp flags, the batch's shapes, dtypes and device,
+    ``grad_accum`` and the visible devices.  Per-step scalars are not in
+    it: they are data.  A step whose ``_fast_key`` was seen before skips
+    the planning."""
+    global _CACHE_HITS, _CACHE_MISSES
+    from .. import kvstore as _kvs
+    from .. import numerics
+    from ..optimizer import grouped as _grouped
+
+    if ineligible_reason(trainer, block, loss_fn, data, grad_accum) \
+            is not None:
+        return None
+    k = int(grad_accum)
+    fast = getattr(trainer, "_captured_fast", None)
+    if fast is None:
+        fast = trainer._captured_fast = {}
+    step = fast.get(_fast_key(trainer, block, loss_fn, data, label, k))
+    if step is not None:
+        _CACHE_HITS += 1
+        return step
+    block._ensure_initialized(data)
+    trained = [(i, p) for i, p in enumerate(trainer._params)
+               if p.grad_req != "null"]
+    if not trained:
+        return None
+    block_ids = {id(p) for _n, p in _collect_blocks_params(block, loss_fn)}
+    if any(id(p) not in block_ids for _i, p in trained):
+        return None     # the trainer updates parameters the step never sees
+    indices = [i for i, _p in trained]
+    weights = [p.data() for _i, p in trained]
+    # the weights stand in for the gradients: a gradient takes its
+    # parameter's dtype, which decides the grouping
+    groups, fallback = _grouped.plan_items(trainer._updaters[0], indices,
+                                           weights, weights)
+    if fallback:
+        return None
+    guard_on = numerics.grad_guard_enabled()
+    clip = trainer._clip_norm()
+    has_scaler = getattr(trainer, "_amp_loss_scaler", None) is not None
+    plan_sig = tuple(gkey + (tuple(it[0] for it in items),)
+                     for gkey, items in groups.items())
+    key = (
+        id(block), _tree_version(block),
+        id(loss_fn), _tree_version(loss_fn),
+        bool(getattr(loss_fn, "_active", False)),
+        tuple((i, p.grad_req) for i, p in enumerate(trainer._params)),
+        plan_sig, guard_on, clip, has_scaler, k,
+        tuple(data.shape), str(_raw(data).dtype), str(_raw(data).device),
+        None if label is None else (tuple(label.shape),
+                                    str(_raw(label).dtype)),
+        _kvs.device_fingerprint(),
+    )
+    cache = getattr(trainer, "_captured_cache", None)
+    if cache is None:
+        cache = trainer._captured_cache = {}
+    step = cache.get(key)
+    if step is not None:
+        _CACHE_HITS += 1
+        step._groups = groups     # fresh state references, the same plan
+        step._recheck = True
+    else:
+        _CACHE_MISSES += 1
+        step = CapturedStep(trainer, block, loss_fn, trained, groups,
+                            guard_on=guard_on, clip=clip,
+                            has_scaler=has_scaler, grad_accum=k)
+        while len(cache) >= CACHE_SIZE:
+            evicted = cache.pop(next(iter(cache)))
+            for fk in [fk for fk, s in fast.items() if s is evicted]:
+                del fast[fk]
+        cache[key] = step
+    fast[_fast_key(trainer, block, loss_fn, data, label, k)] = step
+    return step
+
+
+class CapturedStep:
+    """One recorded train step and the host bookkeeping around it: the
+    update-count bump, the dyn columns, the seeds and the batch go into
+    the step's buffers, one replay runs it, and the guarded finalize does
+    the one readback."""
+
+    def __init__(self, trainer, block, loss_fn, trained, groups, guard_on,
+                 clip, has_scaler, grad_accum):
+        from . import block as _blockmod
+
+        self._block = block
+        self._loss_fn = loss_fn
+        self._trained = trained              # [(trainer index, Parameter)]
+        self._groups = groups
+        self._guard_on = bool(guard_on)
+        self._clip = clip
+        self._want_guard = bool(guard_on) or clip is not None
+        self._has_scaler = bool(has_scaler)
+        self._k = int(grad_accum)
+        self._loss_keyed = isinstance(loss_fn, _blockmod.HybridBlock) \
+            and bool(loss_fn._active)
+        trained_ids = {id(p) for _i, p in trained}
+        self._others = [p for _n, p in _collect_blocks_params(block, loss_fn)
+                        if id(p) not in trained_ids]
+        self._pos = {i: j for j, (i, _p) in enumerate(trained)}
+        self._graph = None
+        self._graph_ptrs = None
+        self._uniform = None
+        self._recheck = True
+        self._fresh = True
+
+    # -- the step ---------------------------------------------------------------
+
+    def _run(self, x, y, scale, gens_b, gens_l, dyn_list):
+        """forward, loss, gradients (summed over the microbatches), health,
+        grouped update in place; returns (losses, health)."""
+        from .. import autograd as _ag
+        from .. import numerics
+        from .. import random as _random
+        from ..optimizer import grouped as _grouped
+
+        params = [p._value() for _i, p in self._trained]
+        k = self._k
+        m = x.shape[0] // k
+        losses, grads = [], None
+        with _ag.train_mode(), torch.enable_grad():
+            for j in range(k):
+                xs = x if k == 1 else x[j * m:(j + 1) * m]
+                ys = y if (k == 1 or y is None) else y[j * m:(j + 1) * m]
+                with _random.generator_scope(gens_b[j]):
+                    out = self._block(xs)
+                if self._loss_keyed:
+                    with _random.generator_scope(gens_l[j]):
+                        loss = self._loss_fn(out, ys) if ys is not None \
+                            else self._loss_fn(out)
+                else:
+                    loss = self._loss_fn(out, ys) if ys is not None \
+                        else self._loss_fn(out)
+                head = loss * scale if self._has_scaler else loss
+                gs = torch.autograd.grad(head, params,
+                                         torch.ones_like(head))
+                losses.append(loss.detach())
+                grads = list(gs) if k == 1 else [
+                    a + g for a, g in zip(grads or [torch.zeros_like(p)
+                                                    for p in params], gs)]
+        losses = losses[0] if k == 1 else torch.stack(losses)
+        with torch.no_grad():
+            health = numerics.health_of(grads) if self._want_guard else None
+            for (gkey, items), dyn in zip(self._groups.items(), dyn_list):
+                gs = [grads[self._pos[it[0]]] for it in items]
+                ws, gs, ss = _grouped.group_operands(gkey, items, gs)
+                fn = _grouped.build_group_step(
+                    gkey[0], gkey[1], guarded=self._guard_on,
+                    clip=self._clip)
+                new_w, new_s = fn(ws, gs, ss, dyn, health)
+                _grouped.commit(gkey, items, new_w, new_s)
+        return losses, health
+
+    def _mutable(self):
+        """Every tensor a step writes: the trained parameters, their f32
+        masters and optimizer states, and the other parameters (running
+        statistics)."""
+        out = [p._value() for _i, p in self._trained]
+        for items in self._groups.values():
+            for _i, _w, _g, st, _d, m in items:
+                out.extend(s._data for s in st)
+                if m is not None:
+                    out.append(m._data)
+        out.extend(p._value() for p in self._others)
+        return out
+
+    # -- per-step host driver ---------------------------------------------------
+
+    def __call__(self, trainer, data, label, batch_size):
+        global _DISPATCH_COUNT, _TRACE_COUNT
+        from .. import numerics
+        from .. import random as _random
+        from ..ndarray.ndarray import NDArray
+        from ..optimizer import grouped as _grouped
+
+        o = trainer._optimizer
+        trainer._set_rescale(batch_size)
+        indices = [i for i, _p in self._trained]
+        snapshot = trainer._snapshot_update_counts(indices) \
+            if self._guard_on else None
+        for i in indices:
+            o._update_count(i)
+        rows = [_grouped.dyn_rows(o, items) for items in self._groups.values()]
+        seeds_b, seeds_l = [], []
+        for _ in range(self._k):
+            seeds_b.append(_random.next_seed())
+            if self._loss_keyed:
+                seeds_l.append(_random.next_seed())
+        scaler = getattr(trainer, "_amp_loss_scaler", None)
+        scale = float(scaler.loss_scale) if scaler is not None else 1.0
+        x = _raw(data)
+        y = None if label is None else _raw(label)
+        if x.device.type == "cuda":
+            losses, health = self._replay(x, y, scale, seeds_b, seeds_l,
+                                          rows)
+        else:
+            if self._fresh:
+                _TRACE_COUNT += 1
+                self._fresh = False
+            dev = x.device
+            gens_b = [_random.generator(s, dev) for s in seeds_b]
+            gens_l = [_random.generator(s, dev) for s in seeds_l]
+            dyn_list = [_grouped.as_columns(row, _grouped.compute_dtype(gkey),
+                                            dev)
+                        for gkey, row in zip(self._groups, rows)]
+            losses, health = self._run(
+                x, y, torch.tensor(scale, dtype=torch.float32, device=dev),
+                gens_b, gens_l, dyn_list)
+        _DISPATCH_COUNT += 1
+        trainer._step_count += 1
+        if self._want_guard:
+            guard = numerics.StepGuard(health, skip=self._guard_on,
+                                       clip=self._clip)
+            trainer._finalize_guarded_step(guard, snapshot)
+        ctx = getattr(data, "_ctx", None)
+        return NDArray(losses, ctx)
+
+    # -- the CUDA graph ---------------------------------------------------------
+
+    def _pointers(self):
+        """The addresses of every tensor the recorded graph reads or
+        writes: replaced tensors (loaded optimizer states) need a new
+        recording."""
+        return tuple(t.data_ptr() for t in self._mutable())
+
+    def _replay(self, x, y, scale, seeds_b, seeds_l, rows):
+        global _TRACE_COUNT
+        uni = tuple(tuple(_is_uni(v) for v in row.values()) for row in rows)
+        if self._graph is None or uni != self._uniform or (
+                self._recheck and self._pointers() != self._graph_ptrs):
+            self._capture(x, y, rows)
+            self._uniform, self._graph_ptrs = uni, self._pointers()
+            _TRACE_COUNT += 1
+        self._recheck = False
+        st = self._static
+        st["x"].copy_(x)
+        if y is not None:
+            st["y"].copy_(y)
+        self._upload(scale, rows)
+        for gen, s in zip(st["gens_b"] + st["gens_l"], seeds_b + seeds_l):
+            gen.manual_seed(s)
+        self._graph.replay()
+        return st["losses"].clone(), st["health"]
+
+    def _upload(self, scale, rows):
+        """The step's scalars to the graph's buffers: one pinned staging
+        tensor and one asynchronous copy for each dtype (the f32 one
+        leads with the loss scale).  The staging tensor is rewritten only
+        after the previous step's copy has finished."""
+        if self._uploaded is not None:
+            self._uploaded.synchronize()
+        for dt, pack in self._packs.items():
+            vals = [scale] if dt == torch.float32 else []
+            for gi, name in pack["slots"]:
+                vals.extend(rows[gi][name])
+            pack["host"].copy_(torch.tensor(vals, dtype=dt))
+            pack["dev"].copy_(pack["host"], non_blocking=True)
+        self._uploaded = torch.cuda.Event()
+        self._uploaded.record()
+
+    def _capture(self, x, y, rows):
+        """Record the step: static buffers, one warm-up run on a side
+        stream with every written tensor restored after it, then the
+        graph.  A failure raises MXNetError."""
+        from ..optimizer import grouped as _grouped
+
+        dev = x.device
+        self._graph = None
+        st = {"x": x.detach().clone(),
+              "y": None if y is None else y.detach().clone()}
+        st["gens_b"] = [torch.Generator(device=dev) for _ in range(self._k)]
+        st["gens_l"] = [torch.Generator(device=dev)
+                        for _ in range(self._k if self._loss_keyed else 0)]
+        # the scalars' buffers: views into one device tensor a dtype
+        layout = {torch.float32: 1}
+        slots = {}
+        for gi, (gkey, row) in enumerate(zip(self._groups, rows)):
+            dt = _grouped.compute_dtype(gkey)
+            for name, vals in row.items():
+                off = layout.get(dt, 0)
+                slots.setdefault(dt, []).append((gi, name, off, len(vals)))
+                layout[dt] = off + len(vals)
+        self._packs = {dt: {"dev": torch.zeros(n, dtype=dt, device=dev),
+                            "host": torch.zeros(n, dtype=dt,
+                                                pin_memory=True),
+                            "slots": [(gi, name) for gi, name, _o, _n
+                                      in slots.get(dt, [])]}
+                       for dt, n in layout.items()}
+        self._uploaded = None
+        dyn_list = [{} for _ in rows]
+        for dt, entries in slots.items():
+            buf = self._packs[dt]["dev"]
+            for gi, name, off, n in entries:
+                dyn_list[gi][name] = _grouped.Col(
+                    buf[off:off + n], _is_uni(rows[gi][name]))
+        st["scale"] = self._packs[torch.float32]["dev"][0]
+        self._upload(1.0, rows)
+        args = (st["x"], st["y"], st["scale"], st["gens_b"], st["gens_l"],
+                dyn_list)
+        saved = [t.detach().clone() for t in self._mutable()]
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        try:
+            with torch.cuda.stream(side):
+                self._run(*args)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            with torch.no_grad():
+                torch._foreach_copy_(self._mutable(), saved)
+            del saved
+            graph = torch.cuda.CUDAGraph()
+            register = getattr(graph, "register_generator_state", None)
+            if register is None:
+                raise MXNetError(
+                    "this torch has no CUDAGraph.register_generator_state: "
+                    "the step's generators cannot replay")
+            for gen in st["gens_b"] + st["gens_l"]:
+                register(gen)
+            with torch.cuda.graph(graph):
+                st["losses"], st["health"] = self._run(*args)
+        except MXNetError:
+            raise
+        except Exception as e:
+            raise MXNetError(f"capturing the train step as a CUDA graph "
+                             f"failed: {type(e).__name__}: {e}") from e
+        if st["health"] is None:
+            st["health"] = torch.ones(2, device=dev)
+        self._static = st
+        self._graph = graph
+
+
+def _is_uni(vals):
+    from ..optimizer import grouped as _grouped
+
+    return _grouped.is_uniform(vals)

@@ -203,6 +203,7 @@ class Parameter:
             block = ref()
             if block is not None:
                 self._register(block, attr)
+                block._cache_version += 1
                 alive.append((ref, attr))
         self._owners = alive
 

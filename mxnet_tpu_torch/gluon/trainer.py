@@ -1,0 +1,372 @@
+"""Gluon Trainer.
+
+Counterpart of ``mxnet_tpu/gluon/trainer.py`` (reference:
+python/mxnet/gluon/trainer.py): ``Trainer(params, optimizer,
+optimizer_params, kvstore, update_on_kvstore)``, ``step``/
+``allreduce_grads``/``update``, learning-rate control, ``train_step``
+(whole-step capture, ``gluon.captured``) and the optimizer-state
+save/load, in the reference's order of operations.
+
+On one worker a 'local', 'device' or 'nccl' kvstore takes the local path
+(no store; the dist types wait for the multi-GPU slice), whose update is
+the grouped multi-tensor one
+(``optimizer.GroupedUpdater``), guarded by ``numerics.StepGuard`` unless
+``MXTPU_GRAD_GUARD=0``; ``MXTPU_FUSED_STEP=0`` restores the legacy
+per-parameter loop.  ``step`` refuses a gradient that no ``backward`` has
+written since the last step, unless ``ignore_stale_grad``.  The
+integrity plane, the resumable data pipeline and the autotune consult
+come with their slices: ``attach_integrity`` and ``attach_data_pipeline``
+raise ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import logging
+
+import torch
+
+from .. import numerics
+from .. import optimizer as opt
+from ..base import MXNetError
+from ..ndarray.ndarray import NDArray
+from .parameter import Parameter, ParameterDict
+
+_LOG = logging.getLogger("mxnet_tpu_torch.gluon.trainer")
+
+_MAX_SKIP_RECORDS = 1000
+
+
+class Trainer:
+    """Applies an optimizer to a set of Parameters (reference:
+    gluon.Trainer)."""
+
+    def __init__(self, params, optimizer, optimizer_params=None,
+                 kvstore="device", compression_params=None,
+                 update_on_kvstore=None, clip_global_norm=None):
+        if isinstance(params, (dict, ParameterDict)):
+            params = list(params.values())
+        if not isinstance(params, (list, tuple)):
+            raise ValueError(
+                "First argument must be a list or dict of Parameters, "
+                f"got {type(params)}.")
+        self._params = []
+        for param in params:
+            if not isinstance(param, Parameter):
+                raise ValueError(
+                    "First argument must be a list or dict of Parameters, "
+                    f"got list of {type(param)}.")
+            self._params.append(param)
+        if compression_params is not None:
+            raise NotImplementedError("Trainer: gradient compression comes "
+                                      "with the multi-GPU slice")
+        optimizer_params = optimizer_params if optimizer_params else {}
+        self._scale = float(optimizer_params.get("rescale_grad", 1.0))
+        self._init_optimizer(optimizer, optimizer_params)
+        self._kvstore_type = kvstore
+        self._kv_initialized = False
+        self._kvstore = None
+        self._update_on_kvstore = None
+        self._clip_global_norm = None if clip_global_norm is None \
+            else float(clip_global_norm)
+        self.divergence_monitor = None
+        self.skipped_steps = []
+        self._step_count = 0
+
+    def _init_optimizer(self, optimizer, optimizer_params):
+        param_dict = {i: param for i, param in enumerate(self._params)}
+        if isinstance(optimizer, opt.Optimizer):
+            assert not optimizer_params, \
+                "optimizer_params must be None if optimizer is an " \
+                "Optimizer instance"
+            self._optimizer = optimizer
+            self._optimizer.param_dict = param_dict
+        else:
+            self._optimizer = opt.create(optimizer, param_dict=param_dict,
+                                         **optimizer_params)
+        self._updaters = [opt.get_updater(self._optimizer)]
+        # the multi-tensor path shares each Updater's state dict, so
+        # save/load_states round-trip whichever path stepped
+        self._grouped_updaters = [opt.GroupedUpdater(u)
+                                  for u in self._updaters]
+
+    def _init_kvstore(self):
+        """On one worker every store type takes the local path, as the
+        reference's does: no store, the reduce of one copy being the copy.
+        A dist type raises NotImplementedError (the multi-GPU slice)."""
+        if isinstance(self._kvstore_type, str):
+            from .. import kvstore as kvs
+
+            kvs.create(self._kvstore_type)
+        self._kvstore = None
+        self._update_on_kvstore = False
+        self._kv_initialized = True
+
+    @property
+    def learning_rate(self):
+        if not isinstance(self._optimizer, opt.Optimizer):
+            raise UserWarning("Optimizer has to be defined before its "
+                              "learning rate can be accessed.")
+        return self._optimizer.learning_rate
+
+    @property
+    def optimizer(self):
+        return self._optimizer
+
+    def set_learning_rate(self, lr):
+        if not isinstance(self._optimizer, opt.Optimizer):
+            raise UserWarning("Optimizer has to be defined before its "
+                              "learning rate is mutated.")
+        self._optimizer.set_learning_rate(lr)
+
+    def _clip_norm(self):
+        return self._clip_global_norm \
+            if self._clip_global_norm is not None \
+            else numerics.clip_global_norm_env()
+
+    def _set_rescale(self, batch_size):
+        # amp: the loss scaler's unscale folds into rescale_grad, so the
+        # division happens inside the update
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        if scaler is not None:
+            self._scale = 1.0 / scaler.loss_scale
+        self._optimizer.rescale_grad = self._scale / batch_size
+
+    def step(self, batch_size, ignore_stale_grad=False):
+        """allreduce_grads + update (reference: Trainer.step)."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        self._set_rescale(batch_size)
+        self._update(ignore_stale_grad)
+
+    def train_step(self, block, loss_fn, data, label=None, batch_size=None,
+                   grad_accum=1, ignore_stale_grad=False):
+        """One full training step: forward, loss, backward, gradient
+        accumulation over ``grad_accum`` microbatches, health guard, clip
+        and optimizer update; returns the loss (stacked per microbatch
+        when ``grad_accum > 1``).
+
+        When the configuration can be captured (a hybridized block, an
+        optimizer with a grouped plan, the local path; see
+        ``gluon.captured``) the whole step runs as one captured step: one
+        CUDA graph replay on the card, with one host readback after the
+        update.  Otherwise, or under ``MXTPU_CAPTURED_STEP=0``, it runs the
+        eager path, which is the captured step's bitwise oracle.  The
+        captured step never writes the parameters' gradient buffers."""
+        from . import captured as _captured
+
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if batch_size is None:
+            batch_size = data.shape[0]
+        step = None
+        if _captured.captured_step_enabled():
+            step = _captured.get_step(self, block, loss_fn, data, label,
+                                      int(grad_accum))
+        if step is not None:
+            return step(self, data, label, batch_size)
+        return self._eager_train_step(block, loss_fn, data, label,
+                                      batch_size, int(grad_accum),
+                                      ignore_stale_grad)
+
+    def _eager_train_step(self, block, loss_fn, data, label, batch_size,
+                          grad_accum, ignore_stale_grad):
+        """The step the captured one is checked against: per-microbatch
+        forward and backward into the gradient buffers, then ``step``."""
+        from .. import autograd as ag
+
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        k = grad_accum
+        if k == 1:
+            with ag.record():
+                out = block(data)
+                loss = loss_fn(out, label) if label is not None \
+                    else loss_fn(out)
+                scaled = loss * scaler.loss_scale \
+                    if scaler is not None else loss
+            scaled.backward()
+            result = loss
+        else:
+            if data.shape[0] % k:
+                raise ValueError(
+                    f"batch size {data.shape[0]} is not divisible by "
+                    f"grad_accum {k}")
+            m = data.shape[0] // k
+            params = [p for p in self._params if p.grad_req != "null"]
+            losses = []
+            with ag.accumulate_grads(params):
+                for j in range(k):
+                    xs = data[j * m:(j + 1) * m]
+                    ys = None if label is None \
+                        else label[j * m:(j + 1) * m]
+                    with ag.record():
+                        out = block(xs)
+                        loss = loss_fn(out, ys) if ys is not None \
+                            else loss_fn(out)
+                        scaled = loss * scaler.loss_scale \
+                            if scaler is not None else loss
+                    scaled.backward()
+                    losses.append(loss)
+            result = NDArray(torch.stack([l._data for l in losses]),
+                             losses[0]._ctx)
+        self.step(batch_size, ignore_stale_grad)
+        return result
+
+    def allreduce_grads(self):
+        """Reduce the gradients across workers: nothing to do on one."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+
+    def update(self, batch_size, ignore_stale_grad=False):
+        if not self._kv_initialized:
+            self._init_kvstore()
+        self._set_rescale(batch_size)
+        self._update(ignore_stale_grad)
+
+    def _update(self, ignore_stale_grad=False):
+        updates = []
+        for i, param in enumerate(self._params):
+            if param.grad_req == "null":
+                continue
+            data = param.data()
+            if not ignore_stale_grad and not data._fresh_grad:
+                raise UserWarning(
+                    f"Gradient of Parameter `{param.name}` on context "
+                    f"{data.context} has not been updated by backward "
+                    "since last `step`. This could mean a bug in your "
+                    "model that made it only use a subset of the "
+                    "Parameters (Blocks) for this iteration. If you are "
+                    "intentionally only using a subset, call step with "
+                    "ignore_stale_grad=True to suppress this warning and "
+                    "skip updating of Parameters with stale gradient")
+            data._fresh_grad = False
+            updates.append((i, param.grad(), data))
+        self._step_count += 1
+        if not updates:
+            return
+        indices, grads, weights = map(list, zip(*updates))
+        fused = opt.grouped.fused_step_enabled()
+        guard_on = numerics.grad_guard_enabled()
+        clip = self._clip_norm()
+        if fused and (guard_on or clip is not None):
+            health = numerics.grad_health([g._data for g in grads])
+            guard = numerics.StepGuard(health, skip=guard_on, clip=clip)
+            snapshot = self._snapshot_update_counts(indices) \
+                if guard_on else None
+            self._grouped_updaters[0](indices, grads, weights, guard=guard)
+            self._finalize_guarded_step(guard, snapshot)
+        elif fused:
+            self._grouped_updaters[0](indices, grads, weights)
+        else:
+            for i, g, w in updates:
+                self._updaters[0](i, g, w)
+
+    def attach_data_pipeline(self, pipeline):
+        raise NotImplementedError("Trainer.attach_data_pipeline: the "
+                                  "resumable input pipeline comes with the "
+                                  "input-path slice")
+
+    def attach_integrity(self, plane):
+        raise NotImplementedError("Trainer.attach_integrity: the integrity "
+                                  "plane comes with the production-planes "
+                                  "slice")
+
+    # -- numerical-health guard plumbing (numerics.py) -------------------------
+
+    def _snapshot_update_counts(self, indices):
+        """The optimizer's step counters before the guarded update bumps
+        them: a skipped step leaves Adam's ``t`` (and the rest) as if the
+        bad batch never came."""
+        o = self._optimizer
+        return (o.num_update,
+                {i: o._index_update_count.get(i) for i in indices})
+
+    def _restore_update_counts(self, snapshot):
+        o = self._optimizer
+        num_update, per_index = snapshot
+        o.num_update = num_update
+        for i, v in per_index.items():
+            if v is None:
+                o._index_update_count.pop(i, None)
+            else:
+                o._index_update_count[i] = v
+
+    def _finalize_guarded_step(self, guard, snapshot):
+        """The step's ONE host readback, after the update: on an unhealthy
+        step the update already kept the weights and states; this rolls
+        back the step counters, halves the amp loss scale and records a
+        ``StepSkipped``."""
+        scaler = getattr(self, "_amp_loss_scaler", None)
+        monitor = self.divergence_monitor
+        if not guard.skip:
+            if monitor is not None:
+                monitor.observe(step=self._step_count,
+                                grad_norm=guard.grad_norm, healthy=True)
+            return
+        healthy = guard.healthy
+        if not healthy:
+            self._restore_update_counts(snapshot)
+            rec = numerics.StepSkipped(
+                step=self._step_count, reason="non-finite gradients",
+                grad_norm=guard.grad_norm,
+                loss_scale=scaler.loss_scale if scaler else None)
+            self.skipped_steps.append(rec)
+            del self.skipped_steps[:-_MAX_SKIP_RECORDS]
+            _LOG.warning("skipped optimizer step: %r", rec)
+        if scaler is not None:
+            scaler.update_scale(not healthy)
+            self._scale = 1.0 / scaler.loss_scale
+        if monitor is not None:
+            monitor.observe(step=self._step_count,
+                            grad_norm=guard.grad_norm, healthy=healthy)
+
+    # -- optimizer states ------------------------------------------------------
+
+    def save_states(self, fname):
+        """Save the optimizer and its states (reference:
+        Trainer.save_states); the states are pickled as host arrays."""
+        with open(fname, "wb") as fout:
+            fout.write(self._updaters[0].get_states(dump_optimizer=True))
+
+    def load_states(self, fname):
+        """Load ``save_states``'s file; the trainer keeps its own optimizer
+        (and its step counts), as the JAX package's does."""
+        with open(fname, "rb") as f:
+            states = f.read()
+        self._updaters[0].set_states(states)
+        self._updaters[0].optimizer = self._optimizer
+        self._validate_updater_states(fname)
+        self._optimizer.param_dict = {
+            i: param for i, param in enumerate(self._params)}
+
+    def _validate_updater_states(self, fname):
+        """Loaded states are keyed by parameter INDEX: if the parameter
+        list changed (count or shapes) since the save, applying them would
+        step the wrong tensors, so refuse."""
+
+        def _leaves(state):
+            if state is None:
+                return []
+            if isinstance(state, (list, tuple)):
+                return [a for s in state for a in _leaves(s)]
+            return [state] if isinstance(state, NDArray) else []
+
+        states = self._updaters[0].states
+        nparams = len(self._params)
+        for idx, state in states.items():
+            if not isinstance(idx, int) or idx < 0 or idx >= nparams:
+                raise MXNetError(
+                    f"Trainer.load_states: '{fname}' holds optimizer state "
+                    f"for parameter index {idx!r}, but this trainer has "
+                    f"only {nparams} parameters. The parameter list "
+                    "changed since the states were saved.")
+            param = self._params[idx]
+            pshape = tuple(param.shape) if param.shape else None
+            for arr in _leaves(state):
+                if pshape is not None and tuple(arr.shape) != pshape:
+                    raise MXNetError(
+                        f"Trainer.load_states: state shape "
+                        f"{tuple(arr.shape)} for parameter index {idx} "
+                        f"('{param.name}') does not match the parameter "
+                        f"shape {pshape}. The parameter list changed "
+                        "since the states were saved.")
+

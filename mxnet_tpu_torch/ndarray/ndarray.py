@@ -37,7 +37,7 @@ from .. import engine
 
 class NDArray:
     __slots__ = ("_data", "_ctx", "_version", "_grad", "_grad_req",
-                 "_leaf", "__weakref__")
+                 "_leaf", "_fresh_grad", "__weakref__")
 
     # make NumPy defer to NDArray dunders (mx.nd semantics)
     __array_priority__ = 100.0
@@ -49,6 +49,7 @@ class NDArray:
         self._grad = None
         self._grad_req = "null"
         self._leaf = None   # the tensor autograd differentiates against
+        self._fresh_grad = False    # set by backward, cleared by a Trainer
 
     # -- basic properties ------------------------------------------------------
     @property

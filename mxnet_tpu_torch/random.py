@@ -53,15 +53,25 @@ def seed(seed_state: int, ctx="all") -> None:
     _STATE.count = 0
 
 
-def step_generator(device=None) -> torch.Generator:
-    """The next generator of the package chain, on ``device``.  Unseeded,
-    the chain starts from the operating system's entropy, as the JAX
+def next_seed() -> int:
+    """The seed of the next generator of the package chain.  Unseeded, the
+    chain starts from the operating system's entropy, as the JAX
     package's does."""
     if _STATE.seed is None:
         _STATE.seed = int.from_bytes(os.urandom(8), "little") >> 1
     _STATE.count += 1
     ss = np.random.SeedSequence([_STATE.seed, _STATE.count])
-    return generator(int(ss.generate_state(1, np.uint64)[0] >> 1), device)
+    return int(ss.generate_state(1, np.uint64)[0] >> 1)
+
+
+def step_generator(device=None) -> torch.Generator:
+    """The next generator of the package chain, on ``device``."""
+    return generator(next_seed(), device)
+
+
+def scoped() -> bool:
+    """Whether a ``generator_scope`` is open."""
+    return bool(_STATE.scope)
 
 
 class generator_scope:

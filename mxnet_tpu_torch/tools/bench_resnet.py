@@ -3,13 +3,13 @@ the JAX package's ``bench_resnet`` (``bench.py``), same configuration and
 timing.
 
     python3 -m mxnet_tpu_torch.tools.bench_resnet [--batch 256] [--image 224]
-        [--steps 10] [--layout NCHW|NHWC]
+        [--steps 10] [--layout NCHW|NHWC] [--path sharded|gluon|captured]
 
 prints one JSON line: ``metric`` ``resnet50_train_samples_per_sec_per_chip``,
 ``impl`` ``torch``, ``value`` (samples/s), the final ``loss`` and the whole
 trajectory, ``ms_per_step``, ``mfu``, ``peak_mem_gib``, the layout and
-batch, ``cudnn_benchmark`` (true), and the card's name and power limit as
-``nvidia-smi`` reads them.
+batch, ``path``, ``cudnn_benchmark`` (true), and the card's name and power
+limit as ``nvidia-smi`` reads them.
 
 The path: ``resnet50_v1(classes=1000, layout=layout)``,
 ``initialize(init=Xavier())`` (drawn from seed 0), ``cast("bfloat16")``, and
@@ -17,7 +17,13 @@ The path: ``resnet50_v1(classes=1000, layout=layout)``,
 0.1, "momentum": 0.9, "wd": 1e-4}, mesh=data_parallel_mesh(1))`` stepped
 on ``bench_resnet``'s batch: x from ``RandomState(0).standard_normal``
 (N, 3, H, W) or, for NHWC, (N, H, W, 3), cast to bf16, and labels
-``randint(0, 1000, N)`` as float32, one batch repeated.  The timing is
+``randint(0, 1000, N)`` as float32, one batch repeated.  ``--path gluon``
+trains the same net through ``gluon.Trainer`` instead (the same SGD
+hyper-parameters with ``multi_precision``, f32 master weights for the
+bf16 ones; ``kvstore="device"``), as MXNet's loop does:
+``autograd.record()``, ``loss.backward()``, ``trainer.step(N)``;
+``--path captured`` through ``Trainer.train_step``, one CUDA graph a step.
+Both hybridize the net.  The timing is
 ``bench_bert.measure``'s: two warm-up steps each ended by a readback, then
 ``steps`` steps closed by ``torch.cuda.synchronize()`` and one readback.
 ``torch.backends.cudnn.benchmark`` is this tool's setting: on for the
@@ -89,14 +95,64 @@ def build(batch=256, image=224, layout="NCHW", device=None, seed=0):
     return trainer, x, y
 
 
-def run(batch=256, image=224, steps=10, layout="NCHW", device=None):
+PATHS = ("sharded", "gluon", "captured")
+#: gluon.Trainer's optimizer: bench_resnet's SGD, with f32 master weights
+GLUON_SGD = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4,
+             "multi_precision": True}
+
+
+def build_gluon(batch=256, image=224, layout="NCHW", device=None, seed=0):
+    """The bench's net on ``gluon.Trainer``: returns (net, trainer,
+    loss_fn, x, y) with x and y NDArrays; the net is hybridized."""
+    from .. import gluon
+    from ..ndarray.ndarray import NDArray
+
+    dev = context.resolve(device)
+    ctx = context.context_of(dev)
+    net = vision.resnet50_v1(classes=1000, layout=layout)
+    net.initialize(init=Xavier(), ctx=ctx,
+                   generator=torch.Generator(device=dev).manual_seed(seed))
+    net.cast(DTYPE)
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(GLUON_SGD),
+                            kvstore="device")
+    x, y = make_data(batch, image, layout, dev, seed)
+    return (net, trainer, SoftmaxCrossEntropyLoss(), NDArray(x, ctx),
+            NDArray(y, ctx))
+
+
+def step_fn(path, batch=256, image=224, layout="NCHW", device=None):
+    """One training step of ``path`` as a closure returning the mean loss
+    (a 0-dim tensor or NDArray)."""
+    if path == "sharded":
+        trainer, x, y = build(batch, image, layout, device)
+        return lambda: trainer.step(x, y)
+    from .. import autograd
+
+    net, trainer, loss_fn, x, y = build_gluon(batch, image, layout, device)
+    if path == "captured":
+        return lambda: trainer.train_step(net, loss_fn, x, y).mean()
+
+    def eager():
+        with autograd.record():
+            loss = loss_fn(net(x), y)
+        loss.backward()
+        trainer.step(batch)
+        return loss.mean()
+
+    return eager
+
+
+def run(batch=256, image=224, steps=10, layout="NCHW", device=None,
+        path="sharded"):
     """Build the bench's path, time ``steps`` training steps after two
     warm-up steps, and return the result line as a dict."""
+    if path not in PATHS:
+        raise ValueError(f"bench_resnet: path must be one of {PATHS}")
     dev = context.resolve(device)
 
     def build_step():
-        trainer, x, y = build(batch, image, layout, dev)
-        return lambda: trainer.step(x, y)
+        return step_fn(path, batch, image, layout, dev)
 
     prev = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = True
@@ -104,7 +160,7 @@ def run(batch=256, image=224, steps=10, layout="NCHW", device=None):
         return measure(
             build_step, steps, dev, batch, flops_per_step(batch, image),
             metric=METRIC, unit="samples/sec/chip", batch=batch, image=image,
-            layout=layout, dtype=DTYPE, cudnn_benchmark=True)
+            layout=layout, dtype=DTYPE, path=path, cudnn_benchmark=True)
     finally:
         torch.backends.cudnn.benchmark = prev
 
@@ -115,9 +171,10 @@ def main(argv=None):
     ap.add_argument("--image", type=int, default=224)
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--layout", default="NCHW", choices=("NCHW", "NHWC"))
+    ap.add_argument("--path", default="sharded", choices=PATHS)
     args = ap.parse_args(argv)
-    print(json.dumps(run(args.batch, args.image, args.steps, args.layout)),
-          flush=True)
+    print(json.dumps(run(args.batch, args.image, args.steps, args.layout,
+                         path=args.path)), flush=True)
 
 
 if __name__ == "__main__":

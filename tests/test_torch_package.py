@@ -71,6 +71,17 @@ RESNET_MODULES = ("mxnet_tpu_torch.name", "mxnet_tpu_torch.entry",
                   "mxnet_tpu_torch.tools.bench_resnet")
 
 
+#: modules the Gluon-training slice added; each must be walked and clean
+TRAINER_MODULES = ("mxnet_tpu_torch.optimizer.optimizer",
+                   "mxnet_tpu_torch.optimizer.grouped",
+                   "mxnet_tpu_torch.numerics", "mxnet_tpu_torch.amp",
+                   "mxnet_tpu_torch.kvstore", "mxnet_tpu_torch.metric",
+                   "mxnet_tpu_torch.gluon.utils",
+                   "mxnet_tpu_torch.gluon.trainer",
+                   "mxnet_tpu_torch.gluon.captured",
+                   "mxnet_tpu_torch.tools.bench_trainer")
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -84,6 +95,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert set(IMPERATIVE_MODULES) <= walked, sorted(walked)
     assert set(BERT_MODULES) <= walked, sorted(walked)
     assert set(RESNET_MODULES) <= walked, sorted(walked)
+    assert set(TRAINER_MODULES) <= walked, sorted(walked)
 
 
 def _imported_roots(path):

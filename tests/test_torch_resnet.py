@@ -202,21 +202,64 @@ def _small(v, layout="NCHW"):
     return v.ResNetV1(v.BottleneckV1, *SMALL, classes=10, layout=layout)
 
 
-# With grad_accum=2 each microbatch holds 4 of 8 images (16 values a
-# channel at the last stage, as with accum=1).  At lr 0.1 those steps
-# amplify f32 rounding: after three, the JAX step's weights stand up to
-# 6.5e-3 from an f64 run of the port (the port's f32 run 8.6e-4), its loss
-# 1.3e-3; at lr 0.02 both packages' weights stay within 5.1e-6 of it.
+def _f64_kink_scan(seed, accum, lr, eps=1e-7, nudges=16):
+    """The largest move of the final parameters and running statistics of
+    three f64 ShardedTrainer steps from ``seed``'s point (the data and the
+    JAX net's weights ``test_sharded_trainer_matches_jax`` draws) when the
+    trained parameters are nudged by ``eps`` times a standard normal.  A
+    smooth trajectory moves linearly in ``eps``; a trajectory next to a
+    ReLU or max-pool kink jumps, and an f32 run there lands on either side
+    by the order of its sums.  Not run by the suite: it picked the seed."""
+    rng = np.random.RandomState(seed)
+    x = rng.standard_normal((4 * accum, 3, 64, 64)).astype(np.float32)
+    y = rng.randint(0, 10, 4 * accum).astype(np.float32)
+    params = _numpy_params(_jax_net(_small, x, seed=seed))
+
+    def final(nudge):
+        net = _port_net(_small, params).cast("float64")
+        if nudge is not None:
+            g = np.random.RandomState(nudge)
+            for p in net.collect_params().values():
+                if p.grad_req != "null":
+                    p.set_data(p.data()._data + eps * torch.from_numpy(
+                        g.standard_normal(p.shape)))
+        with cpu():
+            tr = ShardedTrainer(net, tloss.SoftmaxCrossEntropyLoss(), "sgd",
+                                {"learning_rate": lr, "momentum": 0.9,
+                                 "wd": 1e-4}, mesh=data_parallel_mesh(1),
+                                grad_accum=accum)
+        for _ in range(3):
+            tr.step(torch.from_numpy(x).double(), torch.from_numpy(y))
+        return [p.data()._data for p in net.collect_params().values()]
+
+    base = final(None)
+    return max(float((a - b).abs().max()) for n in range(nudges)
+               for a, b in zip(final(n), base))
+
+
+# The point each case trains from.  Seed 3 put the accum=1, lr 0.1 case
+# within 1e-7 of a kink: one of four 1e-7 nudges moved its f64 run by
+# 0.0998 (``_f64_kink_scan(3, 1, 0.1, nudges=4)``), and the port's f32 run
+# followed the JAX run only under some thread counts.  At seed 52 sixteen
+# 1e-7 nudges move it by at most 3.8e-5, linearly (1e-9 nudges: 3.8e-7),
+# the smallest of seeds 3-60 in that scan.  With grad_accum=2 each
+# microbatch holds 4 of 8 images (16 values a channel at the last stage,
+# as with accum=1); at lr 0.1 those steps amplify f32 rounding (the JAX
+# step's weights stood up to 6.5e-3 from an f64 run of the port, the
+# port's f32 run 8.6e-4), at lr 0.02 both stay within 5.1e-6 of it.
+SEEDS = {1: 52, 2: 3}
+
+
 @pytest.mark.parametrize("accum,lr", [(1, 0.1), (2, 0.02)])
 def test_sharded_trainer_matches_jax(accum, lr):
     """Three SGD steps (momentum 0.9, wd 1e-4 on every parameter, BN's
     gamma and beta and the biases included) on a small BottleneckV1
     ResNet: losses, trained parameters and running statistics; with
     grad_accum=2 the statistics take two sequential updates a step."""
-    rng = np.random.RandomState(3)
+    rng = np.random.RandomState(SEEDS[accum])
     x = rng.standard_normal((4 * accum, 3, 64, 64)).astype(np.float32)
     y = rng.randint(0, 10, 4 * accum).astype(np.float32)
-    jnet = _jax_net(_small, x, seed=3)
+    jnet = _jax_net(_small, x, seed=SEEDS[accum])
     tnet = _port_net(_small, _numpy_params(jnet))
     opt = {"learning_rate": lr, "momentum": 0.9, "wd": 1e-4}
     jtr = jparallel.ShardedTrainer(
@@ -247,13 +290,21 @@ def test_sharded_trainer_matches_jax(accum, lr):
 
 def test_nhwc_equals_nchw():
     """The same weights in both layouts: outputs, loss and gradients, in
-    training mode, with the NHWC input the NCHW one transposed."""
+    training mode, with the NHWC input the NCHW one transposed.  The
+    weights draw from a generator of their own: from the package chain
+    they changed with whatever ran before in the process, and one draw in
+    ~40 put a ReLU or max-pool element within f32 rounding of its kink,
+    where an f32 pass in one layout stood 0.05 from an f64 pass while the
+    other and both f64 passes agreed to 2e-14.  From seed 0 sixteen 1e-7
+    nudges of the f64 weights move every gradient by at most 6.5e-5
+    (linearly), and both f32 layouts stand within 8.9e-6 of f64."""
     rng = np.random.RandomState(4)
     x = rng.standard_normal((4, 3, 64, 64)).astype(np.float32)
     y = rng.randint(0, 10, 4).astype(np.float32)
     with cpu():
         a = _small(tvision)
-        a.initialize(init=initializer.Xavier())
+        a.initialize(init=initializer.Xavier(),
+                     generator=torch.Generator().manual_seed(0))
         a(torch.from_numpy(x))
         b = _small(tvision, "NHWC")
         b.initialize()
