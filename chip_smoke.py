@@ -20,16 +20,16 @@ Phases; any failure raises, exits non-zero and prints no result line:
    non-causal; max abs and rel error beside the tolerance.
 3b. The backward kernels (dQ, dK/dV) against their plain version at the
    training path's shape (8, 12, 1024, 64), causal and not, f32 and bf16,
-   plus a ragged T=1000 and BERT's shape non-causal, with dO random and
-   O, L from the forward kernel (itself checked there against its plain
-   version).
+   plus a ragged T=1000, BERT's shape and ViT-B/16's (64, 12, 197, 64)
+   non-causal, with dO random and O, L from the forward kernel (itself
+   checked there against its plain version).
 4. Forward timing with CUDA events at the serving shape and BERT's:
    kernel, plain version, the PyTorch library call as a yardstick (the
    port never calls it; SDPA pinned to one backend, flash for bf16 and
    memory-efficient for f32, its name printed; the median of 5 timed
    loops, with their min-max), and the bound reckoned from shapes.
-4b. Backward timing at (8, 12, 1024, 64) causal and at BERT's shape
-   non-causal, f32 and bf16: each kernel, their sum, the plain backward,
+4b. Backward timing at (8, 12, 1024, 64) causal and at BERT's and ViT's
+   shapes non-causal, f32 and bf16: each kernel, their sum, the plain backward,
    the bounds, and the backward of the pinned SDPA as a yardstick
    (median of 5 loops).
 5. The serving path at GPT-2 small's full width (random f32 weights from
@@ -102,10 +102,29 @@ Phases; any failure raises, exits non-zero and prints no result line:
    eager update's kernels against its span on the device timeline);
    (iv) tools.bench_trainer.run: the captured, grouped and legacy steps'
    microseconds.
+11. BERT-base and ViT-B/16 as Gluon blocks: (i) bench_bert's Gluon BERT
+   (bf16, flash, B=32, T=512) at dropout 0.1 under deterministic
+   algorithms: three captured train_steps equal three eager ones bitwise
+   (losses, weights, AdamW states), one recording; the eager step
+   launches each flash kernel 12 times; (ii) the per-layer trunk
+   (scan_layers=False), f32, B=2: flash against dense, loss and every
+   gradient; (iii) tools.bench_bert.run through the eager Gluon loop, the
+   captured train_step and ShardedTrainer (dropout 0, 2 warm-up + 10
+   timed steps): ms per step, tokens/s, MFU, peak memory; each path's
+   flash kernels counted on the device by torch.profiler (12 each, the
+   captured one inside the graph's replay) and its busy share over three
+   steps; (iv) hybridize(remat="full"): gradients at dropout 0.1 equal
+   the run without remat bitwise, peak memory with and without; (v) LoRA
+   (trunk adapters of rank 8 and apply_lora on the heads, then
+   freeze_for_lora): three captured steps move only the adapters, and
+   merge() makes the next step record again; (vi) ViT-B/16: f32 flash
+   logits (T=197) against the dense trunk's, then five bf16 steps of the
+   eager Gluon loop at B=64: the loss falls, 12 launches of each kernel a
+   step.
 6. The kernel JSON line (f32 numbers at the training shape, and the
    bf16 ones under *_bf16 keys; the same at BERT's shape under
-   ``at_bert_shape``; launches by path), the nvidia-smi line, then the
-   result line.
+   ``at_bert_shape`` and at ViT's under ``at_vit_shape``; launches by
+   path), the nvidia-smi line, then the result line.
 """
 
 from __future__ import annotations
@@ -225,6 +244,19 @@ TRAINER_SHAPE, TRAINER_STEPS, TRAINER_LR = (4, 3, 64, 64), 3, 0.02
 CAPTURE_STEPS, CAPTURE_NAN_AT, CAPTURE_CLIP = 6, 3, 0.5
 # (iv) tools.bench_trainer's timed steps
 TRAINER_BENCH_STEPS = 30
+
+# -- BERT-base and ViT-B/16 as Gluon blocks ([11]) ----------------------------
+# (i) captured against eager over this many bench_bert steps at dropout 0.1;
+# (v) the LoRA steps' batch; (vi) ViT-B/16 at 224x224 (T = 14 * 14 + 1 =
+# 197, ragged against the kernels' 64-row tiles), B=64, bf16, AdamW at a
+# fine-tuning rate: from Xavier weights without warm-up, on one repeated
+# batch of random labels, the loss fell and then rose again at 1e-4 and
+# 3e-4, and fell step by step at 3e-5 and 1e-5 (an H100 80GB HBM3 at
+# 700 W).
+GLUON_BERT_STEPS = 3
+LORA_BATCH = 8
+VIT_BATCH, VIT_IMAGE, VIT_STEPS, VIT_LR = 64, 224, 5, 1e-5
+VIT_SHAPE = (VIT_BATCH, 12, (VIT_IMAGE // 16) ** 2 + 1, 64)
 
 # -- the imperative path ([7]) and the runtime-compiled kernels ([7b]) -------
 # Hand-written CUDA C++ sources compiled at runtime by rtc.CudaModule
@@ -522,7 +554,7 @@ def phase_bwd_kernels(dev):
 
     ragged = TRAIN_SHAPE[:2] + (1000, TRAIN_SHAPE[3])
     cases = [(TRAIN_SHAPE, True), (TRAIN_SHAPE, False), (ragged, True),
-             (BERT_SHAPE, False)]
+             (BERT_SHAPE, False), (VIT_SHAPE, False)]
     results = {}
     for shape, causal in cases:
         T = shape[2]
@@ -580,7 +612,8 @@ def phase_bwd_timing(dev):
     from mxnet_tpu_torch.ops import flash_attention as fa
 
     rows = {}
-    for shape, causal in ((TRAIN_SHAPE, True), (BERT_SHAPE, False)):
+    for shape, causal in ((TRAIN_SHAPE, True), (BERT_SHAPE, False),
+                          (VIT_SHAPE, False)):
         mask = "causal" if causal else "non-causal"
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
@@ -669,7 +702,8 @@ def _agree(model, prompts, ref, got, what):
             continue
         j = diff[0]
         prefix = torch.as_tensor(list(prompts[i]) + [int(t) for t in a[:j]],
-                                 device=model.tok_embed_weight.device)
+                                 device=model.tok_embed_weight.data()._data
+                                 .device)
         gap = _top2_gap(model, prefix[None])
         log(f"  {what}: request {i} parts at step {j}, top-2 gap {gap:.3e} "
             f"(tol {TIE_GAP:.0e})")
@@ -693,9 +727,9 @@ def phase_main_path(dev, card):
 
     rng = np.random.default_rng(SEED)
     model = gpt.gpt2_small(scan_layers=True, attention_impl="flash")
-    if model.tok_embed_weight.device != dev:
-        raise AssertionError(f"gpt2_small() landed on "
-                             f"{model.tok_embed_weight.device}, not {dev}")
+    landed = model.tok_embed_weight.data()._data.device
+    if landed != dev:
+        raise AssertionError(f"gpt2_small() landed on {landed}, not {dev}")
     state = _numpy_state(model, rng)
     convert.load_state(model, state)
     L = model.encoder._num_layers
@@ -711,7 +745,7 @@ def phase_main_path(dev, card):
     torch.cuda.synchronize()
     t_gen = time.perf_counter() - t0
     launches = fa.flash_attention_fwd.launches
-    out_a = toks[:, 64:].cpu().numpy()
+    out_a = toks.asnumpy()[:, 64:].astype(np.int64)
     log(f"  (a) generate: 4 x 64-token prompts, {NEW_TOKENS} new tokens: "
         f"{t_gen * 1e3:.1f} ms, {t_gen / NEW_TOKENS * 1e3:.2f} ms per step "
         f"(full {model._max_length}-token window), "
@@ -721,10 +755,10 @@ def phase_main_path(dev, card):
     if launches != L * NEW_TOKENS:
         raise AssertionError("generate() did not launch the kernel once per "
                              "layer per token")
-    if toks.shape != (4, 64 + NEW_TOKENS) or not (
-            (out_a >= 0) & (out_a < vocab)).all():
+    if toks.shape != (4, 64 + NEW_TOKENS) or toks.dtype != np.float32 \
+            or not ((out_a >= 0) & (out_a < vocab)).all():
         raise AssertionError(f"generate() returned {tuple(toks.shape)} "
-                             f"tokens outside the vocabulary")
+                             f"{toks.dtype} tokens outside the vocabulary")
 
     # (b) the serving engine on the same weights and prompts
     eng = ServingEngine(model, batch_buckets=(1, 2, 4))
@@ -890,7 +924,7 @@ def phase_train(dev, card):
     bf = gpt.gpt2_small(scan_layers=True, attention_impl="flash",
                         dropout=0.0)
     convert.load_state(bf, state)
-    bf.to(torch.bfloat16)
+    bf.cast("bfloat16")
     btr = ShardedTrainer(bf, gpt.GPTLMLoss(), "adamw",
                          {"learning_rate": 3e-4})
     before = _counts()
@@ -928,7 +962,7 @@ def phase_train(dev, card):
     outs, _ = eng.serve_group(list(prompts), NEW_TOKENS)
     log(f"  (v) engine generation {eng.generation} after "
         f"reload_from_state(state_for_serving(trained model))")
-    _agree(model, prompts, ref[:, plen:].cpu().numpy(), outs,
+    _agree(model, prompts, ref.asnumpy()[:, plen:].astype(np.int64), outs,
            "(v) engine after reload vs generate() on the trained model")
     return launches, ms
 
@@ -972,11 +1006,12 @@ def phase_bert(dev, card):
     # attention uniform to 0.1% and would hide the attention gradients)
     flash = bert.bert_base(dropout=0.0, max_length=T, scan_layers=True,
                            attention_impl="flash")
-    if flash.word_embed_weight.device != dev:
-        raise AssertionError(f"bert_base() landed on "
-                             f"{flash.word_embed_weight.device}, not {dev}")
+    landed = flash.word_embed_weight.data()._data.device
+    if landed != dev:
+        raise AssertionError(f"bert_base() landed on {landed}, not {dev}")
     flash.initialize(initializer.Normal(0.02),
-                     torch.Generator(device=dev).manual_seed(SEED + 31))
+                     generator=torch.Generator(device=dev).manual_seed(
+                         SEED + 31))
     dense = bert.bert_base(dropout=0.0, max_length=T, scan_layers=True,
                            attention_impl="dense")
     dense.load_state_dict(flash.state_dict())
@@ -1730,6 +1765,11 @@ TRAINER_FAMILIES = (("multi_tensor", "foreach (update, health)"),) + \
     RESNET_FAMILIES
 
 
+# [11]'s families: FAMILIES, with the grouped update's multi-tensor
+# (_foreach_*) kernels apart
+BERT_FAMILIES = (("multi_tensor", "foreach (update, health)"),) + FAMILIES
+
+
 def profile_steps(step, steps, what, card, top=12, families=FAMILIES,
                   ranges=()):
     """torch.profiler over ``steps`` calls of ``step``: device kernel time
@@ -1791,6 +1831,432 @@ def profile_steps(step, steps, what, card, top=12, families=FAMILIES,
     for k, ms in sorted(names.items(), key=lambda x: -x[1])[:top]:
         log(f"      {ms:9.3f} ms  {k[:110]}")
     return wall, busy
+
+
+# -- [11] the transformers as Gluon blocks ------------------------------------
+
+
+def _kernel_counts(step, steps=1):
+    """The port's kernels the device ran over ``steps`` calls of ``step``,
+    by wrapper name, counted from torch.profiler's kernel events (a CUDA
+    graph's replay launches kernels no wrapper sees)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+    frags = (("flash_fwd", "flash_attention_fwd"),
+             ("flash_dq", "flash_attention_dq"),
+             ("flash_dkv", "flash_attention_dkv"),
+             ("scale2", "rtc_scale2"), ("axpy", "rtc_axpy"))
+    got = {name: 0 for _f, name in frags}
+    seen = 0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        seen += evt.count
+        key = evt.key.lower()
+        for frag, name in frags:
+            if frag in key:
+                got[name] += evt.count
+    if not seen:
+        raise AssertionError("torch.profiler recorded no device kernels")
+    return {k: v // steps for k, v in got.items()}
+
+
+def _gluon_bert_run(dev, captured_on, steps, batch, seq):
+    """``steps`` train_steps of bench_bert's Gluon BERT at dropout 0.1
+    (eager with ``captured_on`` False); returns the losses, the weights
+    and the optimizer states on the device, and the captured counters."""
+    import os
+
+    import torch
+
+    from mxnet_tpu_torch import random as mxrandom
+    from mxnet_tpu_torch.gluon import captured
+    from mxnet_tpu_torch.tools import bench_bert
+
+    os.environ["MXTPU_CAPTURED_STEP"] = "1" if captured_on else "0"
+    try:
+        net, tr, loss_fn, tok, labels = bench_bert.build_gluon(
+            batch, seq, "flash", "bfloat16", dev, seed=SEED, dropout=0.1)
+        mxrandom.seed(SEED + 40)
+        captured.reset_counters()
+        _zero_counts()
+        losses = []
+        for _ in range(steps):
+            losses.append(tr.train_step(net, loss_fn, tok, labels)
+                          ._data.detach().clone())
+        counters = dict(captured.cache_stats(),
+                        dispatches=captured.dispatch_count(),
+                        traces=captured.trace_count(), **_counts())
+        weights = [p.data()._data.detach().clone()
+                   for p in net.collect_params().values()]
+        states = [st._data.detach().clone()
+                  for i in sorted(tr._updaters[0].states)
+                  for st in _flat_states(tr._updaters[0].states[i])]
+        return losses, weights, states, counters
+    finally:
+        os.environ.pop("MXTPU_CAPTURED_STEP", None)
+
+
+def _equal_lists(a, b):
+    import torch
+
+    return len(a) == len(b) and all(
+        x.shape == y.shape and torch.equal(x, y) for x, y in zip(a, b))
+
+
+def _block_loss_and_grads(model, tokens, labels):
+    """The pretraining loss and every Gluon parameter's gradient of a BERT
+    block on tensors, in training mode."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    params = model.collect_params()
+    with autograd.train_mode():
+        loss = bert.BERTPretrainLoss()(model(tokens), labels)
+    grads = torch.autograd.grad(loss, [p._value() for p in params.values()])
+    return float(loss.detach()), dict(zip(
+        (n[len(model.prefix):] for n in params), grads))
+
+
+def _nd_grads(net, loss_fn, tok, labels, seed):
+    """One recorded forward and backward of a Gluon BERT on NDArrays (the
+    hybridized forward's dropout generator drawn from the chain at
+    ``seed``): the loss, every gradient and the peak memory over the
+    step, in GiB above what was allocated before it."""
+    import torch
+
+    from mxnet_tpu_torch import autograd
+    from mxnet_tpu_torch import random as mxrandom
+
+    params = net.collect_params()
+    for p in params.values():
+        p.zero_grad()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    mxrandom.seed(seed)
+    with autograd.record():
+        loss = loss_fn(net(tok), labels)
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    grads = [p.grad()._data.detach().clone() for p in params.values()
+             if p.grad_req != "null"]
+    return float(loss.asnumpy()), grads, peak
+
+
+def phase_gluon_transformers(dev, card, rtc_kernels):
+    """[11] BERT-base and ViT-B/16 as Gluon blocks: (i) the captured
+    train_step against the eager one, bitwise, at dropout 0.1, with the
+    flash kernels counted inside the replay; (ii) the per-layer flash
+    trunk against the dense one; (iii) bench_bert through the eager Gluon
+    loop, the captured step and ShardedTrainer; (iv) remat="full"; (v)
+    LoRA adapters through the captured step; (vi) ViT-B/16 training.
+    Returns ({path: launches by kernel, the rtc kernels' too}, {path:
+    bench result})."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.tools import bench_bert
+
+    B, T = BERT_BATCH, BERT_SEQ
+    L = 12
+    launches = {}
+
+    # (i) captured train_step against the eager one, bitwise
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager = _gluon_bert_run(dev, False, GLUON_BERT_STEPS, B, T)
+        cap = _gluon_bert_run(dev, True, GLUON_BERT_STEPS, B, T)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    same = [_equal_lists(eager[i], cap[i]) for i in range(3)]
+    losses = [float(x) for x in cap[0]]
+    log(f"  (i) BERT-base bf16 flash, B={B}, T={T}, dropout 0.1, "
+        f"{GLUON_BERT_STEPS} train_steps: captured = eager bitwise in "
+        f"losses / weights / states {same}; losses {losses}; eager kernel "
+        f"launches {dict((k, eager[3][k]) for k in _counts())}; captured "
+        f"counters {cap[3]} (the wrappers count the warm-up and the "
+        f"recording, none of the replays)")
+    if not (all(same) and cap[3]["traces"] == 1
+            and cap[3]["dispatches"] == GLUON_BERT_STEPS
+            and all(eager[3][k] == L * GLUON_BERT_STEPS for k in _counts())
+            and all(cap[3][k] == 2 * L for k in _counts())
+            and all(np.isfinite(losses))):
+        raise AssertionError("BERT's captured train_step differs from the "
+                             "eager one")
+    del eager, cap
+    torch.cuda.empty_cache()
+
+    # (ii) the per-layer flash trunk against the dense one, f32, B=2
+    flash = bert.bert_base(dropout=0.0, max_length=T, scan_layers=False,
+                           attention_impl="flash")
+    flash.initialize(initializer.Normal(0.02),
+                     generator=torch.Generator(device=dev).manual_seed(
+                         SEED + 42))
+    dense = bert.bert_base(dropout=0.0, max_length=T, scan_layers=False,
+                           attention_impl="dense")
+    dense.load_state_dict(flash.state_dict())
+    tokens, mlm, nsp = bench_bert.make_data(2, T, flash._vocab, dev, seed=3)
+    _zero_counts()
+    lf, gf = _block_loss_and_grads(flash, tokens, (mlm, nsp))
+    per_layer_launches = _counts()
+    ld, gd = _block_loss_and_grads(dense, tokens, (mlm, nsp))
+    worst = max(((float((gf[n] - gd[n]).norm() / gd[n].norm()), n)
+                 for n in gd), key=lambda x: x[0])
+    finite = all(bool(torch.isfinite(g).all()) for g in gf.values())
+    log(f"  (ii) per-layer trunk (scan_layers=False), f32, B=2: loss flash "
+        f"{lf:.6f} dense {ld:.6f} (rel diff {abs(lf - ld) / abs(ld):.2e}, "
+        f"tol {LOSS_RTOL:.0e}); largest per-parameter gradient rel L2 error "
+        f"{worst[0]:.3e} ({worst[1]}; tol {GRAD_REL_L2:.0e}) over "
+        f"{len(gd)} parameters; finite {finite}; launches "
+        f"{per_layer_launches}")
+    if not (abs(lf - ld) <= LOSS_RTOL * abs(ld) and worst[0] <= GRAD_REL_L2
+            and finite and all(n == L for n in per_layer_launches.values())):
+        raise AssertionError("the per-layer flash trunk disagrees with the "
+                             "dense one")
+    del flash, dense, gf, gd
+    torch.cuda.empty_cache()
+
+    # (iii) bench_bert's configuration through the three paths
+    results = {}
+    for path in ("gluon", "captured", "sharded"):
+        r = bench_bert.run(B, T, BERT_STEPS, path=path)
+        results[path] = r
+        log(f"  (iii) {path}: loss {[round(v, 4) for v in r['losses']]} "
+            f"(2 warm-up + {BERT_STEPS} timed); {r['ms_per_step']:.2f} ms "
+            f"per step, {r['value']:.0f} tokens/s, mfu "
+            f"{'null' if r['mfu'] is None else format(r['mfu'], '.4f')}, "
+            f"peak device memory {r['peak_mem_gib']:.2f} GiB  "
+            f"[{r['nvidia_smi']}]")
+        log("  (iii) " + json.dumps(r))
+        if not (all(np.isfinite(r["losses"]))
+                and r["losses"][-1] < r["losses"][0]):
+            raise AssertionError(f"BERT {path}: {r['losses']}")
+        torch.cuda.empty_cache()
+    for path in ("gluon", "captured", "sharded"):
+        step = bench_bert.step_fn(path, B, T)
+        for _ in range(2):
+            float(step())
+        _zero_counts()
+        for kern in rtc_kernels:
+            kern.launches = 0
+        float(step())
+        counted = dict(_counts(), rtc_scale2=rtc_kernels[0].launches,
+                       rtc_axpy=rtc_kernels[1].launches)
+        ran = _kernel_counts(step)
+        log(f"  (iii) one {path} step: wrapper launches {counted}, the "
+            f"port's kernels the device ran (torch.profiler) {ran}")
+        if ran != dict(dict.fromkeys(_counts(), L), rtc_scale2=0,
+                       rtc_axpy=0):
+            raise AssertionError(f"a {path} BERT step did not run each "
+                                 f"flash kernel once per layer")
+        if path == "gluon":
+            launches["bert_gluon_train_step"] = counted
+        elif path == "captured":
+            launches["bert_captured_train_step"] = ran
+        wall, busy = profile_steps(step, 3, f"(iii) 3 bf16 BERT {path} "
+                                   f"steps at B={B}, T={T}", card, top=6,
+                                   families=BERT_FAMILIES,
+                                   ranges=("optimizer_update",)
+                                   if path == "gluon" else ())
+        results[path]["busy_share"] = busy / wall
+        del step
+        torch.cuda.empty_cache()
+
+    # (iv) remat="full" on the block: the same gradients, less memory
+    # (deterministic algorithms: the embedding gradient's scatter-add)
+    runs = []
+    torch.use_deterministic_algorithms(True)
+    try:
+        for remat in (None, "full"):
+            net, _tr, loss_fn, tok, labels = bench_bert.build_gluon(
+                B, T, "flash", "bfloat16", dev, seed=SEED, dropout=0.1)
+            if remat:
+                net.hybridize(remat=remat)
+            _nd_grads(net, loss_fn, tok, labels, SEED + 43)   # warm-up
+            _zero_counts()
+            runs.append(_nd_grads(net, loss_fn, tok, labels, SEED + 44)
+                        + (_counts(),))
+            del net, _tr
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    same = runs[0][0] == runs[1][0] and _equal_lists(runs[0][1], runs[1][1])
+    log(f"  (iv) remat='full' at B={B}, T={T}, dropout 0.1: loss and "
+        f"{len(runs[0][1])} gradients equal to the run without remat "
+        f"(bitwise) {same}; peak memory over the step {runs[0][2]:.2f} GiB "
+        f"without, {runs[1][2]:.2f} GiB with; launches without "
+        f"{runs[0][3]}, with {runs[1][3]} (the recompute runs the forward "
+        f"again)  [{card}]")
+    if not same or runs[1][3]["flash_attention_fwd"] != 2 * L:
+        raise AssertionError("remat changed BERT's gradients")
+    del runs
+    torch.cuda.empty_cache()
+
+    _lora_captured(dev)
+    for kern in rtc_kernels:
+        kern.launches = 0
+    launches["vit_train_step"] = dict(
+        _vit_training(dev, card), rtc_scale2=rtc_kernels[0].launches,
+        rtc_axpy=rtc_kernels[1].launches)
+    return launches, results
+
+
+def _lora_captured(dev):
+    """[11](v) LoRA adapters (the trunk's, rank 8, and apply_lora on the
+    heads; then freeze_for_lora) through the captured train_step: only
+    the adapters move, and merge() makes the next step record again."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import gluon
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon import captured
+    from mxnet_tpu_torch.gluon.contrib import lora
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    from mxnet_tpu_torch.tools import bench_bert
+
+    T = BERT_SEQ
+    # (v) LoRA: trunk adapters (lora_rank=8) and LoRADense on the heads
+    net = bert.bert_base(dropout=0.0, max_length=T, scan_layers=True,
+                         attention_impl="flash", lora_rank=8)
+    net.cast("bfloat16")
+    wrapped = lora.apply_lora(net, rank=8, patterns=("pooler",
+                                                     "dec_transform"))
+    for name, p in net.collect_params().items():
+        if "lora" in name:
+            p.grad_req = "write"
+    n_train, n_total = lora.freeze_for_lora(net)
+    net.hybridize()
+    tr = gluon.Trainer(net.collect_params(), "adamw",
+                       dict(bench_bert.GLUON_ADAMW))
+    ctx = context_of(dev)
+    tok, mlm, nsp = bench_bert.make_data(LORA_BATCH, T, net._vocab, dev,
+                                         seed=5)
+    tok, labels = NDArray(tok, ctx), (NDArray(mlm, ctx), NDArray(nsp, ctx))
+    params = net.collect_params()
+    before = {n: p.data()._data.detach().clone() for n, p in params.items()}
+    captured.reset_counters()
+    pretrain_loss = bert.BERTPretrainLoss()
+    lora_losses = [float(tr.train_step(net, pretrain_loss, tok,
+                                       labels).asnumpy())
+                   for _ in range(3)]
+    traces = captured.trace_count()
+    moved = [n for n, p in params.items()
+             if not torch.equal(p.data()._data, before[n])]
+    frozen_moved = [n for n in moved if "lora" in n] != moved
+    for ld in wrapped:
+        ld.merge()
+    tr.train_step(net, pretrain_loss, tok, labels)
+    traces_after = captured.trace_count()
+    log(f"  (v) LoRA rank 8 (trunk qkv and {len(wrapped)} LoRADense "
+        f"heads), {n_train} of {n_total} parameters trainable, B="
+        f"{LORA_BATCH}: 3 captured steps, losses {lora_losses}, "
+        f"recordings {traces}; parameters changed {len(moved)} (all "
+        f"adapters: {not frozen_moved}); after merge() the next step "
+        f"recorded again: {traces_after == traces + 1}")
+    if not (traces == 1 and not frozen_moved and len(moved) > 0
+            and traces_after == traces + 1 and all(np.isfinite(lora_losses))):
+        raise AssertionError("LoRA's captured steps moved frozen weights "
+                             "or merge did not invalidate the capture")
+    del net, tr, before, params
+    torch.cuda.empty_cache()
+
+
+def _vit_training(dev, card):
+    """[11](vi) ViT-B/16: f32 flash logits (T=197) against the dense
+    trunk's at B=4, then VIT_STEPS bf16 steps of the eager Gluon loop at
+    B=64.  Returns the flash launches of the last step."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import autograd, gluon, initializer
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    L = 12
+    ctx = context_of(dev)
+    # (vi) ViT-B/16: flash against dense at B=4 (f32), then Gluon training
+    rng = np.random.RandomState(SEED + 45)
+    nets = []
+    for impl in ("flash", "dense"):
+        v = vision.vit_base(attention_impl=impl)
+        v.initialize(init=initializer.Xavier(), ctx=context_of(dev),
+                     generator=torch.Generator(device=dev).manual_seed(
+                         SEED + 46))
+        nets.append(v)
+    x = torch.as_tensor(rng.standard_normal(
+        (4, 3, VIT_IMAGE, VIT_IMAGE)).astype(np.float32), device=dev)
+    with torch.inference_mode():
+        lf, ld = nets[0](x), nets[1](x)
+    v_abs, v_rel, v_ratio = errors(lf, ld, *TRUNK_TOL)
+    log(f"  (vi) ViT-B/16 f32 logits {tuple(lf.shape)}, flash (T=197) "
+        f"against dense: max abs {v_abs:.3e} rel {v_rel:.3e}, err/tol "
+        f"{v_ratio:.3f} (rtol {TRUNK_TOL[0]:.0e} atol {TRUNK_TOL[1]:.0e})")
+    if not (v_ratio <= 1 and bool(torch.isfinite(lf).all())):
+        raise AssertionError("ViT's flash trunk disagrees with the dense one")
+    del nets, lf, ld, x
+    torch.cuda.empty_cache()
+    vit = vision.vit_base(attention_impl="flash")
+    vit.initialize(init=initializer.Xavier(), ctx=context_of(dev),
+                   generator=torch.Generator(device=dev).manual_seed(
+                       SEED + 47))
+    vit.cast("bfloat16")
+    vit.hybridize()
+    vtr = gluon.Trainer(vit.collect_params(), "adamw",
+                        {"learning_rate": VIT_LR, "wd": 0.01,
+                         "multi_precision": True})
+    vloss = gluon.loss.SoftmaxCrossEntropyLoss()
+    xs = NDArray(torch.as_tensor(rng.standard_normal(
+        (VIT_BATCH, 3, VIT_IMAGE, VIT_IMAGE)).astype(np.float32),
+        device=dev).bfloat16(), ctx)
+    ys = NDArray(torch.as_tensor(rng.randint(0, 1000, VIT_BATCH).astype(
+        np.float32), device=dev), ctx)
+    vit_losses, per_step = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for s in range(VIT_STEPS):
+        if s == 1:
+            t1 = time.perf_counter()
+        _zero_counts()
+        with autograd.record():
+            loss = vloss(vit(xs), ys)
+        loss.backward()
+        vtr.step(VIT_BATCH)
+        vit_losses.append(float(loss.mean().asnumpy()))
+        per_step.append(_counts())
+    t2 = time.perf_counter()
+    ms = (t2 - t0) / VIT_STEPS * 1e3
+    ms_warm = (t2 - t1) / (VIT_STEPS - 1) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  (vi) ViT-B/16 bf16 flash, B={VIT_BATCH}, {VIT_IMAGE}x"
+        f"{VIT_IMAGE}, eager Gluon loop (AdamW lr {VIT_LR}): losses "
+        f"{[round(v, 4) for v in vit_losses]}, {ms:.2f} ms a step (first "
+        f"included), {ms_warm:.2f} ms a step after it, "
+        f"{VIT_BATCH / ms_warm * 1e3:.1f} images/s, peak {peak:.2f} GiB, "
+        f"launches a step {per_step[-1]}  [{card}]")
+    if not (all(np.isfinite(vit_losses)) and vit_losses[-1] < vit_losses[0]
+            and all(all(n == L for n in c.values()) for c in per_step)):
+        raise AssertionError(f"ViT training: {vit_losses}, {per_step}")
+    del vit, vtr, xs, ys
+    torch.cuda.empty_cache()
+    return per_step[-1]
 
 
 def _grid(n, block=256):
@@ -2170,7 +2636,14 @@ def main():
         "the captured step and ShardedTrainer, bench_trainer")
     trainer_launches, trainer_res = phase_trainer(dev, card, (s2, ax))
 
-    T0, Tb = TRAIN_SHAPE[2], BERT_SHAPE[2]
+    log("[11] BERT-base and ViT-B/16 as Gluon blocks: the captured "
+        "train_step against the eager one (bitwise), the per-layer trunk, "
+        "bench_bert through gluon.Trainer eager and captured and "
+        "ShardedTrainer, remat, LoRA, ViT-B/16 training")
+    gluon_launches, gluon_res = phase_gluon_transformers(dev, card,
+                                                         (s2, ax))
+
+    T0, Tb, Tv = TRAIN_SHAPE[2], BERT_SHAPE[2], VIT_SHAPE[2]
     sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
                        ":78", "lib_fwd", "plain_fwd"),
                "dq": ("flash_attention_dq", "flash_attention_bwd.cu", ":190",
@@ -2213,12 +2686,17 @@ def main():
         "at_bert_shape": dict(
             numbers(fn, lib, plain, BERT_SHAPE, Tb, False),
             shape=f"{BERT_SHAPE} non-causal"),
+        "at_vit_shape": dict(
+            numbers(fn, lib, plain, VIT_SHAPE, Tv, False),
+            shape=f"{VIT_SHAPE} non-causal"),
         "launches_by_path": dict(
             {"generate": gen_launches} if fn == "fwd" else {},
             train_step=train_launches[name],
             bert_train_step=bert_launches[name],
             resnet_train_step=resnet_launches[name],
-            gluon_captured_train_step=trainer_launches[name]),
+            gluon_captured_train_step=trainer_launches[name],
+            **{path: counts[name]
+               for path, counts in gluon_launches.items()}),
         "plain_and_library_cover": ("the forward" if fn == "fwd" else
                                     "the whole backward (dQ, dK, dV)"),
     } for fn, (name, src, line, lib, plain) in sources.items()]}
@@ -2233,6 +2711,9 @@ def main():
                                      resnet_launches["rtc_axpy"],
                                  "gluon_captured_train_step":
                                      trainer_launches["rtc_axpy"]}}
+    for name in rtc_launches:
+        rtc_launches[name].update(
+            {path: counts[name] for path, counts in gluon_launches.items()})
     for name, replaces in (("rtc_scale2", "mxnet_tpu/rtc.py:53, "
                                           "tests/test_aux.py:256"),
                            ("rtc_axpy", "mxnet_tpu/rtc.py:53")):
@@ -2267,7 +2748,11 @@ def main():
         f"{trainer_res['gluon']['ms_per_step']:.2f} ms eager, "
         f"{trainer_res['captured']['ms_per_step']:.2f} ms captured; "
         f"bench_trainer {trainer_res['bench_trainer']['value']:.1f} us "
-        f"captured; forward O max abs err at BERT's "
+        f"captured; Gluon BERT bf16 step "
+        f"{gluon_res['gluon']['ms_per_step']:.2f} ms eager, "
+        f"{gluon_res['captured']['ms_per_step']:.2f} ms captured, "
+        f"{gluon_res['sharded']['ms_per_step']:.2f} ms ShardedTrainer; "
+        f"forward O max abs err at BERT's "
         f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")
     log(json.dumps(kernels))

@@ -4,39 +4,38 @@ The loaders take numpy arrays only (the port never imports JAX), check
 every entry before copying any, and raise on a missing, duplicate or
 mis-shaped entry, so a model is never left half loaded.
 
-- ``load_state`` takes the flat ``{name: np.ndarray}`` serving checkpoint
-  that ``mxnet_tpu.serving.state_for_serving`` writes for a scanned-trunk
-  model, and matches names by suffix (``*_stack_*``, ``lnf_*``, the two
-  embeddings) as the JAX engine's ``_stacks_from_state`` does.
-- ``load_stacks`` takes the numpy form of what
-  ``mxnet_tpu.gluon.model_zoo.gpt.extract_decoder_stacks`` returns, which
-  covers the per-layer trunk too: its LayerNorm names (``layernorm0_...``)
-  cannot be told apart by suffix.
-- ``load_bert_params`` takes the flat ``{name: np.ndarray}`` of a JAX
-  ``BERTModel``'s ``collect_params()``, either trunk layout.
-- ``load_gluon_params`` takes the same of any JAX Gluon block (ResNet ...)
-  for the port's block of the same structure, running statistics
-  included.
+- ``load_gluon_params`` takes the flat ``{name: np.ndarray}`` of a JAX
+  Gluon block's ``collect_params()`` (BERT, GPT, ViT, ResNet ...) for the
+  port's block of the same structure, by Gluon name: both packages name
+  parameters alike (``bertmodel0_enc_layer0_qkv_weight``), less the
+  top-level prefix, whose counter is per process.
+- ``relayout`` turns such a dict between the per-layer trunk's names
+  (``enc_layer{i}_qkv_weight``, ``enc_layernorm0_gamma``) and the scanned
+  trunk's stacks (``enc_qkv_stack_weight``, ``enc_lnf_gamma``), so a
+  model of either layout loads into the port's of the other;
+  ``load_bert_params`` does that for a ``BERTModel``.
+- ``load_state`` takes the flat serving checkpoint that
+  ``serving.state_for_serving`` writes (a scanned-trunk model's), and
+  matches names by suffix (``*_stack_*``, ``lnf_*``, the two embeddings)
+  as the JAX engine's ``_stacks_from_state`` does; ``load_stacks`` takes
+  the numpy form of what ``gpt.extract_decoder_stacks`` returns.  Both
+  load a ``GPTModel`` of either trunk layout.
 """
 
 from __future__ import annotations
+
+import re
 
 import numpy as np
 import torch
 
 from .base import MXNetError, torch_dtype
-from .gluon.model_zoo.gpt import STACK_NAMES
+from .gluon.model_zoo.gpt import STACK_NAMES, trunk_parameters
 
 
 #: what a serving checkpoint must hold, each matched by name suffix
 STATE_SUFFIXES = STACK_NAMES + ("lnf_gamma", "lnf_beta", "tok_embed_weight",
                                 "pos_embed_weight")
-
-
-def _targets(model):
-    """The model's parameters by serving-checkpoint suffix."""
-    return {n: getattr(model if n.endswith("_embed_weight") else model.encoder,
-                       n) for n in STATE_SUFFIXES}
 
 
 def as_tensor(arr, name, what):
@@ -53,21 +52,27 @@ def _check_array(arr, name, what):
 
 
 def _assign(model, arrays, what):
-    _copy_checked(_targets(model), arrays, what)
+    """Copy ``arrays[name]`` (each of ``STATE_SUFFIXES``) into a GPT of
+    either layout after checking every shape: a per-layer trunk takes
+    slice i of a stack into layer i."""
+    from .gluon.model_zoo.bert import ScanTransformerEncoder
 
-
-def _copy_checked(targets, arrays, what):
-    """Copy ``arrays[name]`` into each ``targets[name]`` parameter after
-    checking every shape."""
+    layered = not isinstance(model.encoder, ScanTransformerEncoder)
+    targets = trunk_parameters(model)
     tensors = {}
-    for name, param in targets.items():
+    for name, ps in targets.items():
         t = tensors[name] = as_tensor(arrays[name], name, what)
-        if t.shape != param.shape:
+        want = tuple(ps[0].shape)
+        if layered and name in STACK_NAMES:
+            want = (len(ps),) + want
+        if tuple(t.shape) != want:
             raise MXNetError(f"{what}: {name!r} has shape {tuple(t.shape)}, "
-                             f"the model wants {tuple(param.shape)}")
-    with torch.no_grad():
-        for name, param in targets.items():
-            param.copy_(tensors[name])
+                             f"the model wants {want}")
+    for name, ps in targets.items():
+        rows = tensors[name] if layered and name in STACK_NAMES \
+            else [tensors[name]]
+        for p, row in zip(ps, rows):
+            p.set_data(row)
 
 
 def match_state(state, what):
@@ -80,7 +85,7 @@ def match_state(state, what):
             raise MXNetError(
                 f"{what}: no entry ending {suffix!r}; a per-layer "
                 f"(scan_layers=False) model's weights load through "
-                f"load_stacks")
+                f"load_stacks or load_gluon_params")
         if len(keys) > 1:
             raise MXNetError(f"{what}: {len(keys)} entries end "
                              f"{suffix!r}: {sorted(keys)}")
@@ -90,8 +95,8 @@ def match_state(state, what):
 
 def load_state(model, state):
     """Load a scanned-trunk serving checkpoint ``{name: np.ndarray}`` into
-    a port ``GPTModel``.  Entries are matched by name suffix; extra
-    entries are ignored."""
+    a port ``GPTModel`` of either layout.  Entries are matched by name
+    suffix; extra entries are ignored."""
     _assign(model, match_state(state, "load_state"), "load_state")
 
 
@@ -111,88 +116,76 @@ def load_stacks(model, stacks, lnf, tok, pos):
     _assign(model, arrays, "load_stacks")
 
 
-#: the port BERTModel's parameter names that differ from the JAX
-#: model's, which follow the model's prefix (``bertmodel0_``); the Gluon
-#: LayerNorms are numbered in creation order (``embed_ln`` first)
-BERT_NAMES = {
-    "embed_ln.gamma": "layernorm0_gamma",
-    "embed_ln.beta": "layernorm0_beta",
-    "decoder_ln.gamma": "layernorm1_gamma",
-    "decoder_ln.beta": "layernorm1_beta",
-    "pooler.weight": "pooler_weight",
-    "pooler.bias": "pooler_bias",
-    "nsp_classifier.weight": "nsp_weight",
-    "nsp_classifier.bias": "nsp_bias",
-    "decoder_transform.weight": "dec_transform_weight",
-    "decoder_transform.bias": "dec_transform_bias",
+#: a per-layer layer's parameter names -> the scanned trunk's stack names
+LAYER_TO_STACK = {
+    "qkv_weight": "qkv_stack_weight", "qkv_bias": "qkv_stack_bias",
+    "proj_weight": "proj_stack_weight", "proj_bias": "proj_stack_bias",
+    "ffn1_weight": "ffn1_stack_weight", "ffn1_bias": "ffn1_stack_bias",
+    "ffn2_weight": "ffn2_stack_weight", "ffn2_bias": "ffn2_stack_bias",
+    "layernorm0_gamma": "ln1_stack_gamma", "layernorm0_beta": "ln1_stack_beta",
+    "layernorm1_gamma": "ln2_stack_gamma", "layernorm1_beta": "ln2_stack_beta",
 }
-#: a per-layer (``scan_layers=False``) trunk's names for a stack's slice i
-#: (``enc_layer{i}_`` + name) and for the final LayerNorm (``enc_`` + name)
-_LAYER_NAMES = {"ln1_stack_gamma": "layernorm0_gamma",
-                "ln1_stack_beta": "layernorm0_beta",
-                "ln2_stack_gamma": "layernorm1_gamma",
-                "ln2_stack_beta": "layernorm1_beta",
-                "lnf_gamma": "layernorm0_gamma",
-                "lnf_beta": "layernorm0_beta"}
+_STACK_TO_LAYER = {v: k for k, v in LAYER_TO_STACK.items()}
+_LAYER_KEY = re.compile(r"^(.*)layer(\d+)_(" + "|".join(LAYER_TO_STACK) +
+                        r")$")
 
 
-def _bert_keys(name, prefix, per_layer, num_layers):
-    """The JAX names that make up port parameter ``name``: one, or a
-    per-layer trunk's ``num_layers`` slices of a stack."""
-    if not name.startswith("encoder."):
-        return [prefix + BERT_NAMES.get(name, name)]
-    short = name[len("encoder."):]
-    if not per_layer:
-        return [prefix + "enc_" + short]
-    if short.startswith("lnf_"):
-        return [prefix + "enc_" + _LAYER_NAMES[short]]
-    layer = _LAYER_NAMES.get(short, short.replace("_stack", ""))
-    return [f"{prefix}enc_layer{i}_{layer}" for i in range(num_layers)]
+def relayout(params, stacked):
+    """``params`` (a Gluon ``{name: np.ndarray}``) with its transformer
+    trunks in the scanned layout (``stacked``: ``{t}layer{i}_qkv_weight``
+    stacked into ``{t}qkv_stack_weight``, ``{t}layernorm0_*`` becoming
+    ``{t}lnf_*``) or the per-layer one (the reverse).  Entries of a trunk
+    already in that layout, and every other entry, pass through."""
+    out = {}
+    if stacked:
+        layers = {}
+        for k, v in params.items():
+            m = _LAYER_KEY.match(k)
+            if m:
+                layers.setdefault((m.group(1), m.group(3)), {})[
+                    int(m.group(2))] = v
+            else:
+                out[k] = v
+        trunks = {t for t, _ in layers}
+        for (t, name), rows in layers.items():
+            if sorted(rows) != list(range(len(rows))):
+                raise MXNetError(f"relayout: {t}layer*_{name} has layers "
+                                 f"{sorted(rows)}")
+            out[t + LAYER_TO_STACK[name]] = np.stack(
+                [rows[i] for i in range(len(rows))])
+        for t in trunks:
+            for part in ("gamma", "beta"):
+                if t + "layernorm0_" + part in out:
+                    out[t + "lnf_" + part] = out.pop(t + "layernorm0_" + part)
+        return out
+    for k, v in params.items():
+        stack = next((s for s in _STACK_TO_LAYER if k.endswith(s)), None)
+        if stack is not None:
+            t = k[:-len(stack)]
+            for i, row in enumerate(v):
+                out[f"{t}layer{i}_{_STACK_TO_LAYER[stack]}"] = row
+        elif k.endswith(("lnf_gamma", "lnf_beta")):
+            part = k.rsplit("_", 1)[1]
+            out[k[:-len("lnf_" + part)] + "layernorm0_" + part] = v
+        else:
+            out[k] = v
+    return out
 
 
 def load_bert_params(model, params):
     """Load a JAX ``BERTModel``'s ``{name: np.ndarray}`` (its
-    ``collect_params()`` as numpy) into a port ``BERTModel``.  The JAX
-    model's prefix is read off its one ``*word_embed_weight`` entry; every
-    port parameter then takes the entry of the JAX name after that prefix
-    (``BERT_NAMES``), a per-layer trunk's ``enc_layer{i}_*`` entries
-    stacked into the ``*_stack_*`` tensors.  Raises on a missing,
-    duplicate, mis-shaped or unused entry under the prefix before copying
-    anything."""
-    what = "load_bert_params"
+    ``collect_params()`` as numpy, either trunk layout) into a port
+    ``BERTModel`` of either layout: ``relayout`` to the port's, then
+    ``load_gluon_params``.  Exactly one entry may end
+    ``word_embed_weight``."""
+    from .gluon.model_zoo.bert import ScanTransformerEncoder
+
     roots = [k for k in params if k.endswith("word_embed_weight")]
     if len(roots) != 1:
-        raise MXNetError(f"{what}: want one entry ending 'word_embed_weight', "
-                         f"found {sorted(roots)}")
-    prefix = roots[0][:-len("word_embed_weight")]
-    per_layer = prefix + "enc_qkv_stack_weight" not in params
-    num_layers = model.encoder._num_layers
-    if per_layer and prefix + "enc_layer0_qkv_weight" not in params:
-        raise MXNetError(f"{what}: no trunk under {prefix + 'enc_'!r} "
-                         f"(neither a scanned nor a per-layer encoder)")
-    targets = dict(model.named_parameters())
-    arrays, used = {}, set()
-    for name in targets:
-        keys = _bert_keys(name, prefix, per_layer, num_layers)
-        missing = [k for k in keys if k not in params]
-        if missing:
-            raise MXNetError(f"{what}: {name!r} wants {missing}, not given")
-        for k in keys:
-            _check_array(params[k], k, what)
-        stacked = per_layer and name.startswith("encoder.") \
-            and not name.startswith("encoder.lnf_")
-        if stacked and len({params[k].shape for k in keys}) > 1:
-            raise MXNetError(f"{what}: the layers of {name!r} differ in "
-                             f"shape: {[params[k].shape for k in keys]}")
-        arrays[name] = (np.stack([params[k] for k in keys]) if stacked
-                        else params[keys[0]])
-        used.update(keys)
-    unused = sorted(k for k in params if k.startswith(prefix) and
-                    k not in used)
-    if unused:
-        raise MXNetError(f"{what}: entries the port model has no parameter "
-                         f"for: {unused}")
-    _copy_checked(targets, arrays, what)
+        raise MXNetError(f"load_bert_params: want one entry ending "
+                         f"'word_embed_weight', found {sorted(roots)}")
+    load_gluon_params(model, relayout(
+        params, isinstance(model.encoder, ScanTransformerEncoder)))
 
 
 def _dtype_name(arr):

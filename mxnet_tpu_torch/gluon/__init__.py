@@ -1,5 +1,6 @@
 """Gluon: ``Parameter``, ``Block``, the ``nn`` layers, the losses, the
-``Trainer`` with its whole-step capture, the utilities and the model zoo
+``Trainer`` with its whole-step capture, the utilities, LoRA (``contrib``)
+and the model zoo
 (counterpart of ``mxnet_tpu/gluon/``)."""
 
 from . import block, loss, nn, parameter, utils
@@ -8,4 +9,4 @@ from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
 from . import captured, trainer
 from .trainer import Trainer
-from . import model_zoo
+from . import contrib, model_zoo

@@ -24,9 +24,14 @@ wraps the outputs back: the imperative path, on the same tape as ``nd``.
 ``hybridize`` records its flag, which ``gluon.captured`` reads (a
 Trainer's ``train_step`` captures a hybridized block's whole step), and
 makes the forward draw one generator a call; the block still runs op by
-op.  ``SymbolBlock``, ``export``, ``optimize_for`` and
-``shard_activations`` are not ported yet.  ``_cache_version`` counts the
-changes a captured step keys on.
+op.  ``hybridize(remat=...)`` (or ``MXTPU_REMAT``/
+``MXNET_BACKWARD_DO_MIRROR``) runs a hybridized block's forward as one
+rematerialised region (``remat.checkpoint``): its backward recomputes the
+forward, with the dropout masks the forward drew.  ``SymbolBlock``,
+``export``, ``optimize_for`` and ``shard_activations`` are not ported
+yet.  ``_cache_version`` counts the
+changes a captured step keys on (``_clear_cached_op`` bumps it, as the
+reference's does: LoRA attach, freeze and merge).
 """
 
 from __future__ import annotations
@@ -41,6 +46,7 @@ import torch
 from .. import autograd as _ag
 from .. import name as _name
 from .. import random as _random
+from .. import remat as _remat
 from ..ndarray.ndarray import NDArray
 from ..ndarray.register import _wrap
 from .parameter import Parameter, ParameterDict
@@ -287,6 +293,10 @@ class Block(torch.nn.Module):
         for cld in self._children.values():
             cld.hybridize(active, **kwargs)
 
+    def _clear_cached_op(self):
+        """Mark what a captured step recorded as stale."""
+        self._cache_version += 1
+
     def cast(self, dtype):
         """Cast every parameter to ``dtype``; returns the block."""
         for child in self._children.values():
@@ -321,6 +331,7 @@ class HybridBlock(Block):
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._active = False
+        self._flags = {}
 
     def register_child(self, block, name=None):
         if not isinstance(block, HybridBlock):
@@ -338,6 +349,7 @@ class HybridBlock(Block):
         (``gluon.captured``) draws the same generators, in the same
         order."""
         self._active = active
+        self._flags = dict(kwargs)
         self._cache_version += 1
         super().hybridize(active, **kwargs)
 
@@ -364,30 +376,41 @@ class HybridBlock(Block):
     def forward(self, x, *args, **kwargs):
         if self._active and not _random.scoped():
             with _random.generator_scope(_random.step_generator(
-                    _device_of((x, *args)))):
-                return self._forward(x, *args, **kwargs)
-        return self._forward(x, *args, **kwargs)
+                    _device_of(_leaves((x, *args))))):
+                return self._remat_forward(x, *args, **kwargs)
+        return self._remat_forward(x, *args, **kwargs)
+
+    def _remat_forward(self, *args, **kwargs):
+        policy = _remat.env_default(self._flags.get("remat")) \
+            if self._active else None
+        if policy and _remat.parse_save_every(policy) is None:
+            nd_in = any(isinstance(a, NDArray) for a in _leaves(args))
+            if _ag.is_recording() if nd_in else torch.is_grad_enabled():
+                with torch.enable_grad():
+                    return _remat.checkpoint(
+                        lambda *a: self._forward(*a, **kwargs), policy,
+                        *args)
+        return self._forward(*args, **kwargs)
 
     def _forward(self, x, *args, **kwargs):
-        if isinstance(x, NDArray) or any(
-                isinstance(a, NDArray) for a in (*args, *kwargs.values())):
+        if any(isinstance(a, NDArray)
+               for a in _leaves((x, *args, *kwargs.values()))):
             return self._forward_nd(x, *args, **kwargs)
         return self.hybrid_forward(_F(), x, *args, **kwargs,
                                    **self._param_values(x, *args))
 
     def _forward_nd(self, *args, **kwargs):
-        """NDArrays in, NDArrays out: the tensors run through
-        ``hybrid_forward``, recorded while ``autograd.record()`` is
-        open."""
-        ctx = next(a for a in (*args, *kwargs.values())
+        """NDArrays in (nested in tuples or lists too), NDArrays out: the
+        tensors run through ``hybrid_forward``, recorded while
+        ``autograd.record()`` is open."""
+        ctx = next(a for a in _leaves((*args, *kwargs.values()))
                    if isinstance(a, NDArray))._ctx
-        raw = [a._data if isinstance(a, NDArray) else a for a in args]
-        kw = {k: v._data if isinstance(v, NDArray) else v
-              for k, v in kwargs.items()}
+        raw = [_unwrap(a) for a in args]
+        kw = {k: _unwrap(v) for k, v in kwargs.items()}
         with torch.set_grad_enabled(_ag.is_recording()):
             params = self._param_values(*raw)
             out = self.hybrid_forward(_F(), *raw, **kw, **params)
-        inputs = [t for t in (*raw, *kw.values(), *params.values())
+        inputs = [t for t in _leaves((*raw, *kw.values(), *params.values()))
                   if isinstance(t, torch.Tensor)]
         return _wrap_out(out, ctx, inputs)
 
@@ -403,6 +426,18 @@ class HybridBlock(Block):
 
     def hybrid_forward(self, F, x, *args, **kwargs):
         raise NotImplementedError
+
+
+def _leaves(x):
+    if isinstance(x, (tuple, list)):
+        return [leaf for a in x for leaf in _leaves(a)]
+    return [x]
+
+
+def _unwrap(x):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_unwrap(a) for a in x)
+    return x._data if isinstance(x, NDArray) else x
 
 
 def _device_of(args):

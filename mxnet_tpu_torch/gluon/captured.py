@@ -40,9 +40,13 @@ reference's reasons (``ineligible_reason``): the fused step disabled, a
 kvstore that reduces outside the step, ``update_on_kvstore``, an
 optimizer without a grouped plan, a block that is not a hybridized
 HybridBlock, a batch not divisible by ``grad_accum``, or parameters the
-grouped rules cannot express.  The reference's pipeline, mesh, sparse
-embedding, LoRA and rematerialisation captures wait for those features'
-slices.
+grouped rules cannot express.  A block hybridized with ``remat=`` runs
+its forward as a rematerialised region inside the recording (its backward
+recomputes it in the graph, with the dropout masks the forward drew); LoRA
+attach, freeze and merge bump the blocks' cache versions, so the next
+step records again.  The label may be a tuple of tensors (BERT's MLM and
+NSP labels).  The reference's pipeline, mesh and sparse embedding captures
+wait for those features' slices.
 """
 
 from __future__ import annotations
@@ -157,7 +161,39 @@ def _collect_blocks_params(block, loss_fn):
 
 
 def _raw(x):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_raw(a) for a in x)
     return getattr(x, "_data", x)
+
+
+def _sig(x):
+    """Shapes, dtypes and devices of a tensor or a tuple of them."""
+    if x is None:
+        return None
+    if isinstance(x, (tuple, list)):
+        return tuple(_sig(a) for a in x)
+    t = _raw(x)
+    return (tuple(t.shape), str(t.dtype), str(t.device))
+
+
+def _slice(x, lo, hi):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_slice(a, lo, hi) for a in x)
+    return x[lo:hi]
+
+
+def _clone(x):
+    if isinstance(x, (tuple, list)):
+        return type(x)(_clone(a) for a in x)
+    return x.detach().clone()
+
+
+def _copy_into(dst, src):
+    if isinstance(dst, (tuple, list)):
+        for d, s in zip(dst, src):
+            _copy_into(d, s)
+    else:
+        dst.copy_(src)
 
 
 # -- capture cache -------------------------------------------------------------
@@ -198,9 +234,7 @@ def _fast_key(trainer, block, loss_fn, data, label, k):
         id(upd.states), len(upd.states),
         numerics.grad_guard_enabled(), trainer._clip_norm(),
         getattr(trainer, "_amp_loss_scaler", None) is not None, int(k),
-        tuple(data.shape), str(_raw(data).dtype), str(_raw(data).device),
-        None if label is None else (tuple(label.shape),
-                                    str(_raw(label).dtype)),
+        _sig(data), _sig(label),
     )
 
 
@@ -257,10 +291,7 @@ def get_step(trainer, block, loss_fn, data, label, grad_accum):
         bool(getattr(loss_fn, "_active", False)),
         tuple((i, p.grad_req) for i, p in enumerate(trainer._params)),
         plan_sig, guard_on, clip, has_scaler, k,
-        tuple(data.shape), str(_raw(data).dtype), str(_raw(data).device),
-        None if label is None else (tuple(label.shape),
-                                    str(_raw(label).dtype)),
-        _kvs.device_fingerprint(),
+        _sig(data), _sig(label), _kvs.device_fingerprint(),
     )
     cache = getattr(trainer, "_captured_cache", None)
     if cache is None:
@@ -332,7 +363,8 @@ class CapturedStep:
         with _ag.train_mode(), torch.enable_grad():
             for j in range(k):
                 xs = x if k == 1 else x[j * m:(j + 1) * m]
-                ys = y if (k == 1 or y is None) else y[j * m:(j + 1) * m]
+                ys = y if (k == 1 or y is None) \
+                    else _slice(y, j * m, (j + 1) * m)
                 with _random.generator_scope(gens_b[j]):
                     out = self._block(xs)
                 if self._loss_keyed:
@@ -446,7 +478,7 @@ class CapturedStep:
         st = self._static
         st["x"].copy_(x)
         if y is not None:
-            st["y"].copy_(y)
+            _copy_into(st["y"], y)
         self._upload(scale, rows)
         for gen, s in zip(st["gens_b"] + st["gens_l"], seeds_b + seeds_l):
             gen.manual_seed(s)
@@ -478,7 +510,7 @@ class CapturedStep:
         dev = x.device
         self._graph = None
         st = {"x": x.detach().clone(),
-              "y": None if y is None else y.detach().clone()}
+              "y": None if y is None else _clone(y)}
         st["gens_b"] = [torch.Generator(device=dev) for _ in range(self._k)]
         st["gens_l"] = [torch.Generator(device=dev)
                         for _ in range(self._k if self._loss_keyed else 0)]

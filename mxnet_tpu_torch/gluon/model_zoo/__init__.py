@@ -1,4 +1,4 @@
-"""Model zoo: the GPT and BERT families (``torch.nn.Module``s) and the
-vision models (Gluon blocks)."""
+"""Model zoo: the GPT and BERT families and the vision models (ResNet,
+ViT), all Gluon blocks."""
 
 from . import bert, gpt, vision

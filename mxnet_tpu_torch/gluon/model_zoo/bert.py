@@ -1,51 +1,146 @@
-"""Transformer encoder trunk over stacked per-layer parameters, the BERT
-model family, and the zoo's masked token cross-entropy.
+"""Transformer encoder / BERT model family, as Gluon blocks.
 
-Counterpart of ``mxnet_tpu/gluon/model_zoo/bert.py``:
+Counterpart of ``mxnet_tpu/gluon/model_zoo/bert.py``, block for block and
+name for name: ``TransformerEncoderLayer``, ``TransformerEncoder`` (the
+per-layer trunk, ``layer{i}_`` children), ``ScanTransformerEncoder`` (the
+same layers over (L, ...) ``*_stack_*`` parameters, with optional LoRA
+stacks and per-layer remat), ``BERTModel`` (``scan_layers`` picks the
+trunk), ``BERTEmbedding``, ``BERTMLMHead``, ``BERTMLMLoss``,
+``BERTPretrainLoss`` with ``_bert_pretrain_loss_pure``, ``bert_base``/
+``bert_large``/``bert_tiny``, and ``masked_token_ce``, the zoo's one
+masked CE.  Their ``collect_params()`` names are the JAX package's
+(``bertmodel0_enc_layer0_qkv_weight``, ``bertmodel0_pooler_weight`` ...),
+so weights carry across by name (``convert.load_gluon_params``).
 
-- ``ScanTransformerEncoder``: the same twelve ``*_stack_*`` parameters plus
-  ``lnf_gamma``/``lnf_beta``, under the same names, so the checkpoint
-  convention (match by name) carries weights across;
-- ``BERTModel`` (word, token-type and position embeddings, ``embed_ln``,
-  the trunk, a tanh pooler on the first position, the NSP classifier, and
-  the MLM head: a GELU ``Dense``, a LayerNorm and the decode tied to
-  ``word_embed_weight`` plus ``decoder_bias``), ``BERTEmbedding``,
-  ``BERTMLMHead``, ``BERTMLMLoss``, ``BERTPretrainLoss`` with
-  ``_bert_pretrain_loss_pure``, and ``bert_base``/``bert_large``/
-  ``bert_tiny``;
-- ``masked_token_ce``, the zoo's one masked CE.
+Each ``hybrid_forward`` runs on tensors through ``F`` (the port's op
+registry), so dropout follows ``autograd.is_training()`` and draws from
+``random.current_generator``, as every Gluon layer here does.
 
-``Dense`` and ``LayerNorm`` here are the two Gluon layers the heads use,
-with the Gluon parameter names (``weight``/``bias``, ``gamma``/``beta``):
-``initializer``'s suffix dispatch and ``convert``'s name match read them
-(``torch.nn.LayerNorm`` names its scale ``weight``, which would send it to
-Xavier).  Each module declares its parameters' own inits in
-``_param_inits``, as the JAX layers pass ``init=`` to ``params.get``;
-``initialize`` applies them over the global initializer.
-
-The models honour ``self.training``: in training mode their dropout draws
-from ``random.current_generator``.  They start in eval mode, on ``gpu(0)``
-unless ``device`` says otherwise.  ``scan_layers`` is accepted so JAX
-call sites port unchanged: the JAX package's two trunk layouts run the
-same math, so the port holds the stacked one only
-(``convert.load_bert_params`` stacks a per-layer model's weights).  The
-per-layer ``TransformerEncoder``/``TransformerEncoderLayer`` and
-``bert_pipeline_parts`` come with later slices.
+A zoo model is built initialised on ``device`` (default
+``current_context()``, the card): ``BERTModel`` with ``Xavier()`` over
+each parameter's own init (normal embedding tables, zero biases, unit
+LayerNorm scales).  Its ``initialize`` redraws every parameter (where the
+model lives unless ``ctx`` says otherwise); the JAX package's leaves a
+built model uninitialised, so a ported ``net.initialize(init)`` call has
+the same effect there and here.  ``bert_pipeline_parts`` waits for the
+pipeline slice.
 """
 
 from __future__ import annotations
 
 import torch
-from torch import nn
 
 from ... import context
 from ... import initializer as _init
-from ... import random as _random
-from ...base import torch_dtype
-from ...ops.attention import scan_transformer_encoder
-from ...ops.nn import activation as _activation
-from ...ops.nn import dropout as _dropout
-from ...ops.nn import fully_connected, layer_norm
+from ..block import HybridBlock
+from .. import nn
+
+
+class _ZooModel(HybridBlock):
+    """``initialize`` of the zoo's language models: every parameter
+    redrawn (``force_reinit``), on the model's device by default, with the
+    model's own default initializer.  Built in eval mode (torch's flag; a
+    Gluon block's layers follow ``autograd.is_training()``)."""
+
+    _default_init = "xavier"
+
+    def _build_init(self, device):
+        self._zoo_ctx = context.context_of(context.resolve(device))
+        self.initialize()
+        self.eval()
+
+    def initialize(self, init=None, ctx=None, verbose=False,
+                   force_reinit=True, generator=None):
+        super().initialize(
+            _init.create(init if init is not None else self._default_init),
+            ctx if ctx is not None else self._zoo_ctx, verbose, force_reinit,
+            generator)
+
+
+class TransformerEncoderLayer(HybridBlock):
+    """Pre-LN transformer encoder layer."""
+
+    def __init__(self, units, num_heads, hidden_size=None, dropout=0.1,
+                 attention_impl="dense", activation="gelu",
+                 causal=False, **kwargs):
+        super().__init__(**kwargs)
+        assert units % num_heads == 0
+        self._units = units
+        self._num_heads = num_heads
+        hidden_size = hidden_size or 4 * units
+        self._attention_impl = attention_impl
+        self._dropout = dropout
+        self._activation = activation
+        self._causal = causal
+        with self.name_scope():
+            self.qkv_weight = self.params.get("qkv_weight",
+                                              shape=(3 * units, units))
+            self.qkv_bias = self.params.get("qkv_bias", shape=(3 * units,),
+                                            init="zeros")
+            self.proj_weight = self.params.get("proj_weight",
+                                               shape=(units, units))
+            self.proj_bias = self.params.get("proj_bias", shape=(units,),
+                                             init="zeros")
+            self.ffn1_weight = self.params.get("ffn1_weight",
+                                               shape=(hidden_size, units))
+            self.ffn1_bias = self.params.get("ffn1_bias",
+                                             shape=(hidden_size,),
+                                             init="zeros")
+            self.ffn2_weight = self.params.get("ffn2_weight",
+                                               shape=(units, hidden_size))
+            self.ffn2_bias = self.params.get("ffn2_bias", shape=(units,),
+                                             init="zeros")
+            self.ln1 = nn.LayerNorm(in_channels=units)
+            self.ln2 = nn.LayerNorm(in_channels=units)
+            if dropout:
+                self.drop = nn.Dropout(dropout)
+
+    def hybrid_forward(self, F, x, qkv_weight, qkv_bias, proj_weight,
+                       proj_bias, ffn1_weight, ffn1_bias, ffn2_weight,
+                       ffn2_bias, mask=None):
+        h = self.ln1(x)
+        attn = F.multi_head_attention(
+            h, h, h, qkv_weight=qkv_weight, qkv_bias=qkv_bias,
+            proj_weight=proj_weight, proj_bias=proj_bias,
+            num_heads=self._num_heads, mask=mask,
+            impl=self._attention_impl, causal=self._causal)
+        if self._dropout:
+            attn = self.drop(attn)
+        x = x + attn
+        h = self.ln2(x)
+        h = F.FullyConnected(h, ffn1_weight, ffn1_bias,
+                             num_hidden=ffn1_weight.shape[0],
+                             flatten=False)
+        h = F.Activation(h, act_type=self._activation)
+        h = F.FullyConnected(h, ffn2_weight, ffn2_bias,
+                             num_hidden=ffn2_weight.shape[0],
+                             flatten=False)
+        if self._dropout:
+            h = self.drop(h)
+        return x + h
+
+
+class TransformerEncoder(HybridBlock):
+    """The per-layer trunk: ``num_layers`` ``TransformerEncoderLayer``s
+    (``layer{i}_``) and a final LayerNorm."""
+
+    def __init__(self, num_layers, units, num_heads, hidden_size=None,
+                 dropout=0.1, attention_impl="dense", causal=False,
+                 **kwargs):
+        super().__init__(**kwargs)
+        self._num_layers = num_layers
+        with self.name_scope():
+            self.layers = nn.HybridSequential(prefix="")
+            for i in range(num_layers):
+                self.layers.add(TransformerEncoderLayer(
+                    units, num_heads, hidden_size, dropout,
+                    attention_impl, causal=causal,
+                    prefix=f"layer{i}_"))
+            self.ln_f = nn.LayerNorm(in_channels=units)
+
+    def hybrid_forward(self, F, x):
+        x = self.layers(x)
+        return self.ln_f(x)
 
 
 def stack_shapes(L, u, h):
@@ -68,71 +163,171 @@ def stack_shapes(L, u, h):
     }
 
 
-class ScanTransformerEncoder(nn.Module):
-    """Pre-LN trunk: ``num_layers`` layers of packed-qkv multi-head
-    attention and a GELU FFN over (L, ...) parameter stacks, then a
-    final LayerNorm.  Input and output (B, T, units)."""
-
-    # the JAX trunk's own inits: biases and LayerNorm shifts zeros,
-    # LayerNorm scales ones (the weights take the global init)
-    _param_inits = {n: ("ones" if n.endswith("gamma") else "zeros")
-                    for n in (*stack_shapes(0, 0, 0), "lnf_gamma",
-                              "lnf_beta")
-                    if n.endswith(("bias", "gamma", "beta"))}
+class ScanTransformerEncoder(HybridBlock):
+    """The trunk over stacked per-layer parameters (``*_stack_*``, the
+    layer dim first) and ``lnf_gamma``/``lnf_beta``: the same pre-LN math
+    as ``TransformerEncoder``, one ``scan_transformer_encoder`` op.  With
+    ``lora_rank`` r it holds ``qkv_lora_a`` (L, r, u), normal, and
+    ``qkv_lora_b`` (L, 3u, r), zeros, so the adapted trunk starts equal to
+    the base, scaled by ``lora_alpha / r`` (default alpha 2r); ``remat``
+    checkpoints each layer."""
 
     def __init__(self, num_layers, units, num_heads, hidden_size=None,
-                 dropout=0.0, attention_impl="dense", activation="gelu",
-                 remat=False, causal=False, lora_rank=0, device=None):
-        super().__init__()
-        if units % num_heads:
-            raise ValueError(f"units {units} not divisible by num_heads "
-                             f"{num_heads}")
-        if lora_rank:
-            raise NotImplementedError("LoRA adapters are not ported yet")
-        if remat:
-            raise NotImplementedError("rematerialisation is not ported yet")
+                 dropout=0.1, attention_impl="dense",
+                 activation="gelu", remat=False, causal=False,
+                 lora_rank=0, lora_alpha=None, **kwargs):
+        super().__init__(**kwargs)
+        assert units % num_heads == 0
+        hidden_size = hidden_size or 4 * units
+        self._remat = bool(remat)
+        self._causal = causal
         self._num_layers = num_layers
         self._units = units
         self._num_heads = num_heads
-        self._hidden = hidden_size or 4 * units
+        self._hidden = hidden_size
         self._dropout = dropout
         self._attention_impl = attention_impl
         self._activation = activation
-        self._causal = causal
-        shapes = stack_shapes(num_layers, units, self._hidden)
-        self._stack_names = tuple(shapes)
-        for name, shape in shapes.items():
-            self.register_parameter(
-                name, nn.Parameter(torch.empty(shape, device=device)))
-        self.lnf_gamma = nn.Parameter(torch.ones(units, device=device))
-        self.lnf_beta = nn.Parameter(torch.zeros(units, device=device))
-        self.reset_parameters()
+        self._lora_rank = int(lora_rank)
+        if lora_rank:
+            alpha = (float(lora_alpha) if lora_alpha is not None
+                     else 2.0 * lora_rank)
+            self._lora_scale = alpha / lora_rank
+        else:
+            self._lora_scale = 0.0
+        inits = {"bias": "zeros", "beta": "zeros", "gamma": "ones"}
+        with self.name_scope():
+            for name, shape in stack_shapes(num_layers, units,
+                                            hidden_size).items():
+                setattr(self, name, self.params.get(
+                    name, shape=shape, init=inits.get(name.split("_")[-1])))
+            self.lnf_gamma = self.params.get("lnf_gamma", shape=(units,),
+                                             init="ones")
+            self.lnf_beta = self.params.get("lnf_beta", shape=(units,),
+                                            init="zeros")
+            if self._lora_rank:
+                r = self._lora_rank
+                self.qkv_lora_a = self.params.get(
+                    "qkv_lora_a", shape=(num_layers, r, units),
+                    init="normal")
+                self.qkv_lora_b = self.params.get(
+                    "qkv_lora_b", shape=(num_layers, 3 * units, r),
+                    init="zeros")
 
-    @torch.no_grad()
-    def reset_parameters(self, generator=None):
-        """Weights ~ N(0, 0.02) from ``generator`` (default: the next of
-        the package chain); biases and LayerNorm shifts 0; LayerNorm
-        scales 1.  Served weights are loaded over these (``convert``)."""
-        if generator is None:
-            generator = _random.step_generator(self.lnf_gamma.device)
-        for name in self._stack_names:
-            p = getattr(self, name)
-            if name.endswith("_weight"):
-                p.normal_(0.0, 0.02, generator=generator)
-            elif name.endswith("_gamma"):
-                p.fill_(1.0)
+    def hybrid_forward(self, F, x, qkv_stack_weight, qkv_stack_bias,
+                       proj_stack_weight, proj_stack_bias,
+                       ffn1_stack_weight, ffn1_stack_bias,
+                       ffn2_stack_weight, ffn2_stack_bias,
+                       ln1_stack_gamma, ln1_stack_beta,
+                       ln2_stack_gamma, ln2_stack_beta,
+                       lnf_gamma, lnf_beta, qkv_lora_a=None,
+                       qkv_lora_b=None):
+        kw = {}
+        if qkv_lora_a is not None:
+            kw = {"qkv_lora_a": qkv_lora_a, "qkv_lora_b": qkv_lora_b,
+                  "lora_scale": self._lora_scale}
+        return F.scan_transformer_encoder(
+            x, qkv_stack_weight, qkv_stack_bias, proj_stack_weight,
+            proj_stack_bias, ffn1_stack_weight, ffn1_stack_bias,
+            ffn2_stack_weight, ffn2_stack_bias, ln1_stack_gamma,
+            ln1_stack_beta, ln2_stack_gamma, ln2_stack_beta,
+            lnf_gamma, lnf_beta, num_heads=self._num_heads,
+            dropout=self._dropout, activation=self._activation,
+            impl=self._attention_impl, causal=self._causal,
+            remat=self._remat, **kw)
+
+
+class BERTModel(_ZooModel):
+    """BERT encoder with MLM and NSP heads.  Input (B, T) token ids and
+    optional (B, T) token types; output (seq (B, T, units), pooled (B,
+    units), nsp_logits (B, 2), mlm_logits (B, T, vocab)), less the heads
+    switched off.  ``scan_layers`` picks ``ScanTransformerEncoder`` (with
+    ``lora_rank``/``lora_alpha``) over the per-layer
+    ``TransformerEncoder``; both are ``enc_``."""
+
+    def __init__(self, vocab_size=30522, units=768, num_layers=12,
+                 num_heads=12, hidden_size=3072, max_length=512,
+                 token_types=2, dropout=0.1, attention_impl="dense",
+                 use_pooler=True, use_decoder=True, use_classifier=True,
+                 scan_layers=False, lora_rank=0, lora_alpha=None,
+                 device=None, **kwargs):
+        super().__init__(**kwargs)
+        if lora_rank and not scan_layers:
+            raise ValueError("BERTModel: lora_rank requires "
+                             "scan_layers=True (adapters live in the "
+                             "scanned trunk)")
+        self._units = units
+        self._vocab = vocab_size
+        self._use_pooler = use_pooler
+        self._use_decoder = use_decoder
+        self._use_classifier = use_classifier
+        with self.name_scope():
+            self.word_embed_weight = self.params.get(
+                "word_embed_weight", shape=(vocab_size, units),
+                init="normal")
+            self.token_type_embed_weight = self.params.get(
+                "token_type_embed_weight", shape=(token_types, units),
+                init="normal")
+            self.position_embed_weight = self.params.get(
+                "position_embed_weight", shape=(max_length, units),
+                init="normal")
+            self.embed_ln = nn.LayerNorm(in_channels=units)
+            if dropout:
+                self.embed_drop = nn.Dropout(dropout)
+            self._dropout = dropout
+            if scan_layers:
+                self.encoder = ScanTransformerEncoder(
+                    num_layers, units, num_heads, hidden_size, dropout,
+                    attention_impl, lora_rank=lora_rank,
+                    lora_alpha=lora_alpha, prefix="enc_")
             else:
-                p.zero_()
-        self.lnf_gamma.fill_(1.0)
-        self.lnf_beta.zero_()
+                self.encoder = TransformerEncoder(
+                    num_layers, units, num_heads, hidden_size, dropout,
+                    attention_impl, prefix="enc_")
+            if use_pooler:
+                self.pooler = nn.Dense(units, activation="tanh",
+                                       in_units=units, prefix="pooler_")
+            if use_decoder:
+                # MLM head: transform + tied-embedding decode
+                self.decoder_transform = nn.Dense(
+                    units, activation="gelu", in_units=units,
+                    flatten=False, prefix="dec_transform_")
+                self.decoder_ln = nn.LayerNorm(in_channels=units)
+                self.decoder_bias = self.params.get(
+                    "decoder_bias", shape=(vocab_size,), init="zeros")
+            if use_classifier:
+                self.nsp_classifier = nn.Dense(2, in_units=units,
+                                               prefix="nsp_")
+        self._build_init(device)
 
-    def forward(self, x):
-        stacks = (getattr(self, n) for n in self._stack_names)
-        return scan_transformer_encoder(
-            x, *stacks, self.lnf_gamma, self.lnf_beta,
-            num_heads=self._num_heads, dropout=self._dropout,
-            activation=self._activation, impl=self._attention_impl,
-            causal=self._causal, training=self.training)
+    def hybrid_forward(self, F, inputs, token_types=None,
+                       word_embed_weight=None, token_type_embed_weight=None,
+                       position_embed_weight=None, decoder_bias=None):
+        T = inputs.shape[1]
+        x = F.Embedding(inputs, word_embed_weight)
+        if token_types is not None:
+            x = x + F.Embedding(token_types, token_type_embed_weight)
+        else:
+            x = x + token_type_embed_weight[0:1]
+        x = x + position_embed_weight[:T]
+        x = self.embed_ln(x)
+        if self._dropout:
+            x = self.embed_drop(x)
+        seq = self.encoder(x)  # (B, T, C)
+        outputs = [seq]
+        if self._use_pooler:
+            pooled = self.pooler(seq[:, 0, :])
+            outputs.append(pooled)
+            if self._use_classifier:
+                outputs.append(self.nsp_classifier(pooled))
+        if self._use_decoder:
+            h = self.decoder_transform(seq)
+            h = self.decoder_ln(h)
+            logits = F.FullyConnected(
+                h, word_embed_weight, decoder_bias,
+                num_hidden=word_embed_weight.shape[0], flatten=False)
+            outputs.append(logits)
+        return tuple(outputs) if len(outputs) > 1 else outputs[0]
 
 
 def masked_token_ce(logits, labels):
@@ -158,224 +353,80 @@ def _bert_pretrain_loss_pure(nsp_logits, mlm_logits, mlm_labels,
     return mlm_loss + nsp_nll.mean()
 
 
-class BERTPretrainLoss(nn.Module):
+class BERTPretrainLoss(HybridBlock):
     """MLM + NSP loss over ``BERTModel`` outputs: ``outputs`` is (seq,
     pooled, nsp_logits, mlm_logits), ``labels`` is (mlm_labels (B, T) with
-    -1 at unmasked positions, nsp_labels (B,))."""
+    -1 at unmasked positions, nsp_labels (B,)).  A 0-dim f32 loss."""
 
-    def forward(self, outputs, labels):
+    def hybrid_forward(self, F, outputs, labels):
         _seq, _pooled, nsp_logits, mlm_logits = outputs
         mlm_labels, nsp_labels = labels
         return _bert_pretrain_loss_pure(nsp_logits, mlm_logits, mlm_labels,
                                         nsp_labels)
 
 
-class BERTMLMLoss(nn.Module):
-    """Masked-LM cross entropy over head logits; labels (B, T), -1 at
-    unmasked positions."""
-
-    def forward(self, logits, labels):
-        return masked_token_ce(logits, labels)
-
-
-class _Initialized(nn.Module):
-    """``initialize`` and ``cast`` of the zoo's Gluon-style models."""
-
-    def initialize(self, init="xavier", generator=None):
-        """Fill every parameter: each by its own init where its module
-        declares one (``_param_inits``), the rest by ``init``'s suffix
-        dispatch (default ``Xavier()``, what ``bench_bert`` passes; the
-        JAX ``Block.initialize`` defaults to ``Uniform()``), drawing from
-        ``generator`` (default: the next of the package chain)."""
-        inits = {}
-        for prefix, mod in self.named_modules():
-            for name, how in getattr(mod, "_param_inits", {}).items():
-                inits[f"{prefix}.{name}" if prefix else name] = how
-        _init.initialize(self, init, inits, generator)
-        return self
-
-    def cast(self, dtype):
-        """Every parameter to ``dtype`` (a name or a torch dtype), as the
-        JAX ``Block.cast``."""
-        return self.to(torch_dtype(dtype))
-
-
-class LayerNorm(nn.Module):
-    """Gluon's ``nn.LayerNorm`` over the last axis: ``gamma`` (ones) and
-    ``beta`` (zeros), eps 1e-5."""
-
-    _param_inits = {"gamma": "ones", "beta": "zeros"}
-
-    def __init__(self, units, epsilon=1e-5, device=None):
-        super().__init__()
-        self._epsilon = epsilon
-        self.gamma = nn.Parameter(torch.ones(units, device=device))
-        self.beta = nn.Parameter(torch.zeros(units, device=device))
-
-    def forward(self, x):
-        return layer_norm(x, self.gamma, self.beta, eps=self._epsilon)
-
-
-class Dense(nn.Module):
-    """Gluon's ``nn.Dense``: act(x W^T + b) with ``weight`` (units, in)
-    and ``bias`` (zeros), through ``fully_connected``."""
-
-    _param_inits = {"bias": "zeros"}
-
-    def __init__(self, units, in_units, activation=None, flatten=True,
-                 use_bias=True, device=None):
-        super().__init__()
-        self._flatten = flatten
-        self._activation = activation
-        self.weight = nn.Parameter(
-            torch.empty((units, in_units), device=device))
-        self.bias = (nn.Parameter(torch.zeros(units, device=device))
-                     if use_bias else None)
-
-    def forward(self, x):
-        out = fully_connected(x, self.weight, self.bias,
-                              flatten=self._flatten)
-        return out if self._activation is None else _activation(
-            out, self._activation)
-
-
-def _embed(weight, ids):
-    """Rows of ``weight`` for integer (or float) ids, clipped into the
-    table as the JAX ``Embedding`` (``take(mode="clip")``)."""
-    return weight[ids.long().clamp(0, weight.shape[0] - 1)]
-
-
-class BERTModel(_Initialized):
-    """BERT encoder with MLM and NSP heads.  Input (B, T) token ids and
-    optional (B, T) token types; output (seq (B, T, units), pooled (B,
-    units), nsp_logits (B, 2), mlm_logits (B, T, vocab)), less the heads
-    switched off.  Built initialised by ``initialize()`` (Xavier over
-    the per-parameter inits); ``initialize(init)`` redraws."""
-
-    def __init__(self, vocab_size=30522, units=768, num_layers=12,
-                 num_heads=12, hidden_size=3072, max_length=512,
-                 token_types=2, dropout=0.1, attention_impl="dense",
-                 use_pooler=True, use_decoder=True, use_classifier=True,
-                 scan_layers=False, lora_rank=0, lora_alpha=None,
-                 device=None):
-        super().__init__()
-        if lora_alpha is not None:
-            raise NotImplementedError("LoRA adapters are not ported yet")
-        device = context.resolve(device)
-        self._units = units
-        self._vocab = vocab_size
-        self._max_length = max_length
-        self._dropout = dropout
-        self._use_pooler = use_pooler
-        self._use_decoder = use_decoder
-        self._use_classifier = use_classifier
-
-        def table(rows):
-            return nn.Parameter(torch.empty((rows, units), device=device))
-
-        self.word_embed_weight = table(vocab_size)
-        self.token_type_embed_weight = table(token_types)
-        self.position_embed_weight = table(max_length)
-        self._param_inits = {"word_embed_weight": "normal",
-                             "token_type_embed_weight": "normal",
-                             "position_embed_weight": "normal"}
-        self.embed_ln = LayerNorm(units, device=device)
-        self.encoder = ScanTransformerEncoder(
-            num_layers, units, num_heads, hidden_size, dropout,
-            attention_impl, lora_rank=lora_rank, device=device)
-        if use_pooler:
-            self.pooler = Dense(units, units, activation="tanh",
-                                device=device)
-        if use_decoder:
-            self.decoder_transform = Dense(units, units, activation="gelu",
-                                           flatten=False, device=device)
-            self.decoder_ln = LayerNorm(units, device=device)
-            self.decoder_bias = nn.Parameter(
-                torch.zeros(vocab_size, device=device))
-            self._param_inits["decoder_bias"] = "zeros"
-        if use_classifier:
-            # built as the reference builds it, used only with the pooler
-            self.nsp_classifier = Dense(2, units, device=device)
-        self.initialize()
-        self.eval()
-
-    def forward(self, inputs, token_types=None):
-        T = inputs.shape[1]
-        x = _embed(self.word_embed_weight, inputs)
-        if token_types is not None:
-            x = x + _embed(self.token_type_embed_weight, token_types)
-        else:
-            x = x + self.token_type_embed_weight[0:1]
-        x = x + self.position_embed_weight[:T]
-        x = self.embed_ln(x)
-        if self.training and self._dropout:
-            x = _dropout(x, self._dropout,
-                         _key=_random.current_generator(x.device))
-        seq = self.encoder(x)                                 # (B, T, C)
-        outputs = [seq]
-        if self._use_pooler:
-            pooled = self.pooler(seq[:, 0, :])
-            outputs.append(pooled)
-            if self._use_classifier:
-                outputs.append(self.nsp_classifier(pooled))
-        if self._use_decoder:
-            h = self.decoder_ln(self.decoder_transform(seq))
-            outputs.append(fully_connected(h, self.word_embed_weight,
-                                           self.decoder_bias, flatten=False))
-        return tuple(outputs) if len(outputs) > 1 else outputs[0]
-
-
-class BERTEmbedding(_Initialized):
+class BERTEmbedding(_ZooModel):
     """Token + type + position embedding front (the pipeline prologue):
     the token-type table holds segment 0 only, an additive (1, units)
     bias."""
 
     def __init__(self, vocab_size=30522, units=768, max_length=512,
-                 dropout=0.0, device=None):
-        super().__init__()
-        device = context.resolve(device)
+                 dropout=0.0, device=None, **kwargs):
+        super().__init__(**kwargs)
         self._dropout = dropout
-        self.word_embed_weight = nn.Parameter(
-            torch.empty((vocab_size, units), device=device))
-        self.token_type_embed_weight = nn.Parameter(
-            torch.empty((1, units), device=device))
-        self.position_embed_weight = nn.Parameter(
-            torch.empty((max_length, units), device=device))
-        self._param_inits = {"word_embed_weight": "normal",
-                             "token_type_embed_weight": "normal",
-                             "position_embed_weight": "normal"}
-        self.embed_ln = LayerNorm(units, device=device)
-        self.initialize()
-        self.eval()
+        with self.name_scope():
+            self.word_embed_weight = self.params.get(
+                "word_embed_weight", shape=(vocab_size, units),
+                init="normal")
+            self.token_type_embed_weight = self.params.get(
+                "token_type_embed_weight", shape=(1, units),
+                init="normal")
+            self.position_embed_weight = self.params.get(
+                "position_embed_weight", shape=(max_length, units),
+                init="normal")
+            self.embed_ln = nn.LayerNorm(in_channels=units)
+            if dropout:
+                self.embed_drop = nn.Dropout(dropout)
+        self._build_init(device)
 
-    def forward(self, inputs):
+    def hybrid_forward(self, F, inputs, word_embed_weight=None,
+                       token_type_embed_weight=None,
+                       position_embed_weight=None):
         T = inputs.shape[1]
-        x = _embed(self.word_embed_weight, inputs)
-        x = x + self.token_type_embed_weight[0:1]
-        x = self.embed_ln(x + self.position_embed_weight[:T])
-        if self.training and self._dropout:
-            x = _dropout(x, self._dropout,
-                         _key=_random.current_generator(x.device))
+        x = F.Embedding(inputs, word_embed_weight)
+        x = x + token_type_embed_weight[0:1]
+        x = x + position_embed_weight[:T]
+        x = self.embed_ln(x)
+        if self._dropout:
+            x = self.embed_drop(x)
         return x
 
 
-class BERTMLMHead(_Initialized):
+class BERTMLMHead(_ZooModel):
     """Transform + decode-to-vocab head (the pipeline epilogue), with its
     own, untied decode weight."""
 
-    def __init__(self, vocab_size=30522, units=768, device=None):
-        super().__init__()
-        device = context.resolve(device)
-        self.transform = Dense(units, units, activation="gelu",
-                               flatten=False, device=device)
-        self.ln = LayerNorm(units, device=device)
-        self.decoder = Dense(vocab_size, units, flatten=False,
-                             device=device)
-        self.initialize()
-        self.eval()
+    def __init__(self, vocab_size=30522, units=768, device=None, **kwargs):
+        super().__init__(**kwargs)
+        with self.name_scope():
+            self.transform = nn.Dense(units, activation="gelu",
+                                      in_units=units, flatten=False,
+                                      prefix="transform_")
+            self.ln = nn.LayerNorm(in_channels=units)
+            self.decoder = nn.Dense(vocab_size, in_units=units,
+                                    flatten=False, prefix="decoder_")
+        self._build_init(device)
 
-    def forward(self, x):
+    def hybrid_forward(self, F, x):
         return self.decoder(self.ln(self.transform(x)))
+
+
+class BERTMLMLoss(HybridBlock):
+    """Masked-LM cross entropy over head logits; labels (B, T), -1 at
+    unmasked positions."""
+
+    def hybrid_forward(self, F, logits, labels):
+        return masked_token_ce(logits, labels)
 
 
 def bert_base(**kwargs):

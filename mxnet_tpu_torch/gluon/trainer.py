@@ -173,6 +173,7 @@ class Trainer:
         """The step the captured one is checked against: per-microbatch
         forward and backward into the gradient buffers, then ``step``."""
         from .. import autograd as ag
+        from . import captured as _captured
 
         scaler = getattr(self, "_amp_loss_scaler", None)
         k = grad_accum
@@ -197,7 +198,7 @@ class Trainer:
                 for j in range(k):
                     xs = data[j * m:(j + 1) * m]
                     ys = None if label is None \
-                        else label[j * m:(j + 1) * m]
+                        else _captured._slice(label, j * m, (j + 1) * m)
                     with ag.record():
                         out = block(xs)
                         loss = loss_fn(out, ys) if ys is not None \

@@ -6,8 +6,8 @@ its name-suffix dispatch (``*weight`` gets the initializer's own rule,
 override that a parameter's own ``init`` takes over it (the JAX package's
 ``InitDesc.attrs["__init__"]``, set by ``Parameter(init=...)``), the
 built-ins ``Zero``, ``One``, ``Constant``, ``Uniform``, ``Normal`` and
-``Xavier``, and ``create``.  ``initialize`` walks a module's named
-parameters, or a Gluon ``Block``'s ``collect_params()``.
+``Xavier``, and ``create``.  ``initialize`` walks a Gluon ``Block``'s
+``collect_params()``.
 
 The JAX package draws from numpy's global RNG; here every draw takes an
 explicit ``torch.Generator`` on the parameter's device.  The two never
@@ -20,8 +20,6 @@ from __future__ import annotations
 import math
 
 import torch
-
-from . import random as _random
 
 _INIT_REGISTRY = {}
 
@@ -189,36 +187,24 @@ class Xavier(Initializer):
             raise ValueError("Unknown random type")
 
 
-def initialize(module, init="uniform", inits_by_name=None, generator=None):
-    """Fill every parameter of ``module`` in place: the one named in
+def initialize(block, init="uniform", inits_by_name=None, generator=None):
+    """Fill every parameter of a Gluon ``block`` in place, through its
+    ``collect_params()``, by Gluon name: the one named in
     ``inits_by_name`` (``{parameter name: init name}``) by its own init,
-    every other by ``init``'s suffix dispatch (the JAX package's default
-    global init is ``"uniform"``).  Draws come from ``generator``, default
-    the next generator of the package chain on the parameters' device
-    (``random.seed`` makes them reproducible).
-
-    A Gluon ``Block`` is initialised through its ``collect_params()``,
-    by Gluon name: the ``grad_req="null"`` parameters too (BatchNorm's
-    running statistics take their own ``zeros``/``ones``), and a deferred
-    parameter draws from ``generator`` when its shape is known."""
+    every other by its own ``init`` or ``init``'s suffix dispatch (the JAX
+    package's default global init is ``"uniform"``), the ``grad_req=
+    "null"`` parameters too (BatchNorm's running statistics take their
+    own ``zeros``/``ones``).  Draws come from ``generator``, default the
+    next generator of the package chain on each parameter's device
+    (``random.seed`` makes them reproducible); a deferred parameter draws
+    when its shape is known."""
     init = create(init)
     inits_by_name = dict(inits_by_name or {})
-    if hasattr(module, "collect_params"):
-        params = module.collect_params()
-        unknown = sorted(set(inits_by_name) - set(params.keys()))
-        if unknown:
-            raise ValueError(f"initialize: no parameter named {unknown}")
-        for name, p in params.items():
-            ctx = p._ctx or (p._deferred_init[2] if p._deferred_init
-                             else None)
-            p.initialize(inits_by_name.get(name), ctx, init,
-                         force_reinit=True, generator=generator)
-        return
-    params = dict(module.named_parameters())
-    unknown = sorted(set(inits_by_name) - set(params))
+    params = block.collect_params()
+    unknown = sorted(set(inits_by_name) - set(params.keys()))
     if unknown:
         raise ValueError(f"initialize: no parameter named {unknown}")
-    if generator is None and params:
-        generator = _random.step_generator(next(iter(params.values())).device)
     for name, p in params.items():
-        init(name, p, generator, inits_by_name.get(name))
+        ctx = p._ctx or (p._deferred_init[2] if p._deferred_init else None)
+        p.initialize(inits_by_name.get(name), ctx, init, force_reinit=True,
+                     generator=generator)

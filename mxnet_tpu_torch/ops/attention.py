@@ -1,17 +1,22 @@
 """Attention ops for the transformer trunk.
 
-Counterpart of ``mxnet_tpu/ops/attention.py``: ``scaled_dot_product_attention``
-(``impl`` "dense" or "flash"), ``multi_head_attention`` with the packed
-qkv projection, and ``scan_transformer_encoder``, where the JAX package's
-``lax.scan`` over the (L, ...) stacks is a Python loop.  Every op is
-differentiable: the flash impl through its autograd Function, the rest
-through torch's autograd.
+Counterpart of ``mxnet_tpu/ops/attention.py``, registered under the same
+names: ``scaled_dot_product_attention`` (``impl`` "dense" or "flash"),
+``multi_head_attention`` with the packed qkv projection, the reference's
+interleaved self-attention products
+(``_contrib_interleaved_matmul_selfatt_qk`` / ``_valatt``), and
+``scan_transformer_encoder``, where the JAX package's ``lax.scan`` over the
+(L, ...) stacks is a Python loop.  Every op is differentiable: the flash
+impl through its autograd Function, the rest through torch's autograd.
 
-Training mode draws its dropout masks from an explicit generator: the one
-passed in, else ``random.current_generator`` (the trainer's per-step
-generator).  Left for later slices, and refused loudly: the
-"ring"/"ulysses" impls (sequence parallelism), LoRA adapters and
-rematerialisation.
+Training mode (``_is_training``, which the ``F``/``nd`` wrappers inject
+from ``autograd.is_training()``) draws dropout masks from the generator
+``_key`` (the wrappers inject ``random.current_generator``).  The trunk
+takes LoRA stacks on its packed qkv weight and the JAX op's remat policies
+(``remat.trunk_policy``): a checkpoint per layer, or per chunk of N layers
+under ``save_every_k:N``; a region's recompute takes back the masks its
+forward drew (``remat``).  Left for later slices, and refused loudly: the
+"ring"/"ulysses" impls (sequence parallelism).
 """
 
 from __future__ import annotations
@@ -19,23 +24,27 @@ from __future__ import annotations
 import torch
 
 from .. import random as _random
+from .. import remat as _remat
 from .flash_attention import flash_attention
 from .nn import activation as _activation
 from .nn import dropout as _dropout
 from .nn import fully_connected, layer_norm
+from .registry import register
 
 _NEG = -1e30
 
 
+@register("scaled_dot_product_attention", random=True, mode_dependent=True)
 def scaled_dot_product_attention(query, key, value, mask=None, causal=False,
                                  scale=None, impl="dense", dropout_p=0.0,
-                                 training=True, generator=None):
+                                 _key=None, _is_training=True):
     """q, k, v: (B, H, T, D).  mask: broadcastable to (B, H, Tq, Tk),
     1 = keep.  Dense causal masking is bottom-right aligned (``tril`` with
     offset Tk - Tq); the flash kernel's is top-left and needs Tq == Tk,
     where the two agree.  ``dropout_p`` drops attention probabilities on
-    the dense path when ``training`` (the JAX op's ``_is_training``, True
-    for a direct call); the fused impls refuse masks and dropout."""
+    the dense path in training mode, the mask drawn from ``_key`` (default
+    ``random.current_generator``); the fused impls refuse masks and
+    dropout."""
     if scale is None:
         scale = query.shape[-1] ** -0.5
     if impl != "dense" and (mask is not None or dropout_p > 0.0):
@@ -56,10 +65,10 @@ def scaled_dot_product_attention(query, key, value, mask=None, causal=False,
     if mask is not None:
         s = s.masked_fill(~mask.bool(), _NEG)
     p = torch.softmax(s, dim=-1)
-    if dropout_p > 0.0 and training:
-        if generator is None:
-            generator = _random.current_generator(p.device)
-        p = _dropout(p, dropout_p, _key=generator)
+    if dropout_p > 0.0 and _is_training:
+        if _key is None:
+            _key = _random.current_generator(p.device)
+        p = _dropout(p, dropout_p, _key=_key)
     return torch.matmul(p, value.float()).to(query.dtype)
 
 
@@ -73,6 +82,7 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(B, T, H * D)
 
 
+@register("multi_head_attention")
 def multi_head_attention(query, key, value, qkv_weight=None, qkv_bias=None,
                          proj_weight=None, proj_bias=None, num_heads=1,
                          mask=None, causal=False, impl="dense"):
@@ -106,42 +116,109 @@ def multi_head_attention(query, key, value, qkv_weight=None, qkv_bias=None,
     return out
 
 
+def _interleaved(qkv, heads, which):
+    """Heads of q, k or v (``which`` 0, 1, 2) from a (T, B, 3C) interleaved
+    projection, as (B*heads, T, C/heads)."""
+    T, B, C3 = qkv.shape
+    d = C3 // 3 // heads
+    x = qkv.reshape(T, B, heads, 3 * d)[..., which * d:(which + 1) * d]
+    return x.permute(1, 2, 0, 3).reshape(B * heads, T, d)
+
+
+@register("_contrib_interleaved_matmul_selfatt_qk",
+          aliases=("interleaved_matmul_selfatt_qk",))
+def interleaved_matmul_selfatt_qk(queries_keys_values, heads=1):
+    """Input (T, B, 3C) interleaved qkv -> scaled scores (B*heads, T, T)."""
+    q = _interleaved(queries_keys_values, heads, 0)
+    k = _interleaved(queries_keys_values, heads, 1)
+    return torch.matmul(q, k.transpose(1, 2)) * q.shape[-1] ** -0.5
+
+
+@register("_contrib_interleaved_matmul_selfatt_valatt",
+          aliases=("interleaved_matmul_selfatt_valatt",))
+def interleaved_matmul_selfatt_valatt(queries_keys_values, attention,
+                                      heads=1):
+    """attention (B*heads, T, T) times the interleaved values -> (T, B, C)."""
+    T, B, C3 = queries_keys_values.shape
+    v = _interleaved(queries_keys_values, heads, 2)
+    out = torch.matmul(attention, v)                  # (B*heads, T, d)
+    return out.reshape(B, heads, T, -1).permute(2, 0, 1, 3).reshape(
+        T, B, C3 // 3)
+
+
+def _encoder_layer(x, w, num_heads, activation, impl, causal, dropout,
+                   generator):
+    """One pre-LN layer on its 12 per-layer parameters ``w``; ``dropout``
+    0 (or ``generator`` None) drops nothing."""
+    (qw, qb, pw, pb, f1w, f1b, f2w, f2b, g1, b1, g2, b2) = w
+    h = layer_norm(x, g1, b1)
+    attn = multi_head_attention(
+        h, h, h, qkv_weight=qw, qkv_bias=qb, proj_weight=pw, proj_bias=pb,
+        num_heads=num_heads, impl=impl, causal=causal)
+    if generator is not None:
+        attn = _dropout(attn, dropout, _key=generator)
+    x = x + attn
+    h = layer_norm(x, g2, b2)
+    h = fully_connected(h, f1w, f1b, flatten=False)
+    h = _activation(h, activation)
+    h = fully_connected(h, f2w, f2b, flatten=False)
+    if generator is not None:
+        h = _dropout(h, dropout, _key=generator)
+    return x + h
+
+
+@register("scan_transformer_encoder", mode_dependent=True, random=True)
 def scan_transformer_encoder(data, qkv_w, qkv_b, proj_w, proj_b, ffn1_w,
                              ffn1_b, ffn2_w, ffn2_b, ln1_g, ln1_b, ln2_g,
                              ln2_b, lnf_g, lnf_b, qkv_lora_a=None,
                              qkv_lora_b=None, num_heads=1, dropout=0.0,
                              activation="gelu", impl="dense", causal=False,
-                             remat=False, training=False, generator=None):
+                             remat=False, lora_scale=1.0, _is_training=True,
+                             _key=None):
     """Pre-LN transformer trunk over stacked (L, ...) per-layer
     parameters: one loop iteration per layer, then the final LayerNorm.
     The FFN products are ``fully_connected``'s: operands in the stream's
     dtype, an f32 accumulator, the result in the stream's dtype, as the
-    JAX op's ``preferred_element_type``.  In ``training`` mode with
-    ``dropout`` the attention output and the FFN output of every layer are
-    dropped (scaled by 1/keep), masks drawn from ``generator`` (default:
-    ``random.current_generator``)."""
-    if qkv_lora_a is not None or qkv_lora_b is not None:
-        raise NotImplementedError("LoRA adapters are not ported yet")
-    if remat:
-        raise NotImplementedError("rematerialisation is not ported yet")
-    use_drop = bool(dropout) and training
-    if use_drop and generator is None:
-        generator = _random.current_generator(data.device)
+    JAX op's ``preferred_element_type``.
+
+    In training mode with ``dropout`` the attention output and the FFN
+    output of every layer are dropped (scaled by 1/keep), masks drawn from
+    ``_key`` (default ``random.current_generator``) in layer order.  With
+    ``qkv_lora_a`` (L, r, U) and ``qkv_lora_b`` (L, 3U, r) each layer's qkv
+    weight is ``qkv + lora_scale * (B @ A)``, the product in f32 and cast
+    to the weight's dtype.  ``remat`` (or ``MXTPU_REMAT=save_every_k:N``)
+    checkpoints each layer, or each chunk of N layers when N divides L
+    (else each layer)."""
+    use_drop = bool(dropout) and _is_training
+    if use_drop and _key is None:
+        _key = _random.current_generator(data.device)
+    gen = _key if use_drop else None
+    use_lora = qkv_lora_a is not None and qkv_lora_b is not None
+    L = qkv_w.shape[0]
+    stacks = (qkv_w, qkv_b, proj_w, proj_b, ffn1_w, ffn1_b, ffn2_w, ffn2_b,
+              ln1_g, ln1_b, ln2_g, ln2_b)
+
+    def layers(x, lo, hi):
+        for i in range(lo, hi):
+            w = [s[i] for s in stacks]
+            if use_lora:
+                delta = torch.matmul(qkv_lora_b[i].float(),
+                                     qkv_lora_a[i].float())
+                w[0] = w[0] + (lora_scale * delta).to(w[0].dtype)
+            x = _encoder_layer(x, w, num_heads, activation, impl, causal,
+                               dropout, gen)
+        return x
+
+    pol = _remat.trunk_policy(remat)
+    if pol is not None and pol[0] == "every" and (L % pol[1] or pol[1] == 1):
+        pol = ("layer", "full")
     x = data
-    for i in range(qkv_w.shape[0]):
-        h = layer_norm(x, ln1_g[i], ln1_b[i])
-        attn = multi_head_attention(
-            h, h, h, qkv_weight=qkv_w[i], qkv_bias=qkv_b[i],
-            proj_weight=proj_w[i], proj_bias=proj_b[i],
-            num_heads=num_heads, impl=impl, causal=causal)
-        if use_drop:
-            attn = _dropout(attn, dropout, _key=generator)
-        x = x + attn
-        h = layer_norm(x, ln2_g[i], ln2_b[i])
-        h = fully_connected(h, ffn1_w[i], ffn1_b[i], flatten=False)
-        h = _activation(h, activation)
-        h = fully_connected(h, ffn2_w[i], ffn2_b[i], flatten=False)
-        if use_drop:
-            h = _dropout(h, dropout, _key=generator)
-        x = x + h
+    if pol is None:
+        x = layers(x, 0, L)
+    else:
+        step = pol[1] if pol[0] == "every" else 1
+        name = pol[1] if pol[0] == "layer" else "full"
+        for lo in range(0, L, step):
+            x = _remat.checkpoint(
+                lambda y, lo=lo: layers(y, lo, lo + step), name, x)
     return layer_norm(x, lnf_g, lnf_b)

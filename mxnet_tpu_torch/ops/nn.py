@@ -40,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from .registry import register
+from .. import random as _random
 
 
 def _tuple(v, n):
@@ -576,7 +577,7 @@ def dropout(data, p=0.5, mode="training", axes=(), cudnn_off=False,
     shape = list(data.shape)
     for a in axes:
         shape[a] = 1
-    mask = torch.rand(shape, generator=_key, device=data.device) < keep
+    mask = _random.keep_mask(shape, keep, _key, data.device)
     return torch.where(mask, data / keep,
                        torch.zeros((), dtype=data.dtype, device=data.device))
 

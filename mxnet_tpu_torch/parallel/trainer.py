@@ -18,7 +18,10 @@ with the same arithmetic:
 - one pure update (``_PureOptimizer.apply``) with ``rescale=1``, since the
   gradients are of the mean loss; the results are copied into the module's
   own parameters in place, so the module always holds the trained weights;
-- the module's previous train/eval mode restored.
+- the module's previous train/eval mode restored;
+- with ``remat`` (or ``MXTPU_REMAT``/``MXNET_BACKWARD_DO_MIRROR``) the
+  forward and loss run as one rematerialised region (``remat.wrap``), as
+  the JAX step wraps its loss function.
 
 ``mesh`` may be a ``parallel.Mesh`` of one device (``data_parallel_mesh(1)``,
 as the JAX package's bench passes), which must be the device the module's
@@ -35,6 +38,7 @@ import torch
 
 from .. import autograd as _ag
 from .. import random as _random
+from .. import remat as _remat
 from ..base import MXNetError
 from ..ops import optimizer_op as _op
 from .mesh import Mesh
@@ -210,10 +214,8 @@ class ShardedTrainer:
                 "ShardedTrainer: meshes of more than one device, sharding "
                 "rules and tp/fsdp modes are not ported yet; the port "
                 "trains on one device")
-        if remat:
-            raise NotImplementedError("ShardedTrainer: rematerialisation is "
-                                      "not ported yet")
         self.block = block
+        self.remat = remat
         self.loss_fn = loss_fn
         self.mesh = mesh
         self.batch_axis = batch_axis
@@ -271,10 +273,13 @@ class ShardedTrainer:
     def _to_device(self, x):
         return _tree_map(lambda a: torch.as_tensor(a, device=self._device), x)
 
-    def _loss_and_grads(self, x, y):
+    def _loss_of(self, x, y):
         out = self.block(x)
         loss = self.loss_fn(out, y) if self.loss_fn is not None else out
-        loss = loss.mean()
+        return loss.mean()
+
+    def _loss_and_grads(self, x, y):
+        loss = _remat.wrap(self._loss_of, self.remat)(x, y)
         params = [p for _, p in self._trainable]
         grads = torch.autograd.grad(loss, params, allow_unused=True)
         return loss.detach(), [torch.zeros_like(p) if g is None else g

@@ -30,6 +30,7 @@ class _State(threading.local):
         self.seed = None
         self.count = 0
         self.scope: list = []
+        self.tapes: list = []
 
 
 _STATE = _State()
@@ -87,6 +88,37 @@ class generator_scope:
 
     def __exit__(self, *exc):
         _STATE.scope.pop()
+
+
+def scoped_generator():
+    """The generator of the innermost ``generator_scope``, or None."""
+    return _STATE.scope[-1] if _STATE.scope else None
+
+
+def push_tape(tape) -> None:
+    """Route ``keep_mask`` through ``tape`` (``remat``'s recorded draws)
+    until the matching ``pop_tape``."""
+    _STATE.tapes.append(tape)
+
+
+def pop_tape() -> None:
+    _STATE.tapes.pop()
+
+
+def keep_mask(shape, keep, generator, device) -> torch.Tensor:
+    """A boolean mask, True with probability ``keep``: ``rand < keep``
+    drawn from ``generator``, the dropout ops' one draw.  Inside a remat
+    region's forward the mask is recorded; in its recompute the recorded
+    mask comes back instead of a new draw."""
+    tape = _STATE.tapes[-1] if _STATE.tapes else None
+    if tape is not None and tape.pos is not None:
+        mask = tape.masks[tape.pos]
+        tape.pos += 1
+        return mask
+    mask = torch.rand(shape, generator=generator, device=device) < keep
+    if tape is not None:
+        tape.masks.append(mask)
+    return mask
 
 
 def current_generator(device=None) -> torch.Generator:

@@ -35,7 +35,8 @@ import torch
 
 from ..base import MXNetError
 from ..convert import as_tensor, match_state
-from ..gluon.model_zoo.gpt import STACK_NAMES, _sample
+from ..gluon.model_zoo.gpt import (STACK_NAMES, _model_device, _sample,
+                                   extract_decoder_stacks)
 from ..ops.nn import activation, layer_norm
 
 _NEG = -1e30
@@ -67,12 +68,14 @@ def prefill_buckets_for(window, floor=8):
 
 
 def state_for_serving(model):
-    """Flat host state ``{param_name: np.ndarray}`` of a port model, the
-    serving-checkpoint convention that ``convert.load_state`` and
-    ``ServingEngine.reload_from_state`` read (matched by name suffix).
-    Arrays are float32 copies: numpy has no bfloat16."""
-    return {name: p.detach().to("cpu", torch.float32).numpy().copy()
-            for name, p in model.named_parameters()}
+    """Flat host state ``{param_name: np.ndarray}`` of a port model by
+    Gluon name (its ``collect_params()``), the serving-checkpoint
+    convention that ``convert.load_state`` and
+    ``ServingEngine.reload_from_state`` read (matched by name suffix, so
+    a scanned-trunk model's).  Arrays are float32 copies: numpy has no
+    bfloat16."""
+    return {name: p.data()._data.detach().to("cpu", torch.float32)
+            .numpy().copy() for name, p in model.collect_params().items()}
 
 
 def _sync(device):
@@ -81,31 +84,29 @@ def _sync(device):
 
 
 class ServingEngine:
-    """Bucketed prefill/decode over a port ``GPTModel``'s weight stacks.
+    """Bucketed prefill/decode over a port ``GPTModel``'s weight stacks,
+    pulled from either trunk layout by ``gpt.extract_decoder_stacks``.
 
     ``serve_group(prompts, max_new_tokens)`` is the whole request path;
     the engine runs on the model's device."""
 
     def __init__(self, model, batch_buckets=None, prefill_floor=8,
                  dtype=None):
-        enc = model.encoder
+        stacks, lnf, tok, pos, heads, act = extract_decoder_stacks(model)
         self._W = model._max_length
         self._dtype = dtype
-        self._device = model.tok_embed_weight.device
+        self._device = _model_device(model)
         self.batch_buckets = tuple(sorted(
             batch_buckets if batch_buckets is not None
             else batch_buckets_from_env()))
         self.prefill_buckets = prefill_buckets_for(self._W,
                                                    floor=prefill_floor)
-        self._H = enc._num_heads
-        self._act = enc._activation
-        self._C, self._L = model._units, enc._num_layers
+        self._H = heads
+        self._act = act
+        self._C, self._L = model._units, stacks["qkv_stack_weight"].shape[0]
         self._reload_lock = threading.Lock()
         self.generation = 0
-        stacks = {n: getattr(enc, n).detach() for n in STACK_NAMES}
-        self._weights = self._prepare_weights(
-            stacks, (enc.lnf_gamma.detach(), enc.lnf_beta.detach()),
-            model.tok_embed_weight.detach(), model.pos_embed_weight.detach())
+        self._weights = self._prepare_weights(stacks, lnf, tok, pos)
 
     # -- weight plumbing -------------------------------------------------------
 

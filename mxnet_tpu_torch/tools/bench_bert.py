@@ -4,9 +4,11 @@ timing.
 
     python3 -m mxnet_tpu_torch.tools.bench_bert [--batch 32] [--seq 512]
         [--steps 10] [--attn flash] [--dtype bfloat16] [--f32-reductions]
+        [--path sharded|gluon|captured]
 
 prints one JSON line: ``metric``
-``bert_base_pretrain_tokens_per_sec_per_chip``, ``impl`` ``torch``,
+``bert_base_pretrain_tokens_per_sec_per_chip``, ``impl`` ``torch``, the
+``path``,
 ``value`` (tokens/s), the final ``loss`` and the whole trajectory,
 ``ms_per_step``, ``peak_mem_gib``, the card's name and power
 limit as ``nvidia-smi`` reads them, and ``mfu``.  ``--f32-reductions``
@@ -15,11 +17,20 @@ to False for the process (cuBLAS then reduces split-K bf16 GEMMs in f32;
 the library itself leaves the flag at torch's default); the line says
 which way it ran.
 
-The path: ``bert_base(dropout=0.0, max_length=seq, scan_layers=True,
-attention_impl=attn)``, ``initialize(init=Xavier())``, ``cast(dtype)``, and
-``ShardedTrainer(net, BERTPretrainLoss(), "adamw", {"learning_rate": 1e-4,
-"wd": 0.01}, mesh=data_parallel_mesh(1))`` stepped on ``(tokens,
-(mlm_labels, nsp_labels))``.  The data is ``bench_bert``'s:
+The model: ``bert_base(dropout=0.0, max_length=seq, scan_layers=True,
+attention_impl=attn)`` (a Gluon block), ``initialize(init=Xavier())``,
+``cast(dtype)``.  ``--path`` picks how it trains, AdamW with lr 1e-4 and
+wd 0.01 on ``BERTPretrainLoss`` over ``(tokens, (mlm_labels,
+nsp_labels))`` every time:
+
+- ``sharded`` (default): ``ShardedTrainer(..., mesh=data_parallel_mesh(1))``,
+  its update in f32 on the bf16 weights;
+- ``gluon``: the eager Gluon loop, ``autograd.record()``, ``backward()``,
+  ``gluon.Trainer(net.collect_params(), "adamw", {..., "multi_precision":
+  True}).step(batch)`` (f32 master weights and states, the grouped update);
+- ``captured``: the same trainer's ``train_step`` on the hybridized block,
+  one CUDA graph a step.
+  The data is ``bench_bert``'s:
 ``RandomState(0)`` tokens in [0, 30000), 15% MLM labels (the rest -1) and
 NSP labels in {0, 1}, one batch repeated; the weights are drawn from
 seed 0 too, so two runs start from the same step.  The timing is ``_measure``'s:
@@ -86,23 +97,74 @@ def mfu(flops, seconds, device_name):
     return got
 
 
+def _net(seq, attn, dtype, device, seed, dropout=0.0):
+    net = bert.bert_base(dropout=dropout, max_length=seq, scan_layers=True,
+                         attention_impl=attn, device=device)
+    dev = net.word_embed_weight.data()._data.device
+    net.initialize(init=Xavier(),
+                   generator=torch.Generator(device=dev).manual_seed(seed))
+    net.cast(dtype)
+    return net, dev
+
+
 def build(batch=32, seq=512, attn="flash", dtype="bfloat16", device=None,
           seed=0):
     """The bench's trainer and batch: returns (trainer, tokens, (mlm_labels,
     nsp_labels)).  The weights are drawn from ``seed``, the data from
     ``RandomState(seed)``."""
-    net = bert.bert_base(dropout=0.0, max_length=seq, scan_layers=True,
-                         attention_impl=attn, device=device)
-    dev = net.word_embed_weight.device
-    net.initialize(init=Xavier(),
-                   generator=torch.Generator(device=dev).manual_seed(seed))
-    net.cast(dtype)
+    net, dev = _net(seq, attn, dtype, device, seed)
     with context.context_of(dev):
         mesh = data_parallel_mesh(1)
     trainer = ShardedTrainer(net, bert.BERTPretrainLoss(), "adamw",
                              {"learning_rate": 1e-4, "wd": 0.01}, mesh=mesh)
     tokens, mlm, nsp = make_data(batch, seq, net._vocab, dev, seed)
     return trainer, tokens, (mlm, nsp)
+
+
+PATHS = ("sharded", "gluon", "captured")
+#: gluon.Trainer's optimizer: bench_bert's AdamW, with f32 master weights
+GLUON_ADAMW = {"learning_rate": 1e-4, "wd": 0.01, "multi_precision": True}
+
+
+def build_gluon(batch=32, seq=512, attn="flash", dtype="bfloat16",
+                device=None, seed=0, dropout=0.0):
+    """The bench's model on ``gluon.Trainer``: returns (net, trainer,
+    loss_fn, tokens, (mlm_labels, nsp_labels)), the data as NDArrays; the
+    net is hybridized (``train_step`` captures it)."""
+    from .. import gluon
+    from ..ndarray.ndarray import NDArray
+
+    net, dev = _net(seq, attn, dtype, device, seed, dropout)
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "adamw", dict(GLUON_ADAMW))
+    ctx = context.context_of(dev)
+    tokens, mlm, nsp = make_data(batch, seq, net._vocab, dev, seed)
+    return (net, trainer, bert.BERTPretrainLoss(), NDArray(tokens, ctx),
+            (NDArray(mlm, ctx), NDArray(nsp, ctx)))
+
+
+def step_fn(path, batch=32, seq=512, attn="flash", dtype="bfloat16",
+            device=None):
+    """One training step of ``path`` as a closure returning the loss (a
+    0-dim tensor or NDArray)."""
+    if path == "sharded":
+        trainer, tokens, labels = build(batch, seq, attn, dtype, device)
+        return lambda: trainer.step(tokens, labels)
+    from .. import autograd
+
+    net, trainer, loss_fn, tokens, labels = build_gluon(
+        batch, seq, attn, dtype, device)
+    if path == "captured":
+        return lambda: trainer.train_step(net, loss_fn, tokens, labels)
+
+    def eager():
+        with autograd.record():
+            loss = loss_fn(net(tokens), labels)
+        loss.backward()
+        trainer.step(batch)
+        return loss
+
+    return eager
 
 
 def card_line():
@@ -158,19 +220,21 @@ def measure(build, steps, device, work, flops, **fields):
 
 
 def run(batch=32, seq=512, steps=10, attn="flash", dtype="bfloat16",
-        device=None):
-    """Build the bench's path, time ``steps`` training steps after two
+        device=None, path="sharded"):
+    """Build the bench's ``path``, time ``steps`` training steps after two
     warm-up steps, and return the result line as a dict."""
+    if path not in PATHS:
+        raise ValueError(f"bench_bert: path must be one of {PATHS}")
     dev = context.resolve(device)
 
     def build_step():
-        trainer, tokens, labels = build(batch, seq, attn, dtype, dev)
-        return lambda: trainer.step(tokens, labels)
+        return step_fn(path, batch, seq, attn, dtype, dev)
 
     return measure(
         build_step, steps, dev, batch * seq, flops_per_step(batch, seq),
         metric=METRIC, unit="tokens/sec/chip", batch=batch, seq=seq,
-        attn=attn, dtype=dtype, bf16_reduced_precision_reduction=(
+        attn=attn, dtype=dtype, path=path,
+        bf16_reduced_precision_reduction=(
             torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction))
 
 
@@ -181,6 +245,7 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=10)
     ap.add_argument("--attn", default="flash")
     ap.add_argument("--dtype", default="bfloat16")
+    ap.add_argument("--path", default="sharded", choices=PATHS)
     ap.add_argument("--f32-reductions", action="store_true",
                     help="hold cuBLAS's bf16 GEMM reductions in f32")
     args = ap.parse_args(argv)
@@ -188,7 +253,7 @@ def main(argv=None):
         torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
             False
     print(json.dumps(run(args.batch, args.seq, args.steps, args.attn,
-                         args.dtype)), flush=True)
+                         args.dtype, path=args.path)), flush=True)
 
 
 if __name__ == "__main__":

@@ -52,8 +52,13 @@ def _params(net):
 
 
 def _port_of(net, impl):
-    model = tbert.bert_tiny(attention_impl=impl, dropout=0.0, device=cpu())
-    convert.load_bert_params(model, _params(net))
+    """The port's bert_tiny in the JAX net's trunk layout, its weights
+    loaded by name."""
+    params = _params(net)
+    scan = any(k.endswith("qkv_stack_weight") for k in params)
+    model = tbert.bert_tiny(attention_impl=impl, dropout=0.0,
+                            scan_layers=scan, device=cpu())
+    convert.load_bert_params(model, params)
     return model
 
 
@@ -127,8 +132,34 @@ def test_heads_follow_the_reference_without_a_pooler():
 
 @pytest.mark.parametrize("lora", [{"lora_rank": 4}, {"lora_alpha": 8.0}])
 def test_lora_options_are_refused(lora):
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        tbert.bert_tiny(device=cpu(), scan_layers=True, **lora)
+    """The LoRA options build the JAX package's model: with a rank, the
+    trunk's qkv_lora_a/b stacks (B made non-zero here, so the adapted
+    qkv weight differs from the base) give the JAX outputs; an alpha
+    without a rank adds nothing, as there."""
+    mx.random.seed(0)
+    net = jbert.bert_tiny(scan_layers=True, dropout=0.0, **lora)
+    net.initialize(init=mx.init.Xavier())
+    rng = np.random.RandomState(5)
+    for name, p in net.collect_params().items():
+        if "lora" in name:
+            p.set_data(nd.array(0.1 * rng.randn(*p.shape).astype(
+                np.float32)))
+    model = tbert.bert_tiny(device=cpu(), scan_layers=True, dropout=0.0,
+                            **lora)
+    assert sorted(model.collect_params()) == sorted(
+        k.replace(net.prefix, model.prefix, 1)
+        for k in net.collect_params())
+    assert any("lora" in k for k in model.collect_params()) == \
+        ("lora_rank" in lora)
+    convert.load_bert_params(model, _params(net))
+    tokens = _batch()[0]
+    want = net(nd.array(tokens.astype(np.float32)))
+    got = model(torch.from_numpy(tokens))
+    for name, a, b in zip(OUTPUTS, got, want):
+        _close(a, b.asnumpy(), what=name)
+    if "lora_rank" in lora:
+        with pytest.raises(ValueError, match="scan_layers=True"):
+            tbert.bert_tiny(device=cpu(), **lora)
 
 
 def test_load_bert_params_checks_before_copying():
@@ -200,14 +231,13 @@ def test_model_gradients_match_jax(impl):
         model(torch.from_numpy(tokens)),
         (torch.from_numpy(mlm), torch.from_numpy(nsp)))
     _close(got_loss, loss.asnumpy())
-    names, ps = zip(*model.named_parameters())
+    names, ps = zip(*((n, p._value())
+                      for n, p in model.collect_params().items()))
     grads = dict(zip(names, torch.autograd.grad(got_loss, ps)))
-    prefix = next(k for k in want if k.endswith("word_embed_weight"))[
-        :-len("word_embed_weight")]
     for name, g in grads.items():
-        (key,) = convert._bert_keys(name, prefix, False, 2)
+        key = net.prefix + name[len(model.prefix):]
         _close(g, want[key], GRAD_RTOL, GRAD_ATOL, what=name)
-    assert float(grads["word_embed_weight"].abs().max()) > 0
+    assert float(grads[model.prefix + "word_embed_weight"].abs().max()) > 0
 
 
 @pytest.mark.parametrize("impl,accum", [("dense", 1), ("flash", 1),
@@ -284,9 +314,11 @@ def _weight_products(seen):
 
 
 def test_bf16_bert_forward_multiplies_in_bf16():
-    """The trunk's qkv, projection and FFN products and the heads' pooler,
-    NSP, transform and tied decode all receive bf16 operands."""
+    """The per-layer trunk's (the default layout's) qkv, projection and
+    FFN products and the heads' pooler, NSP, transform and tied decode
+    all receive bf16 operands."""
     model = tbert.bert_tiny(attention_impl="flash", device=cpu())
+    assert isinstance(model.encoder, tbert.TransformerEncoder)
     model.cast("bfloat16")
     with _Matmuls() as rec:
         model(torch.from_numpy(_batch()[0]))
@@ -294,6 +326,26 @@ def test_bf16_bert_forward_multiplies_in_bf16():
     assert len(products) == 4 * 2 + 4, rec.seen
     for ops in products:
         assert [dt for dt, _ in ops] == [torch.bfloat16] * 2, ops
+
+
+def test_bf16_scanned_bert_forward_multiplies_in_bf16():
+    """The same with the scanned trunk (scan_layers=True), LoRA stacks
+    included: the adapted qkv weight is cast back to bf16 before its
+    product."""
+    for kw in ({}, {"lora_rank": 4}):
+        model = tbert.bert_tiny(attention_impl="flash", scan_layers=True,
+                                device=cpu(), **kw)
+        model.cast("bfloat16")
+        with _Matmuls() as rec:
+            model(torch.from_numpy(_batch()[0]))
+        products = [ops for ops in _weight_products(rec.seen)
+                    if all(dt == torch.bfloat16 for dt, _ in ops)]
+        assert len(products) == 4 * 2 + 4, rec.seen
+        lora = [ops for ops in _weight_products(rec.seen)
+                if ops not in products]
+        # the rank-4 product B @ A runs in f32, as the JAX op's
+        assert all(dt == torch.float32 for ops in lora for dt, _ in ops)
+        assert len(lora) == (2 if kw else 0)
 
 
 # -- the initializers --------------------------------------------------------
@@ -350,7 +402,8 @@ def test_initializer_draws_hold_their_moments():
         init("w_weight", w, g)
         _moments_hold(w, kind, scale)
     model = tbert.bert_tiny(device=cpu())
-    model.initialize(initializer.Xavier(), torch.Generator().manual_seed(1))
+    model.initialize(initializer.Xavier(),
+                     generator=torch.Generator().manual_seed(1))
     for name, p in model.named_parameters():
         if name.endswith("embed_weight"):
             _moments_hold(p, "normal", 0.01)
@@ -390,14 +443,13 @@ def test_initialize_dispatch_matches_jax():
     net = jbert.bert_tiny(scan_layers=True, dropout=0.0)
     net.initialize(init=mx.init.Xavier())
     want = _params(net)
-    prefix = next(k for k in want if k.endswith("word_embed_weight"))[
-        :-len("word_embed_weight")]
-    model = tbert.bert_tiny(device=cpu())
-    model.initialize(initializer.Xavier(), torch.Generator().manual_seed(4))
+    model = tbert.bert_tiny(device=cpu(), scan_layers=True)
+    model.initialize(initializer.Xavier(),
+                     generator=torch.Generator().manual_seed(4))
     kinds = {}
-    for name, p in model.named_parameters():
-        (key,) = convert._bert_keys(name, prefix, False, 2)
-        mine = _kind(p.detach().numpy(), tuple(p.shape))
+    for name, p in model.collect_params().items():
+        key = net.prefix + name[len(model.prefix):]
+        mine = _kind(p.data().asnumpy(), tuple(p.shape))
         assert mine == _kind(want[key], want[key].shape), (name, key)
         kinds[mine] = kinds.get(mine, 0) + 1
     assert kinds == {"xavier": 7, "normal(0.01)": 3, "zeros": 13,

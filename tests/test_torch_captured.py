@@ -382,3 +382,59 @@ def test_capture_failure_raises_on_the_card(env):
     assert captured.dispatch_count() == 0
     np.testing.assert_array_equal(trainer._params[0].data().asnumpy(), w0)
 
+
+
+def _bert_run(env, captured_on, dev, remat=None, steps=3):
+    """``steps`` train_steps of a flash bert_tiny (dropout 0.1, two labels
+    as a tuple) hybridized with ``remat``; returns host losses, weights
+    and optimizer states."""
+    from mxnet_tpu_torch.gluon.model_zoo import bert
+
+    env(MXTPU_CAPTURED_STEP="1" if captured_on else "0")
+    net = bert.bert_tiny(scan_layers=True, attention_impl="flash",
+                         dropout=0.1, device=dev)
+    net.initialize(generator=torch.Generator(device=dev).manual_seed(3))
+    net.hybridize(**({"remat": remat} if remat else {}))
+    trainer = gluon.Trainer(net.collect_params(), "adamw",
+                            {"learning_rate": 1e-3, "wd": 0.01})
+    rng = np.random.RandomState(5)
+    tok = rng.randint(0, 1024, (4, 64))
+    mlm = np.where(rng.rand(4, 64) < 0.3, rng.randint(0, 1024, (4, 64)), -1)
+    nsp = rng.randint(0, 2, (4,))
+    tok, mlm, nsp = (NDArray(torch.as_tensor(a, device=dev),
+                             context_of(dev)) for a in (tok, mlm, nsp))
+    loss_fn = bert.BERTPretrainLoss()
+    mx.random.seed(11)
+    losses = [trainer.train_step(net, loss_fn, tok, (mlm, nsp)).asnumpy()
+              for _ in range(steps)]
+    weights = [p.data().asnumpy() for p in net.collect_params().values()]
+    states = [s.asnumpy() for i in sorted(trainer._updaters[0].states)
+              for s in trainer._updaters[0].states[i]]
+    return losses, weights, states
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("remat", [None, "full"])
+def test_graph_replays_the_flash_kernels_on_the_card(env, remat):
+    """A transformer step whose forward and backward launch the
+    hand-written flash kernels, recorded once as a CUDA graph (with the
+    recompute of a rematerialised forward inside it) and replayed: equal
+    to the eager steps bitwise, dropout included."""
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    dev = _card()
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        eager = _bert_run(env, False, dev, remat)
+        captured.reset_counters()
+        fa.flash_attention_fwd.launches = 0
+        cap = _bert_run(env, True, dev, remat)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+    for a, b in zip(sum(eager, []), sum(cap, [])):
+        np.testing.assert_array_equal(a, b)
+    assert captured.trace_count() == 1 and captured.dispatch_count() == 3
+    # the warm-up and the recording launch; the replays reach no wrapper
+    per_run = 2 * 2 * (2 if remat else 1)
+    assert fa.flash_attention_fwd.launches == per_run

@@ -11,6 +11,7 @@ import mxnet_tpu as mx
 from mxnet_tpu import nd, serving
 from mxnet_tpu.gluon.model_zoo import gpt as jgpt
 from mxnet_tpu_torch import convert
+from mxnet_tpu_torch import ndarray as tnd
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.context import cpu
 from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
@@ -36,7 +37,8 @@ def _jax_gpt(scan, impl, seed=0, **kwargs):
 
 
 def _port_of(net, scan, impl, **kwargs):
-    model = tgpt.gpt_tiny(attention_impl=impl, device=cpu(), **kwargs)
+    model = tgpt.gpt_tiny(attention_impl=impl, scan_layers=scan,
+                          device=cpu(), **kwargs)
     if scan:
         convert.load_state(model, serving.state_for_serving(net))
     else:
@@ -63,19 +65,20 @@ def test_gpt_logits_match_jax(scan, impl):
 
 @pytest.mark.parametrize("impl", ["dense", "flash"])
 def test_generate_matches_jax(impl):
-    """Greedy decode over the right-padded window: the port's tokens
-    equal the JAX package's, and the flash run on the CPU launches no
-    kernel."""
+    """Greedy decode over the right-padded window: the port's tokens, a
+    float32 NDArray as the JAX package's, equal the JAX package's, and
+    the flash run on the CPU launches no kernel."""
     net = _jax_gpt(True, impl, max_length=32)
     model = _port_of(net, True, impl, max_length=32)
     ids = np.random.RandomState(2).randint(0, 128, (2, 6))
     want = jgpt.generate(net, nd.array(ids.astype(np.float32)),
-                         max_new_tokens=5).asnumpy().astype(np.int64)
+                         max_new_tokens=5).asnumpy()
     before = tflash.flash_attention_fwd.launches
     got = tgpt.generate(model, ids, max_new_tokens=5)
     assert tflash.flash_attention_fwd.launches == before
-    assert got.dtype == torch.int64 and got.shape == (2, 11)
-    np.testing.assert_array_equal(got.numpy(), want)
+    assert isinstance(got, tnd.NDArray) and got.shape == (2, 11)
+    assert got.dtype == np.float32 == want.dtype
+    np.testing.assert_array_equal(got.asnumpy(), want)
 
 
 def test_generate_samples_with_a_generator():
@@ -89,7 +92,7 @@ def test_generate_samples_with_a_generator():
                       generator=random.generator(3))
     b = tgpt.generate(model, ids, 4, temperature=1.0,
                       generator=random.generator(3))
-    assert torch.equal(a, b) and a.shape == (2, 8)
+    assert np.array_equal(a.asnumpy(), b.asnumpy()) and a.shape == (2, 8)
 
 
 def _state(net):
@@ -144,23 +147,56 @@ def test_load_stacks_rejects_bad_entries():
 
 
 def test_model_refuses_training_features():
-    """LoRA and remat are not ported and still raise; dropout now trains:
-    eval mode ignores it, training mode drops with the scope's generator
-    (the same generator seed gives the same logits)."""
-    from mxnet_tpu_torch import random
+    """LoRA and remat train as in the JAX package: a scanned gpt_tiny
+    with ``lora_rank`` (B non-zero) gives the JAX logits, the per-layer
+    trunk refuses the adapters as there, and ``remat=True`` leaves the
+    logits and every gradient unchanged at dropout 0.1 (the recompute
+    takes the forward's masks).  Dropout follows training mode: predict
+    mode ignores it, training mode drops with the scope's generator (the
+    same generator seed gives the same logits)."""
+    from mxnet_tpu_torch import autograd, random
 
-    with pytest.raises(NotImplementedError):
+    net = _jax_gpt(True, "dense", lora_rank=4)
+    rng = np.random.RandomState(7)
+    for name, p in net.collect_params().items():
+        if "lora" in name:
+            p.set_data(nd.array(0.1 * rng.randn(*p.shape).astype(
+                np.float32)))
+    lora = tgpt.gpt_tiny(device=cpu(), scan_layers=True, lora_rank=4)
+    convert.load_gluon_params(lora, {
+        n: p.data().asnumpy() for n, p in net.collect_params().items()})
+    ids = np.random.RandomState(1).randint(0, 128, (2, 16))
+    np.testing.assert_allclose(
+        lora(torch.from_numpy(ids)).detach().numpy(),
+        net(nd.array(ids.astype(np.float32))).asnumpy(), rtol=RTOL,
+        atol=ATOL)
+    with pytest.raises(ValueError, match="scan_layers=True"):
         tgpt.gpt_tiny(device=cpu(), lora_rank=4)
-    with pytest.raises(NotImplementedError):
-        tgpt.gpt_tiny(device=cpu(), remat=True)
+
+    plain = tgpt.gpt_tiny(device=cpu(), scan_layers=True, dropout=0.1)
+    remat = tgpt.gpt_tiny(device=cpu(), scan_layers=True, dropout=0.1,
+                          remat=True)
+    remat.load_state_dict(plain.state_dict())
+    x = torch.from_numpy(ids)
+    grads = []
+    for model in (plain, remat):
+        with autograd.train_mode(), \
+                random.generator_scope(random.generator(11)):
+            loss = tgpt.GPTLMLoss()(model(x), x)
+        ps = [p._value() for p in model.collect_params().values()]
+        grads.append((loss, torch.autograd.grad(loss, ps)))
+    assert torch.equal(grads[0][0], grads[1][0])
+    for a, b in zip(grads[0][1], grads[1][1]):
+        assert torch.equal(a, b)
+
     model = tgpt.gpt_tiny(device=cpu(), dropout=0.1)
     ids = torch.randint(0, 128, (2, 8), generator=random.generator(0))
-    ref = model(ids)                                    # eval: no dropout
+    ref = model(ids)                                 # predict: no dropout
     assert torch.equal(ref, model(ids))
-    model.train()
     runs = []
     for seed in (1, 1, 2):
-        with random.generator_scope(random.generator(seed)):
+        with autograd.train_mode(), \
+                random.generator_scope(random.generator(seed)):
             runs.append(model(ids))
     assert torch.equal(runs[0], runs[1])
     assert not torch.allclose(runs[0], ref)

@@ -166,47 +166,112 @@ def test_multi_head_attention_matches_jax(self_attention):
     np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
 
 
+def _trunk_args(rng, L=2, C=16, Hd=32, lora_r=0):
+    shapes = [(L, 3 * C, C), (L, 3 * C), (L, C, C), (L, C), (L, Hd, C),
+              (L, Hd), (L, C, Hd), (L, C), (L, C), (L, C), (L, C), (L, C),
+              (C,), (C,)]
+    if lora_r:
+        shapes += [(L, lora_r, C), (L, 3 * C, lora_r)]
+    return [0.3 * _rand(rng, *s) for s in shapes]
+
+
 def test_attention_refuses_unported_features():
-    """Sequence-parallel impls, masks or dropout on the flash impl, remat
-    and LoRA still raise; dropout on the dense path and in the trunk now
-    trains (``test_dropout_draws_from_the_generator``)."""
+    """Sequence-parallel impls and masks or dropout on the flash impl
+    still raise.  The trunk's LoRA stacks and remat are ported: LoRA
+    (qkv + scale * B @ A per layer) matches the JAX op, forward and
+    gradients, and every remat policy leaves output and gradients as
+    they are without one."""
     q = torch.zeros((1, 1, 4, 8))
     for kwargs in ({"impl": "ring"}, {"impl": "ulysses"},
                    {"impl": "flash", "dropout_p": 0.1},
                    {"impl": "flash", "mask": torch.ones((4, 4))}):
         with pytest.raises(NotImplementedError):
             tatt.scaled_dot_product_attention(q, q, q, **kwargs)
-    stacks = [torch.zeros(1)] * 14
-    for kwargs in ({"remat": True},
-                   {"qkv_lora_a": torch.zeros(1),
-                    "qkv_lora_b": torch.zeros(1)}):
-        with pytest.raises(NotImplementedError):
-            tatt.scan_transformer_encoder(torch.zeros((1, 2, 4)), *stacks,
-                                          **kwargs)
+    rng = np.random.RandomState(12)
+    args = _trunk_args(rng, lora_r=3)
+    x = _rand(rng, 2, 8, 16)
+    kw = dict(num_heads=4, causal=True, lora_scale=1.5)
+
+    def jax_loss(x, *a):
+        return (jatt.scan_transformer_encoder(
+            x, *a[:14], qkv_lora_a=a[14], qkv_lora_b=a[15], **kw,
+            _is_training=False) ** 2).sum()
+
+    want, wgrads = jax.value_and_grad(jax_loss, argnums=tuple(range(17)))(
+        jnp.asarray(x), *(jnp.asarray(a) for a in args))
+    tx = [torch.from_numpy(a).requires_grad_() for a in [x] + args]
+    for remat in (False, True, "dots", "save_every_k:2"):
+        out = tatt.scan_transformer_encoder(
+            tx[0], *tx[1:15], qkv_lora_a=tx[15], qkv_lora_b=tx[16],
+            remat=remat, _is_training=False, **kw)
+        loss = (out ** 2).sum()
+        grads = torch.autograd.grad(loss, tx)
+        np.testing.assert_allclose(float(loss), float(want), rtol=RTOL)
+        for g, w in zip(grads, wgrads):
+            np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                       rtol=2e-3, atol=2e-4)
+
+
+@pytest.mark.parametrize("remat", [True, "dots", "dots_no_batch",
+                                   "save_every_k:2", "save_every_k:3"])
+def test_trunk_remat_keeps_dropout_gradients(remat):
+    """With dropout in training mode, a rematerialised trunk (per layer,
+    selective, or chunked; 3 does not divide L = 4, so per layer) gives
+    the output and gradients of the plain one bitwise: the recompute
+    takes back the masks its forward drew."""
+    from mxnet_tpu_torch import random
+
+    rng = np.random.RandomState(13)
+    args = [torch.from_numpy(a).requires_grad_()
+            for a in [_rand(rng, 2, 8, 16)] + _trunk_args(rng, L=4)]
+    runs = []
+    for policy in (False, remat):
+        out = tatt.scan_transformer_encoder(
+            *args, num_heads=4, dropout=0.3, remat=policy,
+            _key=random.generator(4))
+        runs.append((out, torch.autograd.grad((out ** 2).sum(), args)))
+    assert torch.equal(runs[0][0], runs[1][0])
+    for a, b in zip(runs[0][1], runs[1][1]):
+        assert torch.equal(a, b)
 
 
 def test_dropout_draws_from_the_generator():
     """Dense attention dropout and the trunk's dropout: masks come from
     the given generator (else the generator scope's), kept values are
-    scaled by 1/keep, and eval mode drops nothing."""
+    scaled by 1/keep, and predict mode drops nothing."""
     from mxnet_tpu_torch import random
 
     rng = np.random.RandomState(9)
     q, k, v = (torch.from_numpy(_rand(rng, 2, 2, 16, 8)) for _ in range(3))
     plain = tatt.scaled_dot_product_attention(q, k, v, causal=True)
     a = tatt.scaled_dot_product_attention(
-        q, k, v, causal=True, dropout_p=0.5, generator=random.generator(3))
+        q, k, v, causal=True, dropout_p=0.5, _key=random.generator(3))
     with random.generator_scope(random.generator(3)):
         b = tatt.scaled_dot_product_attention(q, k, v, causal=True,
                                               dropout_p=0.5)
     assert torch.equal(a, b) and not torch.allclose(a, plain)
     assert torch.equal(plain, tatt.scaled_dot_product_attention(
-        q, k, v, causal=True, dropout_p=0.5, training=False))
+        q, k, v, causal=True, dropout_p=0.5, _is_training=False))
     x = torch.ones((4, 1000))
-    y = tnn.dropout(x, 0.25, random.generator(0))
+    y = tnn.dropout(x, 0.25, _key=random.generator(0))
     kept = y != 0
     assert torch.allclose(y[kept], torch.full_like(y[kept], 1 / 0.75))
     assert abs(float(kept.float().mean()) - 0.75) < 0.03
+
+
+@pytest.mark.parametrize("heads", [1, 2])
+def test_interleaved_selfatt_matches_jax(heads):
+    """The reference's interleaved self-attention products on a (T, B, 3C)
+    projection: scaled scores, then attention times values."""
+    rng = np.random.RandomState(heads)
+    qkv = _rand(rng, 5, 3, 3 * 8)
+    att = np.abs(_rand(rng, 3 * heads, 5, 5))
+    for fn, args in (("interleaved_matmul_selfatt_qk", (qkv,)),
+                     ("interleaved_matmul_selfatt_valatt", (qkv, att))):
+        want = np.asarray(getattr(jatt, fn)(*map(jnp.asarray, args),
+                                            heads=heads))
+        got = getattr(tatt, fn)(*map(torch.from_numpy, args), heads=heads)
+        np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.parametrize("raw", [None, "4,1,2", "8", "x,2", ","])

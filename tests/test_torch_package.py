@@ -131,7 +131,7 @@ def test_gpu_raises_without_a_card():
 def test_model_defaults_to_the_card():
     if torch.cuda.is_available():
         model = gpt.gpt_tiny()
-        assert model.tok_embed_weight.device.type == "cuda"
+        assert model.tok_embed_weight.data()._data.device.type == "cuda"
     else:
         with pytest.raises(MXNetError, match="no such CUDA device"):
             gpt.gpt_tiny()

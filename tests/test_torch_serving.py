@@ -24,9 +24,11 @@ def _jax_model(seed=7, max_length=16):
     return net
 
 
-def _port_model(net, max_length=16, impl="dense"):
+def _port_model(net, max_length=16, impl="dense", scan=False):
+    """The port's gpt_tiny (the per-layer trunk unless ``scan``) with the
+    JAX net's serving checkpoint loaded."""
     model = tgpt.gpt_tiny(max_length=max_length, attention_impl=impl,
-                          device=cpu())
+                          scan_layers=scan, device=cpu())
     convert.load_state(model, jserving.state_for_serving(net))
     return model
 
@@ -61,15 +63,19 @@ def test_coalesced_equals_one_by_one():
                                       err_msg=f"request {i}")
 
 
+@pytest.mark.parametrize("scan", [False, True])
 @pytest.mark.parametrize("impl", ["dense", "flash"])
-def test_engine_matches_generate(impl):
+def test_engine_matches_generate(impl, scan):
     """The cached engine and the full-recompute generate() reach the
-    same greedy tokens; generate() may run the flash trunk."""
-    model = _port_model(_jax_model(max_length=32), max_length=32, impl=impl)
+    same greedy tokens, on either trunk layout (the engine takes the
+    per-layer trunk's weights through extract_decoder_stacks);
+    generate() may run the flash trunk."""
+    model = _port_model(_jax_model(max_length=32), max_length=32, impl=impl,
+                        scan=scan)
     prompts = _prompts(2, np.random.RandomState(5), lo=6, hi=6)
     got, _ = ServingEngine(model, batch_buckets=(2,)).serve_group(prompts, 6)
     ref = tgpt.generate(model, np.asarray(prompts), max_new_tokens=6)
-    np.testing.assert_array_equal(np.stack(got), ref[:, 6:].numpy())
+    np.testing.assert_array_equal(np.stack(got), ref.asnumpy()[:, 6:])
 
 
 def test_reload_from_state_swaps_weights():

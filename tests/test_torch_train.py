@@ -153,7 +153,8 @@ def _jax_gpt(impl, seed=0, dropout=0.0):
 
 
 def _port_of(net, impl, dropout=0.0):
-    model = tgpt.gpt_tiny(attention_impl=impl, dropout=dropout, device=cpu())
+    model = tgpt.gpt_tiny(attention_impl=impl, dropout=dropout,
+                          scan_layers=True, device=cpu())
     convert.load_state(model, jserving.state_for_serving(net))
     return model
 
@@ -251,7 +252,8 @@ def test_dropout_trains_from_the_step_generator():
 
 def test_trainer_surface():
     """learning_rate and schedulers, set_learning_rate, the refusals of
-    what is not ported, and a bf16 model keeping its dtype."""
+    what is not ported, remat (whose step equals the plain one's), and a
+    bf16 model keeping its dtype."""
     model = tgpt.gpt_tiny(device=cpu())
     sched = tsched.FactorScheduler(step=1, factor=0.5, base_lr=0.2)
     tr = ShardedTrainer(model, tgpt.GPTLMLoss(), "sgd",
@@ -263,16 +265,28 @@ def test_trainer_surface():
     tr.set_learning_rate(0.05)
     assert tr.learning_rate == 0.05
     tr.sync_params()
-    for kwargs in ({"mesh": object()}, {"rules": object()}, {"mode": "tp"},
-                   {"remat": "full"}):
+    for kwargs in ({"mesh": object()}, {"rules": object()}, {"mode": "tp"}):
         with pytest.raises(NotImplementedError):
             ShardedTrainer(model, tgpt.GPTLMLoss(), **kwargs)
+    drop = tgpt.gpt_tiny(device=cpu(), dropout=0.1)
+    runs = []
+    for remat in (None, "full", "dots"):
+        m = tgpt.gpt_tiny(device=cpu(), dropout=0.1)
+        m.load_state_dict(drop.state_dict())
+        random.seed(3)
+        rtr = ShardedTrainer(m, tgpt.GPTLMLoss(), "adamw",
+                             {"learning_rate": 1e-2}, remat=remat)
+        runs.append(([float(rtr.step(ids, ids)) for _ in range(2)],
+                     [p.detach().clone() for p in m.parameters()]))
+    for losses, params in runs[1:]:
+        assert losses == runs[0][0]
+        assert all(torch.equal(a, b) for a, b in zip(params, runs[0][1]))
     with pytest.raises(ValueError, match="not divisible"):
         ShardedTrainer(model, tgpt.GPTLMLoss(), grad_accum=3).step(ids, ids)
     with pytest.raises(NotImplementedError):
         tr.state_dict()
-    bf = tgpt.gpt_tiny(device=cpu(), attention_impl="flash").to(
-        torch.bfloat16)
+    bf = tgpt.gpt_tiny(device=cpu(), attention_impl="flash").cast(
+        "bfloat16")
     btr = ShardedTrainer(bf, tgpt.GPTLMLoss(), "adamw",
                          {"learning_rate": 1e-3})
     losses = [float(btr.step(ids, ids)) for _ in range(2)]
@@ -294,7 +308,7 @@ def test_trained_model_goes_to_the_engine():
     state = state_for_serving(model)
     assert all(isinstance(a, np.ndarray) and a.dtype == np.float32
                for a in state.values())
-    fresh = tgpt.gpt_tiny(device=cpu())
+    fresh = tgpt.gpt_tiny(device=cpu(), scan_layers=True)
     convert.load_state(fresh, state)
     for (n, a), b in zip(model.named_parameters(), fresh.parameters()):
         assert torch.equal(a, b), n
@@ -303,4 +317,4 @@ def test_trained_model_goes_to_the_engine():
     prompts = ids[:, :6]
     got, _ = eng.serve_group(list(prompts), 5)
     ref = tgpt.generate(model, prompts, max_new_tokens=5)
-    np.testing.assert_array_equal(np.stack(got), ref[:, 6:].numpy())
+    np.testing.assert_array_equal(np.stack(got), ref.asnumpy()[:, 6:])
