@@ -121,10 +121,33 @@ Phases; any failure raises, exits non-zero and prints no result line:
    logits (T=197) against the dense trunk's, then five bf16 steps of the
    eager Gluon loop at B=64: the loss falls, 12 launches of each kernel a
    step.
+12. The input path (gluon.data, io, recordio, image): (i) a 1024-sample
+   uint8 ArrayDataset through DataLoader with thread workers, process
+   workers and pin_memory=True, each in DevicePrefetcher at depths 0 and
+   2, read back after a sleep on the consumer's stream (the pinned ring
+   wraps): bitwise the host's bytes, two host-to-device copies a batch
+   (torch.profiler); then a dataset held on the card through ToTensor
+   behind a sleep on the worker threads' stream, at depths 0 and 2:
+   bitwise; (ii) ResNet-50 v1 at bench_resnet's configuration
+   through the captured train_step, fed as bench.py feeds it
+   (normalize_flip_batch_np, host bf16 cast, DevicePrefetcher):
+   data_stall_share at depth 2 and 0, samples/s, and from a torch.profiler
+   trace of every thread over as many steps as the timed loop, from an
+   empty ring, the copies' overlap with the step's kernels on another
+   stream and the busy share; (iii) bench_input_pipeline's JPEG
+   loader where a codec is installed (said which, or that none is);
+   (iv) GPT-2 small (bf16, flash, B=8, T=1024) trained by three
+   gluon.Trainer.train_step steps from a DataLoader over CharTokenDataset
+   (the repo's Markdown) with an IntervalSampler, through DevicePrefetcher:
+   the loss falls, each flash kernel 12 launches a step; (v) raw records
+   written with recordio.pack read back through MXIndexedRecordIO,
+   RecordFileDataset and the prefetcher bitwise, and a seed= loader
+   stopped mid-epoch, restored and drained: every sample exactly once.
 6. The kernel JSON line (f32 numbers at the training shape, and the
    bf16 ones under *_bf16 keys; the same at BERT's shape under
    ``at_bert_shape`` and at ViT's under ``at_vit_shape``; launches by
-   path), the nvidia-smi line, then the result line.
+   path, [12]'s two training paths among them), the nvidia-smi line, then
+   the result line.
 """
 
 from __future__ import annotations
@@ -1325,7 +1348,8 @@ def phase_resnet(dev, card, rtc_kernels):
     results, launches = {}, None
     for layout in ("NCHW", "NHWC"):
         try:
-            r = bench_resnet.run(batch, RESNET_IMAGE, RESNET_STEPS, layout)
+            r = bench_resnet.run(batch, RESNET_IMAGE, RESNET_STEPS, layout,
+                                 stall=False)
         except torch.cuda.OutOfMemoryError as e:
             if batch == RESNET_FALLBACK_BATCH:
                 raise
@@ -1334,7 +1358,8 @@ def phase_resnet(dev, card, rtc_kernels):
                 f"fallback B={RESNET_FALLBACK_BATCH}")
             batch = RESNET_FALLBACK_BATCH
             torch.cuda.empty_cache()
-            r = bench_resnet.run(batch, RESNET_IMAGE, RESNET_STEPS, layout)
+            r = bench_resnet.run(batch, RESNET_IMAGE, RESNET_STEPS, layout,
+                                 stall=False)
         results[layout] = r
         log(f"  (iii) bench_resnet.run {layout} B={batch}: loss "
             f"{[round(v, 4) for v in r['losses']]} (2 warm-up + "
@@ -1650,7 +1675,7 @@ def phase_trainer(dev, card, rtc_kernels):
     results = {}
     for path in ("gluon", "captured", "sharded"):
         r = bench_resnet.run(RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS,
-                             "NCHW", path=path)
+                             "NCHW", path=path, stall=False)
         results[path] = r
         log(f"  (iii) {path}: loss {[round(v, 4) for v in r['losses']]} "
             f"(2 warm-up + {RESNET_STEPS} timed); {r['ms_per_step']:.2f} ms "
@@ -1838,33 +1863,29 @@ def profile_steps(step, steps, what, card, top=12, families=FAMILIES,
 
 def _kernel_counts(step, steps=1):
     """The port's kernels the device ran over ``steps`` calls of ``step``,
-    by wrapper name, counted from torch.profiler's kernel events (a CUDA
-    graph's replay launches kernels no wrapper sees)."""
-    import torch
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    by wrapper name, counted from torch.profiler's kernel records (a CUDA
+    graph's replay launches kernels no wrapper sees) in a trace that
+    fences show held the steps whole: a trace can drop its first records,
+    a replay's first kernels among them (``tools/trace_edges.py``)."""
+    from mxnet_tpu_torch.tools.trace_edges import kernel_records
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    def steps_fn():
         for _ in range(steps):
             step()
-        torch.cuda.synchronize()
+
+    events = kernel_records(steps_fn)
+    if not events:
+        raise AssertionError("torch.profiler recorded no device kernels")
     frags = (("flash_fwd", "flash_attention_fwd"),
              ("flash_dq", "flash_attention_dq"),
              ("flash_dkv", "flash_attention_dkv"),
              ("scale2", "rtc_scale2"), ("axpy", "rtc_axpy"))
     got = {name: 0 for _f, name in frags}
-    seen = 0
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        seen += evt.count
-        key = evt.key.lower()
+    for evt in events:
+        key = evt.name.lower()
         for frag, name in frags:
             if frag in key:
-                got[name] += evt.count
-    if not seen:
-        raise AssertionError("torch.profiler recorded no device kernels")
+                got[name] += 1
     return {k: v // steps for k, v in got.items()}
 
 
@@ -2062,7 +2083,7 @@ def phase_gluon_transformers(dev, card, rtc_kernels):
         if ran != dict(dict.fromkeys(_counts(), L), rtc_scale2=0,
                        rtc_axpy=0):
             raise AssertionError(f"a {path} BERT step did not run each "
-                                 f"flash kernel once per layer")
+                                 f"flash kernel once per layer: {ran}")
         if path == "gluon":
             launches["bert_gluon_train_step"] = counted
         elif path == "captured":
@@ -2553,6 +2574,514 @@ def phase_rtc(dev, card, s2, ax):
             "host_us": host_us, "pack_us": pack_us}
 
 
+# -- [12] the input path -------------------------------------------------------
+# (i) bitwise delivery: INPUT_N uint8 (32, 32, 3) images and int32 labels in
+# batches of INPUT_BATCH through three loaders at depths 0 and 2; before
+# reading each batch the consumer's stream sleeps INPUT_SLEEP cycles (~2.5 ms
+# at the H100's 1.98 GHz), so the producer runs ahead and the three-slot
+# ring wraps ten times an epoch.
+INPUT_N, INPUT_BATCH, INPUT_SLEEP = 1024, 32, 5_000_000
+# (iv) GPT-2 small, full width, B=8, T=1024, bf16, fed by the DataLoader
+GPT_INPUT_BATCH, GPT_INPUT_STEPS, GPT_INPUT_LR = 8, 3, 6e-4
+
+
+def _trace_events(prof, name):
+    """The events of a torch.profiler run, from its chrome trace (written
+    under build/): the trace holds every copy, where ``key_averages()``
+    may miss some."""
+    import json as _json
+
+    out = Path(__file__).resolve().parent / "build"
+    out.mkdir(exist_ok=True)
+    path = out / f"{name}_trace.json"
+    prof.export_chrome_trace(str(path))
+    events = _json.loads(path.read_text())["traceEvents"]
+    path.unlink()
+    return events
+
+
+def _delivery(dev, kind, depth, ds, img, lab):
+    """[12](i) one loader kind at one depth: every batch read back after a
+    sleep on the consumer's stream equals the host's bytes; returns the
+    batches and the seconds."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.gluon.data import DataLoader, DevicePrefetcher
+
+    kw = {"threads": dict(num_workers=2),
+          "processes": dict(num_workers=2, thread_pool=False),
+          "pinned": dict(num_workers=2, pin_memory=True)}[kind]
+    loader = DataLoader(ds, batch_size=INPUT_BATCH, **kw)
+    held_x = torch.empty(img.shape, dtype=torch.uint8, device=dev)
+    held_y = torch.empty(lab.shape, dtype=torch.int32, device=dev)
+    n = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, (x, y) in enumerate(DevicePrefetcher(loader, depth=depth)):
+        if x._data.device != dev or y._data.device != dev:
+            raise AssertionError(f"batch {i} landed on {x.context}")
+        torch.cuda._sleep(INPUT_SLEEP)
+        sl = slice(i * INPUT_BATCH, (i + 1) * INPUT_BATCH)
+        held_x[sl].copy_(x._data)
+        held_y[sl].copy_(y._data)
+        del x, y
+        n += 1
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    ok = bool(np.array_equal(held_x.cpu().numpy(), img)) and \
+        bool(np.array_equal(held_y.cpu().numpy(), lab))
+    return n, ok, secs
+
+
+#: a marker copy of this many bytes (plus the case's index) opens each
+#: case of [12](i) in the one trace they share
+MARK_BYTES = 1000
+
+
+def _delivery_data():
+    import numpy as np
+
+    rng = np.random.RandomState(SEED + 70)
+    img = rng.randint(0, 256, (INPUT_N, 32, 32, 3)).astype(np.uint8)
+    lab = rng.randint(0, 1000, INPUT_N).astype(np.int32)
+    return img, lab
+
+
+def delivery_check(dev=None):
+    """[12](i), run by ``phase_input`` in a process of its own: every
+    loader kind at depths 0 and 2."""
+    import torch
+
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon.data import ArrayDataset
+
+    from torch.profiler import ProfilerActivity, profile
+
+    dev = dev or torch.device("cuda", 0)
+    img, lab = _delivery_data()
+    ds = ArrayDataset(img, lab)
+    cases = [(k, d) for k in ("threads", "processes", "pinned")
+             for d in (0, 2)]
+    runs = []
+    torch.cuda.synchronize()
+    # one trace for every case: in a process that has opened several,
+    # torch.profiler's trace lost some copy records
+    with context_of(dev), profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)     # the trace drops what runs as it starts
+        for i, (kind, depth) in enumerate(cases + [(None, None)]):
+            torch.ones(MARK_BYTES + i, dtype=torch.uint8).to(dev)
+            torch.cuda.synchronize()
+            if kind is not None:
+                runs.append(_delivery(dev, kind, depth, ds, img, lab))
+    h2d = sorted((e for e in _trace_events(prof, "input_delivery")
+                  if e.get("cat") == "gpu_memcpy"
+                  and "HtoD" in e.get("name", "")), key=lambda e: e["ts"])
+    marks = [j for j, e in enumerate(h2d)
+             if e["args"].get("bytes", 0) - MARK_BYTES in range(len(cases)
+                                                                 + 1)]
+    nb = -(-INPUT_N // INPUT_BATCH)
+    bad = len(marks) != len(cases) + 1
+    for i, ((kind, depth), (n, ok, secs)) in enumerate(zip(cases, runs)):
+        kinds = {}
+        for e in (h2d[marks[i] + 1:marks[i + 1]] if not bad else []):
+            kinds[e["name"]] = kinds.get(e["name"], 0) + 1
+        per_batch = sum(kinds.values()) / max(n, 1)
+        log(f"  (i) {kind:9s} depth {depth}: {n} batches of {INPUT_BATCH}, "
+            f"bitwise {ok}; host-to-device copies a batch {per_batch:g} "
+            f"(arrays a batch: 2; {kinds}); {secs:.2f} s")
+        bad = bad or not (n == nb and ok and per_batch == 2)
+    for depth in (0, 2):
+        n, ok = _card_samples(dev, img, lab, depth)
+        log(f"  (i) card samples depth {depth}: a dataset on the card through "
+            f"ToTensor behind a sleep on the worker's stream, {n} batches of "
+            f"{INPUT_BATCH}, bitwise {ok}")
+        bad = bad or not (n == CARD_SAMPLES // INPUT_BATCH and ok)
+    if bad:
+        raise AssertionError("[12](i) a loader delivered wrong batches or "
+                             f"copies ({len(marks)} markers in the trace)")
+
+
+#: [12](i)'s samples held on the card, and the cycles each sample's
+#: transform sleeps first (~2.5 ms at 1.98 GHz)
+CARD_SAMPLES, CARD_SLEEP = 256, 5_000_000
+
+
+def _card_samples(dev, img, lab, depth):
+    """[12](i) a dataset on the card, transformed by
+    ``vision.transforms.ToTensor`` in two worker threads behind a sleep on
+    their stream: the prefetcher must stack each batch after the
+    transform's kernels; bitwise against ToTensor of the whole array."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon.data import (ArrayDataset, DataLoader,
+                                            DevicePrefetcher)
+    from mxnet_tpu_torch.gluon.data.vision import transforms
+
+    ctx = context_of(dev)
+    img, lab = img[:CARD_SAMPLES], lab[:CARD_SAMPLES]
+    to_tensor = transforms.ToTensor()
+    want = to_tensor(nd.array(img, ctx=ctx, dtype="uint8")).asnumpy()
+
+    def slow_to_tensor(x):
+        torch.cuda._sleep(CARD_SLEEP)
+        return to_tensor(x)
+
+    ds = ArrayDataset(nd.array(img, ctx=ctx, dtype="uint8"), lab) \
+        .transform_first(slow_to_tensor)
+    xs, ys = [], []
+    with ctx:
+        for x, y in DevicePrefetcher(DataLoader(ds, batch_size=INPUT_BATCH,
+                                                num_workers=2), depth=depth):
+            xs.append(x.asnumpy())
+            ys.append(y.asnumpy())
+    ok = bool(np.array_equal(np.concatenate(xs), want)) and \
+        bool(np.array_equal(np.concatenate(ys), lab))
+    return len(xs), ok
+
+
+def _intervals_union(iv):
+    out = []
+    for a, b in sorted(iv):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def _overlap(iv, union):
+    tot = 0.0
+    for a, b in iv:
+        for c, d in union:
+            tot += max(0.0, min(b, d) - max(a, c))
+    return tot
+
+
+def _copy_overlap(step, steps, what, card, start=None):
+    """torch.profiler (every thread) over ``steps`` calls of ``step``: the
+    prefetcher's host-to-device copies (those on a stream that runs no
+    kernel) against the step's kernels, the h2d_prefetch spans, and the
+    device's busy share.  ``start``, when given, runs inside the trace
+    before the clock starts (it starts a prefetcher, so the window opens
+    on an empty ring, as a timed loop's does)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch import profiler as mxprof
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 **mxprof.all_threads()) as prof:
+        time.sleep(0.2)     # the trace drops what runs as it starts
+        if start is not None:
+            start()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            step()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = _trace_events(prof, "input_overlap")
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    kstreams = {e["args"].get("stream") for e in kernels}
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e.get("name", "")]
+    copies = [e for e in h2d if e["args"].get("stream") not in kstreams]
+    spans = [e for e in events if e.get("name") == "h2d_prefetch"
+             and e.get("cat") in ("user_annotation", "cpu_op")]
+    kern = _intervals_union([(e["ts"], e["ts"] + e["dur"])
+                             for e in kernels])
+    civ = [(e["ts"], e["ts"] + e["dur"]) for e in copies]
+    copy_ms = sum(b - a for a, b in civ) / 1e3
+    over_ms = _overlap(civ, kern) / 1e3
+    busy = sum(b - a for a, b in _intervals_union(
+        [(e["ts"], e["ts"] + e["dur"]) for e in kernels + h2d])) / 1e3
+    log(f"  {what}: {len(copies)} prefetch copies on stream(s) "
+        f"{sorted({e['args'].get('stream') for e in copies})} "
+        f"({len(h2d) - len(copies)} other host-to-device copies, on the "
+        f"kernels' stream(s) {sorted(kstreams)}); prefetch copies "
+        f"{copy_ms:.3f} ms, of which {over_ms:.3f} ms overlap the step's "
+        f"kernels ({'yes' if over_ms > 0 else 'no'}); {len(spans)} "
+        f"h2d_prefetch spans; wall {wall / steps:.3f} ms a step, device "
+        f"busy {busy / steps:.3f} ms a step, busy share {busy / wall:.3f}"
+        f"  [{card}]")
+    return {"copies": len(copies), "copy_ms": copy_ms, "overlap_ms": over_ms,
+            "busy_share": busy / wall, "h2d_prefetch_spans": len(spans)}
+
+
+def phase_input(dev, card, rtc_kernels):
+    """[12] The input path on the card: (i) bitwise delivery through every
+    transport and depth; (ii) ResNet-50 v1 at bench_resnet's configuration
+    fed by the prefetcher; (iii) the JPEG pipeline where a codec exists;
+    (iv) GPT-2 small trained from a DataLoader over the repo's Markdown;
+    (v) records and the resumable loader.  Returns the kernel launches of
+    each path's step and the numbers of (ii)-(iv)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import _native, recordio
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon.data import (DataLoader, DevicePrefetcher,
+                                            RecordFileDataset)
+    from mxnet_tpu_torch.tools import bench_resnet
+
+    root = Path(__file__).resolve().parent
+    ctx = context_of(dev)
+    res, launches = {}, {}
+
+    # (i) bitwise delivery, every transport at depths 0 and 2, in a
+    # process of its own: in a process that had traced the earlier phases,
+    # torch.profiler's trace lost some copy records (6 of 64 in one run)
+    r = subprocess.run([sys.executable, "-c",
+                        "import chip_smoke; chip_smoke.delivery_check()"],
+                       cwd=str(root), capture_output=True, text=True,
+                       timeout=600)
+    for line in r.stdout.splitlines():
+        log(line)
+    if r.returncode != 0:
+        log(r.stderr[-4000:])
+        raise AssertionError("[12](i) delivery check failed")
+    img, _ = _delivery_data()
+
+    # (ii) ResNet-50 through the captured train_step, fed as bench.py feeds
+    with ctx:
+        step, x, y = bench_resnet.stepper("captured", RESNET_BATCH,
+                                          RESNET_IMAGE, "NCHW", dev)
+        prev = torch.backends.cudnn.benchmark
+        torch.backends.cudnn.benchmark = True
+        try:
+            warm = [float(step(x, y)) for _ in range(2)]
+            stall, stall_sync = bench_resnet.stall_shares(
+                step, y, RESNET_BATCH, RESNET_IMAGE, "NCHW", dev,
+                RESNET_STEPS)
+            it = iter(DevicePrefetcher(bench_resnet.host_batches(
+                RESNET_BATCH, RESNET_IMAGE, "NCHW", y, RESNET_STEPS + 1),
+                depth=2))
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            outs = []
+            for _ in range(RESNET_STEPS):
+                xb, yb = next(it)
+                outs.append(step(xb, yb))
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            losses = [float(o) for o in outs]
+            _zero_counts()
+            _rtc_zero(rtc_kernels)
+            step(*next(it))
+            torch.cuda.synchronize()
+            launches["input_path_resnet_train_step"] = dict(
+                _counts(), **_rtc_counts(rtc_kernels))
+            it.close()
+            # the timed loop's window again under the profiler: a fresh
+            # prefetcher, its ring empty as the clock starts, over as many
+            # steps, so the busy share is the producer-bound loop's
+            fed = {}
+
+            def start():
+                fed["it"] = iter(DevicePrefetcher(bench_resnet.host_batches(
+                    RESNET_BATCH, RESNET_IMAGE, "NCHW", y, RESNET_STEPS),
+                    depth=2))
+
+            ov = _copy_overlap(lambda: step(*next(fed["it"])), RESNET_STEPS,
+                               f"(ii) {RESNET_STEPS} prefetched captured "
+                               "steps from an empty ring", card, start=start)
+            # the same with the host work done ahead: the producer only
+            # stages and copies, so the copies land inside the steps
+            xb0 = next(bench_resnet.host_batches(
+                RESNET_BATCH, RESNET_IMAGE, "NCHW", y, 1))[0]
+            ready = iter(DevicePrefetcher(
+                ((xb0, y) for _ in range(8)), depth=2))
+            step(*next(ready))
+            ov_ready = _copy_overlap(lambda: step(*next(ready)), 3,
+                                     "(ii) the same, host work done ahead",
+                                     card)
+        finally:
+            torch.backends.cudnn.benchmark = prev
+    sps = RESNET_BATCH * RESNET_STEPS / dt
+    res["resnet"] = dict(data_stall_share=stall,
+                         data_stall_share_sync=stall_sync,
+                         samples_per_sec=sps, ms_per_step=dt / RESNET_STEPS
+                         * 1e3, overlap_ms_host_ahead=ov_ready["overlap_ms"],
+                         **ov)
+    log(f"  (ii) ResNet-50 v1 B={RESNET_BATCH} {RESNET_IMAGE}x{RESNET_IMAGE} "
+        f"bf16 NCHW, captured train_step fed by DevicePrefetcher "
+        f"(normalize_flip_batch_np, host bf16 cast): data_stall_share "
+        f"{stall} (depth 2), data_stall_share_sync {stall_sync} (depth 0); "
+        f"{sps:.1f} samples/s, {dt / RESNET_STEPS * 1e3:.2f} ms a step over "
+        f"{RESNET_STEPS} prefetched steps; losses {warm + losses[:3]}...; "
+        f"busy share {ov['busy_share']:.3f}; launches "
+        f"{launches['input_path_resnet_train_step']}  [{card}]")
+    if not (all(np.isfinite(warm + losses)) and ov["copies"] >= 1
+            and ov["h2d_prefetch_spans"] >= 1 and ov_ready["overlap_ms"] > 0
+            and not any(launches["input_path_resnet_train_step"].values())):
+        raise AssertionError(f"[12](ii) ResNet input path: {res['resnet']}")
+    del step, x, y, it, fed, outs, ready, xb0
+    torch.cuda.empty_cache()
+
+    # (iii) the JPEG input pipeline, where a codec exists
+    try:
+        import PIL  # noqa: F401
+        codec = True
+    except ImportError:
+        codec = False
+    log(f"  (iii) codecs: PIL {'installed' if codec else 'not installed'}; "
+        f"native libjpeg path (src/libmxtpu_img.so) "
+        f"{'built' if _native.has_jpeg() else 'not built'}")
+    if codec:
+        from mxnet_tpu_torch.tools import bench_input_pipeline
+
+        pipe = bench_input_pipeline.run(device=dev)
+        res["jpeg"] = pipe
+        log(f"  (iii) input_pipeline_imgs_per_sec {pipe['value']:.1f} "
+            f"(legacy per-sample batchify {pipe['legacy_ips']:.1f}, speedup "
+            f"{pipe['speedup']:.3f}), stall share prefetch "
+            f"{pipe['stall_share_prefetch']} sync "
+            f"{pipe['stall_share_sync']}, codec {pipe['codec']}  [{card}]")
+    else:
+        log("  (iii) not run: no image codec is installed on this host")
+
+    # (iv) GPT-2 small trained from a DataLoader over the repo's Markdown
+    launches["input_path_gpt_train_step"], res["gpt"] = _gpt_from_loader(
+        dev, card, root, rtc_kernels)
+
+    # (v) records written with recordio.pack, read back, and the resumable
+    # loader stopped mid-epoch and restored
+    rec_dir = root / "build" / "input_records"
+    rec_dir.mkdir(parents=True, exist_ok=True)
+    rec, idx = str(rec_dir / "raw.rec"), str(rec_dir / "raw.idx")
+    w = recordio.MXIndexedRecordIO(idx, rec, "w")
+    packed = []
+    for i in range(256):
+        packed.append(recordio.pack(recordio.IRHeader(0, float(i), i, 0),
+                                    img[i].tobytes()))
+        w.write_idx(i, packed[-1])
+    w.close()
+    r = recordio.MXIndexedRecordIO(idx, rec, "r")
+    same_idx = all(r.read_idx(i) == packed[i] for i in range(256))
+    r.close()
+    rds = RecordFileDataset(rec)
+    same_ds = all(rds[i] == packed[i] for i in range(len(rds)))
+
+    def decode(raw):
+        hdr, payload = recordio.unpack(raw)
+        return (np.frombuffer(payload, np.uint8).reshape(32, 32, 3),
+                np.int32(hdr.id))
+
+    dec = rds.transform(decode)
+    with ctx:
+        got = list(DevicePrefetcher(DataLoader(dec, batch_size=INPUT_BATCH,
+                                               num_workers=2), depth=2))
+    same_card = bool(np.array_equal(
+        np.concatenate([b[0].asnumpy() for b in got]), img[:256]))
+    seen = []
+    with ctx:
+        first = DevicePrefetcher(DataLoader(dec, batch_size=16,
+                                            shuffle=True, seed=7,
+                                            num_workers=2), depth=2)
+        itr = iter(first)
+        for _ in range(5):
+            seen.extend(next(itr)[1].asnumpy().tolist())
+        sd = first.state_dict()
+        first.close()
+        again = DevicePrefetcher(DataLoader(dec, batch_size=16, shuffle=True,
+                                            seed=0, num_workers=2), depth=2)
+        again.load_state_dict(sd)
+        for b in again:
+            seen.extend(b[1].asnumpy().tolist())
+    once = sorted(seen) == list(range(256))
+    log(f"  (v) 256 raw records (recordio.pack) read back bitwise through "
+        f"MXIndexedRecordIO {same_idx} and RecordFileDataset {same_ds}, "
+        f"through DataLoader and DevicePrefetcher to the card {same_card}; "
+        f"a seed= loader stopped after 80 samples (cursor {sd['cursor']}), "
+        f"restored, delivered the other {len(seen) - 80}: every sample "
+        f"exactly once {once}")
+    if not (same_idx and same_ds and same_card and once
+            and sd["cursor"] == 80):
+        raise AssertionError("[12](v) records or the resumable loader")
+    return launches, res
+
+
+def _rtc_zero(rtc_kernels):
+    for k in rtc_kernels:
+        k.launches = 0
+
+
+def _rtc_counts(rtc_kernels):
+    return dict(zip(("rtc_scale2", "rtc_axpy"),
+                    (k.launches for k in rtc_kernels)))
+
+
+def _gpt_from_loader(dev, card, root, rtc_kernels):
+    """[12](iv) GPT-2 small (full width, bf16, flash trunk) trained by
+    gluon.Trainer.train_step on batches of a DataLoader over
+    CharTokenDataset (the repo's Markdown files, T=1024) with an
+    IntervalSampler, through DevicePrefetcher.  Returns the kernel
+    launches of each step (all equal) and the numbers."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import gluon, random as mxrandom
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon.contrib.data import (CharTokenDataset,
+                                                    IntervalSampler)
+    from mxnet_tpu_torch.gluon.data import DataLoader, DevicePrefetcher
+    from mxnet_tpu_torch.gluon.model_zoo import gpt
+
+    ctx = context_of(dev)
+    B, T = GPT_INPUT_BATCH, TRAIN_SHAPE[2]
+    corpus = root / "build" / "input_corpus.txt"
+    corpus.parent.mkdir(exist_ok=True)
+    corpus.write_text("\n".join(p.read_text(encoding="utf-8")
+                                for p in sorted(root.glob("*.md"))),
+                      encoding="utf-8")
+    ds = CharTokenDataset(str(corpus), seq_len=T)
+    with ctx:
+        loader = DataLoader(ds, batch_size=B, last_batch="discard",
+                            sampler=IntervalSampler(len(ds), len(ds) // B),
+                            num_workers=2)
+        mxrandom.seed(SEED + 80)
+        model = gpt.gpt2_small(scan_layers=True, attention_impl="flash",
+                               dropout=0.0)
+        model.cast("bfloat16")
+        trainer = gluon.Trainer(model.collect_params(), "adamw",
+                                {"learning_rate": GPT_INPUT_LR, "wd": 0.01,
+                                 "multi_precision": True})
+        loss_fn = gpt.GPTLMLoss()
+        losses, per_step = [], []
+        it = iter(DevicePrefetcher(loader, depth=2))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(GPT_INPUT_STEPS):
+            xb, _yb = next(it)
+            _zero_counts()
+            _rtc_zero(rtc_kernels)
+            losses.append(float(trainer.train_step(model, loss_fn, xb,
+                                                   xb).mean().asnumpy()))
+            per_step.append(dict(_counts(), **_rtc_counts(rtc_kernels)))
+        dt = time.perf_counter() - t0
+    L = 12
+    log(f"  (iv) GPT-2 small bf16 flash, B={B}, T={T}, gluon.Trainer "
+        f"train_step (AdamW lr {GPT_INPUT_LR}) on DataLoader(CharTokenDataset"
+        f"({len(ds)} windows of the repo's Markdown, vocabulary "
+        f"{len(ds.vocab)}), IntervalSampler) through DevicePrefetcher: "
+        f"losses {[round(v, 4) for v in losses]}, {dt / GPT_INPUT_STEPS * 1e3:.2f} "
+        f"ms a step (first included); launches a step {per_step}  [{card}]")
+    flash = ("flash_attention_fwd", "flash_attention_dq",
+             "flash_attention_dkv")
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and all(c[k] == L for c in per_step for k in flash)):
+        raise AssertionError(f"[12](iv) GPT input path: {losses}, {per_step}")
+    del model, trainer, it
+    torch.cuda.empty_cache()
+    return per_step[-1], {"losses": losses, "ms_per_step":
+                          dt / GPT_INPUT_STEPS * 1e3}
+
+
 def main():
     import torch
 
@@ -2642,6 +3171,13 @@ def main():
         "ShardedTrainer, remat, LoRA, ViT-B/16 training")
     gluon_launches, gluon_res = phase_gluon_transformers(dev, card,
                                                          (s2, ax))
+
+    log("[12] the input path: DataLoader and DevicePrefetcher (pinned "
+        "staging, its own copy stream) bitwise through every transport "
+        "and depth, ResNet-50 v1 and GPT-2 small trained from it, the "
+        "JPEG pipeline, records and the resumable loader")
+    input_launches, input_res = phase_input(dev, card, (s2, ax))
+    gluon_launches.update(input_launches)
 
     T0, Tb, Tv = TRAIN_SHAPE[2], BERT_SHAPE[2], VIT_SHAPE[2]
     sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
@@ -2752,6 +3288,12 @@ def main():
         f"{gluon_res['gluon']['ms_per_step']:.2f} ms eager, "
         f"{gluon_res['captured']['ms_per_step']:.2f} ms captured, "
         f"{gluon_res['sharded']['ms_per_step']:.2f} ms ShardedTrainer; "
+        f"input path: ResNet-50 data_stall_share "
+        f"{input_res['resnet']['data_stall_share']:.4f}, sync "
+        f"{input_res['resnet']['data_stall_share_sync']:.4f}, "
+        f"{input_res['resnet']['samples_per_sec']:.1f} samples/s fed by "
+        f"the prefetcher; GPT-2 from the DataLoader "
+        f"{input_res['gpt']['ms_per_step']:.2f} ms a step; "
         f"forward O max abs err at BERT's "
         f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")

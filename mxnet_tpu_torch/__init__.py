@@ -20,9 +20,12 @@ from . import numerics, optimizer
 from . import kvstore
 from . import kvstore as kv
 from . import amp, convert, gluon, metric, parallel, serving
+from . import profiler, recordio, resilience, telemetry
+from . import callback, image, io
 
-__all__ = ["Context", "MXNetError", "amp", "autograd", "base", "context",
-           "convert", "cpu", "current_context", "engine", "gluon", "gpu",
-           "init", "initializer", "kv", "kvstore", "metric", "name", "nd",
-           "ndarray", "num_gpus", "numerics", "ops", "optimizer", "parallel",
-           "random", "rtc", "serving"]
+__all__ = ["Context", "MXNetError", "amp", "autograd", "base", "callback",
+           "context", "convert", "cpu", "current_context", "engine", "gluon",
+           "gpu", "image", "init", "initializer", "io", "kv", "kvstore",
+           "metric", "name", "nd", "ndarray", "num_gpus", "numerics", "ops",
+           "optimizer", "parallel", "profiler", "random", "recordio",
+           "resilience", "rtc", "serving", "telemetry"]

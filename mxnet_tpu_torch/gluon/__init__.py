@@ -1,6 +1,7 @@
 """Gluon: ``Parameter``, ``Block``, the ``nn`` layers, the losses, the
-``Trainer`` with its whole-step capture, the utilities, LoRA (``contrib``)
-and the model zoo
+``Trainer`` with its whole-step capture, the utilities, the input path
+(``data``), LoRA and the contrib data utilities (``contrib``) and the
+model zoo
 (counterpart of ``mxnet_tpu/gluon/``)."""
 
 from . import block, loss, nn, parameter, utils
@@ -9,4 +10,4 @@ from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
 from . import captured, trainer
 from .trainer import Trainer
-from . import contrib, model_zoo
+from . import contrib, data, model_zoo

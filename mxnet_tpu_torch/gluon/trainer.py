@@ -13,10 +13,13 @@ the grouped multi-tensor one
 (``optimizer.GroupedUpdater``), guarded by ``numerics.StepGuard`` unless
 ``MXTPU_GRAD_GUARD=0``; ``MXTPU_FUSED_STEP=0`` restores the legacy
 per-parameter loop.  ``step`` refuses a gradient that no ``backward`` has
-written since the last step, unless ``ignore_stale_grad``.  The
-integrity plane, the resumable data pipeline and the autotune consult
-come with their slices: ``attach_integrity`` and ``attach_data_pipeline``
-raise ``NotImplementedError``.
+written since the last step, unless ``ignore_stale_grad``.
+``attach_data_pipeline`` takes a resumable input pipeline: each guarded
+step hands the divergence monitor the id of the batch just delivered.
+The integrity plane, the monitor's rollback of the pipeline and the
+autotune consult come with the production planes: ``attach_integrity``
+raises ``NotImplementedError``, and so does attaching a pipeline to a
+trainer that has a divergence monitor.
 """
 
 from __future__ import annotations
@@ -69,6 +72,7 @@ class Trainer:
         self._clip_global_norm = None if clip_global_norm is None \
             else float(clip_global_norm)
         self.divergence_monitor = None
+        self._data_pipeline = None
         self.skipped_steps = []
         self._step_count = 0
 
@@ -262,9 +266,28 @@ class Trainer:
                 self._updaters[0](i, g, w)
 
     def attach_data_pipeline(self, pipeline):
-        raise NotImplementedError("Trainer.attach_data_pipeline: the "
-                                  "resumable input pipeline comes with the "
-                                  "input-path slice")
+        """Attach a resumable input pipeline (a ``DataLoader`` built with
+        ``seed=``, or a ``DevicePrefetcher`` wrapping one): each guarded
+        step then passes the just-delivered batch id to the divergence
+        monitor.  Wiring the monitor's rollback to rewind the pipeline
+        comes with the production planes (ROADMAP queue 1 item 9): with a
+        monitor attached this raises ``NotImplementedError``.  Returns
+        self."""
+        if self.divergence_monitor is not None:
+            raise NotImplementedError(
+                "Trainer.attach_data_pipeline: rewinding the pipeline on a "
+                "DivergenceMonitor rollback comes with the production "
+                "planes (ROADMAP queue 1 item 9)")
+        self._data_pipeline = pipeline
+        return self
+
+    def _batch_ids(self):
+        """[(epoch, batch_idx)] of the last-delivered batch, or None."""
+        p = self._data_pipeline
+        if p is None:
+            return None
+        bid = p.last_batch_id()
+        return None if bid is None else [bid]
 
     def attach_integrity(self, plane):
         raise NotImplementedError("Trainer.attach_integrity: the integrity "
@@ -301,7 +324,8 @@ class Trainer:
         if not guard.skip:
             if monitor is not None:
                 monitor.observe(step=self._step_count,
-                                grad_norm=guard.grad_norm, healthy=True)
+                                grad_norm=guard.grad_norm, healthy=True,
+                                batch_indices=self._batch_ids())
             return
         healthy = guard.healthy
         if not healthy:
@@ -318,7 +342,8 @@ class Trainer:
             self._scale = 1.0 / scaler.loss_scale
         if monitor is not None:
             monitor.observe(step=self._step_count,
-                            grad_norm=guard.grad_norm, healthy=healthy)
+                            grad_norm=guard.grad_norm, healthy=healthy,
+                            batch_indices=self._batch_ids())
 
     # -- optimizer states ------------------------------------------------------
 

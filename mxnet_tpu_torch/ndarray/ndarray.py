@@ -404,3 +404,41 @@ def _unpickle_ndarray(np_data, dtype_name):
 
     t = torch.as_tensor(np_data).to(torch_dtype(dtype_name))
     return NDArray(t.to(context.current_context().device))
+
+
+#: the JAX package places host arrays in jax's 32-bit mode, so a 64-bit
+#: host array arrives on the device as its 32-bit counterpart; the input
+#: path (DataLoader, io, image) delivers the same dtypes
+_HOST_32 = {_np.dtype(_np.float64): _np.dtype(_np.float32),
+            _np.dtype(_np.int64): _np.dtype(_np.int32),
+            _np.dtype(_np.uint64): _np.dtype(_np.uint32),
+            _np.dtype(_np.complex128): _np.dtype(_np.complex64)}
+
+
+def host_dtype(dtype):
+    """The numpy dtype a host array of ``dtype`` is delivered in."""
+    dtype = _np.dtype(dtype)
+    return _HOST_32.get(dtype, dtype)
+
+
+def from_host(arr, ctx=None, own=False):
+    """A host array (numpy, or a CPU tensor) as an NDArray on ``ctx``
+    (default ``current_context()``), in ``host_dtype``: one copy to the
+    card, or on the host one copy unless ``own`` says the caller hands
+    over a buffer nothing else holds."""
+    from ..context import current_context
+
+    ctx = ctx or current_context()
+    if isinstance(arr, torch.Tensor):
+        t = arr
+    else:
+        arr = _np.asarray(arr)
+        want = host_dtype(arr.dtype)
+        if want != arr.dtype:
+            arr, own = arr.astype(want), True
+        if not arr.flags.writeable or any(st < 0 for st in arr.strides):
+            arr, own = arr.copy(), True
+        t = torch.from_numpy(arr)
+    if ctx.device_type == "cpu":
+        return NDArray(t if own else t.clone(), ctx)
+    return NDArray(t.to(ctx.device), ctx)

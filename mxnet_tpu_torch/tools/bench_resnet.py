@@ -8,8 +8,9 @@ timing.
 prints one JSON line: ``metric`` ``resnet50_train_samples_per_sec_per_chip``,
 ``impl`` ``torch``, ``value`` (samples/s), the final ``loss`` and the whole
 trajectory, ``ms_per_step``, ``mfu``, ``peak_mem_gib``, the layout and
-batch, ``path``, ``cudnn_benchmark`` (true), and the card's name and power
-limit as ``nvidia-smi`` reads them.
+batch, ``path``, ``cudnn_benchmark`` (true), the card's name and power
+limit as ``nvidia-smi`` reads them, and ``data_stall_share`` and
+``data_stall_share_sync``.
 
 The path: ``resnet50_v1(classes=1000, layout=layout)``,
 ``initialize(init=Xavier())`` (drawn from seed 0), ``cast("bfloat16")``, and
@@ -29,8 +30,15 @@ Both hybridize the net.  The timing is
 ``torch.backends.cudnn.benchmark`` is this tool's setting: on for the
 run (cuDNN picks each convolution's algorithm by timing it in the
 warm-up steps) and restored after; the library never sets it.
-``bench_resnet``'s data-stall share needs the input prefetcher, which is
-not ported: it is left out.
+
+``data_stall_share`` and ``data_stall_share_sync`` are ``bench_resnet``'s
+(``bench.py:2146-2199``): the same step driven by a host pipeline —
+``image.normalize_flip_batch_np`` on a uint8 (N, H, W, 3) batch, the
+bf16 cast on the host with torch (so bf16 bytes cross PCIe), and
+``DevicePrefetcher`` at depth 2 (pinned staging, its own copy stream)
+and at depth 0 (synchronous) — over ``max(4, steps // 2)`` steps each,
+every step ended by a readback: the share of wall time the loop waited
+in ``next()`` for its batch.  ``run(stall=False)`` leaves them out.
 
 MFU counts ``bench_resnet``'s FLOPs, 3 * 2 * 4.089e9 per 224x224 image
 scaled by (image / 224)^2, against the H100's dense bf16 tensor-core peak
@@ -43,6 +51,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import time
 
 import numpy as np
 import torch
@@ -121,46 +130,115 @@ def build_gluon(batch=256, image=224, layout="NCHW", device=None, seed=0):
             NDArray(y, ctx))
 
 
-def step_fn(path, batch=256, image=224, layout="NCHW", device=None):
-    """One training step of ``path`` as a closure returning the mean loss
-    (a 0-dim tensor or NDArray)."""
+def stepper(path, batch=256, image=224, layout="NCHW", device=None):
+    """``path``'s training step on a given batch and the bench's batch:
+    returns (step(x, y) -> mean loss, x, y), x and y NDArrays or tensors
+    (the sharded path takes tensors, the Gluon paths NDArrays)."""
     if path == "sharded":
         trainer, x, y = build(batch, image, layout, device)
-        return lambda: trainer.step(x, y)
+        return (lambda xb, yb: trainer.step(_tensor(xb), _tensor(yb)),
+                x, y)
     from .. import autograd
 
     net, trainer, loss_fn, x, y = build_gluon(batch, image, layout, device)
     if path == "captured":
-        return lambda: trainer.train_step(net, loss_fn, x, y).mean()
+        return (lambda xb, yb: trainer.train_step(net, loss_fn, xb,
+                                                  yb).mean(), x, y)
 
-    def eager():
+    def eager(xb, yb):
         with autograd.record():
-            loss = loss_fn(net(x), y)
+            loss = loss_fn(net(xb), yb)
         loss.backward()
         trainer.step(batch)
         return loss.mean()
 
-    return eager
+    return eager, x, y
+
+
+def _tensor(x):
+    return getattr(x, "_data", x)
+
+
+def step_fn(path, batch=256, image=224, layout="NCHW", device=None):
+    """One training step of ``path`` on the bench's batch, as a closure
+    returning the mean loss (a 0-dim tensor or NDArray)."""
+    step, x, y = stepper(path, batch, image, layout, device)
+    return lambda: step(x, y)
+
+
+def host_batches(batch, image, layout, y, nb, seed=0):
+    """``bench_resnet``'s host pipeline, ``nb`` batches: one uint8
+    (N, H, W, 3) batch through ``image.normalize_flip_batch_np`` (scale
+    1/255), laid out as ``layout``, cast to bf16 on the host; each yielded
+    with the labels ``y`` as they are."""
+    from .. import image as image_mod
+
+    u8 = np.random.RandomState(seed).randint(
+        0, 256, (batch, image, image, 3), dtype=np.uint8)
+    mean = np.zeros((3, 1, 1), np.float32)
+    std = np.ones((3, 1, 1), np.float32)
+    for _ in range(nb):
+        xb = image_mod.normalize_flip_batch_np(u8, None, 1.0 / 255, mean,
+                                               std)
+        if layout != "NCHW":
+            xb = np.ascontiguousarray(xb.transpose(0, 2, 3, 1))
+        yield torch.from_numpy(xb).to(getattr(torch, DTYPE)), y
+
+
+def stall_shares(step, y, batch, image, layout, device, steps, seed=0):
+    """``bench_resnet``'s data-stall shares (prefetch at depth 2, then
+    synchronous): ``step(x, y)`` fed ``host_batches`` through
+    ``DevicePrefetcher``; ``y`` (the labels, on the device) passes
+    through."""
+    from ..gluon.data import DevicePrefetcher
+
+    ctx = context.context_of(context.resolve(device))
+    nst = max(4, steps // 2)
+
+    def share(depth):
+        with ctx:
+            it = iter(DevicePrefetcher(
+                host_batches(batch, image, layout, y, nst, seed),
+                depth=depth))
+        stall = 0.0
+        t0 = time.perf_counter()
+        for _ in range(nst):
+            ts = time.perf_counter()
+            xb, yb = next(it)
+            stall += time.perf_counter() - ts
+            float(step(xb, yb))
+        return stall / (time.perf_counter() - t0)
+
+    return share(2), share(0)
 
 
 def run(batch=256, image=224, steps=10, layout="NCHW", device=None,
-        path="sharded"):
+        path="sharded", stall=True):
     """Build the bench's path, time ``steps`` training steps after two
-    warm-up steps, and return the result line as a dict."""
+    warm-up steps, and return the result line as a dict; with ``stall``,
+    then measure the data-stall shares on the same step."""
     if path not in PATHS:
         raise ValueError(f"bench_resnet: path must be one of {PATHS}")
     dev = context.resolve(device)
+    built = {}
 
     def build_step():
-        return step_fn(path, batch, image, layout, dev)
+        step, x, y = stepper(path, batch, image, layout, dev)
+        built.update(step=step, y=y)
+        return lambda: step(x, y)
 
     prev = torch.backends.cudnn.benchmark
     torch.backends.cudnn.benchmark = True
     try:
-        return measure(
+        res = measure(
             build_step, steps, dev, batch, flops_per_step(batch, image),
             metric=METRIC, unit="samples/sec/chip", batch=batch, image=image,
             layout=layout, dtype=DTYPE, path=path, cudnn_benchmark=True)
+        if stall:
+            res["data_stall_share"], res["data_stall_share_sync"] = \
+                stall_shares(built["step"], built["y"], batch, image, layout,
+                             dev, steps)
+        return res
     finally:
         torch.backends.cudnn.benchmark = prev
 
@@ -174,7 +252,8 @@ def main(argv=None):
     ap.add_argument("--path", default="sharded", choices=PATHS)
     args = ap.parse_args(argv)
     print(json.dumps(run(args.batch, args.image, args.steps, args.layout,
-                         path=args.path)), flush=True)
+                         path=args.path)),
+          flush=True)
 
 
 if __name__ == "__main__":

@@ -6,6 +6,8 @@ runs on a host without JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels_gpu.py -q
 """
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -626,3 +628,174 @@ def test_batch_norm_on_the_card_matches_the_host(layout, dtype):
         for a, b in zip(*res):
             scale = float(b.abs().max())
             assert float((a - b).abs().max()) <= 2 ** -7 * scale + 1e-6
+
+
+# -- the input path: DevicePrefetcher on the card ------------------------------
+
+def _loader_source(kind, n=96, batch=8):
+    """A uint8 image and int32 label dataset through ``kind``'s loader,
+    and the host's own collation of each batch."""
+    from mxnet_tpu_torch.context import cpu
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+
+    rng = np.random.RandomState(0)
+    img = rng.randint(0, 256, (n, 16, 16, 3)).astype(np.uint8)
+    lab = rng.randint(0, 1000, n).astype(np.int32)
+    want = [(img[i:i + batch], lab[i:i + batch]) for i in range(0, n, batch)]
+    if kind == "generator":
+        # host tensors, one of them bf16 (cast on the host)
+        src = [(torch.from_numpy(a), torch.from_numpy(b.astype(np.float32))
+                .to(torch.bfloat16)) for a, b in want]
+        want = [(a, b.float().numpy()) for a, b in src]
+        return iter(src), want
+    kw = {"threads": dict(num_workers=2),
+          "pinned": dict(num_workers=2, pin_memory=True)}[kind]
+    return DataLoader(ArrayDataset(img, lab), batch_size=batch, **kw), want
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+@pytest.mark.parametrize("kind", ["threads", "pinned", "generator"])
+def test_prefetched_batches_are_the_source_bitwise_when_the_ring_wraps(
+        kind, depth):
+    """A slow consumer (a sleep on its stream before each read) lets the
+    producer wrap the pinned ring many times; each batch, copied on the
+    consumer's stream after the sleep and then dropped, must still hold
+    the host's bytes (the slot ring's events and record_stream keep both
+    the staging and the device memory from reuse)."""
+    from mxnet_tpu_torch.gluon.data import DevicePrefetcher
+
+    dev = _card()
+    src, want = _loader_source(kind)
+    holders = [(torch.empty(a.shape, dtype=torch.uint8, device=dev),
+                torch.empty(b.shape, dtype=torch.float32, device=dev))
+               for a, b in want]
+    n = 0
+    for i, (x, y) in enumerate(DevicePrefetcher(src, depth=depth)):
+        assert x.context.device == dev
+        torch.cuda._sleep(20_000_000)        # ~10 ms of a slow step
+        holders[i][0].copy_(x._data)
+        holders[i][1].copy_(y._data.float())
+        del x, y
+        n += 1
+    torch.cuda.synchronize()
+    assert n == len(want)
+    for (hx, hy), (a, b) in zip(holders, want):
+        np.testing.assert_array_equal(hx.cpu().numpy(), a)
+        np.testing.assert_array_equal(hy.cpu().numpy(), b)
+
+
+@pytest.mark.parametrize("depth", [0, 2])
+@pytest.mark.parametrize("workers", [0, 2])
+def test_prefetcher_waits_for_samples_a_transform_writes_on_the_card(
+        workers, depth):
+    """A dataset held on the card, with ``vision.transforms.ToTensor``
+    behind a sleep on the fetching thread's stream (a loader worker's
+    transforms run on the default stream): each batch is stacked only
+    after the transform has written its samples, and the samples' memory
+    is not reused before the stack has read it.  Every batch is bitwise
+    the same transform run on the whole array."""
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon.data import (ArrayDataset, DataLoader,
+                                            DevicePrefetcher)
+    from mxnet_tpu_torch.gluon.data.vision import transforms
+
+    dev = _card()
+    ctx = context_of(dev)
+    rng = np.random.RandomState(1)
+    img = rng.randint(0, 256, (64, 16, 16, 3)).astype(np.uint8)
+    lab = rng.randint(0, 10, 64).astype(np.int32)
+    to_tensor = transforms.ToTensor()
+    want = to_tensor(nd.array(img, ctx=ctx, dtype="uint8")).asnumpy()
+
+    def slow_to_tensor(x):
+        torch.cuda._sleep(5_000_000)     # the stream busy ~2.5 ms first
+        return to_tensor(x)
+
+    ds = ArrayDataset(nd.array(img, ctx=ctx, dtype="uint8"), lab) \
+        .transform_first(slow_to_tensor)
+    loader = DataLoader(ds, batch_size=8, num_workers=workers)
+    got_x, got_y = [], []
+    with ctx:
+        for x, y in DevicePrefetcher(loader, depth=depth):
+            assert x.context.device == dev and y.context.device == dev
+            got_x.append(x.asnumpy())
+            got_y.append(y.asnumpy())
+    np.testing.assert_array_equal(np.concatenate(got_x), want)
+    np.testing.assert_array_equal(np.concatenate(got_y), lab)
+
+
+def _trace_events(prof, tmp_path):
+    import json
+
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        return json.load(f)["traceEvents"]
+
+
+def test_prefetcher_makes_one_copy_per_array_on_its_own_stream(tmp_path):
+    """torch.profiler counts the host-to-device copies of an epoch through
+    DevicePrefetcher(DataLoader(...)): one per array of each batch, all on
+    one stream that is not the consumer's."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from mxnet_tpu_torch.gluon.data import DevicePrefetcher
+
+    dev = _card()
+    loader, want = _loader_source("threads")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        time.sleep(0.2)     # the trace drops what runs as it starts
+        for x, y in DevicePrefetcher(loader, depth=2):
+            (x._data.float().sum() + y._data.sum()).item()
+        torch.cuda.synchronize()
+    events = _trace_events(prof, tmp_path)
+    h2d = [e for e in events if e.get("cat") == "gpu_memcpy"
+           and "HtoD" in e.get("name", "")]
+    assert len(h2d) == 2 * len(want), [e["name"] for e in h2d]
+    copy_streams = {e["args"]["stream"] for e in h2d}
+    step_streams = {e["args"]["stream"] for e in events
+                    if e.get("cat") == "kernel"}
+    assert len(copy_streams) == 1 and not copy_streams & step_streams
+    assert all("Pinned" in e["name"] for e in h2d), {e["name"] for e in h2d}
+
+
+def test_prefetcher_forwards_a_source_exception_on_the_card():
+    from mxnet_tpu_torch.gluon.data import DevicePrefetcher
+
+    _card()
+
+    def boom():
+        yield np.zeros((4, 4), np.float32)
+        raise RuntimeError("source exploded")
+
+    it = iter(DevicePrefetcher(boom(), depth=2))
+    assert next(it)._data.is_cuda
+    with pytest.raises(RuntimeError, match="source exploded"):
+        next(it)
+
+
+def test_fenced_trace_counts_every_kernel_of_a_graph_replay():
+    """tools.trace_edges.kernel_records over a CUDA graph's replay, traced
+    again and again: every flash forward the graph holds each time, and
+    no fence record among what it returns."""
+    from mxnet_tpu_torch.tools import trace_edges
+
+    dev = _card()
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn((1, 2, 256, 64), device=dev, generator=g)
+               for _ in range(3))
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        tflash.flash_attention(q, k, v, False)      # warm-up off the graph
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(4):
+            tflash.flash_attention(q, k, v, False)
+    for _ in range(8):
+        names = [e.name for e in trace_edges.kernel_records(graph.replay)]
+        assert sum("flash_fwd" in n for n in names) == 4, names
+        assert not any(trace_edges.FENCE_NAME in n for n in names)

@@ -82,6 +82,26 @@ TRAINER_MODULES = ("mxnet_tpu_torch.optimizer.optimizer",
                    "mxnet_tpu_torch.tools.bench_trainer")
 
 
+#: modules the input-path slice added; each must be walked and clean
+INPUT_MODULES = ("mxnet_tpu_torch._native", "mxnet_tpu_torch.resilience",
+                 "mxnet_tpu_torch.telemetry", "mxnet_tpu_torch.profiler",
+                 "mxnet_tpu_torch.recordio", "mxnet_tpu_torch.image",
+                 "mxnet_tpu_torch.io", "mxnet_tpu_torch.io.io",
+                 "mxnet_tpu_torch.callback",
+                 "mxnet_tpu_torch.gluon.data",
+                 "mxnet_tpu_torch.gluon.data.sampler",
+                 "mxnet_tpu_torch.gluon.data.state",
+                 "mxnet_tpu_torch.gluon.data.dataset",
+                 "mxnet_tpu_torch.gluon.data._shm_worker",
+                 "mxnet_tpu_torch.gluon.data.dataloader",
+                 "mxnet_tpu_torch.gluon.data.prefetcher",
+                 "mxnet_tpu_torch.gluon.data.vision.datasets",
+                 "mxnet_tpu_torch.gluon.data.vision.transforms",
+                 "mxnet_tpu_torch.gluon.contrib.data.sampler",
+                 "mxnet_tpu_torch.gluon.contrib.data.text",
+                 "mxnet_tpu_torch.tools.bench_input_pipeline")
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -96,6 +116,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert set(BERT_MODULES) <= walked, sorted(walked)
     assert set(RESNET_MODULES) <= walked, sorted(walked)
     assert set(TRAINER_MODULES) <= walked, sorted(walked)
+    assert set(INPUT_MODULES) <= walked, sorted(walked)
 
 
 def _imported_roots(path):

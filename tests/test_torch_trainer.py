@@ -323,8 +323,11 @@ def test_learning_rate_controls():
 def test_what_waits_for_later_slices():
     params = _adam_params(n=1)
     tr = tgluon.Trainer(params, "sgd", {"learning_rate": 0.1})
+    # the pipeline attaches; rewinding it on a monitor's rollback waits
+    monitored = tgluon.Trainer(params, "sgd", {"learning_rate": 0.1})
+    monitored.divergence_monitor = tmx.numerics.DivergenceMonitor()
     for call in (lambda: tr.attach_integrity(object()),
-                 lambda: tr.attach_data_pipeline(object()),
+                 lambda: monitored.attach_data_pipeline(object()),
                  lambda: tmx.kv.create("dist_sync"),
                  lambda: tgluon.Trainer(params, "sgd",
                                         compression_params={"type": "2bit"})):
