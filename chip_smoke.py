@@ -143,6 +143,30 @@ Phases; any failure raises, exits non-zero and prints no result line:
    written with recordio.pack read back through MXIndexedRecordIO,
    RecordFileDataset and the prefetcher bitwise, and a seed= loader
    stopped mid-epoch, restored and drained: every sample exactly once.
+13. The recommender path at bench_embedding's configuration
+   (bench.py:216-221, 2534-2643): ShardedEmbedding and Dense(1) in a
+   hybridized HybridSequential, Xavier from a seed, Adam at lr 1e-3, the
+   loss (out ** 2).sum(), zipf(1.3) ids; (a) vocab 4096 at batch 512,
+   (b) 2^24 rows at batch 8192 (4 GiB of table, 8 GiB of Adam states):
+   (i) at both, five captured train_steps against five of the eager
+   row-sparse oracle from the same state, bitwise in losses, weights and
+   both Adam states; untouched rows keep their bytes; one guard readback
+   a step (the ids, resident on the card, add one device-to-host read a
+   step); one recording a bucket; no sparse_fallback event; (ii) (a) card
+   against host, three steps, rtol 2e-4 / atol 2e-5 on the weights;
+   (iii) tools.bench_embedding.run's line at (a) and (b) with the peak
+   allocated memory ((b) under 13 GiB: no dense (2^24, 64) temporary),
+   then (b) with a dense-gradient Embedding for the record; (iv)
+   DevicePrefetcher(sparse_tables=net) at depth 2 feeding (a)'s captured
+   step: every prep popped once, lookup_us with and without it; (v)
+   nd.sparse.dot at 8192 x 1,000,000 (~15 nonzeros a row) and its
+   gradient, card against host, and three steps of
+   examples/linear_classification_libsvm.py's model on one LibSVMIter
+   CSR batch (the loss falls each step); CTC's probe (a sample its frames
+   cannot fit) finite on the card, and CTC's loss and gradient timed at
+   N=32, T=500, C=30, L=100 by route (F.ctc_loss when every sample fits,
+   the floored recursion for one that cannot).  No kernel of the port's
+   own runs on this path.
 6. The kernel JSON line (f32 numbers at the training shape, and the
    bf16 ones under *_bf16 keys; the same at BERT's shape under
    ``at_bert_shape`` and at ViT's under ``at_vit_shape``; launches by
@@ -3082,6 +3106,494 @@ def _gpt_from_loader(dev, card, root, rtc_kernels):
                           dt / GPT_INPUT_STEPS * 1e3}
 
 
+# -- [13] the recommender path (row-sparse tables, CSR) -----------------------
+# bench_embedding's configuration (bench.py:216-221, 2556-2577): (a) a
+# ShardedEmbedding(4096, 64) and Dense(1) at batch 512; (b) the same model
+# at a table a recommender holds, 2^24 rows (BENCH_EMB_VOCAB) at batch 8192
+# (BENCH_EMB_BATCH): 4 GiB of table and 8 GiB of Adam states in f32.
+EMB_DIM, EMB_STEPS = 64, 20
+EMB_CONFIGS = {"a": (4096, 512), "b": (1 << 24, 8192)}
+EMB_BITWISE_STEPS, EMB_HOST_STEPS, EMB_DENSE_STEPS = 5, 3, 5
+# (b)'s peak allocated memory over the bench run alone (above what earlier
+# phases still hold): the table and Adam's two states, plus less than 1 GiB
+# of everything else; a dense (2^24, 64) f32 gradient or update temporary
+# would add 4 GiB
+EMB_PEAK_GIB = 13.0
+# (ii) card against host: the ROADMAP's training tolerances on the weights
+EMB_TRAIN_TOL = (2e-4, 2e-5)
+# (v) the CSR product at the width at which upstream's
+# example/sparse/linear_classification reads Avazu: 8192 rows of 1,000,000
+# features, ~15 nonzeros a row
+CSR_ROWS, CSR_COLS, CSR_NNZ_ROW = 8192, 1_000_000, 15
+CSR_OUT_TOL, CSR_GRAD_TOL = (1e-4, 1e-5), (2e-3, 2e-4)
+LIBSVM_STEPS = 3
+# CTC timed at a speech-recognition shape: N, T frames, C classes, L labels.
+CTC_SHAPE = (32, 500, 30, 100)
+
+
+def _emb_touched(xs, vocab, dev):
+    """A (vocab,) bool of the rows the id batches touch."""
+    import torch
+
+    mask = torch.zeros(vocab, dtype=torch.bool, device=dev)
+    for x in xs:
+        mask[x._data.long().clamp(0, vocab - 1)] = True
+    return mask
+
+
+def _emb_states(trainer):
+    out = []
+    for i in sorted(trainer._updaters[0].states):
+        st = trainer._updaters[0].states[i]
+        out.extend(s._data for s in (st if isinstance(st, (list, tuple))
+                                     else [st]) if s is not None)
+    return out
+
+
+def _emb_bitwise(dev, card, name, vocab, batch):
+    """[13](i) at one configuration: EMB_BITWISE_STEPS captured steps
+    against the eager row-sparse oracle from the same state, bitwise in
+    losses, weights and both Adam states; rows no batch touched keep their
+    initial bytes (states zero there); one readback a step; one recording
+    a bucket; no sparse_fallback event."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import numerics, telemetry
+    from mxnet_tpu_torch.embedding import prep
+    from mxnet_tpu_torch.gluon import captured
+    from mxnet_tpu_torch.tools import bench_embedding
+    from mxnet_tpu_torch.tools.bench_trainer import _env
+
+    steps = EMB_BITWISE_STEPS
+    runs = {}
+    for mode in ("1", "0"):
+        net, trainer, loss_fn, xs = bench_embedding.build(
+            vocab, EMB_DIM, batch, steps, dev)
+        xs = xs[:steps]
+        table = net[0].weight.data()._data
+        init = table.detach().clone() if mode == "1" else None
+        fallbacks = telemetry.event_counts().get("sparse_fallback", 0)
+        captured.reset_counters()
+        numerics.reset_readback_count()
+        with _env(MXTPU_SPARSE_CAPTURED=mode):
+            losses = [trainer.train_step(net, loss_fn, x,
+                                         batch_size=batch).asnumpy()
+                      for x in xs]
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        fired = telemetry.event_counts().get("sparse_fallback", 0) \
+            - fallbacks
+        runs[mode] = dict(
+            losses=losses, params=[p.data()._data for p in trainer._params],
+            states=_emb_states(trainer), init=init,
+            dispatches=captured.dispatch_count(),
+            traces=captured.trace_count(),
+            readbacks=numerics.readback_count(), fired=fired, xs=xs)
+        del net, trainer
+    cap, eag = runs["1"], runs["0"]
+    buckets = {prep.bucket_for(len(np.unique(np.clip(
+        x.asnumpy().astype(np.int64), 0, vocab - 1)))) for x in cap["xs"]}
+    same = (all(np.array_equal(a, b) for a, b in zip(cap["losses"],
+                                                     eag["losses"]))
+            and all(torch.equal(a, b) for a, b in zip(cap["params"],
+                                                      eag["params"]))
+            and len(cap["states"]) == len(eag["states"]) == 2 * len(
+                cap["params"])
+            and all(torch.equal(a, b) for a, b in zip(cap["states"],
+                                                      eag["states"])))
+    touched = _emb_touched(cap["xs"], vocab, dev)
+    moved = (cap["params"][0] != cap["init"]).any(dim=1)
+    state_set = [(s != 0).any(dim=1) for s in cap["states"][:2]]
+    still = not bool((moved & ~touched).any()) and not any(
+        bool((m & ~touched).any()) for m in state_set)
+    log(f"    ({name}) vocab {vocab}, batch {batch}: {steps} captured steps "
+        f"{'==' if same else '!='} eager bitwise (losses, "
+        f"{len(cap['params'])} weights, {len(cap['states'])} Adam states); "
+        f"untouched rows {'unmoved' if still else 'MOVED'} "
+        f"({int(touched.sum())} of {vocab} rows touched); dispatches "
+        f"{cap['dispatches']}, guard readbacks {cap['readbacks']} (plus "
+        f"one read of the resident ids a step), recordings "
+        f"{cap['traces']} for buckets {sorted(buckets)}, sparse_fallback "
+        f"events {cap['fired']}; eager: fallback events {eag['fired']}  "
+        f"[{card}]")
+    if not same or not still:
+        raise AssertionError(f"[13](i) {name}: captured != eager bitwise or "
+                             "an untouched row moved")
+    if cap["dispatches"] != steps or cap["readbacks"] != steps \
+            or cap["traces"] != len(buckets) or cap["fired"] \
+            or eag["fired"] != steps:
+        raise AssertionError(f"[13](i) {name}: dispatches, readbacks, "
+                             "recordings or fallback events off")
+    return {"bitwise": same, "buckets": sorted(buckets),
+            "recordings": cap["traces"], "touched_rows": int(touched.sum())}
+
+
+def _emb_card_vs_host(dev, card):
+    """[13](ii) (a) for EMB_HOST_STEPS captured steps on the card and on
+    the host from the same numpy state and ids: losses and weights within
+    EMB_TRAIN_TOL."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.context import cpu
+    from mxnet_tpu_torch.tools import bench_embedding
+
+    vocab, batch = EMB_CONFIGS["a"]
+    out = []
+    state = None
+    for where in (dev, torch.device("cpu")):
+        net, trainer, loss_fn, xs = bench_embedding.build(
+            vocab, EMB_DIM, batch, EMB_HOST_STEPS, where)
+        params = list(net.collect_params().values())
+        if state is None:
+            state = [p.data().asnumpy() for p in params]
+        else:
+            for p, v in zip(params, state):
+                p.set_data(nd.array(v, ctx=cpu()))
+        losses = [float(trainer.train_step(net, loss_fn, x,
+                                           batch_size=batch).asscalar())
+                  for x in xs[:EMB_HOST_STEPS]]
+        out.append((losses, [p.data().asnumpy() for p in params]))
+    (card_losses, card_w), (host_losses, host_w) = out
+    rtol, atol = EMB_TRAIN_TOL
+    worst = max(float(np.max(np.abs(a - b) / (atol + rtol * np.abs(b))))
+                for a, b in zip(card_w + [np.array(card_losses)],
+                                host_w + [np.array(host_losses)]))
+    log(f"    (ii) (a) card against host, {EMB_HOST_STEPS} captured Adam "
+        f"steps: losses {card_losses} vs {host_losses}; worst |err| / "
+        f"(atol + rtol |host|) over the losses and weights {worst:.3f} "
+        f"(rtol {rtol}, atol {atol})  [{card}]")
+    if not worst <= 1.0:
+        raise AssertionError("[13](ii) card and host disagree")
+    return worst
+
+
+def _emb_bench(dev, card):
+    """[13](iii) tools.bench_embedding.run at (a) and (b), each with its
+    peak allocated memory; (b)'s peak under EMB_PEAK_GIB; then (b) with a
+    dense-gradient Embedding for the record."""
+    import gc
+
+    import torch
+
+    from mxnet_tpu_torch.tools import bench_embedding
+
+    lines = {}
+    for name, (vocab, batch) in EMB_CONFIGS.items():
+        gc.collect()
+        torch.cuda.empty_cache()
+        line = bench_embedding.run(vocab, EMB_DIM, batch, EMB_STEPS, dev)
+        line["config"] = name
+        log("    (iii) " + json.dumps(line))
+        lines[name] = line
+    peak = lines["b"]["peak_mem_gib"]
+    log(f"    (iii) (b) peak allocated by the run {peak:.3f} GiB against "
+        f"{EMB_PEAK_GIB} (table + Adam states: "
+        f"{3 * (1 << 24) * EMB_DIM * 4 / 2 ** 30:.1f} GiB; earlier phases "
+        f"still hold {lines['b']['base_mem_gib']:.3f} GiB)  [{card}]")
+    if not peak < EMB_PEAK_GIB:
+        raise AssertionError("[13](iii) (b) holds a dense temporary")
+    gc.collect()
+    torch.cuda.empty_cache()
+    vocab, batch = EMB_CONFIGS["b"]
+    dense = bench_embedding.run(vocab, EMB_DIM, batch, EMB_DENSE_STEPS, dev,
+                                sparse=False)
+    dense["config"] = "b, dense gradient (for the record)"
+    log("    (iii) " + json.dumps(dense))
+    lines["b_dense"] = dense
+    return lines
+
+
+def _emb_prefetched(dev, card, resident_lookup_us):
+    """[13](iv) DevicePrefetcher(sparse_tables=net) at depth 2 feeding (a)'s
+    captured step from host id batches: every prep popped exactly once,
+    lookup_us with and without the prefetcher."""
+    import numpy as np
+
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.embedding import prep
+    from mxnet_tpu_torch.gluon import captured
+    from mxnet_tpu_torch.gluon.data import DevicePrefetcher
+    from mxnet_tpu_torch.tools import bench_embedding
+
+    vocab, batch = EMB_CONFIGS["a"]
+    net, trainer, loss_fn, xs = bench_embedding.build(vocab, EMB_DIM, batch,
+                                                      EMB_STEPS, dev)
+    host = [x.asnumpy() for x in xs]
+    popped, real_pop = [], prep.pop_prep
+
+    def pop(data):
+        got = real_pop(data)
+        popped.append(got is not None)
+        return got
+
+    prep.pop_prep = pop
+    try:
+        lookups, n = [], 0
+        captured.reset_counters()
+        for x in DevicePrefetcher(host, depth=2, sparse_tables=net):
+            float(trainer.train_step(net, loss_fn, x,
+                                     batch_size=batch).asscalar())
+            lookups.append(telemetry.REGISTRY.snapshot()["lookup_us"])
+            n += 1
+    finally:
+        prep.pop_prep = real_pop
+    left = len(prep._PREP_CACHE)
+    warm = lookups[4:]
+    lookup_us = float(np.mean(warm))
+    log(f"    (iv) DevicePrefetcher(sparse_tables=net, depth=2) feeding "
+        f"(a)'s captured step: {n} steps, {sum(popped)} preps popped of "
+        f"{len(popped)} pops, {left} left stashed, dispatches "
+        f"{captured.dispatch_count()}; lookup_us {lookup_us:.1f} prefetched "
+        f"(mean of steps 5-{n}) against {resident_lookup_us:.1f} on "
+        f"resident batches (the bench's line)  [{card}]")
+    if n != len(host) or popped != [True] * n or left \
+            or captured.dispatch_count() != n:
+        raise AssertionError("[13](iv) a prep was not popped exactly once")
+    if not lookup_us < resident_lookup_us:
+        raise AssertionError("[13](iv) the prefetched lookup is no cheaper")
+    return {"lookup_us_prefetched": lookup_us,
+            "lookup_us_resident": resident_lookup_us}
+
+
+def _csr_parts(rng, rows):
+    """(indptr, cols, vals) of a ``rows`` x CSR_COLS matrix with about
+    CSR_NNZ_ROW distinct sorted columns a row."""
+    import numpy as np
+
+    r = rng.randint(0, rows, rows * CSR_NNZ_ROW).astype(np.int64)
+    key = np.unique(r * CSR_COLS + rng.randint(0, CSR_COLS, r.size))
+    counts = np.bincount(key // CSR_COLS, minlength=rows)
+    indptr = np.concatenate([[0], np.cumsum(counts)])
+    return (indptr, key % CSR_COLS,
+            rng.standard_normal(key.size).astype(np.float32))
+
+
+def _write_libsvm(path, rng):
+    """CSR_ROWS rows in LibSVM text, labelled by the sign of a hidden linear
+    model (examples/linear_classification_libsvm.py's problem at CSR_COLS
+    features)."""
+    import numpy as np
+
+    w_true = rng.standard_normal(CSR_COLS).astype(np.float32)
+    indptr, cols, vals = _csr_parts(rng, CSR_ROWS)
+    with open(path, "w") as f:
+        for i in range(len(indptr) - 1):
+            c, v = cols[indptr[i]:indptr[i + 1]], vals[indptr[i]:indptr[i + 1]]
+            y = 1 if float(v @ w_true[c]) > 0 else 0
+            f.write(f"{y} " + " ".join(f"{a}:{b:.4f}" for a, b in zip(c, v))
+                    + "\n")
+
+
+def _csr_card_vs_host(dev, card):
+    """[13](v) nd.sparse.dot(csr, W) and its gradient with respect to W at
+    CSR_ROWS x CSR_COLS, card against host; then LIBSVM_STEPS steps of
+    examples/linear_classification_libsvm.py's model (logistic regression
+    by nd.sparse.dot, SGD at lr 1) from a LibSVMIter over a file written
+    here."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import autograd, io, nd
+    from mxnet_tpu_torch.context import context_of, cpu
+    from mxnet_tpu_torch.ndarray import sparse
+
+    rng = np.random.RandomState(SEED)
+    indptr, cols, vals = _csr_parts(rng, CSR_ROWS)
+    w = (rng.standard_normal((CSR_COLS, 1)) * 0.01).astype(np.float32)
+    cot = rng.standard_normal((CSR_ROWS, 1)).astype(np.float32)
+    got = []
+    for ctx in (context_of(dev), cpu()):
+        with ctx:
+            a = sparse.csr_matrix((vals, cols, indptr),
+                                  shape=(CSR_ROWS, CSR_COLS))
+            wn = nd.array(w)
+            wn.attach_grad()
+            with autograd.record():
+                y = nd.sparse.dot(a, wn)
+                loss = (y * nd.array(cot)).sum()
+            loss.backward()
+            got.append((y.asnumpy(), wn.grad.asnumpy()))
+    errs = []
+    for i, (rtol, atol) in enumerate((CSR_OUT_TOL, CSR_GRAD_TOL)):
+        c, h = got[0][i], got[1][i]
+        errs.append(float(np.max(np.abs(c - h) / (atol + rtol * np.abs(h)))))
+    log(f"    (v) nd.sparse.dot(csr {CSR_ROWS}x{CSR_COLS}, "
+        f"{indptr[-1]} stored, W ({CSR_COLS}, 1)) card against host: "
+        f"worst |err| / tol {errs[0]:.3f} (output), {errs[1]:.3f} "
+        f"(dW)  [{card}]")
+    if not max(errs) <= 1.0:
+        raise AssertionError("[13](v) CSR dot disagrees card/host")
+
+    import tempfile
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train.libsvm")
+        _write_libsvm(path, np.random.RandomState(SEED + 1))
+        with context_of(dev):
+            train = io.LibSVMIter(data_libsvm=path, data_shape=(CSR_COLS,),
+                                  batch_size=CSR_ROWS)
+            w_nd, b_nd = nd.zeros((CSR_COLS, 1)), nd.zeros((1,))
+            w_nd.attach_grad()
+            b_nd.attach_grad()
+            losses = []
+            for _ in range(LIBSVM_STEPS):        # one batch an epoch
+                train.reset()
+                batch = next(iter(train))
+                x_csr, y = batch.data[0], batch.label[0]
+                assert x_csr.stype == "csr"
+                yv = y.reshape((-1, 1))
+                with autograd.record():
+                    logits = nd.sparse.dot(x_csr, w_nd) + b_nd
+                    loss = nd.mean(nd.relu(logits) - logits * yv
+                                   + nd.log(1 + nd.exp(-nd.abs(logits))))
+                loss.backward()
+                for p in (w_nd, b_nd):
+                    p._set_data(p._data - 1.0 * p.grad._data)
+                losses.append(float(loss.asscalar()))
+    log(f"    (v) linear_classification_libsvm's model, {LIBSVM_STEPS} steps "
+        f"on one LibSVMIter CSR batch of {CSR_ROWS} x {CSR_COLS}: losses "
+        f"{losses}  [{card}]")
+    if len(losses) != LIBSVM_STEPS or not all(np.isfinite(losses)) \
+            or not all(b < a for a, b in zip(losses, losses[1:])):
+        raise AssertionError("[13](v) the LibSVM model did not train")
+    return {"dot_err": errs, "libsvm_losses": losses}
+
+
+def _ctc_on_card(dev, card):
+    """CTC's probe batch (one sample that cannot fit its frames) on the card:
+    a finite loss of 1e30 and a finite gradient, as on the host."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import ctc
+
+    pred = np.random.RandomState(0).randn(2, 3, 5).astype(np.float32)
+    label = np.array([[1, 2, 0, 0], [1, 1, 2, 2]], np.float32)
+    got = []
+    for where in (dev, torch.device("cpu")):
+        p = torch.tensor(pred, device=where, requires_grad=True)
+        loss = ctc.ctc_loss(p, torch.tensor(label, device=where))
+        loss.sum().backward()
+        got.append((loss.detach().cpu().numpy(), p.grad.cpu().numpy()))
+    (lc, gc_), (lh, gh) = got
+    ok = (np.isfinite(lc).all() and np.isfinite(gc_).all()
+          and abs(lc[1] - 1e30) <= 1e24
+          and np.allclose(lc, lh, rtol=1e-4, atol=1e-5)
+          and np.allclose(gc_, gh, rtol=2e-3, atol=2e-4))
+    log(f"    CTC probe on the card: loss {lc.tolist()}, gradient finite "
+        f"{bool(np.isfinite(gc_).all())}, max |card - host| gradient "
+        f"{float(np.abs(gc_ - gh).max()):.3e}  [{card}]")
+    if not ok:
+        raise AssertionError("CTC on the card: not finite or not the host's")
+
+
+def _ctc_timing(dev, card):
+    """CTC's loss and gradient at CTC_SHAPE on the card, ms a forward and
+    backward by route: the port's op when every sample fits (F.ctc_loss)
+    and when one sample cannot (that one through the floored recursion),
+    the floored recursion over every sample, and F.ctc_loss alone.  The
+    port's op matches F.ctc_loss on the samples that fit (its loss
+    bitwise), and the floored
+    recursion matches it within the gradient tolerance."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from mxnet_tpu_torch.ops import ctc
+
+    n, t, c, n_lab = CTC_SHAPE
+    rng = np.random.RandomState(0)
+    pred = torch.tensor(rng.randn(n, t, c).astype(np.float32), device=dev)
+    label = torch.tensor(rng.randint(1, c, size=(n, n_lab)), device=dev)
+    frames = torch.full((n,), t, dtype=torch.long, device=dev)
+    short = frames.clone()
+    short[0] = n_lab // 2                   # sample 0 cannot fit
+    lens = torch.full((n,), n_lab, dtype=torch.long, device=dev)
+    routes = {
+        "port, every sample fits": lambda p: ctc.ctc_loss(p, label),
+        "port, one sample cannot fit": lambda p: ctc.ctc_loss(p, label,
+                                                              short),
+        "floored recursion, every sample": lambda p: ctc._floored(
+            torch.log_softmax(p, -1), label, frames, lens),
+        "F.ctc_loss": lambda p: F.ctc_loss(
+            torch.log_softmax(p, -1).transpose(0, 1), label, frames.cpu(),
+            lens.cpu(), blank=0, reduction="none"),
+    }
+    out, ms = {}, {}
+    for name, fn in routes.items():
+        for rep in range(4):                # the first is a warm-up
+            p = pred.detach().requires_grad_()
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            loss = fn(p)
+            loss.sum().backward()
+            torch.cuda.synchronize(dev)
+            if rep:
+                ms.setdefault(name, []).append(
+                    (time.perf_counter() - t0) * 1e3)
+        out[name] = (loss.detach().cpu().numpy(), p.grad.cpu().numpy())
+        ms[name] = float(np.median(ms[name]))
+    lib_l, lib_g = out["F.ctc_loss"]
+    fit_l, fit_g = out["port, every sample fits"]
+    mix_l, mix_g = out["port, one sample cannot fit"]
+    rec_l, rec_g = out["floored recursion, every sample"]
+    # F.ctc_loss's backward on the card sums with atomics: equal to a few ulp
+    ok = (np.array_equal(fit_l, lib_l)
+          and np.allclose(fit_g, lib_g, rtol=1e-5, atol=1e-6)
+          and np.isfinite(mix_l).all() and np.isfinite(mix_g).all()
+          and abs(mix_l[0] - 1e30) <= 1e24
+          and np.allclose(mix_l[1:], lib_l[1:], rtol=1e-4, atol=1e-5)
+          and np.allclose(rec_l, lib_l, rtol=1e-4, atol=1e-5)
+          and np.allclose(rec_g, lib_g, rtol=2e-3, atol=2e-4))
+    log("    CTC at N, T, C, L = " + ", ".join(map(str, CTC_SHAPE))
+        + ", ms a loss and gradient (wall, median of 3): "
+        + "; ".join(f"{k} {v:.3f}" for k, v in ms.items())
+        + f"; floored recursion against F.ctc_loss: max |loss| err "
+        f"{float(np.abs(rec_l - lib_l).max()):.3e}, max |grad| err "
+        f"{float(np.abs(rec_g - lib_g).max()):.3e}  [{card}]")
+    if not ok:
+        raise AssertionError("CTC at CTC_SHAPE: the routes disagree")
+    return ms
+
+
+def phase_embedding(dev, card, rtc_kernels):
+    """[13] The recommender path: row-sparse ShardedEmbedding tables through
+    the captured train_step at bench_embedding's configuration (a) and at
+    a 2^24-row table (b); (i) captured against eager bitwise; (ii) card
+    against host; (iii) the bench lines; (iv) the DLRM feed; (v) CSR; and
+    CTC's probe.  Returns the kernel launches of the path (none: it runs
+    no kernel of the port's own) and the numbers."""
+    import gc
+
+    import torch
+
+    res = {}
+    _zero_counts()
+    _rtc_zero(rtc_kernels)
+    for name, (vocab, batch) in EMB_CONFIGS.items():
+        res[name] = _emb_bitwise(dev, card, name, vocab, batch)
+        gc.collect()
+        torch.cuda.empty_cache()
+    res["card_vs_host"] = _emb_card_vs_host(dev, card)
+    res["bench"] = _emb_bench(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["prefetch"] = _emb_prefetched(
+        dev, card, res["bench"]["a"]["lookup_us"])
+    res["csr"] = _csr_card_vs_host(dev, card)
+    _ctc_on_card(dev, card)
+    res["ctc_ms"] = _ctc_timing(dev, card)
+    launches = dict(_counts(), **_rtc_counts(rtc_kernels))
+    log(f"    [13] kernel launches of the port's own: {launches}")
+    if any(launches.values()):
+        raise AssertionError("[13] the recommender path launched a flash or "
+                             "rtc kernel")
+    return launches, res
+
+
 def main():
     import torch
 
@@ -3178,6 +3690,14 @@ def main():
         "JPEG pipeline, records and the resumable loader")
     input_launches, input_res = phase_input(dev, card, (s2, ax))
     gluon_launches.update(input_launches)
+
+    log("[13] the recommender path: row-sparse ShardedEmbedding tables "
+        "through the captured train_step at bench_embedding's "
+        "configuration and at a 2^24-row table (bitwise against the eager "
+        "oracle, card against host, the bench, the prefetcher's id prep), "
+        "CSR dot and LibSVM training, CTC's probe")
+    emb_launches, emb_res = phase_embedding(dev, card, (s2, ax))
+    gluon_launches["recommender_path"] = emb_launches
 
     T0, Tb, Tv = TRAIN_SHAPE[2], BERT_SHAPE[2], VIT_SHAPE[2]
     sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
@@ -3294,6 +3814,9 @@ def main():
         f"{input_res['resnet']['samples_per_sec']:.1f} samples/s fed by "
         f"the prefetcher; GPT-2 from the DataLoader "
         f"{input_res['gpt']['ms_per_step']:.2f} ms a step; "
+        f"recommender: {emb_res['bench']['a']['value']:.1f} ids/s at (a), "
+        f"{emb_res['bench']['b']['value']:.1f} ids/s at (b) in "
+        f"{emb_res['bench']['b']['peak_mem_gib']:.3f} GiB peak; "
         f"forward O max abs err at BERT's "
         f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")

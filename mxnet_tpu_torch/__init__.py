@@ -21,10 +21,11 @@ from . import kvstore
 from . import kvstore as kv
 from . import amp, convert, gluon, metric, parallel, serving
 from . import profiler, recordio, resilience, telemetry
-from . import callback, image, io
+from . import callback, embedding, image, io
 
 __all__ = ["Context", "MXNetError", "amp", "autograd", "base", "callback",
-           "context", "convert", "cpu", "current_context", "engine", "gluon",
+           "context", "convert", "cpu", "current_context", "embedding",
+           "engine", "gluon",
            "gpu", "image", "init", "initializer", "io", "kv", "kvstore",
            "metric", "name", "nd", "ndarray", "num_gpus", "numerics", "ops",
            "optimizer", "parallel", "profiler", "random", "recordio",

@@ -17,7 +17,14 @@ they differ from torch's, are kept here:
 - a head off the tape that is a variable gets ones (or its head grad); a
   head off the tape that is not raises ``MXNetError``;
 - ``Function`` becomes a ``torch.autograd.Function`` that calls the
-  user's NDArray ``forward``/``backward`` under ``pause()``.
+  user's NDArray ``forward``/``backward`` under ``pause()``;
+- a row-sparse gradient (``ops.indexing.sparse_embedding``'s) travels
+  the tape as a sparse COO tensor, summing with another by
+  concatenation; a dense term makes the sum dense, as the reference's
+  ``_RowSparseCt.__add__`` does.  It reaches a ``RowSparseNDArray``
+  gradient buffer compactly (coalesced, concatenated with the stored
+  rows first under ``grad_req='add'``), and a dense buffer as a scatter
+  of its rows.
 """
 
 from __future__ import annotations
@@ -210,13 +217,51 @@ def _accum(accum, var, g):
     entry = accum.get(id(var))
     if entry is None:
         accum[id(var)] = [var, g]
+    elif entry[1].is_sparse and not g.is_sparse:
+        entry[1] = g + entry[1]
     else:
         entry[1] = entry[1] + g
 
 
-def _apply_grad(var, g, seed_ptrs):
+def _apply_sparse_grad(var, g):
+    """Write a row-sparse cotangent (sparse COO) into ``var``'s gradient
+    buffer, O(touched rows) for a row-sparse buffer."""
+    from .ndarray.sparse import RowSparseNDArray, coalesce
+
     grad = var._grad
-    g = g.detach().to(grad._data.dtype)
+    idx, vals = g._indices()[0], g._values().detach()
+    if isinstance(grad, RowSparseNDArray):
+        vals = vals.to(grad._rs_values.dtype)
+        coalesced = g.is_coalesced()
+        if var._grad_req == "add" and grad.num_stored_rows:
+            idx = torch.cat([idx, grad._rs_indices])
+            vals = torch.cat([vals, grad._rs_values])
+            coalesced = False
+        if not coalesced:
+            idx, vals = coalesce(idx, vals)
+        grad._set_sparse(idx, vals)
+    else:
+        vals = vals.to(grad._data.dtype)
+        base = grad._data if var._grad_req == "add" \
+            else torch.zeros_like(grad._data)
+        grad._data = base.index_put((idx,), vals, accumulate=True)
+        grad._version += 1
+    var._fresh_grad = True
+
+
+def _apply_grad(var, g, seed_ptrs):
+    if g.is_sparse:
+        _apply_sparse_grad(var, g)
+        return
+    grad = var._grad
+    g = g.detach()
+    if getattr(grad, "stype", "default") == "row_sparse":
+        if var._grad_req == "add":
+            g = grad._data + g.to(grad._rs_values.dtype)
+        grad._set_data(g)       # a dense gradient, kept as its nonzero rows
+        var._fresh_grad = True
+        return
+    g = g.to(grad._data.dtype)
     if g.numel() and g.untyped_storage().data_ptr() in seed_ptrs:
         g = g.clone()   # a head grad passed straight through: own a copy
     if var._grad_req == "add":
@@ -272,6 +317,12 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
             g = torch.zeros_like(v._data.detach())
         elif not create_graph:
             g = g.detach()
+        if g.is_sparse:
+            from .ndarray.sparse import RowSparseNDArray
+
+            results.append(RowSparseNDArray(g._indices()[0], g._values(),
+                                            g.shape, v._ctx))
+            continue
         results.append(NDArray(g, v._ctx))
     return results[0] if single else results
 

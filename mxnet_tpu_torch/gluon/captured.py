@@ -45,8 +45,23 @@ its forward as a rematerialised region inside the recording (its backward
 recomputes it in the graph, with the dropout masks the forward drew); LoRA
 attach, freeze and merge bump the blocks' cache versions, so the next
 step records again.  The label may be a tuple of tensors (BERT's MLM and
-NSP labels).  The reference's pipeline, mesh and sparse embedding captures
-wait for those features' slices.
+NSP labels).  The reference's pipeline and mesh captures wait for those
+features' slices.
+
+Row-sparse tables (``embedding.ShardedEmbedding`` under SGD or Adam with
+``lazy_update``) run inside the graph too.  The host prepares each
+table's unique ids, inverse index and padding map every step
+(``embedding.prep.prepare_step``, or the ``DevicePrefetcher``'s stash);
+the padded unique-count bucket joins the capture key, so there is one
+graph per bucket.  In the graph the touched rows are gathered first, the
+forward reads them by inverse index, the gradient is taken with respect
+to those rows (``(bucket, dim)``, never the table), and
+``optimizer.grouped.step_group`` updates the rows of the table and its
+states in place.  The ids enter through pinned staging, like the
+scalars, so a step still has one readback.  Recording saves and restores
+only the rows the warm-up run touches, never a copy of a table.  A
+configuration that falls back to the eager oracle emits
+``sparse_fallback{reason}`` (``Trainer.train_step``).
 """
 
 from __future__ import annotations
@@ -129,7 +144,19 @@ def ineligible_reason(trainer, block, loss_fn, data, grad_accum):
         return "grad_accum < 1"
     if data.shape[0] % k != 0:
         return f"batch {data.shape[0]} not divisible by grad_accum {k}"
+    sparse = sparse_params(trainer)
+    if sparse:
+        from .. import embedding as _embedding
+
+        return _embedding.sparse_capture_reason(trainer, block, sparse)
     return None
+
+
+def sparse_params(trainer):
+    """[(trainer index, Parameter)] of the trained row-sparse-gradient
+    parameters."""
+    return [(i, p) for i, p in enumerate(trainer._params)
+            if p.grad_req != "null" and p.grad_stype == "row_sparse"]
 
 
 def _tree_version(block):
@@ -216,7 +243,7 @@ def _hyper(optimizer):
         and k not in _DATA_ATTRS))
 
 
-def _fast_key(trainer, block, loss_fn, data, label, k):
+def _fast_key(trainer, block, loss_fn, data, label, k, sparse_key=()):
     """What decides a capture, read cheaply each step: the block's and the
     loss's cache versions, the grad_req layout, the optimizer's type and
     scalar hyper-parameters and its state dict, the guard, clip and amp
@@ -234,7 +261,7 @@ def _fast_key(trainer, block, loss_fn, data, label, k):
         id(upd.states), len(upd.states),
         numerics.grad_guard_enabled(), trainer._clip_norm(),
         getattr(trainer, "_amp_loss_scaler", None) is not None, int(k),
-        _sig(data), _sig(label),
+        _sig(data), _sig(label), sparse_key,
     )
 
 
@@ -253,14 +280,38 @@ def get_step(trainer, block, loss_fn, data, label, grad_accum):
     from .. import numerics
     from ..optimizer import grouped as _grouped
 
+    trainer._sparse_fallback_reason = None
+    trainer._sparse_prep = None
     if ineligible_reason(trainer, block, loss_fn, data, grad_accum) \
             is not None:
         return None
     k = int(grad_accum)
+    # the sparse tables' host prep runs every call, before the key: the
+    # padded unique-count bucket is part of the capture signature
+    sparse = sparse_params(trainer)
+    sparse_key = ()
+    if sparse:
+        from .. import embedding as _embedding
+        from .. import telemetry as _telemetry
+
+        preps, why, lookup_us = _embedding.prepare_step(block, data, sparse)
+        if preps is None:
+            trainer._sparse_fallback_reason = why
+            return None
+        sparse_key = tuple((i, pr.bucket) for (i, _p), pr in zip(sparse,
+                                                                  preps))
+        # the reference's per-step record fields, as gauges until the
+        # port's telemetry keeps step records
+        _telemetry.gauge_set("lookup_us", float(lookup_us))
+        _telemetry.gauge_set("unique_fraction",
+                             sum(pr.n_real for pr in preps)
+                             / max(sum(pr.n_ids for pr in preps), 1))
+        trainer._sparse_prep = preps
     fast = getattr(trainer, "_captured_fast", None)
     if fast is None:
         fast = trainer._captured_fast = {}
-    step = fast.get(_fast_key(trainer, block, loss_fn, data, label, k))
+    fkey = _fast_key(trainer, block, loss_fn, data, label, k, sparse_key)
+    step = fast.get(fkey)
     if step is not None:
         _CACHE_HITS += 1
         return step
@@ -274,10 +325,13 @@ def get_step(trainer, block, loss_fn, data, label, grad_accum):
         return None     # the trainer updates parameters the step never sees
     indices = [i for i, _p in trained]
     weights = [p.data() for _i, p in trained]
-    # the weights stand in for the gradients: a gradient takes its
-    # parameter's dtype, which decides the grouping
+    # the weights stand in for the dense gradients (a gradient takes its
+    # parameter's dtype, which decides the grouping); a row-sparse
+    # parameter's own gradient buffer picks the row-sparse rule
+    standins = [p.grad() if p.grad_stype == "row_sparse" else w
+                for (_i, p), w in zip(trained, weights)]
     groups, fallback = _grouped.plan_items(trainer._updaters[0], indices,
-                                           weights, weights)
+                                           standins, weights)
     if fallback:
         return None
     guard_on = numerics.grad_guard_enabled()
@@ -291,7 +345,7 @@ def get_step(trainer, block, loss_fn, data, label, grad_accum):
         bool(getattr(loss_fn, "_active", False)),
         tuple((i, p.grad_req) for i, p in enumerate(trainer._params)),
         plan_sig, guard_on, clip, has_scaler, k,
-        _sig(data), _sig(label), _kvs.device_fingerprint(),
+        _sig(data), _sig(label), _kvs.device_fingerprint(), sparse_key,
     )
     cache = getattr(trainer, "_captured_cache", None)
     if cache is None:
@@ -305,13 +359,14 @@ def get_step(trainer, block, loss_fn, data, label, grad_accum):
         _CACHE_MISSES += 1
         step = CapturedStep(trainer, block, loss_fn, trained, groups,
                             guard_on=guard_on, clip=clip,
-                            has_scaler=has_scaler, grad_accum=k)
+                            has_scaler=has_scaler, grad_accum=k,
+                            sparse=[i for i, _p in sparse])
         while len(cache) >= CACHE_SIZE:
             evicted = cache.pop(next(iter(cache)))
             for fk in [fk for fk, s in fast.items() if s is evicted]:
                 del fast[fk]
         cache[key] = step
-    fast[_fast_key(trainer, block, loss_fn, data, label, k)] = step
+    fast[fkey] = step
     return step
 
 
@@ -322,7 +377,7 @@ class CapturedStep:
     the one readback."""
 
     def __init__(self, trainer, block, loss_fn, trained, groups, guard_on,
-                 clip, has_scaler, grad_accum):
+                 clip, has_scaler, grad_accum, sparse=()):
         from . import block as _blockmod
 
         self._block = block
@@ -340,6 +395,9 @@ class CapturedStep:
         self._others = [p for _n, p in _collect_blocks_params(block, loss_fn)
                         if id(p) not in trained_ids]
         self._pos = {i: j for j, (i, _p) in enumerate(trained)}
+        # row-sparse tables: (position among the trained, table param id)
+        self._sparse = [(self._pos[i], id(trainer._params[i]))
+                        for i in sparse]
         self._graph = None
         self._graph_ptrs = None
         self._uniform = None
@@ -348,15 +406,26 @@ class CapturedStep:
 
     # -- the step ---------------------------------------------------------------
 
-    def _run(self, x, y, scale, gens_b, gens_l, dyn_list):
+    def _run(self, x, y, scale, gens_b, gens_l, dyn_list, sp=()):
         """forward, loss, gradients (summed over the microbatches), health,
-        grouped update in place; returns (losses, health)."""
+        grouped update in place; returns (losses, health).  ``sp`` holds
+        each row-sparse table's (uniq, src, inv) index tensors, ``inv``
+        (k, ids per microbatch)."""
+        from contextlib import nullcontext
+
         from .. import autograd as _ag
         from .. import numerics
         from .. import random as _random
+        from ..embedding import prep as _embprep
         from ..optimizer import grouped as _grouped
 
         params = [p._value() for _i, p in self._trained]
+        # a row-sparse table enters as its gathered unique rows: the
+        # gradient, and its sum over microbatches, is (bucket, dim)
+        leaves = list(params)
+        for (pos, _pid), (uniq, _src, _inv) in zip(self._sparse, sp):
+            leaves[pos] = params[pos].detach().index_select(0, uniq) \
+                .requires_grad_()
         k = self._k
         m = x.shape[0] // k
         losses, grads = [], None
@@ -365,7 +434,11 @@ class CapturedStep:
                 xs = x if k == 1 else x[j * m:(j + 1) * m]
                 ys = y if (k == 1 or y is None) \
                     else _slice(y, j * m, (j + 1) * m)
-                with _random.generator_scope(gens_b[j]):
+                scope = _embprep.capture_scope(
+                    {pid: (leaves[pos], inv[j]) for (pos, pid), (_u, _s, inv)
+                     in zip(self._sparse, sp)}) if self._sparse \
+                    else nullcontext()
+                with scope, _random.generator_scope(gens_b[j]):
                     out = self._block(xs)
                 if self._loss_keyed:
                     with _random.generator_scope(gens_l[j]):
@@ -375,37 +448,47 @@ class CapturedStep:
                     loss = self._loss_fn(out, ys) if ys is not None \
                         else self._loss_fn(out)
                 head = loss * scale if self._has_scaler else loss
-                gs = torch.autograd.grad(head, params,
+                gs = torch.autograd.grad(head, leaves,
                                          torch.ones_like(head))
                 losses.append(loss.detach())
                 grads = list(gs) if k == 1 else [
                     a + g for a, g in zip(grads or [torch.zeros_like(p)
-                                                    for p in params], gs)]
+                                                    for p in leaves], gs)]
         losses = losses[0] if k == 1 else torch.stack(losses)
+        rows_of = {pos: (uniq, src) for (pos, _pid), (uniq, src, _inv)
+                   in zip(self._sparse, sp)}
         with torch.no_grad():
             health = numerics.health_of(grads) if self._want_guard else None
             for (gkey, items), dyn in zip(self._groups.items(), dyn_list):
-                gs = [grads[self._pos[it[0]]] for it in items]
-                ws, gs, ss = _grouped.group_operands(gkey, items, gs)
-                fn = _grouped.build_group_step(
-                    gkey[0], gkey[1], guarded=self._guard_on,
-                    clip=self._clip)
-                new_w, new_s = fn(ws, gs, ss, dyn, health)
-                _grouped.commit(gkey, items, new_w, new_s)
+                pos = [self._pos[it[0]] for it in items]
+                rows = [rows_of[p] for p in pos] \
+                    if _grouped.is_sparse_kernel(gkey[0]) else None
+                _grouped.step_group(gkey, items, dyn,
+                                    grads=[grads[p] for p in pos],
+                                    health=health, guarded=self._guard_on,
+                                    clip=self._clip, rows=rows)
         return losses, health
 
     def _mutable(self):
-        """Every tensor a step writes: the trained parameters, their f32
-        masters and optimizer states, and the other parameters (running
-        statistics)."""
-        out = [p._value() for _i, p in self._trained]
-        for items in self._groups.values():
-            for _i, _w, _g, st, _d, m in items:
-                out.extend(s._data for s in st)
+        """Every tensor a step writes, as (dense, tables): the trained
+        parameters, their f32 masters and optimizer states, and the other
+        parameters (running statistics); then the row-sparse tables and
+        their states, of which a step writes only the gathered rows."""
+        from ..optimizer import grouped as _grouped
+
+        out, rows = [], []
+        for gkey, items in self._groups.items():
+            dst = rows if _grouped.is_sparse_kernel(gkey[0]) else out
+            for _i, w, _g, st, _d, m in items:
+                dst.append(w._data)
+                dst.extend(s._data for s in st)
                 if m is not None:
-                    out.append(m._data)
+                    dst.append(m._data)
+        grouped = {id(t) for t in out + rows}
+        out.extend(p._value() for _i, p in self._trained
+                   if id(p._value()) not in grouped)
         out.extend(p._value() for p in self._others)
-        return out
+        return out, rows
 
     # -- per-step host driver ---------------------------------------------------
 
@@ -433,9 +516,17 @@ class CapturedStep:
         scale = float(scaler.loss_scale) if scaler is not None else 1.0
         x = _raw(data)
         y = None if label is None else _raw(label)
+        # the host-prepared sparse indices (get_step ran the prep): the
+        # inverse index as (k, ids per microbatch), batch-major as the
+        # microbatch slices of x
+        sp = []
+        if self._sparse:
+            preps, trainer._sparse_prep = trainer._sparse_prep, None
+            sp = [(pr.uniq, pr.src, pr.inv.reshape(self._k, -1))
+                  for pr in preps]
         if x.device.type == "cuda":
             losses, health = self._replay(x, y, scale, seeds_b, seeds_l,
-                                          rows)
+                                          rows, sp)
         else:
             if self._fresh:
                 _TRACE_COUNT += 1
@@ -448,7 +539,8 @@ class CapturedStep:
                         for gkey, row in zip(self._groups, rows)]
             losses, health = self._run(
                 x, y, torch.tensor(scale, dtype=torch.float32, device=dev),
-                gens_b, gens_l, dyn_list)
+                gens_b, gens_l, dyn_list,
+                [tuple(torch.from_numpy(a) for a in t) for t in sp])
         _DISPATCH_COUNT += 1
         trainer._step_count += 1
         if self._want_guard:
@@ -464,14 +556,15 @@ class CapturedStep:
         """The addresses of every tensor the recorded graph reads or
         writes: replaced tensors (loaded optimizer states) need a new
         recording."""
-        return tuple(t.data_ptr() for t in self._mutable())
+        dense, tables = self._mutable()
+        return tuple(t.data_ptr() for t in dense + tables)
 
-    def _replay(self, x, y, scale, seeds_b, seeds_l, rows):
+    def _replay(self, x, y, scale, seeds_b, seeds_l, rows, sp):
         global _TRACE_COUNT
         uni = tuple(tuple(_is_uni(v) for v in row.values()) for row in rows)
         if self._graph is None or uni != self._uniform or (
                 self._recheck and self._pointers() != self._graph_ptrs):
-            self._capture(x, y, rows)
+            self._capture(x, y, rows, sp)
             self._uniform, self._graph_ptrs = uni, self._pointers()
             _TRACE_COUNT += 1
         self._recheck = False
@@ -479,17 +572,18 @@ class CapturedStep:
         st["x"].copy_(x)
         if y is not None:
             _copy_into(st["y"], y)
-        self._upload(scale, rows)
+        self._upload(scale, rows, sp)
         for gen, s in zip(st["gens_b"] + st["gens_l"], seeds_b + seeds_l):
             gen.manual_seed(s)
         self._graph.replay()
         return st["losses"].clone(), st["health"]
 
-    def _upload(self, scale, rows):
-        """The step's scalars to the graph's buffers: one pinned staging
-        tensor and one asynchronous copy for each dtype (the f32 one
-        leads with the loss scale).  The staging tensor is rewritten only
-        after the previous step's copy has finished."""
+    def _upload(self, scale, rows, sp=()):
+        """The step's scalars and sparse indices to the graph's buffers:
+        one pinned staging tensor and one asynchronous copy for each dtype
+        (the f32 one leads with the loss scale) and for each index array.
+        The staging tensors are rewritten only after the previous step's
+        copies have finished."""
         if self._uploaded is not None:
             self._uploaded.synchronize()
         for dt, pack in self._packs.items():
@@ -498,19 +592,29 @@ class CapturedStep:
                 vals.extend(rows[gi][name])
             pack["host"].copy_(torch.tensor(vals, dtype=dt))
             pack["dev"].copy_(pack["host"], non_blocking=True)
+        for arrays, bufs in zip(sp, self._static["sp"]):
+            for a, (host, dev) in zip(arrays, bufs):
+                host.numpy()[...] = a
+                dev.copy_(host, non_blocking=True)
         self._uploaded = torch.cuda.Event()
         self._uploaded.record()
 
-    def _capture(self, x, y, rows):
+    def _capture(self, x, y, rows, sp=()):
         """Record the step: static buffers, one warm-up run on a side
-        stream with every written tensor restored after it, then the
-        graph.  A failure raises MXNetError."""
+        stream with every written tensor (of a row-sparse table, every
+        written row) restored after it, then the graph.  A failure raises
+        MXNetError."""
         from ..optimizer import grouped as _grouped
 
         dev = x.device
         self._graph = None
         st = {"x": x.detach().clone(),
-              "y": None if y is None else _clone(y)}
+              "y": None if y is None else _clone(y),
+              "sp": [[(torch.empty(a.shape, dtype=torch.int64,
+                                   pin_memory=True),
+                       torch.empty(a.shape, dtype=torch.int64, device=dev))
+                      for a in arrays] for arrays in sp]}
+        self._static = st
         st["gens_b"] = [torch.Generator(device=dev) for _ in range(self._k)]
         st["gens_l"] = [torch.Generator(device=dev)
                         for _ in range(self._k if self._loss_keyed else 0)]
@@ -537,10 +641,14 @@ class CapturedStep:
                 dyn_list[gi][name] = _grouped.Col(
                     buf[off:off + n], _is_uni(rows[gi][name]))
         st["scale"] = self._packs[torch.float32]["dev"][0]
-        self._upload(1.0, rows)
+        self._upload(1.0, rows, sp)
+        sp_dev = [tuple(d for _h, d in bufs) for bufs in st["sp"]]
         args = (st["x"], st["y"], st["scale"], st["gens_b"], st["gens_l"],
-                dyn_list)
-        saved = [t.detach().clone() for t in self._mutable()]
+                dyn_list, sp_dev)
+        dense, tables = self._mutable()
+        uniq = self._sparse_uniq(sp_dev)
+        saved = [t.detach().clone() for t in dense]
+        saved_rows = [t.index_select(0, u) for t, u in zip(tables, uniq)]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         try:
@@ -548,8 +656,10 @@ class CapturedStep:
                 self._run(*args)
             torch.cuda.current_stream(dev).wait_stream(side)
             with torch.no_grad():
-                torch._foreach_copy_(self._mutable(), saved)
-            del saved
+                torch._foreach_copy_(dense, saved)
+                for t, u, r in zip(tables, uniq, saved_rows):
+                    t.index_copy_(0, u, r)
+            del saved, saved_rows
             graph = torch.cuda.CUDAGraph()
             register = getattr(graph, "register_generator_state", None)
             if register is None:
@@ -567,8 +677,23 @@ class CapturedStep:
                              f"failed: {type(e).__name__}: {e}") from e
         if st["health"] is None:
             st["health"] = torch.ones(2, device=dev)
-        self._static = st
         self._graph = graph
+
+    def _sparse_uniq(self, sp):
+        """The unique-id tensor of the table each of ``_mutable``'s
+        row-sparse tensors belongs to, in that order."""
+        from ..optimizer import grouped as _grouped
+
+        uniq_of = {pos: arrays[0] for (pos, _pid), arrays
+                   in zip(self._sparse, sp)}
+        out = []
+        for gkey, items in self._groups.items():
+            if not _grouped.is_sparse_kernel(gkey[0]):
+                continue
+            for i, _w, _g, st, _d, m in items:
+                u = uniq_of[self._pos[i]]
+                out.extend([u] * (1 + len(st) + (m is not None)))
+        return out
 
 
 def _is_uni(vals):

@@ -45,10 +45,18 @@ workers run under it.  ``MXTPU_DEVICE_PREFETCH=0`` (or
 side stream.  On the host there is no copy engine: the async path runs
 its producer thread without staging.
 
+``sparse_tables=<block>`` adds the id prefetch of the recommender path:
+for each batch it places, the producer thread reads the batch's ids
+(after that batch's copy, on the copy stream) and computes every
+``embedding.ShardedEmbedding``'s unique ids, inverse index and padding
+(``embedding.prep.prepare_one``), stashed under the yielded batch for
+the captured step to pop (``stash_prep``/``pop_prep``), so that work
+overlaps the current step.
+
 ``mesh=`` takes the one-device ``parallel.data_parallel_mesh(1)``; a
-``dp>1`` mesh waits for the multi-GPU slice (ROADMAP queue 1 item 8),
-``sparse_tables=``, ``kvstore=`` and ``warm_pull=`` for sparse storage
-(item 5): each raises ``NotImplementedError``.
+``dp>1`` mesh, and ``kvstore=``/``warm_pull=`` (the warm
+``row_sparse_pull`` of a distributed store), wait for the multi-GPU
+slice (ROADMAP queue 1 item 6) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -294,18 +302,23 @@ class DevicePrefetcher:
     mesh, axis :
         A one-device mesh names the target device; without one the
         target is the context current where ``iter()`` runs.
-    sparse_tables, kvstore, warm_pull :
-        The sparse-id prefetch of the JAX package; not ported yet.
+    sparse_tables : Block, optional
+        A block tree holding ``embedding.ShardedEmbedding`` children: the
+        producer thread computes each table's id prep for the batch it is
+        about to yield and stashes it for the captured step.
+    kvstore, warm_pull :
+        The warm ``row_sparse_pull`` of a distributed store; they wait
+        for the multi-GPU slice and raise ``NotImplementedError``.
     """
 
     def __init__(self, data, depth=None, mesh=None, axis="dp",
                  sparse_tables=None, kvstore=None, warm_pull=None):
-        if sparse_tables is not None or kvstore is not None or warm_pull:
+        if kvstore is not None or warm_pull:
             raise NotImplementedError(
-                "DevicePrefetcher: sparse_tables=, kvstore= and warm_pull= "
-                "(the embedding-id prefetch) come with sparse storage "
-                "(ROADMAP queue 1 item 5) and the multi-GPU kvstore "
-                "(item 8)")
+                "DevicePrefetcher: kvstore= and warm_pull= (the warm "
+                "row_sparse_pull of a distributed store) come with the "
+                "multi-GPU slice (ROADMAP queue 1 item 6)")
+        self._sparse_block = sparse_tables
         self._data = data
         self._depth = default_depth() if depth is None else int(depth)
         self._mesh = mesh
@@ -357,6 +370,32 @@ class DevicePrefetcher:
             self._thread.join(timeout=5)
         self._stop = None
         self._thread = None
+        if self._sparse_block is not None:
+            from ...embedding import prep as _prep
+
+            _prep.clear_stash()
+
+    def _prep_sparse(self, placed):
+        """The id prep of the batch about to be yielded, stashed under its
+        data array for ``embedding.prep.pop_prep``."""
+        if self._sparse_block is None:
+            return
+        from ...embedding import prep as _prep
+
+        data = _batch_data(placed)
+        tables = _prep.find_sparse_embeddings(self._sparse_block)
+        if data is None or not tables:
+            return
+        t0 = _time.perf_counter()
+        preps = {}
+        for pid, blk in tables.items():
+            pr = _prep.prepare_one(data, blk)
+            if pr is not None:
+                preps[pid] = pr
+        if preps:
+            _prep.stash_prep(data, preps)
+        telemetry.count("input.id_prep_us",
+                        int((_time.perf_counter() - t0) * 1e6))
 
     # -- resumable pipeline state (gluon/data/state.py) ------------------------
 
@@ -408,6 +447,7 @@ class DevicePrefetcher:
             except StopIteration:
                 return
             placed = place(batch, ctx=ctx)
+            self._prep_sparse(placed)
             telemetry.count("input.wait_us",
                             int((_time.perf_counter() - t0) * 1e6))
             telemetry.count("input.batches")
@@ -439,6 +479,7 @@ class DevicePrefetcher:
                     placed, event = stage.place(batch, ctx)
                 else:
                     placed, event = place(batch, ctx=ctx), None
+                self._prep_sparse(placed)
                 token = acct.take_token() if acct is not None else None
                 if not _put(q, stop, (placed, event, token)):
                     return
@@ -504,6 +545,18 @@ class DevicePrefetcher:
                 close()
             if self._thread is t:
                 self._stop, self._thread = None, None
+
+
+def _batch_data(batch):
+    """The data array of a batch: an NDArray itself, the first element of
+    a tuple or list, a DataBatch's first data array."""
+    if isinstance(batch, NDArray):
+        return batch
+    if isinstance(batch, (list, tuple)) and batch:
+        return _batch_data(batch[0])
+    if hasattr(batch, "data") and hasattr(batch, "label"):
+        return _batch_data(batch.data[0]) if batch.data else None
+    return None
 
 
 def _put(q, stop, item):

@@ -12,8 +12,8 @@ batch's *biased* variance, in place and outside the tape (torch's
 ``batch_norm`` counts momentum the other way and keeps the unbiased
 variance, so it is not used); ``cast("float16")`` keeps its parameters
 in f32 while ``cast("bfloat16")`` casts them, running statistics
-included.  ``Embedding(sparse_grad=True)`` raises: sparse gradients are
-not ported.
+included.  ``Embedding(sparse_grad=True)`` gives its weight a row-sparse
+gradient on the eager tape (``ops.indexing.sparse_embedding``).
 """
 
 from __future__ import annotations
@@ -372,6 +372,12 @@ class Embedding(HybridBlock):
                 grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
+        if self._sparse_grad and torch.is_grad_enabled() \
+                and weight.requires_grad:
+            # the eager tape: a compact row-sparse weight gradient
+            from ...ops.indexing import sparse_embedding
+
+            return sparse_embedding(x, weight)
         return F.Embedding(x, weight, **self._kwargs)
 
     def __repr__(self):

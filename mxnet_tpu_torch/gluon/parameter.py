@@ -83,11 +83,14 @@ class Parameter:
         self._dtype = np_dtype(dtype)
         self.lr_mult = lr_mult
         self.wd_mult = wd_mult
+        for st in (stype, grad_stype):
+            if st not in ("default", "row_sparse", "csr"):
+                raise MXNetError(f"Parameter {name!r}: unknown storage "
+                                 f"type {st!r}")
+        self._stype = stype
+        self._grad_stype = grad_stype
         self.grad_req = grad_req
         self.init = init
-        if stype != "default" or grad_stype != "default":
-            raise MXNetError(f"Parameter {name!r}: sparse storage is not "
-                             f"ported")
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self.shape}, " \
@@ -158,7 +161,11 @@ class Parameter:
 
     @property
     def stype(self):
-        return "default"
+        return self._stype
+
+    @property
+    def grad_stype(self):
+        return self._grad_stype
 
     # -- the tensor and its owners ----------------------------------------------
     def _attach(self, block, attr):
@@ -189,7 +196,12 @@ class Parameter:
         nd = self._nd if self._nd is not None else _ParamArray(t, ctx)
         nd._data, nd._ctx, nd._version = t, ctx, nd._version + 1
         if trainable:
-            nd._grad = NDArray(torch.zeros_like(t.detach()), ctx)
+            if self._grad_stype == "row_sparse":
+                from ..ndarray import sparse
+
+                nd._grad = sparse.zeros("row_sparse", t.shape, ctx, t.dtype)
+            else:
+                nd._grad = NDArray(torch.zeros_like(t.detach()), ctx)
             nd._grad_req = self._grad_req
             nd._leaf = t
             t._mx_var = weakref.ref(nd)
@@ -330,6 +342,15 @@ class Parameter:
     def data(self, ctx=None):
         return self._check_and_get()
 
+    def row_sparse_data(self, row_id):
+        """The value for the rows ``row_id`` will touch (reference:
+        Parameter.row_sparse_data): one worker holds the whole table, so
+        this is ``data()``."""
+        return self.data()
+
+    def list_row_sparse_data(self, row_id):
+        return [self.row_sparse_data(row_id)]
+
     def list_data(self):
         return [self._check_and_get()]
 
@@ -356,6 +377,9 @@ class Parameter:
         if self._nd is None or self._nd._grad is None:
             return
         g = self._nd._grad
+        if g.stype == "row_sparse":
+            g._set_sparse(g._rs_indices[:0], g._rs_values[:0])
+            return
         g._set_data(torch.zeros_like(g._data))
 
     def reset_ctx(self, ctx):

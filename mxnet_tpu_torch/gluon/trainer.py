@@ -12,8 +12,12 @@ On one worker a 'local', 'device' or 'nccl' kvstore takes the local path
 the grouped multi-tensor one
 (``optimizer.GroupedUpdater``), guarded by ``numerics.StepGuard`` unless
 ``MXTPU_GRAD_GUARD=0``; ``MXTPU_FUSED_STEP=0`` restores the legacy
-per-parameter loop.  ``step`` refuses a gradient that no ``backward`` has
-written since the last step, unless ``ignore_stale_grad``.
+per-parameter loop.  Row-sparse gradients stay compact all the way: the
+health reads their stored rows and the update touches only those rows.
+A row-sparse model that ``train_step`` cannot capture emits a
+``sparse_fallback{reason}`` telemetry event before it runs eagerly.
+``step`` refuses a gradient that no ``backward`` has written since the
+last step, unless ``ignore_stale_grad``.
 ``attach_data_pipeline`` takes a resumable input pipeline: each guarded
 step hands the divergence monitor the id of the batch just delivered.
 The integrity plane, the monitor's rollback of the pipeline and the
@@ -37,6 +41,23 @@ from .parameter import Parameter, ParameterDict
 _LOG = logging.getLogger("mxnet_tpu_torch.gluon.trainer")
 
 _MAX_SKIP_RECORDS = 1000
+
+
+def _health_tensor(grad):
+    """The tensor a gradient's health reads.  A row-sparse gradient's
+    stored rows, never its dense view: padded with zero rows to its
+    unique-count bucket when it has one, the shape the captured step's
+    gradient rows have, so both paths reduce the same tensor."""
+    if grad.stype != "row_sparse":
+        return grad._data
+    from ..embedding.prep import bucket_for
+
+    vals = grad._rs_values
+    bucket = bucket_for(vals.shape[0])
+    if bucket is None or bucket <= vals.shape[0]:
+        return vals
+    pad = vals.new_zeros((bucket - vals.shape[0],) + tuple(vals.shape[1:]))
+    return torch.cat([vals, pad])
 
 
 class Trainer:
@@ -168,9 +189,31 @@ class Trainer:
                                       int(grad_accum))
         if step is not None:
             return step(self, data, label, batch_size)
+        self._note_sparse_fallback(block, loss_fn, data, int(grad_accum))
         return self._eager_train_step(block, loss_fn, data, label,
                                       batch_size, int(grad_accum),
                                       ignore_stale_grad)
+
+    def _note_sparse_fallback(self, block, loss_fn, data, grad_accum):
+        """A row-sparse model on the eager oracle is a performance cliff
+        (one dispatch an op, the host's coalesce) its user meant to
+        avoid: emit ``sparse_fallback{reason}`` instead of degrading
+        silently.  Dense models fall back silently."""
+        from .. import telemetry
+        from . import captured as _captured
+
+        if not _captured.sparse_params(self):
+            return
+        if not _captured.captured_step_enabled():
+            reason = "captured step disabled (MXTPU_CAPTURED_STEP=0)"
+        else:
+            reason = getattr(self, "_sparse_fallback_reason", None)
+            self._sparse_fallback_reason = None
+            if reason is None:
+                reason = _captured.ineligible_reason(
+                    self, block, loss_fn, data, grad_accum) \
+                    or "capture declined"
+        telemetry.event("sparse_fallback", reason=reason)
 
     def _eager_train_step(self, block, loss_fn, data, label, batch_size,
                           grad_accum, ignore_stale_grad):
@@ -253,7 +296,7 @@ class Trainer:
         guard_on = numerics.grad_guard_enabled()
         clip = self._clip_norm()
         if fused and (guard_on or clip is not None):
-            health = numerics.grad_health([g._data for g in grads])
+            health = numerics.grad_health([_health_tensor(g) for g in grads])
             guard = numerics.StepGuard(health, skip=guard_on, clip=clip)
             snapshot = self._snapshot_update_counts(indices) \
                 if guard_on else None

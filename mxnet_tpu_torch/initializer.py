@@ -1,8 +1,9 @@
 """Weight initializers.
 
 Counterpart of ``mxnet_tpu/initializer.py``: the ``Initializer`` base with
-its name-suffix dispatch (``*weight`` gets the initializer's own rule,
-``*bias`` and ``*beta`` zeros, ``*gamma`` ones), the per-parameter
+its name-suffix dispatch (``*weight`` and ``*embed_table``, the
+``ShardedEmbedding`` table, get the initializer's own rule, ``*bias``
+and ``*beta`` zeros, ``*gamma`` ones), the per-parameter
 override that a parameter's own ``init`` takes over it (the JAX package's
 ``InitDesc.attrs["__init__"]``, set by ``Parameter(init=...)``), the
 built-ins ``Zero``, ``One``, ``Constant``, ``Uniform``, ``Normal`` and
@@ -59,7 +60,7 @@ class Initializer:
     def __call__(self, name, arr, generator=None, init=None):
         if init:
             create(init)._init_weight(name, arr, generator)
-        elif name.endswith("weight"):
+        elif name.endswith(("weight", "embed_table")):
             self._init_weight(name, arr, generator)
         elif name.endswith("bias") or name.endswith("beta"):
             _fill(arr, lambda t: t.zero_())

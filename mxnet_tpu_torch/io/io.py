@@ -11,8 +11,8 @@ PrefetchingIter runs a background thread per child iterator, like
 dmlc::ThreadedIter; the threads run under the context current when it
 was built, and place each batch ahead of the step
 (``gluon.data.prefetcher.place``) unless ``MXTPU_DEVICE_PREFETCH=0``.
-``LibSVMIter``'s CSR batches wait for sparse storage (ROADMAP queue 1
-item 5); its dense batches (``stype="default"``) work.
+``LibSVMIter`` yields CSR batches (``ndarray.sparse.CSRNDArray``), or
+dense ones with ``stype="default"``.
 """
 
 from __future__ import annotations
@@ -856,18 +856,17 @@ class ImageRecordIter(DataIter):
 class LibSVMIter(DataIter):
     """LibSVM sparse text format reader (reference: src/io/iter_libsvm.cc).
 
-    The reference's batches carry CSR data; that storage type waits for
-    sparse storage (ROADMAP queue 1 item 5), so ``stype="csr"`` (the
-    default) raises NotImplementedError.  ``stype="default"`` gives dense
-    batches."""
+    Batches carry CSR data (``stype="csr"``, the default, as the
+    reference's do), so a linear model runs the compact ``sparse.dot``
+    kernels with no dense (batch, dim) view; ``stype="default"`` gives
+    dense batches."""
 
     def __init__(self, data_libsvm, data_shape, label_shape=None,
                  batch_size=1, round_batch=True, stype="csr", **kwargs):
-        if stype == "csr":
-            raise NotImplementedError(
-                "LibSVMIter: CSR batches need sparse storage (CSRNDArray), "
-                "which comes with ROADMAP queue 1 item 5; pass "
-                "stype='default' for dense batches")
+        if stype not in ("csr", "default"):
+            raise MXNetError(f"LibSVMIter: stype {stype!r} is not 'csr' "
+                             "or 'default'")
+        self._stype = stype
         super().__init__(batch_size)
         dim = data_shape[0] if isinstance(data_shape, (tuple, list)) \
             else data_shape
@@ -888,6 +887,7 @@ class LibSVMIter(DataIter):
         self._vals = _np.asarray(vals, _np.float32)
         self._cols = _np.asarray(cols, _np.int32)
         self._indptr = _np.asarray(indptr, _np.int64)
+        self._counts = _np.diff(self._indptr)
         self._labels = _np.asarray(labels, _np.float32)
         self._n = len(labels)
         self._round = round_batch
@@ -919,9 +919,25 @@ class LibSVMIter(DataIter):
         self._cursor = hi
         idx = _np.arange(lo, hi) % self._n
         label = _array(self._labels[idx])
+        if self._stype == "csr":
+            return DataBatch([self._rows_csr(idx)], [label], pad=pad)
         dense = _np.zeros((len(idx), self._dim), _np.float32)
         for r, i in enumerate(idx):
             s, e = self._indptr[i], self._indptr[i + 1]
             dense[r, self._cols[s:e]] = self._vals[s:e]
         data = _array(dense)
         return DataBatch([data], [label], pad=pad)
+
+    def _rows_csr(self, idx):
+        """The CSR slice of rows ``idx`` as a CSRNDArray on the current
+        context."""
+        from ..ndarray.sparse import csr_matrix
+
+        counts = self._counts[idx]
+        starts = self._indptr[idx]
+        take = _np.concatenate(
+            [_np.arange(s, s + c) for s, c in zip(starts, counts)]) \
+            if len(idx) else _np.zeros((0,), _np.int64)
+        indptr = _np.concatenate([[0], _np.cumsum(counts)])
+        return csr_matrix((self._vals[take], self._cols[take], indptr),
+                          shape=(len(idx), self._dim))

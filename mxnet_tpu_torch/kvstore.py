@@ -5,7 +5,8 @@ python/mxnet/kvstore.py): ``create('local'|'device'|'nccl')`` with
 ``init``/``push``/``pull``/``pushpull``, ``set_optimizer`` (updates run in
 the store) and the optimizer-state save/load, for one worker.  Push sums
 the values of a key's list (the reference's intra-node reduce) and pull
-copies the stored value out.  The ``dist_*`` types and gradient
+copies the stored value out; ``row_sparse_pull`` gathers just the
+requested rows.  The ``dist_*`` types and gradient
 compression belong to the multi-GPU slice and raise
 ``NotImplementedError``.
 """
@@ -78,7 +79,8 @@ class KVStore:
             if k in self._store:
                 raise MXNetError(f"key {k} already initialized")
             v0 = _as_list(v)[0]
-            self._store[k] = NDArray(v0._data.detach().clone(), v0._ctx)
+            self._store[k] = v0.copy() if v0.stype != "default" \
+                else NDArray(v0._data.detach().clone(), v0._ctx)
 
     def _reduce(self, values):
         vals = _as_list(values)
@@ -126,10 +128,55 @@ class KVStore:
             self.pull(key, out, priority)
 
     def row_sparse_pull(self, key, out=None, priority=0, row_ids=None):
-        if row_ids is not None:
-            raise NotImplementedError("row_sparse_pull: sparse storage is "
-                                      "not ported yet")
-        self.pull(key, out, priority)
+        """Pull only the requested rows, as compact row-sparse arrays
+        (reference: the row_sparse path of src/kvstore/kvstore_local.h).
+        Duplicate ids are coalesced on the host (numpy ids are taken as
+        they are), so the device does one gather.  From a row-sparse store
+        the rows come from its compact parts (absent rows pull zeros),
+        never from its dense view.  Without ``row_ids`` this is
+        ``pull``."""
+        if row_ids is None:
+            self.pull(key, out, priority)
+            return
+        import numpy as _np
+
+        from .ndarray.sparse import RowSparseNDArray, coalesce
+
+        if out is None:
+            raise MXNetError("row_sparse_pull requires out=")
+        keys, outs = self._normalize(key, out)
+        rids = row_ids if isinstance(row_ids, (list, tuple)) \
+            else [row_ids] * len(keys)
+        for k, o, rid in zip(keys, outs, rids):
+            if k not in self._store:
+                raise MXNetError(f"key {k} not initialized")
+            stored = self._store[k]
+            host = rid.asnumpy() if isinstance(rid, NDArray) \
+                else _np.asarray(rid)
+            uniq = _np.unique(host.astype(_np.int64).reshape(-1))
+            if isinstance(stored, RowSparseNDArray):
+                si, sv = coalesce(stored._rs_indices, stored._rs_values)
+                idx = torch.as_tensor(uniq, device=sv.device)
+                vals = torch.zeros((idx.numel(),) + tuple(sv.shape[1:]),
+                                   dtype=sv.dtype, device=sv.device)
+                if si.numel():
+                    pos = torch.searchsorted(si, idx).clamp_max(
+                        si.numel() - 1)
+                    hit = si[pos] == idx
+                    vals[hit] = sv[pos[hit]]
+            else:
+                table = stored._data.detach()
+                idx = torch.as_tensor(uniq, device=table.device)
+                vals = table.index_select(0, idx)
+            for dst in _as_list(o):
+                if isinstance(dst, RowSparseNDArray):
+                    dst._set_sparse(idx.to(dst._rs_values.device),
+                                    vals.to(dst._rs_values.device))
+                else:
+                    dense = torch.zeros(stored.shape, dtype=vals.dtype,
+                                        device=dst._data.device)
+                    dense[idx.to(dense.device)] = vals.to(dense.device)
+                    dst._set_data(dense)
 
     # -- optimizer plane -------------------------------------------------------
     def set_optimizer(self, optimizer):

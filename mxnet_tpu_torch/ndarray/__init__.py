@@ -4,8 +4,9 @@ Counterpart of ``mxnet_tpu/ndarray/__init__.py:24-145``: the namespace
 carries the NDArray class, the creation functions, ``save``/``load`` and
 every registered op as a generated wrapper.  Arrays are created on
 ``ctx``, default ``current_context()``: ``gpu(0)`` unless a ``with
-mx.cpu():`` scope is open.  The ``control_flow``, ``linalg``, ``contrib``
-and ``sparse`` sub-namespaces are not ported yet (ROADMAP).
+mx.cpu():`` scope is open.  ``sparse`` holds the compact storage types
+(``ndarray/sparse.py``); the ``control_flow``, ``linalg`` and ``contrib``
+sub-namespaces are not ported yet (ROADMAP).
 """
 
 from __future__ import annotations
@@ -122,3 +123,4 @@ _register.populate(globals())
 
 # sub-namespaces
 from . import random  # noqa: E402
+from . import sparse  # noqa: E402

@@ -158,11 +158,19 @@ class NDArray:
 
     # -- autograd --------------------------------------------------------------
     def attach_grad(self, grad_req="write", stype=None):
-        if stype not in (None, "default"):
-            raise MXNetError(f"attach_grad(stype={stype!r}): sparse "
-                             "gradients are not ported")
-        self._grad = NDArray(torch.zeros_like(self._data.detach()),
-                             self._ctx)
+        """Mark this array a variable; ``stype="row_sparse"`` gives it a
+        compact gradient buffer (O(touched rows) after ``backward``)."""
+        if stype == "row_sparse":
+            from .sparse import zeros as sparse_zeros
+
+            self._grad = sparse_zeros("row_sparse", self.shape, self._ctx
+                                      or self.context, self._data.dtype)
+        elif stype in (None, "default"):
+            self._grad = NDArray(torch.zeros_like(self._data.detach()),
+                                 self._ctx)
+        else:
+            raise MXNetError(f"attach_grad(stype={stype!r}): gradients "
+                             "are dense or row_sparse")
         self._grad_req = grad_req
         self._make_leaf(self._data)
 
@@ -366,10 +374,13 @@ class NDArray:
         return self._ibinop(o, "broadcast_div")
 
     def tostype(self, stype):
-        if stype != "default":
-            raise MXNetError(f"tostype({stype!r}): sparse storage is not "
-                             "ported")
-        return self.copy()
+        """A copy in storage ``stype``: 'default', 'row_sparse' or
+        'csr'."""
+        if stype == "default":
+            return self.copy()
+        from .sparse import cast_storage
+
+        return cast_storage(self, stype)
 
     # reshape takes reshape(2,3), reshape((2,3)) and the special codes
     def reshape(self, *shape, **kwargs):

@@ -12,8 +12,11 @@ polymorphic:
 - raw tensors: pure pass-through, which Gluon's ``F`` namespace uses
   (``gluon.block.HybridBlock``).
 
-Left out against the JAX module, and listed in ROADMAP: the sparse
-storage dispatch (the port has no sparse storage) and the profiler spans.
+Before the generic unwrap, the storage dispatch (the reference's
+FComputeEx, ``mxnet_tpu/ndarray/register.py:61-110``) routes the ops that
+have a compact kernel: ``dot`` with a CSR left operand, ``Cast_storage``,
+and add and multiply of two row-sparse operands off the tape.  Left out
+against the JAX module, and listed in ROADMAP: the profiler spans.
 """
 
 from __future__ import annotations
@@ -22,6 +25,7 @@ import torch
 
 from .. import autograd as _ag
 from .. import engine
+from ..base import MXNetError
 from ..ops import registry as _registry
 from ..ops.registry import OpDef
 from .ndarray import NDArray
@@ -52,11 +56,52 @@ def _inject(opdef: OpDef, args, kwargs: dict, req_ctx) -> dict:
     return kwargs
 
 
+def _stype_dispatch(opdef, args, kwargs):
+    """The compact result of an op with a sparse kernel for these
+    operands, or None (the dense path)."""
+    if not args or not isinstance(args[0], NDArray):
+        return None
+    from . import sparse
+
+    if opdef.name == "dot":
+        if isinstance(args[0], sparse.CSRNDArray):
+            # transpose flags may come positionally, in the dense op's order
+            extras = args[2:4]
+            ta = extras[0] if len(extras) > 0 else kwargs.get(
+                "transpose_a", False)
+            tb = extras[1] if len(extras) > 1 else kwargs.get(
+                "transpose_b", False)
+            return sparse.dot(args[0], args[1], transpose_a=ta,
+                              transpose_b=tb)
+    elif opdef.name.lower() == "cast_storage":
+        stype = kwargs.get("stype", args[1] if len(args) > 1 else "default")
+        return sparse.cast_storage(args[0], stype)
+    elif opdef.name in ("elemwise_add", "broadcast_add", "add",
+                        "elemwise_mul", "broadcast_mul", "multiply") \
+            and len(args) >= 2:
+        if isinstance(args[0], sparse.RowSparseNDArray) and \
+                isinstance(args[1], sparse.RowSparseNDArray) and \
+                not sparse._on_eager_tape(args[0], args[1]):
+            fn = sparse.add if "add" in opdef.name else sparse.elemwise_mul
+            return fn(args[0], args[1])
+    return None
+
+
 def invoke(opdef: OpDef, args: tuple, kwargs: dict):
     # frontend-only kwargs accepted by every reference op wrapper
     out_arr = kwargs.pop("out", None)
     req_ctx = kwargs.pop("ctx", None)
     kwargs.pop("name", None)  # symbol-compat: ignored eagerly
+    sparse_out = _stype_dispatch(opdef, args, kwargs)
+    if sparse_out is not None:
+        if out_arr is not None or req_ctx is not None:
+            from .sparse import BaseSparseNDArray
+
+            if isinstance(sparse_out, BaseSparseNDArray):
+                raise MXNetError(f"{opdef.name}: out=/ctx= unsupported when "
+                                 "the result has sparse storage")
+            return _finalize(sparse_out, out_arr, req_ctx)
+        return sparse_out
     kwargs = _inject(opdef, args, kwargs, req_ctx)
     result = _invoke_inner(opdef, args, kwargs)
     if out_arr is not None or req_ctx is not None:

@@ -10,12 +10,20 @@ Counterpart of ``mxnet_tpu/ndarray/utils.py``, in its byte layout
               uint32 ndim, int64[ndim] shape, int32 dev_type, int32 dev_id,
               int32 type_flag, raw data bytes
 
+  sparse:     uint32 0xF993facA (the JAX package's extension magic),
+              int32 stype (1 row_sparse, 2 csr), uint32 ndim,
+              int64[ndim] logical shape, int32 dev_type, int32 dev_id,
+              int32 type_flag, then
+                row_sparse: uint64 K, int64[K] indices, raw values
+                csr:        uint64 nnz, int64[nnz] indices,
+                            uint64 P, int64[P] indptr, raw data
+
 Type flags are mshadow's (float32 0, float64 1, float16 2, uint8 3,
 int32 4, int8 5, int64 6) plus the JAX package's extension flag 12 for
-bfloat16; bool saves as uint8.  Dense records only: the sparse records
-(the JAX package's 0xF993facA extension, or a sparse stype under the v2
-magic) raise MXNetError until sparse storage is ported.  Loaded arrays
-land on ``ctx``, default ``current_context()``.
+bfloat16; bool saves as uint8.  A sparse record is compact: a row-sparse
+table with K stored rows writes K rows.  A sparse stype under the
+upstream v2 magic raises MXNetError, as in the JAX package.  Loaded
+arrays land on ``ctx``, default ``current_context()``.
 """
 
 from __future__ import annotations
@@ -53,16 +61,46 @@ def _flag_and_bytes(t):
     return _TYPE_FLAGS[t.dtype], t.numpy().tobytes()
 
 
-def _save_ndarray(f, arr: NDArray):
-    flag, raw = _flag_and_bytes(arr._data)
-    shape = arr.shape
-    f.write(struct.pack("<I", _ND_MAGIC_V2))
-    f.write(struct.pack("<i", -1))
+_STYPE_ROW_SPARSE = 1
+_STYPE_CSR = 2
+
+
+def _write_header(f, magic, stype, shape, flag):
+    f.write(struct.pack("<I", magic))
+    f.write(struct.pack("<i", stype))
     f.write(struct.pack("<I", len(shape)))
     if shape:
         f.write(struct.pack(f"<{len(shape)}q", *shape))
     f.write(struct.pack("<ii", 1, 0))  # context: cpu(0), stripped on save
     f.write(struct.pack("<i", flag))
+
+
+def _int64_bytes(t):
+    return t.detach().to(torch.int64).cpu().numpy().tobytes()
+
+
+def _save_ndarray(f, arr: NDArray):
+    from .sparse import CSRNDArray, RowSparseNDArray
+
+    if isinstance(arr, RowSparseNDArray):
+        flag, raw = _flag_and_bytes(arr._rs_values)
+        _write_header(f, _ND_MAGIC_SPARSE, _STYPE_ROW_SPARSE, arr.shape,
+                      flag)
+        f.write(struct.pack("<Q", arr.num_stored_rows))
+        f.write(_int64_bytes(arr._rs_indices))
+        f.write(raw)
+        return
+    if isinstance(arr, CSRNDArray):
+        flag, raw = _flag_and_bytes(arr._csr_data)
+        _write_header(f, _ND_MAGIC_SPARSE, _STYPE_CSR, arr.shape, flag)
+        f.write(struct.pack("<Q", int(arr._csr_data.shape[0])))
+        f.write(_int64_bytes(arr._csr_indices))
+        f.write(struct.pack("<Q", int(arr._csr_indptr.shape[0])))
+        f.write(_int64_bytes(arr._csr_indptr))
+        f.write(raw)
+        return
+    flag, raw = _flag_and_bytes(arr._data)
+    _write_header(f, _ND_MAGIC_V2, -1, arr.shape, flag)
     f.write(raw)
 
 
@@ -84,11 +122,38 @@ def _read_values(f, flag, shape, device):
     return t.reshape(tuple(shape)).to(device)
 
 
+def _read_int64(f, n, device):
+    raw = _np.frombuffer(f.read(8 * n), dtype=_np.int64).copy()
+    return torch.from_numpy(raw).to(device)
+
+
+def _load_sparse(f, stype, shape, device):
+    from .sparse import CSRNDArray, RowSparseNDArray
+
+    struct.unpack("<ii", f.read(8))  # context
+    (flag,) = struct.unpack("<i", f.read(4))
+    if stype == _STYPE_ROW_SPARSE:
+        (k,) = struct.unpack("<Q", f.read(8))
+        idx = _read_int64(f, k, device)
+        vals = _read_values(f, flag, (k,) + tuple(shape[1:]), device)
+        return RowSparseNDArray(idx, vals, shape)
+    (nnz,) = struct.unpack("<Q", f.read(8))
+    indices = _read_int64(f, nnz, device)
+    (nptr,) = struct.unpack("<Q", f.read(8))
+    indptr = _read_int64(f, nptr, device)
+    data = _read_values(f, flag, (nnz,), device)
+    return CSRNDArray(data, indices, indptr, shape)
+
+
 def _load_ndarray(f, device) -> NDArray:
     (magic,) = struct.unpack("<I", f.read(4))
     if magic == _ND_MAGIC_SPARSE:
-        raise MXNetError("sparse NDArray records are not supported: the "
-                         "port has no sparse storage yet")
+        (stype,) = struct.unpack("<i", f.read(4))
+        if stype not in (_STYPE_ROW_SPARSE, _STYPE_CSR):
+            raise MXNetError(f"unknown sparse storage type {stype}")
+        (ndim,) = struct.unpack("<I", f.read(4))
+        shape = struct.unpack(f"<{ndim}q", f.read(8 * ndim)) if ndim else ()
+        return _load_sparse(f, stype, shape, device)
     if magic == _ND_MAGIC_V2:
         (stype,) = struct.unpack("<i", f.read(4))
         if stype != -1:

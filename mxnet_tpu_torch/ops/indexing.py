@@ -5,9 +5,9 @@ src/operator/tensor/indexing_op.cc: take, Embedding, one_hot, gather_nd,
 scatter_nd, pick, batch_take; the Sequence* ops; contrib boolean_mask,
 index_copy, index_array, allclose).  Indices may arrive as float tensors
 (the reference's habit); they are cast to int64.  Scatters are
-out-of-place (``index_put``), as the JAX ``.at[]`` updates are.  The JAX
-module's ``sparse_embedding`` (a row-sparse gradient) waits for sparse
-storage.
+out-of-place (``index_put``), as the JAX ``.at[]`` updates are.
+``sparse_embedding`` is the eager Embedding whose weight gradient is
+row-sparse (``Embedding(sparse_grad=True)``).
 """
 
 from __future__ import annotations
@@ -60,6 +60,49 @@ def one_hot(indices, depth=1, on_value=1.0, off_value=0.0, dtype="float32"):
 def embedding(data, weight, input_dim=None, output_dim=None, dtype="float32",
               sparse_grad=False):
     return weight[_idx(data).clamp(0, weight.shape[0] - 1)]
+
+
+class _SparseEmbedding(torch.autograd.Function):
+    """Embedding lookup whose weight gradient is a row-sparse cotangent:
+    the batch's unique rows (sorted) and their summed cotangents,
+    accumulated in f32 and cast to the table's dtype.  The ids are
+    clipped once, so the backward scatters at the rows the forward
+    read."""
+
+    @staticmethod
+    def forward(ctx, data, weight):
+        ids = _idx(data).clamp(0, weight.shape[0] - 1)
+        ctx.save_for_backward(ids)
+        ctx.wshape = tuple(weight.shape)
+        return weight.index_select(0, ids.reshape(-1)).reshape(
+            tuple(ids.shape) + ctx.wshape[1:])
+
+    @staticmethod
+    def backward(ctx, g):
+        from ..ndarray.sparse import segment_sum, sparse_grad
+
+        (ids,) = ctx.saved_tensors
+        uniq, inv = torch.unique(ids.reshape(-1), sorted=True,
+                                 return_inverse=True)
+        vals = segment_sum(g.reshape((-1,) + ctx.wshape[1:]), inv,
+                           uniq.numel())
+        return None, sparse_grad(uniq, vals, ctx.wshape)
+
+
+def sparse_embedding(data, weight):
+    """Eager Embedding with a compact row-sparse weight gradient, O(touched
+    rows) (reference: indexing_op.cc's backward into a row_sparse
+    gradient).  Tensors in, a tensor out; NDArrays in, an NDArray out,
+    recorded while ``autograd.record()`` is open.  Out-of-range ids read
+    and receive the gradient of the clipped row."""
+    from ..ndarray.ndarray import NDArray
+
+    if isinstance(data, NDArray) or isinstance(weight, NDArray):
+        from ..ndarray.register import invoke_simple
+
+        return invoke_simple(sparse_embedding, (data, weight),
+                             name="sparse_embedding")
+    return _SparseEmbedding.apply(data, weight)
 
 
 @register("gather_nd")

@@ -5,8 +5,10 @@ FullyConnected, the activations, the softmax family, SoftmaxOutput,
 Convolution and Deconvolution, Pooling, the normalisations (BatchNorm,
 LayerNorm, RMSNorm, InstanceNorm, GroupNorm), Dropout, UpSampling and
 BilinearResize2D, each registered under the JAX package's names and
-aliases so ``mx.nd`` and Gluon's ``F`` reach them.  ``Custom`` (the
-CustomOp registry) and ``Cast_storage`` (sparse storage) are not ported.
+aliases so ``mx.nd`` and Gluon's ``F`` reach them, and ``Cast_storage``
+(the identity on a tensor; on NDArrays the storage dispatch in
+``ndarray/register.py`` makes the compact arrays).  ``Custom`` (the
+CustomOp registry) is not ported.
 
 Products in the stream dtype.  The JAX ops multiply with
 ``preferred_element_type=float32`` and cast the result back: bf16
@@ -626,3 +628,11 @@ def bilinear_resize_2d(data, like=None, height=1, width=1, scale_height=None,
     elif mode == "to_odd_up":
         height, width = h + (h + 1) % 2, w + (w + 1) % 2
     return _bilinear(data, height, width)
+
+
+@register("Cast_storage", aliases=("cast_storage",))
+def cast_storage(data, stype="default"):
+    """A tensor is dense storage: the identity.  An NDArray's cast is
+    ``ndarray.sparse.cast_storage``, reached through the storage
+    dispatch."""
+    return data

@@ -24,11 +24,16 @@ reading and writing the same memory.
 ``multi_precision`` items (float16 and bfloat16 weights with an f32
 master copy) group by their model dtype: the rule runs on the masters
 with the gradients widened to f32, and the model weights are rounded from
-the masters.  What the rules cannot express falls back to the legacy
-per-parameter ``Updater``: the optimizers without a plan (Adamax, Nadam,
-SGLD, DCASGD, Test, user subclasses), non-float or mixed-dtype items and
-row-sparse gradients, which stay on the legacy loop until the sparse
-slice lands.
+the masters.  A row-sparse gradient of an SGD or Adam item with
+``lazy_update`` runs ``sparse_row_kernel``'s variant of its rule: the
+touched rows of the weight and the states are gathered, the same rule
+runs over those rows, and the rows go back in place (``index_copy_``), so
+untouched rows never move (``step_group``).  What the rules cannot
+express falls back to the legacy per-parameter ``Updater``: the
+optimizers without a plan (Adamax, Nadam, SGLD, DCASGD, Test, user
+subclasses), non-float or mixed-dtype items, and the row-sparse items of
+other optimizers, of ``lazy_update=False`` or of multi-precision
+weights.
 """
 
 from __future__ import annotations
@@ -353,9 +358,54 @@ def _groupable(opt, weight, grad):
     back to the per-parameter Updater."""
     if getattr(grad, "stype", "default") != "default" \
             or getattr(weight, "stype", "default") != "default":
-        return False    # row-sparse: the legacy loop until the sparse slice
+        return False
     w, g = weight._data, grad._data
     return w.is_floating_point() and w.dtype == g.dtype
+
+
+# -- row-sparse (lazy-update) rules ----------------------------------------------
+
+class _SparseRows:
+    """The row-sparse lazy-update variant of a dense rule: its group
+    gathers the touched rows of every weight and state, runs ``rule`` on
+    them and writes them back (``step_group``).  One per dense rule, so
+    the group key stays stable across plans and capture signatures."""
+
+    def __init__(self, kernel):
+        self.dense = kernel
+        self.rule = kernel.rule
+        self.__name__ = "row_sparse_" + getattr(kernel, "__name__", "kernel")
+
+    def __repr__(self):
+        return self.__name__
+
+
+_SPARSE_KERNELS = {}
+
+
+def sparse_row_kernel(kernel):
+    """The cached row-sparse variant of ``kernel`` (a ``*_update_pure``)."""
+    fn = _SPARSE_KERNELS.get(kernel)
+    if fn is None:
+        fn = _SPARSE_KERNELS[kernel] = _SparseRows(kernel)
+    return fn
+
+
+def is_sparse_kernel(kernel) -> bool:
+    return isinstance(kernel, _SparseRows)
+
+
+def _sparse_groupable(opt, weight, grad):
+    """Row-sparse items the row rule reproduces against the per-parameter
+    lazy update: SGD or Adam with ``lazy_update`` on a dense float weight
+    without a multi-precision master."""
+    if getattr(grad, "stype", "default") != "row_sparse" \
+            or getattr(weight, "stype", "default") != "default":
+        return False
+    if type(opt) not in (_optmod.SGD, _optmod.Adam) \
+            or not getattr(opt, "lazy_update", True):
+        return False
+    return weight._data.is_floating_point() and not opt._mp_weight(weight)
 
 
 # -- the group step ------------------------------------------------------------
@@ -442,7 +492,8 @@ def plan_items(updater, index, grad, weight):
     groups, fallback = {}, []
     for i, g, w in zip(index, grad, weight):
         upd.ensure_state(i, w)
-        if plan is None or not _groupable(o, w, g):
+        sparse = plan is not None and _sparse_groupable(o, w, g)
+        if plan is None or not (sparse or _groupable(o, w, g)):
             fallback.append((i, g, w))
             continue
         state, w32 = upd.states[i], None
@@ -450,6 +501,8 @@ def plan_items(updater, index, grad, weight):
             w32, state = state
         kernel, static, state_nds, dyn_fn = plan(
             o, i, w32 if w32 is not None else w, state)
+        if sparse:
+            kernel = sparse_row_kernel(kernel)
         dtype = str(w._data.dtype).split(".")[-1]
         gkey = (kernel, tuple(sorted(static.items())),
                 ("mp:" if w32 is not None else "") + dtype)
@@ -527,6 +580,49 @@ def commit(gkey, items, new_w, new_s):
                 nd._version += 1
 
 
+def step_group(gkey, items, dyn, grads=None, health=None, guarded=False,
+               clip=None, rows=None):
+    """One group's update, written into its tensors in place: the single
+    entry the ``GroupedUpdater`` and the captured step share.  ``grads``
+    (raw tensors, one an item) stands in for the items' gradient NDArrays.
+
+    A row-sparse group's gradients are row values, and ``rows`` gives
+    each item's ``(ids, src)``: the table rows they belong to and, for
+    the captured step's padded buckets, the slot whose new row each slot
+    writes (None: every slot its own).  The weights' and states' rows at
+    ``ids`` are gathered, the rule runs on them (clip, guard and all, as
+    in ``build_group_step``), and they go back with ``index_copy_``.  A
+    padded slot repeats a real id; taking the real slot's new row and
+    states makes every write to that row the same bits, whatever order
+    the writes land in, and no padded slot applies an update of its
+    own."""
+    fn = build_group_step(gkey[0], gkey[1], guarded=guarded, clip=clip)
+    if not is_sparse_kernel(gkey[0]):
+        ws, gs, ss = group_operands(gkey, items, grads)
+        new_w, new_s = fn(ws, gs, ss, dyn, health)
+        commit(gkey, items, new_w, new_s)
+        return
+    if rows is None:
+        rows = [(g._rs_indices, None) for _i, _w, g, _s, _d, _m in items]
+        grads = [g._rs_values for _i, _w, g, _s, _d, _m in items]
+    tables = [[w._data] + [s._data for s in st]
+              for _i, w, _g, st, _d, _m in items]
+    gathered = [[t.index_select(0, ids) for t in ts]
+                for ts, (ids, _src) in zip(tables, rows)]
+    gs = [g.to(ts[0].dtype) for g, ts in zip(grads, tables)]
+    new_w, new_s = fn([r[0] for r in gathered], gs,
+                      [r[1:] for r in gathered], dyn, health)
+    with torch.no_grad():
+        for ts, (ids, src), nw, ns in zip(tables, rows, new_w, new_s):
+            for t, new in zip(ts, [nw, *ns]):
+                if src is not None:
+                    new = new.index_select(0, src)
+                t.index_copy_(0, ids, new)
+    for _i, w, _g, st, _d, _m in items:
+        for nd in (w, *st):
+            nd._version += 1
+
+
 class GroupedUpdater:
     """Multi-tensor drop-in for ``Updater`` on the Trainer's local path.
 
@@ -571,16 +667,14 @@ class GroupedUpdater:
             for i, *_ in items:
                 o._update_count(i)
         for gkey, items in groups.items():
-            ws, gs, ss = group_operands(gkey, items)
-            dyn = dyn_columns(o, items, compute_dtype(gkey), ws[0].device)
-            fn = build_group_step(gkey[0], gkey[1],
-                                  guarded=guard is not None and guard.skip,
-                                  clip=None if guard is None else guard.clip)
-            health = None if guard is None else guard.health
+            dyn = dyn_columns(o, items, compute_dtype(gkey),
+                              items[0][1]._data.device)
             with torch.no_grad(), \
                     torch.profiler.record_function("optimizer_update"):
-                new_w, new_s = fn(ws, gs, ss, dyn, health)
-                commit(gkey, items, new_w, new_s)
+                step_group(gkey, items, dyn,
+                           health=None if guard is None else guard.health,
+                           guarded=guard is not None and guard.skip,
+                           clip=None if guard is None else guard.clip)
             _DISPATCH_COUNT += 1
 
     # -- Updater API passthroughs (save/load states) ---------------------------

@@ -212,13 +212,41 @@ class Optimizer:
 
     def _apply(self, pure_fn, weight, states, grad, **kwargs):
         """Run one rule on the parameter's tensors (``fused_dispatch``) and
-        write the results into the weight and the states in place."""
+        write the results into the weight and the states in place.
+
+        A row-sparse gradient takes the reference's lazy update: the same
+        rule runs on just the stored rows of the weight and the states
+        (every rule is elementwise, so this is exact) and the rows go
+        back in place; untouched rows and their states never move.  With
+        ``lazy_update=False`` the gradient is densified and every row
+        steps (momentum decays, weight decay applies), as the reference
+        does."""
+        from ..ndarray.sparse import RowSparseNDArray
+
+        if isinstance(grad, RowSparseNDArray):
+            if getattr(self, "lazy_update", True):
+                self._apply_rows(pure_fn, weight, states, grad, kwargs)
+                return
+            grad = NDArray(grad._data, grad._ctx)
         with torch.no_grad():
             res = _op.fused_dispatch(pure_fn, weight._data, grad._data,
                                      [s._data for s in states], kwargs)
         _assign(weight, res[0])
         for s, new in zip(states, res[1:]):
             _assign(s, new)
+
+    @torch.no_grad()
+    def _apply_rows(self, pure_fn, weight, states, grad, kwargs):
+        ids = grad._rs_indices
+        w = weight._data
+        rows = [w.index_select(0, ids)] + [s._data.index_select(0, ids)
+                                           for s in states]
+        res = _op.fused_dispatch(pure_fn, rows[0],
+                                 grad._rs_values.to(w.dtype), rows[1:],
+                                 kwargs)
+        for nd, new in zip([weight, *states], res):
+            nd._data.index_copy_(0, ids, new)
+            nd._version += 1
 
     def _clipped_grad(self, grad, weight=None, wd=0.0):
         """``rescale * grad (+ wd * weight)``, clipped: the inline

@@ -469,8 +469,8 @@ def test_prefetcher_mesh_and_what_waits():
     two = Mesh(np.array([torch.device("cpu")] * 2, dtype=object), ("dp",))
     with pytest.raises(NotImplementedError, match="item 8"):
         DevicePrefetcher([], mesh=two)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        DevicePrefetcher([], sparse_tables=object())
+    with pytest.raises(NotImplementedError, match="item 6"):
+        DevicePrefetcher([], kvstore=object())
 
 
 def test_h2d_prefetch_spans_reach_torch_profiler():

@@ -222,8 +222,9 @@ def test_conv_pool_norm_layers_match_jax(name, last, train):
 def test_embedding_matches_jax():
     ids = np.array([[1, 4, 9], [0, 4, 2]], np.int32)
     _compare(lambda nn: nn.Embedding(10, 5), ids)
-    with pytest.raises(MXNetError, match="sparse"):
-        tnn.Embedding(10, 5, sparse_grad=True)
+    # sparse_grad=True: the same outputs, and a compact gradient whose
+    # dense view is the JAX package's
+    _compare(lambda nn: nn.Embedding(10, 5, sparse_grad=True), ids)
 
 
 def test_relu_and_max_pool_ties_follow_jax():

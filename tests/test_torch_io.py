@@ -431,8 +431,13 @@ def test_csv_mnist_libsvm_iters_match(tmp_path):
         outs.append([_batches(csv), _batches(mn), _batches(svm)])
     for t, j in zip(*outs):
         _same_batches(t, j)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tmx.io.LibSVMIter(str(tmp_path / "s.libsvm"), (5,), batch_size=2)
+    # the default stype: CSR batches, the same matrices as the dense ones
+    csr = [b.data[0] for b in tmx.io.LibSVMIter(
+        str(tmp_path / "s.libsvm"), (5,), batch_size=2)]
+    assert all(c.stype == "csr" for c in csr)
+    np.testing.assert_array_equal(
+        np.concatenate([c.asnumpy() for c in csr]),
+        np.concatenate([b[0][0] for b in outs[0][2]]))
 
 
 def test_image_record_iter_matches(tmp_path, monkeypatch):

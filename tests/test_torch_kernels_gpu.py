@@ -799,3 +799,65 @@ def test_fenced_trace_counts_every_kernel_of_a_graph_replay():
         names = [e.name for e in trace_edges.kernel_records(graph.replay)]
         assert sum("flash_fwd" in n for n in names) == 4, names
         assert not any(trace_edges.FENCE_NAME in n for n in names)
+
+
+def _emb_run(dev, captured_on, xs, vocab=64, dim=8, steps=3):
+    """A ShardedEmbedding + Dense(1) model (Adam, guard on) trained on the
+    card over ``xs``; returns (losses, weights, states, dispatches)."""
+    import os
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import embedding, gluon
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon import captured, nn
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    os.environ["MXTPU_SPARSE_CAPTURED"] = "1" if captured_on else "0"
+    net = nn.HybridSequential()
+    with net.name_scope():
+        net.add(embedding.ShardedEmbedding(vocab, dim),
+                nn.Dense(1, in_units=dim, flatten=False))
+    net.initialize(init=mx.init.Xavier(), ctx=context_of(dev),
+                   generator=torch.Generator(device=dev).manual_seed(3))
+    net.hybridize()
+    trainer = gluon.Trainer(net.collect_params(), "adam",
+                            {"learning_rate": 0.01})
+    captured.reset_counters()
+    losses = [trainer.train_step(
+        net, lambda out: (out ** 2).sum(),
+        NDArray(torch.as_tensor(x, device=dev), context_of(dev))).asnumpy()
+        for x in xs[:steps]]
+    torch.cuda.synchronize(dev)     # a device-side assert surfaces here
+    states = [s._data.clone() for i in sorted(trainer._updaters[0].states)
+              for s in trainer._updaters[0].states[i]]
+    return (losses, [p.data()._data.clone() for p in trainer._params],
+            states, captured.dispatch_count())
+
+
+@pytest.mark.parametrize("pool", ["last_row", "row_zero"])
+def test_sparse_padding_meets_a_real_row_on_the_card(monkeypatch, pool):
+    """A fixed bucket of 8 pads with the last real id, which is row
+    vocab-1 or row 0 here: inside the CUDA graph the padded slots write
+    that row with the real slot's bits (no device-side assert, no update
+    of their own), so the captured step equals the eager oracle bitwise
+    and rows no batch touched keep their bytes."""
+    dev = _card()
+    vocab = 64
+    monkeypatch.setenv("MXTPU_UNIQUE_BUCKET", "8")
+    monkeypatch.setenv("MXTPU_SPARSE_CAPTURED", "1")
+    ids = np.array([3, 17, vocab - 1]) if pool == "last_row" \
+        else np.array([0])
+    rng = np.random.RandomState(5)
+    xs = [rng.choice(ids, size=(16, 4)).astype(np.float32) for _ in range(3)]
+    init = _emb_run(dev, True, xs, steps=0)[1][0]
+    cap = _emb_run(dev, True, xs)
+    eag = _emb_run(dev, False, xs)
+    assert cap[3] == 3 and eag[3] == 0
+    for a, b in zip(cap[0], eag[0]):
+        np.testing.assert_array_equal(a, b)
+    for a, b in zip(cap[1] + cap[2], eag[1] + eag[2]):
+        assert torch.equal(a, b)
+    untouched = torch.ones(vocab, dtype=torch.bool, device=dev)
+    untouched[torch.as_tensor(ids, device=dev)] = False
+    assert torch.equal(cap[1][0][untouched], init[untouched])
+    assert not cap[2][0][untouched].any() and not cap[2][1][untouched].any()

@@ -434,11 +434,24 @@ def test_params_bytes_identical(tmp_path):
 
 
 def test_sparse_record_raises(tmp_path):
+    """The JAX package's compact sparse record loads as a compact array;
+    a sparse storage type under the upstream v2 magic, whose layout
+    neither package reads, still raises."""
+    import struct
+
     f = str(tmp_path / "s.params")
     rsp = jnd.sparse.row_sparse_array(jnd.array(np.eye(3, dtype=np.float32)))
     jnd.save(f, [rsp])
+    with tmx.cpu():
+        (got,) = tnd.load(f)
+    assert got.stype == "row_sparse" and got.num_stored_rows == 3
+    np.testing.assert_array_equal(got.asnumpy(), np.eye(3))
+    v2 = str(tmp_path / "v2.params")
+    with open(v2, "wb") as out:
+        out.write(struct.pack("<QQQ", 0x112, 0, 1))
+        out.write(struct.pack("<Iii", 0xF993FAC9, 1, 1))
     with tmx.cpu(), pytest.raises(tmx.MXNetError, match="sparse"):
-        tnd.load(f)
+        tnd.load(v2)
 
 
 # -- random: determinism, shapes, dtypes, moments ----------------------------

@@ -289,3 +289,61 @@ def test_batch_buckets_match_jax(monkeypatch, raw):
 def test_prefill_buckets_match_jax(window, floor):
     assert tengine.prefill_buckets_for(window, floor) == \
         jengine.prefill_buckets_for(window, floor)
+
+
+GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
+
+
+def _ctc_cases():
+    """(pred, label): the probe batch (the second sample's four labels,
+    two of them repeats, need more than its three frames), a random
+    batch every sample of which fits, and a batch whose first sample
+    needs all four of its frames, between two that fit and one that
+    cannot; the case's third entry, where there is one, is the samples'
+    frame counts."""
+    rng = np.random.RandomState(0)
+    probe = (rng.randn(2, 3, 5).astype(np.float32),
+             np.array([[1, 2, 0, 0], [1, 1, 2, 2]], np.float32))
+    rng = np.random.RandomState(1)
+    feasible = (rng.randn(3, 9, 6).astype(np.float32),
+                np.array([[1, 2, 3], [4, 4, 0], [5, 0, 0]], np.float32))
+    rng = np.random.RandomState(2)
+    boundary = (rng.randn(4, 4, 5).astype(np.float32),
+                np.array([[1, 1, 2, 0], [2, 3, 0, 0], [1, 1, 2, 2],
+                          [3, 0, 0, 0]], np.float32))
+    rng = np.random.RandomState(3)
+    lengths = (rng.randn(3, 6, 5).astype(np.float32),
+               np.array([[1, 2, 0], [3, 3, 0], [1, 2, 3]], np.float32),
+               np.array([6, 2, 4], np.int32))
+    return {"infeasible": probe, "feasible": feasible, "boundary": boundary,
+            "lengths": lengths}
+
+
+@pytest.mark.parametrize("case", ["infeasible", "feasible", "boundary",
+                                  "lengths"])
+def test_ctc_loss_and_grad_match_jax(case):
+    """CTC's loss and gradient against the JAX op, an impossible alignment
+    included: its loss is the -1e30 floor's 1e30, not inf, and its
+    gradient is finite and the JAX op's."""
+    from mxnet_tpu.ops import ctc as jctc
+    from mxnet_tpu_torch.ops import ctc as tctc
+
+    pred, label, *frames = _ctc_cases()[case]
+    jlen = [jnp.asarray(f) for f in frames]
+    want = np.asarray(jctc.ctc_loss(jnp.asarray(pred), jnp.asarray(label),
+                                    *jlen))
+    want_g = np.asarray(jax.grad(lambda p: jctc.ctc_loss(
+        p, jnp.asarray(label), *jlen).sum())(jnp.asarray(pred)))
+    p = torch.from_numpy(pred).requires_grad_()
+    got = tctc.ctc_loss(p, torch.from_numpy(label),
+                        *[torch.from_numpy(f) for f in frames])
+    got.sum().backward()
+    np.testing.assert_allclose(got.detach().numpy(), want, rtol=1e-4,
+                               atol=1e-5)
+    assert np.isfinite(p.grad.numpy()).all()
+    np.testing.assert_allclose(p.grad.numpy(), want_g, **GRAD_TOL)
+    bad = {"infeasible": 1, "boundary": 2, "lengths": 1}.get(case)
+    assert np.isfinite(got.detach().numpy()).all()
+    if bad is not None:
+        assert got[bad].item() == pytest.approx(1e30, rel=1e-6)
+        assert (np.delete(got.detach().numpy(), bad) < 1e3).all()
