@@ -16,20 +16,24 @@ Phases; any failure raises, exits non-zero and prints no result line:
    an instantiation without HMMA.
 3. The forward kernel against its plain PyTorch version on the card, at
    the serving path's shape (4, 12, 1024, 64), causal and not, f32 and
-   bf16, plus a ragged T=1000 and BERT's shape (32, 12, 512, 64)
-   non-causal; max abs and rel error beside the tolerance.
+   bf16, plus a ragged T=1000, BERT's shape (32, 12, 512, 64)
+   non-causal, Transformer-base's (32, 8, 128, 64) causal and not, and
+   its decoder's self-attention at T = 1, 9 and 33 (causal, below one
+   tile, as beam_search and greedy_decode run it); max abs and rel error
+   beside the tolerance.
 3b. The backward kernels (dQ, dK/dV) against their plain version at the
    training path's shape (8, 12, 1024, 64), causal and not, f32 and bf16,
    plus a ragged T=1000, BERT's shape and ViT-B/16's (64, 12, 197, 64)
-   non-causal, with dO random and O, L from the forward kernel (itself
+   non-causal and Transformer-base's causal and not, with dO random and O, L from the forward kernel (itself
    checked there against its plain version).
 4. Forward timing with CUDA events at the serving shape and BERT's:
    kernel, plain version, the PyTorch library call as a yardstick (the
    port never calls it; SDPA pinned to one backend, flash for bf16 and
    memory-efficient for f32, its name printed; the median of 5 timed
    loops, with their min-max), and the bound reckoned from shapes.
-4b. Backward timing at (8, 12, 1024, 64) causal and at BERT's and ViT's
-   shapes non-causal, f32 and bf16: each kernel, their sum, the plain backward,
+4b. Backward timing at (8, 12, 1024, 64) causal, at BERT's and ViT's
+   shapes non-causal and at Transformer-base's causal and not, f32 and
+   bf16: each kernel, their sum, the plain backward,
    the bounds, and the backward of the pinned SDPA as a yardstick
    (median of 5 loops).
 5. The serving path at GPT-2 small's full width (random f32 weights from
@@ -167,11 +171,47 @@ Phases; any failure raises, exits non-zero and prints no result line:
    N=32, T=500, C=30, L=100 by route (F.ctc_loss when every sample fits,
    the floored recursion for one that cannot).  No kernel of the port's
    own runs on this path.
+14. The decode and serving path and the encoder-decoder Transformer:
+   (i) tools.bench_serving.run at bench_serving's configuration
+   (bench.py:281-286: buckets 1, 2, 4, 8, 8 closed-loop clients, 24
+   requests, 8 new tokens) on GPT-2 small in bf16 through
+   ContinuousBatcher over a ServingEngine with one CUDA graph a bucket:
+   its JSON line, 36 graphs, no recording and no step run outside a
+   replay after warm-up, every request its 8 tokens, batched_ratio beside
+   the reference's gate (>= 1, logged, not enforced), the peak memory
+   after warm-up; (ii) GPT-2 small f32: tokens replayed from the graphs
+   for 4 x 64-token prompts and [5](c)'s mixed lengths against
+   CachedDecoder.decode and generate() (the top-2 gap rule), the first
+   logits at rtol 2e-4 / atol 1e-5, reload_from_model between two groups
+   (generation 1, no recording, the new weights served);
+   (iii) tools.bench_decode.run at GPT-2 small (B=8, a 16-token seed, 48
+   new tokens): ms a token cached f32 / bf16 against generate(), bf16
+   first logits within 0.05 max|f32|; (iv) speculative_decode, target
+   GPT-2 small f32, a self-draft, a 2-layer draft (the target's first
+   two layers) and a noisy draft (the target's weights plus seeded noise):
+   lossless by the reference's rule, the accepted proposals of every
+   round logged, at least one round of the noisy draft's accepting some
+   proposals and not all; (v) beam_generate (beam
+   4, alpha 0.6, 8 new tokens) card against host: the same tokens, scores
+   at rtol 1e-4; (vi) Transformer-base (37000-token vocabulary, d_model
+   512, 6 + 6 layers, 8 heads, d_ff 2048, flash self-attention): f32
+   logits flash against dense, five bf16 steps of the eager Gluon loop at
+   B=32, T=128 (dropout 0.1, label smoothing 0.1, Adam beta2 0.98, eps
+   1e-9): the loss falls, each flash kernel 12 launches a step by the
+   counters and the fenced profiler, ms a step, tokens/s, peak memory;
+   beam_search (beam 4, 32 steps) and greedy_decode on the trained
+   weights with their launches, greedy's first 8 steps flash against
+   dense in f32; transformer_tiny card against host over 3 SGD steps.  The
+   engine and the decoders launch no kernel of the port's own (their
+   attention is dense over the cache).
 6. The kernel JSON line (f32 numbers at the training shape, and the
    bf16 ones under *_bf16 keys; the same at BERT's shape under
-   ``at_bert_shape`` and at ViT's under ``at_vit_shape``; launches by
-   path, [12]'s two training paths among them), the nvidia-smi line, then
-   the result line.
+   ``at_bert_shape``, at ViT's under ``at_vit_shape`` and at
+   Transformer-base's under ``at_transformer_shape``, its encoder
+   (non-causal) and decoder (causal), with the forward's errors at
+   TFM_DECODE_T; launches by path, [12]'s two training paths and [14]'s
+   paths among them), the
+   nvidia-smi line, then the result line.
 """
 
 from __future__ import annotations
@@ -191,6 +231,14 @@ TRAIN_STEPS = 20
 # bf16, flash trunk, non-causal; its attention runs at (32, 12, 512, 64)
 BERT_BATCH, BERT_SEQ, BERT_STEPS = 32, 512, 10
 BERT_SHAPE = (BERT_BATCH, 12, BERT_SEQ, 64)
+# [14](vi)'s Transformer-base: 8 heads of 64 at B=32, T=128 source and
+# target, the encoder's self-attention non-causal and the decoder's causal;
+# beam_search (8 sources x beam 4 = 32 rows) and greedy_decode grow the
+# target one token at a time, so the decoder's forward also runs far below
+# one tile: TFM_DECODE_T are three of those lengths
+TFM_BATCH, TFM_SEQ = 32, 128
+TFM_SHAPE = (TFM_BATCH, 8, TFM_SEQ, 64)
+TFM_DECODE_T = (1, 9, 33)
 NEW_TOKENS = 16
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 # f32: the flash kernels run f32 products as 3xTF32 on the tensor cores
@@ -473,7 +521,8 @@ def phase_build_report():
 
 def phase_kernels(dev):
     """[3] the forward kernel against its plain version: the serving
-    shape causal and not, a ragged T=1000, and BERT's shape non-causal.
+    shape causal and not, a ragged T=1000, BERT's shape non-causal,
+    Transformer-base's causal and not, and its decoder at TFM_DECODE_T.
     Returns O's max abs error by (shape, dtype name, causal)."""
     import torch
 
@@ -481,7 +530,9 @@ def phase_kernels(dev):
 
     ragged = SHAPE[:2] + (1000, SHAPE[3])
     cases = [(SHAPE, True), (SHAPE, False), (ragged, True),
-             (BERT_SHAPE, False)]
+             (BERT_SHAPE, False), (TFM_SHAPE, False), (TFM_SHAPE, True)]
+    cases += [(TFM_SHAPE[:2] + (T, TFM_SHAPE[3]), True)
+              for T in TFM_DECODE_T]
     errs = {}
     for shape, causal in cases:
         T = shape[2]
@@ -601,7 +652,8 @@ def phase_bwd_kernels(dev):
 
     ragged = TRAIN_SHAPE[:2] + (1000, TRAIN_SHAPE[3])
     cases = [(TRAIN_SHAPE, True), (TRAIN_SHAPE, False), (ragged, True),
-             (BERT_SHAPE, False), (VIT_SHAPE, False)]
+             (BERT_SHAPE, False), (VIT_SHAPE, False), (TFM_SHAPE, False),
+             (TFM_SHAPE, True)]
     results = {}
     for shape, causal in cases:
         T = shape[2]
@@ -652,15 +704,17 @@ def phase_bwd_kernels(dev):
 def phase_bwd_timing(dev):
     """[4b] each backward kernel, the plain backward, the bounds and the
     pinned SDPA backward yardstick, plus the forward, at the training
-    shape (causal) and at BERT's (non-causal).  Returns the numbers by
-    (shape, dtype name)."""
+    shape (causal), at BERT's and ViT's (non-causal) and at
+    Transformer-base's (non-causal and causal).  Returns the numbers by
+    (shape, dtype name, causal)."""
     import torch
 
     from mxnet_tpu_torch.ops import flash_attention as fa
 
     rows = {}
     for shape, causal in ((TRAIN_SHAPE, True), (BERT_SHAPE, False),
-                          (VIT_SHAPE, False)):
+                          (VIT_SHAPE, False), (TFM_SHAPE, False),
+                          (TFM_SHAPE, True)):
         mask = "causal" if causal else "non-causal"
         for dtype in (torch.float32, torch.bfloat16):
             name = str(dtype).split(".")[1]
@@ -688,7 +742,7 @@ def phase_bwd_timing(dev):
                 out, (qg, kg, vg), do, retain_graph=True), 20)
             b = {fn: flash_bound(*shape, causal, name, fn)
                  for fn in ("fwd", "dq", "dkv", "bwd")}
-            rows[(shape, name)] = {
+            rows[(shape, name, causal)] = {
                 "fwd": t_fwd, "dq": t_dq, "dkv": t_dkv,
                 "plain_fwd": plain_fwd, "plain_bwd": plain_bwd,
                 "lib_fwd": lib_fwd, "lib_bwd": lib_bwd, "bound": b,
@@ -1883,6 +1937,7 @@ def profile_steps(step, steps, what, card, top=12, families=FAMILIES,
 
 
 # -- [11] the transformers as Gluon blocks ------------------------------------
+
 
 
 def _kernel_counts(step, steps=1):
@@ -3594,6 +3649,606 @@ def phase_embedding(dev, card, rtc_kernels):
     return launches, res
 
 
+# -- [14] the decode and serving path, and the encoder-decoder Transformer ---
+# bench_serving's configuration (bench.py:281-286) is tools/bench_serving's
+# own.  (ii): the mixed prompt lengths of [5](c), 16 new tokens, f32.
+SERVE_LENS, SERVE_NEW = (17, 64, 200, 511), 16
+# the reference's bf16 decoder tolerance (tests/test_model_zoo.py:453-483):
+# the first logits within 0.05 max|f32 logit|
+BF16_DECODE_TOL = 0.05
+# (iv) speculative decoding: 4 prompts of 64 tokens, 32 new, k=4 proposals;
+# the noisy draft's noise, in standard deviations of each weight tensor
+# (on an H100 80GB HBM3 at 700 W, 0.01 accepted 0.48 of the proposals,
+# with rounds of every m from 0 to 4; 0.02 0.28, 0.05 0.04, 0.1 0.01,
+# 0.2 none)
+SPEC_BATCH, SPEC_SEED, SPEC_NEW, SPEC_K = 4, 64, 32, 4
+SPEC_NOISE = 0.01
+# (v) beam_generate: beam 4, alpha 0.6, 8 new tokens from a 32-token prompt
+BEAM_SIZE, BEAM_ALPHA, BEAM_NEW, BEAM_SEED = 4, 0.6, 8, 32
+# (vi) Transformer-base ("Attention Is All You Need", WMT14 En-De: a shared
+# BPE vocabulary of ~37000): B=32, T=128 source and target (TFM_SHAPE),
+# bf16, dropout 0.1, label smoothing 0.1, Adam (beta2 0.98, eps 1e-9),
+# five steps
+TFM_VOCAB, TFM_STEPS, TFM_LR = 37000, 5, 5e-4
+TFM_BOS, TFM_EOS = 1, 2
+# beam_search (beam 4, alpha 0.6, 32 steps) and greedy_decode on 8 sources
+TFM_DECODE_SRC, TFM_BEAM_STEPS, TFM_GREEDY_CHECK = 8, 32, 8
+# card against host at transformer_tiny: the weights after 3 steps
+TFM_HOST_TOL, TFM_HOST_STEPS = (2e-4, 2e-5), 3
+
+
+def _launches(rtc_kernels):
+    """Every port kernel's launch count since the last zeroing."""
+    return dict(_counts(), **_rtc_counts(rtc_kernels))
+
+
+def _zero_all(rtc_kernels):
+    _zero_counts()
+    _rtc_zero(rtc_kernels)
+
+
+def _decode_lossless(spec, ref, ref_lg, T0, what):
+    """The reference's speculative rule (tests/test_model_zoo.py:500-511):
+    token-exact, or parting only where the reference's top-2 margin is
+    inside 1e-3 max|logit|."""
+    import numpy as np
+
+    if np.array_equal(spec, ref):
+        log(f"      {what}: tokens identical to CachedDecoder.decode")
+        return
+    j = int(np.argwhere((spec != ref).any(axis=0))[0, 0]) - T0
+    top2 = np.sort(ref_lg[j], axis=-1)[:, -2:]
+    margin = float((top2[:, 1] - top2[:, 0]).min())
+    log(f"      {what}: parts at step {j}, top-2 margin {margin:.3e} (tol "
+        f"{1e-3 * np.abs(ref_lg[j]).max():.3e})")
+    if margin >= 1e-3 * np.abs(ref_lg[j]).max():
+        raise AssertionError(f"{what}: diverged with a decisive margin")
+
+
+def _serving_bench(dev, card, rtc_kernels):
+    """(i) tools.bench_serving.run at bench_serving's configuration on
+    GPT-2 small bf16: 36 recorded graphs, no recording or step run outside
+    a replay after warm-up, every request its 8 tokens."""
+    from mxnet_tpu_torch.tools import bench_serving
+
+    _zero_all(rtc_kernels)
+    res = bench_serving.run(dev)
+    launches = _launches(rtc_kernels)
+    log(f"  (i) {json.dumps(res)}")
+    gate = res["batched_ratio"] >= 1.0
+    log(f"      batched_ratio {res['batched_ratio']:.3f} against the "
+        f"reference's gate (>= 1.0): {'met' if gate else 'NOT met'}; "
+        f"retraces_after_warmup {res['retraces_after_warmup']}, recordings "
+        f"after warm-up {res['recordings_after_warmup']}, programs "
+        f"{res['programs']} (want 4 x 9 = 36), peak memory after warm-up "
+        f"{res['peak_mem_after_warmup_gib']:.3f} GiB; kernel launches "
+        f"{launches}  [{card}]")
+    if not (res["retraces_after_warmup"] == 0 and res["programs"] == 36
+            and res["recordings_after_warmup"] == 0):
+        raise AssertionError(f"bench_serving: {res}")
+    return res, launches
+
+
+def _first_logits(eng, prompts):
+    """The engine's first-token logits of a uniform-length batch from its
+    (B, prefill bucket) graph."""
+    import numpy as np
+    import torch
+
+    B, T = len(prompts), len(prompts[0])
+    S = eng._pick_bucket(eng.prefill_buckets, T, "prompt length")
+    toks = np.zeros((B, S), np.int64)
+    toks[:, :T] = np.asarray(prompts)
+    eng._program(B, S)
+    zero = torch.zeros(B, dtype=torch.int64, device=eng._device)
+    with torch.no_grad():
+        return eng._call(B, S, zero, torch.as_tensor(toks),
+                         zero + T - 1).clone()
+
+
+def _graphs_vs_eager(dev, card, rtc_kernels):
+    """(ii) Tokens replayed from the engine's graphs against
+    CachedDecoder.decode and generate() (f32, GPT-2 small): 4 x 64-token
+    prompts, then [5](c)'s mixed lengths one by one; the first logits;
+    a reload between two groups.  Returns the model, the (flash-trunk)
+    launches of the engine and of the cached decoder, and ms a token."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import convert, serving
+    from mxnet_tpu_torch.gluon.model_zoo import gpt
+
+    rng = np.random.default_rng(SEED + 60)
+    model = gpt.gpt2_small(scan_layers=True, attention_impl="flash",
+                           dropout=0.0)
+    state = _numpy_state(model, rng)
+    convert.load_state(model, state)
+    vocab = model._vocab
+    eng = serving.ServingEngine(model, batch_buckets=(4,))
+    prompts = rng.integers(0, vocab, (4, 64))
+    mixed = [rng.integers(0, vocab, n) for n in SERVE_LENS]
+    # every program the groups below run, recorded up front
+    for S in (64, 512, 1):
+        eng._program(4, S)
+    dec = gpt.CachedDecoder(model)
+    torch.cuda.synchronize()
+    traces, records = serving.trace_count(), serving.compile_count()
+    _zero_all(rtc_kernels)
+    t0 = time.perf_counter()
+    outs, tm = eng.serve_group(list(prompts), SERVE_NEW)
+    t_eng = time.perf_counter() - t0
+    grouped, tg = eng.serve_group(mixed, SERVE_NEW)
+    eng_launches = _launches(rtc_kernels)
+    if (serving.trace_count(), serving.compile_count()) != (traces, records):
+        raise AssertionError("the engine ran its step outside a replay")
+    dec.decode(prompts, 2)                                  # warm-up
+    torch.cuda.synchronize()
+    _zero_all(rtc_kernels)
+    t0 = time.perf_counter()
+    ref, lg = dec.decode(prompts, SERVE_NEW, return_logits=True)
+    ref = ref.asnumpy()
+    t_dec = time.perf_counter() - t0
+    solo = [dec.decode(p[None], SERVE_NEW).asnumpy()[0, len(p):]
+            for p in mixed]
+    dec_launches = _launches(rtc_kernels)
+    gen = gpt.generate(model, prompts, SERVE_NEW).asnumpy()[:, 64:]
+    log(f"  (ii) GPT-2 small f32: engine (graphs) 4 x 64 + {SERVE_NEW}: "
+        f"{t_eng * 1e3:.1f} ms, prefill {tm['prefill_us'] / 1e3:.3f} ms, "
+        f"decode {tm['decode_us_per_token'] / 1e3:.3f} ms a token; mixed "
+        f"{SERVE_LENS} bucket {tg['bucket']}, decode "
+        f"{tg['decode_us_per_token'] / 1e3:.3f} ms a token; "
+        f"CachedDecoder.decode (eager) {t_dec / SERVE_NEW * 1e3:.3f} ms a "
+        f"token; launches engine {eng_launches}, cached decoder "
+        f"{dec_launches}  [{card}]")
+    profile_steps(lambda: eng.serve_group(list(prompts), SERVE_NEW), 1,
+                  f"(ii) one engine group (4 x 64 + {SERVE_NEW}, graphs)",
+                  card, top=8)
+    _agree(model, prompts, ref[:, 64:], outs, "(ii) graphs vs CachedDecoder")
+    _agree(model, prompts, gen, outs, "(ii) graphs vs generate()")
+    _agree(model, mixed, solo, grouped,
+           "(ii) mixed group from graphs vs CachedDecoder one by one")
+    first = _first_logits(eng, prompts)
+    f_abs, f_rel, f_ratio = errors(first, torch.as_tensor(lg[0], device=dev),
+                                   2e-4, 1e-5)
+    log(f"      first-token logits, graph against CachedDecoder: max abs "
+        f"{f_abs:.3e} rel {f_rel:.3e}, err/tol {f_ratio:.3f} (rtol 2e-4 "
+        f"atol 1e-5)")
+    if f_ratio > 1:
+        raise AssertionError("the graph's first logits disagree")
+    # a reload between two groups: the next group serves the new weights
+    other = gpt.gpt2_small(scan_layers=True, attention_impl="dense",
+                           dropout=0.0)
+    convert.load_state(other, _numpy_state(other, rng))
+    eng.reload_from_model(other)
+    after, ta = eng.serve_group(list(prompts), SERVE_NEW)
+    want = gpt.CachedDecoder(other).decode(prompts, SERVE_NEW).asnumpy()
+    log(f"      reload_from_model: generation {ta['generation']}, no "
+        f"recording: {serving.compile_count() == records}")
+    if ta["generation"] != 1 or serving.compile_count() != records:
+        raise AssertionError("reload_from_model did not swap in place")
+    _agree(other, prompts, want[:, 64:], after,
+           "(ii) graphs after reload vs the new model's CachedDecoder")
+    if any(eng_launches.values()) or any(dec_launches.values()):
+        raise AssertionError("the engine or the cached decoder launched a "
+                             "kernel of the port's own")
+    del eng, other
+    torch.cuda.empty_cache()
+    return model, eng_launches, dec_launches, t_dec / SERVE_NEW * 1e3
+
+
+def _decode_bench(model, card, rtc_kernels):
+    """(iii) tools.bench_decode.run at GPT-2 small: ms a token, cached
+    (f32, bf16) against generate(); bf16 logits against f32."""
+    from mxnet_tpu_torch.tools import bench_decode
+
+    res = bench_decode.run(model)
+    log(f"  (iii) {json.dumps(res)}")
+    log(f"      ms a token: cached f32 {res['kv_cache_ms_per_token']:.3f}, "
+        f"bf16 {res['kv_cache_bf16_ms_per_token']:.3f}, generate() "
+        f"{res['recompute_ms_per_token']:.3f}; bf16 first logits err / "
+        f"max|f32| {res['bf16_first_logits_err_over_scale']:.4f} (tol "
+        f"{BF16_DECODE_TOL})  [{card}]")
+    if res["bf16_first_logits_err_over_scale"] > BF16_DECODE_TOL:
+        raise AssertionError("bf16 decoding left the reference's tolerance")
+    return res
+
+
+def _noisy_draft(model, rng, eps):
+    """GPT-2 small holding the target's weights plus seeded noise, eps
+    times each tensor's standard deviation: a draft that agrees with the
+    target part of the time."""
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.gluon.model_zoo import gpt
+    from mxnet_tpu_torch.serving import state_for_serving
+
+    draft = gpt.gpt2_small(scan_layers=True, dropout=0.0)
+    convert.load_state(draft, {
+        k: v + eps * v.std() * rng.standard_normal(v.shape, dtype=v.dtype)
+        for k, v in state_for_serving(model).items()})
+    return draft
+
+
+def _record_rounds(dec, k):
+    """Wrap a target CachedDecoder's block step so that each (k+1)-token
+    verify step appends the batch's accepted prefix m (the rows' smallest
+    run of proposals its greedy picks agree with) to the returned list."""
+    import numpy as np
+
+    step, rounds = dec._step, []
+
+    def wrapped(ck, cv, pos, toks):
+        logits = step(ck, cv, pos, toks)
+        if toks.shape[1] == k + 1:
+            agree = (toks[:, 1:] == logits[:, :k].argmax(dim=-1)) \
+                .cpu().numpy()
+            rounds.append(int(np.where(agree.all(axis=1), k,
+                                       np.argmin(agree, axis=1)).min()))
+        return logits
+
+    dec._step = wrapped
+    return rounds
+
+
+def _speculative(model, dev, card, rtc_kernels):
+    """(iv) speculative_decode with GPT-2 small as the target, f32: a
+    self-draft (every proposal accepted up to the trim), a 2-layer draft
+    of the same width and vocabulary (the target's first two layers) and
+    a noisy draft (the target's weights plus SPEC_NOISE of noise), all
+    lossless; the noisy draft must run at least one round that accepts
+    some proposals and not all (0 < m < k)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.gluon.model_zoo import gpt
+    from mxnet_tpu_torch.serving import state_for_serving
+
+    rng = np.random.default_rng(SEED + 61)
+    ids = rng.integers(0, model._vocab, (SPEC_BATCH, SPEC_SEED))
+    tgt = gpt.CachedDecoder(model)
+    # the draft: the target's first two layers under its own embeddings
+    # and final LayerNorm
+    draft = gpt.gpt2_small(scan_layers=True, num_layers=2, dropout=0.0)
+    convert.load_state(draft, {
+        k: (v[:2] if "_stack_" in k else v)
+        for k, v in state_for_serving(model).items()})
+    noisy = _noisy_draft(model, rng, SPEC_NOISE)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref_t, ref_lg = tgt.decode(ids, SPEC_NEW, return_logits=True)
+    ref = ref_t.asnumpy()
+    t_ref = time.perf_counter() - t0
+    accepted = _record_rounds(tgt, SPEC_K)
+    out = {}
+    _zero_all(rtc_kernels)
+    for name, drf in (("self-draft", tgt), ("2-layer draft", draft),
+                      (f"noisy draft ({SPEC_NOISE} std)", noisy)):
+        accepted.clear()
+        t0 = time.perf_counter()
+        spec, st = gpt.speculative_decode(tgt, drf, ids, SPEC_NEW, k=SPEC_K,
+                                          return_stats=True)
+        spec = spec.asnumpy()
+        dt = time.perf_counter() - t0
+        rate = st["accepted_draft_tokens"] / (st["rounds"] * SPEC_K)
+        log(f"  (iv) speculative_decode, {name}, k={SPEC_K}: {st['rounds']} "
+            f"rounds, {st['accepted_draft_tokens']} draft tokens accepted "
+            f"(rate {rate:.3f}), accepted a round {accepted}, "
+            f"{dt / SPEC_NEW * 1e3:.3f} ms a token against "
+            f"CachedDecoder.decode's {t_ref / SPEC_NEW * 1e3:.3f}  [{card}]")
+        _decode_lossless(spec, ref, ref_lg, SPEC_SEED, f"(iv) {name}")
+        out[name] = dict(st, ms_per_token=dt / SPEC_NEW * 1e3,
+                         acceptance_rate=rate, accepted_per_round=
+                         list(accepted))
+    launches = _launches(rtc_kernels)
+    st = out["self-draft"]
+    # a round commits its accepted proposals and one token of the
+    # target's: all accepted, ceil(N / (k + 1)) rounds; the reference's
+    # bound allows one round more (tests/test_model_zoo.py:513-516)
+    want = SPEC_NEW - -(-SPEC_NEW // (SPEC_K + 1))
+    if st["accepted_draft_tokens"] < want:
+        raise AssertionError(f"self-draft accepted {st['accepted_draft_tokens']}"
+                             f" of {want} proposals")
+    partial = out[f"noisy draft ({SPEC_NOISE} std)"]["accepted_per_round"]
+    if not any(0 < m < SPEC_K for m in partial):
+        raise AssertionError(f"the noisy draft ran no round of partial "
+                             f"acceptance: {partial}")
+    if any(launches.values()):
+        raise AssertionError(f"speculative decoding launched {launches}")
+    out["ref_ms_per_token"] = t_ref / SPEC_NEW * 1e3
+    return out, launches
+
+
+def _beam_card_vs_host(model, dev, card, rtc_kernels):
+    """(v) beam_generate on GPT-2 small (flash trunk: each step one window
+    forward of the beams), card against host: the same tokens, scores
+    within rtol 1e-4."""
+    import numpy as np
+
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.context import cpu
+    from mxnet_tpu_torch.gluon.model_zoo import gpt
+    from mxnet_tpu_torch.serving import state_for_serving
+
+    ids = np.random.default_rng(SEED + 62).integers(
+        0, model._vocab, (1, BEAM_SEED))
+    _zero_all(rtc_kernels)
+    t0 = time.perf_counter()
+    toks, scores = gpt.beam_generate(model, ids, BEAM_NEW, BEAM_SIZE,
+                                     alpha=BEAM_ALPHA)
+    toks = toks.asnumpy()
+    dt = time.perf_counter() - t0
+    launches = _launches(rtc_kernels)
+    host = gpt.gpt2_small(scan_layers=True, attention_impl="flash",
+                          dropout=0.0, device=cpu())
+    convert.load_state(host, state_for_serving(model))
+    t0 = time.perf_counter()
+    htoks, hscores = gpt.beam_generate(host, ids, BEAM_NEW, BEAM_SIZE,
+                                       alpha=BEAM_ALPHA)
+    dt_host = time.perf_counter() - t0
+    same = bool(np.array_equal(toks, htoks.asnumpy()))
+    rel = float(np.abs(scores - hscores).max() / np.abs(hscores).max())
+    log(f"  (v) beam_generate beam {BEAM_SIZE}, alpha {BEAM_ALPHA}, "
+        f"{BEAM_NEW} new tokens: card {dt * 1e3:.1f} ms, host "
+        f"{dt_host:.1f} s; tokens equal {same}, scores card {scores} host "
+        f"{hscores} (rel err {rel:.2e}, rtol 1e-4); launches {launches} "
+        f"(want {model.encoder._num_layers * BEAM_NEW} flash forwards)  "
+        f"[{card}]")
+    if not (same and rel <= 1e-4 and launches["flash_attention_fwd"]
+            == model.encoder._num_layers * BEAM_NEW):
+        raise AssertionError("beam_generate: card and host disagree")
+    del host
+    return launches
+
+
+def _tfm_data(rng, B, T, vocab):
+    """A source batch, the target's teacher-forced input (BOS then the
+    target less its last token) and the target as labels."""
+    import numpy as np
+
+    src = rng.integers(3, vocab, (B, T))
+    tgt = rng.integers(3, vocab, (B, T))
+    tgt_in = np.concatenate([np.full((B, 1), TFM_BOS), tgt[:, :-1]], axis=1)
+    return src, tgt_in, tgt
+
+
+def _tfm_host_steps(dev, rng):
+    """(vi) transformer_tiny card against host: three SGD-momentum steps
+    of the eager Gluon loop in f32 from the same weights (flash on the
+    card, its plain path on the host); the worst err/tol over the
+    weights.  SGD, not Adam: the key bias's gradient is zero, and Adam
+    would turn each side's rounding noise there into steps of +-lr."""
+    import torch
+
+    from mxnet_tpu_torch import autograd, convert, gluon, initializer
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon.model_zoo import transformer as tfm
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    data = _tfm_data(rng, 4, 16, 50)
+    params, out = None, []
+    for d in (torch.device("cpu"), dev):
+        net = tfm.transformer_tiny(50, 50, dropout=0.0, max_length=32,
+                                   attention_impl="flash", device=d)
+        if params is None:
+            net.initialize(initializer.Xavier(),
+                           generator=torch.Generator().manual_seed(SEED + 63))
+            params = {k: p.data().asnumpy()
+                      for k, p in net.collect_params().items()}
+        else:
+            convert.load_transformer_params(net, params)
+        src, tgt_in, lab = (NDArray(torch.as_tensor(a, device=d).float(),
+                                    context_of(d)) for a in data)
+        tr = gluon.Trainer(net.collect_params(), "sgd",
+                           {"learning_rate": 0.1, "momentum": 0.9})
+        loss_fn = tfm.LabelSmoothedCELoss(0.1)
+        for _ in range(TFM_HOST_STEPS):
+            with autograd.record():
+                loss = loss_fn(net(src, tgt_in), lab)
+            loss.backward()
+            tr.step(4)
+        out.append({k.split("_", 1)[1]: p.data()._data.detach().cpu()
+                    for k, p in net.collect_params().items()})
+    return max(errors(out[1][k], out[0][k], *TFM_HOST_TOL)[2]
+               for k in out[0])
+
+
+def _transformer(dev, card, rtc_kernels):
+    """(vi) Transformer-base at full width: flash logits against dense
+    (f32), five bf16 steps of the eager Gluon loop (12 launches of each
+    flash kernel a step, by the counters and the fenced profiler), then
+    beam_search and greedy_decode on the trained weights, greedy's first
+    steps held against the dense model's; transformer_tiny card against
+    host.  Returns ({path: launches}, the step's numbers)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import autograd, convert, gluon, initializer
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon.model_zoo import transformer as tfm
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    rng = np.random.default_rng(SEED + 64)
+    ctx = context_of(dev)
+    L = 6
+    paths = {}
+
+    def build(impl, dropout=0.1):
+        net = tfm.transformer_base(TFM_VOCAB, TFM_VOCAB, dropout=dropout,
+                                   attention_impl=impl, device=dev)
+        net.initialize(initializer.Xavier(),
+                       generator=torch.Generator(device=dev).manual_seed(
+                           SEED + 65))
+        return net
+
+    # flash against dense logits, f32, B=4, at the same weights
+    src, tgt_in, lab = _tfm_data(rng, TFM_BATCH, TFM_SEQ, TFM_VOCAB)
+    flash32, dense32 = build("flash", 0.0), build("dense", 0.0)
+    s4, t4 = (torch.as_tensor(a[:4], device=dev) for a in (src, tgt_in))
+    with autograd.predict_mode(), torch.no_grad():
+        lf, ld = flash32(s4, t4), dense32(s4, t4)
+    f_abs, f_rel, f_ratio = errors(lf, ld, *TRUNK_TOL)
+    log(f"  (vi) Transformer-base f32 logits {tuple(lf.shape)}, flash "
+        f"against dense: max abs {f_abs:.3e} rel {f_rel:.3e}, err/tol "
+        f"{f_ratio:.3f} (rtol {TRUNK_TOL[0]:.0e} atol {TRUNK_TOL[1]:.0e})")
+    if not (f_ratio <= 1 and bool(torch.isfinite(lf).all())):
+        raise AssertionError("Transformer-base: flash disagrees with dense")
+    del flash32, dense32, lf, ld
+    torch.cuda.empty_cache()
+
+    # five bf16 steps of the eager Gluon loop, hybridized
+    net = build("flash")
+    net.cast("bfloat16")
+    net.hybridize()
+    tr = gluon.Trainer(net.collect_params(), "adam",
+                       {"learning_rate": TFM_LR, "beta1": 0.9,
+                        "beta2": 0.98, "epsilon": 1e-9,
+                        "multi_precision": True})
+    loss_fn = tfm.LabelSmoothedCELoss(0.1)
+    xs, ys, ls = (NDArray(torch.as_tensor(a, device=dev).float(), ctx)
+                  for a in (src, tgt_in, lab))
+
+    def step():
+        with autograd.record():
+            loss = loss_fn(net(xs, ys), ls)
+        loss.backward()
+        tr.step(TFM_BATCH)
+        return loss
+
+    losses, per_step = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for s in range(TFM_STEPS):
+        if s == 1:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        _zero_all(rtc_kernels)
+        losses.append(float(step().asnumpy()))
+        per_step.append(_launches(rtc_kernels))
+    t2 = time.perf_counter()
+    ms_warm = (t2 - t1) / (TFM_STEPS - 1) * 1e3
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    profiled = _kernel_counts(step)
+    wall, busy = profile_steps(step, 2, "(vi) Transformer-base bf16 step",
+                               card, top=10, families=BERT_FAMILIES,
+                               ranges=("optimizer_update",))
+    tokens = TFM_BATCH * TFM_SEQ
+    log(f"  (vi) Transformer-base bf16 flash, B={TFM_BATCH}, T={TFM_SEQ} "
+        f"source and target, dropout 0.1, label smoothing 0.1, Adam lr "
+        f"{TFM_LR} (beta2 0.98, eps 1e-9), eager Gluon loop, hybridized: "
+        f"losses {[round(v, 4) for v in losses]}, "
+        f"{(t2 - t0) / TFM_STEPS * 1e3:.2f} ms a step (first included), "
+        f"{ms_warm:.2f} ms a step after it, {tokens / ms_warm * 1e3:.0f} "
+        f"target tokens/s, peak {peak:.2f} GiB; launches a step "
+        f"{per_step[-1]}, by the fenced profiler {profiled}  [{card}]")
+    want = {"flash_attention_fwd": 2 * L, "flash_attention_dq": 2 * L,
+            "flash_attention_dkv": 2 * L, "rtc_scale2": 0, "rtc_axpy": 0}
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]
+            and all(c == want for c in per_step) and profiled == want):
+        raise AssertionError(f"Transformer-base training: {losses}, "
+                             f"{per_step}, {profiled}")
+    paths["transformer_base_train_step"] = per_step[-1]
+
+    # beam_search and greedy_decode on the trained weights (bf16, flash)
+    srcs = torch.as_tensor(src[:TFM_DECODE_SRC], device=dev)
+    _zero_all(rtc_kernels)
+    t0 = time.perf_counter()
+    btoks, bscores = tfm.beam_search(net, srcs, TFM_BOS, TFM_EOS, beam_size=4,
+                                     max_len=TFM_BEAM_STEPS + 1, alpha=0.6)
+    dt_beam = time.perf_counter() - t0
+    paths["transformer_beam_search"] = _launches(rtc_kernels)
+    _zero_all(rtc_kernels)
+    t0 = time.perf_counter()
+    gtoks = net.greedy_decode(srcs, TFM_BOS, TFM_EOS,
+                              max_len=TFM_BEAM_STEPS + 1)
+    dt_greedy = time.perf_counter() - t0
+    paths["transformer_greedy_decode"] = _launches(rtc_kernels)
+    log(f"      beam_search (beam 4, alpha 0.6, {TFM_BEAM_STEPS} steps, "
+        f"{TFM_DECODE_SRC} sources): {dt_beam * 1e3:.1f} ms, tokens "
+        f"{btoks.shape}, scores finite {bool(np.isfinite(bscores).all())}, "
+        f"launches {paths['transformer_beam_search']}; greedy_decode: "
+        f"{dt_greedy * 1e3:.1f} ms, tokens {gtoks.shape}, launches "
+        f"{paths['transformer_greedy_decode']}  [{card}]")
+    steps_beam = btoks.shape[1] - 1
+    if not (np.isfinite(bscores).all() and paths["transformer_beam_search"]
+            ["flash_attention_fwd"] == 2 * L * steps_beam
+            and paths["transformer_greedy_decode"]["flash_attention_fwd"]
+            == 2 * L * (gtoks.shape[1] - 1)):
+        raise AssertionError("Transformer decoding: launches or scores")
+    # greedy's first steps against the dense model's, both f32 from the
+    # trained weights (the decoder's flash runs at T = 1, 2, 3 ...)
+    trained = {k: p.data()._data.detach().float().cpu().numpy()
+               for k, p in net.collect_params().items()}
+    del net, tr, xs, ys, ls
+    torch.cuda.empty_cache()
+    pair = []
+    for impl in ("flash", "dense"):
+        m = tfm.transformer_base(TFM_VOCAB, TFM_VOCAB, dropout=0.0,
+                                 attention_impl=impl, device=dev)
+        convert.load_transformer_params(m, trained)
+        pair.append(m)
+    g_f = pair[0].greedy_decode(srcs, TFM_BOS, TFM_EOS,
+                                max_len=TFM_GREEDY_CHECK + 1)
+    g_d = pair[1].greedy_decode(srcs, TFM_BOS, TFM_EOS,
+                                max_len=TFM_GREEDY_CHECK + 1)
+    same = bool(np.array_equal(g_f, g_d))
+    log(f"      greedy_decode f32, flash against dense, first "
+        f"{TFM_GREEDY_CHECK} steps: tokens equal {same}")
+    if not same:
+        # a part is allowed only at a near-tie of the dense model's logits
+        j = int(np.argwhere((g_f != g_d).any(axis=0))[0, 0])
+        with autograd.predict_mode(), torch.no_grad():
+            last = pair[1](srcs, torch.as_tensor(g_d[:, :j], device=dev)
+                           .long())[:, -1].float()
+        top = last.topk(2, dim=-1).values
+        gap = float((top[:, 0] - top[:, 1]).min())
+        log(f"      parts at step {j}, smallest top-2 gap {gap:.3e} (tol "
+            f"{TIE_GAP:.0e})")
+        if gap >= TIE_GAP:
+            raise AssertionError("greedy flash decoding parts from dense")
+    del pair
+    torch.cuda.empty_cache()
+    host_ratio = _tfm_host_steps(dev, rng)
+    log(f"      transformer_tiny card against host, {TFM_HOST_STEPS} SGD "
+        f"steps (f32, flash / plain): weights err/tol {host_ratio:.3f} "
+        f"(rtol {TFM_HOST_TOL[0]:.0e} atol {TFM_HOST_TOL[1]:.0e})")
+    if host_ratio > 1:
+        raise AssertionError("transformer_tiny: card and host disagree")
+    return paths, {"ms_per_step": ms_warm, "tokens_per_sec":
+                   tokens / ms_warm * 1e3, "peak_gib": peak,
+                   "losses": losses, "busy_share": busy / wall}
+
+
+def phase_serving(dev, card, rtc_kernels):
+    """[14] The decode and serving path and the encoder-decoder
+    Transformer: (i) bench_serving; (ii) graph-served tokens against the
+    eager decoders; (iii) bench_decode; (iv) speculative decoding; (v)
+    beam_generate card against host; (vi) Transformer-base.  Returns
+    ({path: launches}, the numbers)."""
+    import gc
+
+    import torch
+
+    res, paths = {}, {}
+    res["serving"], paths["serving_engine_bench"] = _serving_bench(
+        dev, card, rtc_kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    model, paths["serving_engine"], paths["cached_decoder"], res[
+        "cached_ms"] = _graphs_vs_eager(dev, card, rtc_kernels)
+    res["decode"] = _decode_bench(model, card, rtc_kernels)
+    res["speculative"], paths["speculative_decode"] = _speculative(
+        model, dev, card, rtc_kernels)
+    paths["gpt_beam_generate"] = _beam_card_vs_host(model, dev, card,
+                                                    rtc_kernels)
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    tpaths, res["transformer"] = _transformer(dev, card, rtc_kernels)
+    paths.update(tpaths)
+    return paths, res
+
+
 def main():
     import torch
 
@@ -3699,7 +4354,15 @@ def main():
     emb_launches, emb_res = phase_embedding(dev, card, (s2, ax))
     gluon_launches["recommender_path"] = emb_launches
 
-    T0, Tb, Tv = TRAIN_SHAPE[2], BERT_SHAPE[2], VIT_SHAPE[2]
+    log("[14] the decode and serving path: bench_serving through "
+        "ContinuousBatcher over one CUDA graph a bucket (GPT-2 small, "
+        "bf16), graph-served tokens against CachedDecoder and generate(), "
+        "bench_decode, speculative and beam decoding; Transformer-base on "
+        "the flash kernels: training, beam_search, greedy_decode")
+    serve_launches, serve_res = phase_serving(dev, card, (s2, ax))
+    gluon_launches.update(serve_launches)
+
+    T0, Tb, Tv, Tt = TRAIN_SHAPE[2], BERT_SHAPE[2], VIT_SHAPE[2], TFM_SEQ
     sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
                        ":78", "lib_fwd", "plain_fwd"),
                "dq": ("flash_attention_dq", "flash_attention_bwd.cu", ":190",
@@ -3716,7 +4379,8 @@ def main():
                    bwd_errs[("dV", T, dtype, causal)])
 
     def numbers(fn, lib, plain, shape, T, causal):
-        f32, bf16 = bwd_rows[(shape, "float32")], bwd_rows[(shape, "bfloat16")]
+        f32 = bwd_rows[(shape, "float32", causal)]
+        bf16 = bwd_rows[(shape, "bfloat16", causal)]
         return {
             "max_abs_err": errs_by(fn, T, "float32", causal),
             "ms": f32[fn], "plain_ms": f32[plain],
@@ -3745,6 +4409,21 @@ def main():
         "at_vit_shape": dict(
             numbers(fn, lib, plain, VIT_SHAPE, Tv, False),
             shape=f"{VIT_SHAPE} non-causal"),
+        "at_transformer_shape": dict(
+            encoder=dict(numbers(fn, lib, plain, TFM_SHAPE, Tt, False),
+                         shape=f"{TFM_SHAPE} non-causal"),
+            decoder=dict(numbers(fn, lib, plain, TFM_SHAPE, Tt, True),
+                         shape=f"{TFM_SHAPE} causal"),
+            **({"decode_steps": {
+                f"T={T}": {"shape": str(TFM_SHAPE[:2] + (T, TFM_SHAPE[3]))
+                           + " causal",
+                           "max_abs_err": fwd_errs[(
+                               TFM_SHAPE[:2] + (T, TFM_SHAPE[3]), "float32",
+                               True)],
+                           "max_abs_err_bf16": fwd_errs[(
+                               TFM_SHAPE[:2] + (T, TFM_SHAPE[3]), "bfloat16",
+                               True)]}
+                for T in TFM_DECODE_T}} if fn == "fwd" else {})),
         "launches_by_path": dict(
             {"generate": gen_launches} if fn == "fwd" else {},
             train_step=train_launches[name],
@@ -3816,7 +4495,12 @@ def main():
         f"{input_res['gpt']['ms_per_step']:.2f} ms a step; "
         f"recommender: {emb_res['bench']['a']['value']:.1f} ids/s at (a), "
         f"{emb_res['bench']['b']['value']:.1f} ids/s at (b) in "
-        f"{emb_res['bench']['b']['peak_mem_gib']:.3f} GiB peak; "
+        f"{emb_res['bench']['b']['peak_mem_gib']:.3f} GiB peak; serving: "
+        f"p50 {serve_res['serving']['value'] / 1e3:.2f} ms, "
+        f"{serve_res['serving']['tokens_per_sec']:.1f} tokens/s batched, "
+        f"{serve_res['serving']['tokens_per_sec_unbatched']:.1f} one by one; "
+        f"Transformer-base bf16 step "
+        f"{serve_res['transformer']['ms_per_step']:.2f} ms; "
         f"forward O max abs err at BERT's "
         f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")

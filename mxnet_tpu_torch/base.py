@@ -1,8 +1,8 @@
 """Base error type and dtype plumbing.
 
 Counterpart of ``mxnet_tpu/base.py``; the port keeps its own copy of what
-it needs from there (the error class and the dtype map) and imports
-nothing of the JAX package.  The JAX package switches jax's x64 mode on
+it needs from there (the error class, ``getenv_int`` and the dtype map)
+and imports nothing of the JAX package.  The JAX package switches jax's x64 mode on
 for explicit 64-bit dtypes; torch has native int64 and float64, so here a
 dtype is simply mapped, and the results (explicit 64-bit types survive,
 the default is float32) are the same.
@@ -10,12 +10,23 @@ the default is float32) are the same.
 
 from __future__ import annotations
 
+import os
+
 import numpy as _np
 import torch
 
 
 class MXNetError(RuntimeError):
     """Framework error type (reference: MXGetLastError / dmlc::Error)."""
+
+
+def getenv_int(name: str, default: int) -> int:
+    """An integer from the environment, ``default`` when unset or not an
+    integer (reference: dmlc::GetEnv, docs/faq/env_var.md)."""
+    try:
+        return int(os.environ.get(name, default))
+    except ValueError:
+        return default
 
 
 _TORCH_DTYPES = {

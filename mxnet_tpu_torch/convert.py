@@ -14,6 +14,10 @@ mis-shaped entry, so a model is never left half loaded.
   trunk's stacks (``enc_qkv_stack_weight``, ``enc_lnf_gamma``), so a
   model of either layout loads into the port's of the other;
   ``load_bert_params`` does that for a ``BERTModel``.
+- ``load_transformer_params`` does the same for an encoder-decoder
+  ``Transformer``: the ``enc_`` and ``dec_`` stacks (a decoder layer's
+  self- and cross-attention packed ``qkv`` and ``proj``, its three
+  LayerNorms), ``out_`` and the three embedding tables, by name.
 - ``load_state`` takes the flat serving checkpoint that
   ``serving.state_for_serving`` writes (a scanned-trunk model's), and
   matches names by suffix (``*_stack_*``, ``lnf_*``, the two embeddings)
@@ -186,6 +190,18 @@ def load_bert_params(model, params):
                          f"'word_embed_weight', found {sorted(roots)}")
     load_gluon_params(model, relayout(
         params, isinstance(model.encoder, ScanTransformerEncoder)))
+
+
+def load_transformer_params(model, params):
+    """Load a JAX ``Transformer``'s ``{name: np.ndarray}`` (its
+    ``collect_params()`` as numpy) into a port ``Transformer`` of the same
+    configuration through ``load_gluon_params``.  Exactly one entry may
+    end ``src_embed_weight``."""
+    roots = [k for k in params if k.endswith("src_embed_weight")]
+    if len(roots) != 1:
+        raise MXNetError(f"load_transformer_params: want one entry ending "
+                         f"'src_embed_weight', found {sorted(roots)}")
+    load_gluon_params(model, params)
 
 
 def _dtype_name(arr):

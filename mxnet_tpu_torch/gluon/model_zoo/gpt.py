@@ -8,25 +8,37 @@ with LoRA stacks and per-layer remat, over the per-layer
 ``TransformerEncoder``, both ``trunk_``), ``GPTLMLoss``, the
 ``gpt2_small``/``gpt2_medium``/``gpt_tiny`` configs, ``STACK_NAMES``,
 ``extract_decoder_stacks`` (either layout as (L, ...) stacks, for the
-serving engine), the pipeline parts' ``GPTEmbedding``/``GPTHead``, and
-``generate`` with its helpers ``_windowed_last_logits`` and ``_sample``.
+serving engine and the cached decoder), the pipeline parts'
+``GPTEmbedding``/``GPTHead``, ``generate`` with its helpers
+``_windowed_last_logits`` and ``_sample``, the KV-cache
+``CachedDecoder``, ``speculative_decode`` and ``beam_generate``.
 With ``attention_impl="flash"`` the trunk runs the hand-written
 flash-attention kernels on a CUDA device, forward and backward.
+
+The cached decoders (``CachedDecoder`` here, ``serving.ServingEngine``)
+share one block step, ``decoder_step``, over the weights
+``decoder_weights`` lays out head-major; the JAX package has one copy of
+that step in each.  It is the reference's XLA code in PyTorch: dense
+attention over the cache window with a per-row causal mask, no kernel of
+the port's own.  ``CachedDecoder(mesh=...)`` (tensor-parallel decoding)
+waits for several cards, ROADMAP queue 1 item 6, and raises.
 
 Dropout follows ``autograd.is_training()`` (the trainers open training
 mode), its masks drawn from ``random.current_generator``.  A model is
 built initialised on ``device`` (default the card) with N(0, 0.02)
-weights, zero biases and unit LayerNorm scales (``bert._ZooModel``).  The
-cached decoder, speculative and beam decoding and
-``gpt_pipeline_parts`` come with later slices.
+weights, zero biases and unit LayerNorm scales (``bert._ZooModel``).
+``gpt_pipeline_parts`` comes with the pipeline slice.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from ... import initializer as _init
+from ...base import MXNetError, torch_dtype
 from ...ndarray.ndarray import NDArray
+from ...ops.nn import activation, layer_norm
 from ..block import HybridBlock
 from .. import nn
 from .bert import (ScanTransformerEncoder, TransformerEncoder, _ZooModel,
@@ -130,6 +142,21 @@ def _sample(last, temperature, generator=None):
     return last.argmax(dim=-1)
 
 
+def _ids_tensor(ids, device):
+    """(B, T) token ids (an NDArray, tensor or array) as int64 on
+    ``device``."""
+    raw = ids._data if isinstance(ids, NDArray) else ids
+    return torch.as_tensor(raw, device=device).long()
+
+
+def _tokens_nd(tokens, device):
+    """Token rows as the float32 ``NDArray`` the decoders return."""
+    from ... import context
+
+    return NDArray(torch.as_tensor(tokens, device=device).float(),
+                   context.context_of(device))
+
+
 def generate(model, ids, max_new_tokens=16, temperature=None,
              generator=None):
     """Greedy (or sampled) decode by full recompute per step; ids: (B, T0)
@@ -140,17 +167,14 @@ def generate(model, ids, max_new_tokens=16, temperature=None,
     Every step runs the whole trunk over the right-padded max_length
     window, so with ``attention_impl="flash"`` each new token launches
     the flash kernel once per layer."""
-    from ... import context
-
     device = _model_device(model)
-    raw = ids._data if isinstance(ids, NDArray) else ids
-    out = torch.as_tensor(raw, device=device).long()
+    out = _ids_tensor(ids, device)
     with torch.inference_mode():
         for _ in range(max_new_tokens):
             nxt = _sample(_windowed_last_logits(model, out), temperature,
                           generator)
             out = torch.cat([out, nxt[:, None]], dim=1)
-    return NDArray(out.float(), context.context_of(device))
+    return _tokens_nd(out, device)
 
 
 def gpt2_small(**kwargs):
@@ -292,3 +316,273 @@ class GPTHead(_ZooModel):
 
     def hybrid_forward(self, F, x):
         return self.proj(self.ln_f(x))
+
+
+# -- the cached decoders ---------------------------------------------------------
+
+_NEG = -1e30
+#: the big tensors a serving dtype applies to
+_MATRICES = ("qkv_stack_weight", "proj_stack_weight", "ffn1_stack_weight",
+             "ffn2_stack_weight")
+
+
+def decoder_weights(stacks, lnf, tok, pos, heads, device, dtype=None):
+    """The cached decoders' copy of a GPT's weights on ``device``,
+    head-major: qkv as (L, 3, H, Dh, C), the projection as (L, C, H, Dh).
+    With ``dtype`` (bf16) the four matrix stacks and the two embedding
+    tables take it; LayerNorm, biases and every reduction stay f32."""
+    L, C = stacks["qkv_stack_weight"].shape[0], tok.shape[1]
+    Dh = C // heads
+
+    def put(t, big=False):
+        dt = dtype if big and dtype is not None else torch.float32
+        return t.to(device=device, dtype=dt, copy=True)
+
+    s = {n: put(t, n in _MATRICES) for n, t in stacks.items()}
+    return {
+        "tok": put(tok, True), "pos": put(pos, True),
+        "qkv": s["qkv_stack_weight"].reshape(L, 3, heads, Dh, C),
+        "qkv_b": s["qkv_stack_bias"].reshape(L, 3, heads, Dh),
+        "proj": s["proj_stack_weight"].reshape(L, C, heads, Dh),
+        "proj_b": s["proj_stack_bias"],
+        "ffn1": s["ffn1_stack_weight"], "ffn1_b": s["ffn1_stack_bias"],
+        "ffn2": s["ffn2_stack_weight"], "ffn2_b": s["ffn2_stack_bias"],
+        "ln1_g": s["ln1_stack_gamma"], "ln1_b": s["ln1_stack_beta"],
+        "ln2_g": s["ln2_stack_gamma"], "ln2_b": s["ln2_stack_beta"],
+        "lnf_g": put(lnf[0]), "lnf_b": put(lnf[1]),
+    }
+
+
+def decoder_step(w, ck, cv, pos, toks, act, last=None):
+    """One block step of the cached decoders over ``decoder_weights``
+    ``w``: toks (B, S) int64 at per-row offsets pos (B,).  Writes the S new
+    keys and values into ck/cv (L, B, H, W, Dh) in place at slots pos[b]
+    .. pos[b] + S - 1, and position s of row b attends the slots <=
+    pos[b] + s (stale slots beyond are masked, and each is overwritten
+    before it is attended).  Returns the logits (B, S, vocab) f32, or
+    with ``last`` (B,) only each row's at position last[b], (B, vocab).
+    Every op is row-independent, so pad rows never leak into real rows."""
+    B, S = toks.shape
+    L, _, _, W, Dh = ck.shape
+    dev = toks.device
+    positions = pos[:, None] + torch.arange(S, device=dev)    # (B, S)
+    rows = torch.arange(B, device=dev)[:, None]
+    keep = torch.arange(W, device=dev)[None, None, :] \
+        <= positions[:, :, None]                               # (B, S, W)
+    x = (w["tok"][toks] + w["pos"][positions]).float()        # (B, S, C)
+    for i in range(L):
+        h = layer_norm(x, w["ln1_g"][i], w["ln1_b"][i])
+        qkv = torch.einsum("bsc,thdc->bsthd", h, w["qkv"][i].float()) \
+            + w["qkv_b"][i]
+        qh, kh, vh = (qkv[:, :, j].transpose(1, 2) for j in range(3))
+        ck_l, cv_l = ck[i], cv[i]                              # (B,H,W,Dh)
+        ck_l.transpose(1, 2)[rows, positions] = \
+            kh.transpose(1, 2).to(ck_l.dtype)
+        cv_l.transpose(1, 2)[rows, positions] = \
+            vh.transpose(1, 2).to(cv_l.dtype)
+        scores = torch.einsum("bhsd,bhwd->bhsw", qh, ck_l.float()) \
+            * (Dh ** -0.5)
+        scores = scores.masked_fill(~keep[:, None], _NEG)
+        p = torch.softmax(scores, dim=-1)
+        attn = torch.einsum("bhsw,bhwd->bhsd", p, cv_l.float())
+        attn = torch.einsum("bhsd,chd->bsc", attn, w["proj"][i].float()) \
+            + w["proj_b"][i]
+        x = x + attn
+        h = layer_norm(x, w["ln2_g"][i], w["ln2_b"][i])
+        h = torch.matmul(h, w["ffn1"][i].float().t()) + w["ffn1_b"][i]
+        h = activation(h, act)
+        x = x + (torch.matmul(h, w["ffn2"][i].float().t())
+                 + w["ffn2_b"][i])
+    if last is not None:
+        x = x[rows[:, 0], last]                                # (B, C)
+    h = layer_norm(x, w["lnf_g"], w["lnf_b"])
+    return torch.matmul(h, w["tok"].float().t())
+
+
+def _prefill_bucket(n, window):
+    """The power-of-two prefill length (at least 8, at most the window)
+    that a seed of ``n`` tokens is right-padded to."""
+    b = 8
+    while b < n:
+        b *= 2
+    return min(b, window)
+
+
+class CachedDecoder:
+    """A GPTModel's KV-cache decoder on the model's device: the (L, ...)
+    stacks pulled once (either trunk layout), a chunked prefill of the
+    seed, then one S=1 block step a token.  ``decode`` has ``generate``'s
+    sampling surface.  ``dtype`` (``"bfloat16"`` or a torch dtype) puts
+    the matrix stacks, the embedding tables and the cache in it, the
+    accumulation and the residual stream in f32.  ``mesh``
+    (tensor-parallel decoding) waits for multi-GPU: a mesh raises."""
+
+    def __init__(self, model, mesh=None, dtype=None):
+        if mesh is not None:
+            raise MXNetError(
+                "CachedDecoder(mesh=...): tensor-parallel decoding needs "
+                "several cards (ROADMAP queue 1 item 6, multi-GPU); decode "
+                "on one device without mesh=")
+        stacks, lnf, tok, pos, heads, act = extract_decoder_stacks(model)
+        self._W = model._max_length
+        self._act = act
+        self._device = _model_device(model)
+        self._dtype = None if dtype is None else torch_dtype(dtype)
+        self._w = decoder_weights(stacks, lnf, tok, pos, heads,
+                                  self._device, self._dtype)
+        self._vocab = tok.shape[0]
+
+    def _init_cache(self, B):
+        """Fresh zeroed (ck, cv) for batch B: (L, B, H, W, Dh) in the
+        embedding tables' dtype."""
+        L, _, H, Dh, _ = self._w["qkv"].shape
+        shape = (L, B, H, self._W, Dh)
+        dt = self._w["tok"].dtype
+        return (torch.zeros(shape, dtype=dt, device=self._device),
+                torch.zeros(shape, dtype=dt, device=self._device))
+
+    def _step(self, ck, cv, pos, toks):
+        """The block step with every row at write offset ``pos`` (an int):
+        toks (B, S) int64 on the device; ck/cv written in place.  Returns
+        the logits (B, S, vocab)."""
+        p = torch.full((toks.shape[0],), pos, dtype=torch.int64,
+                       device=self._device)
+        return decoder_step(self._w, ck, cv, p, toks, self._act)
+
+    def decode(self, ids, max_new_tokens=16, temperature=None,
+               generator=None, return_logits=False):
+        """ids: (B, T0) seed; returns the (B, T0 + N) tokens as a float32
+        NDArray, as ``generate`` does, at O(W) a new token.  T0 +
+        max_new_tokens must fit the window max_length.  The seed is
+        right-padded to a power-of-two bucket for its one prefill step
+        (the pad's cache writes are overwritten before they are attended).
+        With ``return_logits=True`` also returns the (N, B, vocab)
+        pre-sampling logits as a numpy array."""
+        out = _ids_tensor(ids, self._device)
+        B, T0 = out.shape
+        if T0 + max_new_tokens > self._W:
+            raise ValueError(
+                f"decode: {T0} seed + {max_new_tokens} new tokens "
+                f"exceed the cache window max_length={self._W}; use "
+                "generate() for sliding-window decoding")
+        lg, toks = [], [out]
+        with torch.no_grad():
+            ck, cv = self._init_cache(B)
+            padded = out.new_zeros((B, _prefill_bucket(T0, self._W)))
+            padded[:, :T0] = out
+            logits = self._step(ck, cv, 0, padded)[:, T0 - 1]
+            for n in range(max_new_tokens):
+                lg.append(logits)
+                nxt = _sample(logits, temperature, generator)
+                toks.append(nxt[:, None])
+                if n < max_new_tokens - 1:    # the last token needs no step
+                    logits = self._step(ck, cv, T0 + n, nxt[:, None])[:, -1]
+        result = _tokens_nd(torch.cat(toks, dim=1), self._device)
+        if return_logits:
+            stacked = (torch.stack(lg).cpu().numpy() if lg else
+                       np.zeros((0, B, self._vocab), np.float32))
+            return result, stacked
+        return result
+
+
+def speculative_decode(target, draft, ids, max_new_tokens=16, k=4,
+                       return_stats=False):
+    """Greedy speculative decoding, lossless: the tokens
+    ``CachedDecoder(target).decode`` emits greedily, up to rounding ties.
+
+    The ``draft`` proposes ``k`` tokens with k S=1 steps; the ``target``
+    verifies them in one (k+1)-token block step, accepting the longest
+    prefix where its own greedy choice agrees, plus its own token at the
+    first disagreement (or a bonus token when all agree).  Rows advance
+    together at the smallest acceptance of the batch.  target/draft:
+    GPTModel or CachedDecoder.  Returns (B, T0 + N) tokens as a float32
+    NDArray; with ``return_stats=True`` also rounds and accepted counts.
+
+    "Lossless" holds up to f32 rounding ties: the S=k+1 verify step may
+    reduce in another order than decode()'s S=1 step, so an argmax
+    inside rounding noise can flip."""
+    tgt = target if isinstance(target, CachedDecoder) \
+        else CachedDecoder(target)
+    drf = draft if isinstance(draft, CachedDecoder) \
+        else CachedDecoder(draft)
+    dev = tgt._device
+    out = _ids_tensor(ids, dev).cpu().numpy()
+    B, T0 = out.shape
+    total = T0 + max_new_tokens
+    if total + k > min(tgt._W, drf._W):
+        raise ValueError(
+            f"speculative_decode: {total} tokens + {k} draft overshoot "
+            f"exceed cache window (target {tgt._W}, draft {drf._W})")
+
+    def run(dec, cache, pos, block):
+        return dec._step(*cache, pos, torch.as_tensor(
+            np.ascontiguousarray(block), device=dec._device))
+
+    with torch.no_grad():
+        t_cache, d_cache = tgt._init_cache(B), drf._init_cache(B)
+        # both caches take the seed less its last token: the cache holds
+        # positions < P-1, and the last committed token heads each block
+        if T0 > 1:
+            padded = np.zeros((B, _prefill_bucket(
+                T0 - 1, min(tgt._W, drf._W))), np.int64)
+            padded[:, :T0 - 1] = out[:, :-1]
+            run(tgt, t_cache, 0, padded)
+            run(drf, d_cache, 0, padded)
+        P, dp = T0, T0 - 1     # dp: the next draft-cache slot to write
+        rounds = accepted_total = 0
+        while P < total:
+            # after a full accept the bonus token advanced P past what the
+            # proposals wrote: feed the draft the committed tokens it lacks
+            while dp < P - 1:
+                run(drf, d_cache, dp, out[:, dp][:, None])
+                dp += 1
+            props = np.zeros((B, k), np.int64)
+            last = out[:, P - 1]
+            for j in range(k):
+                d_lg = run(drf, d_cache, P - 1 + j, last[:, None])
+                last = d_lg[:, -1].argmax(dim=-1).cpu().numpy()
+                props[:, j] = last
+            dp = P - 1 + k
+            # the target's greedy pick for positions P .. P+k, in one step
+            block = np.concatenate([out[:, P - 1:P], props], axis=1)
+            choice = run(tgt, t_cache, P - 1, block).argmax(dim=-1) \
+                .cpu().numpy()                                  # (B, k+1)
+            agree = props == choice[:, :k]
+            full = agree.all(axis=1)
+            m = int(np.where(full, k, np.argmin(agree, axis=1)).min())
+            commit = np.concatenate([props[:, :m], choice[:, m:m + 1]],
+                                    axis=1)[:, :total - P]
+            out = np.concatenate([out, commit], axis=1)
+            P += commit.shape[1]
+            rounds += 1
+            accepted_total += min(m, commit.shape[1])
+    toks = _tokens_nd(out, dev)
+    if return_stats:
+        return toks, {"rounds": rounds, "proposed_per_round": k,
+                      "accepted_draft_tokens": accepted_total,
+                      "new_tokens": max_new_tokens}
+    return toks
+
+
+def beam_generate(model, ids, max_new_tokens=16, beam_size=4, eos_id=None,
+                  alpha=0.6):
+    """Beam-search continuation of a shared prompt (the decoder-only
+    analog of ``transformer.beam_search``: the same host ``beam_loop``
+    and GNMT length penalty), each hypothesis scored by a full window
+    forward.  ids: (B, T0) seed; returns (tokens (B, T0 + N) as a float32
+    NDArray, scores (B,) numpy)."""
+    from ... import autograd
+    from .transformer import beam_loop
+
+    dev = _model_device(model)
+    seed = _ids_tensor(ids, dev).cpu().numpy()
+
+    def score_last(flat):
+        with autograd.predict_mode(), torch.no_grad():
+            last = _windowed_last_logits(model, torch.as_tensor(flat,
+                                                                device=dev))
+        return last.float().cpu().numpy()
+
+    out, scores = beam_loop(score_last, seed.shape[0], beam_size, None,
+                            eos_id, max_new_tokens, alpha, seed_beams=seed)
+    return _tokens_nd(out, dev), scores

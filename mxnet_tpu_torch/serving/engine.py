@@ -1,27 +1,49 @@
 """Bucketed KV-cache serving engine for the decoder-only model zoo.
 
 Counterpart of ``mxnet_tpu/serving/engine.py::ServingEngine`` on one
-device, without a mesh.  It keeps the JAX engine's contract:
+device.  It keeps the JAX engine's contract:
 
-- requests are padded to the nearest (batch bucket, prefill bucket);
-  one prefill step over the padded prompts, then one S=1 decode step per
-  generated token, with greedy or temperature sampling;
-- the key/value cache is stage-major (L, B, H, W, Dh), matching the
-  ``*_stack_*`` weight stacks; each row carries its own write position
-  and its own causal mask, so a coalesced batch may mix prompt lengths
-  and pad rows never leak into real rows;
-- weights are swapped under a lock by ``reload_from_state``, the
-  serving-checkpoint convention that ``state_for_serving`` writes (so a
-  model trained by the port goes straight to the engine);
+- **Programs a bucket, no retrace after warm-up.**  Requests are padded
+  to the nearest (batch bucket, prefill bucket); one prefill step over the
+  padded prompts, then one S=1 decode step a generated token, with greedy
+  or temperature sampling outside the step.  Each (batch bucket, prefill
+  bucket) and each (batch bucket, S=1) is one *program*, the port's
+  counterpart of the JAX engine's ahead-of-time executables: on a CUDA
+  device a ``torch.cuda.CUDAGraph`` recorded once (after one warm-up run
+  on a side stream) and replayed a call, every graph in one shared memory
+  pool (the engine replays one graph at a time, on one thread, under its
+  reload lock); on the CPU the eager step.  ``compile_count`` counts
+  recordings (programs built on the CPU), ``dispatch_count`` replays
+  (program calls), and ``trace_count`` the runs of the step body outside
+  a replay (the warm-up and the recording; the one build run on the
+  CPU), so it does not move after ``warmup()``.  A graph that fails to
+  record raises ``MXNetError``: the card never falls back to the eager
+  step.
+- **Static buffers.**  A batch bucket owns one key/value cache, stage-major
+  (L, B, H, W, Dh) like the ``*_stack_*`` weight stacks, shared by its
+  prefill and decode programs and zeroed at the start of each group, as
+  the JAX engine starts each group from a fresh zeroed cache; its
+  per-row write offsets, read positions and output logits (B, vocab) are
+  static too, and each program owns its (B, S) token buffer.  Each row
+  carries its own write position and causal mask, so a coalesced batch
+  may mix prompt lengths and pad rows never leak into real rows.
+- **Hot reload.**  ``reload_from_model`` and ``reload_from_state`` (the
+  serving-checkpoint convention ``state_for_serving`` writes) check the
+  new weights' shapes and dtypes, then copy them into the static weight
+  tensors in place under the reload lock, which every replay holds, so
+  no replay sees half of a generation; ``generation`` counts the swaps
+  and each emits a ``serving_reload`` event.
 - ``dtype=torch.bfloat16`` keeps the weight matrices, embedding tables
   and cache in bf16 while LayerNorm, biases and every reduction stay f32.
 
-PyTorch runs eagerly, so the JAX engine's ahead-of-time programs and
-their trace counters have no counterpart; the cache is updated in place
-rather than donated.  CUDA graphs per bucket, the telemetry events and
-``expect_fp`` integrity checks come with later slices.  Attention here
-is dense over the cache window (as in the JAX engine): the step reaches
-no kernel.
+The step is ``gpt.decoder_step`` (shared with ``gpt.CachedDecoder``):
+dense attention over the cache window, as in the JAX engine; it reaches
+no kernel of the port's own.  A program returns only each row's logits at
+its read position (the JAX program returns every position's and the
+engine reads those).  Still to come: tensor-parallel serving (``mesh=``,
+ROADMAP queue 1 item 6, multi-GPU), ``reload_from_state(expect_fp=...)``
+(the integrity plane, item 5) and the replicas (``serving/replica.py``,
+item 5).
 """
 
 from __future__ import annotations
@@ -33,17 +55,46 @@ import time
 import numpy as np
 import torch
 
-from ..base import MXNetError
+from .. import telemetry
+from ..base import MXNetError, torch_dtype
 from ..convert import as_tensor, match_state
 from ..gluon.model_zoo.gpt import (STACK_NAMES, _model_device, _sample,
+                                   decoder_step, decoder_weights,
                                    extract_decoder_stacks)
-from ..ops.nn import activation, layer_norm
 
-_NEG = -1e30
-# the big tensors the serving dtype applies to
-_MATRICES = ("qkv_stack_weight", "proj_stack_weight", "ffn1_stack_weight",
-             "ffn2_stack_weight")
+# -- counters (the retrace-free pin) -------------------------------------------
 
+_LOCK = threading.Lock()
+_TRACE_COUNT = 0      # step-body runs outside a replay
+_COMPILE_COUNT = 0    # programs recorded (built, on the CPU)
+_DISPATCH_COUNT = 0   # program calls: replays on the card
+
+
+def _mark_trace():
+    global _TRACE_COUNT
+    with _LOCK:
+        _TRACE_COUNT += 1
+
+
+def trace_count():
+    return _TRACE_COUNT
+
+
+def compile_count():
+    return _COMPILE_COUNT
+
+
+def dispatch_count():
+    return _DISPATCH_COUNT
+
+
+def reset_counters():
+    global _TRACE_COUNT, _COMPILE_COUNT, _DISPATCH_COUNT
+    with _LOCK:
+        _TRACE_COUNT = _COMPILE_COUNT = _DISPATCH_COUNT = 0
+
+
+# -- bucket policy -------------------------------------------------------------
 
 def batch_buckets_from_env(default=(1, 2, 4, 8)):
     """MXTPU_SERVE_BUCKETS: comma-separated ascending batch buckets."""
@@ -83,18 +134,33 @@ def _sync(device):
         torch.cuda.synchronize(device)
 
 
+class _Bucket:
+    """A batch bucket's static state, shared by its programs: the cache,
+    the per-row write offsets and read positions, and the logits (B,
+    vocab) every program of the bucket writes."""
+
+    def __init__(self, engine, B):
+        dev = engine._device
+        self.ck, self.cv = engine.init_cache(B)
+        self.pos = torch.zeros(B, dtype=torch.int64, device=dev)
+        self.last = torch.zeros(B, dtype=torch.int64, device=dev)
+        self.out = torch.zeros((B, engine._vocab), dtype=torch.float32,
+                               device=dev)
+
+
 class ServingEngine:
     """Bucketed prefill/decode over a port ``GPTModel``'s weight stacks,
     pulled from either trunk layout by ``gpt.extract_decoder_stacks``.
 
     ``serve_group(prompts, max_new_tokens)`` is the whole request path;
-    the engine runs on the model's device."""
+    the engine runs on the model's device, each step one program
+    (``warmup()`` builds them all up front)."""
 
     def __init__(self, model, batch_buckets=None, prefill_floor=8,
                  dtype=None):
         stacks, lnf, tok, pos, heads, act = extract_decoder_stacks(model)
         self._W = model._max_length
-        self._dtype = dtype
+        self._dtype = None if dtype is None else torch_dtype(dtype)
         self._device = _model_device(model)
         self.batch_buckets = tuple(sorted(
             batch_buckets if batch_buckets is not None
@@ -104,57 +170,69 @@ class ServingEngine:
         self._H = heads
         self._act = act
         self._C, self._L = model._units, stacks["qkv_stack_weight"].shape[0]
+        self._vocab = tok.shape[0]
         self._reload_lock = threading.Lock()
         self.generation = 0
-        self._weights = self._prepare_weights(stacks, lnf, tok, pos)
+        self._weights = decoder_weights(stacks, lnf, tok, pos, heads,
+                                        self._device, self._dtype)
+        self._buckets = {}
+        self._programs = {}     # (B, S) -> (token buffer, run)
+        self._pool = None
 
     # -- weight plumbing -------------------------------------------------------
 
-    def _prepare_weights(self, stacks, lnf, tok, pos):
-        """The engine's own copy on its device, head-major: qkv as
-        (L, 3, H, Dh, C) and the projection as (L, C, H, Dh), with the
-        serving dtype on the matrices and embedding tables."""
-        L, H, C = self._L, self._H, self._C
-        Dh = C // H
+    def reload_from_model(self, model, step=None):
+        """Swap in a live model's weights (shapes must match)."""
+        stacks, lnf, tok, pos, H, act = extract_decoder_stacks(model)
+        if H != self._H or act != self._act:
+            raise MXNetError(
+                f"serving reload: incompatible model "
+                f"(heads {H} vs {self._H}, act {act!r} vs {self._act!r})")
+        self._swap(stacks, lnf, tok, pos, step=step)
 
-        def put(t, big=False):
-            dtype = self._dtype if big and self._dtype else torch.float32
-            return t.to(device=self._device, dtype=dtype, copy=True)
-
-        s = {n: put(t, n in _MATRICES) for n, t in stacks.items()}
-        return {
-            "tok": put(tok, True), "pos": put(pos, True),
-            "qkv": s["qkv_stack_weight"].reshape(L, 3, H, Dh, C),
-            "qkv_b": s["qkv_stack_bias"].reshape(L, 3, H, Dh),
-            "proj": s["proj_stack_weight"].reshape(L, C, H, Dh),
-            "proj_b": s["proj_stack_bias"],
-            "ffn1": s["ffn1_stack_weight"], "ffn1_b": s["ffn1_stack_bias"],
-            "ffn2": s["ffn2_stack_weight"], "ffn2_b": s["ffn2_stack_bias"],
-            "ln1_g": s["ln1_stack_gamma"], "ln1_b": s["ln1_stack_beta"],
-            "ln2_g": s["ln2_stack_gamma"], "ln2_b": s["ln2_stack_beta"],
-            "lnf_g": put(lnf[0]), "lnf_b": put(lnf[1]),
-        }
-
-    def reload_from_state(self, state):
+    def reload_from_state(self, state, step=None, expect_fp=None):
         """Swap in weights from a serving checkpoint ``{name: np.ndarray}``
         (``state_for_serving`` convention, matched by suffix).  Shapes
-        must match the served model's."""
+        must match the served model's.  ``expect_fp`` (an integrity
+        fingerprint to check the state against) needs the integrity
+        plane, ROADMAP queue 1 item 5, and raises."""
+        if expect_fp is not None:
+            raise MXNetError(
+                "serving reload: expect_fp= needs the integrity plane "
+                "(ROADMAP queue 1 item 5), not ported yet")
         what = "serving reload"
         arrays = {k: as_tensor(a, k, what)
                   for k, a in match_state(state, what).items()}
-        new_w = self._prepare_weights(
-            {n: arrays[n] for n in STACK_NAMES},
-            (arrays["lnf_gamma"], arrays["lnf_beta"]),
-            arrays["tok_embed_weight"], arrays["pos_embed_weight"])
+        self._swap({n: arrays[n] for n in STACK_NAMES},
+                   (arrays["lnf_gamma"], arrays["lnf_beta"]),
+                   arrays["tok_embed_weight"], arrays["pos_embed_weight"],
+                   step=step)
+
+    def _swap(self, stacks, lnf, tok, pos, step=None):
+        """Check the new weights against the served ones, then copy them
+        into the static weight tensors (which the recorded graphs read)
+        under the reload lock."""
+        got = tuple(stacks["qkv_stack_weight"].shape)
+        want = (self._L, 3 * self._C, self._C)
+        if got != want:
+            raise MXNetError(
+                f"serving reload: weight mismatch, qkv stack {got} vs "
+                f"served {want}")
+        new_w = decoder_weights(stacks, lnf, tok, pos, self._H,
+                                self._device, self._dtype)
         for name, old in self._weights.items():
             new = new_w[name]
-            if new.shape != old.shape:
+            if new.shape != old.shape or new.dtype != old.dtype:
                 raise MXNetError(
-                    f"{what}: weight mismatch, {name} {tuple(new.shape)} vs "
-                    f"served {tuple(old.shape)}")
-        with self._reload_lock:
-            self._weights = new_w
+                    f"serving reload: weight mismatch, {name} "
+                    f"{tuple(new.shape)}/{new.dtype} vs served "
+                    f"{tuple(old.shape)}/{old.dtype}")
+        with self._reload_lock, torch.no_grad():
+            for name, old in self._weights.items():
+                old.copy_(new_w[name])
             self.generation += 1
+            gen = self.generation
+        telemetry.event("serving_reload", generation=gen, step=step)
 
     # -- cache -----------------------------------------------------------------
 
@@ -166,53 +244,108 @@ class ServingEngine:
         return (torch.zeros(shape, dtype=dtype, device=self._device),
                 torch.zeros(shape, dtype=dtype, device=self._device))
 
-    # -- the block step --------------------------------------------------------
+    def _bucket(self, B):
+        bk = self._buckets.get(B)
+        if bk is None:
+            bk = self._buckets[B] = _Bucket(self, B)
+        return bk
 
-    def _step(self, w, ck, cv, pos, toks):
-        """ck/cv (L, B, H, W, Dh), written in place; pos (B,) per-row write
-        offsets; toks (B, S).  Returns logits (B, S, vocab) f32.  S is the
-        prefill bucket, or 1 for decode."""
-        B, S = toks.shape
-        H, W = self._H, self._W
-        Dh = self._C // H
+    # -- programs --------------------------------------------------------------
+
+    def _body(self, bk, toks):
+        """The step body a program runs: the bucket's cache advanced by
+        ``toks`` at its write offsets, and each row's logits at its read
+        position (position 0 for S=1) written to the bucket's output."""
+        S = toks.shape[1]
+        logits = decoder_step(self._weights, bk.ck, bk.cv, bk.pos, toks,
+                              self._act, last=bk.last if S > 1 else None)
+        bk.out.copy_(logits if S > 1 else logits[:, 0])
+
+    def _traced_body(self, bk, toks):
+        _mark_trace()
+        self._body(bk, toks)
+
+    def _record(self, bk, toks):
+        """One warm-up run on a side stream, then the step recorded as a
+        CUDA graph into the engine's shared pool."""
         dev = self._device
-        positions = pos[:, None] + torch.arange(S, device=dev)   # (B, S)
-        rows = torch.arange(B, device=dev)[:, None]
-        # row b at block offset s sees cache slots <= pos[b] + s; stale pad
-        # beyond is invisible (it is overwritten before it is attended)
-        keep = torch.arange(W, device=dev)[None, None, :] \
-            <= positions[:, :, None]                              # (B, S, W)
-        x = (w["tok"][toks] + w["pos"][positions]).float()       # (B, S, C)
-        for i in range(self._L):
-            h = layer_norm(x, w["ln1_g"][i], w["ln1_b"][i])
-            qkv = torch.einsum("bsc,thdc->bsthd", h, w["qkv"][i].float()) \
-                + w["qkv_b"][i]
-            qh, kh, vh = (qkv[:, :, j].transpose(1, 2) for j in range(3))
-            ck_l, cv_l = ck[i], cv[i]                             # (B,H,W,Dh)
-            ck_l.transpose(1, 2)[rows, positions] = \
-                kh.transpose(1, 2).to(ck_l.dtype)
-            cv_l.transpose(1, 2)[rows, positions] = \
-                vh.transpose(1, 2).to(cv_l.dtype)
-            scores = torch.einsum("bhsd,bhwd->bhsw", qh, ck_l.float()) \
-                * (Dh ** -0.5)
-            scores = scores.masked_fill(~keep[:, None], _NEG)
-            p = torch.softmax(scores, dim=-1)
-            attn = torch.einsum("bhsw,bhwd->bhsd", p, cv_l.float())
-            attn = torch.einsum("bhsd,chd->bsc", attn, w["proj"][i].float()) \
-                + w["proj_b"][i]
-            x = x + attn
-            h = layer_norm(x, w["ln2_g"][i], w["ln2_b"][i])
-            h = torch.matmul(h, w["ffn1"][i].float().t()) + w["ffn1_b"][i]
-            h = activation(h, self._act)
-            x = x + (torch.matmul(h, w["ffn2"][i].float().t())
-                     + w["ffn2_b"][i])
-        h = layer_norm(x, w["lnf_g"], w["lnf_b"])
-        return torch.matmul(h, w["tok"].float().t())
+        if self._pool is None:
+            self._pool = torch.cuda.graph_pool_handle()
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        try:
+            with torch.cuda.stream(side):
+                self._traced_body(bk, toks)
+            torch.cuda.current_stream(dev).wait_stream(side)
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, pool=self._pool):
+                self._traced_body(bk, toks)
+        except Exception as e:
+            raise MXNetError(
+                f"serving: recording the {tuple(toks.shape)} step as a CUDA "
+                f"graph failed: {type(e).__name__}: {e}") from e
+        return graph
 
-    def _call(self, ck, cv, pos, toks):
+    def _compile(self, B, S):
+        """Program (B, S): a recorded graph on the card, the eager step
+        (run once here, as the card's warm-up) on the CPU.  The build's
+        runs write the bucket's cache, which each group zeroes first."""
+        global _COMPILE_COUNT
+        bk = self._bucket(B)
+        toks = torch.zeros((B, S), dtype=torch.int64, device=self._device)
+        with torch.no_grad():
+            bk.pos.zero_()
+            bk.last.zero_()
+            if self._device.type == "cuda":
+                run = self._record(bk, toks).replay
+            else:
+                self._traced_body(bk, toks)
+
+                def run():
+                    self._body(bk, toks)
+        with _LOCK:
+            _COMPILE_COUNT += 1
+        self._programs[(B, S)] = (toks, run)
+        return toks, run
+
+    def warmup(self):
+        """Build every (batch x prefill) program and the S=1 decode
+        program of each batch bucket; afterwards the request path runs no
+        step body outside a replay (``trace_count()`` is pinned).  Emits
+        a ``serving_warmup`` event."""
+        t0 = time.perf_counter()
+        for B in self.batch_buckets:
+            for S in self.prefill_buckets + (1,):
+                self._program(B, S)
+        telemetry.event(
+            "serving_warmup", programs=len(self._programs),
+            compile_ms=round((time.perf_counter() - t0) * 1e3, 1))
+        return self
+
+    def program_count(self):
+        return len(self._programs)
+
+    def _program(self, B, S):
+        prog = self._programs.get((B, S))
+        return prog if prog is not None else self._compile(B, S)
+
+    def _call(self, B, S, pos, toks, last=None):
+        """Program (B, S), built already, on the bucket's buffers: the
+        inputs copied into them and the program run under the reload
+        lock.  Returns the bucket's output logits (B, vocab), valid until
+        the bucket's next call."""
+        global _DISPATCH_COUNT
+        buf, run = self._programs[(B, S)]
+        bk = self._buckets[B]
         with self._reload_lock:
-            w = self._weights
-        return self._step(w, ck, cv, pos, toks)
+            bk.pos.copy_(pos)
+            buf.copy_(toks)
+            if last is not None:
+                bk.last.copy_(last)
+            run()
+        with _LOCK:
+            _DISPATCH_COUNT += 1
+        return bk.out
 
     # -- request path ----------------------------------------------------------
 
@@ -257,14 +390,19 @@ class ServingEngine:
         for i, p in enumerate(prompts):
             toks[i, :lens[i]] = np.asarray(p, np.int64)
         dev = self._device
-        with torch.inference_mode():
+        with torch.no_grad():
+            # both programs built before the cache is zeroed: a build's
+            # runs write the cache (warmup() builds them all up front)
+            self._program(B, S)
+            self._program(B, 1)
             t0 = time.perf_counter()
             t_prefill0 = time.time()
+            bk = self._buckets[B]
+            bk.ck.zero_()
+            bk.cv.zero_()
             lens_t = torch.as_tensor(lens, device=dev)
-            ck, cv = self.init_cache(B)
-            logits = self._call(ck, cv, torch.zeros_like(lens_t),
-                                torch.as_tensor(toks, device=dev))
-            last = logits[torch.arange(B, device=dev), lens_t - 1]
+            last = self._call(B, S, torch.zeros_like(lens_t),
+                              torch.as_tensor(toks), lens_t - 1)
             _sync(dev)
             prefill_us = (time.perf_counter() - t0) * 1e6
             t1 = time.perf_counter()
@@ -274,7 +412,7 @@ class ServingEngine:
                 nxt = _sample(last, temperature, generator)
                 out[:, j] = nxt
                 if j < steps - 1:     # the last token needs no cache step
-                    last = self._call(ck, cv, lens_t + j, nxt[:, None])[:, 0]
+                    last = self._call(B, 1, lens_t + j, nxt[:, None])
             out = out.cpu().numpy().astype(np.int32)
             decode_us = (time.perf_counter() - t1) * 1e6
         timings = {

@@ -28,8 +28,10 @@ import json
 
 import torch
 
-#: sleep kernels (~1 ms each at 1.98 GHz) on each side of the traced work
-FENCE_KERNELS, FENCE_CYCLES = 16, 2_000_000
+#: sleep kernels (~1 ms each at 1.98 GHz) on each side of the traced work;
+#: late in a long process on the H100 a trace lost its first 22 records,
+#: a 16-kernel fence and 6 of the work's, every time
+FENCE_KERNELS, FENCE_CYCLES = 64, 2_000_000
 
 #: the name of ``torch.cuda._sleep``'s kernel in a trace
 FENCE_NAME = "spin_kernel"

@@ -861,3 +861,129 @@ def test_sparse_padding_meets_a_real_row_on_the_card(monkeypatch, pool):
     untouched[torch.as_tensor(ids, device=dev)] = False
     assert torch.equal(cap[1][0][untouched], init[untouched])
     assert not cap[2][0][untouched].any() and not cap[2][1][untouched].any()
+
+
+# -- the serving engine's graphs and the Transformer's flash path -------------
+
+
+def _tiny_gpt(dev, seed=11, max_length=64):
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.gluon.model_zoo import gpt
+
+    net = gpt.gpt_tiny(scan_layers=True, max_length=max_length, device=dev)
+    net.initialize(initializer.Xavier(),
+                   generator=torch.Generator(device=dev).manual_seed(seed))
+    return net
+
+
+def test_engine_replays_graphs_equal_to_the_cached_decoder():
+    """On the card every program is a recorded CUDA graph: warm-up records
+    |B| x (|prefill| + 1) of them, the request path records nothing more
+    and runs no step body outside a replay, and the tokens each request
+    gets from the replayed graphs equal CachedDecoder.decode's for that
+    prompt alone; the first token's logits within rtol 2e-4 / atol
+    1e-5."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.gluon.model_zoo import gpt
+
+    dev = _card()
+    net = _tiny_gpt(dev)
+    eng = serving.ServingEngine(net, batch_buckets=(1, 2, 4)).warmup()
+    assert eng.program_count() == 3 * (len(eng.prefill_buckets) + 1)
+    for _toks, run in eng._programs.values():
+        assert isinstance(run.__self__, torch.cuda.CUDAGraph)
+    traces, records = serving.trace_count(), serving.compile_count()
+    d0 = serving.dispatch_count()
+    rng = np.random.RandomState(2)
+    prompts = [rng.randint(0, 128, n).tolist() for n in (5, 17, 30)]
+    outs, tm = eng.serve_group(prompts, 6)
+    assert tm["bucket"] == [4, 32]
+    assert serving.trace_count() == traces
+    assert serving.compile_count() == records
+    assert serving.dispatch_count() == d0 + 6
+    dec = gpt.CachedDecoder(net)
+    for p, got in zip(prompts, outs):
+        want, lg = dec.decode(np.asarray([p]), 6, return_logits=True)
+        _agree_or_tie(want.asnumpy()[0, len(p):], lg[:, 0], got)
+        np.testing.assert_allclose(_prefill_logits(eng, p)[0], lg[0, 0],
+                                   rtol=2e-4, atol=1e-5)
+
+
+def _prefill_logits(eng, p):
+    """The engine's first-token logits for prompt ``p`` alone, from its
+    (1, prefill bucket) program (built here if it was not)."""
+    S = eng._pick_bucket(eng.prefill_buckets, len(p), "prompt length")
+    toks = np.zeros((1, S), np.int64)
+    toks[0, :len(p)] = p
+    zero = torch.zeros(1, dtype=torch.int64, device=eng._device)
+    eng._program(1, S)
+    with torch.no_grad():
+        out = eng._call(1, S, zero, torch.as_tensor(toks), zero + len(p) - 1)
+    return out.cpu().numpy().copy()
+
+
+def _agree_or_tie(want, want_logits, got):
+    """Greedy tokens equal, or first part at a step where the reference's
+    top-2 margin is inside 1e-3 max|logit| (another reduction order may
+    flip such a tie)."""
+    diff = np.flatnonzero(np.asarray(want) != np.asarray(got))
+    if diff.size:
+        j = int(diff[0])
+        top2 = np.sort(want_logits[j])[-2:]
+        assert top2[1] - top2[0] < 1e-3 * np.abs(want_logits[j]).max(), \
+            f"tokens part at step {j} with a decisive margin"
+
+
+def test_engine_graphs_share_one_pool_and_reload_in_place():
+    """Every graph of an engine records into one memory pool, and a
+    reload copies the new weights into the tensors the graphs read: the
+    next group serves the new model's tokens with no new recording."""
+    from mxnet_tpu_torch import serving
+
+    dev = _card()
+    a, b = _tiny_gpt(dev, seed=1), _tiny_gpt(dev, seed=2)
+    eng = serving.ServingEngine(a, batch_buckets=(1, 2)).warmup()
+    pools = {run.__self__.pool() for _t, run in eng._programs.values()}
+    assert pools == {eng._pool}
+    prompts = [[1, 2, 3], [4, 5, 6, 7]]
+    before = _prefill_logits(eng, prompts[0])
+    records = serving.compile_count()
+    eng.reload_from_model(b)
+    assert eng.generation == 1
+    after, tm = eng.serve_group(prompts, 5)
+    assert tm["generation"] == 1 and serving.compile_count() == records
+    eng_b = serving.ServingEngine(b, batch_buckets=(1, 2))
+    want, _ = eng_b.serve_group(prompts, 5)
+    for x, y in zip(after, want):
+        np.testing.assert_array_equal(x, y)
+    new = _prefill_logits(eng, prompts[0])
+    np.testing.assert_array_equal(new, _prefill_logits(eng_b, prompts[0]))
+    assert np.abs(new - before).max() > 1e-3
+
+
+def test_transformer_flash_decoder_at_tiny_lengths_matches_dense():
+    """The decoder's causal flash self-attention at T = 1 .. 5 (greedy
+    decoding grows the target a token a step) against the dense path, on
+    the same weights, forward logits at rtol 2e-4 / atol 2e-5."""
+    from mxnet_tpu_torch import autograd, initializer
+    from mxnet_tpu_torch.gluon.model_zoo import transformer as tfm
+
+    dev = _card()
+    nets = []
+    for impl in ("flash", "dense"):
+        net = tfm.transformer_tiny(20, 20, dropout=0.0, max_length=16,
+                                   attention_impl=impl, device=dev)
+        net.initialize(initializer.Xavier(),
+                       generator=torch.Generator(device=dev).manual_seed(4))
+        nets.append(net)
+    rng = np.random.RandomState(3)
+    src = torch.as_tensor(rng.randint(3, 20, (2, 7)), device=dev)
+    for T in range(1, 6):
+        tgt = torch.as_tensor(rng.randint(3, 20, (2, T)), device=dev)
+        before = tflash.flash_attention_fwd.launches
+        with autograd.predict_mode(), torch.no_grad():
+            got, want = nets[0](src, tgt), nets[1](src, tgt)
+        torch.cuda.synchronize()
+        assert tflash.flash_attention_fwd.launches == before + 4   # 2 + 2
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                   rtol=2e-4, atol=2e-5)

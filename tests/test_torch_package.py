@@ -102,6 +102,14 @@ INPUT_MODULES = ("mxnet_tpu_torch._native", "mxnet_tpu_torch.resilience",
                  "mxnet_tpu_torch.tools.bench_input_pipeline")
 
 
+#: modules the decode and serving slice added; each must be walked and clean
+DECODE_MODULES = ("mxnet_tpu_torch.obs", "mxnet_tpu_torch.obs.spans",
+                  "mxnet_tpu_torch.serving.batcher",
+                  "mxnet_tpu_torch.gluon.model_zoo.transformer",
+                  "mxnet_tpu_torch.tools.bench_serving",
+                  "mxnet_tpu_torch.tools.bench_decode")
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -117,6 +125,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert set(RESNET_MODULES) <= walked, sorted(walked)
     assert set(TRAINER_MODULES) <= walked, sorted(walked)
     assert set(INPUT_MODULES) <= walked, sorted(walked)
+    assert set(DECODE_MODULES) <= walked, sorted(walked)
 
 
 def _imported_roots(path):
