@@ -204,6 +204,26 @@ Phases; any failure raises, exits non-zero and prints no result line:
    dense in f32; transformer_tiny card against host over 3 SGD steps.  The
    engine and the decoders launch no kernel of the port's own (their
    attention is dense over the cache).
+15. The recurrent path: (i) the fused RNN op (ops/rnn.py) on the card
+   against the same code on the host, f32, TF32 off, T=9, B=3, I=5, H=7,
+   2 layers: lstm, gru, rnn_tanh, rnn_relu, bidirectional, LSTMP, ragged
+   sequence lengths and the state clip; outputs, final states and the
+   gradients with respect to data, parameters and states, each error
+   beside its tolerance; (ii) the medium PTB LM of Zaremba et al.
+   (tools/bench_lstm.RNNModel: vocab 10000, embedding and hidden 650, 2
+   layers, T=35, B=20) at dropout 0 on the same numpy weights, card
+   against host: the first window's loss and every gradient; (iii) 30
+   BPTT windows at dropout 0.5 through gluon.Trainer (Adam, lr 0.01,
+   clip 0.25), the hidden state carried and detached: the loss falls, ms
+   a step and tokens/s (median and spread), peak memory, torch.profiler
+   over three steps (busy share, kernel time by family), the flash and
+   rtc kernels launched 0 times (wrappers and a fenced trace), then
+   tools.bench_lstm.run's line; (iv) the yardstick: cuDNN's LSTM
+   (torch.nn.LSTM, never on the port's path) against the port's RNN op,
+   forward and backward, at hidden 650 and 1500, T=35, B=20 (CUDA
+   events, median of 5 loops); (v) a CustomOp's forward and backward,
+   while_loop with max_iterations, cond, linalg potrf, trsm and syevd and
+   LinearRegressionOutput's gradient, card against host.
 6. The kernel JSON line (f32 numbers at the training shape, and the
    bf16 ones under *_bf16 keys; the same at BERT's shape under
    ``at_bert_shape``, at ViT's under ``at_vit_shape`` and at
@@ -4249,6 +4269,402 @@ def phase_serving(dev, card, rtc_kernels):
     return paths, res
 
 
+# -- [15] the recurrent path ---------------------------------------------------
+# (i) the RNN op, card against host: T=9, B=3, I=5, H=7, 2 layers, f32 with
+# TF32 off; (mode, bidirectional, projection_size, ragged lengths, clip)
+RNN_SMALL = (9, 3, 5, 7, 2)
+RNN_CASES = (("lstm", False, None, False, False),
+             ("gru", False, None, False, False),
+             ("rnn_tanh", False, None, False, False),
+             ("rnn_relu", False, None, False, False),
+             ("lstm", True, None, False, False),
+             ("gru", True, None, True, False),
+             ("lstm", False, 4, False, False),
+             ("lstm", True, None, True, False),
+             ("lstm", False, None, False, True),
+             ("lstm", True, 4, True, True))
+RNN_OUT_TOL, RNN_GRAD_TOL = (2e-4, 2e-5), (2e-3, 2e-4)
+# (ii)/(iii) the medium PTB LM (Zaremba et al. 2014, section 4.1):
+# tools/bench_lstm.MEDIUM; (ii) at dropout 0 with each gradient's atol
+# scaled by its tensor's max |gradient| (the embedding's rows and the
+# decoder's columns span orders of magnitude)
+LSTM_WINDOWS, LSTM_PROFILE_STEPS = 30, 3
+# (iv) the cuDNN yardstick: (hidden = input width) at T=35, B=20, 2 layers
+LSTM_YARDSTICK = (("medium", 650), ("large", 1500))
+# (v) the linear-algebra and head checks
+SMALL_TOL = (1e-4, 1e-5)
+
+
+def _rnn_case_inputs(case, rs):
+    import numpy as np
+
+    from mxnet_tpu_torch.ops import rnn as trnn
+
+    mode, bi, proj, seq, clip = case
+    T, B, I, H, L = RNN_SMALL
+    dirs = 2 if bi else 1
+    rec = proj or H
+    n = trnn.rnn_param_size(mode, I, H, L, bi, proj)
+    arrays = [rs.randn(T, B, I), rs.randn(n) * 0.3,
+              rs.randn(L * dirs, B, rec) * 0.5]
+    if mode == "lstm":
+        arrays.append(rs.randn(L * dirs, B, H) * 0.5)
+    kw = dict(state_size=H, num_layers=L, mode=mode, bidirectional=bi,
+              projection_size=proj, state_outputs=True, _is_training=False)
+    if clip:
+        kw.update(lstm_state_clip_min=-0.2, lstm_state_clip_max=0.3)
+    lens = np.array([T, 4, 1], np.int32) if seq else None
+    if seq:
+        kw["use_sequence_length"] = True
+    shapes = [(T, B, rec * dirs), (L * dirs, B, rec)] + (
+        [(L * dirs, B, H)] if mode == "lstm" else [])
+    cots = [rs.randn(*s) for s in shapes]
+    f32 = (lambda a: a.astype(np.float32))
+    return [f32(a) for a in arrays], lens, kw, [f32(c) for c in cots]
+
+
+def _rnn_op_run(device, arrays, lens, kw, cots):
+    import torch
+
+    from mxnet_tpu_torch.ops import rnn as trnn
+
+    args = [torch.as_tensor(a, device=device).requires_grad_()
+            for a in arrays]
+    if len(args) == 3:
+        args.append(None)
+    outs = trnn.rnn(*args, sequence_length=None if lens is None else
+                    torch.as_tensor(lens, device=device), **kw)
+    sum((o * torch.as_tensor(c, device=device)).sum()
+        for o, c in zip(outs, cots)).backward()
+    return ([o.detach().cpu() for o in outs],
+            [a.grad.cpu() for a in args if a is not None])
+
+
+def _rnn_card_vs_host(dev, card):
+    """(i) Every case of RNN_CASES on the card against the host."""
+    import numpy as np
+
+    rs = np.random.RandomState(SEED + 15)
+    worst = {"out": 0.0, "grad": 0.0}
+    for case in RNN_CASES:
+        inputs = _rnn_case_inputs(case, rs)
+        got, want = _rnn_op_run(dev, *inputs), _rnn_op_run("cpu", *inputs)
+        ratios = []
+        for (g, w), tol in [(p, RNN_OUT_TOL) for p in zip(got[0], want[0])] \
+                + [(p, RNN_GRAD_TOL) for p in zip(got[1], want[1])]:
+            ratios.append(errors(g, w, *tol))
+        n_out = len(got[0])
+        out_err = max(r[0] for r in ratios[:n_out])
+        grad_err = max(r[0] for r in ratios[n_out:])
+        out_ratio = max(r[2] for r in ratios[:n_out])
+        grad_ratio = max(r[2] for r in ratios[n_out:])
+        log(f"    (i) {case}: outputs and final states max abs err "
+            f"{out_err:.3e} (err/tol {out_ratio:.3f} at rtol/atol "
+            f"{RNN_OUT_TOL}); gradients (data, parameters, states) "
+            f"{grad_err:.3e} (err/tol {grad_ratio:.3f} at {RNN_GRAD_TOL})")
+        if out_ratio > 1 or grad_ratio > 1:
+            raise AssertionError(f"[15](i) RNN op {case}: card against "
+                                 f"host beyond tolerance")
+        if case[3] and got[0][0][4:, 1, :case[2] or RNN_SMALL[3]].any():
+            raise AssertionError(f"[15](i) {case}: a step past its "
+                                 "length emitted output")
+        worst["out"] = max(worst["out"], out_ratio)
+        worst["grad"] = max(worst["grad"], grad_ratio)
+    return worst
+
+
+def _lm_loss_and_grads(model, loss_fn, x, y, hidden):
+    """The first window's mean loss and every parameter's gradient."""
+    from mxnet_tpu_torch import autograd
+
+    with autograd.record():
+        out, _ = model(x, hidden)
+        ls = loss_fn(out.reshape((-1, out.shape[-1])), y.reshape((-1,)))
+    ls.backward()
+    return (float(ls.mean().asscalar()),
+            {k: p.grad()._data.cpu() for k, p in
+             sorted(model.collect_params().items())})
+
+
+def _lm_card_vs_host(dev, card):
+    """(ii) The medium LM at dropout 0, the same numpy weights on the card
+    and the host: the first window's loss and every gradient."""
+    import numpy as np
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.tools import bench_lstm as bl
+
+    m = dict(bl.MEDIUM, dropout=0.0)
+    rs = np.random.RandomState(SEED + 16)
+    runs, weights = {}, None
+    for where in (dev, "cpu"):
+        ctx = mx.context.context_of(mx.context.resolve(where))
+        model = bl.RNNModel(m["vocab"], m["embed"], m["hidden"],
+                            m["layers"], 0.0)
+        model.initialize(ctx=ctx)
+        if weights is None:
+            weights = {k: rs.uniform(-0.1, 0.1, p.shape).astype(np.float32)
+                       for k, p in model.collect_params().items()}
+        convert.load_gluon_params(model, weights)
+        x, y = bl.windows(m["vocab"], m["bptt"], m["batch"], 1, where,
+                          SEED)[0]
+        hidden = model.begin_state(batch_size=m["batch"], ctx=ctx)
+        runs[str(where)] = _lm_loss_and_grads(
+            model, mx.gluon.loss.SoftmaxCrossEntropyLoss(), x, y, hidden)
+    (lc, gc), (lh, gh) = runs[str(dev)], runs["cpu"]
+    loss_rel = abs(lc - lh) / abs(lh)
+    worst, worst_name = 0.0, None
+    for (kc, c), (kh, h) in zip(gc.items(), gh.items()):
+        atol = RNN_GRAD_TOL[1] * float(h.abs().max())
+        ratio = errors(c, h, RNN_GRAD_TOL[0], atol)[2] if atol else \
+            float((c - h).abs().max())
+        if ratio > worst:
+            worst, worst_name = ratio, kc
+    log(f"    (ii) medium LM (vocab {m['vocab']}, {m['embed']}/"
+        f"{m['hidden']}, {m['layers']} layers, T={m['bptt']}, "
+        f"B={m['batch']}, dropout 0): first loss card {lc:.6f}, host "
+        f"{lh:.6f} (rel {loss_rel:.2e}, tol 1e-5); {len(gc)} gradients, "
+        f"worst err/tol {worst:.3f} ({worst_name}) at rtol "
+        f"{RNN_GRAD_TOL[0]}, atol {RNN_GRAD_TOL[1]} x max|grad|")
+    if loss_rel > LOSS_RTOL or worst > 1:
+        raise AssertionError("[15](ii) the medium LM's card run parts from "
+                             "the host's")
+    return {"loss_rel": loss_rel, "grad_err_over_tol": worst}
+
+
+def _lm_training(dev, card, rtc_kernels):
+    """(iii) LSTM_WINDOWS windows of the medium LM at dropout 0.5 on the
+    card, the hidden state carried and detached: the loss falls; ms a
+    step and tokens/s; torch.profiler over LSTM_PROFILE_STEPS more; the
+    kernels of the port's own counted (none)."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch.tools import bench_lstm as bl
+
+    m = bl.MEDIUM
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    model, trainer, loss_fn = bl.build(m["vocab"], m["embed"], m["hidden"],
+                                       m["layers"], m["dropout"], dev, SEED)
+    data = bl.windows(m["vocab"], m["bptt"], m["batch"],
+                      LSTM_WINDOWS + LSTM_PROFILE_STEPS + 2, dev, SEED)
+    state = [model.begin_state(batch_size=m["batch"],
+                               ctx=mx.context.context_of(dev))]
+    losses, times = [], []
+
+    def step(i):
+        ls, state[0] = bl.train_window(model, trainer, loss_fn, state[0],
+                                       *data[i])
+        return float(ls.mean().asscalar())
+
+    _zero_all(rtc_kernels)
+    for i in range(LSTM_WINDOWS):
+        t0 = time.perf_counter()
+        losses.append(step(i))
+        times.append((time.perf_counter() - t0) * 1e3)
+    launches = _launches(rtc_kernels)
+    peak = (torch.cuda.max_memory_allocated() - base) / 2 ** 30
+    ms = sorted(times[2:])
+    med = ms[len(ms) // 2]
+    tokens = m["bptt"] * m["batch"]
+    first, last = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+    log(f"    (iii) {LSTM_WINDOWS} windows at dropout {m['dropout']}: loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (first five {first:.4f}, "
+        f"last five {last:.4f}); ms a step median {med:.3f} "
+        f"(min {ms[0]:.3f}, max {ms[-1]:.3f}, windows 3-{LSTM_WINDOWS}), "
+        f"{tokens / med * 1e3:.1f} tokens/s; peak {peak:.3f} GiB over "
+        f"{base / 2 ** 30:.3f} GiB  [{card}]")
+    if not all(np.isfinite(losses)) or not last < first:
+        raise AssertionError(f"[15](iii) the loss did not fall: {losses}")
+    i = [LSTM_WINDOWS]
+
+    def next_step():
+        step(i[0])
+        i[0] += 1
+
+    wall, busy = profile_steps(next_step, LSTM_PROFILE_STEPS,
+                               f"{LSTM_PROFILE_STEPS} medium LM steps "
+                               f"(dropout {m['dropout']})", card,
+                               families=BERT_FAMILIES,
+                               ranges=("optimizer_update",))
+    traced = _kernel_counts(next_step)
+    log(f"    (iii) flash and rtc launches: {launches} by the wrappers over "
+        f"the {LSTM_WINDOWS} windows, {traced} in a fenced trace of one "
+        f"step")
+    if any(launches.values()) or any(traced.values()):
+        raise AssertionError("[15](iii) the LSTM LM launched a flash or rtc "
+                             "kernel")
+    return launches, {"ms_per_step": med, "ms_min": ms[0],
+                      "ms_max": ms[-1], "tokens_per_sec": tokens / med * 1e3,
+                      "loss_first": losses[0], "loss_last": losses[-1],
+                      "peak_mem_gib": peak, "busy_share": busy / wall,
+                      "profile_wall_ms": wall, "profile_busy_ms": busy}
+
+
+def _lstm_yardstick(dev, card):
+    """(iv) cuDNN's LSTM (torch.nn.LSTM, never on the port's path) against
+    the port's RNN op, forward and backward, at T=35, B=20, 2 layers, f32:
+    CUDA events, the median of 5 loops."""
+    import torch
+
+    from mxnet_tpu_torch.ops import rnn as trnn
+    from mxnet_tpu_torch.tools.bench_lstm import MEDIUM
+
+    T, B, L = MEDIUM["bptt"], MEDIUM["batch"], MEDIUM["layers"]
+    rows = {}
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    for name, H in LSTM_YARDSTICK:
+        lstm = torch.nn.LSTM(H, H, L).to(dev)
+        x = torch.randn(T, B, H, device=dev, generator=g,
+                        requires_grad=True)
+        n = trnn.rnn_param_size("lstm", H, H, L)
+        params = (torch.randn(n, device=dev, generator=g) * 0.04) \
+            .requires_grad_()
+        h0 = torch.zeros(L, B, H, device=dev)
+        dy = torch.randn(T, B, H, device=dev, generator=g)
+
+        def port():
+            out = trnn.rnn(x, params, h0, h0, state_size=H, num_layers=L,
+                           mode="lstm", _is_training=True)
+            out.backward(dy)
+
+        def cudnn():
+            out, _ = lstm(x, (h0, h0))
+            out.backward(dy)
+
+        t_port = cuda_ms_spread(port, 3)
+        t_lib = cuda_ms_spread(cudnn, 3)
+        # 2 * (T*B) * (4H) * (in + H) a layer forward, x3 with backward
+        gflop = 3 * 2 * T * B * 4 * H * 2 * H * L / 1e9
+        log(f"    (iv) {name} (H={H}): port RNN op forward+backward "
+            f"{t_port[0]:.3f} ms (min {t_port[1]:.3f}, max {t_port[2]:.3f}), "
+            f"cuDNN LSTM {t_lib[0]:.3f} ms (min {t_lib[1]:.3f}, max "
+            f"{t_lib[2]:.3f}), ratio {t_port[0] / t_lib[0]:.2f}; "
+            f"{gflop:.2f} GFLOP  [{card}]")
+        rows[name] = {"port_ms": t_port, "cudnn_ms": t_lib, "gflop": gflop}
+        del lstm, x, params
+    return rows
+
+
+def _small_families(dev, card):
+    """(v) CustomOp, while_loop, cond, linalg and a legacy head on the card
+    against the host."""
+    import numpy as np
+    import torch
+
+    import mxnet_tpu_torch as mx
+    from mxnet_tpu_torch import autograd, nd
+
+    class Op(mx.operator.CustomOp):
+        def forward(self, is_train, req, in_data, out_data, aux):
+            a, b = in_data
+            self.assign(out_data[0], req[0], a * 3 + b * b)
+
+        def backward(self, req, out_grad, in_data, out_data, in_grad, aux):
+            g = out_grad[0]
+            self.assign(in_grad[0], req[0], g * 3)
+            self.assign(in_grad[1], req[1], g * 2 * in_data[1])
+
+    @mx.operator.register("chip_smoke_scale3")
+    class Prop(mx.operator.CustomOpProp):
+        def list_arguments(self):
+            return ["a", "b"]
+
+        def create_operator(self, ctx, shapes, dtypes):
+            return Op()
+
+    rs = np.random.RandomState(SEED + 17)
+    a, b, g = (rs.randn(4, 5).astype(np.float32) for _ in range(3))
+    spd = rs.randn(6, 6)
+    spd = (spd @ spd.T + 6 * np.eye(6)).astype(np.float32)
+    tri = np.tril(rs.randn(6, 6) + 4 * np.eye(6)).astype(np.float32)
+    rhs = rs.randn(6, 3).astype(np.float32)
+    pred, lab = rs.randn(8, 2).astype(np.float32), rs.randn(8, 2).astype(
+        np.float32)
+
+    def run(ctx):
+        out = {}
+        with ctx:
+            xa, xb = nd.array(a), nd.array(b)
+            xa.attach_grad()
+            xb.attach_grad()
+            with autograd.record():
+                y = nd.Custom(xa, xb, op_type="chip_smoke_scale3")
+            y.backward(nd.array(g))
+            out["custom"] = [y, xa.grad, xb.grad]
+            bufs, final = nd.contrib.while_loop(
+                lambda i, s: i < 3, lambda i, s: ([s * i], [i + 1, s + i]),
+                [nd.array([0.0]), nd.array(b[0])], max_iterations=5)
+            out["while_loop"] = bufs + final
+            out["cond"] = [nd.contrib.cond(nd.array([1.0]),
+                                           lambda: nd.array(a) * 2,
+                                           lambda: nd.array(a) - 1)]
+            out["potrf"] = [nd.linalg.potrf(nd.array(spd))]
+            out["trsm"] = [nd.linalg.trsm(nd.array(tri), nd.array(rhs))]
+            u, w = nd.linalg.syevd(nd.array(spd))
+            # eigenvectors up to sign: each row's largest entry positive
+            un = u.asnumpy()
+            sign = np.sign(un[np.arange(6), np.abs(un).argmax(1)])
+            out["syevd"] = [w, un * sign[:, None]]
+            xp = nd.array(pred)
+            xp.attach_grad()
+            with autograd.record():
+                z = nd.LinearRegressionOutput(xp, nd.array(lab),
+                                              grad_scale=2.0)
+            z.backward()
+            out["LinearRegressionOutput"] = [z, xp.grad]
+        return {k: [torch.as_tensor(v.asnumpy() if hasattr(v, "asnumpy")
+                                    else v) for v in vs]
+                for k, vs in out.items()}
+
+    got, want = run(mx.gpu(0)), run(mx.cpu())
+    worst = 0.0
+    for k in want:
+        ratio = max(errors(gv, wv, *SMALL_TOL)[2]
+                    for gv, wv in zip(got[k], want[k]))
+        log(f"    (v) {k}: card against host err/tol {ratio:.3f} at "
+            f"rtol/atol {SMALL_TOL}")
+        if ratio > 1:
+            raise AssertionError(f"[15](v) {k}: card against host beyond "
+                                 "tolerance")
+        worst = max(worst, ratio)
+    return worst
+
+
+def phase_recurrent(dev, card, rtc_kernels):
+    """[15] The recurrent path: (i) the RNN op card against host in every
+    mode; (ii) the medium PTB LM card against host; (iii) 30 windows of
+    its training on the card, the profile and tools.bench_lstm.run;
+    (iv) the cuDNN yardstick; (v) the small families.  Returns the kernel
+    launches of the path (none of the port's own) and the numbers."""
+    import gc
+
+    import torch
+
+    from mxnet_tpu_torch.tools import bench_lstm
+
+    res = {}
+    t0 = time.perf_counter()
+    res["op"] = _rnn_card_vs_host(dev, card)
+    res["card_vs_host"] = _lm_card_vs_host(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    launches, res["train"] = _lm_training(dev, card, rtc_kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["bench"] = bench_lstm.run(device=dev)
+    log("    (iii) bench_lstm " + json.dumps(res["bench"]))
+    res["yardstick"] = _lstm_yardstick(dev, card)
+    res["small"] = _small_families(dev, card)
+    log(f"    [15] done in {time.perf_counter() - t0:.1f} s; kernel "
+        f"launches of the port's own: {launches}")
+    return launches, res
+
+
 def main():
     import torch
 
@@ -4361,6 +4777,14 @@ def main():
         "the flash kernels: training, beam_search, greedy_decode")
     serve_launches, serve_res = phase_serving(dev, card, (s2, ax))
     gluon_launches.update(serve_launches)
+
+    log("[15] the recurrent path: the RNN op card against host in every "
+        "mode, the medium PTB LSTM LM (vocab 10000, 650/650, 2 layers, "
+        "T=35, B=20) card against host and trained 30 windows on the card "
+        "through gluon.Trainer, tools.bench_lstm, the cuDNN yardstick, "
+        "CustomOp, control flow, linalg and a legacy head")
+    lstm_launches, lstm_res = phase_recurrent(dev, card, (s2, ax))
+    gluon_launches["lstm_lm_path"] = lstm_launches
 
     T0, Tb, Tv, Tt = TRAIN_SHAPE[2], BERT_SHAPE[2], VIT_SHAPE[2], TFM_SEQ
     sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
@@ -4500,7 +4924,10 @@ def main():
         f"{serve_res['serving']['tokens_per_sec']:.1f} tokens/s batched, "
         f"{serve_res['serving']['tokens_per_sec_unbatched']:.1f} one by one; "
         f"Transformer-base bf16 step "
-        f"{serve_res['transformer']['ms_per_step']:.2f} ms; "
+        f"{serve_res['transformer']['ms_per_step']:.2f} ms; medium LSTM "
+        f"LM step {lstm_res['train']['ms_per_step']:.2f} ms, "
+        f"{lstm_res['train']['tokens_per_sec']:.1f} tokens/s, busy "
+        f"{lstm_res['train']['busy_share']:.3f}; "
         f"forward O max abs err at BERT's "
         f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")

@@ -16,7 +16,7 @@ from . import autograd, ndarray, rtc
 from . import ndarray as nd
 from . import initializer, name
 from . import initializer as init
-from . import numerics, optimizer
+from . import numerics, operator, optimizer
 from . import kvstore
 from . import kvstore as kv
 from . import amp, convert, gluon, metric, parallel, serving
@@ -27,6 +27,6 @@ __all__ = ["Context", "MXNetError", "amp", "autograd", "base", "callback",
            "context", "convert", "cpu", "current_context", "embedding",
            "engine", "gluon",
            "gpu", "image", "init", "initializer", "io", "kv", "kvstore",
-           "metric", "name", "nd", "ndarray", "num_gpus", "numerics", "ops",
-           "optimizer", "parallel", "profiler", "random", "recordio",
+           "metric", "name", "nd", "ndarray", "num_gpus", "numerics", "operator",
+           "ops", "optimizer", "parallel", "profiler", "random", "recordio",
            "resilience", "rtc", "serving", "telemetry"]

@@ -10,12 +10,14 @@ reference exposes:
   device fault surfaces here or at an array's ``wait_to_read``.
 
 The JAX package's persistent compile cache (``ensure_compile_cache``) has
-no counterpart: nothing here is compiled ahead of a call.  Its no-op
-``bulk``/``set_bulk_size`` wait for a caller.
+no counterpart: nothing here is compiled ahead of a call.  ``bulk`` and
+``set_bulk_size`` keep the reference's API and its nominal window of 15;
+ops launch one by one, so the window tunes nothing.
 """
 
 from __future__ import annotations
 
+import contextlib
 import os
 
 import torch
@@ -42,3 +44,21 @@ def wait_all() -> None:
     if torch.cuda.is_available() and torch.cuda.is_initialized():
         for i in range(torch.cuda.device_count()):
             torch.cuda.synchronize(i)
+
+
+_BULK_SIZE = 15  # the reference's default op-bulking window
+
+
+def bulk(size: int | None = None):
+    """``mx.engine.bulk``: a context manager for API compatibility; it
+    changes nothing (each op launches as it is called)."""
+    return contextlib.nullcontext()
+
+
+def set_bulk_size(size):
+    """``mx.engine.set_bulk_size``: record the nominal op-bulking window
+    and return the previous one."""
+    global _BULK_SIZE
+    prev = _BULK_SIZE
+    _BULK_SIZE = int(size)
+    return prev

@@ -5,8 +5,9 @@ carries the NDArray class, the creation functions, ``save``/``load`` and
 every registered op as a generated wrapper.  Arrays are created on
 ``ctx``, default ``current_context()``: ``gpu(0)`` unless a ``with
 mx.cpu():`` scope is open.  ``sparse`` holds the compact storage types
-(``ndarray/sparse.py``); the ``control_flow``, ``linalg`` and ``contrib``
-sub-namespaces are not ported yet (ROADMAP).
+(``ndarray/sparse.py``), ``linalg`` the linear-algebra ops and
+``contrib`` the control flow (``foreach``, ``while_loop`` and ``cond``,
+also at the top level, as in the JAX package) and the contrib ops.
 """
 
 from __future__ import annotations
@@ -102,6 +103,23 @@ def eye(N, M=0, k=0, ctx=None, dtype=None):
     return NDArray(hit.to(torch_dtype(dtype)), ctx)
 
 
+def from_numpy(a, zero_copy=False):
+    """An NDArray holding ``a``, as ``array(a)`` makes it (float32 unless
+    ``a`` is bool).  ``zero_copy`` is accepted for API parity: the array
+    is always a copy, since a card cannot share the host's buffer."""
+    return array(a)
+
+
+def from_dlpack(capsule):
+    """An NDArray over a DLPack capsule's (or a ``__dlpack__`` object's)
+    memory, through ``torch.utils.dlpack``: no copy, on the producer's
+    device."""
+    from ..context import context_of
+
+    t = torch.utils.dlpack.from_dlpack(capsule)
+    return NDArray(t, context_of(t.device))
+
+
 def concatenate(arrays, axis=0, always_copy=True):
     return _register.invoke_registered("concat", tuple(arrays),
                                        {"dim": axis})
@@ -118,9 +136,14 @@ def moveaxis(a, source, destination):
                     name="moveaxis")
 
 
+# control-flow higher-order ops (the reference keeps them under contrib)
+from ..ops.control_flow import cond, foreach, while_loop  # noqa: E402,F401
+
 # generated op wrappers -> module namespace
 _register.populate(globals())
 
 # sub-namespaces
 from . import random  # noqa: E402
 from . import sparse  # noqa: E402
+from . import linalg  # noqa: E402
+from . import contrib  # noqa: E402

@@ -7,8 +7,8 @@ LayerNorm, RMSNorm, InstanceNorm, GroupNorm), Dropout, UpSampling and
 BilinearResize2D, each registered under the JAX package's names and
 aliases so ``mx.nd`` and Gluon's ``F`` reach them, and ``Cast_storage``
 (the identity on a tensor; on NDArrays the storage dispatch in
-``ndarray/register.py`` makes the compact arrays).  ``Custom`` (the
-CustomOp registry) is not ported.
+``ndarray/register.py`` makes the compact arrays), and ``Custom``, the
+opaque op that runs a registered ``operator.CustomOp`` on NDArrays.
 
 Products in the stream dtype.  The JAX ops multiply with
 ``preferred_element_type=float32`` and cast the result back: bf16
@@ -636,3 +636,13 @@ def cast_storage(data, stype="default"):
     ``ndarray.sparse.cast_storage``, reached through the storage
     dispatch."""
     return data
+
+
+@register("Custom", opaque=True)
+def custom(*data, op_type=None, **kwargs):
+    """Run the ``operator.CustomOp`` registered as ``op_type`` (reference:
+    src/operator/custom/custom.cc): opaque, it takes the NDArrays
+    themselves and keeps its own tape entry."""
+    from .. import operator as custom_mod
+
+    return custom_mod._invoke_custom(op_type, data, kwargs)

@@ -987,3 +987,42 @@ def test_transformer_flash_decoder_at_tiny_lengths_matches_dense():
         assert tflash.flash_attention_fwd.launches == before + 4   # 2 + 2
         np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
                                    rtol=2e-4, atol=2e-5)
+
+
+def test_rnn_op_card_matches_host_with_sequence_lengths():
+    """The fused RNN op (LSTM, 2 layers, bidirectional, ragged sequence
+    lengths) on the card against the same code on the host: outputs,
+    final states and the gradients with respect to data, parameters and
+    states, f32 with TF32 off, at rtol 2e-4 / atol 2e-5 (outputs) and
+    2e-3 / 2e-4 (gradients)."""
+    from mxnet_tpu_torch.ops import rnn as trnn
+
+    dev = _card()
+    T, B, I, H, L = 9, 3, 5, 7, 2
+    rs = np.random.RandomState(0)
+    n = trnn.rnn_param_size("lstm", I, H, L, bidirectional=True)
+    host = [torch.from_numpy(a) for a in (
+        rs.randn(T, B, I).astype(np.float32),
+        (rs.randn(n) * 0.3).astype(np.float32),
+        (rs.randn(2 * L, B, H) * 0.5).astype(np.float32),
+        (rs.randn(2 * L, B, H) * 0.5).astype(np.float32))]
+    lens = torch.tensor([9, 4, 1], dtype=torch.int32)
+    cots = [torch.from_numpy(rs.randn(*s).astype(np.float32))
+            for s in ((T, B, 2 * H), (2 * L, B, H), (2 * L, B, H))]
+
+    def run(device):
+        args = [a.to(device).requires_grad_() for a in host]
+        outs = trnn.rnn(*args, state_size=H, num_layers=L, mode="lstm",
+                        bidirectional=True, state_outputs=True,
+                        use_sequence_length=True,
+                        sequence_length=lens.to(device), _is_training=False)
+        sum((o * c.to(device)).sum() for o, c in zip(outs, cots)).backward()
+        return ([o.detach().cpu() for o in outs],
+                [a.grad.cpu() for a in args])
+
+    got, want = run(dev), run("cpu")
+    for g, w in zip(got[0], want[0]):
+        torch.testing.assert_close(g, w, rtol=2e-4, atol=2e-5)
+    for g, w in zip(got[1], want[1]):
+        torch.testing.assert_close(g, w, rtol=2e-3, atol=2e-4)
+    assert not got[0][0][4:, 1, :H].any()

@@ -40,13 +40,12 @@ PORTED = {"mxnet_tpu.ops.elemwise", "mxnet_tpu.ops.reduce",
           "mxnet_tpu.ops.matrix", "mxnet_tpu.ops.indexing",
           "mxnet_tpu.ops.random_ops", "mxnet_tpu.ops.nn",
           "mxnet_tpu.ops.optimizer_op", "mxnet_tpu.ops.attention",
-          "mxnet_tpu.ops.ctc"}
+          "mxnet_tpu.ops.ctc", "mxnet_tpu.ops.linalg",
+          "mxnet_tpu.ops.legacy_output", "mxnet_tpu.ops.rnn"}
 RANDOM = "mxnet_tpu.ops.random_ops"
 
 #: canonical JAX ops of the ported families the port leaves out, by reason
-PORT_SKIP = {
-    "Custom": "needs operator.py's CustomOp registry, not ported yet",
-}
+PORT_SKIP = {}
 
 
 def _family(name):

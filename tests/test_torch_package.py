@@ -110,6 +110,21 @@ DECODE_MODULES = ("mxnet_tpu_torch.obs", "mxnet_tpu_torch.obs.spans",
                   "mxnet_tpu_torch.tools.bench_decode")
 
 
+#: modules the recurrent slice added; each must be walked and clean
+RECURRENT_MODULES = ("mxnet_tpu_torch.operator",
+                     "mxnet_tpu_torch.ops.rnn",
+                     "mxnet_tpu_torch.ops.control_flow",
+                     "mxnet_tpu_torch.ops.linalg",
+                     "mxnet_tpu_torch.ops.legacy_output",
+                     "mxnet_tpu_torch.ndarray.contrib",
+                     "mxnet_tpu_torch.ndarray.linalg",
+                     "mxnet_tpu_torch.gluon.rnn",
+                     "mxnet_tpu_torch.gluon.rnn.rnn_cell",
+                     "mxnet_tpu_torch.gluon.rnn.rnn_layer",
+                     "mxnet_tpu_torch.gluon.contrib.rnn",
+                     "mxnet_tpu_torch.tools.bench_lstm")
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -126,6 +141,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert set(TRAINER_MODULES) <= walked, sorted(walked)
     assert set(INPUT_MODULES) <= walked, sorted(walked)
     assert set(DECODE_MODULES) <= walked, sorted(walked)
+    assert set(RECURRENT_MODULES) <= walked, sorted(walked)
 
 
 def _imported_roots(path):
