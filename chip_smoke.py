@@ -224,13 +224,38 @@ Phases; any failure raises, exits non-zero and prints no result line:
    events, median of 5 loops); (v) a CustomOp's forward and backward,
    while_loop with max_iterations, cond, linalg potrf, trsm and syevd and
    LinearRegressionOutput's gradient, card against host.
+16. The detection path: (i) each detection op on the card against the
+   same code on the host, on the same seeded inputs at its users' sizes:
+   MultiBoxTarget at bench_ssd.VOC300 (32 x 134296 anchors x 16 gts, 3:1
+   mining), MultiBoxDetection at nms_topk 400, box_nms at (4, 6000) with
+   and without topk, force_suppress and background_id, ROIAlign and
+   ROIPooling (7x7, 256 ROIs on a (2, 512, 38, 50) map), Proposal (6000
+   -> 300) and DeformableConvolution at (8, 256, 38, 38): keep-sets,
+   matches and integer targets equal, floats within DET_TOL, each worst
+   error beside its tolerance; (ii) SSD at the width of SSD-300 on VOC
+   (tools/bench_ssd.VOC300) at B=2 on the same weights: the loss and
+   every gradient card against host; then bench_ssd.run, 20
+   gluon.Trainer steps at B=32: the loss falls, ms a step, images/s,
+   peak memory, the busy share and kernels a step from a fenced
+   torch.profiler trace, the flash and rtc kernels launched 0 times; then
+   ssd_detect at B=32: its ms and launches, its decode equal to the
+   host's on the card's scores; (iii) alexnet, vgg16_bn, densenet121,
+   squeezenet1.1, mobilenet1.0, mobilenetv2_1.0 at 224 and inceptionv3 at
+   299: logits card against host at B=2, a training step at B=32 timed,
+   pretrained=True from a .params file written to a temporary root (the
+   same outputs; a missing file raises); (iv) a detection .rec of 96
+   JPEGs read through ImageDetIter with CreateDetAugmenter(rand_crop=0.5,
+   rand_pad=0.5, rand_mirror=True, mean=True, std=True) at 300x300:
+   boxes in [0, 1] and over the bright pixels they label, three SSD steps
+   fed from it; (v) Estimator.fit for two epochs on the card: the
+   accuracy moves.  No kernel of the port's own runs on this path.
 6. The kernel JSON line (f32 numbers at the training shape, and the
    bf16 ones under *_bf16 keys; the same at BERT's shape under
    ``at_bert_shape``, at ViT's under ``at_vit_shape`` and at
    Transformer-base's under ``at_transformer_shape``, its encoder
    (non-causal) and decoder (causal), with the forward's errors at
-   TFM_DECODE_T; launches by path, [12]'s two training paths and [14]'s
-   paths among them), the
+   TFM_DECODE_T; launches by path, [12]'s two training paths, [14]'s
+   paths and [16]'s SSD path and zoo among them), the
    nvidia-smi line, then the result line.
 """
 
@@ -4665,6 +4690,597 @@ def phase_recurrent(dev, card, rtc_kernels):
     return launches, res
 
 
+# -- [16] the detection path ----------------------------------------------------
+# (i) each detection op card against host on the same seeded inputs: keep-sets,
+# matches and integer targets equal, floats within DET_TOL; the deformable
+# convolution's 2304-term sums within DET_TOL with atol scaled by max |out|
+DET_TOL = (1e-4, 1e-5)
+ROI_MAP = (2, 512, 38, 50)         # Faster R-CNN's conv5 map of a 600x800 image
+ROI_COUNT, ROI_POOL = 256, (7, 7)
+PROPOSAL = dict(rpn_pre_nms_top_n=6000, rpn_post_nms_top_n=300)
+DEFORM_SHAPE = (8, 256, 38, 38)
+NMS_SHAPE = (4, 6000)
+# (ii) SSD at bench_ssd.VOC300: card against host at B=2 on the same weights;
+# each gradient's atol scaled by its tensor's max |gradient|
+SSD_CHECK_BATCH = 2
+SSD_LOSS_RTOL = 1e-4
+SSD_GRAD_TOL = (2e-3, 2e-4)
+SSD_STEPS = 20
+# (iii) the zoo at published widths: one training step timed at B=32 (after
+# ZOO_WARMUP), logits card against host at B=2 in predict mode
+ZOO = (("alexnet", 224), ("vgg16_bn", 224), ("densenet121", 224),
+       ("squeezenet1.1", 224), ("mobilenet1.0", 224),
+       ("mobilenetv2_1.0", 224), ("inceptionv3", 299))
+ZOO_BATCH, ZOO_WARMUP, ZOO_STEPS = 32, 2, 5
+ZOO_TOL = (2e-4, 2e-5)
+# (iv) the detection input path
+DET_REC_IMAGES = 96
+# the SSD step's kernels by family (first match wins): cuDNN's BatchNorm
+# kernels before the convolutions, whose names they share
+DET_FAMILIES = (("bn_", "BatchNorm (cuDNN)"), ("batch_norm", "BatchNorm"),
+                ("multi_tensor", "foreach (update)"),
+                ("sort", "sort (targets)"), ("radix", "sort (targets)"),
+                ("scatter", "gather / scatter / index"),
+                ("gather", "gather / scatter / index"),
+                ("index", "gather / scatter / index"),
+                ("softmax", "softmax")) + RESNET_FAMILIES
+
+
+def _det_compare(what, got, want, exact=(), tol=DET_TOL, scale_atol=False,
+                 tag="(i)"):
+    """Card outputs against host outputs: the columns or outputs named by
+    ``exact`` equal, the rest within ``tol``.  Returns the worst
+    err / tolerance."""
+    import torch
+
+    worst = 0.0
+    for i, (g, w) in enumerate(zip(got, want)):
+        g = g.detach().cpu()
+        w = w.detach().cpu()
+        if g.shape != w.shape:
+            raise AssertionError(f"[16]{tag} {what}: shape "
+                                 f"{tuple(g.shape)} against {tuple(w.shape)}")
+        if i in exact:
+            if not torch.equal(g, w):
+                bad = int((g != w).sum())
+                raise AssertionError(f"[16]{tag} {what}: output {i} "
+                                     f"differs in {bad} of {g.numel()} "
+                                     "entries")
+            continue
+        atol = tol[1] * max(1.0, float(w.abs().max())) if scale_atol \
+            else tol[1]
+        worst = max(worst, errors(g, w, tol[0], atol)[2])
+    log(f"    {tag} {what}: card against host, integer outputs equal, worst "
+        f"err/tol {worst:.3f} at rtol/atol {tol}"
+        + (" (atol x max|out|)" if scale_atol else ""))
+    if worst > 1:
+        raise AssertionError(f"[16]{tag} {what}: beyond tolerance")
+    return worst
+
+
+def _det_ops(dev, card):
+    """(i) every detection op of the SSD and Faster R-CNN paths on the
+    card against the host."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch.ops import contrib_det as det
+    from mxnet_tpu_torch.ops import vision_extra as vx
+    from mxnet_tpu_torch.tools import bench_ssd as bs
+
+    cfg = bs.VOC300
+    rs = np.random.RandomState(SEED + 16)
+    res = {}
+
+    def both(fn, arrays, **kw):
+        host = fn(*[torch.as_tensor(a) for a in arrays], **kw)
+        t0 = time.perf_counter()
+        card_out = fn(*[torch.as_tensor(a).to(dev) for a in arrays], **kw)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        return ([o for o in card_out] if isinstance(card_out, tuple)
+                else [card_out]), ([o for o in host] if isinstance(
+                    host, tuple) else [host]), ms
+
+    # anchors of the SSD-300-width head: the model zoo's six maps
+    maps = [cfg["image"] // 2 ** (i + 1) for i in range(6)]
+    anchors = torch.cat([det.multibox_prior(
+        torch.zeros(1, 1, m, m), sizes=s, ratios=r)
+        for m, s, r in zip(maps, cfg["scale_sizes"], cfg["scale_ratios"])],
+        dim=1)
+    N = anchors.shape[1]
+    B = cfg["batch"]
+    _, lab = bs.synthetic_batch(rs, B, 32, cfg["num_classes"],
+                                cfg["max_objects"])
+    logits = rs.standard_normal((B, cfg["num_classes"] + 1, N)) \
+        .astype(np.float32)
+    prob = torch.softmax(torch.from_numpy(logits), 1).numpy()
+    got, want, ms = both(det.multibox_target, [anchors.numpy(), lab, prob],
+                         negative_mining_ratio=3)
+    res["MultiBoxTarget"] = _det_compare(
+        f"MultiBoxTarget ({B} x {N} anchors x {cfg['max_objects']} gts, "
+        f"3:1 mining; {ms:.1f} ms on the card, first call)", got, want,
+        exact=(1, 2))
+    matched = int((want[2] > 0).sum())
+    mined = int((want[2] == 0).sum())
+    log(f"      {matched} anchors matched, {mined} negatives mined")
+
+    loc = (rs.standard_normal((B, N * 4)) * 0.5).astype(np.float32)
+    got, want, ms = both(det.multibox_detection, [prob, loc,
+                                                  anchors.numpy()],
+                         nms_topk=400, nms_threshold=0.45, threshold=0.01)
+    got = [g[..., :1] for g in got] + [g[..., 1:] for g in got]
+    want = [w[..., :1] for w in want] + [w[..., 1:] for w in want]
+    res["MultiBoxDetection"] = _det_compare(
+        f"MultiBoxDetection (nms_topk 400; {ms:.1f} ms on the card, first "
+        f"call)", got, want, exact=(0,))
+    log(f"      {int((want[0] >= 0).sum())} rows kept of {B} x 400")
+
+    nb, nn_ = NMS_SHAPE
+    data = np.concatenate([
+        rs.randint(0, 3, (nb, nn_, 1)), rs.uniform(-0.5, 1, (nb, nn_, 1)),
+        rs.uniform(0, 0.8, (nb, nn_, 2))], axis=-1)
+    data = np.concatenate([data, data[..., 2:4] + rs.uniform(
+        0.02, 0.2, (nb, nn_, 2))], axis=-1).astype(np.float32)
+    for kw in (dict(), dict(topk=400), dict(id_index=0, force_suppress=True,
+                                           topk=1000),
+               dict(id_index=0, background_id=0)):
+        got, want, ms = both(det.box_nms, [data], overlap_thresh=0.5, **kw)
+        keep_c, keep_h = got[0][..., 1] >= 0, want[0][..., 1] >= 0
+        got = [keep_c, got[0]]
+        want = [keep_h, want[0]]
+        res[f"box_nms {kw}"] = _det_compare(
+            f"box_nms {NMS_SHAPE} {kw} ({ms:.1f} ms, {int(keep_h.sum())} "
+            "kept)", got, want, exact=(0,))
+
+    data_map = rs.standard_normal(ROI_MAP).astype(np.float32)
+    H, W = ROI_MAP[2] * 16, ROI_MAP[3] * 16
+    x1 = rs.uniform(0, W - 64, ROI_COUNT)
+    y1 = rs.uniform(0, H - 64, ROI_COUNT)
+    rois = np.stack([rs.randint(0, ROI_MAP[0], ROI_COUNT), x1, y1,
+                     np.minimum(x1 + rs.uniform(32, 400, ROI_COUNT), W - 1),
+                     np.minimum(y1 + rs.uniform(32, 400, ROI_COUNT), H - 1)],
+                    1).astype(np.float32)
+    for name, fn in (("ROIAlign", det.roi_align),
+                     ("ROIPooling", det.roi_pooling)):
+        got, want, ms = both(fn, [data_map, rois], pooled_size=ROI_POOL,
+                             spatial_scale=1 / 16)
+        # ROIPooling's maxima are exact; ROIAlign's sample positions carry
+        # f32 rounding of pixel coordinates up to 50 (~3e-6 pixel) times
+        # the map's slope: atol scaled by max |out|
+        res[name] = _det_compare(
+            f"{name} ({ROI_COUNT} ROIs {ROI_POOL} on {ROI_MAP}; "
+            f"{ms:.1f} ms)", got, want,
+            exact=(0,) if name == "ROIPooling" else (),
+            scale_atol=name == "ROIAlign")
+
+    A = 12
+    cls_prob = rs.uniform(0, 1, (2, 2 * A, ROI_MAP[2], ROI_MAP[3])) \
+        .astype(np.float32)
+    bbox = (rs.standard_normal((2, 4 * A, ROI_MAP[2], ROI_MAP[3])) * 0.1) \
+        .astype(np.float32)
+    info = np.array([[H, W, 1.0]] * 2, np.float32)
+    got, want, ms = both(vx.proposal, [cls_prob, bbox, info],
+                         output_score=True, **PROPOSAL)
+    res["Proposal"] = _det_compare(
+        f"Proposal ({PROPOSAL['rpn_pre_nms_top_n']} -> "
+        f"{PROPOSAL['rpn_post_nms_top_n']} of {A * ROI_MAP[2] * ROI_MAP[3]} "
+        f"anchors an image; {ms:.1f} ms)", got, want)
+
+    Bd, Cd, Hd, Wd = DEFORM_SHAPE
+    xd = rs.standard_normal(DEFORM_SHAPE).astype(np.float32)
+    off = (rs.standard_normal((Bd, 18, Hd, Wd)) * 1.5).astype(np.float32)
+    wd = (rs.standard_normal((Cd, Cd, 3, 3)) / 48).astype(np.float32)
+    got, want, ms = both(vx.deformable_convolution, [xd, off, wd],
+                         kernel=(3, 3), pad=(1, 1), num_filter=Cd)
+    res["DeformableConvolution"] = _det_compare(
+        f"DeformableConvolution ({DEFORM_SHAPE}, 3x3, {Cd} filters; "
+        f"{ms:.1f} ms)", got, want, scale_atol=True)
+    return res
+
+
+def _ssd_card_vs_host(dev, card):
+    """(ii) one SSDTrainLoss pass of the SSD-300-width detector at B=2 on
+    the card and on the host, same weights and data: the loss and every
+    gradient."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import autograd, cpu, gpu, nd
+    from mxnet_tpu_torch.tools import bench_ssd as bs
+
+    cfg = dict(bs.VOC300, batch=SSD_CHECK_BATCH)
+    x, y = bs.synthetic_batch(np.random.RandomState(SEED + 160),
+                              SSD_CHECK_BATCH, cfg["image"],
+                              cfg["num_classes"], cfg["max_objects"])
+    out = {}
+    weights = None
+    for name, ctx, device in (("card", gpu(0), dev),
+                              ("host", cpu(), torch.device("cpu"))):
+        with ctx:
+            net, _, loss_fn = bs.build(cfg, device, SEED)
+            net(nd.array(x[:1]))                   # deferred shapes
+            if weights is None:
+                weights = {k: p.data().asnumpy()
+                           for k, p in net.collect_params().items()}
+            else:
+                for (k, p), v in zip(net.collect_params().items(),
+                                     weights.values()):
+                    p.set_data(nd.array(v))
+            with autograd.record():
+                loss = loss_fn(net(nd.array(x)), nd.array(y))
+            loss.backward()
+            out[name] = (float(loss.asscalar()), [
+                torch.from_numpy(p.grad().asnumpy())
+                for p in net.collect_params().values()
+                if p.grad_req != "null"])
+        del net
+    lc, gc = out["card"]
+    lh, gh = out["host"]
+    rel = abs(lc - lh) / abs(lh)
+    worst = max(errors(a, b, SSD_GRAD_TOL[0], SSD_GRAD_TOL[1] * max(
+        float(b.abs().max()), 1e-30))[2] for a, b in zip(gc, gh))
+    log(f"    (ii) SSD-300 width at B={SSD_CHECK_BATCH}, card against host: "
+        f"loss {lc:.6f} against {lh:.6f} (relative {rel:.2e}, tolerance "
+        f"{SSD_LOSS_RTOL}); {len(gc)} gradients, worst err/tol "
+        f"{worst:.3f} at rtol/atol {SSD_GRAD_TOL} (atol x max|grad|)")
+    if rel > SSD_LOSS_RTOL or worst > 1:
+        raise AssertionError("[16](ii) SSD card against host beyond "
+                             "tolerance")
+    return {"loss_rel": rel, "grad_err_over_tol": worst}
+
+
+def _ssd_detect(dev, card, rtc_kernels):
+    """(ii) ssd_detect on a B=32 batch on the card: its ms and launches;
+    its decode (MultiBoxDetection, nms_topk 400) equal to the host's on the
+    card's scores."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import nd
+    from mxnet_tpu_torch.gluon.model_zoo import ssd_detect
+    from mxnet_tpu_torch.ops import contrib_det as det
+    from mxnet_tpu_torch.tools import bench_ssd as bs
+
+    cfg = bs.VOC300
+    net, _, _ = bs.build(cfg, dev, SEED)
+    x, _ = bs.synthetic_batch(np.random.RandomState(SEED + 161),
+                              cfg["batch"], cfg["image"],
+                              cfg["num_classes"])
+    xb = nd.array(x)
+    with torch.no_grad():
+        det_card = ssd_detect(net, xb).asnumpy()
+        _zero_all(rtc_kernels)
+        t = cuda_ms_spread(lambda: ssd_detect(net, xb), 1, loops=5)
+        launches = _launches(rtc_kernels)
+        cls, loc, anc = (o._data for o in net(xb))
+        prob = torch.softmax(cls, dim=1)
+        kw = dict(nms_threshold=0.45, threshold=0.01, nms_topk=400)
+        on_card = det.multibox_detection(prob, loc, anc, **kw)
+        on_host = det.multibox_detection(prob.cpu(), loc.cpu(), anc.cpu(),
+                                         **kw)
+    if not np.array_equal(det_card, on_card.cpu().numpy()):
+        raise AssertionError("[16](ii) ssd_detect is not its forward, "
+                             "softmax and MultiBoxDetection")
+    worst = _det_compare("ssd_detect's decode (nms_topk 400) on the card's "
+                         "scores", [on_card[..., :1], on_card[..., 1:]],
+                         [on_host[..., :1], on_host[..., 1:]], exact=(0,),
+                         tag="(ii)")
+    kept = int((det_card[..., 0] >= 0).sum())
+    log(f"    (ii) ssd_detect at B={cfg['batch']}: {t[0]:.3f} ms (min "
+        f"{t[1]:.3f}, max {t[2]:.3f}; CUDA events, 5 calls), {kept} rows "
+        f"kept; flash/rtc launches {launches}  [{card}]")
+    if any(launches.values()):
+        raise AssertionError("[16](ii) ssd_detect launched a flash or rtc "
+                             "kernel")
+    return launches, {"ms": t, "rows_kept": kept, "err_over_tol": worst}
+
+
+def _zoo(dev, card, rtc_kernels):
+    """(iii) each vision family at its published width: the logits card
+    against host at B=2 in predict mode, ZOO_STEPS timed training steps at
+    B=32 (SGD), and pretrained=True from a file the phase wrote."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import autograd, cpu, gluon, initializer
+    from mxnet_tpu_torch.base import MXNetError
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    rows = {}
+    launches = {}
+    root = tempfile.mkdtemp(prefix="chip_smoke_zoo_")
+    for name, side in ZOO:
+        rs = np.random.RandomState(SEED + 162)
+        ctx = context_of(dev)
+        x = NDArray(torch.from_numpy(rs.uniform(
+            -1, 1, (ZOO_BATCH, 3, side, side)).astype(np.float32)).to(dev),
+            ctx)
+        y = NDArray(torch.from_numpy(rs.randint(0, 1000, ZOO_BATCH)
+                                     .astype(np.float32)).to(dev), ctx)
+        x2 = x._data[:2]
+        net = vision.get_model(name)
+        net.initialize(init=initializer.Xavier(), ctx=ctx,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           SEED))
+        with torch.no_grad():
+            net(x2)
+        with cpu():
+            host = vision.get_model(name)
+            host.initialize()
+            with torch.no_grad():
+                host(x2[:1].cpu())
+        for p, q in zip(net.collect_params().values(),
+                        host.collect_params().values()):
+            q.set_data(torch.from_numpy(p.data().asnumpy()))
+        with torch.no_grad():
+            want = host(x2.cpu())
+            got = net(x2).cpu()
+        err = errors(got, want, ZOO_TOL[0],
+                     ZOO_TOL[1] * max(1.0, float(want.abs().max())))[2]
+        if err > 1:
+            raise AssertionError(f"[16](iii) {name}: logits card against "
+                                 "host beyond tolerance")
+        del host
+        trainer = gluon.Trainer(net.collect_params(), "sgd",
+                                {"learning_rate": 0.01, "momentum": 0.9})
+        loss_fn = gluon.loss.SoftmaxCrossEntropyLoss()
+
+        def step():
+            with autograd.record():
+                loss = loss_fn(net(x), y)
+            loss.backward()
+            trainer.step(ZOO_BATCH)
+            return float(loss.mean().asscalar())
+
+        for _ in range(ZOO_WARMUP):
+            step()
+        _zero_all(rtc_kernels)
+        times, losses = [], []
+        for _ in range(ZOO_STEPS):
+            t0 = time.perf_counter()
+            losses.append(step())
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches[name] = _launches(rtc_kernels)
+        times.sort()
+        if not np.isfinite(losses).all():
+            raise AssertionError(f"[16](iii) {name}: loss not finite")
+        # pretrained=True: the file written here, the same outputs
+        fname = name
+        net.save_parameters(os.path.join(root, fname + ".params"))
+        loaded = vision.get_model(name, pretrained=True, root=root, ctx=ctx)
+        with torch.no_grad():
+            same = torch.equal(loaded(x2), net(x2))
+        if not same:
+            raise AssertionError(f"[16](iii) {name}: pretrained=True gave "
+                                 "other outputs")
+        os.remove(os.path.join(root, fname + ".params"))
+        try:
+            vision.get_model(name, pretrained=True, root=root)
+        except MXNetError:
+            pass
+        else:
+            raise AssertionError(f"[16](iii) {name}: a missing file did "
+                                 "not raise")
+        med = times[len(times) // 2]
+        rows[name] = {"ms_per_step": med, "ms_min": times[0],
+                      "ms_max": times[-1], "images_per_sec":
+                      ZOO_BATCH / med * 1e3, "logits_err_over_tol": err,
+                      "input": side}
+        log(f"    (iii) {name} at {side}x{side}: logits card against host "
+            f"err/tol {err:.3f} at {ZOO_TOL} (atol x max|logit|); step at "
+            f"B={ZOO_BATCH} {med:.2f} ms (min {times[0]:.2f}, max "
+            f"{times[-1]:.2f}), {ZOO_BATCH / med * 1e3:.1f} images/s; "
+            f"pretrained=True from {fname}.params: same outputs, a "
+            f"missing file raises  [{card}]")
+        del net, loaded, trainer
+        torch.cuda.empty_cache()
+    os.rmdir(root)
+    for name, counts in launches.items():
+        if any(counts.values()):
+            raise AssertionError(f"[16](iii) {name} launched a flash or "
+                                 "rtc kernel")
+    return {k: sum(v[k] for v in launches.values())
+            for k in next(iter(launches.values()))}, rows
+
+
+def _write_det_rec(path, n, side, rs, classes):
+    """A detection .rec of ``n`` JPEGs: 1-4 bright boxes on a dark field,
+    labels [2, 5, (cls, xmin, ymin, xmax, ymax)...]."""
+    import numpy as np
+
+    from mxnet_tpu_torch import recordio
+
+    rec = recordio.MXRecordIO(path, "w")
+    for i in range(n):
+        img = rs.randint(0, 40, (side, side + 40, 3)).astype(np.uint8)
+        objs = []
+        for _ in range(1 + i % 4):
+            w, h = rs.uniform(0.15, 0.4, 2)
+            x0, y0 = rs.uniform(0, 1 - w), rs.uniform(0, 1 - h)
+            img[int(y0 * side):int((y0 + h) * side),
+                int(x0 * (side + 40)):int((x0 + w) * (side + 40))] = 220
+            objs += [rs.randint(classes), x0, y0, x0 + w, y0 + h]
+        rec.write(recordio.pack_img(recordio.IRHeader(
+            0, np.array([2, 5] + objs, np.float32), i, 0), img, quality=92))
+    rec.close()
+
+
+def _det_input(dev, card, rtc_kernels):
+    """(iv) a detection .rec read through ImageDetIter with
+    CreateDetAugmenter(rand_crop=0.5, rand_pad=0.5, rand_mirror=True,
+    mean=True, std=True) at 300x300: boxes in [0, 1] and over the bright
+    pixels they label (they followed the crops, pads and flips); three SSD
+    steps fed from it."""
+    import tempfile
+
+    import numpy as np
+
+    from mxnet_tpu_torch import image
+    from mxnet_tpu_torch.tools import bench_ssd as bs
+
+    cfg = bs.VOC300
+    rs = np.random.RandomState(SEED + 163)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_det_")
+    path = os.path.join(tmp, "det.rec")
+    _write_det_rec(path, DET_REC_IMAGES, 320, rs, cfg["num_classes"])
+    np.random.seed(SEED + 164)
+    it = image.ImageDetIter(
+        batch_size=cfg["batch"], data_shape=(3, 300, 300), path_imgrec=path,
+        shuffle=True, aug_list=image.CreateDetAugmenter(
+            (3, 300, 300), rand_crop=0.5, rand_pad=0.5, rand_mirror=True,
+            mean=True, std=True))
+    net, trainer, loss_fn = bs.build(cfg, dev, SEED)
+    t0 = time.perf_counter()
+    losses, boxes, inside = [], 0, []
+    for batch in it:
+        data, label = batch.data[0], batch.label[0]
+        if data._data.device.type != dev.type:
+            raise AssertionError("[16](iv) ImageDetIter's batch is not on "
+                                 "the card")
+        lab = label.asnumpy()
+        img = data.asnumpy()
+        real = lab[lab[:, :, 0] >= 0]
+        if not ((real[:, 1:] >= 0) & (real[:, 1:] <= 1)).all():
+            raise AssertionError("[16](iv) a box left [0, 1]")
+        for b in range(lab.shape[0]):
+            for row in lab[b][lab[b, :, 0] >= 0]:
+                x0, y0, x1, y1 = (int(round(v * 300)) for v in row[1:])
+                if x1 - x0 >= 4 and y1 - y0 >= 4:
+                    patch = img[b, :, y0 + 1:y1 - 1, x0 + 1:x1 - 1]
+                    inside.append(float(patch.mean() > img[b].mean()))
+        boxes += len(real)
+        losses.append(float(bs.train_step(net, trainer, loss_fn, data,
+                                           label).asscalar()))
+    secs = time.perf_counter() - t0
+    os.remove(path)
+    os.rmdir(tmp)
+    share = float(np.mean(inside))
+    log(f"    (iv) ImageDetIter over {DET_REC_IMAGES} JPEGs at 300x300: "
+        f"{len(losses)} batches of {cfg['batch']} fed SSD steps, losses "
+        f"{[round(v, 4) for v in losses]}; {boxes} boxes, all in [0, 1], "
+        f"{share:.3f} of them brighter inside than their image; "
+        f"{secs:.1f} s in all")
+    if len(losses) != 3 or not np.isfinite(losses).all() or share < 0.95:
+        raise AssertionError("[16](iv) the detection input path failed")
+    return {"losses": losses, "boxes": boxes, "inside_share": share}
+
+
+def _estimator(dev, card):
+    """(v) Estimator.fit for two epochs on the card over a DataLoader
+    (behind its DevicePrefetcher): the accuracy moves."""
+    import numpy as np
+
+    from mxnet_tpu_torch import gluon, initializer
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon.contrib import Estimator
+
+    rs = np.random.RandomState(SEED + 165)
+    X = rs.standard_normal((2048, 32)).astype(np.float32)
+    Y = (X[:, :4].sum(1) > 0).astype(np.float32)
+    loader = gluon.data.DataLoader(gluon.data.ArrayDataset(X, Y),
+                                   batch_size=128)
+    net = gluon.nn.HybridSequential()
+    net.add(gluon.nn.Dense(64, activation="relu"), gluon.nn.Dense(2))
+    net.initialize(init=initializer.Xavier(), ctx=context_of(dev))
+    trainer = gluon.Trainer(net.collect_params(), "sgd",
+                            {"learning_rate": 0.1, "momentum": 0.9})
+    est = Estimator(net, gluon.loss.SoftmaxCrossEntropyLoss(),
+                    metrics=["acc"], trainer=trainer)
+    accs = []
+    est.fit(loader, epochs=2,
+            epoch_end_callback=lambda e, ms, t: accs.append(ms[0].get()[1]))
+    final = est.evaluate(loader)[0][1]
+    log(f"    (v) Estimator.fit, 2 epochs of 16 batches on the card: "
+        f"training accuracy {accs}, evaluate {final:.4f}")
+    if len(accs) != 2 or not final > 0.8 or not accs[1] > accs[0]:
+        raise AssertionError("[16](v) the Estimator's metric did not move")
+    return {"epoch_acc": accs, "eval_acc": final}
+
+
+def phase_detection(dev, card, rtc_kernels):
+    """[16] The detection path: (i) the detection ops card against host;
+    (ii) SSD at the width of SSD-300 on VOC card against host, 20 steps
+    through bench_ssd.run, ssd_detect; (iii) the vision zoo; (iv) the
+    detection input path; (v) Estimator.  Returns the kernel launches of
+    the SSD path and of the zoo (none of the port's own) and the
+    numbers."""
+    import gc
+
+    import torch
+
+    from mxnet_tpu_torch.tools import bench_ssd
+
+    res = {}
+    t0 = time.perf_counter()
+    res["ops"] = _det_ops(dev, card)
+    res["card_vs_host"] = _ssd_card_vs_host(dev, card)
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero_all(rtc_kernels)
+    res["bench"] = bench_ssd.run(steps=SSD_STEPS,
+                                 batch=bench_ssd.VOC300["batch"],
+                                 image=bench_ssd.VOC300["image"], device=dev)
+    ssd_launches = _launches(rtc_kernels)
+    b = res["bench"]
+    log(f"    (ii) {SSD_STEPS} gluon.Trainer steps at bench_ssd.VOC300 "
+        f"(B={b['batch']}, {b['anchors']} anchors): loss "
+        f"{b['loss_first']:.4f} -> {b['loss_last']:.4f}; ms a step median "
+        f"{b['ms_per_step']:.2f} (min {b['ms_min']:.2f}, max "
+        f"{b['ms_max']:.2f}), {b['images_per_sec']:.1f} images/s, peak "
+        f"{b['peak_mem_gib']:.2f} GiB; busy {b['busy_share']:.3f}, "
+        f"{b['kernel_ms_per_step']:.2f} ms of kernels and "
+        f"{b['kernels_per_step']:.0f} kernels a step (fenced trace); "
+        f"flash/rtc launches {ssd_launches}  [{card}]")
+    log("    (ii) bench_ssd " + json.dumps(b))
+    import numpy as np
+
+    head, tail = np.mean(b["losses"][:5]), np.mean(b["losses"][-5:])
+    log(f"    (ii) mean loss of the first five steps {head:.4f}, of the "
+        f"last five {tail:.4f}")
+    if not (np.isfinite(b["losses"]).all() and tail < head):
+        raise AssertionError("[16](ii) the SSD loss did not fall")
+    if any(ssd_launches.values()):
+        raise AssertionError("[16](ii) the SSD step launched a flash or rtc "
+                             "kernel")
+    cfg = bench_ssd.VOC300
+    net, trainer, loss_fn = bench_ssd.build(cfg, dev, SEED)
+    data = bench_ssd.batches(cfg, 2, dev, SEED)
+    i = [0]
+
+    def step():
+        bench_ssd.train_step(net, trainer, loss_fn, *data[i[0] % 2])
+        i[0] += 1
+
+    for _ in range(2):
+        step()
+    wall, busy = profile_steps(step, 3, f"(ii) 3 SSD-300-width steps at "
+                               f"B={cfg['batch']}", card,
+                               families=DET_FAMILIES)
+    res["profile"] = {"wall_ms": wall, "kernel_ms": busy}
+    del net, trainer, data
+    gc.collect()
+    torch.cuda.empty_cache()
+    detect_launches, res["detect"] = _ssd_detect(dev, card, rtc_kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zoo_launches, res["zoo"] = _zoo(dev, card, rtc_kernels)
+    gc.collect()
+    torch.cuda.empty_cache()
+    res["input"] = _det_input(dev, card, rtc_kernels)
+    res["estimator"] = _estimator(dev, card)
+    ssd_path = {k: ssd_launches[k] + detect_launches[k]
+                for k in ssd_launches}
+    log(f"    [16] done in {time.perf_counter() - t0:.1f} s; kernel "
+        f"launches of the port's own: SSD path {ssd_path}, zoo "
+        f"{zoo_launches}")
+    return ssd_path, zoo_launches, res
+
+
 def main():
     import torch
 
@@ -4785,6 +5401,18 @@ def main():
         "CustomOp, control flow, linalg and a legacy head")
     lstm_launches, lstm_res = phase_recurrent(dev, card, (s2, ax))
     gluon_launches["lstm_lm_path"] = lstm_launches
+
+    log("[16] the detection path: the detection ops card against host at "
+        "their users' sizes, SSD at the width of SSD-300 on VOC (20 "
+        "classes, 3x300x300, B=32, 134296 anchors) card against host and "
+        "trained 20 steps through gluon.Trainer by tools.bench_ssd, "
+        "ssd_detect, the vision zoo at published widths with "
+        "pretrained=True from a local file, ImageDetIter feeding SSD, "
+        "Estimator.fit")
+    ssd_launches, zoo_launches, det_res = phase_detection(dev, card,
+                                                          (s2, ax))
+    gluon_launches["ssd_path"] = ssd_launches
+    gluon_launches["vision_zoo"] = zoo_launches
 
     T0, Tb, Tv, Tt = TRAIN_SHAPE[2], BERT_SHAPE[2], VIT_SHAPE[2], TFM_SEQ
     sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
@@ -4927,7 +5555,11 @@ def main():
         f"{serve_res['transformer']['ms_per_step']:.2f} ms; medium LSTM "
         f"LM step {lstm_res['train']['ms_per_step']:.2f} ms, "
         f"{lstm_res['train']['tokens_per_sec']:.1f} tokens/s, busy "
-        f"{lstm_res['train']['busy_share']:.3f}; "
+        f"{lstm_res['train']['busy_share']:.3f}; SSD-300-width step "
+        f"{det_res['bench']['ms_per_step']:.2f} ms, "
+        f"{det_res['bench']['images_per_sec']:.1f} images/s, busy "
+        f"{det_res['bench']['busy_share']:.3f}; ssd_detect "
+        f"{det_res['detect']['ms'][0]:.2f} ms at B=32; "
         f"forward O max abs err at BERT's "
         f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")

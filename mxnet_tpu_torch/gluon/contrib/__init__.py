@@ -1,8 +1,12 @@
-"""Gluon contrib (counterpart of ``mxnet_tpu/gluon/contrib/``): LoRA
-adapters, the contrib data utilities (``IntervalSampler``,
+"""Gluon contrib (counterpart of ``mxnet_tpu/gluon/contrib/``): the
+contrib layers (``nn``: ``Concurrent``, ``HybridConcurrent``,
+``Identity``, ``SparseEmbedding``, ``SyncBatchNorm``, ``PixelShuffle*``),
+the deformable convolution layer (``cnn``), the ``Estimator`` fit loop,
+LoRA adapters, the contrib data utilities (``IntervalSampler``,
 ``CharTokenDataset``) and the contrib recurrent cells (``rnn``:
-``VariationalDropoutCell``, ``Conv2DLSTMCell``).  The other contrib
-families are not ported yet."""
+``VariationalDropoutCell``, ``Conv2DLSTMCell``).  ``moe`` is not ported
+yet."""
 
-from . import data, lora, rnn
+from . import cnn, data, estimator, lora, nn, rnn
+from .estimator import Estimator
 from .lora import LoRADense, apply_lora, freeze_for_lora

@@ -5,7 +5,8 @@ python/mxnet/gluon/model_zoo/vision/resnet.py), block for block, so the
 parameter names are the JAX model's.  ``layout="NCHW"`` (default) or
 ``"NHWC"``: the input comes in the stated layout, every activation stays
 in it, and the parameters are the same in both (weights O-I-H-W).
-``pretrained`` weights wait for ``model_store``.
+``pretrained=True`` loads ``resnet{depth}_v{version}.params`` through
+``model_store`` from ``root``.
 """
 
 from __future__ import annotations
@@ -285,8 +286,10 @@ def get_resnet(version, num_layers, pretrained=False, ctx=None, root=None,
     block_class = resnet_block_versions[version - 1][block_type]
     net = resnet_class(block_class, layers, channels, **kwargs)
     if pretrained:
-        raise NotImplementedError("get_resnet: pretrained weights need "
-                                  "model_store, which is not ported yet")
+        from ..model_store import get_model_file
+
+        net.load_parameters(get_model_file(
+            f"resnet{num_layers}_v{version}", root=root), ctx=ctx)
     return net
 
 

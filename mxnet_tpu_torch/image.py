@@ -11,8 +11,9 @@ geometry.
 Functions with the ``_np`` suffix operate on host numpy HWC uint8 arrays
 (used inside data pipelines before the copy to the device); the public
 API without the suffix returns NDArrays on the caller's context
-(``current_context()``).  The detection pipeline (``ImageDetIter`` and
-its augmenters) comes with the SSD slice.
+(``current_context()``).  The detection pipeline (``ImageDetIter``,
+``CreateDetAugmenter`` and the ``Det*Aug`` augmenters) lives in
+``image_detection`` and is re-exported here, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -584,3 +585,11 @@ class ImageIter:
             label=[from_host(
                 label[:, 0] if self.label_width == 1 else label)],
             pad=0)
+
+
+# the detection pipeline (reference: python/mxnet/image/detection.py),
+# imported at the module's end: image_detection imports from this module
+from .image_detection import (CreateDetAugmenter, DetAugmenter,  # noqa: E402
+                              DetBorrowAug, DetHorizontalFlipAug,
+                              DetRandomCropAug, DetRandomPadAug,
+                              DetRandomSelectAug, ImageDetIter)

@@ -20,8 +20,9 @@ each closed by a synchronize and a readback of its loss) with
 ``ms_min``/``ms_max``, ``tokens_per_sec`` at the median, the first and
 last windows' losses, ``peak_mem_gib`` (the run's peak allocation over
 what was allocated when it began), and from one torch.profiler trace of
-three steps held whole by ``trace_edges``' fences: ``busy_share`` (device
-kernel time over host wall time), ``kernels_per_step`` and
+three steps held whole by ``trace_edges``' fences: ``busy_share`` (the
+time some kernel runs on the device over host wall time),
+``kernel_ms_per_step`` (the kernels' summed time), ``kernels_per_step`` and
 ``device_records_per_step`` (``record_function`` annotations left out);
 then the card's name and power limit as
 ``nvidia-smi`` reads them.
@@ -215,8 +216,20 @@ def _profile(step, first, n):
                                                 False)]
     kernels = [e for e in events
                if not e.name.startswith(("Memcpy", "Memset"))]
-    busy_us = sum(e.time_range.end - e.time_range.start for e in kernels)
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    kernel_us = sum(end - start for start, end in spans)
+    # the device is busy while any kernel runs: kernels that overlap
+    # (cuDNN's, on streams of their own) count once
+    busy_us, reach = 0, None
+    for start, end in spans:
+        if reach is None or start > reach:
+            busy_us += end - start
+            reach = end
+        elif end > reach:
+            busy_us += end - reach
+            reach = end
     return {"busy_share": busy_us / 1e6 / wall[0],
+            "kernel_ms_per_step": kernel_us / 1e3 / n,
             "kernels_per_step": len(kernels) / n,
             "device_records_per_step": len(events) / n,
             "annotations_per_step": (len(records) - len(events)) / n,

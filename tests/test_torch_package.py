@@ -125,6 +125,24 @@ RECURRENT_MODULES = ("mxnet_tpu_torch.operator",
                      "mxnet_tpu_torch.tools.bench_lstm")
 
 
+#: modules the detection slice added; each must be walked and clean
+DETECTION_MODULES = ("mxnet_tpu_torch.ops.contrib_det",
+                     "mxnet_tpu_torch.ops.vision_extra",
+                     "mxnet_tpu_torch.image_detection",
+                     "mxnet_tpu_torch.gluon.model_zoo.ssd",
+                     "mxnet_tpu_torch.gluon.model_zoo.model_store",
+                     "mxnet_tpu_torch.gluon.model_zoo.vision.alexnet",
+                     "mxnet_tpu_torch.gluon.model_zoo.vision.densenet",
+                     "mxnet_tpu_torch.gluon.model_zoo.vision.inception",
+                     "mxnet_tpu_torch.gluon.model_zoo.vision.mobilenet",
+                     "mxnet_tpu_torch.gluon.model_zoo.vision.squeezenet",
+                     "mxnet_tpu_torch.gluon.model_zoo.vision.vgg",
+                     "mxnet_tpu_torch.gluon.contrib.nn",
+                     "mxnet_tpu_torch.gluon.contrib.cnn",
+                     "mxnet_tpu_torch.gluon.contrib.estimator",
+                     "mxnet_tpu_torch.tools.bench_ssd")
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -142,6 +160,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert set(INPUT_MODULES) <= walked, sorted(walked)
     assert set(DECODE_MODULES) <= walked, sorted(walked)
     assert set(RECURRENT_MODULES) <= walked, sorted(walked)
+    assert set(DETECTION_MODULES) <= walked, sorted(walked)
 
 
 def _imported_roots(path):

@@ -363,15 +363,18 @@ def test_entry_runs_on_the_cpu_when_asked():
     assert out.shape == (2, 1000) and bool(torch.isfinite(out).all())
 
 
-def test_get_model_builds_every_resnet_name():
+def test_get_model_builds_every_resnet_name(tmp_path):
+    from mxnet_tpu_torch.base import MXNetError
+
     for name in ("resnet18_v1", "resnet50_v2", "resnet152_v1"):
         with cpu():
             net = tvision.get_model(name, classes=10)
         assert isinstance(net, (tvision.ResNetV1, tvision.ResNetV2))
     with pytest.raises(ValueError, match="not supported"):
-        tvision.get_model("vgg16")
-    with pytest.raises(NotImplementedError):
-        tvision.resnet18_v1(pretrained=True)
+        tvision.get_model("resnet19_v1")
+    # pretrained weights come from a local file only: none here
+    with pytest.raises(MXNetError, match="not found"):
+        tvision.resnet18_v1(pretrained=True, root=str(tmp_path))
 
 
 def test_bench_tool_runs_on_the_cpu(monkeypatch):
