@@ -249,14 +249,42 @@ Phases; any failure raises, exits non-zero and prints no result line:
    boxes in [0, 1] and over the bright pixels they label, three SSD steps
    fed from it; (v) Estimator.fit for two epochs on the card: the
    accuracy moves.  No kernel of the port's own runs on this path.
+17. The production planes on BERT-base at bench_bert's configuration
+   (B=32, T=512, bf16, AdamW on f32 masters, dropout 0.1, the flash
+   kernels) through gluon.Trainer's captured step, fed by a seeded
+   resumable DataLoader, MXTPU_INTEGRITY=1: (ii) 40 steps under
+   run_resilient with an AsyncCheckpointer every 10 (the loader's state
+   in each manifest) and MXTPU_FAULT_INJECT=sigterm_at_step:25, against
+   an uninterrupted 40-step run: one restart, the loader resumed at the
+   restored step's batch, every loss (the replayed ones too) and the
+   final weights, masters and Adam states bitwise, 12 launches of each
+   flash kernel a step (fenced trace), both runs' ms a step; (i) the
+   trainer state's integrity fingerprint on the card against the numpy
+   mirror, bitwise, a flipped bit changing it, one attest pass's ms;
+   (iii) ckpt_stall_us async against sync (median of 5 saves),
+   async_commit_ms and the bytes on disk, then crash_during_save,
+   crash_before_manifest and corrupt_shard in child processes, each
+   restoring the previous checkpoint; (iv) integrity_overhead_pct of
+   non-due steps (plane attached against detached, in turns, 20 steps a
+   side), an attest round's us, a bit_flip_grad named by the next
+   attestation against two clean replays' votes, every step record
+   under validate_record (path captured, flops, MFU <= 1 and within 5%
+   of bench_bert's, device_peak_bytes), a record's host us, /metrics on
+   a free port; (v) nan_grad skipping its step with the state bitwise
+   untouched, and a DivergenceMonitor rollback after two bad steps
+   restoring the checkpoint and rewinding the loader; (vi) a
+   ReplicaServer over GPT-2 small bf16 at bench_serving's buckets: a
+   checkpoint with the attested fingerprint swapped in (its tokens a
+   fresh engine's), a mismatch refused, the front door routing round a
+   closed replica, no flash launch.
 6. The kernel JSON line (f32 numbers at the training shape, and the
    bf16 ones under *_bf16 keys; the same at BERT's shape under
    ``at_bert_shape``, at ViT's under ``at_vit_shape`` and at
    Transformer-base's under ``at_transformer_shape``, its encoder
    (non-causal) and decoder (causal), with the forward's errors at
    TFM_DECODE_T; launches by path, [12]'s two training paths, [14]'s
-   paths and [16]'s SSD path and zoo among them), the
-   nvidia-smi line, then the result line.
+   paths, [16]'s SSD path and zoo and [17]'s three paths among them),
+   the nvidia-smi line, then the result line.
 """
 
 from __future__ import annotations
@@ -3436,7 +3464,7 @@ def _emb_prefetched(dev, card, resident_lookup_us):
         for x in DevicePrefetcher(host, depth=2, sparse_tables=net):
             float(trainer.train_step(net, loss_fn, x,
                                      batch_size=batch).asscalar())
-            lookups.append(telemetry.REGISTRY.snapshot()["lookup_us"])
+            lookups.append(telemetry.recent_steps()[-1]["lookup_us"])
             n += 1
     finally:
         prep.pop_prep = real_pop
@@ -5281,6 +5309,703 @@ def phase_detection(dev, card, rtc_kernels):
     return ssd_path, zoo_launches, res
 
 
+PLANES_STEPS, PLANES_EVERY, PLANES_SIGTERM = 40, 10, 25
+PLANES_BATCHES = 48            # the loader's epoch: 48 batches of B=32
+PLANES_SEED = SEED + 170
+CKPT_REPS = 5                  # saves a median of ckpt_stall_us is over
+OVERHEAD_STEPS = 20            # captured steps a side of the overhead pair
+ATTEST_ROUNDS = 3
+RECORD_REPS = 2000             # host-only step records timed for their cost
+MFU_AGREE = 0.05               # step-record MFU against bench_bert's
+
+
+def _planes_build(dev):
+    """bench_bert's Gluon BERT-base (B=32, T=512, bf16, AdamW on f32
+    masters, dropout 0.1, the flash kernels) and a seeded resumable
+    DataLoader over PLANES_BATCHES batches of its synthetic corpus."""
+    import numpy as np
+
+    from mxnet_tpu_torch.gluon.data import ArrayDataset, DataLoader
+    from mxnet_tpu_torch.tools import bench_bert
+
+    net, tr, loss_fn, _tok, _lab = bench_bert.build_gluon(
+        BERT_BATCH, BERT_SEQ, "flash", "bfloat16", dev, seed=SEED,
+        dropout=0.1)
+    rs = np.random.RandomState(PLANES_SEED)
+    n, top = PLANES_BATCHES * BERT_BATCH, min(30000, net._vocab)
+    tokens = rs.randint(0, top, (n, BERT_SEQ)).astype(np.int64)
+    mlm = np.full((n, BERT_SEQ), -1, np.int64)
+    mask = rs.rand(n, BERT_SEQ) < 0.15
+    mlm[mask] = rs.randint(0, top, int(mask.sum()))
+    nsp = rs.randint(0, 2, (n,)).astype(np.int64)
+    loader = DataLoader(ArrayDataset(tokens, mlm, nsp),
+                        batch_size=BERT_BATCH, shuffle=True,
+                        seed=PLANES_SEED, last_batch="discard")
+    return net, tr, loss_fn, loader
+
+
+class _Feed:
+    """The loader's batches, one a step, from an iterator made anew after
+    every rewind."""
+
+    def __init__(self, loader):
+        self.loader = loader
+        self.it = None
+
+    def next(self):
+        if self.it is None:
+            self.it = iter(self.loader)
+        try:
+            return next(self.it)
+        except StopIteration:
+            self.it = iter(self.loader)
+            return next(self.it)
+
+    def load(self, sd):
+        self.loader.load_state_dict(sd)
+        self.it = None
+
+
+def _planes_step_fn(net, tr, loss_fn, feed, losses):
+    """``run_resilient``'s step: the dropout draws are a function of the
+    step (``mx.random.seed(S + step)``), so a replayed step is bitwise the
+    first."""
+    from mxnet_tpu_torch import random as mxrandom
+
+    def step_fn(step):
+        mxrandom.seed(PLANES_SEED + step)
+        tok, mlm, nsp = feed.next()
+        loss = tr.train_step(net, loss_fn, tok, (mlm, nsp))
+        value = loss._data.detach().float().cpu().numpy().copy()
+        losses.append((step, value))
+        return float(value)
+
+    return step_fn
+
+
+def _resilient_bert(dev, ckdir, spec):
+    """PLANES_STEPS steps of BERT-base under run_resilient with an
+    AsyncCheckpointer every PLANES_EVERY steps and the loader's state in
+    every manifest, with ``spec`` as MXTPU_FAULT_INJECT (None: no fault).
+    Returns the report, every (step, loss) in the order run, the final
+    trainer leaves (device clones), the loader's position after each
+    resume, ms a step, and the trainer (for a profiled step)."""
+    import torch
+
+    from mxnet_tpu_torch import checkpoint, integrity, resilience
+
+    net, tr, loss_fn, loader = _planes_build(dev)
+    feed = _Feed(loader)
+    losses, resumed_at = [], []
+
+    def set_data(sd):
+        feed.load(sd)
+        resumed_at.append(int(sd["cursor"]))
+
+    ck = checkpoint.AsyncCheckpointer(ckdir, max_to_keep=2, rank=0,
+                                      world_size=1)
+    if spec is None:
+        os.environ.pop("MXTPU_FAULT_INJECT", None)
+    else:
+        os.environ["MXTPU_FAULT_INJECT"] = spec
+    resilience.reset_faults()
+    t0 = time.perf_counter()
+    try:
+        report = resilience.run_resilient(
+            _planes_step_fn(net, tr, loss_fn, feed, losses), ck,
+            PLANES_STEPS, get_state=lambda: checkpoint.trainer_state(
+                tr, copy=False),
+            set_state=lambda s: checkpoint.load_trainer_state(tr, s),
+            checkpoint_every=PLANES_EVERY, get_data_state=loader.state_dict,
+            set_data_state=set_data, max_restarts=1)
+    finally:
+        os.environ.pop("MXTPU_FAULT_INJECT", None)
+        resilience.reset_faults()
+    torch.cuda.synchronize(dev)
+    ms = (time.perf_counter() - t0) * 1e3 / len(losses)
+    leaves = [t.detach().clone() for t in integrity.trainer_leaves(tr)]
+    return dict(report=report, losses=losses, leaves=leaves,
+                resumed_at=resumed_at, ms=ms, trainer=(net, tr, loss_fn),
+                feed=feed, saved=sorted(ck.all_steps()))
+
+
+def _planes_fingerprint(dev, card, tr):
+    """(i) The card's fingerprint of the trainer state against the host
+    mirror, a flipped bit, and one attest pass's ms."""
+    from mxnet_tpu_torch import integrity, resilience
+
+    leaves = integrity.trainer_leaves(tr)
+    words = sum(t.numel() * max(t.element_size(), 4) // 4 for t in leaves)
+    nbytes = sum(t.numel() * t.element_size() for t in leaves)
+    fp = integrity.combine(integrity.fingerprint_arrays(leaves))
+    t0 = time.perf_counter()
+    host = integrity.fingerprint_host([t.cpu() for t in leaves])
+    host_s = time.perf_counter() - t0
+    if fp != host:
+        raise AssertionError(f"[17](i) card fingerprint {fp:016x} != host "
+                             f"mirror {host:016x}")
+    ms = cuda_ms(lambda: integrity.fingerprint_arrays(leaves), 5, warmup=1)
+    os.environ["MXTPU_FAULT_INJECT"] = "bit_flip_param:0"
+    resilience.reset_faults()
+    try:
+        if not integrity.maybe_bit_flip_param(params=tr._params):
+            raise AssertionError("[17](i) bit_flip_param did not fire")
+    finally:
+        os.environ.pop("MXTPU_FAULT_INJECT", None)
+        resilience.reset_faults()
+    flipped = integrity.combine(integrity.fingerprint_arrays(leaves))
+    integrity._flip_bit(tr._params[0].data()._data)     # flip it back
+    if flipped == fp or integrity.combine(
+            integrity.fingerprint_arrays(leaves)) != fp:
+        raise AssertionError("[17](i) one flipped bit did not change the "
+                             "fingerprint, or flipping it back did not "
+                             "restore it")
+    dtypes = sorted({str(t.dtype).replace("torch.", "") for t in leaves})
+    log(f"    (i) BERT-base trainer state: {len(leaves)} leaves "
+        f"({', '.join(dtypes)}), {words} words, {nbytes / 2 ** 30:.3f} "
+        f"GiB; card fingerprint {fp:016x} == host mirror (numpy, "
+        f"{host_s:.1f} s); one flipped bit -> {flipped:016x}; one attest "
+        f"pass {ms:.3f} ms  [{card}]")
+    return {"fp": f"{fp:016x}", "attest_pass_ms": ms, "leaves": len(leaves),
+            "words": words, "bytes": nbytes}
+
+
+def _planes_resilient(dev, card, root, rtc_kernels):
+    """(ii) The resilient run against an uninterrupted one."""
+    import gc
+
+    import torch
+
+    clean = _resilient_bert(dev, os.path.join(root, "clean"), None)
+    want = dict(clean["losses"])
+    leaves_a, ms_a = clean["leaves"], clean["ms"]
+    del clean
+    gc.collect()
+    torch.cuda.empty_cache()
+    _zero_all(rtc_kernels)
+    run = _resilient_bert(dev, os.path.join(root, "preempted"),
+                          f"sigterm_at_step:{PLANES_SIGTERM}")
+    rep = run["report"]
+    counts = _launches(rtc_kernels)
+    if not all(v for k, v in counts.items() if k.startswith("flash")):
+        raise AssertionError(f"[17](ii) a flash kernel was not launched "
+                             f"on the resilient path: {counts}")
+    if not (rep.preempted and rep.restarts == 1
+            and rep.final_step == PLANES_STEPS
+            and len(rep.resumed_from) == 2):
+        raise AssertionError(f"[17](ii) report {rep!r}")
+    back = rep.resumed_from[-1]
+    periodic = PLANES_SIGTERM - PLANES_SIGTERM % PLANES_EVERY
+    # the step-20 save still in flight at the SIGTERM: the grace window
+    # completes it and the run resumes there; a save already committed:
+    # PreemptionHandler saves step 25 (without the loader's position, as
+    # the reference's does: in process the loader is already there)
+    if back not in (periodic, PLANES_SIGTERM):
+        raise AssertionError(f"[17](ii) resumed from {back}")
+    want_at = [back * BERT_BATCH] if back == periodic else []
+    if run["resumed_at"] != want_at:
+        raise AssertionError(f"[17](ii) the loader resumed at "
+                             f"{run['resumed_at']} samples, not step "
+                             f"{back}'s batch ({want_at})")
+    replayed = PLANES_SIGTERM - back
+    import numpy as np
+
+    if len(run["losses"]) != PLANES_STEPS + replayed:
+        raise AssertionError(f"[17](ii) {len(run['losses'])} steps run")
+    for s, v in run["losses"]:
+        if not np.array_equal(v, want[s]):
+            raise AssertionError(f"[17](ii) step {s}'s loss {v} != the "
+                                 f"uninterrupted run's {want[s]}")
+    for a, b in zip(run["leaves"], leaves_a):
+        if not torch.equal(a, b):
+            raise AssertionError("[17](ii) the resumed run's final state "
+                                 "is not bitwise the uninterrupted run's")
+    net, tr, loss_fn = run["trainer"]
+    feed = run["feed"]
+
+    def one_step():
+        tok, mlm, nsp = feed.next()
+        tr.train_step(net, loss_fn, tok, (mlm, nsp))
+
+    per_step = _kernel_counts(one_step)
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        if per_step[name] != 12:
+            raise AssertionError(f"[17](ii) a step ran {name} "
+                                 f"{per_step[name]} times, not 12")
+    log(f"    (ii) {PLANES_STEPS} steps under run_resilient, a save every "
+        f"{PLANES_EVERY}, MXTPU_FAULT_INJECT=sigterm_at_step:"
+        f"{PLANES_SIGTERM}: {rep!r}; the loader resumed at step {back}'s "
+        f"batch ({back * BERT_BATCH} samples); {replayed} replayed "
+        f"steps, every loss and the final weights, masters and Adam "
+        f"states bitwise the uninterrupted run's; kernels a step "
+        f"(fenced trace) {per_step}; ms a step (saves and the restart "
+        f"included) {run['ms']:.2f} preempted, {ms_a:.2f} uninterrupted  "
+        f"[{card}]")
+    out = {"report": repr(rep), "resumed_from": back,
+           "replayed_steps": replayed, "ms_per_step": run["ms"],
+           "ms_per_step_uninterrupted": ms_a, "kernels_per_step": per_step,
+           "launches": counts}
+    return out, run
+
+
+def _planes_checkpoints(dev, card, tr, root):
+    """(iii) ckpt_stall_us async against sync, async_commit_ms and the
+    bytes on disk for BERT-base's state; then the crash sites in
+    subprocesses."""
+    import shutil
+    import statistics
+
+    import torch
+
+    from mxnet_tpu_torch import checkpoint
+
+    def stalls(async_save):
+        d = os.path.join(root, "async" if async_save else "sync")
+        ck = checkpoint.AsyncCheckpointer(d, max_to_keep=2, rank=0,
+                                          world_size=1,
+                                          async_save=async_save)
+        ck.save(0, checkpoint.trainer_state(tr, copy=False))  # warm
+        ck.wait()
+        host, dev_us, commit = [], [], []
+        for r in range(1, CKPT_REPS + 1):
+            torch.cuda.synchronize(dev)
+            t0 = time.perf_counter()
+            ck.save(r, checkpoint.trainer_state(tr, copy=False))
+            t1 = time.perf_counter()
+            torch.cuda.current_stream(dev).synchronize()
+            t2 = time.perf_counter()
+            ck.wait()
+            commit.append((time.perf_counter() - t2) * 1e3)
+            host.append((t1 - t0) * 1e6)
+            dev_us.append((t2 - t0) * 1e6)
+        sdir = ck._step_dir(CKPT_REPS)
+        size = sum(os.path.getsize(os.path.join(sdir, f))
+                   for f in os.listdir(sdir))
+        shutil.rmtree(d, ignore_errors=True)
+        return (statistics.median(dev_us), statistics.median(host),
+                statistics.mean(commit), size)
+
+    a_us, a_host, a_commit, size = stalls(True)
+    s_us, s_host, _c, _s = stalls(False)
+    log(f"    (iii) ckpt_stall_us (median of {CKPT_REPS} saves of "
+        f"BERT-base's state, until the train stream may go on): async "
+        f"{a_us:.1f} (host {a_host:.1f}), sync {s_us:.1f}; "
+        f"async_commit_ms {a_commit:.1f}; {size} bytes on disk a "
+        f"checkpoint  [{card}]")
+    crashes = _planes_crashes(root)
+    return {"ckpt_stall_us": a_us, "ckpt_stall_us_host": a_host,
+            "sync_stall_us": s_us, "async_commit_ms": a_commit,
+            "bytes_on_disk": size, "crashes": crashes}
+
+
+CRASH_CHILD = r"""
+import os, sys
+import numpy as np
+sys.path.insert(0, os.getcwd())
+from mxnet_tpu_torch import checkpoint, resilience
+d, site = sys.argv[1], sys.argv[2]
+ck = checkpoint.AsyncCheckpointer(d, max_to_keep=5, rank=0, world_size=1)
+for step in (1, 2):
+    if step == 2:
+        os.environ["MXTPU_FAULT_INJECT"] = site
+        resilience.reset_faults()
+    ck.save(step, {"w": np.full(1 << 20, step, np.float32), "step": step})
+    ck.wait()
+"""
+
+
+def _planes_crashes(root):
+    """crash_during_save and crash_before_manifest kill a child in the
+    middle of its second save; a corrupt_shard rots the second save's
+    shard after its commit.  Each time the first checkpoint restores."""
+    from mxnet_tpu_torch import checkpoint, resilience
+
+    env = {k: v for k, v in os.environ.items()
+           if not k.startswith("MXTPU_")}
+    sites = ("crash_during_save", "crash_before_manifest", "corrupt_shard:0")
+    procs = {site: subprocess.Popen(
+        [sys.executable, "-c", CRASH_CHILD,
+         os.path.join(root, "crash_" + site.split(":")[0]), site],
+        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for site in sites}
+    out = {}
+    for site, proc in procs.items():
+        _o, err = proc.communicate(timeout=300)
+        want = 0 if site.startswith("corrupt") \
+            else resilience.CRASH_EXIT_CODE
+        if proc.returncode != want:
+            raise AssertionError(f"[17](iii) {site}: the child exited "
+                                 f"{proc.returncode}: {err[-2000:]}")
+        got = {}
+        step = resilience.resume_latest(checkpoint.AsyncCheckpointer(
+            os.path.join(root, "crash_" + site.split(":")[0]), rank=0,
+            world_size=1), got.update)
+        if step != 1 or got["step"] != 1 or float(got["w"][0]) != 1.0:
+            raise AssertionError(f"[17](iii) after {site} the restore "
+                                 f"gave step {step}")
+        out[site] = step
+    log(f"    (iii) crash_during_save and crash_before_manifest (children "
+        f"killed in their second save, exit {resilience.CRASH_EXIT_CODE}) "
+        f"and a corrupt_shard: each restores the first checkpoint, step "
+        f"{out}")
+    return out
+
+
+def _planes_integrity(dev, card, tr, net, loss_fn, feed, root):
+    """(iv) The attestation's cost on non-due steps, each attest round's
+    us, a bit_flip_grad caught by the next attestation, the step records
+    and the exporter."""
+    import statistics
+    import urllib.request
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import (checkpoint, distributed, integrity,
+                                 resilience, telemetry)
+    from mxnet_tpu_torch.obs.exporter import MetricsExporter
+    from mxnet_tpu_torch.tools import bench_bert
+
+    batch = feed.next()
+
+    def steps(n):
+        torch.cuda.synchronize(dev)
+        t0 = time.perf_counter()
+        for _ in range(n):
+            tr.train_step(net, loss_fn, batch[0], (batch[1], batch[2]))
+        torch.cuda.synchronize(dev)
+        return (time.perf_counter() - t0) * 1e3 / n
+
+    plane = integrity.IntegrityPlane(every=10 ** 9)
+    pair = []
+    for attached in (False, True, True, False):      # in turns
+        tr._integrity_plane = plane if attached else None
+        pair.append((attached, steps(OVERHEAD_STEPS)))
+    off = statistics.mean(ms for a, ms in pair if not a)
+    on = statistics.mean(ms for a, ms in pair if a)
+    overhead = (on - off) / off * 100
+    every = integrity.IntegrityPlane(every=1)
+    tr._integrity_plane = every
+    attest_ms = steps(ATTEST_ROUNDS)
+    if every.attestations != ATTEST_ROUNDS:
+        raise AssertionError(f"[17](iv) {every.attestations} attestations "
+                             f"in {ATTEST_ROUNDS} due steps")
+    round_us = (attest_ms - off) * 1e3
+    log(f"    (iv) {OVERHEAD_STEPS} captured steps a side, in turns: plane "
+        f"detached {off:.3f} ms, attached with no attestation due "
+        f"{on:.3f} ms: integrity_overhead_pct {overhead:.3f}; a due step "
+        f"{attest_ms:.3f} ms, so one attest round (fingerprint pass, its "
+        f"readback, the vote) {round_us:.1f} us  [{card}]")
+
+    # a bit_flip_grad is caught by the next attestation: replicas 1 and
+    # 2 vote the fingerprint of a clean replay of the same two steps
+    from mxnet_tpu_torch import random as mxrandom
+
+    kv = distributed.FileKV(os.path.join(root, "gang"))
+    base = checkpoint.trainer_state(tr)
+    n0 = tr._step_count
+    b2, b3 = feed.next(), feed.next()
+
+    def two_steps(flip, plane=None):
+        checkpoint.load_trainer_state(tr, base)
+        tr._step_count = n0
+        tr._integrity_plane = None
+        os.environ["MXTPU_FAULT_INJECT" if flip else
+                   "MXTPU_CAPTURED_STEP"] = "bit_flip_grad:0" if flip \
+            else "0"
+        resilience.reset_faults()
+        try:
+            mxrandom.seed(PLANES_SEED + 1000)
+            tr.train_step(net, loss_fn, b2[0], (b2[1], b2[2]))  # eager
+        finally:
+            os.environ.pop("MXTPU_FAULT_INJECT", None)
+            os.environ.pop("MXTPU_CAPTURED_STEP", None)
+            resilience.reset_faults()
+        tr._integrity_plane = plane
+        mxrandom.seed(PLANES_SEED + 1001)
+        tr.train_step(net, loss_fn, b3[0], (b3[1], b3[2]))      # captured
+
+    prev = torch.are_deterministic_algorithms_enabled()
+    torch.use_deterministic_algorithms(True)
+    try:
+        two_steps(False)
+        clean_fp = integrity.combine(integrity.fingerprint_arrays(
+            integrity.trainer_leaves(tr)))
+        for r in (1, 2):
+            integrity.IntegrityPlane(rank=r, world=3, kv=kv).publish(
+                n0 + 2, clean_fp)
+        voter = integrity.IntegrityPlane(rank=0, world=3, kv=kv, every=1,
+                                         timeout=30.0)
+        two_steps(True, voter)
+    finally:
+        torch.use_deterministic_algorithms(prev)
+        tr._integrity_plane = None
+    v = voter.last_verdict
+    if v is None or v["ok"] or v["corrupt"] != [0] or v["step"] != n0 + 2:
+        raise AssertionError(f"[17](iv) the attestation after a "
+                             f"bit_flip_grad gave {v}")
+    log(f"    (iv) bit_flip_grad on rank 0 in an eager step, then one "
+        f"captured step: its attestation (step {v['step']}) votes "
+        f"{v['votes']} -> corrupt {v['corrupt']}")
+
+    # step records
+    telemetry.reset()
+    torch.cuda.synchronize(dev)
+    t0 = time.perf_counter()
+    n = OVERHEAD_STEPS
+    for _ in range(n):
+        tr.train_step(net, loss_fn, batch[0], (batch[1], batch[2]))
+    torch.cuda.synchronize(dev)
+    dt = time.perf_counter() - t0
+    recs = telemetry.recent_steps()[-n:]
+    for rec in recs:
+        telemetry.validate_record(json.loads(json.dumps(rec)))
+        if rec["path"] != "captured" or not rec["flops"] or \
+                rec["mfu"] is None or not 0 < rec["mfu"] <= 1 or \
+                not rec.get("device_peak_bytes"):
+            raise AssertionError(f"[17](iv) step record {rec}")
+    bench_flops = bench_bert.flops_per_step(BERT_BATCH, BERT_SEQ)
+    bench_mfu = bench_bert.mfu(bench_flops * n, dt,
+                               torch.cuda.get_device_name(dev))
+    rec_mfu = sum(r["flops"] for r in recs) / dt \
+        / telemetry.peak_flops()
+    if bench_mfu is not None and abs(rec_mfu / bench_mfu - 1) > MFU_AGREE:
+        raise AssertionError(f"[17](iv) the records' MFU {rec_mfu:.4f} "
+                             f"against bench_bert's {bench_mfu:.4f}")
+    t0 = time.perf_counter()
+    for i in range(RECORD_REPS):
+        acc = telemetry.step_begin("captured")
+        telemetry.note(flops=1e12, grad_norm=1.0, device_peak_bytes=1)
+        telemetry.step_end(acc, step=i)
+    record_us = (time.perf_counter() - t0) * 1e6 / RECORD_REPS
+    telemetry.gauge_set("obs.step_record_us", record_us)
+    exp = MetricsExporter(port=0)
+    try:
+        body = urllib.request.urlopen(
+            f"http://127.0.0.1:{exp.port}/metrics", timeout=30).read()
+    finally:
+        exp.close()
+    if b"mxtpu_obs_step_record_us " not in body:
+        raise AssertionError("[17](iv) /metrics answered without metrics")
+    mean_mfu = float(np.mean([r["mfu"] for r in recs]))
+    log(f"    (iv) {n} step records: validate_record passes, path "
+        f"captured, flops {recs[0]['flops']:.4e} a step (bench_bert's "
+        f"formula {bench_flops:.4e}), mean record MFU {mean_mfu:.4f}, "
+        f"records' FLOPs over the timed span {rec_mfu:.4f} against "
+        f"bench_bert's MFU {bench_mfu if bench_mfu is None else round(bench_mfu, 4)}, "
+        f"device_peak_bytes {recs[0]['device_peak_bytes']}; a record costs "
+        f"{record_us:.2f} us of host time; /metrics answered "
+        f"{len(body)} bytes on port {exp.port}  [{card}]")
+    return {"integrity_overhead_pct": overhead, "ms_detached": off,
+            "ms_attached": on, "attest_round_us": round_us,
+            "step_record_us": record_us, "record_mfu": rec_mfu,
+            "bench_mfu": bench_mfu, "flops": recs[0]["flops"],
+            "bench_flops": bench_flops,
+            "device_peak_bytes": recs[0]["device_peak_bytes"]}
+
+
+def _planes_numerics(dev, card, tr, net, loss_fn, feed, root):
+    """(v) nan_grad skips its step with the weights untouched; a streak of
+    max_bad_steps bad steps rolls back to the checkpoint and rewinds the
+    loader."""
+    import torch
+
+    from mxnet_tpu_torch import checkpoint, integrity, numerics, resilience
+
+    batch = feed.next()
+    before = [t.detach().clone() for t in integrity.trainer_leaves(tr)]
+    n_skip = len(tr.skipped_steps)
+    os.environ["MXTPU_FAULT_INJECT"] = "nan_grad:1"
+    resilience.reset_faults()
+    try:
+        tr.train_step(net, loss_fn, batch[0], (batch[1], batch[2]))
+    finally:
+        os.environ.pop("MXTPU_FAULT_INJECT", None)
+        resilience.reset_faults()
+    after = integrity.trainer_leaves(tr)
+    if len(tr.skipped_steps) != n_skip + 1 or not all(
+            torch.equal(a, b) for a, b in zip(before, after)):
+        raise AssertionError("[17](v) the nan_grad step was not skipped "
+                             "with the state bitwise untouched")
+    del before
+    ck = checkpoint.AsyncCheckpointer(os.path.join(root, "rollback"),
+                                      rank=0, world_size=1)
+    loader = feed.loader
+    ck.save(tr._step_count, checkpoint.trainer_state(tr, copy=False),
+            data_state=loader.state_dict())
+    ck.wait()
+    saved_fp = integrity.combine(integrity.fingerprint_arrays(
+        integrity.trainer_leaves(tr)))
+    saved_cursor = loader.state_dict()["cursor"]
+    mon = numerics.DivergenceMonitor(
+        checkpointer=ck, max_bad_steps=2,
+        set_state=lambda s: checkpoint.load_trainer_state(tr, s))
+    tr.divergence_monitor = mon
+    tr.attach_data_pipeline(loader)
+    try:
+        for _ in range(2):
+            b = feed.next()
+            os.environ["MXTPU_FAULT_INJECT"] = "nan_grad:1"
+            resilience.reset_faults()
+            tr.train_step(net, loss_fn, b[0], (b[1], b[2]))
+    finally:
+        os.environ.pop("MXTPU_FAULT_INJECT", None)
+        resilience.reset_faults()
+        tr.divergence_monitor = None
+        tr._data_pipeline = None
+    feed.it = None
+    got_fp = integrity.combine(integrity.fingerprint_arrays(
+        integrity.trainer_leaves(tr)))
+    cursor = loader.state_dict()["cursor"]
+    if mon.recoveries != 1 or got_fp != saved_fp or \
+            cursor != saved_cursor or len(mon.quarantined) != 2:
+        raise AssertionError(f"[17](v) rollback: recoveries "
+                             f"{mon.recoveries}, fingerprint "
+                             f"{got_fp:016x} against {saved_fp:016x}, "
+                             f"cursor {cursor} against {saved_cursor}, "
+                             f"quarantined {mon.quarantined}")
+    log(f"    (v) nan_grad: the step skipped, weights, masters and states "
+        f"bitwise untouched; two bad steps in a row (max_bad_steps=2): "
+        f"rolled back to the checkpoint (fingerprint {got_fp:016x}), the "
+        f"loader rewound to sample {cursor}, batches {mon.quarantined} "
+        f"quarantined")
+    return {"rollback_fp": f"{got_fp:016x}", "cursor": cursor,
+            "quarantined": [list(b) for b in mon.quarantined]}
+
+
+def _planes_replica(dev, card, root, rtc_kernels):
+    """(vi) ReplicaServer over GPT-2 small in bf16 at bench_serving's
+    buckets: a checkpoint with the right expect_fp swaps in and serves a
+    fresh engine's tokens; a mismatch is refused; the front door routes
+    around a closed replica."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import checkpoint, initializer, integrity, serving
+    from mxnet_tpu_torch.gluon.model_zoo import gpt
+    from mxnet_tpu_torch.tools import bench_serving
+
+    _zero_all(rtc_kernels)
+    net, engine = bench_serving.build(dev)
+    new = gpt.gpt2_small(scan_layers=True, dropout=0.0, device=dev)
+    new.initialize(initializer.Xavier(),
+                   generator=torch.Generator(device=dev).manual_seed(1))
+    state = serving.state_for_serving(new)
+    ckdir = os.path.join(root, "serving")
+    ck = checkpoint.AsyncCheckpointer(ckdir, max_to_keep=3, rank=0,
+                                      world_size=1)
+    attested = {1: integrity.fingerprint_host(state), 2: 0}
+    rep = serving.ReplicaServer(engine, ckpt_dir=ckdir, poll_ms=10 ** 6,
+                                max_delay_ms=2.0, expect_fp=attested.get)
+    closed = serving.ReplicaServer(engine, rank=1)
+    closed.close()
+    door = serving.FrontDoor([closed, rep])
+    rng = np.random.RandomState(1)
+    prompts = [rng.randint(0, net._vocab, rng.randint(4, 17)).tolist()
+               for _ in range(8)]
+
+    def serve(target):
+        futs = [target.submit(p, bench_serving.NEW_TOKENS) for p in prompts]
+        return [f.result(timeout=240)["tokens"] for f in futs]
+
+    try:
+        before = serve(door)
+        ck.save(1, state)
+        ck.wait()
+        t0 = time.perf_counter()
+        rep.poll_once()
+        poll_ms = (time.perf_counter() - t0) * 1e3
+        got = serve(door)
+        if rep.loaded_step != 1:
+            raise AssertionError(f"[17](vi) the good checkpoint was not "
+                                 f"swapped in (loaded {rep.loaded_step})")
+        fresh = serving.ContinuousBatcher(serving.ServingEngine(
+            new, batch_buckets=engine.batch_buckets, dtype=torch.bfloat16),
+            max_delay_ms=2.0)
+        try:
+            want = serve(fresh)
+        finally:
+            fresh.close()
+        if any(not np.array_equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError("[17](vi) after the swap the replica's "
+                                 "tokens are not a fresh engine's")
+        ck.save(2, serving.state_for_serving(net))
+        ck.wait()
+        rep.poll_once()
+        again = serve(door)
+        if rep.loaded_step != 1 or rep.rejected != 1 or any(
+                not np.array_equal(a, b) for a, b in zip(again, want)):
+            raise AssertionError("[17](vi) a checkpoint with the wrong "
+                                 "fingerprint was not refused")
+        alive = [r.rank for r in door.alive()]
+    finally:
+        rep.close()
+    launches = _launches(rtc_kernels)
+    if any(launches.values()):
+        raise AssertionError(f"[17](vi) the serving path launched {launches}")
+    changed = sum(not np.array_equal(a, b) for a, b in zip(before, got))
+    log(f"    (vi) ReplicaServer over GPT-2 small bf16, buckets "
+        f"{engine.batch_buckets}: step 1 (expect_fp matches) swapped in "
+        f"after a {poll_ms:.1f} ms poll (verify + restore), its tokens a "
+        f"fresh engine's ({changed} of {len(got)} requests changed); step 2 "
+        f"(fingerprint mismatch) refused, the old weights served on; the "
+        f"front door routed round the closed replica (alive {alive}); "
+        f"flash launches {launches}  [{card}]")
+    return {"swapped": 1, "rejected": rep.rejected, "alive": alive,
+            "launches": launches}
+
+
+def phase_planes(dev, card, rtc_kernels):
+    """[17] The production planes on BERT-base (i)-(v) and the serving
+    replica (vi).  Returns the flash launches of each BERT path and the
+    numbers."""
+    import gc
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mxnet_tpu_torch import integrity
+
+    res = {}
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="planes_")
+    os.environ["MXTPU_INTEGRITY"] = "1"
+    prev = torch.are_deterministic_algorithms_enabled()
+    try:
+        res["resilient"], run = _planes_resilient(dev, card, root,
+                                                  rtc_kernels)
+        launches = {"resilient_bert": res["resilient"]["launches"]}
+        net, tr, loss_fn = run["trainer"]
+        feed = run["feed"]
+        del run
+        gc.collect()
+        res["fingerprint"] = _planes_fingerprint(dev, card, tr)
+        res["checkpoints"] = _planes_checkpoints(dev, card, tr, root)
+        _zero_all(rtc_kernels)
+        res["integrity"] = _planes_integrity(dev, card, tr, net, loss_fn,
+                                             feed, root)
+        res["numerics"] = _planes_numerics(dev, card, tr, net, loss_fn,
+                                           feed, root)
+        launches["integrity_numerics_bert"] = _launches(rtc_kernels)
+        del net, tr, loss_fn, feed
+        gc.collect()
+        torch.cuda.empty_cache()
+        res["replica"] = _planes_replica(dev, card, root, rtc_kernels)
+        launches["replica_serving"] = res["replica"]["launches"]
+    finally:
+        os.environ.pop("MXTPU_INTEGRITY", None)
+        torch.use_deterministic_algorithms(prev)
+        integrity._ODD.clear()
+        shutil.rmtree(root, ignore_errors=True)
+    log("    [17] " + json.dumps({k: v for k, v in res.items()},
+                                 default=str))
+    log(f"    [17] done in {time.perf_counter() - t0:.1f} s; flash launches "
+        f"{launches}")
+    return launches, res
+
+
 def main():
     import torch
 
@@ -5413,6 +6138,17 @@ def main():
                                                           (s2, ax))
     gluon_launches["ssd_path"] = ssd_launches
     gluon_launches["vision_zoo"] = zoo_launches
+
+    log("[17] the production planes on BERT-base at bench_bert's "
+        "configuration: (i) the card's integrity fingerprint against the "
+        "host mirror; (ii) 40 steps under run_resilient through a SIGTERM "
+        "at step 25, bitwise against an uninterrupted run; (iii) "
+        "checkpoint stalls and the crash sites; (iv) the attestation's "
+        "cost, a bit_flip_grad caught, the step records, /metrics; (v) "
+        "nan_grad and the divergence rollback; (vi) ReplicaServer over "
+        "GPT-2 small with hot reload and a refused fingerprint")
+    planes_launches, planes_res = phase_planes(dev, card, (s2, ax))
+    gluon_launches.update(planes_launches)
 
     T0, Tb, Tv, Tt = TRAIN_SHAPE[2], BERT_SHAPE[2], VIT_SHAPE[2], TFM_SEQ
     sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
@@ -5559,7 +6295,16 @@ def main():
         f"{det_res['bench']['ms_per_step']:.2f} ms, "
         f"{det_res['bench']['images_per_sec']:.1f} images/s, busy "
         f"{det_res['bench']['busy_share']:.3f}; ssd_detect "
-        f"{det_res['detect']['ms'][0]:.2f} ms at B=32; "
+        f"{det_res['detect']['ms'][0]:.2f} ms at B=32; production "
+        f"planes: resilient BERT "
+        f"{planes_res['resilient']['ms_per_step']:.2f} ms a step "
+        f"(uninterrupted "
+        f"{planes_res['resilient']['ms_per_step_uninterrupted']:.2f}), "
+        f"ckpt_stall_us "
+        f"{planes_res['checkpoints']['ckpt_stall_us']:.1f} async, "
+        f"{planes_res['checkpoints']['sync_stall_us']:.1f} sync, "
+        f"integrity_overhead_pct "
+        f"{planes_res['integrity']['integrity_overhead_pct']:.3f}; "
         f"forward O max abs err at BERT's "
         f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")

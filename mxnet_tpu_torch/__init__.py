@@ -22,11 +22,13 @@ from . import kvstore as kv
 from . import amp, convert, gluon, metric, parallel, serving
 from . import profiler, recordio, resilience, telemetry
 from . import callback, embedding, image, io
+from . import checkpoint, distributed, integrity, obs
 
 __all__ = ["Context", "MXNetError", "amp", "autograd", "base", "callback",
-           "context", "convert", "cpu", "current_context", "embedding",
-           "engine", "gluon",
-           "gpu", "image", "init", "initializer", "io", "kv", "kvstore",
-           "metric", "name", "nd", "ndarray", "num_gpus", "numerics", "operator",
+           "checkpoint", "context", "convert", "cpu", "current_context",
+           "distributed", "embedding", "engine", "gluon",
+           "gpu", "image", "init", "initializer", "integrity", "io", "kv",
+           "kvstore", "metric", "name", "nd", "ndarray", "num_gpus",
+           "numerics", "obs", "operator",
            "ops", "optimizer", "parallel", "profiler", "random", "recordio",
            "resilience", "rtc", "serving", "telemetry"]

@@ -61,7 +61,19 @@ states in place.  The ids enter through pinned staging, like the
 scalars, so a step still has one readback.  Recording saves and restores
 only the rows the warm-up run touches, never a copy of a table.  A
 configuration that falls back to the eager oracle emits
-``sparse_fallback{reason}`` (``Trainer.train_step``).
+``sparse_fallback{reason}`` (``Trainer.train_step``); a sparse step's
+``lookup_us`` and ``unique_fraction`` go on its telemetry step record.
+
+Telemetry and integrity: the step's FLOPs are counted once a capture,
+over the warm-up run (``telemetry.count_flops``: the matmul counter plus
+the flash kernels' own formula), and the device's allocation high-water
+mark after it is the record's ``device_peak_bytes``.  The integrity flag
+(``MXTPU_INTEGRITY``) joins the capture key, as the JAX package's does.
+On an attestation step (``Trainer._integrity_due``) a pass of its own
+after the replay fingerprints the parameters and optimizer states
+(``integrity.trainer_leaves``) on the card, and its two words ride the
+guard's one readback; every other step is the unchanged graph.  The
+``bit_flip_param`` site flips a bit in the live state after a step.
 """
 
 from __future__ import annotations
@@ -71,6 +83,9 @@ import os
 import torch
 
 from ..base import MXNetError
+
+
+_UNSET = object()       # a step's FLOPs before its first run
 
 
 def captured_step_enabled() -> bool:
@@ -276,6 +291,7 @@ def get_step(trainer, block, loss_fn, data, label, grad_accum):
     it: they are data.  A step whose ``_fast_key`` was seen before skips
     the planning."""
     global _CACHE_HITS, _CACHE_MISSES
+    from .. import integrity as _integrity
     from .. import kvstore as _kvs
     from .. import numerics
     from ..optimizer import grouped as _grouped
@@ -300,12 +316,10 @@ def get_step(trainer, block, loss_fn, data, label, grad_accum):
             return None
         sparse_key = tuple((i, pr.bucket) for (i, _p), pr in zip(sparse,
                                                                   preps))
-        # the reference's per-step record fields, as gauges until the
-        # port's telemetry keeps step records
-        _telemetry.gauge_set("lookup_us", float(lookup_us))
-        _telemetry.gauge_set("unique_fraction",
-                             sum(pr.n_real for pr in preps)
-                             / max(sum(pr.n_ids for pr in preps), 1))
+        _telemetry.note(
+            lookup_us=float(lookup_us),
+            unique_fraction=sum(pr.n_real for pr in preps)
+            / max(sum(pr.n_ids for pr in preps), 1))
         trainer._sparse_prep = preps
     fast = getattr(trainer, "_captured_fast", None)
     if fast is None:
@@ -346,6 +360,7 @@ def get_step(trainer, block, loss_fn, data, label, grad_accum):
         tuple((i, p.grad_req) for i, p in enumerate(trainer._params)),
         plan_sig, guard_on, clip, has_scaler, k,
         _sig(data), _sig(label), _kvs.device_fingerprint(), sparse_key,
+        _integrity.fingerprint_enabled(),
     )
     cache = getattr(trainer, "_captured_cache", None)
     if cache is None:
@@ -403,6 +418,11 @@ class CapturedStep:
         self._uniform = None
         self._recheck = True
         self._fresh = True
+        self._flops = _UNSET
+        self._peak_bytes = None
+        from .. import integrity as _integrity
+
+        self._want_fp = _integrity.fingerprint_enabled()
 
     # -- the step ---------------------------------------------------------------
 
@@ -494,8 +514,11 @@ class CapturedStep:
 
     def __call__(self, trainer, data, label, batch_size):
         global _DISPATCH_COUNT, _TRACE_COUNT
+        from .. import integrity as _integrity
         from .. import numerics
+        from .. import profiler
         from .. import random as _random
+        from .. import resilience as _resilience
         from ..ndarray.ndarray import NDArray
         from ..optimizer import grouped as _grouped
 
@@ -524,31 +547,69 @@ class CapturedStep:
             preps, trainer._sparse_prep = trainer._sparse_prep, None
             sp = [(pr.uniq, pr.src, pr.inv.reshape(self._k, -1))
                   for pr in preps]
-        if x.device.type == "cuda":
-            losses, health = self._replay(x, y, scale, seeds_b, seeds_l,
-                                          rows, sp)
-        else:
-            if self._fresh:
-                _TRACE_COUNT += 1
-                self._fresh = False
-            dev = x.device
-            gens_b = [_random.generator(s, dev) for s in seeds_b]
-            gens_l = [_random.generator(s, dev) for s in seeds_l]
-            dyn_list = [_grouped.as_columns(row, _grouped.compute_dtype(gkey),
-                                            dev)
-                        for gkey, row in zip(self._groups, rows)]
-            losses, health = self._run(
-                x, y, torch.tensor(scale, dtype=torch.float32, device=dev),
-                gens_b, gens_l, dyn_list,
-                [tuple(torch.from_numpy(a) for a in t) for t in sp])
+        attest = self._want_fp and trainer._integrity_due()
+        with profiler.annotate("captured_step"):
+            if x.device.type == "cuda":
+                losses, health = self._replay(x, y, scale, seeds_b,
+                                              seeds_l, rows, sp)
+            else:
+                dev = x.device
+                gens_b = [_random.generator(s, dev) for s in seeds_b]
+                gens_l = [_random.generator(s, dev) for s in seeds_l]
+                dyn_list = [_grouped.as_columns(
+                    row, _grouped.compute_dtype(gkey), dev)
+                    for gkey, row in zip(self._groups, rows)]
+                args = (x, y, torch.tensor(scale, dtype=torch.float32,
+                                           device=dev),
+                        gens_b, gens_l, dyn_list,
+                        [tuple(torch.from_numpy(a) for a in t) for t in sp])
+                if self._fresh:
+                    _TRACE_COUNT += 1
+                    self._fresh = False
+                losses, health = self._counted(lambda: self._run(*args))
+            # the attestation pass, after the step on the same stream:
+            # nothing is read back until the guard's readback
+            fp = _integrity.fingerprint_arrays(
+                _integrity.trainer_leaves(trainer)) if attest else None
         _DISPATCH_COUNT += 1
+        if _resilience.fault_armed("bit_flip_param"):
+            # memory corruption of the live state after the step: this
+            # step's fingerprint is clean, the next attestation is not
+            _integrity.maybe_bit_flip_param(
+                params=[p for _i, p in self._trained])
         trainer._step_count += 1
         if self._want_guard:
             guard = numerics.StepGuard(health, skip=self._guard_on,
-                                       clip=self._clip)
+                                       clip=self._clip, extra=fp)
             trainer._finalize_guarded_step(guard, snapshot)
+        elif fp is not None:
+            # no guard: the attestation readback is the step's one sync
+            trainer._integrity_attest(_integrity.combine(fp))
         ctx = getattr(data, "_ctx", None)
         return NDArray(losses, ctx)
+
+    # -- program accounting (telemetry.py) --------------------------------------
+
+    def _counted(self, run):
+        """``run()``, its FLOPs counted the first time with telemetry on
+        (``telemetry.count_flops``)."""
+        from .. import telemetry
+
+        if self._flops is not _UNSET or not telemetry.enabled():
+            return run()
+        out, self._flops = telemetry.count_flops(run)
+        return out
+
+    def cost_flops(self):
+        """The step's FLOPs, counted once a capture over its first run,
+        or None before that or with telemetry off."""
+        return None if self._flops is _UNSET else self._flops
+
+    def memory_high_water(self):
+        """The card's allocation high-water mark in bytes after the
+        step's warm-up run (``torch.cuda.max_memory_allocated``), which
+        holds the step's own peak; None on the host."""
+        return self._peak_bytes
 
     # -- the CUDA graph ---------------------------------------------------------
 
@@ -653,8 +714,9 @@ class CapturedStep:
         side.wait_stream(torch.cuda.current_stream(dev))
         try:
             with torch.cuda.stream(side):
-                self._run(*args)
+                self._counted(lambda: self._run(*args))
             torch.cuda.current_stream(dev).wait_stream(side)
+            self._peak_bytes = int(torch.cuda.max_memory_allocated(dev))
             with torch.no_grad():
                 torch._foreach_copy_(dense, saved)
                 for t, u, r in zip(tables, uniq, saved_rows):

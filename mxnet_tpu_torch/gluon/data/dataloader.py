@@ -31,10 +31,9 @@ python/mxnet/gluon/data/dataloader.py): DataLoader with batchify
 - ``seed=`` makes the loader resumable (``state.DataPipelineState``): the
   order is a pure function of ``(seed, epoch)``, ``state_dict()`` /
   ``load_state_dict()`` carry the position, and quarantined batches are
-  skipped loudly on replay.  ``MXTPU_DATA_TIMEOUT`` is the receive
-  watchdog for worker batches.  The quarantine replay that a
-  ``DivergenceMonitor`` rollback drives comes with the production planes
-  (ROADMAP queue 1 item 9); ``quarantine()`` itself works.
+  skipped loudly on replay (a ``DivergenceMonitor`` rollback rewinds the
+  loader and quarantines the streak's batches).  ``MXTPU_DATA_TIMEOUT``
+  is the receive watchdog for worker batches.
 """
 
 from __future__ import annotations

@@ -56,7 +56,7 @@ overlaps the current step.
 ``mesh=`` takes the one-device ``parallel.data_parallel_mesh(1)``; a
 ``dp>1`` mesh, and ``kvstore=``/``warm_pull=`` (the warm
 ``row_sparse_pull`` of a distributed store), wait for the multi-GPU
-slice (ROADMAP queue 1 item 6) and raise ``NotImplementedError``.
+slice and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -93,7 +93,7 @@ def _mesh_context(mesh):
         raise NotImplementedError(
             f"DevicePrefetcher: mesh {mesh.shape} spans {mesh.size} "
             "devices; placing a batch sharded over a dp>1 mesh comes with "
-            "the multi-GPU slice (ROADMAP queue 1 item 8)")
+            "the multi-GPU slice")
     return context_of(mesh.devices.flat[0])
 
 
@@ -317,7 +317,7 @@ class DevicePrefetcher:
             raise NotImplementedError(
                 "DevicePrefetcher: kvstore= and warm_pull= (the warm "
                 "row_sparse_pull of a distributed store) come with the "
-                "multi-GPU slice (ROADMAP queue 1 item 6)")
+                "multi-GPU slice")
         self._sparse_block = sparse_tables
         self._data = data
         self._depth = default_depth() if depth is None else int(depth)

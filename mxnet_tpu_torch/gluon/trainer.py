@@ -19,11 +19,17 @@ A row-sparse model that ``train_step`` cannot capture emits a
 ``step`` refuses a gradient that no ``backward`` has written since the
 last step, unless ``ignore_stale_grad``.
 ``attach_data_pipeline`` takes a resumable input pipeline: each guarded
-step hands the divergence monitor the id of the batch just delivered.
-The integrity plane, the monitor's rollback of the pipeline and the
-autotune consult come with the production planes: ``attach_integrity``
-raises ``NotImplementedError``, and so does attaching a pipeline to a
-trainer that has a divergence monitor.
+step hands the divergence monitor the id of the batch just delivered,
+and the monitor's rollback rewinds the pipeline.  ``step`` and
+``train_step`` emit one telemetry step record each (path, breakdown,
+grad norm, loss scale, samples seen; FLOPs, MFU and peak memory on the
+captured path).  ``attach_integrity`` attaches an
+``integrity.IntegrityPlane``: the captured step fingerprints the state
+on due steps and the trainer attests it.  The ``nan_grad`` and
+``bit_flip_grad`` fault sites poison a gradient before the health
+reduction; an armed site routes ``train_step`` to the eager path, where
+the gradient lives in a buffer.  The JAX package's autotune consult
+comes with the autotune slice.
 """
 
 from __future__ import annotations
@@ -83,6 +89,9 @@ class Trainer:
         if compression_params is not None:
             raise NotImplementedError("Trainer: gradient compression comes "
                                       "with the multi-GPU slice")
+        from .. import obs
+
+        obs.ensure_from_env()          # MXTPU_METRICS_PORT, if set
         optimizer_params = optimizer_params if optimizer_params else {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, optimizer_params)
@@ -94,6 +103,7 @@ class Trainer:
             else float(clip_global_norm)
         self.divergence_monitor = None
         self._data_pipeline = None
+        self._integrity_plane = None
         self.skipped_steps = []
         self._step_count = 0
 
@@ -158,10 +168,21 @@ class Trainer:
 
     def step(self, batch_size, ignore_stale_grad=False):
         """allreduce_grads + update (reference: Trainer.step)."""
-        if not self._kv_initialized:
-            self._init_kvstore()
-        self._set_rescale(batch_size)
-        self._update(ignore_stale_grad)
+        from .. import telemetry
+
+        # None when train_step already opened the record
+        acc = telemetry.step_begin(path="manual")
+        n_skipped = len(self.skipped_steps)
+        try:
+            if not self._kv_initialized:
+                self._init_kvstore()
+            self._set_rescale(batch_size)
+            self._update(ignore_stale_grad)
+        except BaseException:
+            telemetry.step_abort(acc)
+            raise
+        telemetry.step_end(acc, step=self._step_count,
+                           skipped=len(self.skipped_steps) > n_skipped)
 
     def train_step(self, block, loss_fn, data, label=None, batch_size=None,
                    grad_accum=1, ignore_stale_grad=False):
@@ -177,28 +198,56 @@ class Trainer:
         update.  Otherwise, or under ``MXTPU_CAPTURED_STEP=0``, it runs the
         eager path, which is the captured step's bitwise oracle.  The
         captured step never writes the parameters' gradient buffers."""
+        from .. import resilience
+        from .. import telemetry
         from . import captured as _captured
 
         if not self._kv_initialized:
             self._init_kvstore()
         if batch_size is None:
             batch_size = data.shape[0]
+        k = int(grad_accum)
+        acc = telemetry.step_begin()
+        n_skipped = len(self.skipped_steps)
         step = None
-        if _captured.captured_step_enabled():
-            step = _captured.get_step(self, block, loss_fn, data, label,
-                                      int(grad_accum))
-        if step is not None:
-            return step(self, data, label, batch_size)
-        self._note_sparse_fallback(block, loss_fn, data, int(grad_accum))
-        return self._eager_train_step(block, loss_fn, data, label,
-                                      batch_size, int(grad_accum),
-                                      ignore_stale_grad)
+        try:
+            # a pending nan_grad / bit_flip_grad injection needs a
+            # gradient buffer to land in: that step runs eagerly
+            if _captured.captured_step_enabled() \
+                    and not resilience.fault_armed("nan_grad") \
+                    and not resilience.fault_armed("bit_flip_grad"):
+                hits0 = _captured.cache_stats()["hits"] if acc else 0
+                step = _captured.get_step(self, block, loss_fn, data,
+                                          label, k)
+                if step is not None and acc is not None:
+                    telemetry.note_path("captured")
+                    telemetry.note(
+                        cache_hit=_captured.cache_stats()["hits"] > hits0)
+            if step is not None:
+                result = step(self, data, label, batch_size)
+                if acc is not None:
+                    telemetry.note(flops=step.cost_flops())
+                    peak = step.memory_high_water()
+                    if peak is not None:
+                        telemetry.note(device_peak_bytes=peak)
+            else:
+                self._note_sparse_fallback(block, loss_fn, data, k)
+                result = self._eager_train_step(block, loss_fn, data, label,
+                                                batch_size, k,
+                                                ignore_stale_grad)
+        except BaseException:
+            telemetry.step_abort(acc)
+            raise
+        telemetry.step_end(acc, step=self._step_count,
+                           skipped=len(self.skipped_steps) > n_skipped)
+        return result
 
     def _note_sparse_fallback(self, block, loss_fn, data, grad_accum):
         """A row-sparse model on the eager oracle is a performance cliff
         (one dispatch an op, the host's coalesce) its user meant to
         avoid: emit ``sparse_fallback{reason}`` instead of degrading
         silently.  Dense models fall back silently."""
+        from .. import resilience
         from .. import telemetry
         from . import captured as _captured
 
@@ -206,6 +255,9 @@ class Trainer:
             return
         if not _captured.captured_step_enabled():
             reason = "captured step disabled (MXTPU_CAPTURED_STEP=0)"
+        elif resilience.fault_armed("nan_grad") \
+                or resilience.fault_armed("bit_flip_grad"):
+            reason = "pending gradient fault injection"
         else:
             reason = getattr(self, "_sparse_fallback_reason", None)
             self._sparse_fallback_reason = None
@@ -296,6 +348,11 @@ class Trainer:
         guard_on = numerics.grad_guard_enabled()
         clip = self._clip_norm()
         if fused and (guard_on or clip is not None):
+            # the nan_grad / bit_flip_grad fault sites
+            from .. import integrity as _integrity
+
+            _integrity.maybe_bit_flip_grad(grads=grads)
+            numerics.maybe_inject_nan_grad(grads)
             health = numerics.grad_health([_health_tensor(g) for g in grads])
             guard = numerics.StepGuard(health, skip=guard_on, clip=clip)
             snapshot = self._snapshot_update_counts(indices) \
@@ -310,18 +367,16 @@ class Trainer:
 
     def attach_data_pipeline(self, pipeline):
         """Attach a resumable input pipeline (a ``DataLoader`` built with
-        ``seed=``, or a ``DevicePrefetcher`` wrapping one): each guarded
-        step then passes the just-delivered batch id to the divergence
-        monitor.  Wiring the monitor's rollback to rewind the pipeline
-        comes with the production planes (ROADMAP queue 1 item 9): with a
-        monitor attached this raises ``NotImplementedError``.  Returns
-        self."""
-        if self.divergence_monitor is not None:
-            raise NotImplementedError(
-                "Trainer.attach_data_pipeline: rewinding the pipeline on a "
-                "DivergenceMonitor rollback comes with the production "
-                "planes (ROADMAP queue 1 item 9)")
+        ``seed=``, or a ``DevicePrefetcher`` wrapping one).  The guarded
+        step then (a) passes the just-delivered batch id to the
+        divergence monitor, whose rollback quarantines the streak's
+        batches so the replay skips them, and (b) notes ``samples_seen``
+        on each step record.  An attached ``divergence_monitor``'s
+        rollback also rewinds the pipeline to the restored checkpoint's
+        sample offset.  Returns self."""
         self._data_pipeline = pipeline
+        if self.divergence_monitor is not None:
+            self.divergence_monitor.data_pipeline = pipeline
         return self
 
     def _batch_ids(self):
@@ -332,10 +387,28 @@ class Trainer:
         bid = p.last_batch_id()
         return None if bid is None else [bid]
 
+    # -- integrity plane plumbing (integrity.py) -------------------------------
+
     def attach_integrity(self, plane):
-        raise NotImplementedError("Trainer.attach_integrity: the integrity "
-                                  "plane comes with the production-planes "
-                                  "slice")
+        """Attach an ``integrity.IntegrityPlane``: with MXTPU_INTEGRITY on,
+        the captured step fingerprints the parameters and optimizer
+        states every ``plane.every`` steps (read back with the step
+        guard's one readback) and attests them against the plane's
+        peers.  Returns self."""
+        self._integrity_plane = plane
+        return self
+
+    def _integrity_due(self):
+        """Does the step about to run attest?"""
+        plane = self._integrity_plane
+        return plane is not None and plane.due(self._step_count + 1)
+
+    def _integrity_attest(self, fp):
+        """One attestation round for the step that just committed."""
+        plane = self._integrity_plane
+        if plane is None or fp is None:
+            return None
+        return plane.attest(self._step_count, fp)
 
     # -- numerical-health guard plumbing (numerics.py) -------------------------
 
@@ -360,8 +433,11 @@ class Trainer:
     def _finalize_guarded_step(self, guard, snapshot):
         """The step's ONE host readback, after the update: on an unhealthy
         step the update already kept the weights and states; this rolls
-        back the step counters, halves the amp loss scale and records a
-        ``StepSkipped``."""
+        back the step counters, halves the amp loss scale, records a
+        ``StepSkipped``, notes the guard's scalars on the step record and
+        attests the fingerprint the readback brought."""
+        from .. import telemetry
+
         scaler = getattr(self, "_amp_loss_scaler", None)
         monitor = self.divergence_monitor
         if not guard.skip:
@@ -369,6 +445,8 @@ class Trainer:
                 monitor.observe(step=self._step_count,
                                 grad_norm=guard.grad_norm, healthy=True,
                                 batch_indices=self._batch_ids())
+            self._note_guard_scalars(guard, scaler)
+            self._integrity_attest(guard.fingerprint)
             return
         healthy = guard.healthy
         if not healthy:
@@ -380,6 +458,10 @@ class Trainer:
             self.skipped_steps.append(rec)
             del self.skipped_steps[:-_MAX_SKIP_RECORDS]
             _LOG.warning("skipped optimizer step: %r", rec)
+            telemetry.count("step.skipped")
+            telemetry.event("step_skipped", step=rec.step,
+                            reason=rec.reason, grad_norm=rec.grad_norm,
+                            loss_scale=rec.loss_scale)
         if scaler is not None:
             scaler.update_scale(not healthy)
             self._scale = 1.0 / scaler.loss_scale
@@ -387,6 +469,26 @@ class Trainer:
             monitor.observe(step=self._step_count,
                             grad_norm=guard.grad_norm, healthy=healthy,
                             batch_indices=self._batch_ids())
+        self._note_guard_scalars(guard, scaler)
+        self._integrity_attest(guard.fingerprint)
+
+    def _note_guard_scalars(self, guard, scaler):
+        """The guard's scalars on the open step record, read only through
+        ``StepGuard.peek()``: telemetry never adds a readback."""
+        import math
+
+        from .. import telemetry
+
+        host = guard.peek()
+        if host is not None:
+            _, sq = host
+            telemetry.note(grad_norm=math.sqrt(sq) if sq >= 0.0
+                           else float("nan"))
+        if scaler is not None:
+            telemetry.note(loss_scale=scaler.loss_scale)
+        if self._data_pipeline is not None:
+            telemetry.note(samples_seen=int(
+                self._data_pipeline.samples_seen))
 
     # -- optimizer states ------------------------------------------------------
 

@@ -15,14 +15,16 @@ device:
 - exactly ONE host readback a step: the Trainer reads the health once,
   AFTER the update (``readback_count`` counts them);
 - ``DivergenceMonitor``: host-side EWMA tracking of loss and gradient
-  norm, raising ``DivergenceError`` after ``MXTPU_MAX_BAD_STEPS``
-  consecutive bad steps; the checkpoint rollback waits for the
-  ``resilience`` slice.
+  norm; after ``MXTPU_MAX_BAD_STEPS`` consecutive bad steps it rolls back
+  to the newest valid checkpoint, reseeds the loss scale, quarantines the
+  streak's batches and rewinds an attached input pipeline, or, without a
+  checkpointer, raises ``DivergenceError``.
 
 Env knobs, as the JAX package's: ``MXTPU_GRAD_GUARD`` (default 1),
 ``MXTPU_MAX_BAD_STEPS`` (default 25), ``MXTPU_CLIP_GLOBAL_NORM`` (unset =
-no clipping).  The ``nan_grad`` fault-injection site needs the
-``resilience`` slice: ``maybe_inject_nan_grad`` never fires until then.
+no clipping).  Fault sites: ``nan_grad`` poisons one gradient before the
+health reduction; ``inf_loss`` corrupts the loss
+``DivergenceMonitor.observe`` sees.
 """
 
 from __future__ import annotations
@@ -121,22 +123,47 @@ class StepGuard:
     ``skip`` enables skip-step semantics (``torch.where`` in the grouped
     update, and a host-side skip of the legacy-loop items); ``clip`` scales
     the gradients by the global-norm clip coefficient inside the update.
-    The host readback happens at most once, lazily, and is counted."""
+    ``extra`` is the integrity fingerprint (a ``(2,)`` int64 device tensor)
+    on an attestation step: it rides the same readback.  The host readback
+    happens at most once, lazily, and is counted."""
 
-    def __init__(self, health, skip=True, clip=None):
+    def __init__(self, health, skip=True, clip=None, extra=None):
         self.health = health
         self.skip = bool(skip)
         self.clip = None if clip is None else float(clip)
+        self.extra = extra
         self._host = None
+        self._extra_host = None
 
     def _materialize(self):
         if self._host is None:
             global _READBACK_COUNT
             _READBACK_COUNT += 1
-            with torch.profiler.record_function("guard_readback"):
-                v = self.health.detach().cpu().tolist()
+            from . import profiler
+
+            # the step's one host sync: the fingerprint (words below
+            # 2^32, exact in f64) rides the same transfer
+            with profiler.annotate("guard_readback"):
+                if self.extra is not None:
+                    v = torch.cat([self.health.detach().double(),
+                                   self.extra.detach().double()]) \
+                        .cpu().tolist()
+                    self._extra_host = (int(v[2]), int(v[3]))
+                else:
+                    v = self.health.detach().cpu().tolist()
             self._host = (float(v[0]), float(v[1]))
         return self._host
+
+    @property
+    def fingerprint(self):
+        """The step's integrity fingerprint as one u64, or None when the
+        step computed none (integrity off, or not an attestation step).
+        Shares the one guard readback."""
+        if self.extra is None:
+            return None
+        self._materialize()
+        lo, hi = self._extra_host
+        return (hi << 32) | lo
 
     def peek(self):
         """``(all_finite, global_sq_norm)`` if read back already, else
@@ -177,17 +204,38 @@ class StepSkipped:
 
 
 def maybe_inject_nan_grad(grads) -> bool:
-    """The ``nan_grad`` fault site.  Fault injection comes with the
-    ``resilience`` slice; until then nothing is armed and this never
-    fires."""
+    """The ``nan_grad`` fault site: poison element 0 of the first float
+    gradient with NaN, in place (the health reduction and the update
+    kernels then see the same poisoned value).  Consumes one armed count
+    a call; returns True when it fired."""
+    from . import resilience
+
+    if not grads or not resilience.consume_fault("nan_grad"):
+        return False
+    for g in grads:
+        t = getattr(g, "_data", g)
+        if getattr(g, "stype", "default") != "default" or \
+                not isinstance(t, torch.Tensor) or \
+                not t.is_floating_point() or t.numel() == 0:
+            continue
+        t.detach().view(-1)[0] = float("nan")
+        _LOG.warning("fault injection: poisoned gradient with NaN "
+                     "(MXTPU_FAULT_INJECT nan_grad)")
+        return True
     return False
 
 
 # -- divergence monitoring -----------------------------------------------------
 
 class DivergenceError(MXNetError):
-    """Training diverged and no rollback was possible; carries the failing
-    window: ``bad_steps``, ``step`` and ``batch_indices``."""
+    """Training diverged and no checkpointer was attached for rollback.
+
+    Carries the failing window so the caller can triage (same spirit as
+    `gluon.data.DataLoaderWorkerError` surfacing the failing batch):
+    ``bad_steps`` (length of the unhealthy streak), ``step`` (last
+    observed step), ``batch_indices`` (quarantined sample/batch indices
+    seen during the streak, if the caller supplied them).
+    """
 
     def __init__(self, msg, step=None, bad_steps=None, batch_indices=None):
         super().__init__(msg)
@@ -197,26 +245,30 @@ class DivergenceError(MXNetError):
 
 
 class DivergenceMonitor:
-    """EWMA-based divergence detector.
+    """EWMA-based divergence detector with checkpoint auto-rollback.
 
-    Feed it one ``observe()`` a step, either by attaching it to a Trainer
-    (``trainer.divergence_monitor = mon``; the guarded step then observes)
-    or by hand, not both.  A step is bad when it is unhealthy or when the
-    gradient norm or the loss explodes past ``explode_factor`` times its
-    EWMA.  After ``max_bad_steps`` consecutive bad steps it raises
-    ``DivergenceError``.  The reference's checkpoint rollback
-    (``checkpointer``/``set_state``) needs the ``resilience`` slice: asking
-    for it raises ``NotImplementedError``."""
+    Feed it one `observe()` per step — either attach it to a Trainer
+    (``trainer.divergence_monitor = mon``; the Trainer then calls
+    ``observe(healthy=..., grad_norm=...)`` from the guarded step) or
+    drive it manually with the loss.  Do NOT do both, or each training
+    step counts as two observations.
+
+    A step is **bad** when it is unhealthy (non-finite grads/loss) or
+    when grad-norm/loss explodes past ``explode_factor`` × its EWMA.
+    After ``max_bad_steps`` consecutive bad steps (MXTPU_MAX_BAD_STEPS):
+
+    - with a ``checkpointer`` + ``set_state``: roll back to the newest
+      valid `resilience.LocalCheckpointer` snapshot, re-seed the loss
+      scale (``reseed_scale`` or current/scale_factor), quarantine the
+      batch indices observed during the streak, and return True;
+    - without one: raise `DivergenceError` carrying the streak context.
+    """
 
     def __init__(self, checkpointer=None, set_state=None, scaler=None,
                  max_bad_steps=None, ewma_alpha=0.05, explode_factor=8.0,
                  reseed_scale=None, logger=None):
-        if checkpointer is not None or set_state is not None:
-            raise NotImplementedError(
-                "DivergenceMonitor: checkpoint rollback needs the "
-                "resilience slice, which is not ported yet")
-        self.checkpointer = None
-        self.set_state = None
+        self.checkpointer = checkpointer
+        self.set_state = set_state
         self.scaler = scaler
         self.max_bad_steps = int(max_bad_steps) if max_bad_steps \
             else globals()["max_bad_steps"]()
@@ -227,9 +279,16 @@ class DivergenceMonitor:
         self.loss_ewma = None
         self.norm_ewma = None
         self.bad_streak = 0
+        self.recoveries = 0
         self.quarantined = []
         self._streak_batches = []
         self._last_step = None
+        # optional resumable input pipeline (an object with
+        # load_state_dict/quarantine, e.g. gluon.data.DataLoader built
+        # with seed=): rollback rewinds it to the restored checkpoint's
+        # sample offset and quarantines the streak's batches so replay
+        # skips them (one `batch_quarantined` event per skip)
+        self.data_pipeline = None
 
     def _is_bad(self, loss, grad_norm, healthy):
         if not healthy:
@@ -250,8 +309,11 @@ class DivergenceMonitor:
 
     def observe(self, step=None, loss=None, grad_norm=None, healthy=True,
                 batch_indices=None) -> bool:
-        """Record one training step; raises ``DivergenceError`` at the end
-        of a bad streak, else returns False (no rollback ran)."""
+        """Record one training step; returns True iff a rollback ran."""
+        from . import resilience
+
+        if resilience.consume_fault("inf_loss"):
+            loss = float("inf")
         self._last_step = step if step is not None else \
             (self._last_step + 1 if self._last_step is not None else 0)
         if self._is_bad(loss, grad_norm, healthy):
@@ -261,7 +323,7 @@ class DivergenceMonitor:
                     batch_indices if isinstance(batch_indices, (list, tuple))
                     else [batch_indices])
             if self.bad_streak >= self.max_bad_steps:
-                self._diverged()
+                return self._recover()
             return False
         self.bad_streak = 0
         self._streak_batches = []
@@ -274,16 +336,56 @@ class DivergenceMonitor:
                 else (1.0 - a) * self.norm_ewma + a * grad_norm
         return False
 
-    def _diverged(self):
+    def _recover(self) -> bool:
+        from . import resilience
+
         bad, step = self.bad_streak, self._last_step
+        self.quarantined.extend(self._streak_batches)
         batches = list(self._streak_batches)
-        self.quarantined.extend(batches)
         self._streak_batches = []
         self.bad_streak = 0
-        raise DivergenceError(
-            f"training diverged: {bad} consecutive unhealthy/exploding "
-            f"steps (last step {step}; loss ewma {self.loss_ewma}, "
-            f"grad-norm ewma {self.norm_ewma}); quarantined batch indices: "
-            f"{batches or 'none supplied'}. Lower the learning rate or "
-            "re-seed the loss scale.",
-            step=step, bad_steps=bad, batch_indices=batches)
+        restored = 0
+        if self.checkpointer is not None and self.set_state is not None:
+            restored = resilience.resume_latest(
+                self.checkpointer, self.set_state, logger=self.logger)
+        if self.checkpointer is None or self.set_state is None \
+                or (restored == 0
+                    and not getattr(self.checkpointer, "all_steps",
+                                    lambda: [])()):
+            raise DivergenceError(
+                f"training diverged: {bad} consecutive unhealthy/exploding "
+                f"steps (last step {step}; loss ewma "
+                f"{self.loss_ewma}, grad-norm ewma {self.norm_ewma}); "
+                f"quarantined batch indices: {batches or 'none supplied'}. "
+                "Attach a resilience.LocalCheckpointer for auto-rollback, "
+                "or lower the learning rate / re-seed the loss scale.",
+                step=step, bad_steps=bad, batch_indices=batches)
+        if self.scaler is not None:
+            if self.reseed_scale is not None:
+                self.scaler.loss_scale = float(self.reseed_scale)
+            else:
+                self.scaler.loss_scale = max(
+                    1.0, self.scaler.loss_scale / self.scaler.scale_factor)
+            self.scaler._unskipped = 0
+        if self.data_pipeline is not None:
+            ds_fn = getattr(self.checkpointer, "data_state", None)
+            ds = ds_fn(restored) if ds_fn is not None else None
+            if ds is not None:
+                # rewind the pipeline to the checkpoint's exact sample
+                # offset FIRST (load replaces the quarantine set), then
+                # quarantine the streak so replay skips the poison
+                self.data_pipeline.load_state_dict(ds)
+            bad_ids = [tuple(b) for b in batches
+                       if isinstance(b, (list, tuple)) and len(b) == 2]
+            if bad_ids:
+                self.data_pipeline.quarantine(bad_ids)
+        self.recoveries += 1
+        self.logger.warning(
+            "divergence auto-recovery #%d: rolled back to checkpoint step "
+            "%d after %d bad steps; quarantined batches: %s",
+            self.recoveries, restored, bad, batches or "none supplied")
+        from . import telemetry
+        telemetry.event("divergence_rollback", step=restored,
+                        bad_steps=bad, last_step=step,
+                        quarantined=len(batches))
+        return True

@@ -229,6 +229,18 @@ def _dense(x):
     return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
+def _credit_flops(q, causal, times):
+    """Credit ``times`` the forward's model FLOPs, ``4*B*H*T^2*D`` (half
+    when causal), to an open ``telemetry.count_flops``: the counter cannot
+    see a ctypes launch.  The backward's dQ and dK/dV kernels credit 1.0
+    and 1.5 times it, 2.5 times the forward together."""
+    from .. import telemetry
+
+    B, H, T, D = q.shape
+    telemetry.add_kernel_flops(
+        times * 4 * B * H * T * T * D / (2 if causal else 1))
+
+
 def flash_attention_fwd(q, k, v, causal=False, scale=None):
     """Launch the forward kernel on (B, H, T, D) CUDA tensors; returns
     ``(O, LSE)`` as ``flash_attention_plain`` does.  ``launches`` counts
@@ -245,6 +257,7 @@ def flash_attention_fwd(q, k, v, causal=False, scale=None):
             _fn("flash_attention_fwd", "flash_attention_fwd", 5),
             (q, k, v, out, lse), q, causal, _scale(q, scale))
     flash_attention_fwd.launches += 1
+    _credit_flops(q, causal, 1.0)
     return out, lse
 
 
@@ -267,6 +280,7 @@ def flash_attention_dq(q, k, v, o, lse, do, causal=False, scale=None):
             _fn("flash_attention_bwd", "flash_attention_dq", 8),
             (q, k, v, o, lse, do, dq, delta), q, causal, _scale(q, scale))
     flash_attention_dq.launches += 1
+    _credit_flops(q, causal, 1.0)
     return dq, delta
 
 
@@ -288,6 +302,7 @@ def flash_attention_dkv(q, k, v, lse, do, delta, causal=False, scale=None):
             _fn("flash_attention_bwd", "flash_attention_dkv", 8),
             (q, k, v, lse, do, delta, dk, dv), q, causal, _scale(q, scale))
     flash_attention_dkv.launches += 1
+    _credit_flops(q, causal, 1.5)
     return dk, dv
 
 

@@ -343,9 +343,29 @@ class ShardedTrainer:
         so they always hold the trained values (the JAX trainer keeps them
         on the mesh and writes them back here)."""
 
-    def state_dict(self):
-        raise NotImplementedError("ShardedTrainer.state_dict comes with the "
-                                  "checkpoint slice")
+    def state_dict(self, copy=True):
+        """The full train state (parameters, optimizer states, aux state,
+        step) as a pytree, valid after the first step: a host snapshot,
+        or with ``copy=False`` the live tensors for
+        ``AsyncCheckpointer.save`` (``checkpoint.trainer_state``).  The
+        ``resilience.run_resilient`` ``get_state`` hook."""
+        from .. import checkpoint
+
+        return checkpoint.trainer_state(self, copy=copy)
+
+    def load_state_dict(self, state):
+        """Load a ``state_dict()`` or checkpoint pytree back into this
+        trainer's tensors, bitwise (the ``set_state`` hook)."""
+        from .. import checkpoint
+
+        checkpoint.load_trainer_state(self, state)
+
+    def state_template(self):
+        """The restore template: ``state_dict()``'s structure with this
+        trainer's device at every tensor position."""
+        from .. import checkpoint
+
+        return checkpoint.trainer_state_template(self)
 
     @property
     def learning_rate(self):

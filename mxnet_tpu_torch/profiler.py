@@ -14,7 +14,9 @@ marker of the hot paths (``h2d_prefetch``, ``optimizer_update`` ...):
 while a ``torch.profiler`` trace or the host profiler is running it opens
 a ``torch.profiler.record_function`` (and an NVTX range on a CUDA build),
 so the span shows named in the trace next to the device work it covers;
-with both off it costs two ``perf_counter`` reads.
+with both off it costs two ``perf_counter`` reads.  Every scope's host
+duration goes to ``telemetry.on_scope``, which is how a step record gets
+its breakdown without the profiler on.
 """
 
 from __future__ import annotations
@@ -26,6 +28,8 @@ import time
 from collections import defaultdict
 
 import torch
+
+from . import telemetry as _telemetry
 
 _LOCK = threading.Lock()
 
@@ -254,6 +258,7 @@ class scope:
             self._rf.__exit__(*exc)
         if _S.running:
             record_span(self.name, "scope", self._t0, t1)
+        _telemetry.on_scope(self.name, t1 - self._t0)
 
 
 if os.environ.get("MXNET_PROFILER_AUTOSTART", "0") == "1":

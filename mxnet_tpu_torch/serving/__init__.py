@@ -1,7 +1,6 @@
 """Serving tier: the bucketed KV-cache engine (one recorded CUDA graph a
-bucket on the card) and the continuous batcher.  The replicas, the front
-door and the fleet watcher wait for the production planes (ROADMAP queue
-1 item 5)."""
+bucket on the card), the continuous batcher, and the replicas with hot
+reload behind a front door."""
 
 from .batcher import (ContinuousBatcher, DeadlineExceeded,
                       ServerOverloaded, max_delay_ms_from_env,
@@ -9,9 +8,11 @@ from .batcher import (ContinuousBatcher, DeadlineExceeded,
 from .engine import (ServingEngine, batch_buckets_from_env, compile_count,
                      dispatch_count, prefill_buckets_for, reset_counters,
                      state_for_serving, trace_count)
+from .replica import FleetWatcher, FrontDoor, ReplicaServer
 
 __all__ = [
-    "ServingEngine", "ContinuousBatcher", "ServerOverloaded",
+    "ServingEngine", "ContinuousBatcher", "ReplicaServer", "FrontDoor",
+    "FleetWatcher", "ServerOverloaded",
     "DeadlineExceeded", "state_for_serving", "batch_buckets_from_env",
     "prefill_buckets_for", "max_delay_ms_from_env", "max_queue_from_env",
     "trace_count", "compile_count", "dispatch_count", "reset_counters",

@@ -32,7 +32,9 @@ device.  It keeps the JAX engine's contract:
   new weights' shapes and dtypes, then copy them into the static weight
   tensors in place under the reload lock, which every replay holds, so
   no replay sees half of a generation; ``generation`` counts the swaps
-  and each emits a ``serving_reload`` event.
+  and each emits a ``serving_reload`` event.  ``reload_from_state``'s
+  ``expect_fp`` refuses a state whose integrity fingerprint does not
+  match (``serving_reload_rejected``).
 - ``dtype=torch.bfloat16`` keeps the weight matrices, embedding tables
   and cache in bf16 while LayerNorm, biases and every reduction stay f32.
 
@@ -40,10 +42,8 @@ The step is ``gpt.decoder_step`` (shared with ``gpt.CachedDecoder``):
 dense attention over the cache window, as in the JAX engine; it reaches
 no kernel of the port's own.  A program returns only each row's logits at
 its read position (the JAX program returns every position's and the
-engine reads those).  Still to come: tensor-parallel serving (``mesh=``,
-ROADMAP queue 1 item 6, multi-GPU), ``reload_from_state(expect_fp=...)``
-(the integrity plane, item 5) and the replicas (``serving/replica.py``,
-item 5).
+engine reads those).  Tensor-parallel serving (``mesh=``) comes with the
+multi-GPU slice; the replicas are ``serving/replica.py``.
 """
 
 from __future__ import annotations
@@ -116,6 +116,11 @@ def prefill_buckets_for(window, floor=8):
         s *= 2
     buckets.append(window)
     return tuple(buckets)
+
+
+class ReloadRejected(MXNetError):
+    """``reload_from_state`` refused a state whose integrity fingerprint
+    is not the attested one; the served weights are unchanged."""
 
 
 def state_for_serving(model):
@@ -193,13 +198,28 @@ class ServingEngine:
     def reload_from_state(self, state, step=None, expect_fp=None):
         """Swap in weights from a serving checkpoint ``{name: np.ndarray}``
         (``state_for_serving`` convention, matched by suffix).  Shapes
-        must match the served model's.  ``expect_fp`` (an integrity
-        fingerprint to check the state against) needs the integrity
-        plane, ROADMAP queue 1 item 5, and raises."""
+        must match the served model's.
+
+        ``expect_fp``: an integrity fingerprint (u64, the training side's
+        ``integrity.fingerprint_host`` of this state).  When given, the
+        state is fingerprinted again here and a mismatch refuses the
+        reload (a ``serving_reload_rejected`` event and
+        ``ReloadRejected``),
+        so the served weights stay as they were."""
         if expect_fp is not None:
-            raise MXNetError(
-                "serving reload: expect_fp= needs the integrity plane "
-                "(ROADMAP queue 1 item 5), not ported yet")
+            from .. import integrity
+
+            got = integrity.fingerprint_host(state)
+            if got != int(expect_fp):
+                telemetry.event(
+                    "serving_reload_rejected", step=step,
+                    reason=f"state fingerprint {integrity.fp_hex(got)} "
+                           f"!= attested "
+                           f"{integrity.fp_hex(int(expect_fp))}")
+                raise ReloadRejected(
+                    "serving reload: restored state fingerprint does not "
+                    "match the attested fingerprint; refusing to serve "
+                    "corrupt weights")
         what = "serving reload"
         arrays = {k: as_tensor(a, k, what)
                   for k, a in match_state(state, what).items()}

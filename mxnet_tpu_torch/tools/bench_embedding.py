@@ -68,21 +68,19 @@ def build(vocab=4096, dim=64, batch=512, steps=20, device=None,
     return net, trainer, (lambda out: (out ** 2).sum()), xs
 
 
-def _loop(step, n, gauges=False):
-    """Seconds a step over ``n`` steps, each read back; with ``gauges``
-    also the mean of the ``lookup_us`` and ``unique_fraction`` gauges."""
-    lookups, fracs = [], []
+def _loop(step, n, records=False):
+    """Seconds a step over ``n`` steps, each read back; with ``records``
+    also the mean ``lookup_us`` and ``unique_fraction`` of the steps'
+    telemetry records."""
     t0 = time.perf_counter()
     for _ in range(n):
         float(step().asscalar())
-        if gauges:
-            snap = telemetry.REGISTRY.snapshot()
-            lookups.append(snap.get("lookup_us"))
-            fracs.append(snap.get("unique_fraction"))
     dt = (time.perf_counter() - t0) / n
-    if not gauges or None in lookups:
+    recs = telemetry.recent_steps()[-n:] if records else []
+    if len(recs) < n or any(r.get("lookup_us") is None for r in recs):
         return dt, None, None
-    return dt, float(np.mean(lookups)), float(np.mean(fracs))
+    return (dt, float(np.mean([r["lookup_us"] for r in recs])),
+            float(np.mean([r["unique_fraction"] for r in recs])))
 
 
 def run(vocab=4096, dim=64, batch=512, steps=20, device=None, sparse=True):
@@ -109,7 +107,7 @@ def run(vocab=4096, dim=64, batch=512, steps=20, device=None, sparse=True):
         captured.reset_counters()
         telemetry.reset()
         captured_s, lookup_us, unique_fraction = _loop(step, steps,
-                                                       gauges=sparse)
+                                                       records=sparse)
         stats = captured.cache_stats()
         traces, dispatches = captured.trace_count(), captured.dispatch_count()
     eager_s = None

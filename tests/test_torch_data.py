@@ -467,9 +467,9 @@ def test_prefetcher_mesh_and_what_waits():
                                 depth=2, mesh=mesh))
     assert got[0][0].context == cpu()
     two = Mesh(np.array([torch.device("cpu")] * 2, dtype=object), ("dp",))
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
         DevicePrefetcher([], mesh=two)
-    with pytest.raises(NotImplementedError, match="item 6"):
+    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
         DevicePrefetcher([], kvstore=object())
 
 

@@ -251,13 +251,19 @@ def test_retrace_bounded_by_unique_buckets(monkeypatch):
 
 
 def test_lookup_fields_in_the_gauges(monkeypatch):
-    """The reference's per-step ``lookup_us`` and ``unique_fraction`` land
-    in the gauges until the port's telemetry keeps step records."""
+    """The reference's per-step ``lookup_us`` and ``unique_fraction``: on
+    each captured sparse step's telemetry record, as the JAX package keeps
+    them (no longer in the gauges)."""
     telemetry.reset()
     _run(monkeypatch, True, "sgd", {"learning_rate": 0.1}, 1, steps=3)
+    recs = telemetry.recent_steps(path="captured")
+    assert len(recs) == 3
+    for rec in recs:
+        telemetry.validate_record(rec)
+        assert rec["lookup_us"] >= 0
+        assert 0 < rec["unique_fraction"] <= 1
     snap = telemetry.REGISTRY.snapshot()
-    assert snap["lookup_us"] >= 0
-    assert 0 < snap["unique_fraction"] <= 1
+    assert "lookup_us" not in snap and "unique_fraction" not in snap
 
 
 # -- sparse_fallback events: never silent --------------------------------------

@@ -143,6 +143,16 @@ DETECTION_MODULES = ("mxnet_tpu_torch.ops.contrib_det",
                      "mxnet_tpu_torch.tools.bench_ssd")
 
 
+#: modules the production-planes slice added; each must be walked and
+#: clean
+PLANES_MODULES = ("mxnet_tpu_torch.checkpoint",
+                  "mxnet_tpu_torch.distributed",
+                  "mxnet_tpu_torch.integrity",
+                  "mxnet_tpu_torch.obs.collector",
+                  "mxnet_tpu_torch.obs.exporter",
+                  "mxnet_tpu_torch.serving.replica")
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -161,6 +171,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert set(DECODE_MODULES) <= walked, sorted(walked)
     assert set(RECURRENT_MODULES) <= walked, sorted(walked)
     assert set(DETECTION_MODULES) <= walked, sorted(walked)
+    assert set(PLANES_MODULES) <= walked, sorted(walked)
 
 
 def _imported_roots(path):

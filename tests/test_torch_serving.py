@@ -46,10 +46,8 @@ def _prompts(n, rng, lo=2, hi=8):
 
 
 def test_serving_exports_the_references_names():
-    """The reference's serving names, less the replicas (production
-    planes, not ported yet)."""
-    want = set(jserving.__all__) - {"ReplicaServer", "FrontDoor",
-                                    "FleetWatcher"}
+    """The reference's serving names, the replicas included."""
+    want = set(jserving.__all__)
     assert set(serving.__all__) == want
     for name in want:
         assert callable(getattr(serving, name)), name
@@ -235,10 +233,16 @@ def test_reload_from_model_swaps_weights_like_jax():
     relu.encoder.layers[0]._activation = "relu"
     with pytest.raises(MXNetError, match="incompatible model"):
         eng.reload_from_model(relu)
-    with pytest.raises(MXNetError, match="integrity plane"):
-        eng.reload_from_state(serving.state_for_serving(_port_model(a)),
-                              expect_fp=1)
+    # a state whose integrity fingerprint is not the attested one is
+    # refused; the right one swaps in
+    from mxnet_tpu_torch import integrity
+
+    state = serving.state_for_serving(_port_model(a, scan=True))
+    with pytest.raises(MXNetError, match="attested fingerprint"):
+        eng.reload_from_state(state, expect_fp=1)
     assert eng.generation == 1
+    eng.reload_from_state(state, expect_fp=integrity.fingerprint_host(state))
+    assert eng.generation == 2
 
 
 def test_bench_serving_tool_on_the_host(monkeypatch):

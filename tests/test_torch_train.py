@@ -283,8 +283,11 @@ def test_trainer_surface():
         assert all(torch.equal(a, b) for a, b in zip(params, runs[0][1]))
     with pytest.raises(ValueError, match="not divisible"):
         ShardedTrainer(model, tgpt.GPTLMLoss(), grad_accum=3).step(ids, ids)
-    with pytest.raises(NotImplementedError):
-        tr.state_dict()
+    # the state round-trips through load_state_dict (it refused before
+    # the checkpoint slice)
+    state = tr.state_dict()
+    assert state["num_update"] == tr._num_update
+    tr.load_state_dict(state)
     bf = tgpt.gpt_tiny(device=cpu(), attention_impl="flash").cast(
         "bfloat16")
     btr = ShardedTrainer(bf, tgpt.GPTLMLoss(), "adamw",

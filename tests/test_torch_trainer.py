@@ -323,15 +323,28 @@ def test_learning_rate_controls():
 def test_what_waits_for_later_slices():
     params = _adam_params(n=1)
     tr = tgluon.Trainer(params, "sgd", {"learning_rate": 0.1})
-    # the pipeline attaches; rewinding it on a monitor's rollback waits
+    # the production planes attach (they refused before that slice)
+    plane = tmx.integrity.IntegrityPlane(every=5)
+    assert tr.attach_integrity(plane) is tr and tr._integrity_due() is False
     monitored = tgluon.Trainer(params, "sgd", {"learning_rate": 0.1})
     monitored.divergence_monitor = tmx.numerics.DivergenceMonitor()
-    for call in (lambda: tr.attach_integrity(object()),
-                 lambda: monitored.attach_data_pipeline(object()),
-                 lambda: tmx.kv.create("dist_sync"),
+    pipeline = object()
+    monitored.attach_data_pipeline(pipeline)
+    assert monitored.divergence_monitor.data_pipeline is pipeline
+    # the multi-GPU and gang slices still refuse, naming their slice
+    for call in (lambda: tmx.kv.create("dist_sync"),
                  lambda: tgluon.Trainer(params, "sgd",
                                         compression_params={"type": "2bit"})):
         with pytest.raises(NotImplementedError):
+            call()
+    for call in (lambda: tmx.distributed.TcpKV("127.0.0.1:1"),
+                 lambda: tmx.distributed.CoordKV(None),
+                 lambda: tmx.distributed.GangKVServer(),
+                 lambda: tmx.checkpoint.PeerSnapshotStore(0),
+                 lambda: tmx.resilience.run_resilient(
+                     lambda s: 0.0, None, 1, get_state=dict,
+                     set_state=lambda s: None, gang=object())):
+        with pytest.raises(NotImplementedError, match="gang slice"):
             call()
     tr_dist = tgluon.Trainer(params, "sgd", kvstore="dist_sync")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
@@ -476,7 +489,7 @@ def test_numerics_health_and_guard(env):
     assert both[0] == 0 and torch.isnan(both[1])
 
 
-def test_divergence_monitor_raises_after_a_bad_streak():
+def test_divergence_monitor_raises_after_a_bad_streak(tmp_path):
     mon = tmx.numerics.DivergenceMonitor(max_bad_steps=3)
     for step in range(5):
         mon.observe(step=step, loss=1.0, grad_norm=1.0)
@@ -486,5 +499,12 @@ def test_divergence_monitor_raises_after_a_bad_streak():
         mon.observe(step=7, loss=float("nan"), batch_indices=[(0, 7)])
     assert e.value.bad_steps == 3 and e.value.batch_indices == [(0, 6),
                                                                (0, 7)]
-    with pytest.raises(NotImplementedError, match="resilience"):
-        tmx.numerics.DivergenceMonitor(checkpointer=object())
+    # a checkpointer with nothing to roll back to: the streak still
+    # raises, naming the window
+    ck = tmx.resilience.LocalCheckpointer(str(tmp_path))
+    mon = tmx.numerics.DivergenceMonitor(checkpointer=ck,
+                                         set_state=lambda s: None,
+                                         max_bad_steps=1)
+    with pytest.raises(tmx.numerics.DivergenceError) as e:
+        mon.observe(step=0, healthy=False, batch_indices=[(1, 2)])
+    assert e.value.batch_indices == [(1, 2)] and mon.recoveries == 0
