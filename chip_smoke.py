@@ -277,13 +277,30 @@ Phases; any failure raises, exits non-zero and prints no result line:
    checkpoint with the attested fingerprint swapped in (its tokens a
    fresh engine's), a mismatch refused, the front door routing round a
    closed replica, no flash launch.
+18. The gang slice on BERT-base at bench_bert's configuration: (i)
+   MXTPU_AUTOTUNE=search with MXTPU_TUNE_BUDGET=10 through
+   Trainer.train_step over the one-card knobs (device_prefetch,
+   shm_slot_mb, remat, group_max_items, unique_bucket),
+   MXTPU_CAPTURE_CACHE reckoned from [8]'s peak: the
+   trials, the search's seconds, the winner's score_us against the
+   defaults', the peak memory, any infeasible trial; then a fresh
+   trainer under replay applies the stored winner with zero trials and
+   one capture, 12 launches of each flash kernel a step (fenced trace);
+   (ii) tools/gang_bert.py: two BERT-base replicas (same seeds, same
+   batches) as an ElasticGang over a GangKVServer on localhost, a peer
+   snapshot every 4 steps through AsyncCheckpointer.attach_peers, rank
+   1 SIGKILLed after step 9: rank 0 confirms the death, recovers from
+   peer RAM with zero restores from disk at the newest common snapshot
+   and replays from it bitwise as it ran first; the push, fetch, stall,
+   detect_s, recover_s, step_tick's host us and the kernels of a step.
 6. The kernel JSON line (f32 numbers at the training shape, and the
    bf16 ones under *_bf16 keys; the same at BERT's shape under
    ``at_bert_shape``, at ViT's under ``at_vit_shape`` and at
    Transformer-base's under ``at_transformer_shape``, its encoder
    (non-causal) and decoder (causal), with the forward's errors at
    TFM_DECODE_T; launches by path, [12]'s two training paths, [14]'s
-   paths, [16]'s SSD path and zoo and [17]'s three paths among them),
+   paths, [16]'s SSD path and zoo, [17]'s three paths and [18]'s
+   autotune and gang paths among them),
    the nvidia-smi line, then the result line.
 """
 
@@ -6006,6 +6023,271 @@ def phase_planes(dev, card, rtc_kernels):
     return launches, res
 
 
+# [18] the gang slice: BERT-base autotuned, and a two-rank BERT-base gang
+# surviving a killed rank
+TUNE_BUDGET = 10               # trials of the search
+TUNE_STEPS = 2                 # timed steps a trial's first rung
+TUNE_HEADROOM = 0.8            # share of the card the cached graphs may fill
+REPLAY_STEPS = 3
+GANG_STEPS = 28
+GANG_SNAP_EVERY = 4
+GANG_KILL_AFTER = 9            # rank 1 is SIGKILLed after this step
+GANG_HB_TIMEOUT = 2.0
+GANG_RETAIN_S = 30.0
+
+
+def _gang_env_clean():
+    from mxnet_tpu_torch.autotune import space
+
+    for k in space.KNOBS.values():
+        os.environ.pop(k.env, None)
+    for name in ("MXTPU_AUTOTUNE", "MXTPU_TUNE_BUDGET", "MXTPU_TUNE_STEPS",
+                 "MXTPU_TUNE_DB", "MXTPU_CAPTURE_CACHE"):
+        os.environ.pop(name, None)
+
+
+def _tune_bert(dev, card, root, bert_peak_gib, rtc_kernels):
+    """(i) MXTPU_AUTOTUNE=search through Trainer.train_step on bench_bert's
+    BERT-base over the knobs a consumer in the port reads (the one-card
+    knobs), then a fresh trainer on the same signature under replay."""
+    import gc
+
+    import torch
+
+    from mxnet_tpu_torch import telemetry
+    from mxnet_tpu_torch.autotune import db, space
+    from mxnet_tpu_torch.gluon import captured
+    from mxnet_tpu_torch.tools import bench_bert
+
+    total_gib = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    cache = max(1, int(TUNE_HEADROOM * total_gib // bert_peak_gib))
+    path = os.path.join(root, "tune_db.jsonl")
+    _gang_env_clean()
+    os.environ.update(MXTPU_AUTOTUNE="search",
+                      MXTPU_TUNE_BUDGET=str(TUNE_BUDGET),
+                      MXTPU_TUNE_STEPS=str(TUNE_STEPS),
+                      MXTPU_TUNE_DB=path,
+                      MXTPU_CAPTURE_CACHE=str(cache))
+    log(f"    (i) MXTPU_CAPTURE_CACHE={cache}: {TUNE_HEADROOM} of the card's "
+        f"{total_gib:.2f} GiB over [8]'s peak of {bert_peak_gib:.2f} GiB a "
+        f"step")
+    base = space.current_config()
+    net, tr, loss_fn, tok, lab = bench_bert.build_gluon(
+        BERT_BATCH, BERT_SEQ, "flash", "bfloat16", dev, seed=SEED)
+    telemetry.reset()
+    captured.reset_counters()
+    _zero_all(rtc_kernels)
+    torch.cuda.synchronize(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    tr.train_step(net, loss_fn, tok, lab)
+    torch.cuda.synchronize(dev)
+    search_s = time.perf_counter() - t0
+    peak_gib = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    reserved_gib = torch.cuda.max_memory_reserved(dev) / 2 ** 30
+    counts = _launches(rtc_kernels)
+    if not all(v for k, v in counts.items() if k.startswith("flash")):
+        raise AssertionError(f"[18](i) a flash kernel was not launched in "
+                             f"the search: {counts}")
+    results = tr._autotune_results
+    entries = db.load(path)
+    if len(entries) != 1 or len(results) != TUNE_BUDGET:
+        raise AssertionError(f"[18](i) {len(results)} trials, database "
+                             f"{list(entries)}")
+    (entry,) = entries.values()
+    if space.current_config() != entry["config"]:
+        raise AssertionError("[18](i) the winner is not applied")
+    ev = telemetry.event_counts()
+    trials = [{"config": {k: v for k, v in r.config.items()
+                          if v != base[k]} or "base",
+               "fingerprint": r.fingerprint, "feasible": r.feasible,
+               "score_us": r.score_us, "steps": r.steps}
+              for r in results]
+    infeasible = [t["config"] for t in trials if not t["feasible"]]
+    misses = captured.cache_stats()["misses"]
+    log(f"    (i) search: {len(results)} trials in {search_s:.2f} s "
+        f"(with the step that asked), {misses} captures, peak "
+        f"{peak_gib:.2f} GiB allocated ({reserved_gib:.2f} GiB reserved, "
+        f"the graphs' pools included) across the search, events "
+        f"{ {k: v for k, v in ev.items() if k.startswith(('tune', 'capture'))} }")
+    for t in trials:
+        log(f"      trial {t['config']}: "
+            + (f"{t['score_us']:.1f} us a step over {t['steps']}"
+               if t["feasible"] else "infeasible"))
+    winner = {k: v for k, v in entry["config"].items() if v != base[k]} \
+        or "base"
+    log(f"    (i) winner {winner}: score_us {entry['score_us']:.1f} against "
+        f"default_score_us {entry.get('default_score_us')}; infeasible "
+        f"{infeasible or 'none'}  [{card}]")
+    del net, tr, loss_fn, tok, lab
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # replay: the defaults back in the environment, a fresh trainer
+    for k in space.KNOBS.values():
+        os.environ.pop(k.env, None)
+    os.environ["MXTPU_AUTOTUNE"] = "replay"
+    net, tr, loss_fn, tok, lab = bench_bert.build_gluon(
+        BERT_BATCH, BERT_SEQ, "flash", "bfloat16", dev, seed=SEED)
+    telemetry.reset()
+    captured.reset_counters()
+    _zero_all(rtc_kernels)
+    losses = [float(tr.train_step(net, loss_fn, tok, lab)._data.float())
+              for _ in range(REPLAY_STEPS)]
+    replay_counts = _launches(rtc_kernels)
+    ev = telemetry.event_counts()
+    if ev.get("tune_db_hit") != 1 or any(
+            k in ev for k in ("tune_trial", "tune_search_start")):
+        raise AssertionError(f"[18](i) replay events {ev}")
+    if space.current_config() != entry["config"] or \
+            captured.cache_stats()["misses"] != 1:
+        raise AssertionError("[18](i) replay did not apply the winner once")
+    per_step = _kernel_counts(lambda: tr.train_step(net, loss_fn, tok, lab))
+    for name in ("flash_attention_fwd", "flash_attention_dq",
+                 "flash_attention_dkv"):
+        if per_step[name] != 12:
+            raise AssertionError(f"[18](i) a replayed step ran {name} "
+                                 f"{per_step[name]} times, not 12")
+    log(f"    (i) replay: tune_db_hit, 0 trials, the winner applied, one "
+        f"capture; losses {[round(x, 4) for x in losses]}; kernels a step "
+        f"(fenced trace) {per_step}")
+    del net, tr, loss_fn, tok, lab
+    gc.collect()
+    torch.cuda.empty_cache()
+    _gang_env_clean()
+    return {"capture_cache": cache, "trials": trials, "search_s": search_s,
+            "peak_gib": peak_gib, "peak_reserved_gib": reserved_gib,
+            "winner": winner,
+            "score_us": entry["score_us"],
+            "default_score_us": entry.get("default_score_us"),
+            "infeasible": infeasible, "captures": misses,
+            "replay_kernels_per_step": per_step, "launches": counts,
+            "replay_launches": replay_counts}
+
+
+def _gang_bert(dev, card, root):
+    """(ii) Two BERT-base replicas as a gang on one card, rank 1 killed."""
+    from mxnet_tpu_torch.tools import gang_bert
+
+    work = os.path.join(root, "gang")
+    os.makedirs(work)
+    out = gang_bert.drive(work, kill_after=GANG_KILL_AFTER, fetch_step=4,
+                          steps=GANG_STEPS, snap_every=GANG_SNAP_EVERY,
+                          batch=BERT_BATCH, seq=BERT_SEQ, model="base",
+                          hb_timeout=GANG_HB_TIMEOUT,
+                          retain_s=GANG_RETAIN_S,
+                          trace_step=GANG_STEPS - 1, timeout=600)
+    r0 = out[0]
+    if len(r0["recoveries"]) != 1:
+        raise AssertionError(f"[18](ii) recoveries {r0['recoveries']}")
+    (rec,) = r0["recoveries"]
+    if rec["source"] != "peer" or r0["disk_restores"] != 0 or \
+            rec["members"] != [0] or rec["dead"] != [1]:
+        raise AssertionError(f"[18](ii) recovery {rec}, disk restores "
+                             f"{r0['disk_restores']}")
+    if r0["report"]["final_step"] != GANG_STEPS:
+        raise AssertionError(f"[18](ii) report {r0['report']}")
+    first, replayed, seen = {}, {}, set()
+    for step, loss in r0["losses"]:
+        (replayed if step in seen else first)[step] = loss
+        seen.add(step)
+    k = rec["snap_step"]
+    if not replayed or min(replayed) != k:
+        raise AssertionError(f"[18](ii) replayed {sorted(replayed)} from "
+                             f"snapshot step {k}")
+    compared = [s for s in replayed if s in first]
+    for s in compared:
+        if replayed[s] != first[s]:
+            raise AssertionError(f"[18](ii) step {s} replayed as "
+                                 f"{replayed[s]}, first {first[s]}")
+    for line in out["doomed_lines"]:
+        if line["loss"] != first[line["step"]]:
+            raise AssertionError(f"[18](ii) rank 1's step {line['step']} "
+                                 f"differs from rank 0's")
+    traced = r0["kernels_traced_step"]
+    if any(traced.get(n) != 12 for n in ("flash_fwd", "flash_dq",
+                                        "flash_dkv")):
+        raise AssertionError(f"[18](ii) rank 0's traced step ran {traced}")
+    if not all(r0["launches"].values()):
+        raise AssertionError(f"[18](ii) rank 0 launched {r0['launches']}")
+    stalls = [s["stall_ms"] for s in r0["snapshot_stalls"]]
+    joins = [s["join_ms"] for s in r0["snapshot_stalls"]]
+    last = out["doomed_lines"][-1]["stats"]
+    res = {
+        "snapshot_step": k, "replayed_steps": len(replayed),
+        "compared_bitwise": len(compared),
+        "detect_s": rec["detect_t"] - out["kill_t"],
+        "recover_s": rec["first_step_t"] - out["kill_t"],
+        "recovery_ms": rec["recovery_ms"],
+        "peer_snap_push_ms": last.get("pack_ms", 0) + last.get("send_ms", 0),
+        "peer_snap_pack_ms": last.get("pack_ms"),
+        "peer_snap_send_ms": last.get("send_ms"),
+        "peer_snap_bytes": last.get("bytes"),
+        "peer_fetch_ms": out["fetch"]["ms"],
+        "snapshot_stall_ms": sorted(stalls)[len(stalls) // 2],
+        "snapshot_stalls_ms": stalls, "snapshot_join_ms": joins,
+        "step_tick_us": r0["step_tick_us_median"]["writer_idle"],
+        "step_tick_us_writer_busy": r0["step_tick_us_median"]["writer_busy"],
+        "step_ticks_idle_busy": r0["step_tick_us_median"]["ticks"],
+        "kv_round_trip_us": r0["kv_round_trip_us_median"],
+        "kernels_per_step": traced, "launches_rank0": r0["launches"],
+        "disk_restores": r0["disk_restores"],
+    }
+    log(f"    (ii) 2 ranks of BERT-base on one card, a peer snapshot every "
+        f"{GANG_SNAP_EVERY} steps through attach_peers, rank 1 SIGKILLed "
+        f"after step {GANG_KILL_AFTER}: rank 0 recovered from peer RAM "
+        f"(0 disk restores) at step {k}, replayed {len(replayed)} steps, "
+        f"{len(compared)} of them bitwise its first pass; detect_s "
+        f"{res['detect_s']:.3f}, recover_s {res['recover_s']:.3f} "
+        f"(recover() {rec['recovery_ms']:.1f} ms); a push "
+        f"{res['peer_snap_push_ms']:.1f} ms (pack "
+        f"{res['peer_snap_pack_ms']:.1f}, send "
+        f"{res['peer_snap_send_ms']:.1f}) for {res['peer_snap_bytes']} "
+        f"bytes; a TCP fetch {res['peer_fetch_ms']:.1f} ms; the train "
+        f"stream held {res['snapshot_stall_ms']:.2f} ms a snapshot "
+        f"(median; waits for the previous writer {joins}); step_tick "
+        f"{res['step_tick_us']} us on other steps with no snapshot in "
+        f"flight, {res['step_tick_us_writer_busy']} us with one (medians, "
+        f"ticks {res['step_ticks_idle_busy']}), one KV round trip "
+        f"{res['kv_round_trip_us']:.1f} us; kernels a step "
+        f"(fenced trace) {traced}  [{card}]")
+    return res
+
+
+def phase_gang(dev, card, rtc_kernels, bert_peak_gib):
+    """[18] (i) autotune search and replay on BERT-base; (ii) the two-rank
+    BERT-base gang surviving a killed rank.  Returns the flash launches of
+    each path and the numbers."""
+    import shutil
+    import tempfile
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="gang_")
+    try:
+        tune = _tune_bert(dev, card, root, bert_peak_gib, rtc_kernels)
+        gang = _gang_bert(dev, card, root)
+    finally:
+        _gang_env_clean()
+        shutil.rmtree(root, ignore_errors=True)
+    zero_rtc = {"rtc_scale2": 0, "rtc_axpy": 0}
+    names = {"flash_fwd": "flash_attention_fwd",
+             "flash_dq": "flash_attention_dq",
+             "flash_dkv": "flash_attention_dkv"}
+    launches = {
+        "autotune_search_bert": tune["launches"],
+        "autotune_replay_bert": tune["replay_launches"],
+        "gang_bert_rank0": dict(gang["launches_rank0"], **zero_rtc),
+        "gang_bert_rank0_traced_step": dict(
+            {names[k]: v for k, v in gang["kernels_per_step"].items()},
+            **zero_rtc),
+    }
+    log("    [18] " + json.dumps({"autotune": tune, "gang": gang},
+                                 default=str))
+    log(f"    [18] done in {time.perf_counter() - t0:.1f} s; flash launches "
+        f"{launches}")
+    return launches, {"autotune": tune, "gang": gang}
+
+
 def main():
     import torch
 
@@ -6149,6 +6431,20 @@ def main():
         "GPT-2 small with hot reload and a refused fingerprint")
     planes_launches, planes_res = phase_planes(dev, card, (s2, ax))
     gluon_launches.update(planes_launches)
+
+    log("[18] the gang slice on BERT-base at bench_bert's configuration: "
+        "(i) MXTPU_AUTOTUNE=search through Trainer.train_step over the "
+        "one-card knobs (device_prefetch, shm_slot_mb, remat, "
+        "group_max_items, unique_bucket), MXTPU_CAPTURE_CACHE from [8]'s "
+        "peak, then a fresh "
+        "trainer replaying the stored winner with zero trials; (ii) two "
+        "BERT-base replicas as an ElasticGang over a GangKVServer "
+        "(tools/gang_bert.py), peer snapshots every 4 steps through "
+        "attach_peers, rank 1 SIGKILLed after step 9, rank 0 recovering "
+        "from peer RAM and replaying bitwise")
+    gang_launches, gang_res = phase_gang(dev, card, (s2, ax),
+                                         bert_res["peak_mem_gib"])
+    gluon_launches.update(gang_launches)
 
     T0, Tb, Tv, Tt = TRAIN_SHAPE[2], BERT_SHAPE[2], VIT_SHAPE[2], TFM_SEQ
     sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
@@ -6305,6 +6601,10 @@ def main():
         f"{planes_res['checkpoints']['sync_stall_us']:.1f} sync, "
         f"integrity_overhead_pct "
         f"{planes_res['integrity']['integrity_overhead_pct']:.3f}; "
+        f"gang: autotune {len(gang_res['autotune']['trials'])} trials in "
+        f"{gang_res['autotune']['search_s']:.1f} s, detect_s "
+        f"{gang_res['gang']['detect_s']:.3f}, recover_s "
+        f"{gang_res['gang']['recover_s']:.3f}; "
         f"forward O max abs err at BERT's "
         f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")

@@ -1,7 +1,7 @@
 """Checkpointing: async, two-phase-committed, CRC-checked snapshots.
 
-Counterpart of ``mxnet_tpu/checkpoint.py`` less ``PeerSnapshotStore``
-(the gang slice's).  :class:`AsyncCheckpointer` is the engine:
+Counterpart of ``mxnet_tpu/checkpoint.py``.  :class:`AsyncCheckpointer`
+is the engine:
 
 - async saves: ``save()`` orders a copy-on-snapshot of the state before
   it returns and a writer thread pickles, writes and fsyncs it.  A leaf on
@@ -27,6 +27,17 @@ the skeleton; the port restores it as a bf16 tensor, bitwise, and the
 JAX package, which reads ``__leaf__`` first, as the uint16 words.  A
 JAX-written ``ml_dtypes.bfloat16`` leaf restores as a bf16 tensor too.
 
+:class:`PeerSnapshotStore` keeps snapshots in RAM for the elastic gang
+and serves them over TCP in the JAX package's ``MXTPSNP1`` frames.  What
+goes into its pickles is numpy and builtins only: a bf16 leaf travels as
+``{"__mxt_bf16__": <uint16 words>}`` and comes back a bf16 tensor, and a
+numpy-only snapshot is byte for byte the JAX package's, so either
+package's store serves the other's.  ``AsyncCheckpointer.attach_peers``
+adds the peer replica to the writer: a save's shard, and a gang snapshot
+(``push_peers``), are copied off the card by the same pinned
+copy-on-snapshot as a save, and the writer thread pickles, holds and
+sends them.
+
 ``trainer_state`` / ``load_trainer_state`` take a ``gluon.Trainer`` or a
 ``parallel.ShardedTrainer``; ``PreemptionHandler`` checkpoints on
 SIGTERM; ``make_checkpointer`` picks an engine.  Fault sites:
@@ -41,6 +52,7 @@ import os
 import pickle
 import shutil
 import signal
+import socket
 import struct
 import sys
 import threading
@@ -348,6 +360,10 @@ class AsyncCheckpointer:
         # atomic manifest rename
         self._gang_epoch_fn = None
         self._gang_fence_fn = None
+        # peer RAM replication (attach_peers)
+        self._peer_store = None
+        self._peer_every = 0
+        self.peer_stats = {}        # the last push_peers' host times, ms
 
     # -- paths -----------------------------------------------------------------
 
@@ -406,7 +422,7 @@ class AsyncCheckpointer:
                         int((time.perf_counter() - t0) * 1e6))
         telemetry.count("ckpt.saves")
 
-    def _snapshot_local(self, leaves):
+    def _snapshot_local(self, leaves, whole=False):
         """Order THIS rank's leaves' host copies; record every leaf's
         meta.  Returns (mine, metas, event): ``mine`` maps a leaf index to
         its numpy host array, valid once ``event`` (None when nothing was
@@ -428,7 +444,7 @@ class AsyncCheckpointer:
                         "dtype": _np_dtype_name(arr) if is_t
                         else str(getattr(arr, "dtype", "object")),
                         "shard": i % self.world_size}
-            if i % self.world_size != self.rank:
+            if not whole and i % self.world_size != self.rank:
                 continue
             if is_t and arr.is_cuda:
                 card.append((i, arr.detach()))
@@ -507,6 +523,17 @@ class AsyncCheckpointer:
             os.fsync(f.fileno())
         os.replace(epath + ".tmp", epath)
         resilience.fsync_dir(sdir)
+        if self._peer_store is not None and self._peer_every and \
+                int(step) % self._peer_every == 0:
+            # the peer replica rides the writer: the host copy exists, so
+            # the extra cost is one pickle and one send
+            buddy = (self.rank + 1) % self.world_size
+            payload = mine if data_state is None else \
+                _peer_wrap(mine, data_state)
+            blob = self._peer_store.pack(payload)
+            self._peer_store.hold_blob(self.rank, step, blob)
+            if buddy != self.rank:
+                self._peer_store.send_blob(buddy, step, blob)
         self._barrier(f"ckpt_shards_{step}")
         resilience.maybe_crash("crash_before_manifest")
         if self.rank == 0:
@@ -529,11 +556,57 @@ class AsyncCheckpointer:
             distributed.barrier(name)
 
     def attach_peers(self, store, every=None):
-        """Peer RAM replication (``PeerSnapshotStore``) comes with the gang
-        slice."""
-        raise NotImplementedError(
-            "AsyncCheckpointer.attach_peers: PeerSnapshotStore comes with "
-            "the gang slice of the port")
+        """Enable peer RAM replication: every ``every`` saves (default
+        ``MXTPU_PEER_SNAP_EVERY``, 10) the writer ships this rank's CRC'd
+        shard dict to buddy ``(rank+1) % world`` through ``store`` (a
+        :class:`PeerSnapshotStore`) and keeps its own RAM copy, the fast
+        elastic-recovery source that spares the disk manifest.  An
+        ``ElasticGang`` built on this checkpointer and store takes its
+        peer snapshots through :meth:`push_peers`."""
+        self._peer_store = store
+        self._peer_every = int(
+            os.environ.get("MXTPU_PEER_SNAP_EVERY", 10)
+            if every is None else every)
+        return self
+
+    def push_peers(self, step, state, buddy, epoch=0, after=None):
+        """A gang snapshot of the whole ``state`` into RAM: held here and
+        sent to ``buddy``'s store, then ``after()`` (the gang's advert).
+        Like a save it returns once the copy is ordered: leaves on the
+        card go into the pinned buffers on the side stream, and the
+        writer thread waits for them, pickles, holds and sends.  It
+        shares the save's backpressure: an outstanding save or push is
+        joined first, and its error raised here."""
+        t0 = time.perf_counter()
+        self._join(raise_error=True)
+        t1 = time.perf_counter()
+        leaves, skeleton = _flatten(state)
+        mine, _metas, event = self._snapshot_local(leaves, whole=True)
+        self._pending_step = step
+        self._thread = threading.Thread(
+            target=self._peer_writer,
+            args=(step, skeleton, mine, event, buddy, int(epoch), after),
+            name=f"peer_snap:{step}", daemon=True)
+        self._thread.start()
+        t2 = time.perf_counter()
+        self.peer_stats = {"join_ms": (t1 - t0) * 1e3,
+                           "call_ms": (t2 - t1) * 1e3}
+
+    def _peer_writer(self, step, skeleton, mine, event, buddy, epoch,
+                     after):
+        try:
+            if event is not None:
+                event.synchronize()     # the pinned copies have landed
+            store = self._peer_store
+            blob = store.pack(_wire_from_flat(skeleton, mine))
+            store.hold_blob(store.rank, step, blob, epoch)
+            if buddy != store.rank:
+                store.send_blob(buddy, step, blob, epoch)
+            if after is not None:
+                after()
+        except BaseException as e:          # noqa: BLE001
+            with self._lock:
+                self._error = e
 
     def attach_gang(self, epoch_fn, fence_fn=None):
         """Enable epoch fencing on the durable commit (schema v8).
@@ -819,7 +892,8 @@ class AsyncCheckpointer:
         compatible.  A present-but-corrupt stamp raises
         `CheckpointCorrupt` (fail closed: silently resuming at the wrong
         sample offset is the one outcome this subsystem exists to
-        prevent)."""
+        prevent).  When the step only exists as a peer-RAM snapshot, this
+        rank's own held wrap in the attached store answers."""
         self._join(raise_error=False)
         if step is None:
             step = self.latest_step()
@@ -827,6 +901,10 @@ class AsyncCheckpointer:
                 return None
         mpath = os.path.join(self._step_dir(step), "MANIFEST.json")
         if not os.path.exists(mpath):
+            if self._peer_store is not None:
+                # the step exists only as a peer-RAM snapshot (elastic
+                # recovery beat the disk manifest): this rank's own wrap
+                return self._peer_store.data_state_at(self.rank, step)
             return None
         m = self._manifest(step)
         return resilience.data_state_unstamp(m.get("data_state"))
@@ -894,14 +972,417 @@ def _remove_quiet(path):
         pass
 
 
-class PeerSnapshotStore:
-    """Peer-replicated in-memory snapshots for elastic recovery: come with
-    the gang slice."""
+# -- peer RAM snapshots (the elastic gang's fast recovery source) -------------
 
-    def __init__(self, *args, **kwargs):
-        raise NotImplementedError(
-            "checkpoint.PeerSnapshotStore comes with the gang slice of the "
-            "port")
+#: wire magic of the peer snapshot protocol (versioned like _SHARD_MAGIC)
+_PEER_MAGIC = b"MXTPSNP1"
+#: request header after the magic: cmd u8, from_rank u32, step u64,
+#: epoch u32, crc u32, payload_len u64
+_PEER_HDR = "<BIQIIQ"
+_PEER_PUT, _PEER_GET = 1, 2
+
+_PEER_WRAP_KEY = "__mxt_peer_wrap__"
+#: a bf16 leaf on the wire: its 16-bit words under this key
+_BF16_KEY = "__mxt_bf16__"
+
+
+def _peer_wrap(state, data_state):
+    """Bundle a snapshot with its input-pipeline state for peer
+    replication (a plain dict; ``_peer_unwrap`` takes bare snapshots
+    too)."""
+    return {_PEER_WRAP_KEY: 1, "state": state, "data_state": data_state}
+
+
+def _peer_unwrap(obj):
+    """(state, data_state) from a possibly-wrapped peer payload."""
+    if isinstance(obj, dict) and obj.get(_PEER_WRAP_KEY) == 1:
+        return obj.get("state"), obj.get("data_state")
+    return obj, None
+
+
+def _to_wire(state):
+    """A snapshot as numpy and builtins only: tensors (on the card or the
+    host) and NDArrays become numpy arrays (views of host tensors: the
+    pickle that follows copies them), a bf16 one its uint16 words under
+    ``_BF16_KEY``."""
+    import numpy as np
+
+    def conv(v):
+        if isinstance(v, dict):
+            return {k: conv(x) for k, x in v.items()}
+        if isinstance(v, (list, tuple)):
+            out = [conv(x) for x in v]
+            return out if isinstance(v, list) else tuple(out)
+        if isinstance(v, np.ndarray):
+            return v                    # the pickle copies it
+        v = getattr(v, "_data", v)
+        if isinstance(v, torch.Tensor):
+            t = v.detach().cpu()
+            if t.dtype == torch.bfloat16:
+                return {_BF16_KEY: t.view(torch.int16).numpy().view(
+                    "uint16")}
+            return t.numpy()
+        if _is_array(v):
+            return np.asarray(v)
+        return v
+
+    return conv(state)
+
+
+def _wire_from_flat(skeleton, leaves):
+    """The wire tree of a flattened state whose leaves are host arrays
+    (bf16 leaves as their uint16 words, marked in the skeleton)."""
+    def walk(s):
+        if isinstance(s, dict):
+            if "__leaf__" in s:
+                arr = leaves[s["__leaf__"]]
+                return {_BF16_KEY: arr} if s.get("__dtype__") == "bfloat16" \
+                    else arr
+            if "__tuple__" in s:
+                return tuple(walk(x) for x in s["__tuple__"])
+            if "__scalar__" in s:
+                return s["__scalar__"]
+            return {k: walk(x) for k, x in s.items()}
+        return [walk(x) for x in s]
+
+    return walk(skeleton)
+
+
+def _from_wire(obj):
+    """Reverse ``_to_wire``: marked words become bf16 tensors (on the
+    host), everything else stays as it came."""
+    if isinstance(obj, dict):
+        if len(obj) == 1 and _BF16_KEY in obj:
+            return _restored_leaf(obj[_BF16_KEY], "bfloat16")
+        return {k: _from_wire(x) for k, x in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        out = [_from_wire(x) for x in obj]
+        return out if isinstance(obj, list) else tuple(out)
+    return obj
+
+
+def _recv_exact(conn, n):
+    """``n`` bytes from ``conn`` into one buffer (a snapshot runs to GBs:
+    no concatenation)."""
+    buf = bytearray(n)
+    view = memoryview(buf)
+    got = 0
+    while got < n:
+        k = conn.recv_into(view[got:], min(n - got, 1 << 24))
+        if not k:
+            raise ConnectionError("peer snapshot connection closed "
+                                  "mid-frame")
+        got += k
+    return buf
+
+
+class PeerSnapshotStore:
+    """RAM-resident snapshot replicas and a small TCP shard server.
+
+    Counterpart of the JAX package's store, with its frame: ``MXTPSNP1 |
+    cmd u8 | from_rank u32 | step u64 | epoch u32 | crc32 u32 | len u64 |
+    pickle``.  Each rank runs one: a daemon thread serves this rank's held
+    snapshots (its own and the ones peers pushed); ``send_to`` pushes a
+    snapshot into a peer's RAM, ``fetch`` pulls one out during recovery.
+    Addresses are advertised on the gang KV (``addr/<rank>``).  The CRC is
+    checked on both ends: a recovery source that rots in transit is worse
+    than the disk manifest.
+
+    Retention is ``keep`` steps a source rank (default 2) plus anything
+    younger than ``retain_s`` (default twice the heartbeat timeout): the
+    survivors keep snapshotting between a death and its confirmation, and
+    the time floor keeps a common restore point alive through that
+    window.  ``fence(epoch)`` drops pushes stamped with an older epoch (a
+    zombie sender), acknowledged but not stored.
+
+    The pickles hold numpy and builtins only (``_to_wire``); ``own_at``
+    and ``fetch`` give bf16 leaves back as bf16 tensors on the host.
+    ``stats`` holds the last pack, send and fetch times in ms.
+    """
+
+    def __init__(self, rank, kv=None, host=None, keep=2, retain_s=None):
+        self.rank = int(rank)
+        self.kv = kv
+        self.host = host or os.environ.get("MXTPU_PEER_HOST",
+                                           "127.0.0.1")
+        self.keep = int(keep)
+        if retain_s is None:
+            retain_s = float(os.environ.get(
+                "MXTPU_PEER_SNAP_RETAIN",
+                2.0 * float(os.environ.get("MXTPU_HEARTBEAT_TIMEOUT",
+                                           5.0))))
+        self.retain_s = float(retain_s)
+        self.port = None
+        self.stats = {}
+        self._held = {}        # from_rank -> {step: (epoch, blob, t)}
+        self._fence = 0        # drop PUT frames older than this epoch
+        self._lock = threading.Lock()
+        self._sock = None
+        self._thread = None
+        self._stop = threading.Event()
+
+    def fence(self, epoch):
+        """Raise the receive fence (monotonic): PUT frames stamped with an
+        older gang epoch are acknowledged but not stored."""
+        with self._lock:
+            self._fence = max(self._fence, int(epoch))
+
+    # -- lifecycle -------------------------------------------------------------
+
+    def start(self):
+        if self._sock is not None:
+            return self
+        s = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        s.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        s.bind((self.host, 0))
+        s.listen(8)
+        s.settimeout(0.2)
+        self._sock = s
+        self.port = s.getsockname()[1]
+        self._stop.clear()
+        self._thread = threading.Thread(
+            target=self._serve, name=f"peer_snap:{self.rank}",
+            daemon=True)
+        self._thread.start()
+        if self.kv is not None:
+            self.kv.put_json(f"addr/{self.rank}",
+                             {"host": self.host, "port": self.port})
+        return self
+
+    def close(self):
+        self._stop.set()
+        if self._thread is not None:
+            self._thread.join(timeout=2.0)
+            self._thread = None
+        if self._sock is not None:
+            try:
+                self._sock.close()
+            except OSError:
+                pass
+            self._sock = None
+
+    # -- server ----------------------------------------------------------------
+
+    def _serve(self):
+        while not self._stop.is_set():
+            try:
+                conn, _ = self._sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            try:
+                with conn:
+                    conn.settimeout(60.0)
+                    self._handle(conn)
+            except Exception:       # noqa: BLE001 — a malformed frame
+                pass                # must not kill the server thread
+
+    def _handle(self, conn):
+        hdr_len = len(_PEER_MAGIC) + struct.calcsize(_PEER_HDR)
+        hdr = bytes(_recv_exact(conn, hdr_len))
+        if not hdr.startswith(_PEER_MAGIC):
+            raise CheckpointCorrupt("peer snapshot: bad frame magic")
+        cmd, from_rank, step, epoch, crc, nbytes = struct.unpack(
+            _PEER_HDR, hdr[len(_PEER_MAGIC):])
+        if cmd == _PEER_PUT:
+            blob = _recv_exact(conn, nbytes)
+            if zlib.crc32(blob) & 0xffffffff != crc:
+                raise CheckpointCorrupt(
+                    f"peer snapshot from rank {from_rank} step {step}: "
+                    f"checksum mismatch in transit")
+            with self._lock:
+                fence = self._fence
+            if int(epoch) < fence:
+                # a stale sender (zombie, partition minority): acknowledge
+                # the frame, never store it
+                telemetry.count("peer_snap.fenced_drops")
+                telemetry.event("fencing_rejected", rank=self.rank,
+                                sender=int(from_rank), epoch=int(epoch),
+                                committed=fence, kind="peer_frame",
+                                step=int(step))
+                conn.sendall(b"OK")
+                return
+            self._store(from_rank, step, epoch, blob)
+            telemetry.count("peer_snap.recvs")
+            conn.sendall(b"OK")
+        elif cmd == _PEER_GET:
+            with self._lock:
+                held = self._held.get(from_rank, {}).get(step)
+            if held is None:
+                conn.sendall(struct.pack("<BIQ", 0, 0, 0))
+                return
+            blob = held[1]
+            conn.sendall(struct.pack(
+                "<BIQ", 1, zlib.crc32(blob) & 0xffffffff, len(blob)))
+            conn.sendall(blob)
+        else:
+            raise CheckpointCorrupt(f"peer snapshot: unknown cmd {cmd}")
+
+    def _store(self, from_rank, step, epoch, blob):
+        now = time.monotonic()
+        with self._lock:
+            d = self._held.setdefault(int(from_rank), {})
+            d[int(step)] = (int(epoch), blob, now)
+            while len(d) > self.keep:
+                oldest = min(d)
+                if now - d[oldest][2] <= self.retain_s:
+                    break       # still inside the detection window
+                del d[oldest]
+            # advertise only this epoch's steps: a pre-reshape snapshot
+            # matches the old membership, never a restore point now
+            steps = sorted(s for s, (e, _, _) in d.items()
+                           if e == int(epoch))
+        if self.kv is not None:
+            self.kv.put_json(f"held/{self.rank}/{int(from_rank)}",
+                             {"steps": steps, "epoch": int(epoch)})
+
+    # -- local holds -----------------------------------------------------------
+
+    def pack(self, state):
+        """The pickled wire form of ``state`` (numpy and builtins)."""
+        t0 = time.perf_counter()
+        # protocol 5 writes an array's buffer once (protocol 4 copies it
+        # first); either reads with pickle.loads, so the frame is the same
+        blob = pickle.dumps(_to_wire(state), protocol=5)
+        self.stats["pack_ms"] = (time.perf_counter() - t0) * 1e3
+        self.stats["bytes"] = len(blob)
+        return blob
+
+    def hold_blob(self, from_rank, step, blob, epoch=0):
+        """Hold an already packed snapshot."""
+        self._store(from_rank, step, epoch, blob)
+
+    def hold_own(self, step, state, epoch=0):
+        """Keep this rank's own snapshot in RAM (served to peers during
+        their recovery, and this rank's own rollback source)."""
+        self._store(self.rank, step, epoch, self.pack(state))
+
+    def _unpack_held(self, from_rank, step):
+        with self._lock:
+            held = self._held.get(int(from_rank), {}).get(int(step))
+        if held is None:
+            return None
+        return _peer_unwrap(pickle.loads(held[1]))
+
+    def own_at(self, step):
+        got = self._unpack_held(self.rank, step)
+        return None if got is None else _from_wire(got[0])
+
+    def data_state_at(self, from_rank, step):
+        """The input-pipeline state riding ``from_rank``'s held snapshot
+        at ``step``, or None.  Every rank stamps the same global pipeline
+        state, so a survivor reads its own held wrap."""
+        got = self._unpack_held(from_rank, step)
+        return None if got is None else got[1]
+
+    def held_steps(self, from_rank, epoch=None):
+        with self._lock:
+            d = self._held.get(int(from_rank), {})
+            if epoch is None:
+                return sorted(d)
+            return sorted(s for s, (e, _, _) in d.items()
+                          if e == int(epoch))
+
+    def held_ranks(self):
+        """Source ranks this store holds snapshots of."""
+        with self._lock:
+            return sorted(self._held)
+
+    def forget_rank(self, from_rank):
+        """Drop every snapshot held for a departed rank and withdraw its
+        advert."""
+        with self._lock:
+            dropped = self._held.pop(int(from_rank), None)
+        if dropped and self.kv is not None:
+            try:
+                self.kv.delete(f"held/{self.rank}/{int(from_rank)}")
+            except Exception:   # noqa: BLE001 — advert GC is best-effort
+                pass
+
+    def prune_ranks(self, members):
+        """Free the snapshots of ranks no longer in the gang (called once
+        every member is past its recovery's assembly)."""
+        keep = set(int(r) for r in members)
+        with self._lock:
+            gone = [r for r in self._held if r not in keep]
+        for r in gone:
+            self.forget_rank(r)
+
+    # -- client ----------------------------------------------------------------
+
+    def _addr_of(self, rank):
+        if self.kv is None:
+            return None
+        return self.kv.get_json(f"addr/{rank}")
+
+    def send_to(self, peer_rank, step, state, epoch=0, timeout=5.0):
+        """Push a snapshot into ``peer_rank``'s RAM.  Best-effort: a busy
+        or restarting buddy costs this snapshot its replica, never the
+        training step, so it returns False instead of raising."""
+        return self.send_blob(peer_rank, step, self.pack(state), epoch,
+                              timeout)
+
+    def send_blob(self, peer_rank, step, blob, epoch=0, timeout=5.0):
+        """``send_to`` of an already packed snapshot."""
+        addr = self._addr_of(peer_rank)
+        if not addr:
+            return False
+        t0 = time.perf_counter()
+        frame = _PEER_MAGIC + struct.pack(
+            _PEER_HDR, _PEER_PUT, self.rank, int(step), int(epoch),
+            zlib.crc32(blob) & 0xffffffff, len(blob))
+        try:
+            with socket.create_connection(
+                    (addr["host"], addr["port"]), timeout=timeout) as c:
+                c.settimeout(max(timeout, 60.0))
+                c.sendall(frame)
+                c.sendall(blob)
+                ok = bytes(_recv_exact(c, 2)) == b"OK"
+        except (OSError, KeyError, ConnectionError):
+            return False
+        if ok:
+            self.stats["send_ms"] = (time.perf_counter() - t0) * 1e3
+            telemetry.count("peer_snap.sends")
+            telemetry.count("peer_snap.sent_bytes", len(blob))
+        return ok
+
+    def fetch(self, holder_rank, from_rank, step, timeout=5.0):
+        """Pull ``from_rank``'s snapshot at ``step`` out of
+        ``holder_rank``'s RAM; None when the holder does not have it.
+        CRC-checked: a torn transfer raises CheckpointCorrupt."""
+        t0 = time.perf_counter()
+        if holder_rank == self.rank:
+            got = self._unpack_held(from_rank, step)
+            out = None if got is None else _from_wire(got[0])
+            self.stats["fetch_ms"] = (time.perf_counter() - t0) * 1e3
+            return out
+        addr = self._addr_of(holder_rank)
+        if not addr:
+            return None
+        frame = _PEER_MAGIC + struct.pack(
+            _PEER_HDR, _PEER_GET, int(from_rank), int(step), 0, 0, 0)
+        try:
+            with socket.create_connection(
+                    (addr["host"], addr["port"]), timeout=timeout) as c:
+                c.settimeout(max(timeout, 60.0))
+                c.sendall(frame)
+                found, crc, nbytes = struct.unpack(
+                    "<BIQ", bytes(_recv_exact(c, 13)))
+                if not found:
+                    return None
+                blob = _recv_exact(c, nbytes)
+        except (OSError, KeyError, ConnectionError):
+            return None
+        if zlib.crc32(blob) & 0xffffffff != crc:
+            raise CheckpointCorrupt(
+                f"peer snapshot rank {from_rank} step {step} from "
+                f"holder {holder_rank}: checksum mismatch")
+        telemetry.count("peer_snap.fetches")
+        out = _from_wire(_peer_unwrap(pickle.loads(blob))[0])
+        self.stats["fetch_ms"] = (time.perf_counter() - t0) * 1e3
+        return out
+
 
 def _apply_template(state, template, path="$"):
     """Walk state and template in lockstep: array leaves are checked

@@ -25,6 +25,11 @@ import torch
 _NAIVE = os.environ.get("MXNET_ENGINE_TYPE", "").lower() == "naiveengine"
 
 
+def is_naive() -> bool:
+    """Whether the NaiveEngine (every op synchronous) is selected."""
+    return _NAIVE
+
+
 def set_engine_type(name: str) -> None:
     """'NaiveEngine' makes every op synchronous; anything else async."""
     global _NAIVE

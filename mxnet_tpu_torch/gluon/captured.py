@@ -34,8 +34,16 @@ graph: ``CapturedStep`` runs the same step function directly, with the
 same cache, counters and eligibility, so the CPU tests hold captured
 against eager.
 
-A capture failure raises ``MXNetError``; it never falls back to the eager
-path.  What cannot be captured runs eagerly, per step, for the
+The cache keeps ``MXTPU_CAPTURE_CACHE`` signatures a trainer (default 8),
+first in first out; an eviction emits ``capture_cache_evict`` and
+releases the evicted graph and its pool.  Besides the model, the
+optimizer plan (``MXTPU_GROUP_MAX_ITEMS`` splits groups) and the batch,
+the key holds the block's effective remat policy and the autotune
+program knobs, so changing ``MXTPU_REMAT`` records again.
+
+A capture failure raises ``MXNetError``, or the allocator's
+``torch.cuda.OutOfMemoryError`` as it is, after releasing what the
+failed recording held; it never falls back to the eager path.  What cannot be captured runs eagerly, per step, for the
 reference's reasons (``ineligible_reason``): the fused step disabled, a
 kvstore that reduces outside the step, ``update_on_kvstore``, an
 optimizer without a grouped plan, a block that is not a hybridized
@@ -240,8 +248,30 @@ def _copy_into(dst, src):
 
 # -- capture cache -------------------------------------------------------------
 
-#: capture signatures a trainer keeps, first in first out
-CACHE_SIZE = 8
+_MAX_CACHE = 8
+
+
+def capture_cache_size():
+    """How many capture signatures a trainer keeps, first in first out:
+    ``MXTPU_CAPTURE_CACHE`` (at least 1), by default 8.  On the card each
+    signature holds its graph and that graph's memory pool, so a process
+    that cycles through many signatures (an autotune search) sets it to
+    what fits."""
+    from ..base import getenv_int
+
+    return max(1, getenv_int("MXTPU_CAPTURE_CACHE", _MAX_CACHE))
+
+
+def _program_knobs(block):
+    """What changes the recorded step besides the model and the batch:
+    the block's effective remat policy (its flag, else ``MXTPU_REMAT``)
+    and the autotune program knobs.  Read on every step, so a changed
+    value misses the cache and re-captures."""
+    from .. import remat as _remat
+    from ..autotune import space as _tune_space
+
+    return (_remat.env_default(dict(block._flags).get("remat")),
+            _tune_space.program_knob_values())
 
 
 # optimizer attributes that enter the step as data (dyn columns) or count
@@ -258,12 +288,14 @@ def _hyper(optimizer):
         and k not in _DATA_ATTRS))
 
 
-def _fast_key(trainer, block, loss_fn, data, label, k, sparse_key=()):
+def _fast_key(trainer, block, loss_fn, data, label, k, sparse_key=(),
+              knobs=()):
     """What decides a capture, read cheaply each step: the block's and the
     loss's cache versions, the grad_req layout, the optimizer's type and
     scalar hyper-parameters and its state dict, the guard, clip and amp
-    flags, the batch's shapes, dtypes and device, ``grad_accum``.  A miss
-    falls through to ``get_step``'s full planning."""
+    flags, the batch's shapes, dtypes and device, ``grad_accum`` and the
+    program knobs.  A miss falls through to ``get_step``'s full
+    planning."""
     from .. import numerics
 
     upd = trainer._updaters[0]
@@ -276,7 +308,7 @@ def _fast_key(trainer, block, loss_fn, data, label, k, sparse_key=()):
         id(upd.states), len(upd.states),
         numerics.grad_guard_enabled(), trainer._clip_norm(),
         getattr(trainer, "_amp_loss_scaler", None) is not None, int(k),
-        _sig(data), _sig(label), sparse_key,
+        _sig(data), _sig(label), sparse_key, knobs,
     )
 
 
@@ -287,9 +319,12 @@ def get_step(trainer, block, loss_fn, data, label, grad_accum):
     The key: the block's and the loss's cache versions, the grad_req
     layout, the group plans (rule, static hyper-params, dtype, indices),
     the guard, clip and amp flags, the batch's shapes, dtypes and device,
-    ``grad_accum`` and the visible devices.  Per-step scalars are not in
-    it: they are data.  A step whose ``_fast_key`` was seen before skips
-    the planning."""
+    ``grad_accum``, the visible devices, the effective remat policy and
+    the autotune program knobs.  Per-step scalars are not in it: they are
+    data.  A step whose ``_fast_key`` was seen before skips the planning.
+    The cache keeps ``capture_cache_size()`` signatures; an eviction
+    emits ``capture_cache_evict`` and releases the evicted step's graph
+    and pool."""
     global _CACHE_HITS, _CACHE_MISSES
     from .. import integrity as _integrity
     from .. import kvstore as _kvs
@@ -324,7 +359,9 @@ def get_step(trainer, block, loss_fn, data, label, grad_accum):
     fast = getattr(trainer, "_captured_fast", None)
     if fast is None:
         fast = trainer._captured_fast = {}
-    fkey = _fast_key(trainer, block, loss_fn, data, label, k, sparse_key)
+    knobs = _program_knobs(block)
+    fkey = _fast_key(trainer, block, loss_fn, data, label, k, sparse_key,
+                     knobs)
     step = fast.get(fkey)
     if step is not None:
         _CACHE_HITS += 1
@@ -360,7 +397,7 @@ def get_step(trainer, block, loss_fn, data, label, grad_accum):
         tuple((i, p.grad_req) for i, p in enumerate(trainer._params)),
         plan_sig, guard_on, clip, has_scaler, k,
         _sig(data), _sig(label), _kvs.device_fingerprint(), sparse_key,
-        _integrity.fingerprint_enabled(),
+        knobs, _integrity.fingerprint_enabled(),
     )
     cache = getattr(trainer, "_captured_cache", None)
     if cache is None:
@@ -376,10 +413,17 @@ def get_step(trainer, block, loss_fn, data, label, grad_accum):
                             guard_on=guard_on, clip=clip,
                             has_scaler=has_scaler, grad_accum=k,
                             sparse=[i for i, _p in sparse])
-        while len(cache) >= CACHE_SIZE:
+        cap = capture_cache_size()
+        while len(cache) >= cap:
             evicted = cache.pop(next(iter(cache)))
             for fk in [fk for fk, s in fast.items() if s is evicted]:
                 del fast[fk]
+            evicted.release()
+            # the next step of that signature records again: worth a line
+            from .. import telemetry as _telemetry
+
+            _telemetry.event("capture_cache_evict", cache_size=cap,
+                             kept=len(cache))
         cache[key] = step
     fast[fkey] = step
     return step
@@ -611,6 +655,20 @@ class CapturedStep:
         holds the step's own peak; None on the host."""
         return self._peak_bytes
 
+    def release(self):
+        """Drop the recorded graph, its memory pool and the static buffers
+        (an evicted signature, a failed recording); a later call records
+        again.  The allocator's cache is emptied, so the card gets the
+        memory back."""
+        graph, self._graph = self._graph, None
+        self._static = self._packs = self._graph_ptrs = None
+        self._uploaded = None
+        if graph is not None:
+            graph.reset()
+            del graph
+        if torch.cuda.is_available() and torch.cuda.is_initialized():
+            torch.cuda.empty_cache()
+
     # -- the CUDA graph ---------------------------------------------------------
 
     def _pointers(self):
@@ -663,12 +721,32 @@ class CapturedStep:
     def _capture(self, x, y, rows, sp=()):
         """Record the step: static buffers, one warm-up run on a side
         stream with every written tensor (of a row-sparse table, every
-        written row) restored after it, then the graph.  A failure raises
-        MXNetError."""
-        from ..optimizer import grouped as _grouped
-
+        written row) restored after it, then the graph.  A failure leaves
+        no stream capturing and no pool held (``release``) and raises
+        ``MXNetError``; running out of memory raises the allocator's
+        ``torch.cuda.OutOfMemoryError`` itself, which an autotune trial
+        reads as an infeasible candidate."""
         dev = x.device
         self._graph = None
+        prev_stream = torch.cuda.current_stream(dev)
+        try:
+            self._record(x, y, rows, sp, dev)
+        except BaseException as e:
+            if torch.cuda.is_current_stream_capturing():
+                # the capture cannot be ended cleanly here: the process
+                # cannot use the card any more
+                raise
+            torch.cuda.set_stream(prev_stream)
+            self.release()
+            if isinstance(e, (MXNetError, torch.cuda.OutOfMemoryError)) \
+                    or not isinstance(e, Exception):
+                raise
+            raise MXNetError(f"capturing the train step as a CUDA graph "
+                             f"failed: {type(e).__name__}: {e}") from e
+
+    def _record(self, x, y, rows, sp, dev):
+        from ..optimizer import grouped as _grouped
+
         st = {"x": x.detach().clone(),
               "y": None if y is None else _clone(y),
               "sp": [[(torch.empty(a.shape, dtype=torch.int64,
@@ -712,31 +790,28 @@ class CapturedStep:
         saved_rows = [t.index_select(0, u) for t, u in zip(tables, uniq)]
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
-        try:
-            with torch.cuda.stream(side):
-                self._counted(lambda: self._run(*args))
-            torch.cuda.current_stream(dev).wait_stream(side)
-            self._peak_bytes = int(torch.cuda.max_memory_allocated(dev))
-            with torch.no_grad():
-                torch._foreach_copy_(dense, saved)
-                for t, u, r in zip(tables, uniq, saved_rows):
-                    t.index_copy_(0, u, r)
-            del saved, saved_rows
-            graph = torch.cuda.CUDAGraph()
-            register = getattr(graph, "register_generator_state", None)
-            if register is None:
-                raise MXNetError(
-                    "this torch has no CUDAGraph.register_generator_state: "
-                    "the step's generators cannot replay")
-            for gen in st["gens_b"] + st["gens_l"]:
-                register(gen)
-            with torch.cuda.graph(graph):
-                st["losses"], st["health"] = self._run(*args)
-        except MXNetError:
-            raise
-        except Exception as e:
-            raise MXNetError(f"capturing the train step as a CUDA graph "
-                             f"failed: {type(e).__name__}: {e}") from e
+        with torch.cuda.stream(side):
+            self._counted(lambda: self._run(*args))
+        torch.cuda.current_stream(dev).wait_stream(side)
+        self._peak_bytes = int(torch.cuda.max_memory_allocated(dev))
+        with torch.no_grad():
+            torch._foreach_copy_(dense, saved)
+            for t, u, r in zip(tables, uniq, saved_rows):
+                t.index_copy_(0, u, r)
+        del saved, saved_rows
+        graph = torch.cuda.CUDAGraph()
+        register = getattr(graph, "register_generator_state", None)
+        if register is None:
+            raise MXNetError(
+                "this torch has no CUDAGraph.register_generator_state: "
+                "the step's generators cannot replay")
+        for gen in st["gens_b"] + st["gens_l"]:
+            register(gen)
+        # held by the step until the recording ends, so a failure inside
+        # it releases this graph's pool too
+        self._graph = graph
+        with torch.cuda.graph(graph):
+            st["losses"], st["health"] = self._run(*args)
         if st["health"] is None:
             st["health"] = torch.ones(2, device=dev)
         self._graph = graph

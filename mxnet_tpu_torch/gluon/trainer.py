@@ -28,8 +28,9 @@ captured path).  ``attach_integrity`` attaches an
 on due steps and the trainer attests it.  The ``nan_grad`` and
 ``bit_flip_grad`` fault sites poison a gradient before the health
 reduction; an armed site routes ``train_step`` to the eager path, where
-the gradient lives in a buffer.  The JAX package's autotune consult
-comes with the autotune slice.
+the gradient lives in a buffer.  ``train_step`` consults ``autotune``
+once per capture signature before its capture lookup
+(``MXTPU_AUTOTUNE=replay|search|off``).
 """
 
 from __future__ import annotations
@@ -206,7 +207,13 @@ class Trainer:
             self._init_kvstore()
         if batch_size is None:
             batch_size = data.shape[0]
-        k = int(grad_accum)
+        # autotune consult: replay a stored winner, or search the knob
+        # space, once per capture signature, before this step's capture
+        # lookup reads the knobs
+        from .. import autotune as _autotune
+
+        k = _autotune.maybe_tune(self, block, loss_fn, data, label,
+                                 int(grad_accum))
         acc = telemetry.step_begin()
         n_skipped = len(self.skipped_steps)
         step = None

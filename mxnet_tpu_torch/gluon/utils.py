@@ -2,12 +2,16 @@
 
 Counterpart of ``mxnet_tpu/gluon/utils.py`` (reference:
 python/mxnet/gluon/utils.py): ``split_data``/``split_and_load``,
-``clip_global_norm`` and ``check_sha1``.
+``clip_global_norm``, ``check_sha1``, ``download`` (``file://`` URLs and
+files already present only: it opens no network connection) and
+``shape_is_known``.
 """
 
 from __future__ import annotations
 
 import hashlib
+import os
+import shutil
 import warnings
 
 import numpy as _np
@@ -96,3 +100,36 @@ def check_sha1(filename, sha1_hash):
                 break
             sha1.update(data)
     return sha1.hexdigest() == sha1_hash
+
+
+def download(url, path=None, overwrite=False, sha1_hash=None,
+             retries=5, verify_ssl=True):
+    """Reference: utils.download, without the network: a file already at
+    the target (with the right sha1 when one is given) is returned as it
+    is, a ``file://`` URL is copied, and any other URL raises
+    ``MXNetError`` naming where to put the file."""
+    from ..base import MXNetError
+
+    name = url.split("/")[-1]
+    if path is None:
+        fname = name
+    elif os.path.isdir(path):
+        fname = os.path.join(path, name)
+    else:
+        fname = path
+    if os.path.exists(fname) and not overwrite and \
+            (not sha1_hash or check_sha1(fname, sha1_hash)):
+        return fname
+    if url.startswith("file://"):
+        shutil.copyfile(url[7:], fname)
+        return fname
+    raise MXNetError(
+        f"download of {url} needs network access, which this build does "
+        f"not use; place the file at {fname}")
+
+
+def shape_is_known(shape):
+    """Whether every dimension of ``shape`` is known (none is 0)."""
+    if shape is None:
+        return False
+    return all(d != 0 for d in shape)

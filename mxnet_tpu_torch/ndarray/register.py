@@ -15,8 +15,10 @@ polymorphic:
 Before the generic unwrap, the storage dispatch (the reference's
 FComputeEx, ``mxnet_tpu/ndarray/register.py:61-110``) routes the ops that
 have a compact kernel: ``dot`` with a CSR left operand, ``Cast_storage``,
-and add and multiply of two row-sparse operands off the tape.  Left out
-against the JAX module, and listed in ROADMAP: the profiler spans.
+and add and multiply of two row-sparse operands off the tape.  While
+``mx.profiler`` runs, each op runs inside ``profiler.op_span(name)`` (an
+``operator`` event in the Chrome trace), and under the profiler's sync
+mode the span blocks on the result before it closes.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ import torch
 
 from .. import autograd as _ag
 from .. import engine
+from .. import profiler as _prof
 from ..base import MXNetError
 from ..ops import registry as _registry
 from ..ops.registry import OpDef
@@ -103,10 +106,25 @@ def invoke(opdef: OpDef, args: tuple, kwargs: dict):
             return _finalize(sparse_out, out_arr, req_ctx)
         return sparse_out
     kwargs = _inject(opdef, args, kwargs, req_ctx)
-    result = _invoke_inner(opdef, args, kwargs)
+    if _prof._S.running:  # cheap flag read on the hot path
+        with _prof.op_span(opdef.name):
+            result = _invoke_inner(opdef, args, kwargs)
+            if _prof.want_sync():
+                _block_result(result)
+    else:
+        result = _invoke_inner(opdef, args, kwargs)
     if out_arr is not None or req_ctx is not None:
         return _finalize(result, out_arr, req_ctx)
     return result
+
+
+def _block_result(result):
+    """Wait for an op's outputs (the profiler's sync mode: the span then
+    covers the device work, not just the launch)."""
+    items = result if isinstance(result, (tuple, list)) else (result,)
+    for r in items:
+        if isinstance(r, NDArray):
+            r.wait_to_read()
 
 
 def _finalize(result, out_arr, req_ctx):

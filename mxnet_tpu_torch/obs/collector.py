@@ -20,10 +20,20 @@ bounded, so the control plane carries kilobytes, not logs.
 from __future__ import annotations
 
 import os
+import tempfile
 import threading
 import time
 
 from .. import telemetry
+
+
+def profile_dir():
+    """Where an on-demand capture writes: ``MXTPU_PROFILE_DIR``, by
+    default ``mxtpu_profile`` in the temporary directory
+    (``/tmp/mxtpu_profile`` unless ``TMPDIR`` names another), never the
+    working directory."""
+    return os.environ.get("MXTPU_PROFILE_DIR") or os.path.join(
+        tempfile.gettempdir(), "mxtpu_profile")
 
 #: event kinds that belong on the fleet timeline (reshape/drain/
 #: straggler/serving membership) — the collector forwards the most
@@ -235,7 +245,7 @@ class HostCollector:
         there is one, the card."""
         steps = max(1, int(req.get("steps", 5)))
         logdir = req.get("logdir") or os.path.join(
-            os.environ.get("MXTPU_PROFILE_DIR", "mxtpu_profile"),
+            profile_dir(),
             f"rank{self.rank}-{int(time.time())}")
         os.makedirs(logdir, exist_ok=True)
         budget_s = float(os.environ.get("MXTPU_PROFILE_BUDGET_S", 30.0))

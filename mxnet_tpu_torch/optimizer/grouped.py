@@ -54,6 +54,19 @@ def fused_step_enabled() -> bool:
         not in ("0", "false", "off", "")
 
 
+def group_max_items() -> int:
+    """MXTPU_GROUP_MAX_ITEMS: the most parameters one group holds (0, the
+    default, for no cap).  An autotune knob, read on every ``plan_items``:
+    a changed value re-plans the next step, and since the plan is part of
+    the capture key, re-captures it.  Splitting leaves the numbers as
+    they are: a group's multi-tensor ops work tensor by tensor, so chunk
+    boundaries change the launches, never the arithmetic."""
+    try:
+        return max(0, int(os.environ.get("MXTPU_GROUP_MAX_ITEMS", "0")))
+    except ValueError:
+        return 0
+
+
 # -- dispatch accounting -------------------------------------------------------
 
 _DISPATCH_COUNT = 0
@@ -508,6 +521,19 @@ def plan_items(updater, index, grad, weight):
                 ("mp:" if w32 is not None else "") + dtype)
         groups.setdefault(gkey, []).append((i, w, g, state_nds, dyn_fn,
                                             w32))
+    cap = group_max_items()
+    if cap > 0:
+        # oversize groups split into chunks of <= cap items; the chunk's
+        # first position extends the key, which consumers read as
+        # gkey[0..2] only
+        split = {}
+        for gkey, items in groups.items():
+            if len(items) <= cap:
+                split[gkey] = items
+            else:
+                for ci in range(0, len(items), cap):
+                    split[gkey + (ci,)] = items[ci:ci + cap]
+        groups = split
     return groups, fallback
 
 

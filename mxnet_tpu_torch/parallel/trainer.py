@@ -26,8 +26,9 @@ with the same arithmetic:
 ``mesh`` may be a ``parallel.Mesh`` of one device (``data_parallel_mesh(1)``,
 as the JAX package's bench passes), which must be the device the module's
 parameters live on.  Multi-device meshes, sharding rules and ``mode``
-(tp/fsdp) come with the multi-GPU slice and raise ``NotImplementedError``;
-``state_dict`` waits for the checkpoint slice.
+(tp/fsdp) come with the multi-GPU slice and raise ``NotImplementedError``.
+Before its first step the trainer replays a stored autotune winner for
+its signature (``autotune.replay_for_sharded``).
 """
 
 from __future__ import annotations
@@ -304,6 +305,12 @@ class ShardedTrainer:
         gradients."""
         if not self._initialized:
             self._stage(data)
+            # autotune consult (replay only): a stored winner's knobs
+            # (remat, ...) are in the environment before the first step
+            from .. import autotune as _autotune
+
+            _autotune.replay_for_sharded(
+                _autotune.sharded_signature(self, data), self.mesh)
         x, y = self._to_device(data), self._to_device(label)
         self._num_update += 1
         t = self._num_update

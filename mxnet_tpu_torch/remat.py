@@ -112,6 +112,12 @@ def canonical(remat):
         f"unknown remat policy {name!r}: use one of {names()}")
 
 
+def env_policy():
+    """The ``MXTPU_REMAT`` policy (canonical), or None when it is unset or
+    'none'."""
+    return canonical(os.environ.get("MXTPU_REMAT") or None)
+
+
 def env_default(remat):
     """The effective policy: the explicit argument first (an explicit
     'none' included), then MXTPU_REMAT, then MXNET_BACKWARD_DO_MIRROR ->

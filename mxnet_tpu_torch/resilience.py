@@ -1,10 +1,7 @@
 """Fault tolerance: retries, watchdogs, the fault-injection harness and
 the resilient training loop.
 
-Counterpart of the one-process half of ``mxnet_tpu/resilience.py``
-(lines 122-1306) with the heartbeat plane its serving replicas run on
-(``HeartbeatPublisher``, ``FailureDetector`` and the failure exceptions).
-The failure modes: preemption (SIGTERM with a grace window), corrupt or
+Counterpart of ``mxnet_tpu/resilience.py``.  The failure modes: preemption (SIGTERM with a grace window), corrupt or
 truncated records and checkpoints, a flaky filesystem, and blocking work
 that never returns.
 
@@ -17,9 +14,8 @@ that never returns.
 - :func:`run_resilient`: a supervised training loop composing
   ``checkpoint.PreemptionHandler``, resume from the newest valid
   checkpoint and bounded in-process restarts, with verify-after-write
-  and a fallback to the previous checkpoint when the newest is corrupt.
-  Its ``gang=`` (elastic recovery across processes) comes with the gang
-  slice and raises ``NotImplementedError``.
+  and a fallback to the previous checkpoint when the newest is corrupt;
+  with ``gang=`` a confirmed peer death reshapes the gang instead.
 - ``MXTPU_FAULT_INJECT``: every site of the JAX package's plan, with the
   same grammar, so each recovery path is testable on the CPU.
 
@@ -88,8 +84,20 @@ Fault-injection sites (``MXTPU_FAULT_INJECT="site:arg,site:arg"``):
                           ``MXTPU_DATA_SKEW_SECS`` (input-skew
                           straggler injection)
 
-The gang's health plane (``StragglerMonitor``, ``ElasticGang``,
-``ScalePolicy``) comes with the gang slice.
+Elastic gang recovery lives here too: :class:`HeartbeatPublisher`,
+:class:`FailureDetector` and :class:`StragglerMonitor` form the health
+plane over ``distributed.gang_kv()``, :class:`ElasticGang` runs the
+epoch-consensus reshape that lets survivors shrink N to M (and grow
+back) without restarting the gang, and :class:`ScalePolicy` turns input
+saturation and preemption notices into planned admits and drains.  The
+gang's settings: ``MXTPU_QUORUM`` (0 lets a minority commit an epoch),
+``MXTPU_RESHAPE_TIMEOUT`` (60 s), ``MXTPU_PEER_SNAP_EVERY`` (10 steps),
+``MXTPU_PEER_HOST``, ``MXTPU_PEER_SNAP_RETAIN`` (seconds a snapshot is
+kept past ``keep``), ``MXTPU_STRAGGLER_WINDOW`` / ``_SHARE``,
+``MXTPU_SCALE_*``.  A peer snapshot of state on the card goes through an
+attached ``checkpoint.AsyncCheckpointer``'s pinned copy and writer
+thread (``attach_peers``), so it holds the train stream no longer than a
+save.
 """
 
 from __future__ import annotations
@@ -131,6 +139,35 @@ def _tel_event(kind, /, **fields):
     except ImportError:
         return
     telemetry.event(kind, **fields)
+
+
+def _tel_identity(rank=None, world=None):
+    """Stamp this process's fleet identity onto telemetry records."""
+    from . import telemetry
+
+    telemetry.set_identity(rank=rank, world=world)
+
+
+def _tel_set_epoch(epoch):
+    """Stamp the adopted gang epoch onto telemetry step records."""
+    from . import telemetry
+
+    telemetry.set_gang_epoch(int(epoch))
+
+
+def _tel_count(name, n=1):
+    from . import telemetry
+
+    telemetry.count(name, n)
+
+
+def _gang_kv_errors():
+    """Exception classes that mean 'the gang KV is unreachable from this
+    rank', the fencing trigger (resolved late: `distributed` imports this
+    module)."""
+    from . import distributed
+
+    return (distributed.GangKVError, OSError)
 
 
 # -- fault injection -----------------------------------------------------------
@@ -1097,24 +1134,28 @@ def run_resilient(step_fn, checkpointer, num_steps, *, get_state,
     - A step failure in ``recover_on`` (or a watchdog expiry) restores
       the latest valid checkpoint and replays; corrupt checkpoints fall
       back to the previous step.
-    - ``gang`` / ``on_reshape`` (elastic recovery across processes)
-      come with the gang slice: passing a gang raises
-      ``NotImplementedError``.
+    - ``gang`` (an :class:`ElasticGang`): gang-level recovery.  Each
+      step ticks the health plane (heartbeat step ids, peer snapshots,
+      failure-detector poll); a confirmed peer death raises
+      :class:`RankFailure`, which runs ``gang.recover`` — survivors
+      agree a new epoch and keep training — instead of the full-restart
+      path.  ``on_reshape(info)`` merges the recovered per-rank shards
+      back into trainer state and returns the resume step (or a
+      ``(step, new_checkpointer)`` tuple when the reshape rebuilds the
+      checkpoint engine for the new world size); without the callback
+      only disk-sourced recoveries (``info.full_state``) can be applied.
     - ``get_data_state() -> dict`` / ``set_data_state(dict)``: the input
       pipeline's position (``DataLoader.state_dict`` /
       ``load_state_dict``, gluon/data/state.py).  Saved alongside every
       checkpoint (MANIFEST.json stamp or LocalCheckpointer sidecar) and
-      re-adopted leniently at every resume point, so the sample stream rewinds in lockstep with the
+      re-adopted leniently at every resume point — including gang
+      reshapes — so the sample stream rewinds in lockstep with the
       trainer state: zero re-read, zero skipped samples.
 
     Returns a :class:`RunReport`.
     """
     from .checkpoint import PreemptionHandler
 
-    if gang is not None or on_reshape is not None:
-        raise NotImplementedError(
-            "run_resilient(gang=...): elastic gang recovery comes with the "
-            "gang slice")
     if checkpoint_every is None:
         checkpoint_every = int(os.environ.get("MXTPU_CKPT_EVERY", 25))
     # async engines own crash consistency via the two-phase commit; the
@@ -1155,6 +1196,34 @@ def run_resilient(step_fn, checkpointer, num_steps, *, get_state,
     last_saved = step
     step_box = [step]
 
+    def gang_reshape(rf):
+        """Shared RankFailure handler (step tick, step fn, or a gang-
+        coordinated checkpoint barrier may raise it)."""
+        nonlocal step, checkpointer, is_async, last_saved
+        info = gang.recover(rf, checkpointer=checkpointer)
+        report.reshapes += 1
+        if on_reshape is not None:
+            res = on_reshape(info)
+            if isinstance(res, tuple):
+                step, checkpointer = res
+            else:
+                step = int(res) if res is not None else info.snap_step
+        elif info.full_state is not None:
+            set_state(info.full_state)
+            step = info.snap_step
+        else:
+            raise MXNetError(
+                "run_resilient: gang recovery assembled per-rank peer "
+                "shards; pass on_reshape= to merge them into trainer "
+                "state") from rf
+        is_async = bool(getattr(checkpointer, "async_save", False))
+        adopt_data_state(step)
+        last_saved = step
+        step_box[0] = step
+        report.resumed_from.append(step)
+        _log(logger, f"gang reshaped to epoch {info.epoch} (world "
+                     f"{info.world}); resuming at step {step}")
+
     with PreemptionHandler(checkpointer, get_state,
                            lambda: step_box[0]) as handler:
         while step < num_steps:
@@ -1183,12 +1252,19 @@ def run_resilient(step_fn, checkpointer, num_steps, *, get_state,
                 _tel_event("restart", step=step, reason="preempted")
                 continue
             try:
+                if gang is not None:
+                    gang.step_tick(step, state_fn=get_state)
                 if watchdog_timeout:
                     with Watchdog(watchdog_timeout,
                                   name=f"step {step}"):
                         loss = step_fn(step)
                 else:
                     loss = step_fn(step)
+            except RankFailure as rf:
+                if gang is None:
+                    raise
+                gang_reshape(rf)
+                continue
             except recover_on as e:
                 if report.restarts >= max_restarts:
                     raise
@@ -1209,7 +1285,13 @@ def run_resilient(step_fn, checkpointer, num_steps, *, get_state,
                     pass
             step += 1
             if checkpoint_every and step % checkpoint_every == 0:
-                save_at(step)
+                try:
+                    save_at(step)
+                except RankFailure as rf:
+                    if gang is None:
+                        raise
+                    gang_reshape(rf)   # a peer died inside the gang-
+                    continue           # coordinated commit barrier
                 last_saved = step
         if step > last_saved:
             save_at(step)
@@ -1219,11 +1301,7 @@ def run_resilient(step_fn, checkpointer, num_steps, *, get_state,
     return report
 
 
-# -- the gang half's pieces a one-process run uses ------------------------------
-#
-# The failure exceptions and the heartbeat plane: the serving replicas and
-# their front door run on them over a FileKV.  The gang itself
-# (ElasticGang, StragglerMonitor, ScalePolicy) comes with the gang slice.
+# -- elastic gang recovery (health plane + membership protocol) ----------------
 
 class RankFailure(MXNetError):
     """A gang membership change is required: peers confirmed dead and/or
@@ -1432,6 +1510,1057 @@ class FailureDetector:
             if silence >= self.timeout:
                 self._dead.add(p)
         return set(self._dead)
+
+
+class StragglerMonitor:
+    """Names the slow rank behind persistent collective waits.
+
+    Fed the per-step collective-wait share (telemetry StepStats
+    ``shares["collective"]``): when the mean share over the last
+    ``MXTPU_STRAGGLER_WINDOW`` (20) steps exceeds
+    ``MXTPU_STRAGGLER_SHARE`` (0.5), this rank is mostly waiting for a
+    peer — and the peer whose heartbeat-published step id is furthest
+    behind is the one everyone is waiting on.  Emits a
+    ``straggler_suspected`` event (at most once per window) naming it;
+    detection only — eviction stays a human/provisioner decision, since
+    a straggler still makes progress.
+    """
+
+    def __init__(self, detector, *, window=None, share_threshold=None):
+        self.detector = detector
+        self.window = int(os.environ.get("MXTPU_STRAGGLER_WINDOW", 20)
+                          if window is None else window)
+        self.share_threshold = float(
+            os.environ.get("MXTPU_STRAGGLER_SHARE", 0.5)
+            if share_threshold is None else share_threshold)
+        self._shares = collections.deque(maxlen=max(1, self.window))
+        self._last_emit_step = None
+
+    def observe(self, step, collective_share):
+        """Returns the suspected rank when one is (newly) named."""
+        if collective_share is None:
+            return None
+        self._shares.append(float(collective_share))
+        if len(self._shares) < self.window:
+            return None
+        mean = sum(self._shares) / len(self._shares)
+        if mean < self.share_threshold:
+            return None
+        if self._last_emit_step is not None and \
+                step - self._last_emit_step < self.window:
+            return None
+        steps = {p: s for p, s in self.detector.peer_steps().items()
+                 if s is not None and s <= step}
+        if not steps:
+            return None
+        laggard = min(steps, key=steps.get)
+        self._last_emit_step = step
+        _tel_event("straggler_suspected", rank=laggard, step=int(step),
+                   mean_collective_share=round(mean, 3),
+                   laggard_step=int(steps[laggard]))
+        return laggard
+
+
+class RecoveryInfo:
+    """What `ElasticGang.recover` agreed and assembled."""
+
+    def __init__(self, *, epoch, members, snap_step, source, dead,
+                 joined, recovery_ms, shards=None, full_state=None,
+                 old_members=(), planned=False):
+        self.epoch = int(epoch)
+        self.members = list(members)
+        self.snap_step = int(snap_step)
+        self.source = source            # "peer" | "disk"
+        self.dead = sorted(dead)
+        self.joined = sorted(joined)
+        self.recovery_ms = float(recovery_ms)
+        self.shards = shards            # {old_rank: shard state} (peer)
+        self.full_state = full_state    # full pytree (disk)
+        self.old_members = list(old_members)
+        self.planned = bool(planned)    # drain/admit, not a death
+
+    @property
+    def world(self):
+        return len(self.members)
+
+    def __repr__(self):
+        return (f"RecoveryInfo(epoch={self.epoch}, "
+                f"members={self.members}, snap_step={self.snap_step}, "
+                f"source={self.source!r}, dead={self.dead}, "
+                f"joined={self.joined}, "
+                f"recovery_ms={self.recovery_ms:.1f})")
+
+
+class ElasticGang:
+    """The elastic membership runtime one rank participates in.
+
+    Composes the health plane (heartbeats out, failure detection in,
+    straggler naming) with peer-replicated RAM snapshots
+    (`checkpoint.PeerSnapshotStore`) and the epoch-consensus reshape
+    protocol.  The control plane is `distributed.gang_kv()` — a shared
+    directory (``MXTPU_GANG_DIR``), a ``GangKVServer`` or the process
+    group's store —
+    chosen for exactly one property the collective plane lacks: it
+    keeps working while a member is dead.
+
+    Protocol sketch::
+
+        steady state   every rank:  hb/<r> <- {seq, step}        (0.5 s)
+                       every PEER_SNAP_EVERY steps:
+                           own shard -> buddy's RAM  (+ hold own)
+                           snap/<r> <- {step, epoch}
+        death          detector: silence(hb/<k>) > TIMEOUT
+                       survivors raise RankFailure -> recover():
+                         min(survivors) proposes epoch/current <-
+                           {epoch+1, members, dead, snap_step, source}
+                         all new members ack epoch_ack/<e>/<r>
+                         shards assembled: own RAM + live peers' RAM +
+                           dead ranks' shards from their buddies' RAM;
+                           disk manifest only when a buddy died
+                       training resumes at snap_step, epoch e+1
+        rejoin         respawned rank: join_req/<r>; proposer admits at
+                       the next epoch; everyone rolls back to the agreed
+                       snapshot, joiner fetches all shards from peers
+
+    ``step_tick`` raises :class:`RankFailure` (membership change needed)
+    or :class:`GangEvicted` (this rank was declared dead); the caller —
+    `run_resilient(gang=...)` or a bespoke train loop — runs
+    ``recover`` and continues from the returned :class:`RecoveryInfo`.
+    """
+
+    def __init__(self, rank, world, *, kv=None, peers=None,
+                 heartbeat_interval=None, heartbeat_timeout=None,
+                 peer_snap_every=None, reshape_timeout=None,
+                 checkpointer=None):
+        if kv is None:
+            from . import distributed
+
+            kv = distributed.gang_kv()
+        if kv is None:
+            raise MXNetError(
+                "ElasticGang needs a control plane: set MXTPU_GANG_DIR "
+                "to a shared directory (or run under a coordination "
+                "service)")
+        self.kv = kv
+        self.rank = int(rank)
+        self.members = list(range(int(world)))
+        self.epoch = 0
+        _tel_identity(rank=self.rank, world=len(self.members))
+        self.checkpointer = checkpointer
+        # quorum-gated reshape (split-brain safety): an epoch commit
+        # needs acks from a STRICT majority of the previous epoch's
+        # members — dead ranks count against, not for.  MXTPU_QUORUM=0
+        # is the force-new-cluster escape hatch for deliberate
+        # minority-survivor restarts (e.g. 3->1 disk fallback).
+        self._quorum = os.environ.get("MXTPU_QUORUM", "1").lower() \
+            not in ("0", "false", "")
+        self._fenced_at = None
+        if self.checkpointer is not None:
+            attach = getattr(self.checkpointer, "attach_gang", None)
+            if attach is not None:
+                attach(lambda: self.epoch, self._committed_epoch)
+        self.peer_snap_every = int(
+            os.environ.get("MXTPU_PEER_SNAP_EVERY", 10)
+            if peer_snap_every is None else peer_snap_every)
+        self.reshape_timeout = float(
+            os.environ.get("MXTPU_RESHAPE_TIMEOUT", 60.0)
+            if reshape_timeout is None else reshape_timeout)
+        # steps of notice a planned reshape (drain/admit) gives the
+        # gang: every member must tick the agreed step AFTER the plan
+        # lands, so it must exceed the worst lockstep skew (1 step)
+        self.drain_margin = max(
+            2, int(os.environ.get("MXTPU_SCALE_MARGIN", 2)))
+        self.hb = HeartbeatPublisher(kv, rank,
+                                     interval=heartbeat_interval)
+        self.detector = FailureDetector(kv, rank, self.members,
+                                        timeout=heartbeat_timeout)
+        self.straggler = StragglerMonitor(self.detector)
+        if peers is None:
+            from .checkpoint import PeerSnapshotStore
+
+            peers = PeerSnapshotStore(rank, kv=kv)
+        self.peers = peers
+        self._last_snap_step = None
+        self._started = False
+
+    # -- membership helpers ----------------------------------------------------
+
+    def buddy_of(self, rank, members=None):
+        """The next member ring-wise — who holds ``rank``'s RAM shard."""
+        m = members if members is not None else self.members
+        i = m.index(rank)
+        return m[(i + 1) % len(m)]
+
+    def _is_proposer(self, survivors=None):
+        alive = survivors if survivors is not None else self.members
+        return alive and self.rank == min(alive)
+
+    # -- fencing helpers -------------------------------------------------------
+
+    def _committed_epoch(self):
+        """Highest committed epoch: the KV's fence when it keeps one,
+        else the ``epoch/current`` record.  Raises when the KV is
+        unreachable (a partitioned caller must treat that as stale)."""
+        ce = getattr(self.kv, "committed_epoch", None)
+        if ce is not None:
+            return int(ce())
+        cur = self.kv.get_json("epoch/current")
+        return int(cur.get("epoch", 0)) if cur else 0
+
+    def _fence_to(self, epoch):
+        """Propagate the adopted epoch to every durable-write plane:
+        telemetry step records (schema v8 ``gang_epoch``) and the peer
+        snapshot receiver's frame fence."""
+        _tel_set_epoch(epoch)
+        fence = getattr(self.peers, "fence", None)
+        if fence is not None:
+            try:
+                fence(int(epoch))
+            except Exception:       # noqa: BLE001 — best-effort
+                pass
+
+    def _fenced(self, reason):
+        """Build (and announce) the fenced state: the caller raises the
+        returned :class:`GangFenced` and parks in `park_fenced`."""
+        if self._fenced_at is None:
+            self._fenced_at = time.monotonic()
+        _tel_event("gang_fenced", rank=self.rank, epoch=self.epoch,
+                   reason=str(reason)[:200])
+        sys.stderr.write(
+            f"[resilience] rank {self.rank}: FENCED at epoch "
+            f"{self.epoch}: {reason}\n")
+        return GangFenced(reason, epoch=self.epoch)
+
+    def _put_json_fenced(self, key, obj, epoch):
+        """Fenced compare-and-swap write when the KV supports it
+        (`put_json_if_epoch`), plain put otherwise (CoordKV)."""
+        put = getattr(self.kv, "put_json_if_epoch", None)
+        if put is None:
+            self.kv.put_json(key, obj)
+        else:
+            put(key, obj, int(epoch))
+
+    # -- lifecycle -------------------------------------------------------------
+
+    def start(self):
+        if self._started:
+            return self
+        self.peers.start()
+        cur = self.kv.get_json("epoch/current")
+        if cur is None and self._is_proposer():
+            self.kv.put_json("epoch/current",
+                             {"epoch": 0, "members": self.members,
+                              "dead": [], "joined": [],
+                              "proposer": self.rank, "t": time.time()})
+        elif cur is not None and int(cur.get("epoch", 0)) >= self.epoch \
+                and self.rank in cur.get("members", []):
+            self.epoch = int(cur["epoch"])
+            self.members = list(cur["members"])
+            _tel_identity(rank=self.rank, world=len(self.members))
+            self.detector = FailureDetector(
+                self.kv, self.rank, self.members,
+                timeout=self.detector.timeout)
+            self.straggler.detector = self.detector
+        self._fence_to(self.epoch)
+        self.hb.start()
+        self._started = True
+        return self
+
+    def stop(self):
+        self.hb.stop()
+        self.peers.close()
+        self._started = False
+
+    # -- per-step health tick --------------------------------------------------
+
+    def step_tick(self, step, state=None, state_fn=None,
+                  collective_share=None):
+        """Call once per training step (cheap: throttled KV reads).
+
+        Publishes the step id, takes the periodic peer snapshot (from
+        ``state`` or lazily from ``state_fn()``), feeds the straggler
+        monitor, and raises :class:`RankFailure` on a confirmed peer
+        death / pending join, :class:`GangEvicted` when a newer epoch
+        excludes this rank, or :class:`GangFenced` when the gang KV is
+        unreachable (this rank is on the losing side of a partition —
+        park in :meth:`park_fenced`).
+        """
+        maybe_slow_rank(self.rank)
+        maybe_kill_rank(self.rank, step)
+        maybe_pause_rank(self.rank)
+        self.hb.note_step(step)
+        try:
+            # zombie containment: learn the committed epoch FIRST — a
+            # rank resumed after a suspension (SIGSTOP, preemptor
+            # pause) must discover its eviction BEFORE the snapshot's
+            # durable writes below, not after
+            self._check_epoch()
+            if self.peer_snap_every and step % self.peer_snap_every == 0 \
+                    and step != self._last_snap_step:
+                if state is None and state_fn is not None:
+                    state = state_fn()
+                if state is not None:
+                    self.snapshot(step, state)
+            self.straggler.observe(step, collective_share)
+            plan = self._pending_reshape(step)
+            if plan is not None:
+                # planned reshape due NOW: snapshot at this exact step
+                # so the whole gang shares the restore point (zero lost
+                # steps), then reshape with no detection window
+                leavers, admits, at_step = plan
+                if state is None and state_fn is not None:
+                    state = state_fn()
+                if state is not None and self._last_snap_step != step:
+                    self.snapshot(step, state)
+                raise RankFailure(leavers, self.epoch, joiners=admits,
+                                  planned=True, at_step=at_step)
+            dead = self.detector.poll() & set(self.members)
+            dead.discard(self.rank)
+            if dead:
+                raise RankFailure(dead, self.epoch)
+            if self._is_proposer():
+                joiners = self._pending_joiners()
+                if joiners:
+                    self._schedule_admit(step, joiners)
+        except _gang_kv_errors() as e:
+            raise self._fenced(e) from e
+
+    def snapshot(self, step, state):
+        """RAM-replicate this rank's shard of ``state``: hold our own
+        copy and ship one to the buddy, then advertise the step in the KV
+        so a future proposal can pick a common restore point.
+
+        With an ``AsyncCheckpointer`` that has this gang's store attached
+        (``attach_peers``) the copy is ordered there (pinned buffers, side
+        stream) and its writer thread packs, holds, sends and advertises;
+        an error of that thread (a fenced advert: ``GangEvicted``) comes
+        out of the next snapshot.  Otherwise all of it runs here."""
+        self._last_snap_step = step
+        buddy = self.buddy_of(self.rank)
+        ck = self.checkpointer
+        if ck is not None and getattr(ck, "_peer_store", None) is \
+                self.peers and hasattr(ck, "push_peers"):
+            epoch = self.epoch
+            ck.push_peers(step, state, buddy, epoch=epoch,
+                          after=lambda: self._advertise(step, epoch,
+                                                        writer=True))
+            return
+        blob = self.peers.pack(state)
+        self.peers.hold_blob(self.rank, step, blob, epoch=self.epoch)
+        if buddy != self.rank:
+            self.peers.send_blob(buddy, step, blob, epoch=self.epoch)
+        self._advertise(step, self.epoch)
+
+    def _advertise(self, step, epoch, writer=False):
+        """Publish ``snap/<rank>`` (fenced at ``epoch``) once the
+        snapshot of ``step`` is held, and free departed ranks' shards.
+        From the writer thread (``writer``) a fenced advert is dropped:
+        the snapshot was taken under an epoch the gang has left, and the
+        train thread's next tick meets the newer epoch itself (before any
+        durable write), so no error is carried over to a later step."""
+        from . import distributed
+        try:
+            self._put_json_fenced(
+                f"snap/{self.rank}",
+                {"step": int(step),
+                 "steps": self.peers.held_steps(self.rank, epoch=epoch),
+                 "epoch": epoch},
+                epoch)
+        except distributed.FencedWrite:
+            if writer:
+                return
+            # a newer epoch committed while this rank was out to lunch
+            # — it is a zombie.  _check_epoch tells the real story
+            # (evicted vs still-member-of-newer-epoch); if the record
+            # is somehow unreadable, evict conservatively.
+            self._check_epoch()
+            raise GangEvicted(
+                f"rank {self.rank}: snapshot write fenced at epoch "
+                f"{epoch} (a newer epoch committed while this "
+                f"rank was suspended); exiting cleanly")
+        # departed ranks' shards are freed HERE, not in recover():
+        # forgetting there races a slower survivor's fetch of the
+        # departed rank's shard from this rank's RAM.  Prune only once
+        # every current member has signalled end-of-assembly
+        # (epoch_done/<e>/<r>, written at the bottom of recover)
+        if any(r not in self.members for r in self.peers.held_ranks()):
+            done = set()
+            for key, _ in self.kv.scan(f"epoch_done/{epoch}"):
+                try:
+                    done.add(int(key.rsplit("/", 1)[1]))
+                except ValueError:
+                    pass
+            if set(self.members) <= done:
+                self.peers.prune_ranks(self.members)
+
+    def _check_epoch(self):
+        cur = self.kv.get_json("epoch/current")
+        if cur and int(cur.get("epoch", 0)) > self.epoch:
+            if self.rank not in cur.get("members", []):
+                raise GangEvicted(
+                    f"rank {self.rank}: epoch {cur['epoch']} members "
+                    f"{cur.get('members')} exclude this rank (declared "
+                    f"dead); exiting cleanly")
+            raise RankFailure(cur.get("dead", []), self.epoch,
+                              joiners=cur.get("joined", []))
+        # an epoch still in its ack round (epoch/proposed, uncommitted):
+        # members named by it must enter recover() and ack — the quorum
+        # gate needs their votes.  A rank the proposal EXCLUDES keeps
+        # ticking: its writes carry the old epoch, which stays valid
+        # until the commit advances the fence, and an uncommitted
+        # proposal (it may never reach quorum) must not evict anyone.
+        prop = self.kv.get_json("epoch/proposed")
+        if prop and int(prop.get("epoch", 0)) > self.epoch \
+                and self.rank in prop.get("members", []):
+            raise RankFailure(prop.get("dead", []), self.epoch,
+                              joiners=prop.get("joined", []))
+
+    def _pending_joiners(self):
+        joiners = []
+        for key, _ in self.kv.scan("join_req"):
+            rec = self.kv.get_json(key)
+            r = rec.get("rank") if isinstance(rec, dict) else None
+            if r is not None and r not in self.members:
+                joiners.append(int(r))
+        return sorted(set(joiners))
+
+    # -- planned reshape (drain / scheduled admit) -----------------------------
+
+    def plan_leave(self, at_step):
+        """Schedule this rank's planned departure at ``at_step`` (a
+        preemption drain).  Every member — including this rank — keeps
+        stepping normally until its own tick of ``at_step``, snapshots
+        there, and reshapes; the leaver is excluded from the new epoch
+        and exits via :class:`GangEvicted`.  No detection window, no
+        lost steps.  ``at_step`` must be at least ``drain_margin``
+        steps ahead."""
+        at = int(at_step)
+        self.kv.put_json(f"leave/{self.rank}",
+                         {"rank": self.rank, "at_step": at,
+                          "epoch": self.epoch, "t": time.time()})
+        _tel_event("gang_drain_scheduled", rank=self.rank, at_step=at,
+                   epoch=self.epoch)
+        return at
+
+    def _schedule_admit(self, step, joiners):
+        """Proposer only: schedule joiners for a planned admit a few
+        steps out instead of reshaping immediately — every member then
+        snapshots at the same agreed step, so admission loses no
+        steps."""
+        admit = self.kv.get_json("admit/plan")
+        if isinstance(admit, dict) and \
+                int(admit.get("epoch", -1)) == self.epoch:
+            return      # one pending admit at a time; next epoch
+        self.kv.put_json("admit/plan",
+                         {"epoch": self.epoch,
+                          "at_step": int(step) + self.drain_margin,
+                          "joiners": sorted(joiners),
+                          "t": time.time()})
+
+    def _pending_reshape(self, step):
+        """The planned membership change due at this tick, as
+        ``(leavers, joiners, at_step)`` — or None when nothing is due
+        yet.  Scheduled leaves and a scheduled admit that fall due
+        together reshape in one epoch."""
+        leavers, due_at = [], []
+        for key, _ in self.kv.scan("leave"):
+            rec = self.kv.get_json(key)
+            if not isinstance(rec, dict):
+                continue
+            r = rec.get("rank")
+            if r is None or int(r) not in self.members:
+                continue
+            at = int(rec.get("at_step", step))
+            if at <= step:
+                leavers.append(int(r))
+                due_at.append(at)
+        joiners = []
+        admit = self.kv.get_json("admit/plan")
+        if isinstance(admit, dict) and \
+                int(admit.get("epoch", -1)) == self.epoch and \
+                int(admit.get("at_step", step)) <= step:
+            joiners = [int(j) for j in admit.get("joiners", ())
+                       if int(j) not in self.members]
+            if joiners:
+                due_at.append(int(admit.get("at_step", step)))
+        if not leavers and not joiners:
+            return None
+        return sorted(set(leavers)), joiners, max(due_at)
+
+    # -- gang barrier ----------------------------------------------------------
+
+    def barrier(self, name, timeout=None):
+        """KV-plane barrier that stays responsive to member death: a
+        dead peer raises :class:`RankFailure` instead of hanging (unlike
+        a process-group barrier, which fate-shares)."""
+        self.kv.put_json(f"barrier/{self.epoch}/{name}/{self.rank}",
+                         {"rank": self.rank, "t": time.time()})
+        deadline = time.monotonic() + (timeout or self.reshape_timeout)
+        want = set(self.members)
+        while True:
+            present = set()
+            for key, _ in self.kv.scan(f"barrier/{self.epoch}/{name}"):
+                try:
+                    present.add(int(key.rsplit("/", 1)[1]))
+                except ValueError:
+                    pass
+            if want <= present:
+                return
+            self._check_epoch()
+            dead = self.detector.poll() & want
+            dead.discard(self.rank)
+            if dead:
+                raise RankFailure(dead, self.epoch)
+            if time.monotonic() > deadline:
+                raise MXNetError(
+                    f"gang barrier {name!r} (epoch {self.epoch}): "
+                    f"missing ranks {sorted(want - present)} after "
+                    f"{timeout or self.reshape_timeout}s")
+            time.sleep(0.01)
+
+    # -- reshape protocol ------------------------------------------------------
+
+    def recover(self, failure=None, checkpointer=None):
+        """Run the epoch-consensus reshape and assemble the restore
+        state.  Returns a :class:`RecoveryInfo`; the caller re-partitions
+        its trainer state from ``info.shards`` (peer source) or
+        ``info.full_state`` (disk source) and resumes at
+        ``info.snap_step``.  Raises :class:`GangFenced` when the KV
+        becomes unreachable mid-reshape or the proposal cannot gather a
+        strict majority of the previous epoch's acks."""
+        try:
+            return self._recover_inner(failure, checkpointer)
+        except _gang_kv_errors() as e:
+            raise self._fenced(e) from e
+
+    def _recover_inner(self, failure=None, checkpointer=None):
+        t0 = time.monotonic()
+        ck = checkpointer or self.checkpointer
+        dead = set(failure.dead) if failure is not None else set()
+        joiners = set(failure.joiners) if failure is not None else set()
+        planned = bool(getattr(failure, "planned", False))
+        target = getattr(failure, "at_step", None)
+        old_members = list(self.members)
+        proposal = self._await_proposal(dead, joiners, ck,
+                                        target_step=target,
+                                        planned=planned)
+        epoch = int(proposal["epoch"])
+        new_members = [int(r) for r in proposal["members"]]
+        if self.rank not in new_members:
+            raise GangEvicted(
+                f"rank {self.rank}: reshape to epoch {epoch} excludes "
+                f"this rank; exiting cleanly")
+        old_members = [int(r) for r in
+                       proposal.get("old_members", old_members)]
+        dead = set(int(r) for r in proposal.get("dead", []))
+        joined = [int(r) for r in proposal.get("joined", [])]
+        self.kv.put_json(f"epoch_ack/{epoch}/{self.rank}",
+                         {"rank": self.rank, "t": time.time()})
+        self._await_acks(epoch, new_members, old_members, proposal)
+        cur = self.kv.get_json("epoch/current") or {}
+        if int(cur.get("epoch", -1)) == epoch and \
+                sorted(int(r) for r in cur.get("members", [])) \
+                != sorted(new_members):
+            # amended in place: a proposed member died before acking
+            new_members = [int(r) for r in cur["members"]]
+            dead = set(int(r) for r in cur.get("dead", []))
+            joined = [int(r) for r in cur.get("joined", [])]
+            if self.rank not in new_members:
+                raise GangEvicted(
+                    f"rank {self.rank}: epoch {epoch} was amended to "
+                    f"exclude this rank; exiting cleanly")
+        source = proposal.get("source", "disk")
+        snap_step = int(proposal["snap_step"])
+        shards = None
+        full_state = None
+        if source == "peer":
+            shards = self._assemble_shards(snap_step, old_members, dead)
+            if shards is None:
+                source = "disk"     # a holder vanished under us
+        if source == "disk":
+            if ck is None:
+                raise MXNetError(
+                    "elastic recovery needs the disk manifest (no RAM "
+                    "coverage) but no checkpointer is attached")
+            disk_step = proposal.get("disk_step")
+            snap_step = int(disk_step if disk_step is not None
+                            else ck.latest_step())
+            full_state = ck.restore(snap_step)
+            _tel_count("elastic.disk_restores")
+        planned = bool(proposal.get("planned", planned))
+        # adopt the new membership
+        self.epoch = epoch
+        self.members = new_members
+        self._fenced_at = None
+        self._fence_to(epoch)
+        _tel_identity(rank=self.rank, world=len(self.members))
+        for d in dead:
+            self.detector.forget(d)
+        for j in joined:
+            self.detector.watch(j)
+        self._last_snap_step = None
+        # tell the store of the new membership, only when the kvstore
+        # module is loaded (with none loaded there is nothing cached for
+        # the old membership)
+        _kvstore = sys.modules.get(f"{__package__}.kvstore")
+        if _kvstore is not None:
+            try:
+                _kvstore.notify_mesh_reshape(epoch)
+            except Exception:       # noqa: BLE001 — best-effort
+                pass
+        ms = (time.monotonic() - t0) * 1000.0
+        for d in sorted(dead):
+            if planned:
+                _tel_event("rank_drained", rank=d, epoch=epoch)
+            else:
+                _tel_event("rank_dead", rank=d, epoch=epoch)
+        for j in sorted(joined):
+            _tel_event("rank_rejoin", rank=j, epoch=epoch)
+        _tel_event("mesh_reshape", epoch=epoch, world=len(new_members),
+                   members=new_members, step=snap_step, planned=planned)
+        _tel_event("elastic_recover", epoch=epoch, step=snap_step,
+                   source=source, recovery_ms=round(ms, 2),
+                   planned=planned)
+        sys.stderr.write(
+            f"[resilience] rank {self.rank}: gang reshaped to epoch "
+            f"{epoch} world {len(new_members)} "
+            f"({'planned, ' if planned else ''}source={source}, "
+            f"snap_step={snap_step}, {ms:.0f} ms)\n")
+        # end-of-assembly marker: departed ranks' RAM shards may be
+        # pruned once every member has written this (see snapshot())
+        self.kv.put_json(f"epoch_done/{epoch}/{self.rank}",
+                         {"rank": self.rank, "t": time.time()})
+        return RecoveryInfo(epoch=epoch, members=new_members,
+                            snap_step=snap_step, source=source,
+                            dead=dead, joined=joined, recovery_ms=ms,
+                            shards=shards, full_state=full_state,
+                            old_members=old_members, planned=planned)
+
+    def join(self, timeout=None):
+        """A (re)spawned rank asks the running gang for admission.
+
+        Publishes ``join_req/<rank>``, waits for the proposer to admit
+        it in a new epoch, then runs the shared ``recover`` path (ack,
+        fetch every old member's shard from live RAM holders — the
+        joiner has none of its own).  Returns the :class:`RecoveryInfo`
+        to resume from, or None when the gang is fresh (nothing to
+        join)."""
+        self.start()    # writes/adopts the epoch record for fresh gangs
+        cur = self.kv.get_json("epoch/current")
+        if cur is None or self.rank in cur.get("members", []):
+            # fresh gang (or a relaunch before any reshape): start()
+            # already adopted the current epoch/membership
+            return None
+        self.kv.put_json(f"join_req/{self.rank}",
+                         {"rank": self.rank, "t": time.time()})
+        deadline = time.monotonic() + (timeout or self.reshape_timeout)
+        while True:
+            cur = self.kv.get_json("epoch/current") or {}
+            if self.rank in cur.get("members", []):
+                break
+            if time.monotonic() > deadline:
+                raise MXNetError(
+                    f"rank {self.rank}: join request not admitted "
+                    f"within {timeout or self.reshape_timeout}s")
+            time.sleep(0.05)
+        # participate in the admitting epoch's recover flow
+        self.epoch = int(cur["epoch"]) - 1
+        self.members = [int(r) for r in
+                        cur.get("old_members", cur["members"])]
+        self.detector = FailureDetector(self.kv, self.rank, self.members,
+                                        timeout=self.detector.timeout)
+        self.straggler.detector = self.detector
+        return self.recover(None)
+
+    def park_fenced(self, timeout=None, poll=0.25):
+        """Minority-side parking after :class:`GangFenced`: keep
+        heartbeating (the publisher thread already swallows KV errors),
+        do NOT step, do NOT write anything durable — just probe the KV
+        until it is reachable again, then rejoin through the normal
+        ``join_req`` path, adopting the majority's state instead of our
+        own.  Returns `join`'s :class:`RecoveryInfo`, or None when no
+        newer epoch excluded us (we are still a member — resume
+        stepping as-is).  Raises :class:`GangFenced` again if the
+        partition outlives ``timeout`` seconds."""
+        t0 = self._fenced_at if self._fenced_at is not None \
+            else time.monotonic()
+        deadline = None if timeout is None \
+            else time.monotonic() + timeout
+        while True:
+            try:
+                self.kv.get_json("epoch/current")    # read-only probe
+                break
+            except _gang_kv_errors():
+                if deadline is not None and \
+                        time.monotonic() > deadline:
+                    raise self._fenced(
+                        f"partition did not heal within {timeout}s")
+            time.sleep(poll)
+        fenced_ms = (time.monotonic() - t0) * 1000.0
+        self._fenced_at = None
+        _tel_event("partition_healed", rank=self.rank, epoch=self.epoch,
+                   fenced_ms=round(fenced_ms, 2))
+        sys.stderr.write(
+            f"[resilience] rank {self.rank}: partition healed after "
+            f"{fenced_ms:.0f} ms fenced; rejoining\n")
+        return self.join()
+
+    # -- protocol internals ----------------------------------------------------
+
+    def _await_proposal(self, dead, joiners, ck, target_step=None,
+                        planned=False):
+        """Wait for (or, as the lowest-ranked survivor, write) the next
+        epoch proposal.  Proposer promotion is implicit: if the lowest
+        survivor dies before proposing, the detector adds it to ``dead``
+        and the next-lowest takes over.  A planned reshape carries a
+        ``target_step`` the proposal must be able to restore at (every
+        member snapshotted there); the target is dropped halfway to the
+        reshape timeout so a wedged drain degrades to lost steps rather
+        than a dead gang.
+
+        The proposal is STAGED at ``epoch/proposed`` with a plain put —
+        advancing the fence now would reject healthy same-epoch
+        snapshot writes mid-reshape; only the quorum-gated commit in
+        `_await_acks` writes ``epoch/current`` and moves the fence."""
+        deadline = time.monotonic() + self.reshape_timeout
+        t_half = time.monotonic() + self.reshape_timeout / 2
+        while True:
+            cur = self.kv.get_json("epoch/current")
+            if cur and int(cur.get("epoch", 0)) > self.epoch:
+                return cur
+            prop = self.kv.get_json("epoch/proposed")
+            if prop and int(prop.get("epoch", 0)) > self.epoch:
+                return prop
+            dead |= self.detector.poll(force=True) & set(self.members)
+            dead.discard(self.rank)
+            survivors = sorted(set(self.members) - dead)
+            if joiners:
+                joiners = set(self._pending_joiners()) | set(joiners)
+            if self._is_proposer(survivors):
+                want = target_step \
+                    if time.monotonic() < t_half else None
+                proposal = self._make_proposal(dead, joiners,
+                                               survivors, ck,
+                                               target_step=want,
+                                               planned=planned)
+                if proposal is not None:
+                    self.kv.put_json("epoch/proposed", proposal)
+                    return proposal
+            if time.monotonic() > deadline:
+                raise MXNetError(
+                    f"rank {self.rank}: no epoch proposal within "
+                    f"{self.reshape_timeout}s (members "
+                    f"{self.members}, dead {sorted(dead)})")
+            time.sleep(0.05)
+
+    def _make_proposal(self, dead, joiners, survivors, ck,
+                       target_step=None, planned=False):
+        new_members = sorted(set(survivors) | set(joiners))
+        # common RAM restore point: the newest step that EVERY survivor
+        # still holds (each advertises its retained steps, not just the
+        # latest — a rank killed mid-snapshot-round leaves the others
+        # one interval ahead, and the retention window is what lets
+        # them meet one step back) and that each dead rank's live buddy
+        # holds that rank's shard at
+        common = None
+        for r in survivors:
+            info = self.kv.get_json(f"snap/{r}")
+            if not info or int(info.get("epoch", -1)) != self.epoch:
+                common = None
+                break
+            steps = set(int(s) for s in
+                        info.get("steps") or [info["step"]])
+            common = steps if common is None else common & steps
+            if not common:
+                break
+        if common:
+            for d in dead:
+                holder = self.buddy_of(d, self.members)
+                held = self.kv.get_json(f"held/{holder}/{d}")
+                if holder in dead or not held \
+                        or int(held.get("epoch", -1)) != self.epoch:
+                    common = None
+                    break
+                common &= set(int(s) for s in held.get("steps", []))
+                if not common:
+                    break
+        if target_step is not None and \
+                not (common and max(common) >= int(target_step)):
+            # planned reshape: restore point must be the agreed drain
+            # step (zero lost steps) — a straggler's snapshot hasn't
+            # landed yet, so don't propose; loop and retry
+            return None
+        ram_step = max(common) if common else None
+        source = "peer" if ram_step is not None else "disk"
+        disk_step = None
+        if source == "disk":
+            disk_step = ck.latest_step() if ck is not None else None
+            if disk_step is None:
+                raise MXNetError(
+                    "elastic recovery: no common RAM snapshot and no "
+                    "committed disk checkpoint to fall back to")
+        for j in joiners:
+            self.kv.delete(f"join_req/{j}")
+        for d in dead:
+            self.kv.delete(f"leave/{d}")
+        self.kv.delete("admit/plan")
+        return {"epoch": self.epoch + 1, "members": new_members,
+                "old_members": list(self.members),
+                "dead": sorted(dead), "joined": sorted(joiners),
+                "snap_step": ram_step if source == "peer" else disk_step,
+                "disk_step": disk_step, "source": source,
+                "planned": bool(planned),
+                "proposer": self.rank, "t": time.time()}
+
+    def _await_acks(self, epoch, new_members, old_members=None,
+                    proposal=None):
+        """The ack round, quorum gate, and fenced commit.
+
+        Every proposed member acks ``epoch_ack/<e>/<r>`` (written by
+        `recover` before this call).  The epoch is COMMITTABLE only
+        once the acks cover a strict majority of the PREVIOUS epoch's
+        members — dead ranks count against, not for, so the minority
+        side of a partition can never commit an epoch, no matter what
+        its detector believes.  The lowest live proposed member then
+        commits ``epoch/current`` with a fenced compare-and-swap
+        (`put_if_epoch`) — which advances the fence and retires the
+        staged ``epoch/proposed`` — and everyone returns once the
+        committed membership has fully acked.  A deadline without
+        quorum raises :class:`GangFenced` (park, rejoin after heal); a
+        deadline with quorum but missing acks keeps the legacy
+        :class:`MXNetError`."""
+        from . import distributed
+        deadline = time.monotonic() + self.reshape_timeout
+        want = set(int(r) for r in new_members)
+        prev = set(int(r) for r in
+                   (old_members if old_members is not None
+                    else self.members))
+        quorum_of = prev or want
+        quorum_ok = not self._quorum
+        while True:
+            cur = self.kv.get_json("epoch/current") or {}
+            committed = int(cur.get("epoch", -1)) == epoch
+            rec = cur if committed else \
+                (self.kv.get_json("epoch/proposed") or {})
+            if int(rec.get("epoch", -1)) == epoch:
+                # the record is the source of truth: it may have been
+                # amended below while we waited
+                want = set(int(r) for r in rec.get("members", want))
+                if self.rank not in want:
+                    raise GangEvicted(
+                        f"rank {self.rank}: epoch {epoch} was amended "
+                        f"to exclude this rank; exiting cleanly")
+            acked = set()
+            for key, _ in self.kv.scan(f"epoch_ack/{epoch}"):
+                try:
+                    acked.add(int(key.rsplit("/", 1)[1]))
+                except ValueError:
+                    pass
+            if not quorum_ok:
+                quorum_ok = 2 * len(acked & quorum_of) > len(quorum_of)
+            if committed and want <= acked:
+                return
+            # a proposed member that dies BETWEEN the proposal and its
+            # ack would wedge this epoch forever (nobody re-detects it
+            # once everyone is in recover).  The lowest live proposed
+            # member amends the SAME epoch in place, shrinking the
+            # membership to the ranks that can still ack; shard
+            # assembly re-reads the amended record and falls back to
+            # disk if the second death cost it a RAM holder.  The
+            # amendment is a fenced CAS: a zombie amender carrying a
+            # stale epoch is rejected server-side instead of clobbering
+            # the committed record.
+            newly_dead = (want - acked) & self.detector.poll(force=True)
+            newly_dead.discard(self.rank)
+            live = sorted(want - newly_dead)
+            amender = bool(newly_dead) and live and self.rank == min(live)
+            if amender and int(rec.get("epoch", -1)) == epoch:
+                rec["members"] = live
+                rec["dead"] = sorted(
+                    set(int(d) for d in rec.get("dead", []))
+                    | newly_dead)
+                rec["joined"] = [j for j in rec.get("joined", [])
+                                 if int(j) not in newly_dead]
+                rec["t"] = time.time()
+                try:
+                    self._put_json_fenced(
+                        "epoch/current" if committed else
+                        "epoch/proposed", rec,
+                        epoch if committed else self.epoch)
+                except distributed.FencedWrite:
+                    pass    # the fence moved under us: re-read above
+                continue
+            if not committed and quorum_ok and live \
+                    and self.rank == min(live) and self.rank in acked:
+                # quorum reached: commit.  put_if_epoch(epoch) advances
+                # the fence, so every stale writer (minority proposer,
+                # resumed zombie) is rejected from here on.
+                commit = dict(rec) if int(rec.get("epoch", -1)) == epoch \
+                    else dict(proposal or {})
+                if int(commit.get("epoch", -1)) == epoch:
+                    try:
+                        self._put_json_fenced("epoch/current", commit,
+                                              epoch)
+                        self.kv.delete("epoch/proposed")
+                    except distributed.FencedWrite:
+                        pass    # a newer epoch beat us; re-read above
+                    continue
+            if time.monotonic() > deadline:
+                if not committed and self._quorum and not quorum_ok:
+                    raise self._fenced(
+                        f"epoch {epoch} proposal gathered only "
+                        f"{sorted(acked & quorum_of)} of previous "
+                        f"members {sorted(quorum_of)} — no strict "
+                        f"majority, refusing to commit (split-brain "
+                        f"guard; MXTPU_QUORUM=0 overrides)")
+                raise MXNetError(
+                    f"epoch {epoch}: missing acks from "
+                    f"{sorted(want - acked)} after "
+                    f"{self.reshape_timeout}s")
+            time.sleep(0.02)
+
+    def _assemble_shards(self, snap_step, old_members, dead):
+        """Every old rank's shard at ``snap_step``, from RAM: own copy,
+        live peers serve their own, dead ranks' come from their buddies.
+        Returns None if any fetch fails (caller degrades to disk)."""
+        shards = {}
+        for o in old_members:
+            try:
+                if o == self.rank:
+                    st = self.peers.own_at(snap_step)
+                elif o in dead:
+                    holder = self.buddy_of(o, old_members)
+                    st = self.peers.fetch(holder, o, snap_step)
+                else:
+                    st = self.peers.fetch(o, o, snap_step)
+            except Exception as e:          # noqa: BLE001
+                sys.stderr.write(
+                    f"[resilience] peer shard fetch for rank {o} at "
+                    f"step {snap_step} failed ({e}); falling back to "
+                    f"disk\n")
+                return None
+            if st is None:
+                return None
+            shards[o] = st
+        return shards
+
+
+# -- autoscaling policy loop ---------------------------------------------------
+
+class ScalePolicy:
+    """Chooses the gang's world size from live telemetry.
+
+    Grow: when the input pipeline is saturated — prefetch queue depth
+    (telemetry gauge ``input.queue_depth``) at/above ``queue_high`` for
+    ``window`` consecutive observations while the data-wait share stays
+    at/below ``stall_low`` (compute-bound: more chips raise
+    throughput) — write a ``scale/req`` record.  The launcher polls it
+    and spawns extra ranks, which enter through the existing
+    ``join_req`` path as a *scheduled* admit (zero lost steps).
+
+    Shrink: ``on_preemption`` turns a preemption notice into a graceful
+    drain — ``gang.plan_leave`` schedules this rank's departure a
+    ``drain_margin`` of steps out, every member snapshots at the agreed
+    step, and the reshape happens with no detection window.  The freed
+    chips are announced (:func:`announce_freed_chips`) for the serving
+    tier to claim.
+
+    Knobs (ctor arg beats env beats default): ``MXTPU_SCALE_QUEUE_HIGH``
+    (2.0), ``MXTPU_SCALE_STALL_LOW`` (0.1), ``MXTPU_SCALE_WINDOW`` (5),
+    ``MXTPU_SCALE_COOLDOWN`` (30 s), ``MXTPU_SCALE_MAX_WORLD``,
+    ``MXTPU_SCALE_MIN_WORLD`` (1).  The loop only runs when
+    ``MXTPU_SCALE_POLICY`` is set (see :meth:`enabled`).
+    """
+
+    def __init__(self, gang, *, min_world=None, max_world=None,
+                 queue_high=None, stall_low=None, window=None,
+                 cooldown=None):
+        def _env(name, default, cast=float):
+            v = os.environ.get(name)
+            return default if v in (None, "") else cast(v)
+
+        self.gang = gang
+        self.min_world = int(_env("MXTPU_SCALE_MIN_WORLD", 1, int)
+                             if min_world is None else min_world)
+        self.max_world = (_env("MXTPU_SCALE_MAX_WORLD", None,
+                               lambda v: int(v))
+                          if max_world is None else max_world)
+        self.queue_high = float(_env("MXTPU_SCALE_QUEUE_HIGH", 2.0)
+                                if queue_high is None else queue_high)
+        self.stall_low = float(_env("MXTPU_SCALE_STALL_LOW", 0.1)
+                               if stall_low is None else stall_low)
+        self.window = max(1, int(_env("MXTPU_SCALE_WINDOW", 5, int)
+                                 if window is None else window))
+        self.cooldown = float(_env("MXTPU_SCALE_COOLDOWN", 30.0)
+                              if cooldown is None else cooldown)
+        self._hot = 0               # consecutive saturated observations
+        self._last_req = 0.0        # monotonic time of last scale/req
+        self.grow_requests = 0
+        self.drains = 0
+
+    @staticmethod
+    def enabled():
+        """MXTPU_SCALE_POLICY gates the whole loop (off by default)."""
+        return os.environ.get("MXTPU_SCALE_POLICY", "").lower() \
+            in ("1", "on", "true", "auto")
+
+    def _queue_depth(self):
+        try:
+            from . import telemetry
+        except ImportError:
+            return None
+        return telemetry.REGISTRY.gauge("input.queue_depth").value
+
+    def observe(self, step, queue_depth=None, data_share=None):
+        """Feed one step's signals; returns ``"grow"`` when a scale-up
+        request was just published, else None.  ``queue_depth`` defaults
+        to the live ``input.queue_depth`` gauge."""
+        if queue_depth is None:
+            queue_depth = self._queue_depth()
+        if queue_depth is None:
+            return None
+        saturated = queue_depth >= self.queue_high and \
+            (data_share is None or data_share <= self.stall_low)
+        self._hot = self._hot + 1 if saturated else 0
+        if self._hot < self.window:
+            return None
+        now = time.monotonic()
+        if now - self._last_req < self.cooldown:
+            return None
+        world = len(self.gang.members)
+        want = world + 1
+        if self.max_world is not None and want > int(self.max_world):
+            return None
+        req = self.gang.kv.get_json("scale/req")
+        if isinstance(req, dict) and int(req.get("want_world", 0)) \
+                >= want:
+            return None     # an equal-or-larger request is pending
+        self.gang.kv.put_json(
+            "scale/req", {"want_world": want, "step": int(step),
+                          "reason": "input_saturated",
+                          "queue_depth": float(queue_depth),
+                          "t": time.time()})
+        _tel_event("scale_up", rank=self.gang.rank, step=int(step),
+                   want_world=want, world=world,
+                   queue_depth=float(queue_depth))
+        self._last_req = now
+        self._hot = 0
+        self.grow_requests += 1
+        return "grow"
+
+    def on_preemption(self, step):
+        """Preemption notice → graceful drain: schedule this rank's
+        planned departure and announce the chips it frees.  Returns the
+        agreed departure step, or None when the gang is already at
+        ``min_world``."""
+        if len(self.gang.members) <= self.min_world:
+            return None
+        at = self.gang.plan_leave(int(step) + self.gang.drain_margin)
+        _tel_event("scale_down", rank=self.gang.rank, step=int(step),
+                   at_step=at, world=len(self.gang.members),
+                   planned=True)
+        self.drains += 1
+        return at
 
 
 def announce_freed_chips(kv, rank, *, step=None, count=1, addr=None):

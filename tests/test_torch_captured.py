@@ -228,6 +228,72 @@ def test_no_retrace_on_schedule_ticks(env, k):
     assert captured.dispatch_count() == 8
 
 
+def test_capture_cache_size_env_and_eviction_events(env, monkeypatch):
+    """``MXTPU_CAPTURE_CACHE`` (at least 1) bounds the signatures a trainer
+    keeps; each eviction emits ``capture_cache_evict`` and releases the
+    evicted step's graph and pool."""
+    from mxnet_tpu_torch import telemetry
+
+    env(MXTPU_CAPTURED_STEP="1", MXTPU_CAPTURE_CACHE="0")
+    assert captured.capture_cache_size() == 1
+    env(MXTPU_CAPTURE_CACHE="2")
+    assert captured.capture_cache_size() == 2
+    released = []
+    real = captured.CapturedStep.release
+    monkeypatch.setattr(captured.CapturedStep, "release",
+                        lambda self: (released.append(self), real(self)))
+    telemetry.reset()
+    dev = torch.device("cpu")
+    net, loss_fn, trainer = _trainer(dev)
+    rng = np.random.RandomState(0)
+    for n in (4, 5, 6, 4):             # four signatures, two evictions
+        x = rng.normal(size=(n, 6)).astype(np.float32)
+        y = rng.randint(0, 3, size=(n,)).astype(np.float32)
+        trainer.train_step(net, loss_fn, _nd(x, dev), _nd(y, dev))
+    assert len(trainer._captured_cache) == 2
+    assert len(set(trainer._captured_fast.values())) == 2
+    assert len(released) == 2
+    assert all(s._graph is None and s._static is None for s in released)
+    assert telemetry.event_counts().get("capture_cache_evict") == 2
+    telemetry.reset()
+
+
+def _knob_run(env, change):
+    env(MXTPU_CAPTURED_STEP="1", MXTPU_REMAT="", MXTPU_GROUP_MAX_ITEMS="")
+    net, loss_fn, trainer = _trainer(torch.device("cpu"))
+    xs, ys = _batches(steps=6)
+    captured.reset_counters()
+    losses, groups = [], []
+    for s in range(6):
+        if change and s == 2:
+            env(MXTPU_GROUP_MAX_ITEMS="1")
+        if change and s == 4:
+            env(MXTPU_REMAT="full")
+        losses.append(trainer.train_step(
+            net, loss_fn, _nd(xs[s], torch.device("cpu")),
+            _nd(ys[s], torch.device("cpu"))).asnumpy())
+        step = next(iter(trainer._captured_fast.values())) \
+            if len(trainer._captured_fast) == 1 else \
+            list(trainer._captured_fast.values())[-1]
+        groups.append(len(step._groups))
+    states = {i: _leaves(st)
+              for i, st in trainer._updaters[0].states.items()}
+    return (losses, [p.data().asnumpy() for p in trainer._params], states,
+            captured.cache_stats()["misses"], groups)
+
+
+def test_changed_remat_or_group_cap_recaptures_bitwise(env):
+    """A changed ``MXTPU_GROUP_MAX_ITEMS`` (a split plan) and a changed
+    ``MXTPU_REMAT`` each miss the capture cache once and record again;
+    both leave the numbers as they are, so the run is bitwise the one
+    that changed neither."""
+    changed = _knob_run(env, True)
+    plain = _knob_run(env, False)
+    assert changed[3] == 3 and plain[3] == 1
+    assert changed[4] == [1, 1, 4, 4, 4, 4] and plain[4] == [1] * 6
+    _assert_same(changed[:3], plain[:3])
+
+
 def test_cast_and_hybridize_invalidate_the_capture(env):
     """A parameter's tensor replaced (cast) or hybridize again bumps the
     block's cache version: the next step records anew."""

@@ -527,3 +527,34 @@ def test_sample_ops_with_array_params():
     un = u.asnumpy()
     assert (un[0] >= 0).all() and (un[0] < 1).all() and (un[1] >= 10).all()
     assert abs(z[1].mean() - 5.0) < 5 * 0.1 / np.sqrt(N // 10)
+
+
+@pytest.mark.parametrize("sync", [False, True])
+def test_profiler_records_operator_spans(sync):
+    """While ``mx.profiler`` runs, each imperative op is an ``operator``
+    span in the Chrome trace (the JAX package's dispatch does the same);
+    the sync mode waits for the result inside the span."""
+    import json
+
+    from mxnet_tpu_torch import profiler
+
+    with tmx.cpu():
+        a = tnd.array(np.arange(6, dtype=np.float32).reshape(2, 3))
+        profiler.dumps(reset=True)
+        profiler.set_config(profile_sync=sync)
+        profiler.set_state("run")
+        try:
+            b = tnd.relu(a * 2 - 3)
+            tnd.sum(b).asnumpy()
+        finally:
+            profiler.set_state("stop")
+            profiler.set_config(profile_sync=False)
+        trace = json.loads(profiler.dumps(reset=True))
+    ops = [e["name"] for e in trace["traceEvents"]
+           if e.get("cat") == "operator"]
+    assert "relu" in ops and "sum" in ops, ops
+    # stopped: no more spans
+    with tmx.cpu():
+        tnd.relu(a)
+    assert not [e for e in json.loads(profiler.dumps())["traceEvents"]
+                if e.get("cat") == "operator"]

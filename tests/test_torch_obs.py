@@ -135,3 +135,27 @@ def test_profile_request_takes_a_bounded_trace(log, tmp_path, monkeypatch):
     assert (tmp_path / "prof" / "trace.json").exists()
     assert json.load(open(tmp_path / "prof" / "trace.json"))
     assert kv.get_json("profile/req") is None
+
+
+def test_profile_dir_defaults_to_the_temp_dir(log, tmp_path, monkeypatch):
+    """A capture request without a directory writes under
+    ``<tempdir>/mxtpu_profile`` (``/tmp/mxtpu_profile``, as in the JAX
+    package, unless TMPDIR says otherwise), never the working directory."""
+    import tempfile
+
+    monkeypatch.delenv("MXTPU_PROFILE_DIR", raising=False)
+    monkeypatch.setenv("MXTPU_PROFILE_BUDGET_S", "0.3")
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path / "tmp"))
+    (tmp_path / "tmp").mkdir()
+    work = tmp_path / "work"
+    work.mkdir()
+    monkeypatch.chdir(work)
+    assert collector.profile_dir() == str(tmp_path / "tmp" / "mxtpu_profile")
+    kv = distributed.FileKV(str(tmp_path / "gang"))
+    c = collector.HostCollector(path=log, kv=kv, rank=0, world=1)
+    collector.request_profile(kv, 0, steps=2)
+    c.poll_once()
+    traces = list((tmp_path / "tmp" / "mxtpu_profile").glob(
+        "rank0-*/trace.json"))
+    assert len(traces) == 1 and json.load(open(traces[0]))
+    assert not list(work.iterdir())

@@ -331,21 +331,18 @@ def test_what_waits_for_later_slices():
     pipeline = object()
     monitored.attach_data_pipeline(pipeline)
     assert monitored.divergence_monitor.data_pipeline is pipeline
-    # the multi-GPU and gang slices still refuse, naming their slice
+    # the multi-GPU slice still refuses, naming its slice
     for call in (lambda: tmx.kv.create("dist_sync"),
                  lambda: tgluon.Trainer(params, "sgd",
                                         compression_params={"type": "2bit"})):
         with pytest.raises(NotImplementedError):
             call()
-    for call in (lambda: tmx.distributed.TcpKV("127.0.0.1:1"),
-                 lambda: tmx.distributed.CoordKV(None),
-                 lambda: tmx.distributed.GangKVServer(),
-                 lambda: tmx.checkpoint.PeerSnapshotStore(0),
-                 lambda: tmx.resilience.run_resilient(
-                     lambda s: 0.0, None, 1, get_state=dict,
-                     set_state=lambda s: None, gang=object())):
-        with pytest.raises(NotImplementedError, match="gang slice"):
-            call()
+    # the gang slice's entry points construct (they refused before it)
+    server = tmx.distributed.GangKVServer()
+    server.stop()
+    store = tmx.checkpoint.PeerSnapshotStore(0)
+    store.hold_own(1, {"w": np.ones(2, np.float32)})
+    assert store.held_steps(0) == [1]
     tr_dist = tgluon.Trainer(params, "sgd", kvstore="dist_sync")
     with pytest.raises(NotImplementedError, match="multi-GPU"):
         tr_dist.step(1)
@@ -508,3 +505,43 @@ def test_divergence_monitor_raises_after_a_bad_streak(tmp_path):
     with pytest.raises(tmx.numerics.DivergenceError) as e:
         mon.observe(step=0, healthy=False, batch_indices=[(1, 2)])
     assert e.value.batch_indices == [(1, 2)] and mon.recoveries == 0
+
+
+def test_public_names_of_ported_modules(tmp_path, monkeypatch):
+    """``gluon.utils.download`` (``file://`` URLs and files already there,
+    no network) and ``shape_is_known``, ``engine.is_naive`` and
+    ``remat.env_policy``, each against the JAX package's."""
+    from mxnet_tpu import engine as jengine
+    from mxnet_tpu import remat as jremat
+    from mxnet_tpu.gluon import utils as jutils
+    from mxnet_tpu_torch import engine as tengine
+    from mxnet_tpu_torch import remat as tremat
+    from mxnet_tpu_torch.gluon import utils as tutils
+
+    src = tmp_path / "w.params"
+    src.write_bytes(b"weights")
+    sha = __import__("hashlib").sha1(b"weights").hexdigest()
+    for utils, sub in ((tutils, "t"), (jutils, "j")):
+        d = tmp_path / sub
+        d.mkdir()
+        got = utils.download(f"file://{src}", path=str(d))
+        assert got == str(d / "w.params") and (d / "w.params").read_bytes() \
+            == b"weights"
+        assert utils.download("https://example.invalid/w.params",
+                              path=str(d), sha1_hash=sha) == got
+        with pytest.raises(Exception, match="network"):
+            utils.download("https://example.invalid/x.params", path=str(d))
+    for shape in (None, (), (2, 3), (2, 0), (0,), [4, 1]):
+        assert tutils.shape_is_known(shape) == jutils.shape_is_known(shape)
+    for name in ("NaiveEngine", "ThreadedEnginePerDevice", "naiveengine"):
+        tengine.set_engine_type(name)
+        jengine.set_engine_type(name)
+        assert tengine.is_naive() == jengine.is_naive()
+    tengine.set_engine_type("ThreadedEnginePerDevice")
+    jengine.set_engine_type("ThreadedEnginePerDevice")
+    for value in (None, "", "none", "all", "dots", "save_every_k:2"):
+        if value is None:
+            monkeypatch.delenv("MXTPU_REMAT", raising=False)
+        else:
+            monkeypatch.setenv("MXTPU_REMAT", value)
+        assert tremat.env_policy() == jremat.env_policy(), value
