@@ -6288,6 +6288,107 @@ def phase_gang(dev, card, rtc_kernels, bert_peak_gib):
     return launches, {"autotune": tune, "gang": gang}
 
 
+DIST_BATCH, DIST_SEQ, DIST_STEPS, DIST_TIMED = 32, 512, 3, 5
+DIST_LOSS_TOL = (2e-4, 2e-5)
+DIST_PARAM_TOL = (2e-3, 2e-4)
+DIST_PROBED = ("all_reduce", "broadcast", "all_gather_into_tensor",
+               "reduce_scatter_tensor", "all_to_all_single")
+
+
+def phase_dist(dev, card, rtc_kernels):
+    """[19] multi-rank training on the one card: a two-rank gang
+    (tools/dist_bert.py) whose backend rule picks gloo (the ranks share
+    the card); (i) the gloo-on-CUDA probe; (ii) the dist store's sums and
+    2-bit compression card against host; (iii) BERT-base at bench_bert's
+    width in f32 through ShardedTrainer at dp=2, tp=2, fsdp=2 and
+    gluon.Trainer(kvstore="dist_sync"), each held against the one-rank
+    ShardedTrainer on the same global batches; (iv) the same paths in
+    bf16, timed.  Returns the flash launches of each path (rank 0) and the
+    numbers."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mxnet_tpu_torch.tools import dist_bert
+
+    t0 = time.perf_counter()
+    ref = dist_bert.reference("base", DIST_BATCH, DIST_SEQ, DIST_STEPS, dev)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ref_s = time.perf_counter() - t0
+    log(f"    [19] one-rank reference: losses {ref['losses']} "
+        f"({ref_s:.1f} s)")
+    root = tempfile.mkdtemp(prefix="dist_")
+    try:
+        ranks = dist_bert.drive(root, world=2, batch=DIST_BATCH,
+                                seq=DIST_SEQ, steps=DIST_STEPS,
+                                timed=DIST_TIMED, model="base",
+                                timeout=900.0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    failed = []
+    for r, res in enumerate(ranks):
+        said = [ln for ln in res["log"].splitlines()
+                if "process group backend" in ln]
+        log(f"    [19] rank {r}: {said[0] if said else 'no backend line'}")
+        if res["backend"] != "gloo" or not said:
+            failed.append(f"rank {r} backend {res['backend']}")
+        log(f"    [19](i) rank {r} gloo on CUDA: {json.dumps(res['probe'])}")
+        for name in DIST_PROBED:
+            if res["probe"][name] != "ok":
+                failed.append(f"rank {r} probe {name}: {res['probe'][name]}")
+        log(f"    [19](ii) rank {r} store: {json.dumps(res['kv'])}")
+        if not all(res["kv"][k] for k in ("sum_ok", "codes_equal",
+                                          "residual_equal",
+                                          "pulled_equal")):
+            failed.append(f"rank {r} store {res['kv']}")
+        for path, got in res["check"].items():
+            lerr = _excess(torch.tensor(got["losses"], dtype=torch.float64),
+                           torch.tensor(ref["losses"], dtype=torch.float64),
+                           *DIST_LOSS_TOL)
+            perr = max(_excess(torch.tensor(got["samples"][k],
+                                            dtype=torch.float64),
+                               torch.tensor(v, dtype=torch.float64),
+                               *DIST_PARAM_TOL)
+                       for k, v in ref["samples"].items())
+            want = 12 * DIST_STEPS
+            log(f"    [19](iii) rank {r} {path}: losses {got['losses']} "
+                f"(loss excess {lerr:.3f}, sampled-parameter excess "
+                f"{perr:.3f}: <= 1 within rtol/atol {DIST_LOSS_TOL} / "
+                f"{DIST_PARAM_TOL}); flash launches {got['launches']} "
+                f"(want {want} each)")
+            if lerr > 1 or perr > 1:
+                failed.append(f"rank {r} {path} disagrees with one rank")
+            if any(n != want for n in got["launches"].values()):
+                failed.append(f"rank {r} {path} launches {got['launches']}")
+        for path, t in res["timing"].items():
+            log(f"    [19](iv) rank {r} {path} bf16: {t['ms_median']:.2f} ms "
+                f"a step (min {t['ms_min']:.2f}, max {t['ms_max']:.2f}; "
+                f"{t['ms']}), collectives {t['collective_s_median'] * 1e3:.2f}"
+                f" ms moving {t['collective_bytes']} bytes a step, peak "
+                f"{t['peak_mem_gib']:.2f} GiB  [{card}]")
+    for path in dist_bert.PATHS:
+        a = ranks[0]["check"][path]["samples"]
+        b = ranks[1]["check"][path]["samples"]
+        if a != b:
+            failed.append(f"{path}: the ranks' parameters differ")
+    if failed:
+        raise RuntimeError("[19] failed: " + "; ".join(failed))
+    zero_rtc = {"rtc_scale2": 0, "rtc_axpy": 0}
+    launches = {f"dist_{path}_rank0": dict(
+        ranks[0]["check"][path]["launches"], **zero_rtc)
+        for path in dist_bert.PATHS}
+    out = {"reference": ref["losses"], "reference_s": ref_s,
+           "probe": ranks[0]["probe"], "kv": ranks[0]["kv"],
+           "timing": {r: res["timing"] for r, res in enumerate(ranks)},
+           "check_s": ranks[0]["check_s"],
+           "timing_s": ranks[0]["timing_s"]}
+    log(f"    [19] done in {time.perf_counter() - t0:.1f} s; flash launches "
+        f"{launches}")
+    return launches, out
+
+
 def main():
     import torch
 
@@ -6445,6 +6546,16 @@ def main():
     gang_launches, gang_res = phase_gang(dev, card, (s2, ax),
                                          bert_res["peak_mem_gib"])
     gluon_launches.update(gang_launches)
+
+    log("[19] multi-rank training on BERT-base at bench_bert's width: a "
+        "two-rank gang on the one card (the backend rule picks gloo); (i) "
+        "the collectives gloo accepts on CUDA tensors; (ii) the dist store "
+        "and 2-bit compression card against host; (iii) f32, dropout 0, "
+        "TF32 off: ShardedTrainer at dp=2, tp=2, fsdp=2 and "
+        "gluon.Trainer(kvstore='dist_sync'), 3 AdamW steps each, against "
+        "the one-rank ShardedTrainer; (iv) the same paths in bf16, timed")
+    dist_launches, dist_res = phase_dist(dev, card, (s2, ax))
+    gluon_launches.update(dist_launches)
 
     T0, Tb, Tv, Tt = TRAIN_SHAPE[2], BERT_SHAPE[2], VIT_SHAPE[2], TFM_SEQ
     sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
@@ -6604,7 +6715,9 @@ def main():
         f"gang: autotune {len(gang_res['autotune']['trials'])} trials in "
         f"{gang_res['autotune']['search_s']:.1f} s, detect_s "
         f"{gang_res['gang']['detect_s']:.3f}, recover_s "
-        f"{gang_res['gang']['recover_s']:.3f}; "
+        f"{gang_res['gang']['recover_s']:.3f}; two ranks on one card "
+        f"(gloo) bf16 ms a step: "
+        f"{ {p: round(t['ms_median'], 2) for p, t in dist_res['timing'][0].items()} }; "
         f"forward O max abs err at BERT's "
         f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")

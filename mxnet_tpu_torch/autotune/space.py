@@ -18,10 +18,11 @@ read when they run (``optimizer.grouped.group_max_items``,
 step, so ``gluon/captured.py`` keys its capture cache on their values: a
 changed value re-captures.
 
-Where the port differs: the multi-GPU knobs (``allreduce_bucket_mb``,
-``fsdp_min_size``, ``pp_microbatches``) are declared but have no consumer
-yet (the store's buckets, sharding and pipelines come with the multi-GPU
-slices), so the search leaves them alone (``Knob.live``).
+Where the port differs: ``pp_microbatches`` is declared but has no
+consumer yet (pipelines come with the pipeline slice), so the search
+leaves it alone (``Knob.live``).  ``allreduce_bucket_mb`` (the store's
+buckets and the sharded trainer's gradient buckets) and ``fsdp_min_size``
+(``parallel.sharding.FSDPRules``) are live.
 """
 
 from __future__ import annotations
@@ -94,15 +95,12 @@ def register(knob):
 register(Knob(
     "allreduce_bucket_mb", "MXTPU_ALLREDUCE_BUCKET_MB",
     ("1", "2", "4", "8", "16"), "4", layer="collective",
-    live=False,
-    doc="gradient all-reduce bucket budget (kvstore.bucketed_pushpull; "
-        "no consumer in the port yet)"))
+    doc="gradient all-reduce bucket budget (kvstore.bucketed_pushpull, "
+        "parallel.ShardedTrainer's dp reduce)"))
 register(Knob(
     "fsdp_min_size", "MXTPU_FSDP_MIN_SIZE",
     ("256", "1024", "4096", "16384"), "1024", layer="sharding",
-    live=False,
-    doc="smallest param FSDPRules will shard (parallel/sharding.py; no "
-        "consumer in the port yet)"))
+    doc="smallest param FSDPRules will shard (parallel/sharding.py)"))
 register(Knob(
     "device_prefetch", "MXTPU_DEVICE_PREFETCH",
     ("0", "1", "2", "4"), "2", layer="input",

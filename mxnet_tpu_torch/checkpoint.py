@@ -1466,8 +1466,8 @@ def _place_leaf(arr, tmpl, path):
         return t.to(torch.device(tmpl))
     raise MXNetError(
         f"template leaf at {path} is {type(tmpl).__name__}; expected a "
-        f"torch.device or a tensor (sharded placements come with the "
-        f"multi-GPU slice)")
+        f"torch.device or a tensor (a rank mesh's trainer restores full "
+        f"values: ShardedTrainer.load_state_dict takes its shards)")
 
 
 def make_checkpointer(directory, max_to_keep=3, async_save=None,

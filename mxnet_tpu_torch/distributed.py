@@ -4,7 +4,9 @@ Counterpart of ``mxnet_tpu/distributed.py``:
 
 - the launch contract ``MXTPU_COORDINATOR`` / ``MXTPU_NUM_WORKERS`` /
   ``MXTPU_WORKER_RANK`` (set by a launcher), a retried rendezvous over
-  ``torch.distributed`` (gloo on the CPU, NCCL on the card;
+  ``torch.distributed`` (the backend by ``backend_rule``: NCCL when each
+  rank has a card of its own, gloo when ranks share a card or run on the
+  CPU;
   ``MXTPU_RENDEZVOUS_RETRIES`` attempts within ``MXTPU_RENDEZVOUS_TIMEOUT``
   seconds, and the ``rendezvous`` fault site), ``rank`` / ``num_workers``
   / ``barrier`` (watchdog-guarded by ``MXTPU_COLLECTIVE_TIMEOUT``).  A
@@ -41,10 +43,33 @@ from . import resilience
 _INITIALIZED = False
 
 
+def backend_rule(num_processes):
+    """(backend, reason) for a process group of ``num_processes`` ranks on
+    this host: NCCL when each rank has a card of its own (as many ranks
+    as visible cards, or fewer), gloo when ranks share a card (NCCL
+    refuses two ranks on one device) or when there is no card or a
+    ``with cpu():`` scope is open (the ranks run on the host)."""
+    import torch
+
+    from . import context
+
+    scope = context.scoped_context()
+    cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if scope is not None and scope.device_type == "cpu":
+        return "gloo", "the ranks run on the host (cpu scope)"
+    if cards == 0:
+        return "gloo", "no CUDA card is visible: the ranks run on the host"
+    if int(num_processes) > cards:
+        return "gloo", (f"{num_processes} ranks share {cards} card(s); "
+                        "NCCL refuses two ranks on one device")
+    return "nccl", f"{num_processes} ranks on {cards} card(s), one each"
+
+
 def _rendezvous(coordinator_address, num_processes, process_id):
     """Join the process group, retried: an unreachable coordinator is the
     retryable class, and the ``rendezvous`` fault site tests it on the
-    CPU.  A world of one opens no process group."""
+    CPU.  A world of one opens no process group.  The backend comes from
+    ``backend_rule``, and the rank prints its choice and the reason."""
     timeout = float(os.environ.get("MXTPU_RENDEZVOUS_TIMEOUT", 300))
     retries = int(os.environ.get("MXTPU_RENDEZVOUS_RETRIES", 3))
 
@@ -54,7 +79,6 @@ def _rendezvous(coordinator_address, num_processes, process_id):
             return
         import datetime
 
-        import torch
         import torch.distributed as dist
 
         if dist.is_initialized():
@@ -62,8 +86,11 @@ def _rendezvous(coordinator_address, num_processes, process_id):
         addr = coordinator_address
         if "://" not in addr:
             addr = f"tcp://{addr}"
+        backend, reason = backend_rule(num_processes)
+        print(f"[rank {int(process_id)}] process group backend {backend}: "
+              f"{reason}", flush=True)
         dist.init_process_group(
-            "nccl" if torch.cuda.is_available() else "gloo",
+            backend,
             init_method=addr, world_size=int(num_processes),
             rank=int(process_id),
             timeout=datetime.timedelta(seconds=timeout))

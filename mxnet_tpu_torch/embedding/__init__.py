@@ -19,7 +19,8 @@ Counterpart of ``mxnet_tpu/embedding/``:
 ``MXTPU_SPARSE_CAPTURED=0`` pins sparse configurations to the eager
 oracle; every fallback emits a ``sparse_fallback{reason}`` telemetry
 event.  The JAX package's row-sharding over a mesh (``EmbeddingRules``)
-and its symbol path wait for the multi-GPU and symbol slices.
+and its symbol path wait for the next multi-GPU slice (ROADMAP queue 1
+item 1b) and the symbol slice.
 """
 
 from .prep import (SparsePrep, bucket_for, capture_scope,

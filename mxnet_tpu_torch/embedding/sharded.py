@@ -30,7 +30,8 @@ class ShardedEmbedding(HybridBlock):
     The host id prep applies the same selector to the same batch, so the
     block must read the step's ``data`` (or its feature slice) directly.
     The JAX package's row-sharding of the table over a mesh waits for the
-    multi-GPU slice, and its symbol path for the symbol slice.
+    next multi-GPU slice (ROADMAP queue 1 item 1b), and its symbol path
+    for the symbol slice.
     """
 
     def __init__(self, input_dim, output_dim, dtype="float32",

@@ -6,9 +6,12 @@ python/mxnet/gluon/contrib/nn/basic_layers.py).  ``HybridConcurrent`` is
 the model zoo's (``vision/squeezenet.py``), as in the JAX package.
 ``SparseEmbedding`` is ``nn.Embedding(sparse_grad=True)``: its weight
 gets a row-sparse gradient on the eager tape
-(``ops.indexing.sparse_embedding``).  ``SyncBatchNorm`` on one card is
-``BatchNorm`` with the contrib name and signature; ``num_devices`` is
-accepted and unused until the multi-GPU slice.
+(``ops.indexing.sparse_embedding``).  ``SyncBatchNorm`` normalises with
+the statistics of every rank's batch: inside a sharded step over the dp
+group (where every ``BatchNorm`` does, as in the JAX package), elsewhere
+over the whole process group (``collectives.sync_stats_scope``);
+``num_devices`` is accepted and unused, the process group giving the
+count.
 """
 
 from __future__ import annotations
@@ -59,8 +62,9 @@ class SparseEmbedding(nn.Embedding):
 
 
 class SyncBatchNorm(nn.BatchNorm):
-    """Cross-device BatchNorm (reference: contrib.nn.SyncBatchNorm); on
-    one card, ``BatchNorm`` over axis 1."""
+    """Cross-device BatchNorm over axis 1 (reference:
+    contrib.nn.SyncBatchNorm): training-mode statistics are summed over
+    the ranks, forward and backward."""
 
     def __init__(self, in_channels=0, num_devices=None, momentum=0.9,
                  epsilon=1e-5, center=True, scale=True,
@@ -77,6 +81,13 @@ class SyncBatchNorm(nn.BatchNorm):
                          running_variance_initializer=
                          running_variance_initializer,
                          in_channels=in_channels, **kwargs)
+
+    def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        from ...parallel.collectives import sync_stats_scope
+
+        with sync_stats_scope():
+            return super().hybrid_forward(F, x, gamma, beta, running_mean,
+                                          running_var)
 
 
 class PixelShuffle1D(HybridBlock):

@@ -55,8 +55,9 @@ overlaps the current step.
 
 ``mesh=`` takes the one-device ``parallel.data_parallel_mesh(1)``; a
 ``dp>1`` mesh, and ``kvstore=``/``warm_pull=`` (the warm
-``row_sparse_pull`` of a distributed store), wait for the multi-GPU
-slice and raise ``NotImplementedError``.
+``row_sparse_pull`` of a distributed store), wait for the next
+multi-GPU slice (ROADMAP queue 1 item 1b) and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -92,8 +93,8 @@ def _mesh_context(mesh):
     if mesh.size != 1:
         raise NotImplementedError(
             f"DevicePrefetcher: mesh {mesh.shape} spans {mesh.size} "
-            "devices; placing a batch sharded over a dp>1 mesh comes with "
-            "the multi-GPU slice")
+            "devices; placing a batch sharded over a dp>1 mesh waits for "
+            "the next multi-GPU slice (ROADMAP queue 1 item 1b)")
     return context_of(mesh.devices.flat[0])
 
 
@@ -308,7 +309,7 @@ class DevicePrefetcher:
         about to yield and stashes it for the captured step.
     kvstore, warm_pull :
         The warm ``row_sparse_pull`` of a distributed store; they wait
-        for the multi-GPU slice and raise ``NotImplementedError``.
+        for the next multi-GPU slice and raise ``NotImplementedError``.
     """
 
     def __init__(self, data, depth=None, mesh=None, axis="dp",
@@ -316,8 +317,8 @@ class DevicePrefetcher:
         if kvstore is not None or warm_pull:
             raise NotImplementedError(
                 "DevicePrefetcher: kvstore= and warm_pull= (the warm "
-                "row_sparse_pull of a distributed store) come with the "
-                "multi-GPU slice")
+                "row_sparse_pull of a distributed store) wait for the next "
+                "multi-GPU slice (ROADMAP queue 1 item 1b)")
         self._sparse_block = sparse_tables
         self._data = data
         self._depth = default_depth() if depth is None else int(depth)

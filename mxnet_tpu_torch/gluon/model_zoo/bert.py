@@ -333,13 +333,27 @@ class BERTModel(_ZooModel):
 def masked_token_ce(logits, labels):
     """Mean token cross-entropy over valid (label >= 0) positions, from
     the f32 log-softmax, the denominator at least 1: the zoo's one
-    masked CE (``gpt.GPTLMLoss`` delegates here)."""
+    masked CE (``gpt.GPTLMLoss`` delegates here).
+
+    Inside a sharded step over dp ranks the mean is the global batch's,
+    as the JAX package's over a dp-sharded array: the valid count is
+    summed over the dp group, and a rank returns its share of the global
+    mean times dp (the trainer's objective is the mean over the dp ranks
+    of their losses)."""
+    from ...parallel.collectives import all_reduce_, current_scope
+
     labels = labels.long()
     valid = labels >= 0
     logp = torch.log_softmax(logits.float(), dim=-1)
     nll = -torch.gather(logp, -1, labels.clamp_min(0)[..., None])[..., 0]
-    denom = valid.sum().clamp_min(1)
-    return torch.where(valid, nll, torch.zeros_like(nll)).sum() / denom
+    denom = valid.sum()
+    scope = current_scope()
+    if scope is not None and scope.dp_size > 1:
+        denom = all_reduce_(denom.clone(), scope.dp_group, "loss_count")
+        return (torch.where(valid, nll, torch.zeros_like(nll)).sum()
+                / denom.clamp_min(1) * scope.dp_size)
+    return torch.where(valid, nll, torch.zeros_like(nll)).sum() \
+        / denom.clamp_min(1)
 
 
 def _bert_pretrain_loss_pure(nsp_logits, mlm_logits, mlm_labels,

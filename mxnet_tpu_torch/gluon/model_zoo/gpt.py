@@ -415,14 +415,15 @@ class CachedDecoder:
     sampling surface.  ``dtype`` (``"bfloat16"`` or a torch dtype) puts
     the matrix stacks, the embedding tables and the cache in it, the
     accumulation and the residual stream in f32.  ``mesh``
-    (tensor-parallel decoding) waits for multi-GPU: a mesh raises."""
+    (tensor-parallel decoding) waits for the next multi-GPU slice: a
+    mesh raises."""
 
     def __init__(self, model, mesh=None, dtype=None):
         if mesh is not None:
             raise MXNetError(
-                "CachedDecoder(mesh=...): tensor-parallel decoding needs "
-                "several cards (ROADMAP queue 1 item 6, multi-GPU); decode "
-                "on one device without mesh=")
+                "CachedDecoder(mesh=...): tensor-parallel decoding waits "
+                "for the next multi-GPU slice (ROADMAP queue 1 item 1b); "
+                "decode on one device without mesh=")
         stacks, lnf, tok, pos, heads, act = extract_decoder_stacks(model)
         self._W = model._max_length
         self._act = act

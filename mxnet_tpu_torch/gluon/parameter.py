@@ -41,6 +41,27 @@ from ..context import cpu, current_context
 from ..ndarray.ndarray import NDArray
 
 
+#: stand-in tensors by ``id(Parameter)``, innermost scope last
+_OVERRIDES = []
+
+
+class param_override_scope:
+    """Make each Parameter of ``mapping`` ({Parameter: tensor}) read its
+    tensor in a block's forward (the JAX package's
+    ``param_override_scope``): the sharded trainer runs the forward on a
+    rank's shards and gathered weights this way."""
+
+    def __init__(self, mapping):
+        self._map = {id(p): t for p, t in mapping.items()}
+
+    def __enter__(self):
+        _OVERRIDES.append(self._map)
+        return self
+
+    def __exit__(self, *exc):
+        _OVERRIDES.pop()
+
+
 class DeferredInitializationError(MXNetError):
     """Parameter accessed before its deferred shape was known."""
 
@@ -237,7 +258,13 @@ class Parameter:
 
     def _value(self):
         """The tensor, for a block's forward: raises as ``data()`` does
-        while the parameter is deferred or uninitialised."""
+        while the parameter is deferred or uninitialised.  Inside
+        ``param_override_scope`` a parameter it maps reads its
+        stand-in."""
+        if _OVERRIDES:
+            t = _OVERRIDES[-1].get(id(self))
+            if t is not None:
+                return t
         return self._check_and_get()._data
 
     # -- initialisation ----------------------------------------------------------

@@ -8,8 +8,7 @@ optimizer_params, kvstore, update_on_kvstore)``, ``step``/
 save/load, in the reference's order of operations.
 
 On one worker a 'local', 'device' or 'nccl' kvstore takes the local path
-(no store; the dist types wait for the multi-GPU slice), whose update is
-the grouped multi-tensor one
+(no store), whose update is the grouped multi-tensor one
 (``optimizer.GroupedUpdater``), guarded by ``numerics.StepGuard`` unless
 ``MXTPU_GRAD_GUARD=0``; ``MXTPU_FUSED_STEP=0`` restores the legacy
 per-parameter loop.  Row-sparse gradients stay compact all the way: the
@@ -31,6 +30,18 @@ reduction; an armed site routes ``train_step`` to the eager path, where
 the gradient lives in a buffer.  ``train_step`` consults ``autotune``
 once per capture signature before its capture lookup
 (``MXTPU_AUTOTUNE=replay|search|off``).
+
+A dist store ('dist_sync', 'dist_device_sync', 'dist_async') always goes
+through the store (``kvstore_requires_store``), as the reference's does:
+with ``update_on_kvstore`` (the default there) each gradient is pushed,
+all-reduced across the workers and applied by the store's updater, and
+the weight pulled back; without it ``bucketed_pushpull`` all-reduces the
+gradients and the grouped update runs here.  ``compression_params``
+turns on the store's gradient compression.  Such a trainer takes the
+eager path (``kvstore.captured_step_compatible``).  Parameters placed as
+DTensors by ``parallel.shard_model`` on a rank mesh train through
+``parallel.ShardedTrainer``; this trainer refuses them (ROADMAP queue 1
+item 1b).
 """
 
 from __future__ import annotations
@@ -87,16 +98,15 @@ class Trainer:
                     "First argument must be a list or dict of Parameters, "
                     f"got list of {type(param)}.")
             self._params.append(param)
-        if compression_params is not None:
-            raise NotImplementedError("Trainer: gradient compression comes "
-                                      "with the multi-GPU slice")
+        self._compression_params = compression_params
         from .. import obs
 
         obs.ensure_from_env()          # MXTPU_METRICS_PORT, if set
         optimizer_params = optimizer_params if optimizer_params else {}
         self._scale = float(optimizer_params.get("rescale_grad", 1.0))
         self._init_optimizer(optimizer, optimizer_params)
-        self._kvstore_type = kvstore
+        self._kvstore_params = {"kvstore": kvstore,
+                                "update_on_kvstore": update_on_kvstore}
         self._kv_initialized = False
         self._kvstore = None
         self._update_on_kvstore = None
@@ -126,15 +136,40 @@ class Trainer:
                                   for u in self._updaters]
 
     def _init_kvstore(self):
-        """On one worker every store type takes the local path, as the
-        reference's does: no store, the reduce of one copy being the copy.
-        A dist type raises NotImplementedError (the multi-GPU slice)."""
-        if isinstance(self._kvstore_type, str):
+        """A store of one worker is no store: the local path, the reduce
+        of one copy being the copy.  A dist type always keeps its store
+        (``kvstore_requires_store``); ``update_on_kvstore`` defaults to
+        True there, as in the reference."""
+        for p in self._params:
+            if _is_dtensor(p):
+                raise NotImplementedError(
+                    f"Trainer: parameter {p.name!r} is a DTensor placed by "
+                    "parallel.shard_model on a rank mesh; train it with "
+                    "parallel.ShardedTrainer (gluon.Trainer and the "
+                    "captured train_step over a rank mesh wait for the "
+                    "next multi-GPU slice, ROADMAP queue 1 item 1b)")
+        config = self._kvstore_params
+        kvstore = config["kvstore"]
+        update_on_kvstore = config["update_on_kvstore"]
+        kv = None
+        if kvstore:
             from .. import kvstore as kvs
 
-            kvs.create(self._kvstore_type)
-        self._kvstore = None
-        self._update_on_kvstore = False
+            kv = kvs.create(kvstore) if isinstance(kvstore, str) else kvstore
+            if kv.num_workers == 1 and not kvstore_requires_store(kv):
+                kv = None
+        if kv is not None:
+            if self._compression_params is not None:
+                kv.set_gradient_compression(self._compression_params)
+            if update_on_kvstore is None:
+                update_on_kvstore = True
+            if update_on_kvstore:
+                kv.set_optimizer(self._optimizer)
+            for i, param in enumerate(self._params):
+                if param.grad_req != "null":
+                    kv.init(i, param.data())
+        self._kvstore = kv
+        self._update_on_kvstore = bool(update_on_kvstore) and kv is not None
         self._kv_initialized = True
 
     @property
@@ -178,7 +213,8 @@ class Trainer:
             if not self._kv_initialized:
                 self._init_kvstore()
             self._set_rescale(batch_size)
-            self._update(ignore_stale_grad)
+            health = self._allreduce_grads()
+            self._update(ignore_stale_grad, health=health)
         except BaseException:
             telemetry.step_abort(acc)
             raise
@@ -319,17 +355,53 @@ class Trainer:
         return result
 
     def allreduce_grads(self):
-        """Reduce the gradients across workers: nothing to do on one."""
+        """Reduce the gradients across workers (nothing to do on one)."""
         if not self._kv_initialized:
             self._init_kvstore()
+        if self._update_on_kvstore:
+            raise AssertionError(
+                "allreduce_grads() when parameters are updated on kvstore "
+                "is not supported. Try setting `update_on_kvstore` to False "
+                "when creating trainer.")
+        self._allreduce_grads()
+
+    def _allreduce_grads(self):
+        """The cross-worker gradient reduce.  Returns the fused ``(2,)``
+        health tensor when ``bucketed_pushpull`` computed it after the
+        reduce, else None (the guarded update takes its own)."""
+        if self._kvstore is None:
+            return None
+        if self._update_on_kvstore:
+            for i, param in enumerate(self._params):
+                if param.grad_req != "null":
+                    self._kvstore.push(i, param.list_grad(), priority=-i)
+            return None
+        keys = [i for i, param in enumerate(self._params)
+                if param.grad_req != "null"]
+        if opt.grouped.fused_step_enabled():
+            grads = [self._params[i].list_grad() for i in keys]
+            want = numerics.grad_guard_enabled() \
+                or self._clip_norm() is not None
+            return self._kvstore.bucketed_pushpull(keys, grads, outs=grads,
+                                                   health=want)
+        for i in keys:
+            self._kvstore.pushpull(i, self._params[i].list_grad(),
+                                   out=self._params[i].list_grad(),
+                                   priority=-i)
+        return None
 
     def update(self, batch_size, ignore_stale_grad=False):
         if not self._kv_initialized:
             self._init_kvstore()
+        if self._update_on_kvstore:
+            raise AssertionError(
+                "update() when parameters are updated on kvstore is not "
+                "supported. Try setting `update_on_kvstore` to False when "
+                "creating trainer.")
         self._set_rescale(batch_size)
         self._update(ignore_stale_grad)
 
-    def _update(self, ignore_stale_grad=False):
+    def _update(self, ignore_stale_grad=False, health=None):
         updates = []
         for i, param in enumerate(self._params):
             if param.grad_req == "null":
@@ -346,7 +418,10 @@ class Trainer:
                     "ignore_stale_grad=True to suppress this warning and "
                     "skip updating of Parameters with stale gradient")
             data._fresh_grad = False
-            updates.append((i, param.grad(), data))
+            if self._update_on_kvstore:
+                self._kvstore.pull(i, param.list_data(), priority=-i)
+            else:
+                updates.append((i, param.grad(), data))
         self._step_count += 1
         if not updates:
             return
@@ -358,9 +433,11 @@ class Trainer:
             # the nan_grad / bit_flip_grad fault sites
             from .. import integrity as _integrity
 
-            _integrity.maybe_bit_flip_grad(grads=grads)
-            numerics.maybe_inject_nan_grad(grads)
-            health = numerics.grad_health([_health_tensor(g) for g in grads])
+            flipped = _integrity.maybe_bit_flip_grad(grads=grads)
+            if numerics.maybe_inject_nan_grad(grads) or flipped \
+                    or health is None:
+                health = numerics.grad_health(
+                    [_health_tensor(g) for g in grads])
             guard = numerics.StepGuard(health, skip=guard_on, clip=clip)
             snapshot = self._snapshot_update_counts(indices) \
                 if guard_on else None
@@ -501,18 +578,30 @@ class Trainer:
 
     def save_states(self, fname):
         """Save the optimizer and its states (reference:
-        Trainer.save_states); the states are pickled as host arrays."""
+        Trainer.save_states); the states are pickled as host arrays.
+        With ``update_on_kvstore`` they are the store's."""
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.save_optimizer_states(fname, dump_optimizer=True)
+            return
         with open(fname, "wb") as fout:
             fout.write(self._updaters[0].get_states(dump_optimizer=True))
 
     def load_states(self, fname):
         """Load ``save_states``'s file; the trainer keeps its own optimizer
         (and its step counts), as the JAX package's does."""
-        with open(fname, "rb") as f:
-            states = f.read()
-        self._updaters[0].set_states(states)
-        self._updaters[0].optimizer = self._optimizer
-        self._validate_updater_states(fname)
+        if not self._kv_initialized:
+            self._init_kvstore()
+        if self._update_on_kvstore:
+            self._kvstore.load_optimizer_states(fname)
+            self._optimizer = self._kvstore._updater.optimizer
+        else:
+            with open(fname, "rb") as f:
+                states = f.read()
+            self._updaters[0].set_states(states)
+            self._updaters[0].optimizer = self._optimizer
+            self._validate_updater_states(fname)
         self._optimizer.param_dict = {
             i: param for i, param in enumerate(self._params)}
 
@@ -548,3 +637,15 @@ class Trainer:
                         f"shape {pshape}. The parameter list changed "
                         "since the states were saved.")
 
+
+def kvstore_requires_store(kv):
+    """A dist type always goes through its store (the cross-process
+    reduce), even on one worker."""
+    return kv.type.startswith("dist")
+
+
+def _is_dtensor(param):
+    import sys
+
+    mod = sys.modules.get("torch.distributed.tensor")  # none made without
+    return mod is not None and isinstance(param._tensor, mod.DTensor)

@@ -1,21 +1,36 @@
-"""KVStore: parameter and gradient synchronisation on one device.
+"""KVStore: parameter and gradient synchronisation.
 
 Counterpart of ``mxnet_tpu/kvstore.py`` (reference: src/kvstore/ and
-python/mxnet/kvstore.py): ``create('local'|'device'|'nccl')`` with
-``init``/``push``/``pull``/``pushpull``, ``set_optimizer`` (updates run in
-the store) and the optimizer-state save/load, for one worker.  Push sums
-the values of a key's list (the reference's intra-node reduce) and pull
-copies the stored value out; ``row_sparse_pull`` gathers just the
-requested rows.  The ``dist_*`` types and gradient
-compression belong to the multi-GPU slice and raise
-``NotImplementedError``.
+python/mxnet/kvstore.py): ``create('local'|'device'|'nccl'|'dist_sync'|
+'dist_device_sync'|'dist_async')`` with ``init``/``push``/``pull``/
+``pushpull``, ``set_optimizer`` (updates run in the store), the
+optimizer-state save/load, ``rank``/``num_workers``/``barrier`` and
+gradient compression.  Push sums the values of a key's list (the
+reference's intra-node reduce) and, for a dist type over more than one
+worker, all-reduces the sum across the process group
+(``distributed.init_from_env``: one process per rank); pull copies the
+stored value out; ``row_sparse_pull`` gathers just the requested rows.
+With compression on, each worker's contribution is quantised with error
+feedback first: the 2-bit wire is an all-gather of the packed codes, the
+fp16 wire an all-gather of f16 values summed in f32.
+``bucketed_pushpull`` packs dense keys into flat per-dtype buckets of
+``MXTPU_ALLREDUCE_BUCKET_MB`` (default 4) and reduces each with one
+collective.  ``dist_async`` runs synchronously, the reference's
+documented drop (there is no parameter server).  Every cross-process
+collective is guarded by ``MXTPU_COLLECTIVE_TIMEOUT``'s watchdog.
 """
 
 from __future__ import annotations
 
+import os
+
 import torch
+import torch.distributed as dist
 
 from . import optimizer as opt
+from . import profiler
+from . import resilience
+from . import telemetry
 from .base import MXNetError
 from .ndarray.ndarray import NDArray
 
@@ -29,31 +44,92 @@ def _as_list(x):
     return x if isinstance(x, (list, tuple)) else [x]
 
 
+def _bucket_bytes():
+    """Flat-bucket byte budget of ``bucketed_pushpull``
+    (``MXTPU_ALLREDUCE_BUCKET_MB``, default 4 MB)."""
+    try:
+        mb = float(os.environ.get("MXTPU_ALLREDUCE_BUCKET_MB", "4"))
+    except ValueError:
+        mb = 4.0
+    return max(1, int(mb * 1024 * 1024))
+
+
+#: elastic membership epoch, bumped by ``notify_mesh_reshape``: part of
+#: ``device_fingerprint``, so a gang reshape re-captures every captured
+#: step even where a survivor's visible cards did not change
+_MESH_EPOCH = 0
+
+
+def notify_mesh_reshape(epoch):
+    """Called by ``resilience.ElasticGang.recover`` after a membership
+    change: the next captured step records against the new topology."""
+    global _MESH_EPOCH
+    _MESH_EPOCH = int(epoch)
+
+
 def device_fingerprint():
-    """Part of every captured-step key: the visible CUDA devices (the
-    device set a captured graph was recorded against)."""
+    """Part of every captured-step key: the membership epoch and the
+    visible CUDA devices (the device set a captured graph was recorded
+    against)."""
     if not torch.cuda.is_available():
-        return ()
-    return tuple(torch.cuda.get_device_name(i)
-                 for i in range(torch.cuda.device_count()))
+        return (_MESH_EPOCH,)
+    return (_MESH_EPOCH,) + tuple(torch.cuda.get_device_name(i)
+                                  for i in range(torch.cuda.device_count()))
 
 
 def captured_step_compatible(kv):
     """Whether ``gluon.captured`` may fold this trainer's gradient
     reduction into the captured step: only the local path (no store: one
-    worker, in-process tensors) qualifies."""
+    worker, in-process tensors).  A dist store reduces through
+    ``bucketed_pushpull`` between backward and update, so its trainer
+    takes the eager path."""
     return kv is None
 
 
+def _cross_process_allreduce(t, label=None):
+    """Sum every worker's ``t`` over the process group; returns a new
+    tensor (``label`` names the collective in a watchdog report)."""
+    from .parallel import collectives
+
+    return collectives.all_reduce_(t.detach().clone(), dist.group.WORLD,
+                                   label or "kvstore_allreduce")
+
+
+def _cross_process_f16_allreduce(h16):
+    """fp16 wire: all-gather the f16 values (half the bytes), sum them in
+    f32 (no f16 accumulation overflow)."""
+    from .parallel import collectives
+
+    rows = collectives.all_gather_dim(h16.reshape(1, -1), dist.group.WORLD)
+    return rows.float().sum(dim=0).reshape(h16.shape)
+
+
+def _cross_process_compressed_allreduce(packed, n, threshold, dtype):
+    """2-bit wire: all-gather every worker's packed codes (four gradients
+    a byte), decode and sum on this worker's device."""
+    from .gradient_compression import GradientCompression
+    from .parallel import collectives
+
+    rows = collectives.all_gather_dim(packed.reshape(1, -1),
+                                      dist.group.WORLD)
+    return GradientCompression.decode_sum(rows, n, threshold, dtype)
+
+
 class KVStore:
-    """In-process KVStore on one worker (reference: include/mxnet/
-    kvstore.h)."""
+    """KVStore over one worker's tensors and, for the dist types, the
+    process group (reference: include/mxnet/kvstore.h)."""
 
     def __init__(self, kv_type="local"):
         self._type = kv_type
         self._store = {}
         self._updater = None
         self._optimizer = None
+        self._compression = None
+        self._is_dist = kv_type.startswith("dist")
+        if self._is_dist:
+            from . import distributed
+
+            distributed.init_from_env()
 
     @property
     def type(self):
@@ -61,10 +137,18 @@ class KVStore:
 
     @property
     def rank(self):
+        if self._is_dist:
+            from . import distributed
+
+            return distributed.rank()
         return 0
 
     @property
     def num_workers(self):
+        if self._is_dist:
+            from . import distributed
+
+            return distributed.num_workers()
         return 1
 
     # -- data plane ------------------------------------------------------------
@@ -82,19 +166,60 @@ class KVStore:
             self._store[k] = v0.copy() if v0.stype != "default" \
                 else NDArray(v0._data.detach().clone(), v0._ctx)
 
-    def _reduce(self, values):
+    def _merge(self, values):
+        """The sum of one key's value list (the reference's Comm tree)."""
         vals = _as_list(values)
+        if len(vals) == 1:
+            return vals[0]
         merged = vals[0]._data.detach()
         for v in vals[1:]:
             merged = merged + v._data.detach().to(merged.device)
         return NDArray(merged, vals[0]._ctx)
+
+    def _reduce(self, key, values):
+        """Sum a key's value list and, for a dist type over more than one
+        worker, across the process group; with compression on, each
+        worker's contribution is quantised (error feedback) first."""
+        merged = self._merge(values)
+        gc = self._compression
+        multi = self._is_dist and self.num_workers > 1
+        if gc is None:
+            if multi:
+                return NDArray(_cross_process_allreduce(merged._data),
+                               merged._ctx)
+            return merged
+        from .ndarray.sparse import RowSparseNDArray, row_sparse_array
+
+        if isinstance(merged, RowSparseNDArray) and not multi:
+            union, q = gc.quantize_rowsparse(key, merged._rs_indices,
+                                             merged._rs_values)
+            return row_sparse_array((q, union), shape=merged.shape,
+                                    ctx=merged._ctx)
+        if isinstance(merged, RowSparseNDArray):
+            raise NotImplementedError(
+                "kvstore: the compressed push of a row-sparse gradient "
+                "across workers waits for the next multi-GPU slice "
+                "(ROADMAP queue 1 item 1b)")
+        raw = merged._data.detach()
+        with torch.no_grad():
+            if multi and gc.type == "2bit":
+                packed = gc.codes(key, raw)
+                summed = _cross_process_compressed_allreduce(
+                    packed, raw.numel(), gc.threshold,
+                    raw.dtype).reshape(raw.shape)
+            elif multi:
+                summed = _cross_process_f16_allreduce(
+                    gc.quantize_fp16_wire(key, raw)).to(raw.dtype)
+            else:
+                summed = gc.quantize(key, raw)
+        return NDArray(summed, merged._ctx)
 
     def push(self, key, value, priority=0):
         keys, values = self._normalize(key, value)
         for k, v in zip(keys, values):
             if k not in self._store:
                 raise MXNetError(f"key {k} not initialized")
-            merged = self._reduce(v)
+            merged = self._reduce(k, v)
             stored = self._store[k]
             if self._updater is not None:
                 self._updater(k, merged, stored)
@@ -178,6 +303,90 @@ class KVStore:
                     dense[idx.to(dense.device)] = vals.to(dense.device)
                     dst._set_data(dense)
 
+    def bucketed_pushpull(self, keys, values, outs=None, priority=0,
+                          health=False):
+        """Bucketed all-reduce: dense values are flattened into flat
+        buckets of about ``MXTPU_ALLREDUCE_BUCKET_MB`` per dtype, each
+        reduced with ONE collective, and split back.
+
+        Keys bucketing cannot express go through per-key ``pushpull``:
+        row-sparse values, any active compression (its residuals are
+        per key) and a store-side updater (the update reads each key's
+        reduction).  With ``health=True`` the fused
+        ``numerics.grad_health`` runs over the reduced buckets and its
+        ``(2,)`` [all_finite, global_sq_norm] tensor is returned (None
+        when nothing was bucketable)."""
+        from . import numerics
+        from .ndarray.sparse import RowSparseNDArray
+
+        if outs is None:
+            outs = [None] * len(keys)
+        gc = self._compression
+        if self._updater is not None or \
+                (gc is not None and not gc.supports_bucketing):
+            for k, v, o in zip(keys, values, outs):
+                self.pushpull(k, v, out=o, priority=priority)
+            if health:
+                raws = [self._store[k]._data for k in keys
+                        if k in self._store
+                        and not isinstance(self._store[k],
+                                           RowSparseNDArray)]
+                return numerics.grad_health(raws) if raws else None
+            return None
+        dense = []                      # (key, merged tensor, out)
+        for k, v, o in zip(keys, values, outs):
+            if k not in self._store:
+                raise MXNetError(f"key {k} not initialized")
+            vals = _as_list(v)
+            if any(isinstance(x, RowSparseNDArray) for x in vals) or \
+                    isinstance(self._store[k], RowSparseNDArray):
+                self.pushpull(k, v, out=o, priority=priority)
+                continue
+            dense.append((k, self._merge(v)._data.detach(), o))
+        if not dense:
+            return None
+        budget = _bucket_bytes()
+        buckets, fill = [], {}
+        for item in dense:
+            raw = item[1]
+            nbytes = raw.numel() * raw.element_size()
+            cur = fill.get(raw.dtype)
+            if cur is None or cur[1] + nbytes > budget:
+                cur = [[], 0]
+                buckets.append((raw.dtype, cur))
+                fill[raw.dtype] = cur
+            cur[0].append(item)
+            cur[1] += nbytes
+        multi = self._is_dist and self.num_workers > 1
+        reduced = []
+        for dt, (items, nbytes) in buckets:
+            telemetry.count("collective.bytes", nbytes)
+            telemetry.count("collective.buckets")
+            with profiler.annotate("bucket_pack"):
+                flat = torch.cat([raw.reshape(-1) for _, raw, _ in items]) \
+                    if len(items) > 1 else items[0][1].reshape(-1).clone()
+            if multi:
+                with profiler.annotate("allreduce"):
+                    flat = _cross_process_allreduce(
+                        flat, label=f"kvstore_allreduce[{dt} bucket, "
+                                    f"{nbytes} bytes, {len(items)} keys]")
+            if health:
+                reduced.append(flat)
+            offset = 0
+            for k, raw, o in items:
+                piece = flat[offset:offset + raw.numel()].reshape(raw.shape)
+                offset += raw.numel()
+                stored = self._store[k]
+                with torch.no_grad():
+                    stored._data.copy_(piece)
+                stored._version += 1
+                if o is not None:
+                    for dst in _as_list(o):
+                        dst._set_data(piece)
+        if health and reduced:
+            return numerics.grad_health(reduced)
+        return None
+
     # -- optimizer plane -------------------------------------------------------
     def set_optimizer(self, optimizer):
         """Run parameter updates in the store (reference: the server-side
@@ -205,22 +414,36 @@ class KVStore:
             self._updater.set_states(fin.read())
 
     def set_gradient_compression(self, compression_params):
-        raise NotImplementedError("gradient compression comes with the "
-                                  "multi-GPU slice")
+        """Turn on gradient compression (reference:
+        src/kvstore/gradient_compression.cc): '2bit' threshold
+        quantisation with per-key error feedback, or 'fp16'.  As in the
+        reference, for the 'device' and 'dist_*' types only."""
+        from .gradient_compression import GradientCompression
+
+        if not (self._is_dist or self._type == "device"):
+            raise MXNetError(
+                "gradient compression is supported for 'device' and "
+                "'dist_*' kvstore types (reference semantics)")
+        self._compression = GradientCompression(compression_params)
+        self._compression_params = compression_params
 
     def barrier(self):
-        """No-op: one worker has no one to wait for."""
+        """Wait for every worker (a no-op on one), watchdog-guarded."""
+        if self._is_dist and self.num_workers > 1:
+            with resilience.guard_collective("kvstore_barrier"):
+                dist.barrier()
+
+    def _send_command_to_servers(self, head, body):
+        """The reference's server command channel: there is no server."""
 
 
 def create(name="local"):
-    """mx.kv.create (reference: KVStore::Create): 'local', 'device' and
-    'nccl' on one worker; the dist types raise NotImplementedError."""
+    """mx.kv.create (reference: KVStore::Create, src/kvstore/
+    kvstore.cc).  A dist type joins the process group of the launch
+    variables (``distributed.init_from_env``); on one worker it is a
+    store of one."""
     if not isinstance(name, str):
         raise TypeError("name must be a string")
-    if name in _DIST_TYPES:
-        raise NotImplementedError(
-            f"kvstore {name!r}: distributed stores come with the multi-GPU "
-            f"slice (torch.distributed over NCCL), not ported yet")
-    if name not in _LOCAL_TYPES:
+    if name not in _LOCAL_TYPES + _DIST_TYPES:
         raise MXNetError(f"unknown KVStore type {name}")
     return KVStore(name)

@@ -82,13 +82,65 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(B, T, H * D)
 
 
+def _tp_group(scope, *tensors):
+    """The tp group when every one of ``tensors`` (None ones skipped)
+    holds a tp shard, None when none does; a mix is a layout the
+    tp-aware trunk cannot run and raises."""
+    if scope is None or scope.tp_group is None:
+        return None
+    given = [t for t in tensors if t is not None]
+    marks = [scope.shard_of(t) is not None for t in given]
+    if not any(marks):
+        return None
+    if not all(marks):
+        from ..base import MXNetError
+
+        raise MXNetError(
+            "tensor parallel attention/FFN: the qkv, proj, ffn1 and ffn2 "
+            "weights (and the qkv and ffn1 biases) must all be tp shards "
+            "(TRANSFORMER_TP_RULES), or none of them")
+    return scope.tp_group
+
+
 @register("multi_head_attention")
 def multi_head_attention(query, key, value, qkv_weight=None, qkv_bias=None,
                          proj_weight=None, proj_bias=None, num_heads=1,
                          mask=None, causal=False, impl="dense"):
     """Multi-head attention on (B, T, C) inputs with the packed (3C, C)
     qkv projection, split q | k | v along the output features and then
-    into heads, as the JAX op does."""
+    into heads, as the JAX op does.
+
+    Inside a sharded step with the qkv and proj weights tp shards
+    (``parallel.sharding.local_shard``: the rank's heads of q, k and v,
+    and the proj columns of those heads) each rank runs its own heads:
+    num_heads / tp of them, the kernels on plain local tensors; the proj
+    products are summed over the tp group and the bias added once."""
+    from ..parallel.collectives import current_scope
+
+    group = None
+    if qkv_weight is not None and proj_weight is not None:
+        group = _tp_group(current_scope(), qkv_weight, qkv_bias,
+                          proj_weight)
+    return _mha(query, key, value, qkv_weight, qkv_bias, proj_weight,
+                proj_bias, num_heads, mask, causal, impl, group)
+
+
+def _mha(query, key, value, qkv_weight, qkv_bias, proj_weight, proj_bias,
+         num_heads, mask, causal, impl, group):
+    if group is not None:
+        from ..parallel import collectives as coll
+
+        if not (query is key and key is value):
+            from ..base import MXNetError
+
+            raise MXNetError("tensor parallel attention takes the packed "
+                             "self-attention form (query is key is value)")
+        num_heads //= torch.distributed.get_world_size(group)
+        query = key = value = coll.copy_to_region(query, group)
+        out = _mha(query, key, value, qkv_weight, qkv_bias, proj_weight,
+                   None, num_heads, mask, causal, impl, None)
+        out = coll.reduce_from_region(out, group)
+        return out if proj_bias is None else out + proj_bias
     if qkv_weight is not None:
         if query is key and key is value:
             qkv = torch.matmul(query, qkv_weight.t())
@@ -147,21 +199,34 @@ def interleaved_matmul_selfatt_valatt(queries_keys_values, attention,
 
 
 def _encoder_layer(x, w, num_heads, activation, impl, causal, dropout,
-                   generator):
+                   generator, tp_group=None):
     """One pre-LN layer on its 12 per-layer parameters ``w``; ``dropout``
-    0 (or ``generator`` None) drops nothing."""
+    0 (or ``generator`` None) drops nothing.  With ``tp_group`` the qkv,
+    proj, ffn1 and ffn2 weights are this rank's tp shards: the attention
+    runs the rank's heads and the FFN its hidden columns (ffn1
+    column-parallel, ffn2 row-parallel, summed over the group with the
+    bias added once); the dropped activations are replicated, so the tp
+    ranks draw the same masks."""
     (qw, qb, pw, pb, f1w, f1b, f2w, f2b, g1, b1, g2, b2) = w
     h = layer_norm(x, g1, b1)
-    attn = multi_head_attention(
-        h, h, h, qkv_weight=qw, qkv_bias=qb, proj_weight=pw, proj_bias=pb,
-        num_heads=num_heads, impl=impl, causal=causal)
+    attn = _mha(h, h, h, qw, qb, pw, pb, num_heads, None, causal, impl,
+                tp_group)
     if generator is not None:
         attn = _dropout(attn, dropout, _key=generator)
     x = x + attn
     h = layer_norm(x, g2, b2)
-    h = fully_connected(h, f1w, f1b, flatten=False)
-    h = _activation(h, activation)
-    h = fully_connected(h, f2w, f2b, flatten=False)
+    if tp_group is None:
+        h = fully_connected(h, f1w, f1b, flatten=False)
+        h = _activation(h, activation)
+        h = fully_connected(h, f2w, f2b, flatten=False)
+    else:
+        from ..parallel import collectives as coll
+
+        h = fully_connected(coll.copy_to_region(h, tp_group), f1w, f1b,
+                            flatten=False)
+        h = _activation(h, activation)
+        h = coll.reduce_from_region(
+            fully_connected(h, f2w, None, flatten=False), tp_group) + f2b
     if generator is not None:
         h = _dropout(h, dropout, _key=generator)
     return x + h
@@ -194,6 +259,15 @@ def scan_transformer_encoder(data, qkv_w, qkv_b, proj_w, proj_b, ffn1_w,
         _key = _random.current_generator(data.device)
     gen = _key if use_drop else None
     use_lora = qkv_lora_a is not None and qkv_lora_b is not None
+    from ..parallel.collectives import current_scope
+
+    tp_group = _tp_group(current_scope(), qkv_w, qkv_b, proj_w, ffn1_w,
+                         ffn1_b, ffn2_w)
+    if tp_group is not None and use_lora:
+        raise NotImplementedError(
+            "scan_transformer_encoder: LoRA stacks under tensor "
+            "parallelism wait for the next multi-GPU slice (ROADMAP queue "
+            "1 item 1b)")
     L = qkv_w.shape[0]
     stacks = (qkv_w, qkv_b, proj_w, proj_b, ffn1_w, ffn1_b, ffn2_w, ffn2_b,
               ln1_g, ln1_b, ln2_g, ln2_b)
@@ -206,7 +280,7 @@ def scan_transformer_encoder(data, qkv_w, qkv_b, proj_w, proj_b, ffn1_w,
                                      qkv_lora_a[i].float())
                 w[0] = w[0] + (lora_scale * delta).to(w[0].dtype)
             x = _encoder_layer(x, w, num_heads, activation, impl, causal,
-                               dropout, gen)
+                               dropout, gen, tp_group)
         return x
 
     pol = _remat.trunk_policy(remat)

@@ -59,7 +59,29 @@ def one_hot(indices, depth=1, on_value=1.0, off_value=0.0, dtype="float32"):
 @register("Embedding", aliases=("embedding",))
 def embedding(data, weight, input_dim=None, output_dim=None, dtype="float32",
               sparse_grad=False):
-    return weight[_idx(data).clamp(0, weight.shape[0] - 1)]
+    """Rows of ``weight`` at the (clipped) ids.  Inside a sharded step a
+    weight sharded on its vocabulary (a tp shard of dim 0) looks up the
+    ids in its own rows, zeros the rest, and sums the ranks' rows over
+    the tp group (vocab-parallel embedding)."""
+    from ..parallel.collectives import current_scope
+
+    scope = current_scope()
+    shard = scope.shard_of(weight) if scope is not None else None
+    if shard is None:
+        return weight[_idx(data).clamp(0, weight.shape[0] - 1)]
+    from ..parallel.collectives import reduce_from_region
+
+    dim, offset, full = shard
+    if dim != 0:
+        from ..base import MXNetError
+
+        raise MXNetError("Embedding: a tp shard of the table must split "
+                         "the vocabulary (dim 0)")
+    ids = _idx(data).clamp(0, full - 1) - offset
+    mine = (ids >= 0) & (ids < weight.shape[0])
+    rows = weight[ids.clamp(0, weight.shape[0] - 1)]
+    rows = torch.where(mine[..., None], rows, torch.zeros_like(rows))
+    return reduce_from_region(rows, scope.tp_group)
 
 
 class _SparseEmbedding(torch.autograd.Function):

@@ -60,16 +60,50 @@ def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
     op; ``flatten`` folds every axis after the first into one first.  The
     product runs in the operands' dtype with an f32 accumulator (module
     note), the result is cast to ``data``'s dtype, then the bias is
-    added."""
+    added.
+
+    Inside a sharded step (``parallel.collectives.parallel_scope``) a
+    weight that holds a tp shard runs Megatron's way: sharded on its
+    output dim (column-parallel), the rank's output columns are gathered
+    over the tp group before the bias; sharded on its input dim
+    (row-parallel), the rank multiplies its slice of the input features
+    and the products are summed over the group, the bias added once
+    after."""
     if flatten and data.dim() > 2:
         data = data.reshape(data.shape[0], -1)
-    if data.dtype == weight.dtype:
-        out = torch.matmul(data, weight.t())
-    else:
-        out = torch.matmul(data.float(), weight.float().t()).to(data.dtype)
+    from ..parallel.collectives import current_scope
+
+    scope = current_scope()
+    shard = scope.shard_of(weight) if scope is not None else None
+    if shard is not None:
+        return _tp_fully_connected(data, weight, bias, no_bias, shard,
+                                   scope.tp_group)
+    out = _matmul_nt(data, weight)
     if bias is None or no_bias:
         return out
     return out + bias
+
+
+def _tp_fully_connected(data, weight, bias, no_bias, shard, group):
+    from ..parallel import collectives as coll
+
+    dim, offset, _full = shard
+    if dim == 0:
+        out = _matmul_nt(coll.copy_to_region(data, group), weight)
+        out = coll.gather_from_region(out, group, dim=-1)
+    else:
+        x = data[..., offset:offset + weight.shape[1]]
+        out = coll.reduce_from_region(
+            _matmul_nt(coll.copy_to_region(x, group), weight), group)
+    if bias is None or no_bias:
+        return out
+    return out + bias
+
+
+def _matmul_nt(data, weight):
+    if data.dtype == weight.dtype:
+        return torch.matmul(data, weight.t())
+    return torch.matmul(data.float(), weight.float().t()).to(data.dtype)
 
 
 # -- activations ---------------------------------------------------------------
@@ -437,7 +471,7 @@ class _BatchNormTrain(torch.autograd.Function):
     the mean and variance outputs too."""
 
     @staticmethod
-    def forward(ctx, x, gamma, beta, eps, axis):
+    def forward(ctx, x, gamma, beta, eps, axis, group=None):
         axes = [i for i in range(x.dim()) if i != axis]
         shape = _stat_shape(x, axis)
         n = x.numel() // x.shape[axis]
@@ -447,6 +481,13 @@ class _BatchNormTrain(torch.autograd.Function):
             s2 = torch.sum(x * x, dim=axes)
         else:
             s2 = torch.linalg.vector_norm(x, 2, dim=axes, dtype=acc).square()
+        if group is not None:
+            # global statistics: the sums of every dp rank's batch
+            from ..parallel.collectives import all_reduce_
+
+            both = all_reduce_(torch.stack([s1, s2]), group, "bn_stats")
+            s1, s2 = both[0], both[1]
+            n = n * torch.distributed.get_world_size(group)
         mean = s1 / n
         var = torch.clamp(s2 / n - mean * mean, min=0.0)
         inv = torch.rsqrt(var + eps)
@@ -455,7 +496,7 @@ class _BatchNormTrain(torch.autograd.Function):
         shift = (beta.to(acc) - g * inv * mean).reshape(shape)
         out = torch.addcmul(shift, x, scale).to(x.dtype)
         ctx.save_for_backward(x, gamma, mean, inv)
-        ctx.axis, ctx.n = axis, n
+        ctx.axis, ctx.n, ctx.group = axis, n, group
         ctx.set_materialize_grads(False)
         return out, mean, var
 
@@ -474,11 +515,27 @@ class _BatchNormTrain(torch.autograd.Function):
             xhat = xc * inv.reshape(shape)
             sum_dy = dyf.sum(dim=axes)
             sum_dy_xhat = (dyf * xhat).sum(dim=axes)
+            # gamma and beta take this rank's sums (the trainer averages
+            # their gradients over the dp ranks); x takes the global ones
+            dgamma = sum_dy_xhat.to(gamma.dtype)
+            dbeta = sum_dy.to(gamma.dtype)
+            if ctx.group is not None:
+                from ..parallel.collectives import all_reduce_
+
+                both = all_reduce_(torch.stack([sum_dy, sum_dy_xhat]),
+                                   ctx.group, "bn_grad_stats")
+                sum_dy, sum_dy_xhat = both[0], both[1]
             coef = (gamma.to(acc) * inv).reshape(shape)
             dx = coef * (dyf - (sum_dy / n).reshape(shape)
                          - xhat * (sum_dy_xhat / n).reshape(shape))
-            dgamma = sum_dy_xhat.to(gamma.dtype)
-            dbeta = sum_dy.to(gamma.dtype)
+        if ctx.group is not None and (dmean is not None
+                                      or dvar is not None):
+            from ..parallel.collectives import all_reduce_
+
+            if dmean is not None:
+                dmean = all_reduce_(dmean.to(acc).clone(), ctx.group)
+            if dvar is not None:
+                dvar = all_reduce_(dvar.to(acc).clone(), ctx.group)
         if dmean is not None:
             term = (dmean.to(acc) / n).reshape(shape).expand_as(xc)
             dx = term if dx is None else dx + term
@@ -487,7 +544,7 @@ class _BatchNormTrain(torch.autograd.Function):
             dx = term if dx is None else dx + term
         if dx is not None:
             dx = dx.to(x.dtype)
-        return dx, dgamma, dbeta, None, None
+        return dx, dgamma, dbeta, None, None, None
 
 
 @register("BatchNorm", aliases=("batch_norm",), mode_dependent=True)
@@ -499,12 +556,17 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
     ``use_global_stats``) it normalises with the batch's statistics
     (``_BatchNormTrain``) and, with ``output_mean_var``, returns them in
     the moving statistics' dtype; the Gluon layer owns the moving-average
-    update.  Otherwise it normalises with ``moving_mean``/``moving_var`` in
+    update.  Inside a sharded step the statistics are those of the global
+    batch: the sums are all-reduced over the dp group, forward and
+    backward, as the JAX package's mean over a dp-sharded array is.  Otherwise it normalises with ``moving_mean``/``moving_var`` in
     f32.  ``fix_gamma`` uses ones for gamma."""
     axis = axis % data.dim()
     g = torch.ones_like(gamma) if fix_gamma else gamma
     if _is_training and not use_global_stats:
-        out, mean, var = _BatchNormTrain.apply(data, g, beta, eps, axis)
+        from ..parallel.collectives import stat_group
+
+        out, mean, var = _BatchNormTrain.apply(data, g, beta, eps, axis,
+                                               stat_group())
         if output_mean_var:
             return (out, mean.to(moving_mean.dtype),
                     var.to(moving_var.dtype))

@@ -42,8 +42,9 @@ The step is ``gpt.decoder_step`` (shared with ``gpt.CachedDecoder``):
 dense attention over the cache window, as in the JAX engine; it reaches
 no kernel of the port's own.  A program returns only each row's logits at
 its read position (the JAX program returns every position's and the
-engine reads those).  Tensor-parallel serving (``mesh=``) comes with the
-multi-GPU slice; the replicas are ``serving/replica.py``.
+engine reads those).  Tensor-parallel serving (``mesh=``) waits for the
+next multi-GPU slice (ROADMAP queue 1 item 1b); the replicas are
+``serving/replica.py``.
 """
 
 from __future__ import annotations

@@ -15,8 +15,9 @@ masters through ``gluon.Trainer.train_step``; ``--model tiny`` is
 ``bert_tiny`` in f32 for the host) from the same seed and trains on the
 same batches (step s draws its batch and its dropout from seed + s), so
 the replicas stay bitwise equal, as data-parallel replicas are after
-their all-reduce (the all-reduce itself comes with the multi-GPU
-slice).  The gang snapshots every ``--snap-every`` steps through an
+their all-reduce (the replicas' all-reduce through a process group
+formed again after a reshape waits for the next multi-GPU slice,
+ROADMAP queue 1 item 1b).  The gang snapshots every ``--snap-every`` steps through an
 ``AsyncCheckpointer`` with a ``PeerSnapshotStore`` attached: the state is
 copied off the card into pinned memory and the writer thread keeps it
 and sends it to the buddy.  A two-rank gang loses its majority with one

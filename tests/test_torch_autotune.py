@@ -78,12 +78,11 @@ def test_knob_space_matches_jax():
     os.environ["MXTPU_GROUP_MAX_ITEMS"] = "8"
     assert space.program_knob_values() == jspace.program_knob_values()
     assert space.current_config() == jspace.current_config()
-    # the port searches only knobs a consumer reads (the multi-GPU ones
-    # wait for their slices)
+    # the port searches only knobs a consumer reads: the bucket budget
+    # and the FSDP size are read by the store and the sharded trainer
     live = [k.name for k in space.searchable_knobs()]
-    assert live == [k.name for k in jspace.searchable_knobs()
-                    if k.name not in ("allreduce_bucket_mb",
-                                      "fsdp_min_size")]
+    assert live == [k.name for k in jspace.searchable_knobs()]
+    assert {"allreduce_bucket_mb", "fsdp_min_size"} <= set(live)
 
 
 @pytest.mark.parametrize("semantics", ["0", "1"])
@@ -254,19 +253,24 @@ def test_search_then_replay_through_train_step_bitwise(tmp_path):
     and its run is bitwise the untuned one with the same knobs applied
     (every searched knob keeps the numbers)."""
     path = str(tmp_path / "tune_db.jsonl")
+    # every candidate runs: the base and two values of each of the five
+    # live one-card knobs and the two multi-GPU ones, remat,
+    # group_max_items and unique_bucket
+    n = len(search.candidates(space.default_config()))
+    assert n == 12
     os.environ.update(MXTPU_TUNE_DB=path, MXTPU_TUNE_STEPS="1",
-                      MXTPU_TUNE_BUDGET="8", MXTPU_CAPTURED_STEP="1")
+                      MXTPU_TUNE_BUDGET=str(n), MXTPU_CAPTURED_STEP="1")
     os.environ["MXTPU_AUTOTUNE"] = "search"
     captured.reset_counters()
     _l, _w, tuned = _train()
     counts = telemetry.event_counts()
-    assert counts.get("tune_trial") == 8 and counts.get("tune_winner") == 1
+    assert counts.get("tune_trial") == n and counts.get("tune_winner") == 1
     # the base, then remat, group_max_items and unique_bucket record anew
     assert [r.config for r in tuned._autotune_results] == \
         search.candidates(space.default_config())
     assert captured.cache_stats()["misses"] == 4
     (entry,) = db.load(path).values()
-    assert entry["trials"] == 8 and entry["score_us"] < math.inf
+    assert entry["trials"] == n and entry["score_us"] < math.inf
     assert entry["key"].split("|")[1:] == ["cpu", "single"]
     assert len(telemetry.recent_steps()) == 4      # trials are marked
     for k in space.KNOBS.values():

@@ -20,7 +20,8 @@ from mxnet_tpu_torch import convert, initializer
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.context import cpu
 from mxnet_tpu_torch.gluon.model_zoo import bert as tbert
-from mxnet_tpu_torch.parallel import (ShardedTrainer, data_parallel_mesh,
+from mxnet_tpu_torch.parallel import (TRANSFORMER_TP_RULES, ShardedTrainer,
+                                      data_parallel_mesh,
                                       make_mesh, mesh_axis_size)
 from mxnet_tpu_torch.tools import bench_bert
 
@@ -32,11 +33,13 @@ OUTPUTS = ("seq", "pooled", "nsp_logits", "mlm_logits")
 
 def _jax_bert(impl, scan=True, seed=0):
     """bert_tiny with Xavier weights and random (not zero/one) biases and
-    LayerNorm parameters, so every parameter trains."""
+    LayerNorm parameters, so every parameter trains; hybridized, so its
+    forward and backward each run as one compiled program."""
     mx.random.seed(seed)
     net = jbert.bert_tiny(scan_layers=scan, attention_impl=impl,
                           dropout=0.0)
     net.initialize(init=mx.init.Xavier())
+    net.hybridize()
     rng = np.random.RandomState(seed + 1)
     for name, p in net.collect_params().items():
         if name.endswith(("bias", "beta", "gamma")):
@@ -44,6 +47,17 @@ def _jax_bert(impl, scan=True, seed=0):
             p.set_data(nd.array(
                 base + 0.1 * rng.randn(*p.shape).astype(np.float32)))
     return net
+
+
+_SHARED = {}
+
+
+def _shared_jax_bert(impl, scan=True):
+    """``_jax_bert(impl, scan)`` built once for the tests that only read
+    it, so its compiled programs serve them all."""
+    if (impl, scan) not in _SHARED:
+        _SHARED[impl, scan] = _jax_bert(impl, scan)
+    return _SHARED[impl, scan]
 
 
 def _params(net):
@@ -85,7 +99,7 @@ def _close(got, want, rtol=RTOL, atol=ATOL, what=""):
 @pytest.mark.parametrize("with_types", [False, True])
 @pytest.mark.parametrize("impl", ["dense", "flash"])
 def test_bert_outputs_match_jax(impl, with_types):
-    net = _jax_bert(impl)
+    net = _shared_jax_bert(impl)
     model = _port_of(net, impl)
     tokens, _, _, types = _batch()
     jargs = (nd.array(tokens.astype(np.float32)),)
@@ -102,7 +116,7 @@ def test_bert_outputs_match_jax(impl, with_types):
 
 
 def test_scan_false_model_loads_through_the_per_layer_route():
-    net = _jax_bert("dense", scan=False)
+    net = _shared_jax_bert("dense", scan=False)
     assert any("enc_layer1_qkv_weight" in n for n in net.collect_params())
     model = _port_of(net, "dense")
     tokens = _batch()[0]
@@ -163,7 +177,7 @@ def test_lora_options_are_refused(lora):
 
 
 def test_load_bert_params_checks_before_copying():
-    net = _jax_bert("dense")
+    net = _shared_jax_bert("dense")
     params = _params(net)
     model = tbert.bert_tiny(device=cpu())
     before = {n: p.clone() for n, p in model.named_parameters()}
@@ -193,9 +207,9 @@ def test_pretrain_loss_and_gradients_match_jax(float_labels):
     nsp = rng.randint(0, 2, (B,))
     if float_labels:            # the JAX examples feed float labels
         mlm, nsp = mlm.astype(np.float32), nsp.astype(np.float32)
-    want, (wn, wm) = jax.value_and_grad(
+    want, (wn, wm) = jax.jit(jax.value_and_grad(
         lambda a, b: jbert._bert_pretrain_loss_pure(
-            a, b, jnp.asarray(mlm), jnp.asarray(nsp)), argnums=(0, 1))(
+            a, b, jnp.asarray(mlm), jnp.asarray(nsp)), argnums=(0, 1)))(
         jnp.asarray(nsp_logits), jnp.asarray(mlm_logits))
     tn = torch.from_numpy(nsp_logits).requires_grad_()
     tm = torch.from_numpy(mlm_logits).requires_grad_()
@@ -216,7 +230,7 @@ def test_pretrain_loss_and_gradients_match_jax(float_labels):
 def test_model_gradients_match_jax(impl):
     """Every parameter's gradient of the pretraining loss, the tied
     word_embed_weight (the gather and the decode) among them."""
-    net = _jax_bert(impl)
+    net = _shared_jax_bert(impl)
     model = _port_of(net, impl)
     tokens, mlm, nsp, _ = _batch(1)
     params = net.collect_params()
@@ -482,11 +496,16 @@ def test_mesh_shapes_and_refusals():
             data_parallel_mesh(1)
     model = tbert.bert_tiny(device=cpu())
     loss = tbert.BERTPretrainLoss()
-    for kwargs in ({"mesh": make_mesh(dp=2, devices=devs)},
-                   {"mesh": object()}, {"mesh": one, "rules": object()},
+    # several devices of one process: the port runs one process a rank
+    with pytest.raises(NotImplementedError, match="one process a rank"):
+        ShardedTrainer(model, loss, "adamw",
+                       mesh=make_mesh(dp=2, devices=devs))
+    with pytest.raises(TypeError):
+        ShardedTrainer(model, loss, "adamw", mesh=object())
+    # rules and modes construct on one device (they replicate there)
+    for kwargs in ({"mesh": one, "rules": TRANSFORMER_TP_RULES},
                    {"mesh": one, "mode": "fsdp"}):
-        with pytest.raises(NotImplementedError):
-            ShardedTrainer(model, loss, "adamw", **kwargs)
+        assert ShardedTrainer(model, loss, "adamw", **kwargs).mesh is one
     tokens, mlm, nsp, _ = _batch()
     wrong = ShardedTrainer(model, loss, "adamw",
                            mesh=make_mesh(devices=[torch.device("meta")]))

@@ -58,7 +58,8 @@ def _both(jfn, tfn, arrays, kw=None, grad=(), seed=0, exact=False):
         def loss(*a):
             return sum(jnp.sum(o * c) for o, c in zip(_outs(f(*a)), cots))
 
-        jg = jax.grad(loss, argnums=tuple(grad))(*map(jnp.asarray, arrays))
+        jg = jax.jit(jax.grad(loss, argnums=tuple(grad)))(
+            *map(jnp.asarray, arrays))
         sum((o * torch.from_numpy(c)).sum()
             for o, c in zip(got, cots)).backward()
         for i, w in zip(grad, jg):

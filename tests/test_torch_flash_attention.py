@@ -63,14 +63,17 @@ def test_flash_takes_any_head_dim_on_the_host(D, causal):
     q, k, v = _qkv((2, 2, 64, D), seed=D)
     g = _qkv((2, 2, 64, D), seed=D + 1)[0]
     jq, jk, jv = (jnp.asarray(x) for x in (q, k, v))
-    want, vjp = jax.vjp(lambda a, b, c: jflash.flash_attention(
-        a, b, c, causal=causal), jq, jk, jv)
+    # the forward and the pullback of the JAX op as one compiled program
+    want, (jdq, jdk, jdv) = jax.jit(lambda a, b, c, d: (
+        lambda out, pull: (out, pull(d)))(*jax.vjp(
+            lambda x, y, z: jflash.flash_attention(x, y, z, causal=causal),
+            a, b, c)))(jq, jk, jv, jnp.asarray(g))
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     got = tflash.flash_attention(tq, tk, tv, causal=causal)
     np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
                                rtol=RTOL, atol=ATOL)
     grads = torch.autograd.grad(got, (tq, tk, tv), torch.from_numpy(g))
-    for name, a, b in zip(("dq", "dk", "dv"), grads, vjp(jnp.asarray(g))):
+    for name, a, b in zip(("dq", "dk", "dv"), grads, (jdq, jdk, jdv)):
         np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=GRAD_RTOL,
                                    atol=GRAD_ATOL, err_msg=name)
 
@@ -182,7 +185,7 @@ def test_flash_grad_matches_jax_grad(causal, T, D, block):
         return jnp.sum(jflash.flash_attention(
             q, k, v, causal=causal, block_q=block, block_k=block) ** 2)
 
-    want = jax.grad(jloss, argnums=(0, 1, 2))(
+    want = jax.jit(jax.grad(jloss, argnums=(0, 1, 2)))(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v))
     tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
     out = tflash.flash_attention(tq, tk, tv, causal=causal, block_q=block,

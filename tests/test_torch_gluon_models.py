@@ -35,7 +35,9 @@ MODELS = [("bert", True), ("bert", False), ("gpt", True), ("gpt", False),
 
 def _jax_model(kind, scan, seed=0):
     """The JAX model with Xavier weights and random biases and LayerNorm
-    parameters, shapes resolved by one forward."""
+    parameters, shapes resolved by one forward; hybridized, so its
+    forward and backward are one compiled program each, not one an
+    operator."""
     mx.random.seed(seed)
     if kind == "bert":
         net = jbert.bert_tiny(scan_layers=scan, dropout=0.0)
@@ -44,6 +46,7 @@ def _jax_model(kind, scan, seed=0):
     else:
         net = jvision.vit_tiny(scan_layers=scan)
     net.initialize(init=mx.init.Xavier())
+    net.hybridize()
     net(nd.array(_inputs(kind)))
     rng = np.random.RandomState(seed + 1)
     for name, p in net.collect_params().items():
@@ -52,6 +55,18 @@ def _jax_model(kind, scan, seed=0):
             p.set_data(nd.array(
                 base + 0.1 * rng.randn(*p.shape).astype(np.float32)))
     return net
+
+
+_SHARED = {}
+
+
+def _shared_jax_model(kind, scan):
+    """``_jax_model(kind, scan)`` built once for the tests that only read
+    it (forward, gradients, names), so its compiled programs serve them
+    all."""
+    if (kind, scan) not in _SHARED:
+        _SHARED[kind, scan] = _jax_model(kind, scan)
+    return _SHARED[kind, scan]
 
 
 def _port_model(kind, scan):
@@ -96,7 +111,7 @@ def _numpy(net):
 def test_collect_params_names_match_jax(kind, scan):
     """Every parameter's Gluon name (less the top-level prefix) and shape,
     in creation order, and the block types the reference has."""
-    net, model = _jax_model(kind, scan), _port_model(kind, scan)
+    net, model = _shared_jax_model(kind, scan), _port_model(kind, scan)
     assert list(_shapes(model).items()) == list(_shapes(net).items())
     assert isinstance(model, gluon.HybridBlock)
     trunk = tbert.ScanTransformerEncoder if scan else \
@@ -125,7 +140,7 @@ def _port_loss(kind, out, labels):
 
 @pytest.mark.parametrize("kind,scan", MODELS)
 def test_forward_loss_and_gradients_match_jax(kind, scan):
-    net, model = _jax_model(kind, scan), _port_model(kind, scan)
+    net, model = _shared_jax_model(kind, scan), _port_model(kind, scan)
     convert.load_gluon_params(model, _numpy(net))
     x, labels = _inputs(kind), _labels(kind)
     with jautograd.record():
@@ -160,7 +175,7 @@ def test_relayout_loads_either_layout(kind):
     ``convert.relayout``, with the same outputs; the round trip is the
     identity."""
     for scan in (True, False):
-        net = _jax_model(kind, scan)
+        net = _shared_jax_model(kind, scan)
         params = _numpy(net)
         back = convert.relayout(convert.relayout(params, not scan), scan)
         assert sorted(back) == sorted(params)
@@ -441,33 +456,52 @@ def test_capture_invalidates_on_lora_attach_freeze_merge(monkeypatch):
     assert captured.cache_stats()["misses"] == 1
 
 
-@pytest.mark.parametrize("path", ["eager", "train_step"])
-def test_gluon_trainer_bert_matches_jax(path):
-    """Three gluon.Trainer AdamW steps of bert_tiny in both packages, the
-    same weights and batch: the losses and the trained weights.  The
-    port's ``train_step`` (the captured step; no graph on the host) takes
-    the two labels as a tuple."""
+@pytest.fixture(scope="module")
+def jax_bert_trained():
+    """Three JAX gluon.Trainer AdamW steps of bert_tiny (hybridized, the
+    loss too): the losses and the trained weights, once for both paths
+    of the test below."""
     net = _jax_model("bert", True)
-    model = _port_model("bert", True)
-    convert.load_gluon_params(model, _numpy(net))
-    model.hybridize()
-    opt = {"learning_rate": 1e-3, "wd": 0.01}
-    jtr = jgluon.Trainer(net.collect_params(), "adamw", dict(opt))
-    ttr = gluon.Trainer(model.collect_params(), "adamw", dict(opt))
+    start = _numpy(net)
+    jtr = jgluon.Trainer(net.collect_params(), "adamw",
+                         dict(BERT_TRAINER_OPT))
     tokens, mlm, nsp = _bert_batch()
     jx = nd.array(tokens.astype(np.float32))
     jy = (nd.array(mlm.astype(np.float32)), nd.array(nsp.astype(np.float32)))
-    tx, ty = NDArray(torch.from_numpy(tokens), cpu()), (
-        NDArray(torch.from_numpy(mlm), cpu()),
-        NDArray(torch.from_numpy(nsp), cpu()))
-    jloss_fn, tloss_fn = jbert.BERTPretrainLoss(), tbert.BERTPretrainLoss()
-    want, got = [], []
+    jloss_fn = jbert.BERTPretrainLoss()
+    jloss_fn.hybridize()
+    want = []
     for _ in range(3):
         with jautograd.record():
             jl = jloss_fn(net(jx), jy)
         jl.backward()
         jtr.step(4)
         want.append(float(jl.asnumpy()))
+    return net.prefix, start, want, _numpy(net)
+
+
+BERT_TRAINER_OPT = {"learning_rate": 1e-3, "wd": 0.01}
+
+
+@pytest.mark.parametrize("path", ["eager", "train_step"])
+def test_gluon_trainer_bert_matches_jax(jax_bert_trained, path):
+    """Three gluon.Trainer AdamW steps of bert_tiny in both packages, the
+    same weights and batch: the losses and the trained weights.  The
+    port's ``train_step`` (the captured step; no graph on the host) takes
+    the two labels as a tuple."""
+    prefix, start, want, ref = jax_bert_trained
+    model = _port_model("bert", True)
+    convert.load_gluon_params(model, start)
+    model.hybridize()
+    ttr = gluon.Trainer(model.collect_params(), "adamw",
+                        dict(BERT_TRAINER_OPT))
+    tokens, mlm, nsp = _bert_batch()
+    tx, ty = NDArray(torch.from_numpy(tokens), cpu()), (
+        NDArray(torch.from_numpy(mlm), cpu()),
+        NDArray(torch.from_numpy(nsp), cpu()))
+    tloss_fn = tbert.BERTPretrainLoss()
+    got = []
+    for _ in range(3):
         if path == "eager":
             with autograd.record():
                 tl = tloss_fn(model(tx), ty)
@@ -477,10 +511,9 @@ def test_gluon_trainer_bert_matches_jax(path):
             tl = ttr.train_step(model, tloss_fn, tx, ty)
         got.append(float(tl.asnumpy()))
     np.testing.assert_allclose(got, want, rtol=RTOL)
-    ref = _numpy(net)
     for name, p in model.collect_params().items():
         np.testing.assert_allclose(
-            p.data().asnumpy(), ref[net.prefix + name[len(model.prefix):]],
+            p.data().asnumpy(), ref[prefix + name[len(model.prefix):]],
             rtol=GRAD_RTOL, atol=GRAD_ATOL, err_msg=name)
 
 

@@ -20,12 +20,21 @@ from mxnet_tpu_torch.ops import flash_attention as tflash
 RTOL, ATOL = 2e-4, 2e-5
 
 
+_SHARED = {}
+
+
 def _jax_gpt(scan, impl, seed=0, **kwargs):
     """gpt_tiny with Xavier weights and random (not zero/one) biases and
-    LayerNorm parameters, so every parameter is exercised."""
+    LayerNorm parameters, so every parameter is exercised; hybridized
+    (one compiled program a shape), and built once for each
+    configuration: the tests only read it."""
+    key = (scan, impl, seed, tuple(sorted(kwargs.items())))
+    if key in _SHARED:
+        return _SHARED[key]
     mx.random.seed(seed)
     net = jgpt.gpt_tiny(scan_layers=scan, attention_impl=impl, **kwargs)
     net.initialize(init=mx.init.Xavier())
+    net.hybridize()
     net(nd.array(np.zeros((1, 4), np.float32)))
     rng = np.random.RandomState(seed + 1)
     for name, p in net.collect_params().items():
@@ -33,6 +42,7 @@ def _jax_gpt(scan, impl, seed=0, **kwargs):
             base = 1.0 if name.endswith("gamma") else 0.0
             p.set_data(nd.array(
                 base + 0.1 * rng.randn(*p.shape).astype(np.float32)))
+    _SHARED[key] = net
     return net
 
 

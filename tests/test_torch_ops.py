@@ -197,7 +197,8 @@ def test_attention_refuses_unported_features():
             x, *a[:14], qkv_lora_a=a[14], qkv_lora_b=a[15], **kw,
             _is_training=False) ** 2).sum()
 
-    want, wgrads = jax.value_and_grad(jax_loss, argnums=tuple(range(17)))(
+    want, wgrads = jax.jit(jax.value_and_grad(
+        jax_loss, argnums=tuple(range(17))))(
         jnp.asarray(x), *(jnp.asarray(a) for a in args))
     tx = [torch.from_numpy(a).requires_grad_() for a in [x] + args]
     for remat in (False, True, "dots", "save_every_k:2"):
@@ -330,10 +331,15 @@ def test_ctc_loss_and_grad_match_jax(case):
 
     pred, label, *frames = _ctc_cases()[case]
     jlen = [jnp.asarray(f) for f in frames]
-    want = np.asarray(jctc.ctc_loss(jnp.asarray(pred), jnp.asarray(label),
-                                    *jlen))
-    want_g = np.asarray(jax.grad(lambda p: jctc.ctc_loss(
-        p, jnp.asarray(label), *jlen).sum())(jnp.asarray(pred)))
+
+    def loss(p):
+        per_sample = jctc.ctc_loss(p, jnp.asarray(label), *jlen)
+        return per_sample.sum(), per_sample
+
+    # the loss and its gradient as one compiled program
+    (_, want), want_g = jax.jit(jax.value_and_grad(loss, has_aux=True))(
+        jnp.asarray(pred))
+    want, want_g = np.asarray(want), np.asarray(want_g)
     p = torch.from_numpy(pred).requires_grad_()
     got = tctc.ctc_loss(p, torch.from_numpy(label),
                         *[torch.from_numpy(f) for f in frames])

@@ -153,6 +153,14 @@ PLANES_MODULES = ("mxnet_tpu_torch.checkpoint",
                   "mxnet_tpu_torch.serving.replica")
 
 
+#: modules the multi-rank training slice added; each must be walked and
+#: clean
+MULTIGPU_MODULES = ("mxnet_tpu_torch.gradient_compression",
+                    "mxnet_tpu_torch.parallel.collectives",
+                    "mxnet_tpu_torch.parallel.sharding",
+                    "mxnet_tpu_torch.tools.dist_bert")
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -172,6 +180,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert set(RECURRENT_MODULES) <= walked, sorted(walked)
     assert set(DETECTION_MODULES) <= walked, sorted(walked)
     assert set(PLANES_MODULES) <= walked, sorted(walked)
+    assert set(MULTIGPU_MODULES) <= walked, sorted(walked)
 
 
 def _imported_roots(path):
@@ -188,6 +197,9 @@ def test_no_source_names_jax():
     chip_smoke.py, imports jax or mxnet_tpu anywhere."""
     files = sorted(Path(mxnet_tpu_torch.__file__).parent.rglob("*.py"))
     files.append(ROOT / "chip_smoke.py")
+    # the rank processes of the multi-rank tests run the port alone
+    files += [ROOT / "tests" / "torch_rank_worker.py",
+              ROOT / "tests" / "torch_rank_cases.py"]
     for f in files:
         roots = set(_imported_roots(f))
         assert not roots & {"jax", "jaxlib", "mxnet_tpu"}, (f, roots)
@@ -224,12 +236,16 @@ def test_chip_smoke_refuses_without_a_card(tmp_path):
     lone = tmp_path / "chip_smoke.py"
     lone.write_text((ROOT / "chip_smoke.py").read_text())
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
-    for script, cwd in ((ROOT / "chip_smoke.py", ROOT), (lone, tmp_path)):
-        res = subprocess.run([sys.executable, str(script)], cwd=cwd,
-                             env=env, capture_output=True, text=True,
-                             timeout=120)
-        assert res.returncode != 0, (script, res.stdout)
-        assert '"ok": true' not in res.stdout, res.stdout
+    # both runs at once: each child's time is its interpreter and torch
+    runs = [(script, subprocess.Popen(
+        [sys.executable, str(script)], cwd=cwd, env=env,
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+        for script, cwd in ((ROOT / "chip_smoke.py", ROOT),
+                            (lone, tmp_path))]
+    for script, proc in runs:
+        out, _err = proc.communicate(timeout=120)
+        assert proc.returncode != 0, (script, out)
+        assert '"ok": true' not in out, out
 
 
 def test_kernel_library_name_follows_its_headers(tmp_path, monkeypatch):

@@ -22,7 +22,9 @@ from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
 from mxnet_tpu_torch.ops import attention as tatt
 from mxnet_tpu_torch.ops import flash_attention as tflash
 from mxnet_tpu_torch.optimizer import lr_scheduler as tsched
+from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.parallel import ShardedTrainer, trainer as ttrainer
+from mxnet_tpu_torch.parallel import TRANSFORMER_TP_RULES
 from mxnet_tpu_torch.serving import ServingEngine, state_for_serving
 
 RTOL, ATOL = 2e-4, 2e-5
@@ -265,9 +267,23 @@ def test_trainer_surface():
     tr.set_learning_rate(0.05)
     assert tr.learning_rate == 0.05
     tr.sync_params()
-    for kwargs in ({"mesh": object()}, {"rules": object()}, {"mode": "tp"}):
-        with pytest.raises(NotImplementedError):
-            ShardedTrainer(model, tgpt.GPTLMLoss(), **kwargs)
+    with pytest.raises(TypeError):
+        ShardedTrainer(model, tgpt.GPTLMLoss(), mesh=object())
+    with pytest.raises(MXNetError, match="unknown mode"):
+        ShardedTrainer(model, tgpt.GPTLMLoss(), mode="pp")
+    # rules and modes on one device replicate every parameter: the step
+    # is the plain one's, bit for bit
+    plain = [tgpt.gpt_tiny(device=cpu()) for _ in range(3)]
+    for m in plain[1:]:
+        m.load_state_dict(plain[0].state_dict())
+    got = []
+    for m, kw in zip(plain, ({}, {"mode": "fsdp"},
+                             {"mode": "tp", "rules": TRANSFORMER_TP_RULES})):
+        ShardedTrainer(m, tgpt.GPTLMLoss(), "sgd", {"learning_rate": 0.1},
+                       **kw).step(ids, ids)
+        got.append([p.detach().clone() for p in m.parameters()])
+    for params in got[1:]:
+        assert all(torch.equal(a, b) for a, b in zip(params, got[0]))
     drop = tgpt.gpt_tiny(device=cpu(), dropout=0.1)
     runs = []
     for remat in (None, "full", "dots"):

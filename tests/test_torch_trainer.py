@@ -146,52 +146,100 @@ TRAIN_STEP_CASES = {
 }
 
 
-@pytest.mark.parametrize("case", sorted(TRAIN_STEP_CASES))
-@pytest.mark.parametrize("captured_on", ["1", "0"])
-def test_train_step_matches_jax(env, case, captured_on):
-    """Five train_steps on the MLP in both packages: losses, weights, the
-    skipped steps and the loss scale."""
-    c = TRAIN_STEP_CASES[case]
-    env(MXTPU_GRAD_GUARD=c.get("guard", "1"),
-        MXTPU_CAPTURED_STEP=captured_on)
-    jnet, tnet = _twin_mlps(c.get("with_bn", False))
-    jloss, tloss = jgluon.loss.SoftmaxCrossEntropyLoss(), \
-        tgluon.loss.SoftmaxCrossEntropyLoss()
-    jloss.hybridize()
-    tloss.hybridize()
-    jtr = jgluon.Trainer(jnet.collect_params(), c["opt"], dict(c["hp"]),
-                         clip_global_norm=c.get("clip"))
-    ttr = tgluon.Trainer(tnet.collect_params(), c["opt"], dict(c["hp"]),
-                         clip_global_norm=c.get("clip"))
-    if "loss_scale" in c:
-        jtr._amp_loss_scaler = jmx.amp.DynamicLossScaler(
-            init_scale=c["loss_scale"])
-        ttr._amp_loss_scaler = tmx.amp.DynamicLossScaler(
-            init_scale=c["loss_scale"])
+def _train_step_batches(c):
     rng = np.random.RandomState(9)
     for s in range(5):
         x = rng.standard_normal((8, 6)).astype(np.float32)
         y = rng.randint(0, 3, 8).astype(np.float32)
         if s == c.get("nan_at"):
             x[0, 0] = np.nan
-        jl = jtr.train_step(jnet, jloss, jnd.array(x), jnd.array(y),
-                            grad_accum=c.get("k", 1))
+        yield x, y
+
+
+@pytest.fixture(scope="module")
+def jax_train_steps():
+    """Each case's JAX run, once for both of the port's paths: five
+    train_steps through the JAX package's captured step (its tests hold
+    it bitwise to its eager oracle), from the weights the port's twin
+    starts at.  Returns ``run(case) -> (start weights, losses, skipped
+    steps, loss scale, trained weights)``."""
+    runs = {}
+
+    def run(case):
+        if case in runs:
+            return runs[case]
+        c = TRAIN_STEP_CASES[case]
+        saved = {k: os.environ.get(k) for k in ("MXTPU_GRAD_GUARD",
+                                                "MXTPU_CAPTURED_STEP")}
+        os.environ.update(MXTPU_GRAD_GUARD=c.get("guard", "1"),
+                          MXTPU_CAPTURED_STEP="1")
+        try:
+            jnet, _ = _twin_mlps(c.get("with_bn", False))
+            start = _numpy_params(jnet)
+            jloss = jgluon.loss.SoftmaxCrossEntropyLoss()
+            jloss.hybridize()
+            jtr = jgluon.Trainer(jnet.collect_params(), c["opt"],
+                                 dict(c["hp"]),
+                                 clip_global_norm=c.get("clip"))
+            if "loss_scale" in c:
+                jtr._amp_loss_scaler = jmx.amp.DynamicLossScaler(
+                    init_scale=c["loss_scale"])
+            losses = [jtr.train_step(jnet, jloss, jnd.array(x),
+                                     jnd.array(y),
+                                     grad_accum=c.get("k", 1)).asnumpy()
+                      for x, y in _train_step_batches(c)]
+            scale = jtr._amp_loss_scaler.loss_scale \
+                if "loss_scale" in c else None
+            runs[case] = (start, losses,
+                          [r.step for r in jtr.skipped_steps], scale,
+                          {k: p.data().asnumpy()
+                           for k, p in _by_name(jnet).items()})
+        finally:
+            for k, v in saved.items():
+                if v is None:
+                    os.environ.pop(k, None)
+                else:
+                    os.environ[k] = v
+        return runs[case]
+
+    return run
+
+
+@pytest.mark.parametrize("case", sorted(TRAIN_STEP_CASES))
+@pytest.mark.parametrize("captured_on", ["1", "0"])
+def test_train_step_matches_jax(env, jax_train_steps, case, captured_on):
+    """Five train_steps on the MLP in both packages: losses, weights, the
+    skipped steps and the loss scale."""
+    c = TRAIN_STEP_CASES[case]
+    start, want, skipped, scale, trained = jax_train_steps(case)
+    env(MXTPU_GRAD_GUARD=c.get("guard", "1"),
+        MXTPU_CAPTURED_STEP=captured_on)
+    with cpu():
+        tnet = _mlp(tmx, c.get("with_bn", False))
+        tnet.initialize()
+    tmx.convert.load_gluon_params(tnet, start)
+    tnet.hybridize()
+    tloss = tgluon.loss.SoftmaxCrossEntropyLoss()
+    tloss.hybridize()
+    ttr = tgluon.Trainer(tnet.collect_params(), c["opt"], dict(c["hp"]),
+                         clip_global_norm=c.get("clip"))
+    if "loss_scale" in c:
+        ttr._amp_loss_scaler = tmx.amp.DynamicLossScaler(
+            init_scale=c["loss_scale"])
+    for s, ((x, y), jl) in enumerate(zip(_train_step_batches(c), want)):
         with cpu():
             tl = ttr.train_step(tnet, tloss, tnd.array(x), tnd.array(y),
                                 grad_accum=c.get("k", 1))
-        np.testing.assert_allclose(tl.asnumpy(), jl.asnumpy(), rtol=RTOL,
+        np.testing.assert_allclose(tl.asnumpy(), jl, rtol=RTOL,
                                    atol=ATOL, err_msg=f"loss step {s}")
-    assert [r.step for r in ttr.skipped_steps] == \
-        [r.step for r in jtr.skipped_steps]
+    assert [r.step for r in ttr.skipped_steps] == skipped
     if "nan_at" in c:
         assert len(ttr.skipped_steps) == 1
     if "loss_scale" in c:
-        assert ttr._amp_loss_scaler.loss_scale == \
-            jtr._amp_loss_scaler.loss_scale < c["loss_scale"]
-    jp, tp = _by_name(jnet), _by_name(tnet)
-    for name in jp:
-        np.testing.assert_allclose(tp[name].data().asnumpy(),
-                                   jp[name].data().asnumpy(),
+        assert ttr._amp_loss_scaler.loss_scale == scale < c["loss_scale"]
+    tp = _by_name(tnet)
+    for name, w in trained.items():
+        np.testing.assert_allclose(tp[name].data().asnumpy(), w,
                                    rtol=GRAD_RTOL, atol=GRAD_ATOL,
                                    err_msg=name)
 
@@ -331,21 +379,25 @@ def test_what_waits_for_later_slices():
     pipeline = object()
     monitored.attach_data_pipeline(pipeline)
     assert monitored.divergence_monitor.data_pipeline is pipeline
-    # the multi-GPU slice still refuses, naming its slice
-    for call in (lambda: tmx.kv.create("dist_sync"),
-                 lambda: tgluon.Trainer(params, "sgd",
-                                        compression_params={"type": "2bit"})):
-        with pytest.raises(NotImplementedError):
-            call()
     # the gang slice's entry points construct (they refused before it)
     server = tmx.distributed.GangKVServer()
     server.stop()
     store = tmx.checkpoint.PeerSnapshotStore(0)
     store.hold_own(1, {"w": np.ones(2, np.float32)})
     assert store.held_steps(0) == [1]
+    # the multi-GPU slice's store and compression construct (they refused
+    # before it): a dist type keeps its store on one worker, the update
+    # in the store
+    kv = tmx.kv.create("dist_sync")
+    assert kv.type == "dist_sync" and kv.num_workers == 1
+    tgluon.Trainer(params, "sgd", compression_params={"type": "2bit"})
     tr_dist = tgluon.Trainer(params, "sgd", kvstore="dist_sync")
-    with pytest.raises(NotImplementedError, match="multi-GPU"):
-        tr_dist.step(1)
+    with cpu():
+        tr_dist._init_kvstore()
+    assert tr_dist._kvstore is not None and tr_dist._update_on_kvstore
+    # what still waits names its slice
+    with pytest.raises(NotImplementedError, match="1b"):
+        tmx.gluon.data.DevicePrefetcher([], kvstore=kv)
 
 
 def test_kvstore_matches_jax():

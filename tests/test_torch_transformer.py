@@ -21,15 +21,28 @@ from mxnet_tpu_torch.ndarray.ndarray import NDArray
 V = 20
 
 
+_JAX_NETS = {}
+
+
 def _pair(impl="dense", seed=0, max_length=16):
     """A JAX transformer_tiny (Xavier from ``seed``, hybridized: one
     compile a shape) and the port's holding the same weights, both at
-    dropout 0."""
+    dropout 0.  One hybridized JAX net serves every test of an (impl,
+    max_length): a seed's weights are drawn into a fresh net and copied
+    into it, so its compiled programs carry over."""
     mx.random.seed(seed)
-    net = jtfm.transformer_tiny(V, V, dropout=0.0, max_length=max_length,
-                                attention_impl=impl)
-    net.initialize(init=mx.init.Xavier())
-    net.hybridize()
+    fresh = jtfm.transformer_tiny(V, V, dropout=0.0, max_length=max_length,
+                                  attention_impl=impl)
+    fresh.initialize(init=mx.init.Xavier())
+    key = (impl, max_length)
+    if key not in _JAX_NETS:
+        fresh.hybridize()
+        _JAX_NETS[key] = fresh
+    net = _JAX_NETS[key]
+    if net is not fresh:
+        for p, q in zip(net.collect_params().values(),
+                        fresh.collect_params().values()):
+            p.set_data(q.data())
     model = tfm.transformer_tiny(V, V, dropout=0.0, max_length=max_length,
                                  attention_impl=impl, device=cpu())
     convert.load_transformer_params(
