@@ -6365,8 +6365,9 @@ def phase_dist(dev, card, rtc_kernels):
         for path, t in res["timing"].items():
             log(f"    [19](iv) rank {r} {path} bf16: {t['ms_median']:.2f} ms "
                 f"a step (min {t['ms_min']:.2f}, max {t['ms_max']:.2f}; "
-                f"{t['ms']}), collectives {t['collective_s_median'] * 1e3:.2f}"
-                f" ms moving {t['collective_bytes']} bytes a step, peak "
+                f"{t['ms']}); collectives {t['collective_bytes']} bytes a "
+                f"step, {t['collective_s_median'] * 1e3:.2f} ms in steps with "
+                f"the card synchronized around each collective; peak "
                 f"{t['peak_mem_gib']:.2f} GiB  [{card}]")
     for path in dist_bert.PATHS:
         a = ranks[0]["check"][path]["samples"]

@@ -4,9 +4,9 @@ Counterpart of ``mxnet_tpu/distributed.py``:
 
 - the launch contract ``MXTPU_COORDINATOR`` / ``MXTPU_NUM_WORKERS`` /
   ``MXTPU_WORKER_RANK`` (set by a launcher), a retried rendezvous over
-  ``torch.distributed`` (the backend by ``backend_rule``: NCCL when each
-  rank has a card of its own, gloo when ranks share a card or run on the
-  CPU;
+  ``torch.distributed`` (the backend by ``backend_rule`` over every
+  rank's host and cards, gathered at the rendezvous: NCCL when each rank
+  has a card of its own, gloo when ranks share a card or run on the CPU;
   ``MXTPU_RENDEZVOUS_RETRIES`` attempts within ``MXTPU_RENDEZVOUS_TIMEOUT``
   seconds, and the ``rendezvous`` fault site), ``rank`` / ``num_workers``
   / ``barrier`` (watchdog-guarded by ``MXTPU_COLLECTIVE_TIMEOUT``).  A
@@ -43,33 +43,56 @@ from . import resilience
 _INITIALIZED = False
 
 
-def backend_rule(num_processes):
-    """(backend, reason) for a process group of ``num_processes`` ranks on
-    this host: NCCL when each rank has a card of its own (as many ranks
-    as visible cards, or fewer), gloo when ranks share a card (NCCL
-    refuses two ranks on one device) or when there is no card or a
-    ``with cpu():`` scope is open (the ranks run on the host)."""
+def local_member():
+    """This rank's entry in ``backend_rule``'s list: (host name, CUDA
+    cards visible here, whether the rank runs on the host because a
+    ``with cpu():`` scope is open)."""
     import torch
 
     from . import context
 
     scope = context.scoped_context()
     cards = torch.cuda.device_count() if torch.cuda.is_available() else 0
-    if scope is not None and scope.device_type == "cpu":
+    return (socket.gethostname(), int(cards),
+            scope is not None and scope.device_type == "cpu")
+
+
+def backend_rule(members):
+    """(backend, reason) for a process group whose ranks are ``members``,
+    one ``local_member()`` triple a rank: NCCL when each rank has a card
+    of its own, that is, on every host no more ranks than that host's
+    cards; gloo when ranks share a card on some host (NCCL refuses two
+    ranks on one device), when a host has no card, or when a rank runs on
+    the host (a ``cpu`` scope).  Every rank publishes its triple at the
+    rendezvous and reads all of them, so every rank picks the same
+    backend."""
+    members = [tuple(m) for m in members]
+    if any(on_host for _, _, on_host in members):
         return "gloo", "the ranks run on the host (cpu scope)"
-    if cards == 0:
-        return "gloo", "no CUDA card is visible: the ranks run on the host"
-    if int(num_processes) > cards:
-        return "gloo", (f"{num_processes} ranks share {cards} card(s); "
-                        "NCCL refuses two ranks on one device")
-    return "nccl", f"{num_processes} ranks on {cards} card(s), one each"
+    ranks, cards = {}, {}
+    for host, n, _ in members:
+        ranks[host] = ranks.get(host, 0) + 1
+        cards[host] = min(cards.get(host, n), n)
+    for host in sorted(ranks):
+        if cards[host] == 0:
+            return "gloo", (f"no CUDA card is visible on {host}: the ranks "
+                            "run on the host")
+        if ranks[host] > cards[host]:
+            return "gloo", (f"{ranks[host]} ranks share {cards[host]} "
+                            f"card(s) on {host}; NCCL refuses two ranks on "
+                            "one device")
+    return "nccl", (f"{len(members)} ranks on {len(ranks)} host(s), one "
+                    "card each")
 
 
 def _rendezvous(coordinator_address, num_processes, process_id):
     """Join the process group, retried: an unreachable coordinator is the
     retryable class, and the ``rendezvous`` fault site tests it on the
-    CPU.  A world of one opens no process group.  The backend comes from
-    ``backend_rule``, and the rank prints its choice and the reason."""
+    CPU.  A world of one opens no process group.  The ranks meet at the
+    coordinator's store first, each writes its ``local_member()`` there
+    and reads every rank's, and the group opens on the backend
+    ``backend_rule`` picks from that list; the rank prints its choice and
+    the reason."""
     timeout = float(os.environ.get("MXTPU_RENDEZVOUS_TIMEOUT", 300))
     retries = int(os.environ.get("MXTPU_RENDEZVOUS_RETRIES", 3))
 
@@ -86,14 +109,20 @@ def _rendezvous(coordinator_address, num_processes, process_id):
         addr = coordinator_address
         if "://" not in addr:
             addr = f"tcp://{addr}"
-        backend, reason = backend_rule(num_processes)
-        print(f"[rank {int(process_id)}] process group backend {backend}: "
-              f"{reason}", flush=True)
+        n, rank = int(num_processes), int(process_id)
+        wait = datetime.timedelta(seconds=timeout)
+        store, _, _ = next(dist.rendezvous(addr, rank=rank, world_size=n,
+                                           timeout=wait))
+        store.set_timeout(wait)
+        store.set(f"mxtpu_member/{rank}", json.dumps(local_member()))
+        members = [json.loads(store.get(f"mxtpu_member/{r}"))
+                   for r in range(n)]
+        backend, reason = backend_rule(members)
+        print(f"[rank {rank}] process group backend {backend}: {reason}",
+              flush=True)
         dist.init_process_group(
-            backend,
-            init_method=addr, world_size=int(num_processes),
-            rank=int(process_id),
-            timeout=datetime.timedelta(seconds=timeout))
+            backend, store=dist.PrefixStore("default_pg", store),
+            world_size=n, rank=rank, timeout=wait)
 
     resilience.retry_call(
         attempt, retries=retries, deadline=timeout, backoff=0.5,

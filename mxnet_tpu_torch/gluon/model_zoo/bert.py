@@ -31,6 +31,7 @@ from __future__ import annotations
 import torch
 
 from ... import context
+from ..._parallel_scope import current_scope
 from ... import initializer as _init
 from ..block import HybridBlock
 from .. import nn
@@ -340,8 +341,6 @@ def masked_token_ce(logits, labels):
     summed over the dp group, and a rank returns its share of the global
     mean times dp (the trainer's objective is the mean over the dp ranks
     of their losses)."""
-    from ...parallel.collectives import all_reduce_, current_scope
-
     labels = labels.long()
     valid = labels >= 0
     logp = torch.log_softmax(logits.float(), dim=-1)
@@ -349,6 +348,8 @@ def masked_token_ce(logits, labels):
     denom = valid.sum()
     scope = current_scope()
     if scope is not None and scope.dp_size > 1:
+        from ...parallel.collectives import all_reduce_
+
         denom = all_reduce_(denom.clone(), scope.dp_group, "loss_count")
         return (torch.where(valid, nll, torch.zeros_like(nll)).sum()
                 / denom.clamp_min(1) * scope.dp_size)

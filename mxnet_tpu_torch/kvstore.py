@@ -22,13 +22,10 @@ collective is guarded by ``MXTPU_COLLECTIVE_TIMEOUT``'s watchdog.
 
 from __future__ import annotations
 
-import os
-
 import torch
 import torch.distributed as dist
 
 from . import optimizer as opt
-from . import profiler
 from . import resilience
 from . import telemetry
 from .base import MXNetError
@@ -42,16 +39,6 @@ _DIST_TYPES = ("dist_sync", "dist_device_sync", "dist_async",
 
 def _as_list(x):
     return x if isinstance(x, (list, tuple)) else [x]
-
-
-def _bucket_bytes():
-    """Flat-bucket byte budget of ``bucketed_pushpull``
-    (``MXTPU_ALLREDUCE_BUCKET_MB``, default 4 MB)."""
-    try:
-        mb = float(os.environ.get("MXTPU_ALLREDUCE_BUCKET_MB", "4"))
-    except ValueError:
-        mb = 4.0
-    return max(1, int(mb * 1024 * 1024))
 
 
 #: elastic membership epoch, bumped by ``notify_mesh_reshape``: part of
@@ -345,46 +332,26 @@ class KVStore:
             dense.append((k, self._merge(v)._data.detach(), o))
         if not dense:
             return None
-        budget = _bucket_bytes()
-        buckets, fill = [], {}
-        for item in dense:
-            raw = item[1]
-            nbytes = raw.numel() * raw.element_size()
-            cur = fill.get(raw.dtype)
-            if cur is None or cur[1] + nbytes > budget:
-                cur = [[], 0]
-                buckets.append((raw.dtype, cur))
-                fill[raw.dtype] = cur
-            cur[0].append(item)
-            cur[1] += nbytes
+        from .parallel import collectives
+
         multi = self._is_dist and self.num_workers > 1
-        reduced = []
-        for dt, (items, nbytes) in buckets:
-            telemetry.count("collective.bytes", nbytes)
+        reduced, flats = collectives.bucketed_all_reduce(
+            [raw for _, raw, _ in dense], dist.group.WORLD if multi else None,
+            "kvstore_allreduce")
+        for flat, _ in flats:
+            telemetry.count("collective.bytes",
+                            flat.numel() * flat.element_size())
             telemetry.count("collective.buckets")
-            with profiler.annotate("bucket_pack"):
-                flat = torch.cat([raw.reshape(-1) for _, raw, _ in items]) \
-                    if len(items) > 1 else items[0][1].reshape(-1).clone()
-            if multi:
-                with profiler.annotate("allreduce"):
-                    flat = _cross_process_allreduce(
-                        flat, label=f"kvstore_allreduce[{dt} bucket, "
-                                    f"{nbytes} bytes, {len(items)} keys]")
-            if health:
-                reduced.append(flat)
-            offset = 0
-            for k, raw, o in items:
-                piece = flat[offset:offset + raw.numel()].reshape(raw.shape)
-                offset += raw.numel()
-                stored = self._store[k]
-                with torch.no_grad():
-                    stored._data.copy_(piece)
-                stored._version += 1
-                if o is not None:
-                    for dst in _as_list(o):
-                        dst._set_data(piece)
-        if health and reduced:
-            return numerics.grad_health(reduced)
+        for (k, _, o), piece in zip(dense, reduced):
+            stored = self._store[k]
+            with torch.no_grad():
+                stored._data.copy_(piece)
+            stored._version += 1
+            if o is not None:
+                for dst in _as_list(o):
+                    dst._set_data(piece)
+        if health and flats:
+            return numerics.grad_health([flat for flat, _ in flats])
         return None
 
     # -- optimizer plane -------------------------------------------------------

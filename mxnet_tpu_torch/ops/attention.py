@@ -25,6 +25,7 @@ import torch
 
 from .. import random as _random
 from .. import remat as _remat
+from .._parallel_scope import current_scope
 from .flash_attention import flash_attention
 from .nn import activation as _activation
 from .nn import dropout as _dropout
@@ -115,8 +116,6 @@ def multi_head_attention(query, key, value, qkv_weight=None, qkv_bias=None,
     and the proj columns of those heads) each rank runs its own heads:
     num_heads / tp of them, the kernels on plain local tensors; the proj
     products are summed over the tp group and the bias added once."""
-    from ..parallel.collectives import current_scope
-
     group = None
     if qkv_weight is not None and proj_weight is not None:
         group = _tp_group(current_scope(), qkv_weight, qkv_bias,
@@ -259,8 +258,6 @@ def scan_transformer_encoder(data, qkv_w, qkv_b, proj_w, proj_b, ffn1_w,
         _key = _random.current_generator(data.device)
     gen = _key if use_drop else None
     use_lora = qkv_lora_a is not None and qkv_lora_b is not None
-    from ..parallel.collectives import current_scope
-
     tp_group = _tp_group(current_scope(), qkv_w, qkv_b, proj_w, ffn1_w,
                          ffn1_b, ffn2_w)
     if tp_group is not None and use_lora:

@@ -16,6 +16,7 @@ import builtins
 
 import torch
 
+from .._parallel_scope import current_scope
 from ..base import torch_dtype
 from .registry import register
 
@@ -63,8 +64,6 @@ def embedding(data, weight, input_dim=None, output_dim=None, dtype="float32",
     weight sharded on its vocabulary (a tp shard of dim 0) looks up the
     ids in its own rows, zeros the rest, and sums the ranks' rows over
     the tp group (vocab-parallel embedding)."""
-    from ..parallel.collectives import current_scope
-
     scope = current_scope()
     shard = scope.shard_of(weight) if scope is not None else None
     if shard is None:

@@ -43,6 +43,7 @@ import torch.nn.functional as F
 
 from .registry import register
 from .. import random as _random
+from .._parallel_scope import current_scope, stat_group
 
 
 def _tuple(v, n):
@@ -71,8 +72,6 @@ def fully_connected(data, weight, bias=None, num_hidden=None, no_bias=False,
     after."""
     if flatten and data.dim() > 2:
         data = data.reshape(data.shape[0], -1)
-    from ..parallel.collectives import current_scope
-
     scope = current_scope()
     shard = scope.shard_of(weight) if scope is not None else None
     if shard is not None:
@@ -563,8 +562,6 @@ def batch_norm(data, gamma, beta, moving_mean, moving_var, eps=1e-5,
     axis = axis % data.dim()
     g = torch.ones_like(gamma) if fix_gamma else gamma
     if _is_training and not use_global_stats:
-        from ..parallel.collectives import stat_group
-
         out, mean, var = _BatchNormTrain.apply(data, g, beta, eps, axis,
                                                stat_group())
         if output_mean_var:

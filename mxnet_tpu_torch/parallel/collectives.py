@@ -7,6 +7,9 @@ group of a mesh axis (``Mesh.group(axis)``):
 
 - ``allreduce``, ``replicated_sum``, ``device_put_sharded_batch`` and
   ``measure_allreduce_bandwidth`` (the reference's tools/bandwidth twin);
+- ``bucketed_all_reduce``, the one flat-bucket packer
+  (``MXTPU_ALLREDUCE_BUCKET_MB``) of the dist store's
+  ``bucketed_pushpull`` and ``ShardedTrainer``'s dp gradient reduce;
 - ``all_to_all``: gloo has no list ``all_to_all`` on CUDA tensors (the
   card's probe: "Backend gloo does not support alltoall"), so for a gloo
   group it is composed from ``all_to_all_single`` over one flat buffer:
@@ -33,21 +36,25 @@ Every collective is guarded by ``MXTPU_COLLECTIVE_TIMEOUT``'s watchdog.
 from __future__ import annotations
 
 import contextlib
-import threading
+import os
 import time
 
 import torch
 import torch.distributed as dist
 
-from .. import resilience
+from .. import profiler, resilience
+from .._parallel_scope import (ParallelScope, current_scope,  # noqa: F401
+                               parallel_scope, stat_group)
 
-#: per collective, whether it counts toward ``stats()`` (the time the
-#: step spent in collectives, read by ``chip_smoke.py``)
+#: the collectives' calls and bytes, and their seconds inside
+#: ``timed_collectives`` (read by ``chip_smoke.py`` through ``dist_bert``)
 _STATS = {"calls": 0, "seconds": 0.0, "bytes": 0}
+_SYNCED = [False]
 
 
 def stats(reset=False):
-    """Collective calls, wall seconds and bytes since the last reset."""
+    """Collective calls, bytes and (inside ``timed_collectives``) seconds
+    since the last reset."""
     out = dict(_STATS)
     if reset:
         _STATS.update(calls=0, seconds=0.0, bytes=0)
@@ -55,12 +62,34 @@ def stats(reset=False):
 
 
 @contextlib.contextmanager
+def timed_collectives():
+    """Count the collectives' own seconds in ``stats()``: inside the
+    block each collective on a CUDA tensor synchronizes the card before
+    its clock starts and after it stops.  Outside it no seconds are
+    counted, since gloo's copy of a CUDA tensor to the host first waits
+    for every kernel queued before it, and the host's clock around the
+    call would count that compute as the collective's."""
+    prev = _SYNCED[0]
+    _SYNCED[0] = True
+    try:
+        yield
+    finally:
+        _SYNCED[0] = prev
+
+
+@contextlib.contextmanager
 def _timed(name, t):
+    synced = _SYNCED[0]
+    if synced and t.is_cuda:
+        torch.cuda.synchronize(t.device)
     t0 = time.perf_counter()
     with resilience.guard_collective(name):
         yield
+    if synced:
+        if t.is_cuda:
+            torch.cuda.synchronize(t.device)
+        _STATS["seconds"] += time.perf_counter() - t0
     _STATS["calls"] += 1
-    _STATS["seconds"] += time.perf_counter() - t0
     _STATS["bytes"] += t.numel() * t.element_size()
 
 
@@ -75,6 +104,58 @@ def all_reduce_(t, group, name="all_reduce"):
     with _timed(name, t):
         dist.all_reduce(t, group=group)
     return t
+
+
+def bucket_bytes():
+    """The byte budget of one flat bucket of ``bucketed_all_reduce``
+    (``MXTPU_ALLREDUCE_BUCKET_MB``, default 4 MB)."""
+    try:
+        mb = float(os.environ.get("MXTPU_ALLREDUCE_BUCKET_MB", "4"))
+    except ValueError:
+        mb = 4.0
+    return max(1, int(mb * 1024 * 1024))
+
+
+def bucketed_all_reduce(tensors, group, name="bucket"):
+    """Sum ``tensors`` over ``group`` with one all-reduce a flat bucket.
+
+    Buckets fill per dtype in the tensors' order: a tensor joins the open
+    bucket of its dtype while the bucket stays within ``bucket_bytes()``,
+    else opens a new one.  Each bucket is packed into one flat buffer (a
+    copy, also for a bucket of one tensor), reduced in place, and split
+    back into views of the buffer.  With no group the buckets are packed
+    and split alike, and nothing is reduced.  Returns (the reduced
+    tensors in input order, [(flat buffer, the bucket's indices)]): the
+    caller scales the buffers in place, or reads them whole (the store's
+    gradient health)."""
+    budget = bucket_bytes()
+    buckets, fill = [], {}
+    for i, t in enumerate(tensors):
+        nbytes = t.numel() * t.element_size()
+        cur = fill.get(t.dtype)
+        if cur is None or cur[1] + nbytes > budget:
+            cur = [[], 0]
+            buckets.append(cur)
+            fill[t.dtype] = cur
+        cur[0].append(i)
+        cur[1] += nbytes
+    out, flats = [None] * len(tensors), []
+    for idx, nbytes in buckets:
+        with profiler.annotate("bucket_pack"):
+            flat = torch.cat([tensors[i].reshape(-1) for i in idx]) \
+                if len(idx) > 1 else tensors[idx[0]].reshape(-1).clone()
+        if group is not None:
+            with profiler.annotate("allreduce"):
+                all_reduce_(flat, group, f"{name}[{flat.dtype} bucket, "
+                                         f"{nbytes} bytes, {len(idx)} "
+                                         "tensors]")
+        off = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[off:off + n].view_as(tensors[i])
+            off += n
+        flats.append((flat, idx))
+    return out, flats
 
 
 def all_gather_dim(t, group, dim=0):
@@ -302,57 +383,7 @@ def gather_from_region(x, group, dim=-1):
     return _Gather.apply(x, group, dim % x.dim())
 
 
-# -- the sharded step's scope --------------------------------------------------
-
-class _State(threading.local):
-    def __init__(self):
-        self.scopes = []
-
-
-_STATE = _State()
-
-
-class ParallelScope:
-    """What a sharded forward runs under.
-
-    ``dp_group``/``dp_size``: the data-parallel group whose statistics
-    are global.  ``tp_group``/``tp_size``/``tp_rank``: the tensor-parallel
-    group.  ``tp_shards``: {id(tensor): (dim, offset, full size)} for each
-    tensor that holds a tp shard; an op that reads one marks it consumed
-    (``consume``), and the trainer refuses a step that left a shard
-    unread by a tp-aware op."""
-
-    def __init__(self, dp_group=None, tp_group=None, tp_shards=None):
-        self.dp_group = dp_group
-        self.dp_size = _size(dp_group)
-        self.tp_group = tp_group
-        self.tp_size = _size(tp_group)
-        self.tp_rank = dist.get_rank(tp_group) if tp_group is not None \
-            else 0
-        self.tp_shards = dict(tp_shards or {})
-        self.consumed = set()
-
-    def shard_of(self, t):
-        """(dim, offset, full size) when ``t`` holds a tp shard, else
-        None; marks it consumed."""
-        info = self.tp_shards.get(id(t))
-        if info is not None:
-            self.consumed.add(id(t))
-        return info
-
-
-@contextlib.contextmanager
-def parallel_scope(scope):
-    _STATE.scopes.append(scope)
-    try:
-        yield scope
-    finally:
-        _STATE.scopes.pop()
-
-
-def current_scope():
-    return _STATE.scopes[-1] if _STATE.scopes else None
-
+# -- the sharded step's scope (``_parallel_scope``) -----------------------------
 
 @contextlib.contextmanager
 def sync_stats_scope():
@@ -367,8 +398,3 @@ def sync_stats_scope():
         yield
 
 
-def stat_group():
-    """The group a batch statistic is summed over: the open scope's dp
-    group, or None (local statistics)."""
-    s = current_scope()
-    return None if s is None else s.dp_group

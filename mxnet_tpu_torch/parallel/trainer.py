@@ -534,9 +534,9 @@ class ShardedTrainer:
 
     def _reduce(self, loss, grads):
         """Sum the gradients over the dp group and divide by dp: a
-        reduce-scatter for an FSDP shard, flat per-dtype buckets
-        (``MXTPU_ALLREDUCE_BUCKET_MB``) for the rest.  The loss is the
-        dp ranks' mean."""
+        reduce-scatter for an FSDP shard, the store's flat buckets
+        (``collectives.bucketed_all_reduce``) for the rest.  The loss is
+        the dp ranks' mean."""
         mesh = self.mesh
         group = mesh.group(self.batch_axis)
         dp = mesh.shape.get(self.batch_axis, 1)
@@ -550,31 +550,14 @@ class ShardedTrainer:
                     g, group, spec.index(self.batch_axis)) / dp
             else:
                 dense.append(i)
-        from ..kvstore import _bucket_bytes
-
-        budget = _bucket_bytes()
         loss_t = torch.as_tensor(loss, dtype=torch.float32,
                                  device=self._device).reshape(1)
-        buckets, cur, size = [], [], 0
-        for i in dense:
-            nbytes = out[i].numel() * out[i].element_size()
-            if cur and (size + nbytes > budget
-                        or out[i].dtype != out[cur[0]].dtype):
-                buckets.append(cur)
-                cur, size = [], 0
-            cur.append(i)
-            size += nbytes
-        if cur:
-            buckets.append(cur)
-        for b in buckets:
-            flat = torch.cat([out[i].reshape(-1) for i in b])
-            _coll.all_reduce_(flat, group, "dp_grad_bucket")
+        reduced, flats = _coll.bucketed_all_reduce(
+            [out[i] for i in dense], group, "dp_grad_bucket")
+        for flat, _ in flats:
             flat /= dp
-            off = 0
-            for i in b:
-                n = out[i].numel()
-                out[i] = flat[off:off + n].view_as(out[i])
-                off += n
+        for i, g in zip(dense, reduced):
+            out[i] = g
         _coll.all_reduce_(loss_t, group, "dp_loss")
         return (loss_t / dp).reshape(()), out
 

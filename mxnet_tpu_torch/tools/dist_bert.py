@@ -3,7 +3,7 @@ sharded trainer, one process a rank.
 
     python3 -m mxnet_tpu_torch.tools.dist_bert --rank R --world N
         --out DIR [--batch 32] [--seq 512] [--steps 3] [--timed 5]
-        [--model base|tiny] [--cpu]
+        [--model base|tiny]
 
 with the launch variables ``MXTPU_COORDINATOR`` / ``MXTPU_NUM_WORKERS`` /
 ``MXTPU_WORKER_RANK`` set (``drive`` sets them).  Each rank joins the
@@ -24,8 +24,10 @@ ranks share one card) and runs, in order:
   the batch): the losses, a fixed sample of the trained parameters and
   the flash wrappers' launches of each path;
 - ``timing``: the same four paths in bf16, 2 warm-up and ``--timed``
-  timed steps: ms a step (median, min, max) and the seconds and bytes
-  the step spent in collectives.
+  timed steps: ms a step (median, min, max) and the bytes the step moved
+  in collectives; then ``--timed`` more steps under
+  ``collectives.timed_collectives`` for the seconds the collectives take
+  with the card idle before each.
 
 The rank writes its result to ``DIR/rank<R>.json``.  ``drive`` starts
 the gang and returns the results; ``reference`` runs the one-rank
@@ -238,9 +240,15 @@ def _timing(args, device, world):
             float(step(*data))
             _sync(device)
             ms.append((time.perf_counter() - t0) * 1e3)
-            st = collectives.stats()
-            coll_s.append(st["seconds"])
-            coll_b.append(st["bytes"])
+            coll_b.append(collectives.stats()["bytes"])
+        # the collectives' own time, in steps of their own: each
+        # collective waits for the card before and after it, which the
+        # steps timed above do not
+        with collectives.timed_collectives():
+            for _ in range(args.timed):
+                collectives.stats(reset=True)
+                float(step(*data))
+                coll_s.append(collectives.stats()["seconds"])
         out[path] = {"ms_median": statistics.median(ms), "ms_min": min(ms),
                      "ms_max": max(ms), "ms": ms,
                      "collective_s_median": statistics.median(coll_s),
@@ -302,41 +310,34 @@ def _kv(device, world, rank):
 
 
 def rank_main(args):
-    from .. import context, distributed
+    from .. import distributed
     from ..parallel import collectives
     from ..parallel.mesh import rank_device
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    scope = context.cpu() if args.cpu else None
-    if scope is not None:
-        scope.__enter__()
-    try:
-        assert distributed.init_from_env()
-        rank, world = distributed.rank(), distributed.num_workers()
-        import torch.distributed as dist
+    assert distributed.init_from_env()
+    rank, world = distributed.rank(), distributed.num_workers()
+    import torch.distributed as dist
 
-        device = rank_device()
-        res = {"rank": rank, "world": world,
-               "backend": dist.get_backend(), "device": str(device)}
-        t0 = time.perf_counter()
-        res["probe"] = collectives.probe(device)
-        res["kv"] = _kv(device, world, rank)
-        res["check"] = _check(args, device, world)
-        res["check_s"] = time.perf_counter() - t0
-        t1 = time.perf_counter()
-        res["timing"] = _timing(args, device, world)
-        res["timing_s"] = time.perf_counter() - t1
-        with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
-            json.dump(res, f)
-        distributed.barrier("dist_bert_end")
-    finally:
-        if scope is not None:
-            scope.__exit__(None, None, None)
+    device = rank_device()
+    res = {"rank": rank, "world": world,
+           "backend": dist.get_backend(), "device": str(device)}
+    t0 = time.perf_counter()
+    res["probe"] = collectives.probe(device)
+    res["kv"] = _kv(device, world, rank)
+    res["check"] = _check(args, device, world)
+    res["check_s"] = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    res["timing"] = _timing(args, device, world)
+    res["timing_s"] = time.perf_counter() - t1
+    with open(os.path.join(args.out, f"rank{rank}.json"), "w") as f:
+        json.dump(res, f)
+    distributed.barrier("dist_bert_end")
 
 
 def drive(workdir, world=2, batch=32, seq=512, steps=3, timed=5,
-          model="base", cpu=False, timeout=600.0):
+          model="base", timeout=600.0):
     """Run a gang of ``world`` rank processes of this tool and return
     ``[result of rank r]``.  Raises, with the ranks' output, when one
     fails or the gang outlives ``timeout``."""
@@ -354,14 +355,10 @@ def drive(workdir, world=2, batch=32, seq=512, steps=3, timed=5,
                    MXTPU_NUM_WORKERS=str(world), MXTPU_WORKER_RANK=str(r),
                    PYTHONPATH=root + os.pathsep
                    + os.environ.get("PYTHONPATH", ""))
-        if cpu:
-            env["OMP_NUM_THREADS"] = "1"
         args = [sys.executable, "-m", "mxnet_tpu_torch.tools.dist_bert",
                 "--rank", str(r), "--world", str(world), "--out", workdir,
                 "--batch", str(batch), "--seq", str(seq), "--steps",
                 str(steps), "--timed", str(timed), "--model", model]
-        if cpu:
-            args.append("--cpu")
         logs.append(open(os.path.join(workdir, f"rank{r}.log"), "w+"))
         procs.append(subprocess.Popen(args, cwd=root, env=env,
                                       stdout=logs[-1],
@@ -402,7 +399,6 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--timed", type=int, default=5)
     ap.add_argument("--model", choices=("base", "tiny"), default="base")
-    ap.add_argument("--cpu", action="store_true")
     rank_main(ap.parse_args(argv))
 
 

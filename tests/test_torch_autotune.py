@@ -29,6 +29,7 @@ from mxnet_tpu_torch.autotune import db, runner, search, space
 from mxnet_tpu_torch.context import context_of
 from mxnet_tpu_torch.gluon import captured, nn
 from mxnet_tpu_torch.ndarray.ndarray import NDArray
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 _TUNE_ENVS = [k.env for k in space.KNOBS.values()] + [
     "MXTPU_AUTOTUNE", "MXTPU_TUNE_DB", "MXTPU_TUNE_BUDGET",

@@ -24,6 +24,7 @@ from mxnet_tpu_torch.parallel import (TRANSFORMER_TP_RULES, ShardedTrainer,
                                       data_parallel_mesh,
                                       make_mesh, mesh_axis_size)
 from mxnet_tpu_torch.tools import bench_bert
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4

@@ -27,6 +27,7 @@ from mxnet_tpu_torch.context import context_of
 from mxnet_tpu_torch.gluon import captured, nn
 from mxnet_tpu_torch.ndarray.ndarray import NDArray
 from mxnet_tpu_torch.optimizer import grouped
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 STEPS = 10
 

@@ -22,6 +22,7 @@ import mxnet_tpu.checkpoint as jckpt
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import checkpoint, gluon, resilience, telemetry
 from mxnet_tpu_torch.context import cpu
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 

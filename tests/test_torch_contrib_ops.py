@@ -23,6 +23,7 @@ from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch import initializer as tinit
 from mxnet_tpu_torch import nd as tnd
 from test_operator import SPECS
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 FWD = dict(rtol=1e-4, atol=1e-5)
 GRAD = dict(rtol=2e-3, atol=2e-4)

@@ -34,6 +34,7 @@ from mxnet_tpu_torch.context import cpu
 from mxnet_tpu_torch.gluon.data import (DataLoader, DataLoaderWorkerError,
                                         DevicePrefetcher)
 from torch_data_samples import FailingDataset, PairDataset, sum_batchify
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -18,6 +18,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.context import cpu
 from mxnet_tpu_torch.gluon import model_zoo
 from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _pair(seed=7, layers=2, max_length=32):

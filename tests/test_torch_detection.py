@@ -25,6 +25,7 @@ from mxnet_tpu.ops import contrib_det as jdet
 from mxnet_tpu.ops import vision_extra as jvis
 from mxnet_tpu_torch.ops import contrib_det as tdet
 from mxnet_tpu_torch.ops import vision_extra as tvis
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=2e-3, atol=2e-4)

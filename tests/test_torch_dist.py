@@ -18,6 +18,8 @@ Tolerances: rtol 2e-4 / atol 2e-5 on values, 2e-3 / 2e-4 on trained
 weights.
 """
 
+import socket
+
 import numpy as np
 import pytest
 import torch
@@ -34,6 +36,7 @@ from mxnet_tpu_torch import distributed, kvstore
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.context import cpu
 from mxnet_tpu_torch.gradient_compression import GradientCompression
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4
@@ -267,16 +270,56 @@ def test_notify_mesh_reshape_changes_the_fingerprint():
     assert kvstore.device_fingerprint() == before
 
 
+def _ranks(host, cards, n, on_host=False):
+    return [(host, cards, on_host)] * n
+
+
 def test_backend_rule_names_its_choice(monkeypatch):
+    """Each rank's entry from its stubbed cards and scope, and the choice
+    with its reason on one host."""
+    host = socket.gethostname()
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
-    assert distributed.backend_rule(1)[0] == "nccl"
-    backend, reason = distributed.backend_rule(2)
+    assert distributed.local_member() == (host, 1, False)
+    assert distributed.backend_rule([distributed.local_member()])[0] == \
+        "nccl"
+    backend, reason = distributed.backend_rule(
+        [distributed.local_member()] * 2)
     assert backend == "gloo" and "share" in reason
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 4)
-    assert distributed.backend_rule(4)[0] == "nccl"
+    assert distributed.backend_rule([distributed.local_member()] * 4) == (
+        "nccl", "4 ranks on 1 host(s), one card each")
     with cpu():
-        assert distributed.backend_rule(4)[0] == "gloo"
+        assert distributed.local_member() == (host, 4, True)
+        assert distributed.backend_rule(
+            [distributed.local_member()] * 4) == (
+                "gloo", "the ranks run on the host (cpu scope)")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    assert distributed.backend_rule(2) == (
-        "gloo", "no CUDA card is visible: the ranks run on the host")
+    assert distributed.local_member() == (host, 0, False)
+    assert distributed.backend_rule([distributed.local_member()] * 2) == (
+        "gloo", f"no CUDA card is visible on {host}: the ranks run on the "
+        "host")
+
+
+def test_backend_rule_over_hosts():
+    """A world over several hosts counts the ranks of each host against
+    that host's cards, and every rank reads the same list."""
+    # 2 hosts of 8 cards, a rank a card: 16 ranks, 8 cards a host
+    assert distributed.backend_rule(_ranks("a", 8, 8) + _ranks("b", 8, 8)) \
+        == ("nccl", "16 ranks on 2 host(s), one card each")
+    assert distributed.backend_rule(_ranks("a", 8, 2) + _ranks("b", 8, 8)) \
+        [0] == "nccl"
+    # one host with fewer cards than ranks turns the whole world to gloo
+    backend, reason = distributed.backend_rule(
+        _ranks("a", 8, 8) + _ranks("b", 4, 8))
+    assert backend == "gloo" and "8 ranks share 4 card(s) on b" in reason
+    assert distributed.backend_rule(_ranks("a", 8, 8) + _ranks("b", 0, 1)) \
+        == ("gloo", "no CUDA card is visible on b: the ranks run on the "
+            "host")
+    # one rank in a cpu scope puts every rank on gloo
+    assert distributed.backend_rule(
+        _ranks("a", 8, 7) + _ranks("a", 8, 1, on_host=True))[0] == "gloo"
+    # the order of the ranks does not change the choice
+    mixed = _ranks("a", 8, 8) + _ranks("b", 4, 8)
+    assert distributed.backend_rule(mixed[::-1]) == \
+        distributed.backend_rule(mixed)

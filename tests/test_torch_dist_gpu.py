@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from mxnet_tpu_torch.tools import dist_bert
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 

@@ -29,6 +29,7 @@ from mxnet_tpu_torch import embedding, gluon, numerics, telemetry
 from mxnet_tpu_torch.embedding import prep as emb_prep
 from mxnet_tpu_torch.gluon import captured, nn
 from mxnet_tpu_torch.optimizer import grouped
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 VOCAB, DIM, STEPS = 50, 8, 6
 WEIGHT_TOL = dict(rtol=2e-4, atol=2e-5)

@@ -14,6 +14,7 @@ import torch
 from mxnet_tpu.ops import pallas_attention as jflash
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import flash_attention as tflash
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4

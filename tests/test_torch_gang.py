@@ -31,6 +31,7 @@ from mxnet_tpu import checkpoint as jcheckpoint
 from mxnet_tpu import distributed as jdistributed
 from mxnet_tpu import resilience as jresilience
 from mxnet_tpu_torch import checkpoint, distributed, resilience, telemetry
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 JOIN_LIMIT = 90.0
 

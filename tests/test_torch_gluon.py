@@ -32,6 +32,7 @@ from mxnet_tpu_torch.gluon import (Constant, DeferredInitializationError,
 from mxnet_tpu_torch.gluon import loss as tloss
 from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.parallel import ShardedTrainer, data_parallel_mesh
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4

@@ -23,6 +23,7 @@ from mxnet_tpu_torch import convert
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.context import cpu
 from mxnet_tpu_torch.gluon import contrib as tcontrib
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=2e-3, atol=2e-4)

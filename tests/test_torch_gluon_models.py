@@ -26,6 +26,7 @@ from mxnet_tpu_torch.gluon.contrib import lora
 from mxnet_tpu_torch.gluon.model_zoo import bert as tbert, gpt as tgpt
 from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
 from mxnet_tpu_torch.ndarray.ndarray import NDArray
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4

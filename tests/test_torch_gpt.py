@@ -16,6 +16,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.context import cpu
 from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
 from mxnet_tpu_torch.ops import flash_attention as tflash
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 

@@ -29,6 +29,7 @@ from mxnet_tpu_torch import image as timage
 from mxnet_tpu_torch import recordio as trec
 from mxnet_tpu_torch import resilience as tres
 from mxnet_tpu_torch.context import cpu
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)

@@ -14,6 +14,7 @@ import torch
 
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.ops import flash_attention as tflash
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 

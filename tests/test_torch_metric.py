@@ -15,6 +15,7 @@ from mxnet_tpu import nd as jnd
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.context import cpu
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 

@@ -27,6 +27,7 @@ from mxnet_tpu import nd as jnd
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch import nd as tnd
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 JAX = (jmx, jnd, jag)

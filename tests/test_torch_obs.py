@@ -19,6 +19,7 @@ import mxnet_tpu.obs.exporter as jexp
 import mxnet_tpu.telemetry as jtel
 from mxnet_tpu_torch import distributed, obs, telemetry
 from mxnet_tpu_torch.obs import collector, exporter
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

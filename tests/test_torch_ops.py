@@ -15,6 +15,7 @@ from mxnet_tpu.serving import engine as jengine
 from mxnet_tpu_torch.ops import attention as tatt
 from mxnet_tpu_torch.ops import nn as tnn
 from mxnet_tpu_torch.serving import engine as tengine
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 

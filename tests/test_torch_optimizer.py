@@ -30,6 +30,7 @@ from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.context import cpu
 from mxnet_tpu_torch.gluon import Parameter, Trainer
 from mxnet_tpu_torch.optimizer import grouped
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 SHAPES = [(5, 7), (3,), (2, 3, 4), (1,), (8, 2), (4, 4)]

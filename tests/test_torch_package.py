@@ -14,6 +14,7 @@ import mxnet_tpu_torch
 from mxnet_tpu_torch import context
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.gluon.model_zoo import gpt
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 

@@ -18,6 +18,7 @@ from mxnet_tpu_torch import checkpoint, gluon, integrity
 from mxnet_tpu_torch.context import context_of
 from mxnet_tpu_torch.gluon import nn
 from mxnet_tpu_torch.ndarray.ndarray import NDArray
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.gpu
 

@@ -23,6 +23,7 @@ import pytest
 import mxnet_tpu as jmx
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import checkpoint, numerics, resilience, telemetry
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 import torch_resilient_mlp as mlp  # noqa: E402

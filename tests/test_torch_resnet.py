@@ -31,6 +31,7 @@ from mxnet_tpu_torch.gluon import loss as tloss
 from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
 from mxnet_tpu_torch.parallel import ShardedTrainer, data_parallel_mesh
 from mxnet_tpu_torch.tools import bench_resnet
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4

@@ -38,6 +38,7 @@ from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.gluon.contrib import rnn as tcrnn
 from mxnet_tpu_torch.ops import rnn as trnn
 from mxnet_tpu_torch.tools import bench_lstm
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 FWD = dict(rtol=1e-4, atol=1e-5)
 GRAD = dict(rtol=2e-3, atol=2e-4)

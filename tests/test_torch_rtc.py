@@ -19,6 +19,7 @@ import torch
 import mxnet_tpu_torch as mx
 from mxnet_tpu_torch import nd, rtc
 from mxnet_tpu_torch.base import MXNetError
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 AXPY = r"""
 extern "C" __global__ void axpy(const float *x, float *y, float alpha, int n)

@@ -21,6 +21,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.context import cpu
 from mxnet_tpu_torch.gluon.model_zoo import gpt as tgpt
 from mxnet_tpu_torch.serving import ServingEngine
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 def _jax_model(seed=7, max_length=16):

@@ -30,6 +30,7 @@ from mxnet_tpu.gluon.model_zoo import bert as jbert
 import torch_rank_cases as cases
 from mxnet_tpu_torch import parallel as tparallel
 from mxnet_tpu_torch.context import cpu
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 GRAD_RTOL, GRAD_ATOL = 2e-3, 2e-4

@@ -36,6 +36,7 @@ from mxnet_tpu_torch import autograd as tag
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.gluon import nn as tnn
 from mxnet_tpu_torch.ndarray import sparse as tsp
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 OUT_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=2e-3, atol=2e-4)

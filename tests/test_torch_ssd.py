@@ -15,6 +15,9 @@ here).  Integer results (the detections' ids, the labels) must be
 equal.
 """
 
+import functools
+
+import jax
 import numpy as np
 import pytest
 import torch
@@ -34,6 +37,7 @@ from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.context import cpu
 from mxnet_tpu_torch.gluon import model_zoo as tzoo
 from mxnet_tpu_torch.tools import bench_ssd
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 FWD_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
@@ -106,12 +110,30 @@ def test_ssd_names_and_forward_match_jax(nets):
         np.testing.assert_allclose(g, w, **NET_TOL)
 
 
+class _JaxNetLoss(jgluon.HybridBlock):
+    """The JAX net and its SSDTrainLoss as one hybridized program, so the
+    reference's loss is not dispatched and differentiated op by op."""
+
+    def __init__(self, net):
+        super().__init__()
+        self.net = net
+        self.loss = jzoo.SSDTrainLoss(negative_mining_ratio=3)
+
+    def hybrid_forward(self, F, x, y):
+        return self.loss(self.net(x), y)
+
+
 def _step(pkg, net, x, y, trainer=None):
     """The loss and every gradient of one SSDTrainLoss pass; a trainer
     step after it when given."""
-    loss_fn = pkg.gluon.model_zoo.SSDTrainLoss(negative_mining_ratio=3)
+    if pkg is mx:
+        fwd = _JaxNetLoss(net)
+        fwd.hybridize()
+    else:
+        loss_fn = pkg.gluon.model_zoo.SSDTrainLoss(negative_mining_ratio=3)
+        fwd = lambda a, b: loss_fn(net(a), b)      # noqa: E731
     with pkg.autograd.record():
-        loss = loss_fn(net(pkg.nd.array(x)), pkg.nd.array(y))
+        loss = fwd(pkg.nd.array(x), pkg.nd.array(y))
     loss.backward()
     grads = {k[len(net.prefix):]: p.grad().asnumpy()
              for k, p in net.collect_params().items()
@@ -182,8 +204,9 @@ def test_ssd_detect_matches_multibox_detection(nets):
         det = tzoo.ssd_detect(tnet, tnd.array(x)).asnumpy()
         cls, loc, anc = (o.asnumpy() for o in tnet(tnd.array(x)))
     prob = torch.softmax(torch.from_numpy(cls), 1).numpy()
-    want = np.asarray(jdet.multibox_detection(
-        prob, loc, anc, nms_threshold=0.45, threshold=0.01, nms_topk=400))
+    want = np.asarray(jax.jit(functools.partial(
+        jdet.multibox_detection, nms_threshold=0.45, threshold=0.01,
+        nms_topk=400))(prob, loc, anc))
     assert det.shape == want.shape == (2, cls.shape[2], 6)
     np.testing.assert_array_equal(det[:, :, 0], want[:, :, 0])
     np.testing.assert_allclose(det, want, **FWD_TOL)

@@ -21,6 +21,7 @@ import mxnet_tpu.telemetry as jtel
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import telemetry
 from mxnet_tpu_torch.context import cpu
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture

@@ -26,6 +26,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.parallel import ShardedTrainer, trainer as ttrainer
 from mxnet_tpu_torch.parallel import TRANSFORMER_TP_RULES
 from mxnet_tpu_torch.serving import ServingEngine, state_for_serving
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 

@@ -37,6 +37,7 @@ from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.context import cpu
 from test_torch_resnet import (GRAD_ATOL, GRAD_RTOL, SEEDS, _jax_net,
                                _numpy_params, _port_net, _small)
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 RTOL, ATOL = 2e-4, 2e-5
 
@@ -79,6 +80,7 @@ def test_trainer_step_resnet_matches_jax():
                          kvstore="device")
     jl_fn, tl_fn = jgluon.loss.SoftmaxCrossEntropyLoss(), \
         tgluon.loss.SoftmaxCrossEntropyLoss()
+    jl_fn.hybridize()                  # the JAX loss one program as well
     want, got = [], []
     for _ in range(3):
         with jag.record():

@@ -17,6 +17,7 @@ from mxnet_tpu_torch import autograd, convert, gluon
 from mxnet_tpu_torch.context import cpu
 from mxnet_tpu_torch.gluon.model_zoo import transformer as tfm
 from mxnet_tpu_torch.ndarray.ndarray import NDArray
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 V = 20
 

@@ -1,6 +1,6 @@
 """The rest of the vision zoo and ``model_store``, the port's against
-the JAX package's on the CPU, with the JAX weights carried across by
-``convert.load_gluon_params`` (``gluon.contrib`` is
+the JAX package's on the CPU, the port's Xavier weights (from a seed)
+loaded into the JAX model by ``torch_jax_twin`` (``gluon.contrib`` is
 ``test_torch_gluon_contrib.py``).
 
 Each family at its smallest variant and the smallest input its fixed
@@ -18,7 +18,6 @@ import numpy as np
 import pytest
 import torch
 
-import mxnet_tpu as mx
 from mxnet_tpu import autograd as jag
 from mxnet_tpu import gluon as jgluon
 from mxnet_tpu import nd
@@ -26,13 +25,15 @@ from mxnet_tpu.gluon.model_zoo import vision as jvision
 
 import mxnet_tpu_torch as tmx
 from mxnet_tpu_torch import autograd as tag
-from mxnet_tpu_torch import convert
 from mxnet_tpu_torch import gluon as tgluon
 from mxnet_tpu_torch import nd as tnd
 from mxnet_tpu_torch.base import MXNetError
 from mxnet_tpu_torch.context import cpu
 from mxnet_tpu_torch.gluon.model_zoo import model_store
 from mxnet_tpu_torch.gluon.model_zoo import vision as tvision
+
+import torch_jax_twin as twin
+from torch_one_thread import one_torch_thread  # noqa: F401
 
 NET_TOL = dict(rtol=2e-4, atol=2e-5)
 GRAD_TOL = dict(rtol=2e-3, atol=2e-4)
@@ -44,47 +45,21 @@ FAMILIES = [("alexnet", 64), ("vgg11", 32), ("vgg11_bn", 32),
             ("densenet121", 224), ("inceptionv3", 299)]
 
 
-def _strip(net):
-    return {k[len(net.prefix):]: tuple(p.shape)
-            for k, p in net.collect_params().items()}
+_strip = twin.strip
 
 
-def _jax_twin(make, tnet, x, seed):
-    """The JAX model of ``make``, its deferred shapes from the port's
-    ``tnet`` (which has run a forward on ``x``), Xavier from ``seed``,
-    BatchNorm statistics drawn, hybridized."""
-    shapes = _strip(tnet)
-    mx.random.seed(seed)
-    jnet = make(jvision)
-    jnet.initialize(init=mx.init.Xavier())
-    rng = np.random.RandomState(seed)
-    for name, p in jnet.collect_params().items():
-        short = name[len(jnet.prefix):]
-        if p._deferred_init:
-            p.shape = shapes[short]
-            p._finish_deferred_init()
-        if short.endswith(("gamma", "running_var")):
-            p.set_data(nd.array(rng.uniform(0.5, 1.5, p.shape)))
-        elif short.endswith(("beta", "running_mean")):
-            p.set_data(nd.array(rng.uniform(-0.2, 0.2, p.shape)))
-    jnet.hybridize()
-    return jnet
-
-
-def _pair(name, size, seed=0):
-    def make(v):
-        return v.get_model(name, classes=10)
-
+def _pair(name, size, seed=0, grads=False):
+    """The port's model of ``name`` (Xavier from ``seed``, BatchNorm
+    statistics drawn) and the JAX model with its values, hybridized;
+    the input."""
     x = np.random.RandomState(seed).uniform(
         -1, 1, (1, 3, size, size)).astype(np.float32)
-    with cpu():
-        tnet = make(tvision)
-        tnet.initialize()
-        with torch.no_grad():
-            tnet(torch.from_numpy(x))
-    jnet = _jax_twin(make, tnet, x, seed)
-    convert.load_gluon_params(tnet, {k: p.data().asnumpy() for k, p in
-                                     jnet.collect_params().items()})
+    tnet = twin.port_net(lambda: tvision.get_model(name, classes=10), x,
+                         seed)
+    params = twin.draw_norm_stats(twin.values(tnet), seed)
+    twin.load_port(tnet, params)
+    jnet = twin.load_jax(jvision.get_model(name, classes=10), params, grads)
+    jnet.hybridize()
     return jnet, tnet, x
 
 
@@ -106,7 +81,7 @@ def test_mobilenet_v2_gradients_match_jax():
     f32: at 4 x 96x96 both packages' gradients stand hundreds of times the
     tolerance from an f64 run of the port, the JAX package's the farther;
     on fixed statistics both are within 3e-4 of the tolerance of it."""
-    jnet, tnet, _ = _pair("mobilenetv2_0.25", 32, seed=1)
+    jnet, tnet, _ = _pair("mobilenetv2_0.25", 32, seed=1, grads=True)
     x = np.random.RandomState(2).uniform(-1, 1, (4, 3, 32, 32)) \
         .astype(np.float32)
     y = np.array([1, 4, 7, 2], np.float32)
