@@ -293,15 +293,35 @@ Phases; any failure raises, exits non-zero and prints no result line:
    peer RAM with zero restores from disk at the newest common snapshot
    and replays from it bitwise as it ran first; the push, fetch, stall,
    detect_s, recover_s, step_tick's host us and the kernels of a step.
+19. Multi-rank training on BERT-base at bench_bert's width
+   (tools/dist_bert.py): two ranks on the one card over gloo, the
+   collectives' probe, the dist store and 2-bit compression card against
+   host, ShardedTrainer at dp=2, tp=2, fsdp=2 and the dist_sync store in
+   f32 against one rank, then the same paths in bf16, timed.
+20. Sequence, pipeline and expert parallelism (tools/dist_sp_pp_ep.py):
+   the flash kernels on the ring's blocks (the global O and LSE of a
+   two-block combine in the backward) and on Ulysses' head shards
+   against their plain versions; gloo's point-to-point on CUDA tensors
+   probed in two processes of its own, then two ranks on the one card
+   over gloo: GPT-2 small (B=8, T=1024) with ring and Ulysses attention
+   at sp=2, BERT-base through bert_pipeline_parts at pp=2 under GPipe
+   and 1F1B, Dense + MoEFFN at Switch-Base-8's widths at ep=2 (top-1,
+   top-2); in f32 each against its one-rank counterpart (losses, sampled
+   parameters and the first update's sampled gradients), each rank's
+   flash launches a step (the ring's rank 0 shows the skipped causal
+   block), then in bf16, timed (ms a step, collective bytes and synced
+   seconds, peak memory, the pipelines' bubble fraction).
 6. The kernel JSON line (f32 numbers at the training shape, and the
    bf16 ones under *_bf16 keys; the same at BERT's shape under
    ``at_bert_shape``, at ViT's under ``at_vit_shape`` and at
    Transformer-base's under ``at_transformer_shape``, its encoder
    (non-causal) and decoder (causal), with the forward's errors at
    TFM_DECODE_T; launches by path, [12]'s two training paths, [14]'s
-   paths, [16]'s SSD path and zoo, [17]'s three paths and [18]'s
-   autotune and gang paths among them),
-   the nvidia-smi line, then the result line.
+   paths, [16]'s SSD path and zoo, [17]'s three paths, [18]'s autotune
+   and gang paths, [19]'s paths and [20]'s a rank a step among them;
+   the errors on [20]'s ring and Ulysses inputs under
+   ``at_ring_and_ulysses_inputs``), the nvidia-smi line, then the result
+   line.
 """
 
 from __future__ import annotations
@@ -609,20 +629,22 @@ def phase_build_report():
                                      f"instantiation without HMMA")
 
 
-def phase_kernels(dev):
+def phase_kernels(dev, cases=None):
     """[3] the forward kernel against its plain version: the serving
     shape causal and not, a ragged T=1000, BERT's shape non-causal,
-    Transformer-base's causal and not, and its decoder at TFM_DECODE_T.
-    Returns O's max abs error by (shape, dtype name, causal)."""
+    Transformer-base's causal and not, and its decoder at TFM_DECODE_T
+    (or the (shape, causal) ``cases`` given).  Returns O's max abs error
+    by (shape, dtype name, causal)."""
     import torch
 
     from mxnet_tpu_torch.ops import flash_attention as fa
 
-    ragged = SHAPE[:2] + (1000, SHAPE[3])
-    cases = [(SHAPE, True), (SHAPE, False), (ragged, True),
-             (BERT_SHAPE, False), (TFM_SHAPE, False), (TFM_SHAPE, True)]
-    cases += [(TFM_SHAPE[:2] + (T, TFM_SHAPE[3]), True)
-              for T in TFM_DECODE_T]
+    if cases is None:
+        ragged = SHAPE[:2] + (1000, SHAPE[3])
+        cases = [(SHAPE, True), (SHAPE, False), (ragged, True),
+                 (BERT_SHAPE, False), (TFM_SHAPE, False), (TFM_SHAPE, True)]
+        cases += [(TFM_SHAPE[:2] + (T, TFM_SHAPE[3]), True)
+                  for T in TFM_DECODE_T]
     errs = {}
     for shape, causal in cases:
         T = shape[2]
@@ -732,18 +754,21 @@ def bwd_magnitudes(q, k, v, o, lse, do, causal):
             torch.matmul(ds.transpose(-1, -2), qf.abs()))
 
 
-def phase_bwd_kernels(dev):
+def phase_bwd_kernels(dev, cases=None):
     """[3b] dQ and dK/dV kernels against flash_attention_bwd_plain; the
     forward kernel's O and L (the backward's inputs) against the plain
-    forward too.  Returns max abs errors by (what, T, dtype, causal)."""
+    forward too; at the training, BERT, ViT and Transformer shapes (or
+    the (shape, causal) ``cases`` given).  Returns max abs errors by
+    (what, T, dtype, causal)."""
     import torch
 
     from mxnet_tpu_torch.ops import flash_attention as fa
 
-    ragged = TRAIN_SHAPE[:2] + (1000, TRAIN_SHAPE[3])
-    cases = [(TRAIN_SHAPE, True), (TRAIN_SHAPE, False), (ragged, True),
-             (BERT_SHAPE, False), (VIT_SHAPE, False), (TFM_SHAPE, False),
-             (TFM_SHAPE, True)]
+    if cases is None:
+        ragged = TRAIN_SHAPE[:2] + (1000, TRAIN_SHAPE[3])
+        cases = [(TRAIN_SHAPE, True), (TRAIN_SHAPE, False), (ragged, True),
+                 (BERT_SHAPE, False), (VIT_SHAPE, False), (TFM_SHAPE, False),
+                 (TFM_SHAPE, True)]
     results = {}
     for shape, causal in cases:
         T = shape[2]
@@ -2867,8 +2892,10 @@ def delivery_check(dev=None):
             f"{INPUT_BATCH}, bitwise {ok}")
         bad = bad or not (n == CARD_SAMPLES // INPUT_BATCH and ok)
     if bad:
+        found = [h2d[j]["args"]["bytes"] - MARK_BYTES for j in marks]
         raise AssertionError("[12](i) a loader delivered wrong batches or "
-                             f"copies ({len(marks)} markers in the trace)")
+                             f"copies ({len(marks)} markers in the trace: "
+                             f"cases {found} of {len(cases) + 1})")
 
 
 #: [12](i)'s samples held on the card, and the cycles each sample's
@@ -6390,6 +6417,291 @@ def phase_dist(dev, card, rtc_kernels):
     return launches, out
 
 
+#: [20]'s kernel inputs: a rank's block of the sp=2 ring over GPT-2 small
+#: at B=8, T=1024, and a rank's head shard in Ulysses (6 of 12 heads over
+#: the whole sequence)
+RING_BLOCK = (8, 12, 512, 64)
+ULYSSES_SHARD = (8, 6, 1024, 64)
+
+
+def _ring_kernel_case(dev, dtype, causal, results):
+    """One dtype and mask of ``phase_ring_kernels``: the sp=2 ring's
+    blocks on the card through ring._block_fwd/_block_bwd, each against
+    its plain version on the same inputs; in f32 the assembled O, LSE,
+    dQ, dK and dV against the plain versions over the whole sequence."""
+    import torch
+
+    from mxnet_tpu_torch.ops import flash_attention as fa
+    from mxnet_tpu_torch.parallel import ring
+
+    B, H, Tb, D = RING_BLOCK
+    p, scale = 2, D ** -0.5
+    name = str(dtype).split(".")[1]
+    g = torch.Generator(device=dev).manual_seed(SEED + 20)
+    q, k, v, do = (torch.randn((B, H, p * Tb, D), device=dev,
+                               generator=g).to(dtype) for _ in range(4))
+    blk = [lambda x, j=j: x[:, :, j * Tb:(j + 1) * Tb].contiguous()
+           for j in range(p)]
+    rtol, atol = TOL[name]
+    brtol, batol = BWD_TOL[name]
+    worst = {"fwd": 0.0, "dq": 0.0, "dkv": 0.0}
+    outs, lses = [], []
+    for i in range(p):
+        qi = blk[i](q)
+        o = torch.zeros((B, H, Tb, D), dtype=torch.float32, device=dev)
+        lse = torch.full((B, H, Tb), ring._NEG_INF, dtype=torch.float32,
+                         device=dev)
+        for step in range(p):            # the ring's order of blocks
+            j = (i - step) % p
+            kind = ring._kind(i, j, causal)
+            if kind == "skip":
+                o_b = torch.zeros_like(qi)
+                l_b = torch.full_like(lse, ring._NEG_INF)
+                log(f"    [20] ring block fwd {name} causal={causal} rank "
+                    f"{i} block {j} (skip): no launch, LSE -1e30")
+            else:
+                diag = kind == "diag"
+                kj, vj = blk[j](k), blk[j](v)
+                o_b, l_b = ring._block_fwd(qi, kj, vj, diag, scale)
+                want, want_l = fa.flash_attention_plain(qi, kj, vj, diag,
+                                                        scale)
+                tol_a = atol
+                if dtype == torch.bfloat16:
+                    mag, _ = fa.flash_attention_plain(qi, kj, vj.abs(), diag,
+                                                      scale)
+                    tol_a = atol + P_ROUND * mag.double()
+                o_abs, _, o_ratio = errors(o_b, want, rtol, tol_a)
+                l_abs, _, l_ratio = errors(l_b, want_l.reshape(B, H, Tb),
+                                           *LSE_TOL)
+                worst["fwd"] = max(worst["fwd"], o_abs)
+                log(f"    [20] ring block fwd {name} causal={causal} rank "
+                    f"{i} block {j} ({kind}): O max abs {o_abs:.3e} err/tol "
+                    f"{o_ratio:.3f}, LSE max abs {l_abs:.3e} err/tol "
+                    f"{l_ratio:.3f}")
+                if not (o_ratio <= 1 and l_ratio <= 1):
+                    raise AssertionError(
+                        f"[20] flash_attention_fwd disagrees with its plain "
+                        f"version on ring block {j} of rank {i} ({name}, "
+                        f"causal={causal})")
+            o, lse = ring._combine(o, lse, o_b, l_b)
+        outs.append(o.to(dtype))
+        lses.append(lse)
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    dk = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    dv = torch.zeros(q.shape, dtype=torch.float32, device=dev)
+    for i in range(p):
+        qi, oi, gi = blk[i](q), outs[i], blk[i](do)
+        rows = lses[i].reshape(B * H, Tb).contiguous()
+        for j in range(p):
+            kind = ring._kind(i, j, causal)
+            if kind == "skip":
+                continue
+            diag = kind == "diag"
+            kj, vj = blk[j](k), blk[j](v)
+            got = ring._block_bwd(qi, kj, vj, oi, rows, gi, diag, scale)
+            want = fa.flash_attention_bwd_plain(qi, kj, vj, oi, rows, gi,
+                                                diag, scale)
+            mags = (bwd_magnitudes(qi, kj, vj, oi, rows, gi, diag)
+                    if dtype == torch.bfloat16 else (0.0,) * 3)
+            line = []
+            for gname, a, b, m in zip(("dQ", "dK", "dV"), got, want, mags):
+                tol_a = batol + BF16_STEP * m \
+                    if dtype == torch.bfloat16 else batol
+                e_abs, _, ratio = errors(a, b, brtol, tol_a)
+                key = "dq" if gname == "dQ" else "dkv"
+                worst[key] = max(worst[key], e_abs)
+                line.append(f"{gname} max abs {e_abs:.3e} err/tol "
+                            f"{ratio:.3f}")
+                if not (ratio <= 1 and bool(torch.isfinite(a.float()).all())):
+                    raise AssertionError(
+                        f"[20] backward kernels disagree with their plain "
+                        f"version on ring block {j} of rank {i} with the "
+                        f"global O and LSE ({name}, causal={causal}): "
+                        f"{gname}")
+            log(f"    [20] ring block bwd {name} causal={causal} rank {i} "
+                f"block {j} ({kind}), global O and LSE: " + "; ".join(line))
+            dq[:, :, i * Tb:(i + 1) * Tb] += got[0].float()
+            dk[:, :, j * Tb:(j + 1) * Tb] += got[1].float()
+            dv[:, :, j * Tb:(j + 1) * Tb] += got[2].float()
+    results[f"ring {name} {'causal' if causal else 'full'}"] = worst
+    if dtype != torch.float32:
+        return
+    # the ring's algebra: its blocks assembled against the whole sequence
+    o_ref, l_ref = fa.flash_attention_plain(q, k, v, causal, scale)
+    g_ref = fa.flash_attention_bwd_plain(q, k, v, o_ref, l_ref, do, causal,
+                                         scale)
+    checks = [("O", torch.cat(outs, 2), o_ref, TOL[name]),
+              ("LSE", torch.cat(lses, 2), l_ref.reshape(B, H, p * Tb),
+               LSE_TOL)]
+    checks += [(n, a, b, BWD_TOL[name])
+               for n, a, b in zip(("dQ", "dK", "dV"), (dq, dk, dv), g_ref)]
+    line = []
+    for n, a, b, tol in checks:
+        e_abs, _, ratio = errors(a, b, *tol)
+        line.append(f"{n} max abs {e_abs:.3e} err/tol {ratio:.3f}")
+        if ratio > 1:
+            raise AssertionError(f"[20] the ring's assembled {n} disagrees "
+                                 f"with the whole sequence's (causal="
+                                 f"{causal})")
+    log(f"    [20] ring assembled f32 causal={causal} against the plain "
+        f"versions over T={p * Tb}: " + "; ".join(line))
+
+
+def phase_ring_kernels(dev):
+    """[20] the three flash kernels on the inputs the ring and Ulysses give
+    them, against their plain versions on the same inputs: the sp=2
+    ring emulated in this process at RING_BLOCK (each rank's blocks,
+    diagonal, full and skipped, the forward folded by ring._combine; the
+    backward fed the GLOBAL O and LSE), f32 and bf16, causal and not; and
+    Ulysses' head shard at ULYSSES_SHARD through the forward and backward
+    checks of [3]/[3b].  Returns the max abs errors of each kernel
+    ("fwd", "dq", "dkv") by "<ring|ulysses> <dtype> <causal|full>"."""
+    import torch
+
+    results = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for causal in (True, False):
+            _ring_kernel_case(dev, dtype, causal, results)
+            torch.cuda.empty_cache()
+    cases = [(ULYSSES_SHARD, True), (ULYSSES_SHARD, False)]
+    log(f"    [20] Ulysses head shard {ULYSSES_SHARD}: forward")
+    fwd = phase_kernels(dev, cases)
+    log(f"    [20] Ulysses head shard {ULYSSES_SHARD}: backward")
+    bwd = phase_bwd_kernels(dev, cases)
+    for dt in ("float32", "bfloat16"):
+        for causal in (True, False):
+            T = ULYSSES_SHARD[2]
+            results[f"ulysses {dt} {'causal' if causal else 'full'}"] = {
+                "fwd": fwd[(ULYSSES_SHARD, dt, causal)],
+                "dq": bwd[("dQ", T, dt, causal)],
+                "dkv": max(bwd[("dK", T, dt, causal)],
+                           bwd[("dV", T, dt, causal)])}
+    return results
+
+
+SPE_STEPS, SPE_TIMED, SPE_SYNCED = 3, 5, 2
+#: each rank's launches of each flash kernel a step: the ring's rank 0
+#: runs its diagonal block only (the causal skip), rank 1 both blocks;
+#: Ulysses one flash over the whole sequence a layer; a pipeline stage its
+#: 6 layers for each of the 4 microbatches; the MoE stack no attention
+SPE_LAUNCHES = {"sp_ring": (12, 24), "sp_ulysses": (12, 12),
+                "pp_gpipe": (24, 24), "pp_1f1b": (24, 24), "ep_k1": (0, 0),
+                "ep_k2": (0, 0)}
+SPE_REFERENCE = {"sp_ring": "sp_ring", "sp_ulysses": "sp_ring",
+                 "pp_gpipe": "pp_gpipe", "pp_1f1b": "pp_gpipe",
+                 "ep_k1": "ep_k1", "ep_k2": "ep_k2"}
+
+
+def phase_seq_pipe_expert(dev, card):
+    """[20] sequence, pipeline and expert parallelism on the one card: a
+    two-rank gang (tools/dist_sp_pp_ep.py, gloo: the ranks share the card)
+    after the gloo point-to-point probe in rank processes of its own;
+    (a) in f32, dropout 0, TF32 off, 3 AdamW steps of each path against
+    its one-rank counterpart on the same global batches (GPT-2 small with
+    ring and Ulysses attention at sp=2 against flash on one rank;
+    BERT-base through bert_pipeline_parts at pp=2, GPipe and 1F1B, against
+    grad accumulation at the same microbatches; Dense + MoEFFN at
+    Switch-Base-8's widths at ep=2, top-1 and top-2, against all experts
+    on one rank), the losses, the sampled parameters and the first
+    update's sampled gradients (dist_sp_pp_ep.excess); (b) each rank's
+    flash launches a step; (c) the paths in bf16, timed.  Before the
+    gang, the flash kernels on the ring's and Ulysses' inputs against
+    their plain versions (phase_ring_kernels).  Returns the flash
+    launches of each path on each rank and the numbers."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from mxnet_tpu_torch.parallel import collectives
+    from mxnet_tpu_torch.tools import dist_sp_pp_ep as spe
+
+    t0 = time.perf_counter()
+    kernel_errs = phase_ring_kernels(dev)
+    log(f"    [20] kernels on the ring's and Ulysses' inputs held in "
+        f"{time.perf_counter() - t0:.1f} s")
+    p2p = collectives.p2p_probe("cuda", timeout=30.0)
+    log(f"    [20] gloo point-to-point on CUDA tensors (two rank processes "
+        f"of their own): {json.dumps(p2p)}; ppermute posts all_to_all_single "
+        f"for CUDA tensors under gloo ({time.perf_counter() - t0:.1f} s)")
+    refs = {}
+    for path in sorted(set(SPE_REFERENCE.values())):
+        t1 = time.perf_counter()
+        refs[path] = spe.reference(path, SPE_STEPS, dev)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        log(f"    [20] one-rank reference of {path}: losses "
+            f"{refs[path]['losses']} ({time.perf_counter() - t1:.1f} s)")
+    root = tempfile.mkdtemp(prefix="spe_")
+    try:
+        ranks = spe.drive(root, world=2, steps=SPE_STEPS, timed=SPE_TIMED,
+                          synced=SPE_SYNCED, timeout=600.0)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    failed = []
+    for r, res in enumerate(ranks):
+        said = [ln for ln in res["log"].splitlines()
+                if "process group backend" in ln]
+        log(f"    [20] rank {r}: {said[0] if said else 'no backend line'}")
+        if res["backend"] != "gloo" or not said:
+            failed.append(f"rank {r} backend {res['backend']}")
+        log(f"    [20] rank {r} gloo on CUDA: {json.dumps(res['probe'])}")
+        for name in DIST_PROBED + ("ppermute",):
+            if res["probe"][name] != "ok":
+                failed.append(f"rank {r} probe {name}: {res['probe'][name]}")
+        for path, got in res["check"].items():
+            ref = refs[SPE_REFERENCE[path]]
+            ex = spe.excess(got, ref)
+            want = SPE_LAUNCHES[path][r]
+            log(f"    [20](a) rank {r} {path}: losses {got['losses']} (loss "
+                f"excess {ex['loss']:.3f}, sampled-parameter excess "
+                f"{ex['params']:.3f}, first-update gradient excess "
+                f"{ex['grads']:.3f} over {len(got['grads'])} parameters: "
+                f"<= 1 within rtol/atol {spe.LOSS_TOL} / {spe.PARAM_TOL} / "
+                f"{spe.GRAD_TOL} x max|g|)")
+            log(f"    [20](b) rank {r} {path}: flash launches a step "
+                f"{got['launches']} (want {want} each)")
+            if max(ex.values()) > 1:
+                failed.append(f"rank {r} {path} disagrees with one rank: "
+                              f"{ex}")
+            if set(got["samples"]) != set(ref["samples"]):
+                failed.append(f"rank {r} {path} sampled "
+                              f"{sorted(got['samples'])}")
+            if any(n != want for n in got["launches"].values()):
+                failed.append(f"rank {r} {path} launches {got['launches']}")
+        for path, t in res["timing"].items():
+            extra = (f"; bubble_fraction {t['bubble_fraction']:.4f} over "
+                     f"{t['schedule_ticks']} ticks"
+                     if "bubble_fraction" in t else "")
+            log(f"    [20](c) rank {r} {path} bf16: {t['ms_median']:.2f} ms a "
+                f"step (min {t['ms_min']:.2f}, max {t['ms_max']:.2f}; "
+                f"{t['ms']}); collectives {t['collective_bytes']} bytes a "
+                f"step, {t['collective_s_median'] * 1e3:.2f} ms in steps with "
+                f"the card synchronized around each collective; peak "
+                f"{t['peak_mem_gib']:.2f} GiB{extra}  [{card}]")
+    for path in spe.PATHS:
+        if ranks[0]["check"][path]["samples"] != \
+                ranks[1]["check"][path]["samples"]:
+            failed.append(f"{path}: the ranks' parameters differ")
+        held = set().union(*(res["check"][path]["grads"] for res in ranks))
+        if held != set(refs[SPE_REFERENCE[path]]["grads"]):
+            failed.append(f"{path}: the ranks' gradients cover {sorted(held)}")
+    if failed:
+        raise RuntimeError("[20] failed: " + "; ".join(failed))
+    zero_rtc = {"rtc_scale2": 0, "rtc_axpy": 0}
+    launches = {f"{path}_rank{r}_per_step": dict(
+        ranks[r]["check"][path]["launches"], **zero_rtc)
+        for path in ("sp_ring", "sp_ulysses", "pp_gpipe", "pp_1f1b")
+        for r in range(2)}
+    out = {"p2p": p2p, "kernel_errs": kernel_errs,
+           "references": {k: v["losses"] for k, v in refs.items()},
+           "timing": {r: res["timing"] for r, res in enumerate(ranks)},
+           "check_s": ranks[0]["check_s"], "timing_s": ranks[0]["timing_s"]}
+    log(f"    [20] done in {time.perf_counter() - t0:.1f} s (check "
+        f"{out['check_s']:.1f} s, timing {out['timing_s']:.1f} s on rank 0)")
+    return launches, out
+
+
 def main():
     import torch
 
@@ -6558,6 +6870,18 @@ def main():
     dist_launches, dist_res = phase_dist(dev, card, (s2, ax))
     gluon_launches.update(dist_launches)
 
+    log("[20] sequence, pipeline and expert parallelism: a two-rank gang on "
+        "the one card (gloo); (a) f32, dropout 0, TF32 off, 3 AdamW steps: "
+        "GPT-2 small at B=8, T=1024 with ring and Ulysses attention at sp=2 "
+        "against flash on one rank, BERT-base through bert_pipeline_parts "
+        "at pp=2 (GPipe, 1F1B; 4 microbatches of 8 x 512) against grad "
+        "accumulation, Dense + MoEFFN at Switch-Base-8's widths over 32 x "
+        "512 tokens at ep=2 (top-1, top-2) against all experts on one rank; "
+        "(b) each rank's flash launches a step; (c) the paths in bf16, "
+        "timed")
+    spe_launches, spe_res = phase_seq_pipe_expert(dev, card)
+    gluon_launches.update(spe_launches)
+
     T0, Tb, Tv, Tt = TRAIN_SHAPE[2], BERT_SHAPE[2], VIT_SHAPE[2], TFM_SEQ
     sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
                        ":78", "lib_fwd", "plain_fwd"),
@@ -6630,6 +6954,11 @@ def main():
                for path, counts in gluon_launches.items()}),
         "plain_and_library_cover": ("the forward" if fn == "fwd" else
                                     "the whole backward (dQ, dK, dV)"),
+        "at_ring_and_ulysses_inputs": {
+            "shapes": f"ring block {RING_BLOCK} with the global O and LSE, "
+                      f"Ulysses head shard {ULYSSES_SHARD}",
+            "max_abs_err": {case: errs[fn] for case, errs in
+                            spe_res["kernel_errs"].items()}},
     } for fn, (name, src, line, lib, plain) in sources.items()]}
     rtc_launches = {"rtc_scale2": {"rtc_path": rt["path"]["rtc_scale2"],
                                    "resnet_train_step":
@@ -6719,6 +7048,8 @@ def main():
         f"{gang_res['gang']['recover_s']:.3f}; two ranks on one card "
         f"(gloo) bf16 ms a step: "
         f"{ {p: round(t['ms_median'], 2) for p, t in dist_res['timing'][0].items()} }; "
+        f"sp/pp/ep bf16 ms a step (rank 0): "
+        f"{ {p: round(t['ms_median'], 2) for p, t in spe_res['timing'][0].items()} }; "
         f"forward O max abs err at BERT's "
         f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")

@@ -31,14 +31,22 @@ _STATE = _State()
 class ParallelScope:
     """What a sharded forward runs under.
 
-    ``dp_group``/``dp_size``: the data-parallel group whose statistics
-    are global.  ``tp_group``/``tp_size``/``tp_rank``: the tensor-parallel
-    group.  ``tp_shards``: {id(tensor): (dim, offset, full size)} for each
+    ``dp_group``/``dp_size``: the group whose statistics are global, the
+    ranks that split the global batch's tokens (dp, with sp and ep where
+    the mesh has them), in the order of their blocks of the batch.
+    ``tp_group``/``tp_size``/``tp_rank``: the tensor-parallel group.
+    ``tp_shards``: {id(tensor): (dim, offset, full size)} for each
     tensor that holds a tp shard; an op that reads one marks it consumed
     (``consume``), and the trainer refuses a step that left a shard
-    unread by a tp-aware op."""
+    unread by a tp-aware op.  ``sp_group``/``sp_size``/``sp_rank``: the
+    sequence-parallel group (a rank holds positions ``[sp_rank * T,
+    (sp_rank + 1) * T)`` of each sequence, ``seq_offset``).
+    ``ep_group``/``ep_shards``: the expert-parallel group and the tensors
+    that hold this rank's experts, {id(tensor): (first expert, experts)},
+    consumed like the tp shards."""
 
-    def __init__(self, dp_group=None, tp_group=None, tp_shards=None):
+    def __init__(self, dp_group=None, tp_group=None, tp_shards=None,
+                 sp_group=None, ep_group=None, ep_shards=None):
         self.dp_group = dp_group
         self.dp_size = _size(dp_group)
         self.tp_group = tp_group
@@ -46,12 +54,26 @@ class ParallelScope:
         self.tp_rank = dist.get_rank(tp_group) if tp_group is not None \
             else 0
         self.tp_shards = dict(tp_shards or {})
+        self.sp_group = sp_group
+        self.sp_size = _size(sp_group)
+        self.sp_rank = dist.get_rank(sp_group) if sp_group is not None \
+            else 0
+        self.ep_group = ep_group
+        self.ep_shards = dict(ep_shards or {})
         self.consumed = set()
 
     def shard_of(self, t):
         """(dim, offset, full size) when ``t`` holds a tp shard, else
         None; marks it consumed."""
         info = self.tp_shards.get(id(t))
+        if info is not None:
+            self.consumed.add(id(t))
+        return info
+
+    def experts_of(self, t):
+        """(first expert, experts) when ``t`` holds this rank's experts,
+        else None; marks it consumed."""
+        info = self.ep_shards.get(id(t))
         if info is not None:
             self.consumed.add(id(t))
         return info
@@ -76,3 +98,9 @@ def stat_group():
     s = current_scope()
     return None if s is None else s.dp_group
 
+
+def seq_offset(T):
+    """The first position of this rank's T positions of each sequence: 0
+    outside a sequence-parallel step."""
+    s = current_scope()
+    return 0 if s is None or s.sp_group is None else s.sp_rank * int(T)

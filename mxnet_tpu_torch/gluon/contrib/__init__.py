@@ -4,9 +4,10 @@ contrib layers (``nn``: ``Concurrent``, ``HybridConcurrent``,
 the deformable convolution layer (``cnn``), the ``Estimator`` fit loop,
 LoRA adapters, the contrib data utilities (``IntervalSampler``,
 ``CharTokenDataset``) and the contrib recurrent cells (``rnn``:
-``VariationalDropoutCell``, ``Conv2DLSTMCell``).  ``moe`` is not ported
-yet."""
+``VariationalDropoutCell``, ``Conv2DLSTMCell``) and the sparse MoE FFN
+(``moe``: ``MoEFFN``)."""
 
-from . import cnn, data, estimator, lora, nn, rnn
+from . import cnn, data, estimator, lora, moe, nn, rnn
 from .estimator import Estimator
 from .lora import LoRADense, apply_lora, freeze_for_lora
+from .moe import MoEFFN

@@ -22,8 +22,9 @@ each parameter's own init (normal embedding tables, zero biases, unit
 LayerNorm scales).  Its ``initialize`` redraws every parameter (where the
 model lives unless ``ctx`` says otherwise); the JAX package's leaves a
 built model uninitialised, so a ported ``net.initialize(init)`` call has
-the same effect there and here.  ``bert_pipeline_parts`` waits for the
-pipeline slice.
+the same effect there and here.  ``bert_pipeline_parts`` gives the
+embedding, the encoder layers and the MLM head as the prologue, stages
+and epilogue of ``parallel.PipelineTrainer``.
 """
 
 from __future__ import annotations
@@ -31,7 +32,7 @@ from __future__ import annotations
 import torch
 
 from ... import context
-from ..._parallel_scope import current_scope
+from ..._parallel_scope import current_scope, seq_offset
 from ... import initializer as _init
 from ..block import HybridBlock
 from .. import nn
@@ -310,7 +311,8 @@ class BERTModel(_ZooModel):
             x = x + F.Embedding(token_types, token_type_embed_weight)
         else:
             x = x + token_type_embed_weight[0:1]
-        x = x + position_embed_weight[:T]
+        off = seq_offset(T)
+        x = x + position_embed_weight[off:off + T]
         x = self.embed_ln(x)
         if self._dropout:
             x = self.embed_drop(x)
@@ -410,7 +412,8 @@ class BERTEmbedding(_ZooModel):
         T = inputs.shape[1]
         x = F.Embedding(inputs, word_embed_weight)
         x = x + token_type_embed_weight[0:1]
-        x = x + position_embed_weight[:T]
+        off = seq_offset(T)
+        x = x + position_embed_weight[off:off + T]
         x = self.embed_ln(x)
         if self._dropout:
             x = self.embed_drop(x)
@@ -442,6 +445,26 @@ class BERTMLMLoss(HybridBlock):
 
     def hybrid_forward(self, F, logits, labels):
         return masked_token_ce(logits, labels)
+
+
+def bert_pipeline_parts(vocab_size=30522, units=768, num_layers=12,
+                        num_heads=12, hidden_size=None, max_length=512,
+                        dropout=0.0, attention_impl="dense", device=None):
+    """(prologue, trunk stages, epilogue) for ``parallel.PipelineTrainer``:
+    a full BERT as embedding + homogeneous encoder layers + MLM head, all
+    built initialised on ``device`` (the layers with ``Xavier()``)."""
+    embed = BERTEmbedding(vocab_size=vocab_size, units=units,
+                          max_length=max_length, dropout=dropout,
+                          device=device, prefix="ppembed_")
+    layers = [TransformerEncoderLayer(
+        units, num_heads, hidden_size or 4 * units, dropout,
+        attention_impl, prefix=f"pplayer{i}_") for i in range(num_layers)]
+    head = BERTMLMHead(vocab_size=vocab_size, units=units, device=device,
+                       prefix="pphead_")
+    ctx = context.context_of(context.resolve(device))
+    for layer in layers:
+        layer.initialize(_init.Xavier(), ctx)
+    return embed, layers, head
 
 
 def bert_base(**kwargs):

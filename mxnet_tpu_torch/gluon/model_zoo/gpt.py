@@ -27,7 +27,9 @@ Dropout follows ``autograd.is_training()`` (the trainers open training
 mode), its masks drawn from ``random.current_generator``.  A model is
 built initialised on ``device`` (default the card) with N(0, 0.02)
 weights, zero biases and unit LayerNorm scales (``bert._ZooModel``).
-``gpt_pipeline_parts`` comes with the pipeline slice.
+``gpt_pipeline_parts`` gives the embedding, the causal layers and the
+untied head as the prologue, stages and epilogue of
+``parallel.PipelineTrainer``.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import numpy as np
 import torch
 
 from ... import initializer as _init
+from ..._parallel_scope import current_scope, seq_offset
 from ...base import MXNetError, torch_dtype
 from ...ndarray.ndarray import NDArray
 from ...ops.nn import activation, layer_norm
@@ -92,7 +95,9 @@ class GPTModel(_ZooModel):
         x = F.Embedding(ids, tok_embed_weight, input_dim=self._vocab,
                         output_dim=self._units)
         T = ids.shape[1]
-        x = x + F.slice_axis(pos_embed_weight, axis=0, begin=0, end=T)
+        off = seq_offset(T)
+        x = x + F.slice_axis(pos_embed_weight, axis=0, begin=off,
+                             end=off + T)
         if self._dropout:
             x = self.drop(x)
         h = self.encoder(x)                       # (B, T, C)
@@ -103,8 +108,22 @@ class GPTModel(_ZooModel):
 
 def _lm_loss_pure(logits, labels):
     """Shifted next-token cross-entropy; labels < 0 are ignored: the shift
-    plus the zoo's shared masked CE."""
-    return masked_token_ce(logits[:, :-1], labels[:, 1:])
+    plus the zoo's shared masked CE.  Inside a sequence-parallel step the
+    shift crosses the ranks' blocks: a rank's last position is labelled
+    with the next rank's first token (the last rank's with -1, ignored),
+    so the ranks' terms are the global shift's."""
+    scope = current_scope()
+    if scope is None or scope.sp_group is None:
+        return masked_token_ce(logits[:, :-1], labels[:, 1:])
+    from ...parallel.collectives import ppermute
+
+    p, r = scope.sp_size, scope.sp_rank
+    head = ppermute(labels[:, :1].contiguous(),
+                    [(j, j - 1) for j in range(1, p)], scope.sp_group,
+                    "lm_label_shift")
+    if r == p - 1:
+        head = torch.full_like(head, -1)
+    return masked_token_ce(logits, torch.cat([labels[:, 1:], head], dim=1))
 
 
 class GPTLMLoss(HybridBlock):
@@ -294,8 +313,9 @@ class GPTEmbedding(_ZooModel):
     def hybrid_forward(self, F, ids, tok_embed_weight, pos_embed_weight):
         x = F.Embedding(ids, tok_embed_weight, input_dim=self._vocab,
                         output_dim=self._units)
-        x = x + F.slice_axis(pos_embed_weight, axis=0, begin=0,
-                             end=ids.shape[1])
+        off = seq_offset(ids.shape[1])
+        x = x + F.slice_axis(pos_embed_weight, axis=0, begin=off,
+                             end=off + ids.shape[1])
         if self._dropout:
             x = self.drop(x)
         return x
@@ -316,6 +336,29 @@ class GPTHead(_ZooModel):
 
     def hybrid_forward(self, F, x):
         return self.proj(self.ln_f(x))
+
+
+def gpt_pipeline_parts(vocab_size=50257, units=768, num_layers=12,
+                       num_heads=12, hidden_size=None, max_length=1024,
+                       dropout=0.0, attention_impl="dense", device=None):
+    """(prologue, trunk stages, epilogue) for ``parallel.PipelineTrainer``:
+    a full causal LM as embedding + homogeneous causal layers + untied
+    head (``bert_pipeline_parts`` for the decoder-only family), built
+    initialised on ``device``."""
+    from ... import context
+    from .bert import TransformerEncoderLayer
+
+    embed = GPTEmbedding(vocab_size, units, max_length, dropout,
+                         device=device, prefix="ppgptembed_")
+    layers = [TransformerEncoderLayer(
+        units, num_heads, hidden_size or 4 * units, dropout,
+        attention_impl, causal=True, prefix=f"ppgptlayer{i}_")
+        for i in range(num_layers)]
+    head = GPTHead(vocab_size, units, device=device, prefix="ppgpthead_")
+    ctx = context.context_of(context.resolve(device))
+    for layer in layers:
+        layer.initialize(_init.Normal(0.02), ctx)
+    return embed, layers, head
 
 
 # -- the cached decoders ---------------------------------------------------------

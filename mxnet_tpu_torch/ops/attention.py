@@ -1,7 +1,8 @@
 """Attention ops for the transformer trunk.
 
 Counterpart of ``mxnet_tpu/ops/attention.py``, registered under the same
-names: ``scaled_dot_product_attention`` (``impl`` "dense" or "flash"),
+names: ``scaled_dot_product_attention`` (``impl`` "dense", "flash", "ring"
+or "ulysses"),
 ``multi_head_attention`` with the packed qkv projection, the reference's
 interleaved self-attention products
 (``_contrib_interleaved_matmul_selfatt_qk`` / ``_valatt``), and
@@ -15,8 +16,10 @@ from ``autograd.is_training()``) draws dropout masks from the generator
 takes LoRA stacks on its packed qkv weight and the JAX op's remat policies
 (``remat.trunk_policy``): a checkpoint per layer, or per chunk of N layers
 under ``save_every_k:N``; a region's recompute takes back the masks its
-forward drew (``remat``).  Left for later slices, and refused loudly: the
-"ring"/"ulysses" impls (sequence parallelism).
+forward drew (``remat``).  The "ring" and "ulysses" impls are the
+sequence-parallel ones (``parallel/ring.py``): inside a sharded step over
+an sp axis each rank passes its block of positions, and the attention
+runs over the whole sequence on the flash kernels.
 """
 
 from __future__ import annotations
@@ -54,9 +57,15 @@ def scaled_dot_product_attention(query, key, value, mask=None, causal=False,
             "explicit masks / attention dropout require impl='dense'")
     if impl == "flash":
         return flash_attention(query, key, value, causal=causal, scale=scale)
+    if impl in ("ring", "ulysses"):
+        from ..parallel import ring
+
+        fn = ring.ring_attention if impl == "ring" else ring.ulysses_attention
+        return fn(query, key, value, causal=causal, scale=scale)
     if impl != "dense":
         raise NotImplementedError(
-            f"attention impl={impl!r} is not ported yet (dense, flash)")
+            f"attention impl={impl!r} (expected dense, flash, ring or "
+            "ulysses)")
     s = torch.matmul(query.float(), key.float().transpose(-1, -2)) * scale
     if causal:
         Tq, Tk = s.shape[-2], s.shape[-1]

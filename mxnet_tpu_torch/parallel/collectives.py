@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import contextlib
 import os
+import sys
 import time
 
 import torch
@@ -207,10 +208,89 @@ def all_to_all(outputs, inputs, group=None):
     return outputs
 
 
+def ppermute(t, perm, group, name="ppermute"):
+    """The counterpart of ``lax.ppermute``: over ``group``, ``perm`` is a
+    list of (source, destination) pairs of group ranks; this rank sends
+    ``t`` to its destination and returns what its source sent (zeros
+    shaped and typed as ``t`` when no pair names this rank as a
+    destination).  Every rank of the group calls it with a tensor of the
+    same shape and dtype.
+
+    The exchange is one ``all_to_all_single`` whose chunk for the
+    destination is ``t`` and whose other chunks are zeros: every rank
+    posts its send and its receive in the one collective, so a ring
+    cannot deadlock, and it runs on every backend and device (gloo's
+    ``send``/``recv`` read a CUDA tensor's pointer as host memory:
+    ``p2p_probe``).  Counted in ``stats()`` as the buffer a rank hands
+    the backend, ``t`` times the group's size."""
+    if group is None:
+        return t
+    me, n = dist.get_rank(group), _size(group)
+    dst = [d for s, d in perm if s == me]
+    src = [s for s, d in perm if d == me]
+    if len(dst) > 1 or len(src) > 1:
+        raise ValueError(f"ppermute: rank {me} appears twice in {perm}")
+    flat = t.contiguous().reshape(-1)
+    send = flat.new_zeros((n, flat.numel()))
+    if dst:
+        send[dst[0]] = flat
+    recv = torch.empty_like(send)
+    with _timed(name, send):
+        dist.all_to_all_single(recv, send, group=group)
+    return recv[src[0]].view_as(t) if src else torch.zeros_like(t)
+
+
+class _AllToAll(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        out = torch.empty_like(x)
+        with _timed("all_to_all_single", x):
+            dist.all_to_all_single(out, x.contiguous(), group=group)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        return _AllToAll.apply(g.contiguous(), ctx.group), None
+
+
+def all_to_all_single(x, group):
+    """Differentiable ``all_to_all_single`` over ``group``: dim 0 of ``x``
+    is cut into the group's size of equal chunks, chunk j goes to rank j,
+    and chunk j of the result came from rank j.  Its gradient is the same
+    exchange of the gradient."""
+    if group is None:
+        return x
+    return _AllToAll.apply(x, group)
+
+
+class _SumShared(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return all_reduce_(x.contiguous().clone(), group, "global_sum")
+
+    @staticmethod
+    def backward(ctx, g):
+        return all_reduce_(g.contiguous().clone(), ctx.group,
+                           "global_sum_grad"), None
+
+
+def global_sum(x, group):
+    """Sum ``x`` over ``group`` into a value every rank holds and feeds
+    into its own loss: forward and backward are both sums over the group,
+    so the trainer's mean over the ranks of their gradients is the
+    gradient of the one global value."""
+    return x if group is None else _SumShared.apply(x, group)
+
+
 def probe(device, group=None):
     """Which collectives the group's backend accepts on tensors on
     ``device``: {name: "ok" | error text}.  Each is checked for its
-    result too."""
+    result too.  gloo's point-to-point reads a CUDA tensor's pointer as
+    host memory, which kills the process rather than raising, so
+    ``p2p_probe`` probes ``send``/``recv`` in rank processes of its
+    own."""
     group = group if group is not None else dist.group.WORLD
     rank, n = dist.get_rank(group), _size(group)
     out = {}
@@ -259,13 +339,120 @@ def probe(device, group=None):
         dist.all_to_all(outs, [torch.full((2,), float(rank), device=device)
                                for _ in range(n)], group=group)
 
+    def p2p():
+        x = torch.full((4,), float(rank), device=device)
+        got = ppermute(x, [(r, (r + 1) % n) for r in range(n)], group)
+        assert got[0].item() == float((rank - 1) % n)
+
     t("all_reduce", all_reduce)
     t("broadcast", broadcast)
     t("all_gather_into_tensor", gather)
     t("reduce_scatter_tensor", reduce_scatter)
     t("all_to_all_single", a2a_single)
     t("all_to_all", a2a)
+    t("ppermute", p2p)
     return out
+
+
+def p2p_probe(device_type="cuda", timeout=120.0):
+    """Whether gloo's ``send``/``recv`` and ``batch_isend_irecv`` work on
+    ``device_type`` tensors, learned in two rank processes of their own
+    (``python -m mxnet_tpu_torch.parallel.collectives --p2p-probe``):
+    {name: "ok" | error text | "process died (exit code N)"}.  A rank
+    that dies (a host copy from a device pointer segfaults) or hangs past
+    ``timeout`` is reported, not raised."""
+    import json
+    import socket
+    import subprocess
+    import sys
+    import tempfile
+    from pathlib import Path
+
+    root = str(Path(__file__).resolve().parents[2])
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        addr = "127.0.0.1:%d" % s.getsockname()[1]
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="p2p_probe_") as tmp:
+        procs = []
+        for r in range(2):
+            env = dict(os.environ, MXTPU_COORDINATOR=addr,
+                       MXTPU_NUM_WORKERS="2", MXTPU_WORKER_RANK=str(r),
+                       MXTPU_RENDEZVOUS_TIMEOUT=str(int(timeout)),
+                       PYTHONPATH=root + os.pathsep
+                       + os.environ.get("PYTHONPATH", ""))
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "mxnet_tpu_torch.parallel.collectives",
+                 "--p2p-probe", device_type, tmp], cwd=root, env=env,
+                stdout=subprocess.DEVNULL, stderr=subprocess.DEVNULL))
+        try:
+            for p in procs:
+                p.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            pass
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for name in ("send_recv", "batch_isend_irecv"):
+            got = []
+            for r, p in enumerate(procs):
+                path = os.path.join(tmp, f"{name}.{r}.json")
+                if os.path.exists(path):
+                    with open(path) as f:
+                        got.append(json.load(f))
+                else:
+                    got.append(f"process died (exit code {p.returncode})")
+            out[name] = "ok" if all(g == "ok" for g in got) else \
+                next(g for g in got if g != "ok")
+    return out
+
+
+def _p2p_probe_rank(device_type, outdir):
+    import json
+
+    from .. import distributed
+
+    assert distributed.init_from_env()
+    rank = dist.get_rank()
+    device = torch.device(device_type, 0) if device_type == "cuda" \
+        else torch.device("cpu")
+
+    def record(name, fn):
+        try:
+            fn()
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            res = "ok"
+        except Exception as exc:       # the probe reports, it never hides
+            first = (str(exc).splitlines() or [""])[0]
+            res = f"{type(exc).__name__}: {first}"
+        with open(os.path.join(outdir, f"{name}.{rank}.json"), "w") as f:
+            json.dump(res, f)
+
+    def send_recv():
+        x = torch.full((4,), float(rank), device=device)
+        y = torch.empty(4, device=device)
+        if rank == 0:
+            dist.send(x, 1)
+            dist.recv(y, 1)
+        else:
+            dist.recv(y, 0)
+            dist.send(x, 0)
+        assert y[0].item() == float(1 - rank)
+
+    def batched():
+        x = torch.full((4,), float(rank), device=device)
+        y = torch.empty(4, device=device)
+        for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 1 - rank),
+                                         dist.P2POp(dist.irecv, y,
+                                                    1 - rank)]):
+            w.wait()
+        assert y[0].item() == float(1 - rank)
+
+    record("send_recv", send_recv)
+    record("batch_isend_irecv", batched)
+    dist.destroy_process_group()
 
 
 # -- the reference's eager helpers ---------------------------------------------
@@ -398,3 +585,6 @@ def sync_stats_scope():
         yield
 
 
+if __name__ == "__main__" and len(sys.argv) == 4 \
+        and sys.argv[1] == "--p2p-probe":
+    _p2p_probe_rank(sys.argv[2], sys.argv[3])

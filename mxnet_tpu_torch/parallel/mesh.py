@@ -75,18 +75,27 @@ class Mesh:
 
         me = dist.get_rank()
         members = [int(r) for r in self.ranks.flat]
+        # the axis groups time out with the process group (the
+        # rendezvous timeout), not gloo's default half hour: a rank that
+        # never joins an exchange fails its peers' call
+        wait = _group_timeout()
         self._all_group = dist.group.WORLD \
             if len(members) == dist.get_world_size() \
-            else dist.new_group(members)
-        for ax, name in enumerate(self.axis_names):
-            moved = np.moveaxis(self.ranks, ax, -1).reshape(
-                -1, self.ranks.shape[ax])
-            for row in moved:
-                members = [int(r) for r in row]
-                # every rank creates every group, in the same order
-                g = dist.new_group(members) if len(members) > 1 else None
+            else dist.new_group(members, timeout=wait)
+        # every rank creates every group, in the same order
+        n = len(self.axis_names)
+        for names in _group_axes(self.axis_names):
+            axes = [self.axis_names.index(a) for a in names]
+            moved = np.moveaxis(self.ranks, axes,
+                                range(n - len(axes), n))
+            size = int(np.prod([self.ranks.shape[a] for a in axes]))
+            for row in moved.reshape(-1, size):
+                members = sorted(int(r) for r in row)
+                g = dist.new_group(members, timeout=wait) \
+                    if len(members) > 1 else None
                 if me in members:
-                    self._groups[name] = g
+                    self._groups[names[0] if len(names) == 1
+                                 else names] = g
 
     @property
     def is_member(self):
@@ -115,6 +124,36 @@ class Mesh:
         """The process group of the ranks that differ from this one only
         along ``axis``; None when that axis has size 1 or is absent."""
         return self._groups.get(axis)
+
+    def group_over(self, axes):
+        """The process group of the ranks that differ from this one only
+        along ``axes`` (an axis the mesh lacks drops out), its ranks in
+        the mesh's order with the last axis fastest; None for one rank.
+        Two or more axes of a proper subset must be sp and/or ep with at
+        most one other axis (the groups ``_make_groups`` creates)."""
+        names = tuple(a for a in self.axis_names if a in axes)
+        if not self.is_rank_mesh or not names:
+            return None
+        if len(names) == 1:
+            return self.group(names[0])
+        if len(names) == len(self.axis_names):
+            return self._all_group
+        if not _token_axes(names):
+            raise ValueError(f"group_over: no group over {names}")
+        return self._groups.get(names)
+
+    def size_over(self, axes):
+        """The number of ranks ``group_over(axes)`` holds."""
+        return int(np.prod([self.shape.get(a, 1) for a in set(axes)]))
+
+    def coord_over(self, axes):
+        """This rank's index in ``group_over(axes)``: its coordinates on
+        ``axes`` in the mesh's order, the last fastest."""
+        out = 0
+        for a in self.axis_names:
+            if a in axes:
+                out = out * self.shape[a] + self.coord(a)
+        return out
 
     @property
     def all_group(self):
@@ -153,6 +192,34 @@ class Mesh:
         if self.is_rank_mesh:
             return f"Mesh({self.shape}, ranks={self.ranks.tolist()})"
         return f"Mesh({self.shape}, devices={list(self.devices.flat)})"
+
+
+def _token_axes(names):
+    """Whether ``names`` (two or more axes) is a set ``group_over`` is
+    asked for: sp and/or ep, with at most one other axis (the trainer's
+    batch axis), the ranks that split the global batch's tokens."""
+    split = [a for a in names if a in (SP, EP)]
+    return bool(split) and len(names) - len(split) <= 1
+
+
+def _group_axes(axis_names):
+    """The axis sets a rank mesh over ``axis_names`` makes a process group
+    for, in order: each axis, then each proper subset of two or more
+    axes that ``_token_axes`` names (the whole mesh is ``all_group``)."""
+    import itertools
+
+    n = len(axis_names)
+    return [(a,) for a in axis_names] + [
+        c for k in range(2, n) for c in itertools.combinations(axis_names, k)
+        if _token_axes(c)]
+
+
+def _group_timeout():
+    import datetime
+    import os
+
+    return datetime.timedelta(seconds=float(
+        os.environ.get("MXTPU_RENDEZVOUS_TIMEOUT", 300)))
 
 
 def _world():

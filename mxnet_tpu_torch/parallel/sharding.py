@@ -536,9 +536,10 @@ def shard_model(block, mesh, mode="tp", rules=None, axis=DP,
     Modes (one rule surface, as the JAX package's): ``'tp'`` (``rules`` or
     ``TRANSFORMER_TP_RULES``), ``'fsdp'`` (every large-enough parameter
     over the data axis, ``rules`` in front of the shape heuristic),
-    ``'pp'``, ``'tp_pp'`` and ``'pp_fsdp'``; the ``pp`` ones stamp specs
-    and wait for the pipeline slice to be placed (ROADMAP queue 1 item
-    2).  A ``trainer`` whose optimizer already holds states would have
+    ``'pp'``, ``'tp_pp'`` and ``'pp_fsdp'`` (``PPRules``: each pp rank
+    holds its block of the scanned trunk's layer stacks, which
+    ``ShardedTrainer`` gathers for the step).  A ``trainer`` whose
+    optimizer already holds states would have
     them re-placed with their weights: that, like the captured step over
     a rank mesh, waits for the next slice and raises."""
     from .mesh import set_default_mesh
@@ -553,10 +554,6 @@ def shard_model(block, mesh, mode="tp", rules=None, axis=DP,
     set_default_mesh(mesh)
     if not mesh.is_rank_mesh:
         return specs
-    if "pp" in mode:
-        raise NotImplementedError(
-            f"shard_model(mode={mode!r}): placing pipeline stages on a rank "
-            "mesh waits for the pipeline slice (ROADMAP queue 1 item 2)")
     if trainer is not None and any(
             st is not None for u in trainer._updaters
             for st in u.states.values()):

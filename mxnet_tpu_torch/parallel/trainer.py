@@ -26,7 +26,10 @@ JAX package's GSPMD program becomes explicit collectives:
 
 - every rank calls ``step`` with the same GLOBAL batch; a rank keeps the
   rows of its dp coordinate of each microbatch (microbatch j is rows
-  [j B/k, (j+1) B/k) of the global batch, as the reference's reshape);
+  [j B/k, (j+1) B/k) of the global batch, as the reference's reshape),
+  split further over an ep axis, and over an sp axis its block of T/sp
+  positions of every (B, T, ...) leaf (the positions' embeddings at its
+  offset, ``_parallel_scope.seq_offset``);
 - ``rules`` (or ``mode="fsdp"``'s ``fsdp_rules`` over ``batch_axis``)
   give each parameter a spec; a rank keeps its shard
   (``sharding.local_shard``; the packed qkv by heads), and so do its
@@ -35,15 +38,20 @@ JAX package's GSPMD program becomes explicit collectives:
   consumed by the tp-aware ops (the trunk's heads and FFN columns, the
   vocab-parallel embedding, the column/row-parallel ``FullyConnected``);
   a dim sharded over the batch axis (FSDP) is all-gathered for the step
-  and its gradient reduce-scattered back; BatchNorm and the masked-token
-  mean take the global batch's statistics over the dp group;
-- the step's objective is the mean over the dp ranks of their losses
-  (the global batch's mean loss), so every gradient is summed over the
-  dp group (flat buckets per dtype of ``MXTPU_ALLREDUCE_BUCKET_MB``, or a
-  reduce-scatter for an FSDP shard) and divided by dp;
-- dp ranks draw distinct dropout streams and tp ranks the same one
-  (their dropped activations are replicated), from a seed rank 0 draws
-  at the first step;
+  and its gradient reduce-scattered back; an ep shard (``MOE_EP_RULES``)
+  is consumed by ``moe_ffn``; BatchNorm and the masked-token mean take
+  the global batch's statistics over the ranks that split its tokens;
+- the step's objective is the mean over the R ranks that split the
+  batch's tokens (dp, sp and ep) of their losses (the global batch's
+  mean loss), so every gradient is summed over them (flat buckets per
+  dtype of ``MXTPU_ALLREDUCE_BUCKET_MB``, or a reduce-scatter for an FSDP
+  shard; an ep shard's, the rank's experts, over the ranks holding the
+  same experts, its tokens having come through ``moe_ffn``'s all-to-all)
+  and divided by R; a dim over pp (``PPRules``) is gathered for the step
+  and keeps this rank's block of the gradient;
+- ranks holding other tokens draw distinct dropout streams and tp and
+  pp ranks the same one (their dropped activations are replicated), from
+  a seed rank 0 draws at the first step;
 - replicated parameters are written back into the module each step,
   sharded ones only by ``sync_params`` (a collective);
 - every parameter and aux value is broadcast from rank 0 at the first
@@ -69,7 +77,7 @@ from ..ops import optimizer_op as _op
 from ..optimizer import grouped as _grouped
 from . import collectives as _coll
 from . import sharding as _sh
-from .mesh import DP, TP, Mesh, data_parallel_mesh
+from .mesh import DP, EP, PP, SP, TP, Mesh, data_parallel_mesh
 
 
 class _PureOptimizer:
@@ -345,6 +353,12 @@ class ShardedTrainer:
         this rank's shard of the sharded ones (``_local``; None for a
         replicated parameter, which the module's own tensor holds)."""
         mesh = self.mesh
+        self._sp = mesh.shape.get(SP, 1) if self._ranked else 1
+        self._ep = mesh.shape.get(EP, 1) if self._ranked else 1
+        # the ranks that split the global batch's tokens: rows over the
+        # batch axis and ep (in the mesh's order), positions over sp
+        self._row_axes = (self.batch_axis, EP)
+        self._stat_axes = (self.batch_axis, SP, EP)
         if self._ranked:
             with torch.no_grad():
                 g = mesh.all_group
@@ -360,12 +374,18 @@ class ShardedTrainer:
                 self._local.append(None)
                 continue
             spec = _sh.clean_spec(spec, tuple(t.shape), mesh)
-            bad = [a for a in spec if a not in (None, TP, self.batch_axis)]
+            bad = [a for a in spec
+                   if a not in (None, TP, PP, EP, self.batch_axis)]
             if bad:
                 raise NotImplementedError(
-                    f"ShardedTrainer: {n!r} is sharded over {bad[0]!r}; "
-                    "pipeline, sequence and expert axes wait for the "
-                    "multi-GPU part two (ROADMAP queue 1 item 2)")
+                    f"ShardedTrainer: {n!r} is sharded over {bad[0]!r}; a "
+                    "parameter shards over the batch, tp, pp and ep axes "
+                    "(the sp axis splits the sequence, not the weights)")
+            if self.batch_axis in spec and (self._sp > 1 or self._ep > 1):
+                raise NotImplementedError(
+                    f"ShardedTrainer: {n!r} is sharded over the batch axis "
+                    "(FSDP) on a mesh with an sp or ep axis; FSDP runs "
+                    "with dp, tp and pp")
             self._specs.append(spec)
             self._local.append(
                 _sh.local_shard(n, t.detach(), spec, mesh)
@@ -397,20 +417,33 @@ class ShardedTrainer:
     def _microbatches(self, x, y):
         """This rank's rows of each microbatch: microbatch j is rows
         [j B/k, (j+1) B/k) of the global batch, and the rank keeps the
-        block of its dp coordinate."""
+        block of its batch shard (its dp coordinate, then its ep one);
+        over sp it keeps its block of positions of every (B, T, ...)
+        leaf."""
         k = self._grad_accum
-        dp = self.mesh.shape.get(self.batch_axis, 1) if self._ranked else 1
-        r = self.mesh.coord(self.batch_axis) if self._ranked else 0
+        mesh = self.mesh
+        dp = mesh.size_over(self._row_axes) if self._ranked else 1
+        r = mesh.coord_over(self._row_axes) if self._ranked else 0
         for leaf in _leaves(x) + _leaves(y):
             if leaf.shape[0] % (k * dp):
                 raise ValueError(
                     f"ShardedTrainer: batch dim {leaf.shape[0]} not "
-                    f"divisible by grad_accum={k} x {self.batch_axis}={dp}")
+                    f"divisible by grad_accum={k} x {dp} batch shards")
+        sp = self._sp if self._ranked else 1
+        T = _leaves(x)[0].shape[1] if sp > 1 else None
+        if sp > 1 and T % sp:
+            raise ValueError(f"ShardedTrainer: sequence length {T} not "
+                             f"divisible by sp={sp}")
+        s = mesh.coord(SP) if sp > 1 else 0
 
         def rows(a, j):
             m = a.shape[0] // k
             b = m // dp
-            return a[j * m + r * b:j * m + (r + 1) * b]
+            a = a[j * m + r * b:j * m + (r + 1) * b]
+            # sp: every (B, T, ...) leaf keeps this rank's positions
+            if sp > 1 and a.dim() >= 2 and a.shape[1] == T:
+                a = a[:, s * (T // sp):(s + 1) * (T // sp)]
+            return a
 
         for j in range(k):
             yield (_tree_map(lambda a: rows(a, j), x),
@@ -419,9 +452,10 @@ class ShardedTrainer:
     def _stand_ins(self):
         """The tensors the forward reads for each trainable parameter, as
         leaves: the module's own tensor for a replicated one; for a
-        sharded one, its shard with every non-tp dim all-gathered (FSDP),
-        and the scope's record of its tp dim."""
-        leaves, tp_shards, override = [], {}, {}
+        sharded one, its shard with every dim over the batch or pp axis
+        all-gathered (FSDP, ``PPRules``), and the scope's record of its tp
+        dim or of the experts it holds (ep, read by ``moe_ffn``)."""
+        leaves, tp_shards, ep_shards, override = [], {}, {}, {}
         mesh = self.mesh
         for (n, t), spec, loc, owner in zip(self._trainable, self._specs,
                                             self._local, self._owners):
@@ -431,16 +465,23 @@ class ShardedTrainer:
             s = loc
             with torch.no_grad():
                 for dim, axis in enumerate(spec):
-                    if axis is not None and axis != TP:
+                    if axis is not None and axis not in (TP, EP):
                         s = _coll.all_gather_dim(s, mesh.group(axis), dim)
             leaf = s.detach().requires_grad_(True)
             if TP in spec:
                 dim = spec.index(TP)
                 tp_shards[id(leaf)] = (dim, mesh.coord(TP) * leaf.shape[dim],
                                        t.shape[dim])
+            if EP in spec:
+                if spec.index(EP) != 0:
+                    raise NotImplementedError(
+                        f"ShardedTrainer: {n!r} is sharded over ep on dim "
+                        f"{spec.index(EP)}; experts shard on dim 0")
+                ep_shards[id(leaf)] = (mesh.coord(EP) * leaf.shape[0],
+                                       leaf.shape[0])
             leaves.append(leaf)
             override[owner] = leaf
-        return leaves, tp_shards, override
+        return leaves, tp_shards, ep_shards, override
 
     def _forward_scope(self, override):
         """Gluon parameters read their stand-ins through
@@ -475,14 +516,17 @@ class ShardedTrainer:
         t = self._num_update
         lr = self.optimizer.lr_at(t)
         if self._ranked:
-            leaves, tp_shards, override = self._stand_ins()
+            leaves, tp_shards, ep_shards, override = self._stand_ins()
             mesh = self.mesh
-            scope = _coll.ParallelScope(dp_group=mesh.group(self.batch_axis),
-                                        tp_group=mesh.group(TP),
-                                        tp_shards=tp_shards)
-            # dp ranks draw distinct streams, tp ranks the same one
+            scope = _coll.ParallelScope(
+                dp_group=mesh.group_over(self._stat_axes),
+                tp_group=mesh.group(TP), tp_shards=tp_shards,
+                sp_group=mesh.group(SP), ep_group=mesh.group(EP),
+                ep_shards=ep_shards)
+            # ranks holding other tokens draw distinct streams, tp and pp
+            # ranks the same one
             seed = (self._seed * 1000003 + t * 7919
-                    + mesh.coord(self.batch_axis) * 104729) % (1 << 62)
+                    + mesh.coord_over(self._stat_axes) * 104729) % (1 << 62)
             gen = _random.generator(seed, self._device)
         else:
             leaves = [p for _, p in self._trainable]
@@ -522,44 +566,62 @@ class ShardedTrainer:
 
     def _check_consumed(self, scope, leaves):
         missed = [n for (n, _), leaf in zip(self._trainable, leaves)
-                  if id(leaf) in scope.tp_shards
+                  if (id(leaf) in scope.tp_shards
+                      or id(leaf) in scope.ep_shards)
                   and id(leaf) not in scope.consumed]
         if missed:
             raise MXNetError(
-                f"ShardedTrainer: tp shards {missed} were read by no "
-                "tensor-parallel op (the scanned transformer trunk, "
+                f"ShardedTrainer: tp or ep shards {missed} were read by no "
+                "op that runs on a shard (the scanned transformer trunk, "
                 "multi_head_attention's packed qkv, Embedding, "
-                "FullyConnected); a rule shards a parameter whose layer "
-                "cannot run on its shard")
+                "FullyConnected, moe_ffn); a rule shards a parameter whose "
+                "layer cannot run on its shard")
 
     def _reduce(self, loss, grads):
-        """Sum the gradients over the dp group and divide by dp: a
-        reduce-scatter for an FSDP shard, the store's flat buckets
-        (``collectives.bucketed_all_reduce``) for the rest.  The loss is
-        the dp ranks' mean."""
+        """Sum the gradients over the ranks that split the batch's tokens
+        (dp, sp and ep) and divide by their number R: a reduce-scatter
+        for an FSDP shard, the store's flat buckets
+        (``collectives.bucketed_all_reduce``) for the rest; an ep shard's
+        over the ranks that hold the same experts (its gradient already
+        holds every ep rank's tokens: they reached the experts through
+        the all-to-all).  A dim over pp keeps this rank's block of the
+        gradient every pp rank computed alike.  The loss is the R ranks'
+        mean."""
         mesh = self.mesh
-        group = mesh.group(self.batch_axis)
-        dp = mesh.shape.get(self.batch_axis, 1)
-        if group is None:
-            return loss, grads
+        group = mesh.group_over(self._stat_axes)
+        R = mesh.size_over(self._stat_axes)
         out = list(grads)
-        dense = []
-        for i, (g, spec) in enumerate(zip(grads, self._specs)):
+        for i, spec in enumerate(self._specs):
+            if PP in spec:
+                dim = spec.index(PP)
+                out[i] = out[i].chunk(mesh.shape[PP], dim)[mesh.coord(PP)]
+        if group is None:
+            return loss, out
+        dense, experts = [], []
+        for i, spec in enumerate(self._specs):
             if self.batch_axis in spec:
                 out[i] = _coll.reduce_scatter_dim(
-                    g, group, spec.index(self.batch_axis)) / dp
+                    out[i], group, spec.index(self.batch_axis)) / R
+            elif EP in spec:
+                experts.append(i)
             else:
                 dense.append(i)
         loss_t = torch.as_tensor(loss, dtype=torch.float32,
                                  device=self._device).reshape(1)
-        reduced, flats = _coll.bucketed_all_reduce(
-            [out[i] for i in dense], group, "dp_grad_bucket")
-        for flat, _ in flats:
-            flat /= dp
-        for i, g in zip(dense, reduced):
-            out[i] = g
+        others = mesh.group_over(tuple(a for a in self._stat_axes
+                                       if a != EP))
+        for idx, g, name in ((dense, group, "dp_grad_bucket"),
+                             (experts, others, "ep_grad_bucket")):
+            if not idx:
+                continue
+            reduced, flats = _coll.bucketed_all_reduce(
+                [out[i] for i in idx], g, name)
+            for flat, _ in flats:
+                flat /= R
+            for i, gr in zip(idx, reduced):
+                out[i] = gr
         _coll.all_reduce_(loss_t, group, "dp_loss")
-        return (loss_t / dp).reshape(()), out
+        return (loss_t / R).reshape(()), out
 
     # -- state -------------------------------------------------------------------
     def _full(self, i, t):

@@ -177,17 +177,27 @@ def _trunk_args(rng, L=2, C=16, Hd=32, lora_r=0):
 
 
 def test_attention_refuses_unported_features():
-    """Sequence-parallel impls and masks or dropout on the flash impl
-    still raise.  The trunk's LoRA stacks and remat are ported: LoRA
-    (qkv + scale * B @ A per layer) matches the JAX op, forward and
-    gradients, and every remat policy leaves output and gradients as
-    they are without one."""
+    """Masks or dropout on the fused impls (flash, and the
+    sequence-parallel ring and ulysses) still raise; with no sequence
+    group the sequence-parallel impls are flash over the local sequence.
+    The trunk's LoRA stacks and remat are ported: LoRA (qkv + scale * B @
+    A per layer) matches the JAX op, forward and gradients, and every
+    remat policy leaves output and gradients as they are without one."""
     q = torch.zeros((1, 1, 4, 8))
-    for kwargs in ({"impl": "ring"}, {"impl": "ulysses"},
-                   {"impl": "flash", "dropout_p": 0.1},
-                   {"impl": "flash", "mask": torch.ones((4, 4))}):
-        with pytest.raises(NotImplementedError):
-            tatt.scaled_dot_product_attention(q, q, q, **kwargs)
+    for impl in ("flash", "ring", "ulysses"):
+        for kwargs in ({"dropout_p": 0.1}, {"mask": torch.ones((4, 4))}):
+            with pytest.raises(NotImplementedError):
+                tatt.scaled_dot_product_attention(q, q, q, impl=impl,
+                                                  **kwargs)
+    with pytest.raises(NotImplementedError):
+        tatt.scaled_dot_product_attention(q, q, q, impl="sparse")
+    qr = torch.as_tensor(np.random.RandomState(3).randn(1, 2, 8, 8)
+                         .astype(np.float32))
+    flash = tatt.scaled_dot_product_attention(qr, qr, qr, causal=True,
+                                              impl="flash")
+    for impl in ("ring", "ulysses"):
+        torch.testing.assert_close(tatt.scaled_dot_product_attention(
+            qr, qr, qr, causal=True, impl=impl), flash, rtol=0, atol=0)
     rng = np.random.RandomState(12)
     args = _trunk_args(rng, lora_r=3)
     x = _rand(rng, 2, 8, 16)

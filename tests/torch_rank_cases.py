@@ -492,6 +492,373 @@ def case_data_parallel_dp4(rank):
     return out
 
 
+# -- sequence, pipeline and expert parallelism ----------------------------------
+
+QKV = [np.random.RandomState(10 + i).randn(2, 8, 64, 16).astype(np.float32)
+       for i in range(3)]
+COT = np.random.RandomState(13).randn(2, 8, 64, 16).astype(np.float32)
+
+
+def _block(a, r, n, dim=2):
+    step = a.shape[dim] // n
+    return np.take(a, np.arange(r * step, (r + 1) * step), axis=dim)
+
+
+def _attn_grads(fn, blocks, cot):
+    """Output and (dq, dk, dv) of sum(out * cot) through ``fn``."""
+    import torch
+
+    q, k, v = (torch.tensor(b, requires_grad=True) for b in blocks)
+    out = fn(q, k, v)
+    (out * torch.as_tensor(cot)).sum().backward()
+    return {"out": out.detach().numpy(), "dq": q.grad.numpy(),
+            "dk": k.grad.numpy(), "dv": v.grad.numpy()}
+
+
+def case_ring_sp4(rank):
+    """ring_attention and ulysses_attention over sp=4: each rank's block of
+    positions of the outputs and of the gradients, causal and not."""
+    import torch
+
+    from mxnet_tpu_torch import parallel
+
+    mesh = _mesh(sp=4)
+    r = mesh.coord("sp")
+    blocks = [_block(a, r, 4) for a in QKV]
+    cot = _block(COT, r, 4)
+    out = {}
+    for name, fn, causal in (
+            ("ring", parallel.ring_attention, False),
+            ("ring_causal", parallel.ring_attention, True),
+            ("ulysses_causal", parallel.ulysses_attention, True)):
+        got = _attn_grads(lambda q, k, v: fn(q, k, v, mesh=mesh,
+                                             causal=causal), blocks, cot)
+        out.update({f"{name}:{k}": v for k, v in got.items()})
+    # the causal ring on rank 0 runs its diagonal block and skips the rest
+    from mxnet_tpu_torch.ops import flash_attention as fa
+
+    calls = []
+    orig = fa.flash_attention_plain
+    fa.flash_attention_plain = lambda *a, **kw: calls.append(1) or orig(*a,
+                                                                      **kw)
+    try:
+        parallel.ring_attention(*(torch.as_tensor(b) for b in blocks),
+                                mesh=mesh, causal=True)
+    finally:
+        fa.flash_attention_plain = orig
+    out["causal_blocks"] = np.asarray(len(calls))
+    out["sp"] = np.asarray(r)
+    # outside a sharded step the arrays hold the whole sequence, whatever
+    # the process default mesh is: both impls are flash over it
+    from mxnet_tpu_torch.parallel import mesh as pmesh
+
+    prev = pmesh.default_mesh()
+    pmesh.set_default_mesh(mesh)
+    try:
+        for name, fn in (("ring", parallel.ring_attention),
+                         ("ulysses", parallel.ulysses_attention)):
+            out[f"unscoped_{name}"] = fn(
+                *(torch.as_tensor(a) for a in QKV), causal=True).numpy()
+    finally:
+        pmesh.set_default_mesh(prev)
+    return out
+
+
+def bert_sp(pkg, seed=0, impl="dense"):
+    """bert_tiny's trunk (no pooler, no decoder) with scanned layers."""
+    from importlib import import_module
+
+    bz = import_module(pkg.__name__ + ".gluon.model_zoo.bert")
+    kw = {} if pkg.__name__ == "mxnet_tpu" else {"device": pkg.cpu()}
+    net = bz.bert_tiny(dropout=0.0, scan_layers=True, max_length=64,
+                       use_pooler=False, use_decoder=False,
+                       attention_impl=impl, prefix="bsp_", **kw)
+    if pkg.__name__ == "mxnet_tpu":
+        net.initialize()
+    return _fill(net, seed)
+
+
+def gpt_sp(pkg, seed=0, impl="dense"):
+    from importlib import import_module
+
+    gz = import_module(pkg.__name__ + ".gluon.model_zoo.gpt")
+    kw = {} if pkg.__name__ == "mxnet_tpu" else {"device": pkg.cpu()}
+    net = gz.gpt_tiny(scan_layers=True, attention_impl=impl, prefix="gsp_",
+                      **kw)
+    if pkg.__name__ == "mxnet_tpu":
+        net.initialize()
+    return _fill(net, seed)
+
+
+SP_IDS = np.random.RandomState(20).randint(0, 100, (4, 64)).astype(np.int32)
+SP_TGT = np.random.RandomState(21).randn(4, 64, 64).astype(np.float32) * 0.5
+GPT_IDS = np.random.RandomState(22).randint(0, 128, (4, 64)).astype(np.int32)
+
+
+def case_bert_ring_forward_sp4(rank):
+    """bert_tiny(attention_impl="ring") on sp=4: each rank's positions of
+    the trunk's output, the ranks' position embeddings at their offsets."""
+    import torch
+
+    from mxnet_tpu_torch.parallel import collectives as coll
+
+    mx = _mx()
+    mesh = _mesh(sp=4)
+    r = mesh.coord("sp")
+    net = bert_sp(mx, impl="ring")
+    with coll.parallel_scope(coll.ParallelScope(sp_group=mesh.group("sp"))):
+        out = net(torch.as_tensor(_block(SP_IDS[:2, :32], r, 4, dim=1)))
+    return {"out": out.detach().numpy()}
+
+
+def _sp_train(rank, axes, make, loss, x, y, opt):
+    mesh = _mesh(**axes)
+    if not mesh.is_member:
+        return None
+    _tr, out = _train(rank, mesh, make(), loss, x, y, opt)
+    return out
+
+
+def case_bert_ring_dp2sp2(rank):
+    mx = _mx()
+    return _sp_train(rank, {"dp": 2, "sp": 2},
+                     lambda: bert_sp(mx, impl="ring"),
+                     mx.gluon.loss.L2Loss(), SP_IDS, SP_TGT, BERT_OPT)
+
+
+def case_gpt_ring_sp2(rank):
+    mx = _mx()
+    from mxnet_tpu_torch.gluon.model_zoo import gpt as gz
+
+    return _sp_train(rank, {"sp": 2}, lambda: gpt_sp(mx, impl="ring"),
+                     gz.GPTLMLoss(), GPT_IDS, GPT_IDS, BERT_OPT)
+
+
+def case_gpt_ulysses_dp2sp2(rank):
+    mx = _mx()
+    from mxnet_tpu_torch.gluon.model_zoo import gpt as gz
+
+    return _sp_train(rank, {"dp": 2, "sp": 2},
+                     lambda: gpt_sp(mx, impl="ulysses"), gz.GPTLMLoss(),
+                     GPT_IDS, GPT_IDS, BERT_OPT)
+
+
+PIPE_X = np.random.RandomState(30).randn(16, 4, 8).astype(np.float32)
+PIPE_W = [{"w": np.random.RandomState(31 + s).randn(8, 8).astype(np.float32)
+           * 0.3,
+           "b": np.random.RandomState(41 + s).randn(8).astype(np.float32)
+           * 0.1} for s in range(4)]
+
+
+def case_pipeline_apply_pp4(rank):
+    import torch
+
+    from mxnet_tpu_torch import parallel
+
+    mesh = _mesh(pp=4)
+    stacked = parallel.stack_stage_params(
+        [{k: torch.as_tensor(v) for k, v in w.items()} for w in PIPE_W])
+    out = parallel.pipeline_apply(
+        lambda p, x: torch.tanh(x @ p["w"] + p["b"]), stacked,
+        torch.as_tensor(PIPE_X), mesh=mesh)
+    return {"out": out.numpy()}
+
+
+MLP8_X = np.random.RandomState(1).standard_normal((8, 8)).astype(np.float32)
+MLP8_Y = np.random.RandomState(2).standard_normal((8, 8)).astype(np.float32)
+BN_X = np.random.RandomState(3).standard_normal((8, 4, 6, 6)) \
+    .astype(np.float32)
+BN_Y = np.random.RandomState(4).standard_normal((8, 4, 6, 6)) \
+    .astype(np.float32)
+PP_IDS = np.random.RandomState(2).randint(0, 64, (8, 16)).astype(np.int32)
+PP_LABELS = np.where(np.random.RandomState(5).rand(8, 16) < 0.2, PP_IDS,
+                     -1).astype(np.float32)
+
+
+def tanh_mlp(pkg, seed=0):
+    nn = pkg.gluon.nn
+    net = nn.HybridSequential(prefix="m_")
+    with net.name_scope():
+        for _ in range(2):
+            net.add(nn.Dense(8, activation="tanh", in_units=8))
+    net.initialize()
+    return _fill(net, seed)
+
+
+def bn_tower(pkg, seed=0):
+    nn = pkg.gluon.nn
+    net = nn.HybridSequential(prefix="bn_")
+    with net.name_scope():
+        for _ in range(2):
+            blk = nn.HybridSequential(prefix="")
+            blk.add(nn.Conv2D(4, 3, padding=1, in_channels=4,
+                              use_bias=False),
+                    nn.BatchNorm(in_channels=4), nn.Activation("relu"))
+            net.add(blk)
+    net.initialize()
+    return _fill(net, seed)
+
+
+def pipeline_parts(pkg, family, seed=0):
+    """``bert_pipeline_parts`` / ``gpt_pipeline_parts`` at tiny widths as a
+    Sequential (prologue, two layers, epilogue), weights from ``seed``."""
+    from importlib import import_module
+
+    z = import_module(f"{pkg.__name__}.gluon.model_zoo.{family}")
+    kw = {} if pkg.__name__ == "mxnet_tpu" else {"device": pkg.cpu()}
+    embed, layers, head = getattr(z, f"{family}_pipeline_parts")(
+        vocab_size=64, units=16, num_layers=2, num_heads=2, max_length=16,
+        dropout=0.0, **kw)
+    seq = pkg.gluon.nn.HybridSequential(prefix="pp_")
+    for b in [embed] + layers + [head]:
+        if pkg.__name__ == "mxnet_tpu":
+            b.initialize()
+        seq.add(b)
+    return _fill(seq, seed)
+
+
+def _pipe_train(rank, make, loss, x, y, opt, schedule, **kw):
+    """Three PipelineTrainer steps over pp=2: losses and every trained
+    parameter and aux value in structural order."""
+    mx = _mx()
+    mesh = _mesh(pp=2)
+    if not mesh.is_member:
+        return None
+    net = make()
+    children = list(net._children.values())
+    if kw.pop("parts", False):
+        stages, extra = children[1:-1], {"prologue": children[0],
+                                         "epilogue": children[-1]}
+    else:
+        stages, extra = net, {}
+    pt = mx.parallel.PipelineTrainer(stages, loss, opt[0], dict(opt[1]),
+                                     mesh=mesh, n_microbatches=4,
+                                     schedule=schedule, **extra, **kw)
+    losses = [float(pt.step(x, y)) for _ in range(STEPS)]
+    sd = pt.state_dict()
+    out = {"losses": np.asarray(losses),
+           "bubble": np.asarray(pt.bubble_fraction),
+           "ticks": np.asarray(pt.schedule_ticks)}
+    for i, (n, v) in enumerate(sd["params"].items()):
+        out[f"p{i:03d}:{n}"] = v.numpy()
+    return out
+
+
+ADAM01 = ("adam", {"learning_rate": 0.01})
+SGD05 = ("sgd", {"learning_rate": 0.05, "momentum": 0.9})
+
+
+def _schedules(make_case):
+    return [(f"{name}_{sched}", lambda rank, s=sched, f=make_case:
+             f(rank, s)) for name, sched in
+            ((make_case.__name__[5:], "gpipe"),
+             (make_case.__name__[5:], "1f1b"))]
+
+
+def case_mlp_pp2(rank, schedule):
+    mx = _mx()
+    return _pipe_train(rank, lambda: tanh_mlp(mx, 7), mx.gluon.loss.L2Loss(),
+                       MLP8_X, MLP8_Y, ADAM01, schedule)
+
+
+def case_bn_pp2(rank, schedule):
+    mx = _mx()
+    return _pipe_train(rank, lambda: bn_tower(mx, 5), mx.gluon.loss.L2Loss(),
+                       BN_X, BN_Y, SGD05, schedule)
+
+
+def case_bert_pp2(rank, schedule):
+    mx = _mx()
+    from mxnet_tpu_torch.gluon.model_zoo import bert as bz
+
+    return _pipe_train(rank, lambda: pipeline_parts(mx, "bert", 11),
+                       bz.BERTMLMLoss(), PP_IDS, PP_LABELS, SGD05, schedule,
+                       parts=True)
+
+
+def case_gpt_pp2(rank, schedule):
+    mx = _mx()
+    from mxnet_tpu_torch.gluon.model_zoo import gpt as gz
+
+    return _pipe_train(rank, lambda: pipeline_parts(mx, "gpt", 13),
+                       gz.GPTLMLoss(), PP_IDS, PP_IDS, SGD05, schedule,
+                       parts=True)
+
+
+def case_tp_stack_pp2(rank):
+    """shard_model(mode="pp") places the scanned trunk's stacks over pp=2,
+    and ShardedTrainer trains with them (gathered for the step, each rank
+    updating its block)."""
+    mx = _mx()
+    from mxnet_tpu_torch.gluon.model_zoo import bert as bz
+    from mxnet_tpu_torch.parallel import shard_model
+
+    mesh = _mesh(pp=2)
+    if not mesh.is_member:
+        return None
+    net = bert(mx)
+    specs = shard_model(net, mesh, mode="pp")
+    local = net.encoder.qkv_stack_weight._tensor.to_local().shape[0]
+    ids, mlm, nsp = bert_batch()
+    tr = mx.parallel.ShardedTrainer(net, bz.BERTPretrainLoss(), *BERT_OPT,
+                                    mesh=mesh)
+    losses = [float(tr.step(ids, (mlm, nsp))) for _ in range(STEPS)]
+    out = _state_arrays(tr, losses)
+    out["local_layers"] = np.asarray(local)
+    out["qkv_spec"] = np.asarray(
+        repr(tuple(specs[net.encoder.qkv_stack_weight.name])))
+    return out
+
+
+MOE_X = np.random.RandomState(2).randn(16, 8).astype(np.float32)
+MOE_Y = np.random.RandomState(3).randn(16, 8).astype(np.float32)
+
+
+def moe_net(pkg, k=1, cf=4.0, seed=0):
+    """Dense then MoEFFN (the shape of examples/moe_expert_parallel.py)."""
+    from importlib import import_module
+
+    contrib = import_module(pkg.__name__ + ".gluon.contrib")
+    nn = pkg.gluon.nn
+    net = nn.HybridSequential(prefix="moe_")
+    with net.name_scope():
+        net.add(nn.Dense(8, activation="relu", in_units=8),
+                contrib.MoEFFN(units=8, hidden=16, num_experts=4, k=k,
+                               capacity_factor=cf))
+    net.initialize()
+    return _fill(net, seed)
+
+
+def _moe_case(rank, axes, k, cf, rules=True):
+    mx = _mx()
+    mesh = _mesh(**axes)
+    if not mesh.is_member:
+        return None
+    kw = {"rules": mx.parallel.MOE_EP_RULES} if rules else {}
+    tr, out = _train(rank, mesh, moe_net(mx, k, cf), mx.gluon.loss.L2Loss(),
+                     MOE_X, MOE_Y, ("sgd", {"learning_rate": 0.1}), **kw)
+    out["local_experts"] = np.asarray(
+        [loc.shape[0] for (n, _), loc in zip(tr._trainable, tr._local)
+         if loc is not None and "expert" in n] or [4])
+    return out
+
+
+def case_moe_ep2_k1(rank):
+    return _moe_case(rank, {"ep": 2}, 1, 4.0)
+
+
+def case_moe_ep2_k2_drops(rank):
+    return _moe_case(rank, {"ep": 2}, 2, 0.75)
+
+
+def case_moe_dp2ep2_k2(rank):
+    return _moe_case(rank, {"dp": 2, "ep": 2}, 2, 0.75)
+
+
+def case_moe_dp2_k1_drops(rank):
+    return _moe_case(rank, {"dp": 2}, 1, 0.5, rules=False)
+
+
 SUITES = {
     "dist": [
         ("kv_invariants", case_kv_invariants),
@@ -518,13 +885,105 @@ SUITES = {
         ("data_parallel_dp4", case_data_parallel_dp4),
     ],
 }
-WORLD = {"dist": 2, "sharding": 4}
+def case_probe_host(rank):
+    """``collectives.probe`` on host tensors over the four ranks: the
+    point-to-point entry (``ppermute``) among the collectives."""
+    import torch
+
+    from mxnet_tpu_torch.parallel import collectives as coll
+
+    res = coll.probe(torch.device("cpu"))
+    return {"names": np.asarray(sorted(res)),
+            "results": np.asarray([res[k] for k in sorted(res)])}
+
+
+SUITES["ring"] = [
+    ("probe_host", case_probe_host),
+    ("ring_sp4", case_ring_sp4),
+    ("bert_ring_forward_sp4", case_bert_ring_forward_sp4),
+    ("bert_ring_dp2sp2", case_bert_ring_dp2sp2),
+    ("gpt_ring_sp2", case_gpt_ring_sp2),
+    ("gpt_ulysses_dp2sp2", case_gpt_ulysses_dp2sp2),
+]
+SUITES["pipeline"] = [
+    ("pipeline_apply_pp4", case_pipeline_apply_pp4),
+    *_schedules(case_mlp_pp2), *_schedules(case_bn_pp2),
+    *_schedules(case_bert_pp2), *_schedules(case_gpt_pp2),
+    ("tp_stack_pp2", case_tp_stack_pp2),
+]
+SUITES["moe"] = [
+    ("moe_ep2_k1", case_moe_ep2_k1),
+    ("moe_ep2_k2_drops", case_moe_ep2_k2_drops),
+    ("moe_dp2ep2_k2", case_moe_dp2ep2_k2),
+    ("moe_dp2_k1_drops", case_moe_dp2_k1_drops),
+]
+WORLD = {"dist": 2, "sharding": 4, "ring": 4, "pipeline": 4, "moe": 4}
+
+
+class Gang:
+    """A gang of ``suite`` started in the background (``start_gang``):
+    ``dir()`` waits for it (once) and returns its output directory, and
+    raises as ``run_gang`` does.  The test process computes its JAX
+    references while the ranks run."""
+
+    def __init__(self, suite, outdir, procs, timeout):
+        self.suite, self.outdir, self.procs = suite, outdir, procs
+        self.timeout = timeout
+        self._done = None
+
+    def dir(self):
+        if self._done is None:
+            self._done = _finish(self.suite, self.procs, self.timeout)
+        if isinstance(self._done, Exception):
+            raise self._done
+        return self.outdir
+
+    def close(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def start_gang(suite, outdir, timeout=300):
+    """Start the gang of ``suite`` and return its ``Gang`` at once."""
+    return Gang(suite, outdir, _launch(suite, outdir), timeout)
+
+
+def _finish(suite, procs, timeout):
+    """Wait for the ranks; the error (not raised) if one failed."""
+    import subprocess
+
+    logs = []
+    try:
+        for p in procs:
+            p.wait(timeout=timeout)
+            with open(p.log, "rb") as f:
+                logs.append(f.read().decode(errors="replace"))
+    except subprocess.TimeoutExpired as exc:
+        return RuntimeError(f"the {suite} gang outlived {timeout} s: {exc}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
+    if bad:
+        return RuntimeError(f"ranks {bad} of the {suite} gang failed:\n"
+                            + "\n".join(logs))
+    return logs
 
 
 def run_gang(suite, outdir, timeout=300):
     """Start the gang of ``suite`` (``WORLD[suite]`` rank processes on the
     host over gloo), wait for it, and return ``outdir``.  Raises if a rank
     failed or the gang outlived ``timeout``."""
+    done = _finish(suite, _launch(suite, outdir), timeout)
+    if isinstance(done, Exception):
+        raise done
+    return outdir, done
+
+
+def _launch(suite, outdir):
     import socket
     import subprocess
     import sys
@@ -542,24 +1001,15 @@ def run_gang(suite, outdir, timeout=300):
                    OMP_NUM_THREADS="1", MXTPU_COLLECTIVE_TIMEOUT="120",
                    PYTHONPATH=repo + os.pathsep + os.environ.get(
                        "PYTHONPATH", ""))
-        procs.append(subprocess.Popen(
-            [sys.executable, os.path.join(here, "torch_rank_worker.py"),
-             suite, str(outdir)], env=env, stdout=subprocess.PIPE,
-            stderr=subprocess.STDOUT))
-    logs = []
-    try:
-        for p in procs:
-            out, _ = p.communicate(timeout=timeout)
-            logs.append(out.decode(errors="replace"))
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-    bad = [r for r, p in enumerate(procs) if p.returncode != 0]
-    if bad:
-        raise RuntimeError(f"ranks {bad} of the {suite} gang failed:\n"
-                           + "\n".join(logs))
-    return outdir, logs
+        # a log file, not a pipe: a gang left running while the test
+        # process works must never block on a full pipe
+        with open(os.path.join(str(outdir), f"rank{r}.log"), "wb") as log:
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.join(here, "torch_rank_worker.py"),
+                 suite, str(outdir)], env=env, stdout=log,
+                stderr=subprocess.STDOUT))
+            procs[-1].log = log.name
+    return procs
 
 
 def load(outdir, case, rank):

@@ -23,6 +23,9 @@ import torch_rank_cases as cases  # noqa: E402
 
 def main():
     suite, outdir = sys.argv[1], sys.argv[2]
+    # below the test workers: a gang's four ranks must not starve the
+    # timing tests (heartbeats of a second or two) other workers run
+    os.nice(10)
     import torch
 
     torch.set_num_threads(1)
