@@ -130,7 +130,9 @@ Phases; any failure raises, exits non-zero and prints no result line:
    workers and pin_memory=True, each in DevicePrefetcher at depths 0 and
    2, read back after a sleep on the consumer's stream (the pinned ring
    wraps): bitwise the host's bytes, two host-to-device copies a batch
-   (torch.profiler); then a dataset held on the card through ToTensor
+   (torch.profiler: each case in a range of its own, each copy given to
+   a case through its correlation id and its runtime call's host time);
+   then a dataset held on the card through ToTensor
    behind a sleep on the worker threads' stream, at depths 0 and 2:
    bitwise; (ii) ResNet-50 v1 at bench_resnet's configuration
    through the captured train_step, fed as bench.py feeds it
@@ -261,7 +263,7 @@ Phases; any failure raises, exits non-zero and prints no result line:
    flash kernel a step (fenced trace), both runs' ms a step; (i) the
    trainer state's integrity fingerprint on the card against the numpy
    mirror, bitwise, a flipped bit changing it, one attest pass's ms;
-   (iii) ckpt_stall_us async against sync (median of 5 saves),
+   (iii) ckpt_stall_us async against sync (median of 3 saves),
    async_commit_ms and the bytes on disk, then crash_during_save,
    crash_before_manifest and corrupt_shard in child processes, each
    restoring the previous checkpoint; (iv) integrity_overhead_pct of
@@ -311,6 +313,26 @@ Phases; any failure raises, exits non-zero and prints no result line:
    flash launches a step (the ring's rank 0 shows the skipped causal
    block), then in bf16, timed (ms a step, collective bytes and synced
    seconds, peak memory, the pipelines' bubble fraction).
+21. The symbolic path: (a) ResNet-50 v1 at bench_resnet's widths
+   (B=256, 224x224), f32 and bf16, hybridized, exported and imported
+   through SymbolBlock on the card: its outputs and optimize_for's
+   against the block's own (bitwise expected; else held at
+   RESNET_OUT_TOL with the first node where they part), ms a batch of
+   the three; (b) BERT-base at bench_bert's configuration (bf16, flash,
+   scan trunk, decoder and pooler), exported and imported: 12
+   flash_attention_fwd launches a SymbolBlock forward, its four outputs
+   against the block's; the imported graph bound by simple_bind,
+   forward(is_train=True) and backward under seeded head gradients at
+   dropout 0: 12 launches each of fwd, dq and dkv, outputs and gradients
+   against the Gluon block's under autograd.record(); (c) mx.mod.Module
+   .fit on resnet50_v1()(mx.sym.var("data")) with SoftmaxOutput: two
+   SGD steps (momentum 0.9, wd 1e-4) of 4 images of 64x64 in f64, card
+   against host at [10](i)'s tolerances, BatchNorm's moving statistics
+   included; then f32 B=64 at 224x224, 2 warm-up and 5 timed
+   forward_backward + update steps beside gluon.Trainer's eager step on
+   the same net and batch; (d) BucketingModule over two sequence
+   buckets (tests/test_symbol_module.py:476's), card against host, the
+   buckets' weights one storage.
 6. The kernel JSON line (f32 numbers at the training shape, and the
    bf16 ones under *_bf16 keys; the same at BERT's shape under
    ``at_bert_shape``, at ViT's under ``at_vit_shape`` and at
@@ -318,7 +340,8 @@ Phases; any failure raises, exits non-zero and prints no result line:
    (non-causal) and decoder (causal), with the forward's errors at
    TFM_DECODE_T; launches by path, [12]'s two training paths, [14]'s
    paths, [16]'s SSD path and zoo, [17]'s three paths, [18]'s autotune
-   and gang paths, [19]'s paths and [20]'s a rank a step among them;
+   and gang paths, [19]'s paths, [20]'s a rank a step and [21]'s
+   SymbolBlock forward and Executor step among them;
    the errors on [20]'s ring and Ulysses inputs under
    ``at_ring_and_ulysses_inputs``), the nvidia-smi line, then the result
    line.
@@ -2828,9 +2851,8 @@ def _delivery(dev, kind, depth, ds, img, lab):
     return n, ok, secs
 
 
-#: a marker copy of this many bytes (plus the case's index) opens each
-#: case of [12](i) in the one trace they share
-MARK_BYTES = 1000
+#: the torch.profiler range each case of [12](i) runs in, by its index
+CASE_RANGE = "delivery_case_"
 
 
 def _delivery_data():
@@ -2842,15 +2864,52 @@ def _delivery_data():
     return img, lab
 
 
+def _copies_by_case(events, n):
+    """The host-to-device copies of a trace, by the [12](i) case that
+    issued them: a copy's ``correlation`` id leads to its runtime call
+    (``cudaMemcpyAsync``), whose host time falls in one case's range.
+    Returns ({case: {copy name: count}}, {case: copies placed by their
+    own device time, their runtime call missing from the trace}, the
+    cases whose range the trace lacks, the copies in no range)."""
+    ranges = {}
+    for e in events:
+        if e.get("cat") == "user_annotation" and \
+                e.get("name", "").startswith(CASE_RANGE):
+            i = int(e["name"][len(CASE_RANGE):])
+            ranges[i] = (e["ts"], e["ts"] + e.get("dur", 0))
+    calls = {e["args"]["correlation"]: e["ts"] for e in events
+             if e.get("cat") == "cuda_runtime"
+             and "correlation" in e.get("args", {})}
+    found = {i: {} for i in range(n)}
+    by_device_time = {i: 0 for i in range(n)}
+    stray = 0
+    for e in events:
+        if e.get("cat") != "gpu_memcpy" or "HtoD" not in e.get("name", ""):
+            continue
+        t = calls.get(e.get("args", {}).get("correlation"))
+        placed = t is not None
+        t = e["ts"] if t is None else t
+        case = next((i for i, (a, b) in ranges.items() if a <= t <= b),
+                    None)
+        if case is None:
+            stray += 1
+            continue
+        found[case][e["name"]] = found[case].get(e["name"], 0) + 1
+        by_device_time[case] += not placed
+    return found, by_device_time, sorted(set(range(n)) - set(ranges)), stray
+
+
 def delivery_check(dev=None):
     """[12](i), run by ``phase_input`` in a process of its own: every
-    loader kind at depths 0 and 2."""
+    loader kind at depths 0 and 2, each case in a profiler range of its
+    own; its copies are attributed to it through their correlation ids
+    (``_copies_by_case``), so no record of another case's can move them."""
     import torch
 
     from mxnet_tpu_torch.context import context_of
     from mxnet_tpu_torch.gluon.data import ArrayDataset
 
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     dev = dev or torch.device("cuda", 0)
     img, lab = _delivery_data()
@@ -2861,41 +2920,42 @@ def delivery_check(dev=None):
     torch.cuda.synchronize()
     # one trace for every case: in a process that has opened several,
     # torch.profiler's trace lost some copy records
-    with context_of(dev), profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with context_of(dev), profile(activities=[ProfilerActivity.CPU,
+                                              ProfilerActivity.CUDA]) as prof:
         time.sleep(0.2)     # the trace drops what runs as it starts
-        for i, (kind, depth) in enumerate(cases + [(None, None)]):
-            torch.ones(MARK_BYTES + i, dtype=torch.uint8).to(dev)
-            torch.cuda.synchronize()
-            if kind is not None:
+        for i, (kind, depth) in enumerate(cases):
+            with record_function(f"{CASE_RANGE}{i}"):
                 runs.append(_delivery(dev, kind, depth, ds, img, lab))
-    h2d = sorted((e for e in _trace_events(prof, "input_delivery")
-                  if e.get("cat") == "gpu_memcpy"
-                  and "HtoD" in e.get("name", "")), key=lambda e: e["ts"])
-    marks = [j for j, e in enumerate(h2d)
-             if e["args"].get("bytes", 0) - MARK_BYTES in range(len(cases)
-                                                                 + 1)]
+    found, by_time, no_range, stray = _copies_by_case(
+        _trace_events(prof, "input_delivery"), len(cases))
     nb = -(-INPUT_N // INPUT_BATCH)
-    bad = len(marks) != len(cases) + 1
+    bad = []
     for i, ((kind, depth), (n, ok, secs)) in enumerate(zip(cases, runs)):
-        kinds = {}
-        for e in (h2d[marks[i] + 1:marks[i + 1]] if not bad else []):
-            kinds[e["name"]] = kinds.get(e["name"], 0) + 1
+        kinds = found[i]
         per_batch = sum(kinds.values()) / max(n, 1)
         log(f"  (i) {kind:9s} depth {depth}: {n} batches of {INPUT_BATCH}, "
             f"bitwise {ok}; host-to-device copies a batch {per_batch:g} "
-            f"(arrays a batch: 2; {kinds}); {secs:.2f} s")
-        bad = bad or not (n == nb and ok and per_batch == 2)
+            f"(arrays a batch: 2; {kinds}; by correlation "
+            f"{sum(kinds.values()) - by_time[i]}, by device time "
+            f"{by_time[i]}); {secs:.2f} s")
+        if not (n == nb and ok and per_batch == 2):
+            bad.append(f"{kind} depth {depth}: {n} batches, bitwise {ok}, "
+                       f"{sum(kinds.values())} copies")
+    if no_range or stray:
+        bad.append(f"cases without their range in the trace "
+                   f"{[cases[i] for i in no_range]}, {stray} copies in no "
+                   f"case's range")
     for depth in (0, 2):
         n, ok = _card_samples(dev, img, lab, depth)
         log(f"  (i) card samples depth {depth}: a dataset on the card through "
             f"ToTensor behind a sleep on the worker's stream, {n} batches of "
             f"{INPUT_BATCH}, bitwise {ok}")
-        bad = bad or not (n == CARD_SAMPLES // INPUT_BATCH and ok)
+        if not (n == CARD_SAMPLES // INPUT_BATCH and ok):
+            bad.append(f"card samples depth {depth}: {n} batches, bitwise "
+                       f"{ok}")
     if bad:
-        found = [h2d[j]["args"]["bytes"] - MARK_BYTES for j in marks]
         raise AssertionError("[12](i) a loader delivered wrong batches or "
-                             f"copies ({len(marks)} markers in the trace: "
-                             f"cases {found} of {len(cases) + 1})")
+                             "copies: " + "; ".join(bad))
 
 
 #: [12](i)'s samples held on the card, and the cycles each sample's
@@ -5356,7 +5416,7 @@ def phase_detection(dev, card, rtc_kernels):
 PLANES_STEPS, PLANES_EVERY, PLANES_SIGTERM = 40, 10, 25
 PLANES_BATCHES = 48            # the loader's epoch: 48 batches of B=32
 PLANES_SEED = SEED + 170
-CKPT_REPS = 5                  # saves a median of ckpt_stall_us is over
+CKPT_REPS = 3                  # saves a median of ckpt_stall_us is over
 OVERHEAD_STEPS = 20            # captured steps a side of the overhead pair
 ATTEST_ROUNDS = 3
 RECORD_REPS = 2000             # host-only step records timed for their cost
@@ -6315,7 +6375,7 @@ def phase_gang(dev, card, rtc_kernels, bert_peak_gib):
     return launches, {"autotune": tune, "gang": gang}
 
 
-DIST_BATCH, DIST_SEQ, DIST_STEPS, DIST_TIMED = 32, 512, 3, 5
+DIST_BATCH, DIST_SEQ, DIST_STEPS, DIST_TIMED = 32, 512, 3, 3
 DIST_LOSS_TOL = (2e-4, 2e-5)
 DIST_PARAM_TOL = (2e-3, 2e-4)
 DIST_PROBED = ("all_reduce", "broadcast", "all_gather_into_tensor",
@@ -6579,7 +6639,7 @@ def phase_ring_kernels(dev):
     return results
 
 
-SPE_STEPS, SPE_TIMED, SPE_SYNCED = 3, 5, 2
+SPE_STEPS, SPE_TIMED, SPE_SYNCED = 3, 3, 2
 #: each rank's launches of each flash kernel a step: the ring's rank 0
 #: runs its diagonal block only (the causal skip), rank 1 both blocks;
 #: Ulysses one flash over the whole sequence a layer; a pipeline stage its
@@ -6702,6 +6762,426 @@ def phase_seq_pipe_expert(dev, card):
     return launches, out
 
 
+# -- the symbolic path ([21]) -------------------------------------------------
+# (a) bench_resnet's widths; the timed batches of each variant
+SYM_BATCH, SYM_IMAGE, SYM_TIMED = 256, 224, 5
+# (c) card against host as [10](i): SGD (momentum 0.9, wd 1e-4) at lr 0.02,
+# 4 images of 64x64 a step, f64; then the timed f32 steps at B=64
+SYM_FIT_SHAPE, SYM_FIT_STEPS, SYM_FIT_LR = (4, 3, 64, 64), 2, 0.02
+SYM_TIME_BATCH, SYM_TIME_WARM, SYM_TIME_STEPS = 64, 2, 5
+# (d) the sequence buckets, alternating, and the steps over them
+SYM_BUCKETS, SYM_BUCKET_STEPS = (8, 4), 6
+
+
+def _rel_l2(got, want):
+    import torch
+
+    g, w = got.double(), want.double()
+    return float((g - w).norm() / w.norm().clamp_min(1e-30))
+
+
+def _first_parting(sym_a, env_a, sym_b, env_b):
+    """The first node, in the graph's order, whose output differs between
+    two evaluations of graphs with the same node names, or None."""
+    import torch
+
+    ca, cb = {}, {}
+    with torch.no_grad():
+        sym_a._eval_heads(env_a, ca)
+        sym_b._eval_heads(env_b, cb)
+    for node in sym_b._topo():
+        a, b = ca.get(node.name), cb.get(node.name)
+        if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor) \
+                and not torch.equal(a, b):
+            return node.name, float((a.double() - b.double()).abs().max())
+    return None
+
+
+def _sym_resnet(dev, card, root):
+    """[21](a) ResNet-50 v1 exported and imported, f32 and bf16."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import convert, gluon, initializer
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    ctx = context_of(dev)
+    rng = np.random.RandomState(SEED + 210)
+    x32 = torch.as_tensor(rng.standard_normal(
+        (SYM_BATCH, 3, SYM_IMAGE, SYM_IMAGE)).astype(np.float32), device=dev)
+    res = {}
+    for dt in ("float32", "bfloat16"):
+        net = vision.resnet50_v1(classes=1000)
+        net.initialize(init=initializer.Xavier(), ctx=ctx,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           SEED))
+        net._ensure_initialized(x32[:1])
+        convert.load_gluon_params(net, _resnet_numpy(net, rng))
+        net.cast(dt)
+        net.hybridize()
+        x = NDArray(x32.to(getattr(torch, dt)), ctx)
+        with torch.no_grad():
+            ref = net(x)
+            prefix = str(root / f"resnet50_{dt}")
+            sym = net.export(prefix)
+            sb = gluon.SymbolBlock.imports(f"{prefix}-symbol.json", ["data"],
+                                           f"{prefix}-0000.params", ctx=ctx)
+            got = sb(x)
+            opt = net.optimize_for(x)
+            got_opt = opt(x)
+            regions = sum(n.op == "_subgraph_exec"
+                          for n in opt._outputs_sym._topo())
+            ms = {what: cuda_ms(lambda f=f: f(x), SYM_TIMED, warmup=2)
+                  for what, f in (("block", net), ("symbolblock", sb),
+                                  ("optimize_for", opt))}
+        line = {}
+        for what, out in (("symbolblock", got), ("optimize_for", got_opt)):
+            same = torch.equal(out._data, ref._data)
+            exc = _excess(out._data.double(), ref._data.double(),
+                          *RESNET_OUT_TOL)
+            line[what] = {"bitwise": same, "excess": exc}
+            if not same:
+                env_b = {n: p._value() for n, p in sb.params.items()}
+                env_a = {n: p._value() for n, p in
+                         net.collect_params().items()}
+                env_a["data"] = env_b["data"] = x._data
+                part = _first_parting(sym, env_a, sb._outputs_sym, env_b)
+                line[what]["max_abs_err"] = float(
+                    (out._data.double() - ref._data.double()).abs().max())
+                line[what]["first_parting_node"] = part
+        log(f"  (a) resnet50_v1 {dt} at ({SYM_BATCH}, 3, {SYM_IMAGE}, "
+            f"{SYM_IMAGE}), exported ({len(sym.list_arguments()) - 1} "
+            f"arguments, {len(sym.list_auxiliary_states())} auxiliary "
+            f"states) and imported on the card: against the block's own "
+            f"output {line} (excess over RESNET_OUT_TOL {RESNET_OUT_TOL}, "
+            f"<= 1 passes); optimize_for: {regions} region(s); ms a batch "
+            f"{ {k: round(v, 3) for k, v in ms.items()} }  [{card}]")
+        if any(v["excess"] > 1 for v in line.values()) or not bool(
+                torch.isfinite(got._data).all()):
+            raise AssertionError(f"[21](a) the imported ResNet-50 {dt} "
+                                 f"disagrees with the block: {line}")
+        res[dt] = {"check": line, "ms": ms}
+        del net, sb, opt, ref, got, got_opt, sym
+        torch.cuda.empty_cache()
+    return res
+
+
+def _sym_bert(dev, card, root):
+    """[21](b) BERT-base exported and imported: SymbolBlock's forward and
+    a bound Executor's training step against the Gluon block's."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import autograd, gluon
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    from mxnet_tpu_torch.tools import bench_bert
+
+    B, T, L = BERT_BATCH, BERT_SEQ, 12
+    ctx = context_of(dev)
+    net, _ = bench_bert._net(T, "flash", "bfloat16", dev, SEED)
+    net.hybridize()
+    tokens, _mlm, _nsp = bench_bert.make_data(B, T, net._vocab, dev, SEED)
+    tok = NDArray(tokens, ctx)
+    with torch.no_grad():
+        ref = net(tok)
+    prefix = str(root / "bert_base")
+    net.export(prefix)
+    sb = gluon.SymbolBlock.imports(f"{prefix}-symbol.json", ["data"],
+                                   f"{prefix}-0000.params", ctx=ctx)
+    _zero_counts()
+    with torch.no_grad():
+        got = sb(tok)
+    fwd_launches = _counts()
+    out_err = [_rel_l2(g._data, r._data) for g, r in zip(got, ref)]
+    same = [torch.equal(g._data, r._data) for g, r in zip(got, ref)]
+    log(f"  (b) BERT-base bf16 flash, B={B}, T={T}, exported and imported: "
+        f"a SymbolBlock forward launched {fwd_launches}; its {len(got)} "
+        f"outputs against the block's: bitwise {same}, relative L2 "
+        f"{[f'{e:.2e}' for e in out_err]} (tol {GRAD_REL_L2:.0e}, [11]'s)")
+    if fwd_launches != {"flash_attention_fwd": L, "flash_attention_dq": 0,
+                        "flash_attention_dkv": 0} or len(got) != 4 \
+            or max(out_err) > GRAD_REL_L2:
+        raise AssertionError("[21](b) the imported BERT-base's forward")
+    del ref, got
+    # the imported graph bound with gradients on its parameters
+    params = {n: p.data() for n, p in sb.collect_params().items()}
+    sym = sb._outputs_sym
+    shapes = {n: tuple(a.shape) for n, a in params.items()}
+    types = {n: a._data.dtype for n, a in params.items()}
+    shapes["data"], types["data"] = tuple(tokens.shape), tokens.dtype
+    req = dict.fromkeys(params, "write")
+    req["data"] = "null"
+    exe = sym.simple_bind(ctx=ctx, grad_req=req, type_dict=types, **shapes)
+    exe.copy_params_from(params)
+    del sb, params
+    gen = torch.Generator(device=dev).manual_seed(SEED + 211)
+    _zero_counts()
+    outs = exe.forward(is_train=True, data=tok)
+    heads = [torch.randn(o.shape, generator=gen, device=dev).to(
+        o._data.dtype) for o in outs]
+    exe.backward(out_grads=[NDArray(h, ctx) for h in heads])
+    torch.cuda.synchronize()
+    step_launches = _counts()
+    with autograd.record():
+        want = net(tok)
+    autograd.backward(list(want), [NDArray(h, ctx) for h in heads])
+    cp = net.collect_params()
+    out_err = max(_rel_l2(o._data, w._data) for o, w in zip(outs, want))
+    g_err = {n: _rel_l2(exe.grad_dict[n]._data, cp[n].grad()._data)
+             for n in exe.grad_dict}
+    bitwise = all(torch.equal(exe.grad_dict[n]._data, cp[n].grad()._data)
+                  for n in exe.grad_dict)
+    worst = max(g_err.items(), key=lambda kv: kv[1])
+    log(f"  (b) simple_bind over the imported graph ({len(exe.grad_dict)} "
+        f"parameters, grad_req write), forward(is_train=True) + backward "
+        f"under seeded head gradients, dropout 0: launches {step_launches}; "
+        f"outputs against the Gluon block's under autograd.record() "
+        f"relative L2 {out_err:.2e}; gradients bitwise {bitwise}, worst "
+        f"relative L2 {worst[1]:.2e} ({worst[0]}; tol {GRAD_REL_L2:.0e}, "
+        f"[11]'s)")
+    if step_launches != dict.fromkeys(_counts(), L) or \
+            out_err > GRAD_REL_L2 or worst[1] > GRAD_REL_L2:
+        raise AssertionError("[21](b) the bound BERT-base's training step "
+                             "disagrees with the Gluon block's")
+    del exe, net, want, outs, heads
+    torch.cuda.empty_cache()
+    return {"symbolblock_bert_forward": fwd_launches,
+            "executor_bert_train_step": step_launches}
+
+
+def _sym_resnet_module(ctx, net, sym, x, y, batch, dtype, opt):
+    """A Module over ``sym`` (ResNet-50 with SoftmaxOutput), fitted one
+    epoch over (x, y) from ``net``'s values; its parameters, auxiliary
+    states and last outputs as f64 host tensors."""
+    from mxnet_tpu_torch import io, module, nd
+
+    params = {n: p.data() for n, p in net.collect_params().items()}
+    args = {n: v for n, v in params.items() if n in sym.list_arguments()}
+    aux = {n: v for n, v in params.items()
+           if n in sym.list_auxiliary_states()}
+    it = io.NDArrayIter(x.astype(dtype), y, batch_size=batch,
+                        label_name="softmax_label")
+    mod = module.Module(sym, context=ctx)
+    mod.fit(it, num_epoch=1, optimizer="sgd", optimizer_params=dict(opt),
+            arg_params=args, aux_params=aux, kvstore=None)
+    arg, auxp = mod.get_params()
+    return ({n: v._data.double().cpu() for n, v in arg.items()},
+            {n: v._data.double().cpu() for n, v in auxp.items()},
+            mod.get_outputs()[0]._data.double().cpu())
+
+
+def _sym_module(dev, card):
+    """[21](c) Module.fit on resnet50_v1 as a symbol: card against host in
+    f64, then timed in f32 beside gluon.Trainer's eager step."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import (autograd, convert, gluon, initializer, io,
+                                 module, symbol)
+    from mxnet_tpu_torch.context import context_of, cpu
+    from mxnet_tpu_torch.gluon.loss import SoftmaxCrossEntropyLoss
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    ctx = context_of(dev)
+    rng = np.random.RandomState(SEED + 212)
+    n = SYM_FIT_SHAPE[0] * SYM_FIT_STEPS
+    x = rng.standard_normal((n,) + SYM_FIT_SHAPE[1:])
+    y = rng.randint(0, 1000, n).astype(np.float64)
+    opt = {"learning_rate": SYM_FIT_LR, "momentum": 0.9, "wd": 1e-4}
+    with cpu():
+        net = vision.resnet50_v1(classes=1000)
+        net.initialize(init=initializer.Xavier(),
+                       generator=torch.Generator().manual_seed(SEED))
+        net._ensure_initialized(torch.as_tensor(x[:1], dtype=torch.float32))
+        convert.load_gluon_params(net, _resnet_numpy(net, rng))
+        net.cast("float64")
+        sym = symbol.SoftmaxOutput(net(symbol.var("data")),
+                                   symbol.var("softmax_label"),
+                                   name="softmax")
+        host = _sym_resnet_module(cpu(), net, sym, x, y, SYM_FIT_SHAPE[0],
+                                  np.float64, opt)
+    with ctx:
+        card_run = _sym_resnet_module(ctx, net, sym, x, y, SYM_FIT_SHAPE[0],
+                                      np.float64, opt)
+    worst = {
+        "outputs": _excess(card_run[2], host[2], *RESNET_OUT_TOL),
+        "weights": max(_excess(card_run[0][k], host[0][k], *RESNET_GRAD_TOL)
+                       for k in host[0]),
+        "moving statistics": max(_excess(card_run[1][k], host[1][k],
+                                         *RESNET_OUT_TOL) for k in host[1]),
+    }
+    moved = min(float((host[1][k] - v.data()._data.double().cpu()).abs()
+                      .max()) for k, v in net.collect_params().items()
+                if k in host[1])
+    log(f"  (c) Module.fit on resnet50_v1 as a symbol "
+        f"({len(sym.list_arguments()) - 2} parameters, "
+        f"{len(sym.list_auxiliary_states())} moving statistics) + "
+        f"SoftmaxOutput, f64, {SYM_FIT_STEPS} SGD steps of "
+        f"{SYM_FIT_SHAPE}: card against host, excess over tolerance "
+        f"(<= 1 passes) "
+        f"{', '.join(f'{k} {v:.3e}' for k, v in worst.items())};"
+        f" smallest move of a moving statistic {moved:.3e}")
+    if max(worst.values()) > 1 or not moved > 0:
+        raise AssertionError("[21](c) Module.fit on the card disagrees with "
+                             "the host")
+    del net, host, card_run
+    # timed: f32 B=64 at 224x224, Module against gluon.Trainer's eager step
+    B = SYM_TIME_BATCH
+    xt = torch.as_tensor(rng.standard_normal(
+        (B, 3, SYM_IMAGE, SYM_IMAGE)).astype(np.float32), device=dev)
+    yt = torch.as_tensor(rng.randint(0, 1000, B).astype(np.float32),
+                         device=dev)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(init=initializer.Xavier(), ctx=ctx,
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+    net._ensure_initialized(xt[:1])
+    sym = symbol.SoftmaxOutput(net(symbol.var("data")),
+                               symbol.var("softmax_label"), name="softmax")
+    mod = module.Module(sym, context=ctx)
+    mod.bind(data_shapes=[("data", tuple(xt.shape))],
+             label_shapes=[("softmax_label", (B,))])
+    params = {k: p.data() for k, p in net.collect_params().items()}
+    mod.init_params(arg_params={k: v for k, v in params.items()
+                                if k in sym.list_arguments()},
+                    aux_params={k: v for k, v in params.items()
+                                if k in sym.list_auxiliary_states()})
+    sgd = {"learning_rate": 0.1, "momentum": 0.9, "wd": 1e-4}
+    mod.init_optimizer(kvstore=None, optimizer="sgd", optimizer_params=sgd)
+    batch = io.DataBatch(data=[NDArray(xt, ctx)], label=[NDArray(yt, ctx)])
+    trainer = gluon.Trainer(net.collect_params(), "sgd", dict(sgd))
+    loss_fn = SoftmaxCrossEntropyLoss()
+    xn, yn = NDArray(xt, ctx), NDArray(yt, ctx)
+
+    def module_step():
+        mod.forward_backward(batch)
+        mod.update()
+
+    def gluon_step():
+        with autograd.record():
+            loss = loss_fn(net(xn), yn)
+        loss.backward()
+        trainer.step(B)
+
+    times = {}
+    for what, step in (("module", module_step), ("gluon_eager", gluon_step)):
+        for _ in range(SYM_TIME_WARM):
+            step()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(SYM_TIME_STEPS):
+            step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / SYM_TIME_STEPS
+        times[what] = {"ms_per_step": ms, "images_per_sec": B * 1e3 / ms}
+    finite = all(bool(torch.isfinite(a._data).all())
+                 for a in mod._exec.arg_dict.values())
+    log(f"  (c) f32 (TF32 off) B={B} at {SYM_IMAGE}x{SYM_IMAGE}, "
+        f"{SYM_TIME_WARM} warm-up + {SYM_TIME_STEPS} timed steps: "
+        + "; ".join(f"{k} {v['ms_per_step']:.2f} ms a step, "
+                    f"{v['images_per_sec']:.1f} images/s"
+                    for k, v in times.items())
+        + f"; weights finite {finite}  [{card}]")
+    if not finite:
+        raise AssertionError("[21](c) Module's timed steps went non-finite")
+    del mod, net, trainer
+    torch.cuda.empty_cache()
+    return times
+
+
+def _bucket_gen(seq_len):
+    from mxnet_tpu_torch import symbol
+
+    pooled = symbol.mean(symbol.var("data"), axis=1)
+    out = symbol.FullyConnected(pooled, symbol.var("fc_weight"),
+                                symbol.var("fc_bias"), num_hidden=3,
+                                name="fc")
+    return (symbol.SoftmaxOutput(out, symbol.var("softmax_label"),
+                                 name="softmax"), ("data",),
+            ("softmax_label",))
+
+
+def _sym_bucketing(dev, card):
+    """[21](d) BucketingModule over two sequence buckets, card against
+    host; the buckets share one storage."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import io, module, nd
+    from mxnet_tpu_torch.context import context_of, cpu
+
+    rng = np.random.RandomState(SEED + 213)
+    centers = rng.uniform(-2, 2, (3, 6)).astype(np.float32)
+    batches = []
+    for step in range(SYM_BUCKET_STEPS):
+        L = SYM_BUCKETS[step % 2]
+        yb = rng.randint(0, 3, 16)
+        xb = centers[yb][:, None, :] + rng.normal(
+            0, 0.3, (16, L, 6)).astype(np.float32)
+        batches.append((L, xb, yb.astype(np.float32)))
+    w = {"fc_weight": rng.standard_normal((3, 6)).astype(np.float32),
+         "fc_bias": np.zeros(3, np.float32)}
+    runs = {}
+    for where, ctx in (("host", cpu()), ("card", context_of(dev))):
+        with ctx:
+            bm = module.BucketingModule(_bucket_gen,
+                                        default_bucket_key=SYM_BUCKETS[0],
+                                        context=ctx)
+            bm.bind(data_shapes=[("data", (16, SYM_BUCKETS[0], 6))],
+                    label_shapes=[("softmax_label", (16,))])
+            bm.init_params(arg_params={k: nd.array(v)
+                                       for k, v in w.items()})
+            bm.init_optimizer(optimizer="sgd",
+                              optimizer_params=(("learning_rate", 0.5),))
+            for L, xb, yb in batches:
+                bm.forward(io.DataBatch(
+                    data=[nd.array(xb)], label=[nd.array(yb)],
+                    bucket_key=L, provide_data=[("data", (16, L, 6))],
+                    provide_label=[("softmax_label", (16,))]), is_train=True)
+                bm.backward()
+                bm.update()
+            arg, _ = bm.get_params()
+            runs[where] = {k: v._data.double().cpu() for k, v in arg.items()}
+            a0 = bm._buckets[SYM_BUCKETS[0]]._exec.arg_dict["fc_weight"]
+            a1 = bm._buckets[SYM_BUCKETS[1]]._exec.arg_dict["fc_weight"]
+            shared = a0 is a1 and a0._data.data_ptr() == a1._data.data_ptr()
+    worst = max(_excess(runs["card"][k], runs["host"][k], *RESNET_OUT_TOL)
+                for k in runs["host"])
+    log(f"  (d) BucketingModule over buckets {SYM_BUCKETS}, "
+        f"{SYM_BUCKET_STEPS} alternating SGD steps: card against host "
+        f"excess {worst:.3e} (<= 1 passes, RESNET_OUT_TOL); the buckets' "
+        f"fc_weight one storage on the card {shared}")
+    if worst > 1 or not shared:
+        raise AssertionError("[21](d) BucketingModule on the card")
+    return {"worst_excess": worst}
+
+
+def phase_symbolic(dev, card, rtc_kernels):
+    """[21] the symbolic path: (a) ResNet-50 exported and imported, (b)
+    BERT-base exported, imported and bound for a training step, (c)
+    Module.fit on ResNet-50 as a symbol, (d) BucketingModule.  Returns
+    ({path: launches by kernel, the rtc kernels' too}, results)."""
+    import shutil
+
+    root = Path(__file__).resolve().parent / "build" / "symbolic"
+    root.mkdir(parents=True, exist_ok=True)
+    try:
+        res = {"resnet": _sym_resnet(dev, card, root)}
+        _rtc_zero(rtc_kernels)
+        bert = _sym_bert(dev, card, root)
+        rtc = _rtc_counts(rtc_kernels)
+        launches = {path: dict(counts, **rtc)
+                    for path, counts in bert.items()}
+        res["module"] = _sym_module(dev, card)
+        res["bucketing"] = _sym_bucketing(dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return launches, res
+
+
 def main():
     import torch
 
@@ -6713,11 +7193,17 @@ def main():
     from mxnet_tpu_torch import _kernels
 
     t_start = time.perf_counter()
+    marks = []
+
+    def mark(tag):
+        """The start of a phase: its seconds are the time to the next."""
+        marks.append((tag, time.perf_counter()))
     # cuBLAS's deterministic workspace, set before its first handle: [10](ii)
     # runs under torch.use_deterministic_algorithms(True)
     os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     dev = torch.device("cuda", 0)
     card = smi_line()
+    mark("1")
     log("[1] card:", torch.cuda.get_device_name(0), "| count",
         torch.cuda.device_count(), "| nvidia-smi:", card)
     log("    torch", torch.__version__, "cuda", torch.version.cuda)
@@ -6726,6 +7212,7 @@ def main():
     log("    TF32 off: torch.backends.cuda.matmul.allow_tf32 = False, "
         "torch.backends.cudnn.allow_tf32 = False")
 
+    mark("2")
     log("[2] build")
     t0 = time.perf_counter()
     secs = _kernels.build()
@@ -6739,52 +7226,65 @@ def main():
     log(f"    NVRTC (rtc.CudaModule, sm_90a) compile seconds: "
         f"{ {k: round(v, 4) for k, v in nvrtc_s.items()} }")
 
+    mark("3")
     log("[3] forward kernel against its plain version")
     fwd_errs = phase_kernels(dev)
 
+    mark("3b")
     log("[3b] backward kernels against their plain version")
     bwd_errs = phase_bwd_kernels(dev)
 
+    mark("4")
     log("[4] forward timing (CUDA events)  [" + card + "]")
     phase_timing(dev)
 
+    mark("4b")
     log("[4b] backward timing (CUDA events)  [" + card + "]")
     bwd_rows = phase_bwd_timing(dev)
 
+    mark("5")
     log("[5] serving path: gpt2_small, flash trunk, full width")
     _zero_counts()
     gen_launches = phase_main_path(dev, card)
 
+    mark("5e")
     log("[5e] training path: gpt2_small, flash trunk, ShardedTrainer, "
         "full width")
     train_launches, step_ms = phase_train(dev, card)
 
+    mark("5f")
     log("[5f] where a training step's device time goes (torch.profiler)")
     phase_profile(dev, card)
 
+    mark("7")
     log("[7] imperative path: nd + autograd linear regression, SGD by the "
         "NVRTC-compiled axpy")
     reg = phase_imperative(dev, card)
 
+    mark("7b")
     log("[7b] runtime-compiled kernels (rtc.CudaModule) against their plain "
         "versions")
     rt = phase_rtc(dev, card, s2, ax)
 
+    mark("8")
     log("[8] BERT-base pretraining path: bert_base, flash trunk, bf16, "
         "ShardedTrainer on a one-device mesh, bench_bert's configuration")
     bert_launches, bert_res = phase_bert(dev, card)
 
+    mark("9")
     log("[9] ResNet-50 v1 training path: resnet50_v1, bf16, ShardedTrainer "
         "(SGD) on a one-device mesh, bench_resnet's configuration, NCHW "
         "and NHWC")
     resnet_launches, resnet_res = phase_resnet(dev, card, (s2, ax))
 
+    mark("10")
     log("[10] ResNet-50 v1 through gluon.Trainer: Trainer.step card "
         "against host, the captured train_step against the eager one "
         "(bitwise), bench_resnet's configuration through the eager loop, "
         "the captured step and ShardedTrainer, bench_trainer")
     trainer_launches, trainer_res = phase_trainer(dev, card, (s2, ax))
 
+    mark("11")
     log("[11] BERT-base and ViT-B/16 as Gluon blocks: the captured "
         "train_step against the eager one (bitwise), the per-layer trunk, "
         "bench_bert through gluon.Trainer eager and captured and "
@@ -6792,6 +7292,7 @@ def main():
     gluon_launches, gluon_res = phase_gluon_transformers(dev, card,
                                                          (s2, ax))
 
+    mark("12")
     log("[12] the input path: DataLoader and DevicePrefetcher (pinned "
         "staging, its own copy stream) bitwise through every transport "
         "and depth, ResNet-50 v1 and GPT-2 small trained from it, the "
@@ -6799,6 +7300,7 @@ def main():
     input_launches, input_res = phase_input(dev, card, (s2, ax))
     gluon_launches.update(input_launches)
 
+    mark("13")
     log("[13] the recommender path: row-sparse ShardedEmbedding tables "
         "through the captured train_step at bench_embedding's "
         "configuration and at a 2^24-row table (bitwise against the eager "
@@ -6807,6 +7309,7 @@ def main():
     emb_launches, emb_res = phase_embedding(dev, card, (s2, ax))
     gluon_launches["recommender_path"] = emb_launches
 
+    mark("14")
     log("[14] the decode and serving path: bench_serving through "
         "ContinuousBatcher over one CUDA graph a bucket (GPT-2 small, "
         "bf16), graph-served tokens against CachedDecoder and generate(), "
@@ -6815,6 +7318,7 @@ def main():
     serve_launches, serve_res = phase_serving(dev, card, (s2, ax))
     gluon_launches.update(serve_launches)
 
+    mark("15")
     log("[15] the recurrent path: the RNN op card against host in every "
         "mode, the medium PTB LSTM LM (vocab 10000, 650/650, 2 layers, "
         "T=35, B=20) card against host and trained 30 windows on the card "
@@ -6823,6 +7327,7 @@ def main():
     lstm_launches, lstm_res = phase_recurrent(dev, card, (s2, ax))
     gluon_launches["lstm_lm_path"] = lstm_launches
 
+    mark("16")
     log("[16] the detection path: the detection ops card against host at "
         "their users' sizes, SSD at the width of SSD-300 on VOC (20 "
         "classes, 3x300x300, B=32, 134296 anchors) card against host and "
@@ -6835,6 +7340,7 @@ def main():
     gluon_launches["ssd_path"] = ssd_launches
     gluon_launches["vision_zoo"] = zoo_launches
 
+    mark("17")
     log("[17] the production planes on BERT-base at bench_bert's "
         "configuration: (i) the card's integrity fingerprint against the "
         "host mirror; (ii) 40 steps under run_resilient through a SIGTERM "
@@ -6846,6 +7352,7 @@ def main():
     planes_launches, planes_res = phase_planes(dev, card, (s2, ax))
     gluon_launches.update(planes_launches)
 
+    mark("18")
     log("[18] the gang slice on BERT-base at bench_bert's configuration: "
         "(i) MXTPU_AUTOTUNE=search through Trainer.train_step over the "
         "one-card knobs (device_prefetch, shm_slot_mb, remat, "
@@ -6860,6 +7367,7 @@ def main():
                                          bert_res["peak_mem_gib"])
     gluon_launches.update(gang_launches)
 
+    mark("19")
     log("[19] multi-rank training on BERT-base at bench_bert's width: a "
         "two-rank gang on the one card (the backend rule picks gloo); (i) "
         "the collectives gloo accepts on CUDA tensors; (ii) the dist store "
@@ -6870,6 +7378,7 @@ def main():
     dist_launches, dist_res = phase_dist(dev, card, (s2, ax))
     gluon_launches.update(dist_launches)
 
+    mark("20")
     log("[20] sequence, pipeline and expert parallelism: a two-rank gang on "
         "the one card (gloo); (a) f32, dropout 0, TF32 off, 3 AdamW steps: "
         "GPT-2 small at B=8, T=1024 with ring and Ulysses attention at sp=2 "
@@ -6881,6 +7390,20 @@ def main():
         "timed")
     spe_launches, spe_res = phase_seq_pipe_expert(dev, card)
     gluon_launches.update(spe_launches)
+
+    mark("21")
+    log("[21] the symbolic path: (a) ResNet-50 v1 exported and imported "
+        "through SymbolBlock, f32 and bf16, and optimize_for; (b) BERT-base "
+        "exported and imported, a SymbolBlock forward and a simple_bind "
+        "Executor's training step against the Gluon block; (c) "
+        "mx.mod.Module.fit on resnet50_v1 as a symbol, card against host "
+        "and timed beside gluon.Trainer; (d) BucketingModule")
+    sym_launches, sym_res = phase_symbolic(dev, card, (s2, ax))
+    gluon_launches.update(sym_launches)
+    mark("end")
+    log("    phase seconds: " + json.dumps(
+        {a: round(tb - ta, 1) for (a, ta), (_b, tb) in zip(marks,
+                                                             marks[1:])}))
 
     T0, Tb, Tv, Tt = TRAIN_SHAPE[2], BERT_SHAPE[2], VIT_SHAPE[2], TFM_SEQ
     sources = {"fwd": ("flash_attention_fwd", "flash_attention_fwd.cu",
@@ -7050,6 +7573,10 @@ def main():
         f"{ {p: round(t['ms_median'], 2) for p, t in dist_res['timing'][0].items()} }; "
         f"sp/pp/ep bf16 ms a step (rank 0): "
         f"{ {p: round(t['ms_median'], 2) for p, t in spe_res['timing'][0].items()} }; "
+        f"symbolic: Module.fit ResNet-50 f32 B={SYM_TIME_BATCH} "
+        f"{sym_res['module']['module']['ms_per_step']:.2f} ms a step, "
+        f"gluon.Trainer eager "
+        f"{sym_res['module']['gluon_eager']['ms_per_step']:.2f} ms; "
         f"forward O max abs err at BERT's "
         f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")

@@ -23,12 +23,21 @@ from . import amp, convert, gluon, metric, parallel, serving
 from . import profiler, recordio, resilience, telemetry
 from . import callback, embedding, image, io
 from . import checkpoint, distributed, integrity, obs
+from . import attribute, model, module, monitor, subgraph, symbol
+from . import visualization
+from . import module as mod
+from . import monitor as mon
+from . import symbol as sym
+from . import visualization as viz
+from .attribute import AttrScope
 
-__all__ = ["Context", "MXNetError", "amp", "autograd", "base", "callback",
-           "checkpoint", "context", "convert", "cpu", "current_context",
-           "distributed", "embedding", "engine", "gluon",
-           "gpu", "image", "init", "initializer", "integrity", "io", "kv",
-           "kvstore", "metric", "name", "nd", "ndarray", "num_gpus",
-           "numerics", "obs", "operator",
-           "ops", "optimizer", "parallel", "profiler", "random", "recordio",
-           "resilience", "rtc", "serving", "telemetry"]
+__all__ = ["AttrScope", "Context", "MXNetError", "amp", "attribute",
+           "autograd", "base", "callback", "checkpoint", "context",
+           "convert", "cpu", "current_context", "distributed", "embedding",
+           "engine", "gluon", "gpu", "image", "init", "initializer",
+           "integrity", "io", "kv", "kvstore", "metric", "mod", "model",
+           "module", "mon", "monitor", "name", "nd", "ndarray", "num_gpus",
+           "numerics", "obs", "operator", "ops", "optimizer", "parallel",
+           "profiler", "random", "recordio", "resilience", "rtc", "serving",
+           "subgraph", "sym", "symbol", "telemetry", "visualization",
+           "viz"]

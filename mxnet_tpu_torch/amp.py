@@ -4,7 +4,8 @@ Counterpart of ``mxnet_tpu/amp.py`` (reference: python/mxnet/contrib/amp).
 The default policy is bfloat16, which needs no loss scaling (the exponent
 range of f32): ``init()`` records it, ``convert_block`` casts a block, and
 ``init_trainer`` gives the optimizer f32 master weights
-(``multi_precision``).  A float16 policy with ``DynamicLossScaler`` is
+(``multi_precision``) and ``convert_model`` casts a symbolic model's
+parameters.  A float16 policy with ``DynamicLossScaler`` is
 provided as well; the Trainer folds the scaler's ``1 / loss_scale`` into
 ``rescale_grad`` and its guarded step halves the scale on an overflow.
 """
@@ -40,6 +41,16 @@ def convert_block(block, target_dtype=None):
 
 
 init_block = convert_block
+
+
+def convert_model(sym, arg_params, aux_params, target_dtype=None):
+    """The symbol path's conversion (reference: amp.convert_model): the
+    parameters cast to the AMP dtype; the graph computes in its
+    parameters' dtype, so ``sym`` is returned as it is."""
+    target_dtype = target_dtype or _STATE["dtype"]
+    cast = {k: v.astype(target_dtype) for k, v in arg_params.items()}
+    aux = {k: v.astype(target_dtype) for k, v in aux_params.items()}
+    return sym, cast, aux
 
 
 class DynamicLossScaler:

@@ -327,6 +327,15 @@ def grad(heads, variables, head_grads=None, retain_graph=None,
     return results[0] if single else results
 
 
+def get_symbol(x):
+    """The graph that produced ``x`` (reference: autograd.get_symbol):
+    not kept by the tape, as in the JAX package; ``HybridBlock.export``
+    writes a block's graph."""
+    raise NotImplementedError(
+        "symbol extraction from the imperative tape is not supported; "
+        "use HybridBlock.export for a serialized graph")
+
+
 class Function:
     """Custom differentiable function (reference: mx.autograd.Function).
 

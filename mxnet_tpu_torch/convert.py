@@ -18,6 +18,9 @@ mis-shaped entry, so a model is never left half loaded.
   ``Transformer``: the ``enc_`` and ``dec_`` stacks (a decoder layer's
   self- and cross-attention packed ``qkv`` and ``proj``, its three
   LayerNorms), ``out_`` and the three embedding tables, by name.
+- ``load_module_params`` takes a JAX ``Module``'s ``get_params()`` as
+  numpy (parameters and auxiliary states) for a bound port ``Module``
+  over the same symbol, by name.
 - ``load_state`` takes the flat serving checkpoint that
   ``serving.state_for_serving`` writes (a scanned-trunk model's), and
   matches names by suffix (``*_stack_*``, ``lnf_*``, the two embeddings)
@@ -261,3 +264,34 @@ def load_gluon_params(block, params):
             p._shape = tuple(arr.shape)
         else:
             p.set_data(t)
+
+
+def load_module_params(module, arg_params, aux_params=None):
+    """Load ``{name: np.ndarray}`` parameters and auxiliary states (a JAX
+    ``Module``'s ``get_params()`` as numpy) into a bound port ``Module``,
+    by name, each cast to the bound array's dtype.  Raises on a missing,
+    mis-shaped or unused entry before copying anything."""
+    what = "load_module_params"
+    if not module.binded:
+        raise MXNetError(f"{what}: bind the module first")
+    exe = module._exec
+    aux_params = aux_params or {}
+    for given, names, table, kind in (
+            (arg_params, module._param_names, exe.arg_dict, "parameter"),
+            (aux_params, module._aux_names, exe.aux_dict,
+             "auxiliary state")):
+        missing = sorted(set(names) - set(given))
+        unused = sorted(set(given) - set(names))
+        if missing or unused:
+            raise MXNetError(f"{what}: {kind}s missing {missing}, entries "
+                             f"the module has no {kind} for {unused}")
+        for name in names:
+            _check_array(given[name], name, what)
+            if tuple(given[name].shape) != tuple(table[name].shape):
+                raise MXNetError(
+                    f"{what}: {name!r} has shape {given[name].shape}, the "
+                    f"module binds {tuple(table[name].shape)}")
+    exe.copy_params_from(
+        {k: as_tensor(v, k, what) for k, v in arg_params.items()},
+        {k: as_tensor(v, k, what) for k, v in aux_params.items()})
+    module.params_initialized = True

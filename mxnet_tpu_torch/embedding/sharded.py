@@ -5,6 +5,7 @@ from __future__ import annotations
 import torch
 
 from ..gluon.block import HybridBlock
+from ..symbol.symbol import Symbol
 from . import prep as _prep
 
 
@@ -29,9 +30,10 @@ class ShardedEmbedding(HybridBlock):
     fields inside one feature tensor; None means the input is the ids.
     The host id prep applies the same selector to the same batch, so the
     block must read the step's ``data`` (or its feature slice) directly.
-    The JAX package's row-sharding of the table over a mesh waits for the
-    next multi-GPU slice (ROADMAP queue 1 item 1b), and its symbol path
-    for the symbol slice.
+    Called with a Symbol it builds the dense ``Embedding`` node (feature
+    selection raises there, as in the JAX package).  The JAX package's
+    row-sharding of the table over a mesh waits for the next multi-GPU
+    slice (ROADMAP queue 1 item 1b).
     """
 
     def __init__(self, input_dim, output_dim, dtype="float32",
@@ -70,6 +72,13 @@ class ShardedEmbedding(HybridBlock):
         return shp[:-1]
 
     def hybrid_forward(self, F, x, embed_table):
+        if isinstance(x, Symbol):
+            if self._feature is not None:
+                raise NotImplementedError(
+                    "ShardedEmbedding feature selection has no symbolic "
+                    "path: export the surrounding block with feature=None "
+                    "inputs")
+            return F.Embedding(x, embed_table, **self._kwargs)
         entry = _prep.scope_entry(id(self.weight))
         if entry is not None:
             rows, inv = entry

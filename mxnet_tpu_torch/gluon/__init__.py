@@ -5,7 +5,7 @@ recurrent cells and data utilities (``contrib``) and the model zoo
 (counterpart of ``mxnet_tpu/gluon/``)."""
 
 from . import block, loss, nn, parameter, rnn, utils
-from .block import Block, HybridBlock
+from .block import Block, HybridBlock, SymbolBlock
 from .parameter import (Constant, DeferredInitializationError, Parameter,
                         ParameterDict)
 from . import captured, trainer

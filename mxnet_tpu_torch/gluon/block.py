@@ -27,9 +27,17 @@ makes the forward draw one generator a call; the block still runs op by
 op.  ``hybridize(remat=...)`` (or ``MXTPU_REMAT``/
 ``MXNET_BACKWARD_DO_MIRROR``) runs a hybridized block's forward as one
 rematerialised region (``remat.checkpoint``): its backward recomputes the
-forward, with the dropout masks the forward drew.  ``SymbolBlock``,
-``export``, ``optimize_for`` and ``shard_activations`` are not ported
-yet.  ``_cache_version`` counts the
+forward, with the dropout masks the forward drew.
+
+Called with ``Symbol``s, a HybridBlock builds a graph instead
+(reference ``gluon/block.py:463-480``): ``hybrid_forward`` runs with
+``F`` = the port's ``symbol`` and each parameter as its Variable
+(``Parameter.var``; a ``grad_req="null"`` one marked auxiliary).
+``export`` writes that graph, traced in predict mode, as
+``-symbol.json`` with ``-%04d.params`` (``arg:``/``aux:`` keys);
+``SymbolBlock.imports`` runs such a pair as a block, and
+``optimize_for`` runs the partitioned graph (``subgraph.partition``).
+``shard_activations`` is not ported yet.  ``_cache_version`` counts the
 changes a captured step keys on (``_clear_cached_op`` bumps it, as the
 reference's does: LoRA attach, freeze and merge).
 """
@@ -49,6 +57,7 @@ from .. import random as _random
 from .. import remat as _remat
 from ..ndarray.ndarray import NDArray
 from ..ndarray.register import _wrap
+from ..symbol.symbol import Symbol
 from .parameter import Parameter, ParameterDict
 
 
@@ -374,6 +383,13 @@ class HybridBlock(Block):
         return {k: p._value() for k, p in params.items()}
 
     def forward(self, x, *args, **kwargs):
+        if isinstance(x, Symbol) or any(isinstance(a, Symbol)
+                                        for a in _leaves(args)):
+            return self._forward_sym(x, *args, **kwargs)
+        if self._active:
+            # the export trace gives its input Variables these shapes
+            self._last_input_shapes = [tuple(a.shape) if hasattr(
+                a, "shape") else None for a in (x, *args)]
         if self._active and not _random.scoped():
             with _random.generator_scope(_random.step_generator(
                     _device_of(_leaves((x, *args))))):
@@ -413,6 +429,72 @@ class HybridBlock(Block):
         inputs = [t for t in _leaves((*raw, *kw.values(), *params.values()))
                   if isinstance(t, torch.Tensor)]
         return _wrap_out(out, ctx, inputs)
+
+    def _forward_sym(self, *args, **kwargs):
+        """The symbolic dispatch: ``hybrid_forward`` over the ``symbol``
+        module with each parameter as its Variable."""
+        from .. import symbol as _sym
+
+        params = {}
+        for k, p in self._reg_params.items():
+            v = p.var()
+            if p.grad_req == "null":
+                v._set_attr(__aux__=True)
+                v.attrs["__aux__"] = True
+            params[k] = v
+        return self.hybrid_forward(_sym, *args, **kwargs, **params)
+
+    def export(self, path, epoch=0, remove_amp_cast=True):
+        """Write ``path-symbol.json`` (the graph traced in predict mode,
+        inputs ``data`` or ``data0``...) and ``path-%04d.params``, each
+        parameter under ``arg:`` or, with ``grad_req="null"``, ``aux:``
+        and its global name (reference: HybridBlock.export); returns the
+        Symbol.  Needs ``hybridize()`` and one forward first, whose input
+        shapes the trace carries."""
+        from .. import symbol as _sym
+        from ..ndarray import save as nd_save
+
+        if not self._active:
+            raise RuntimeError(
+                "Please first call block.hybridize() and then run forward "
+                "with this block at least once before calling export.")
+        sym = _sym.trace_block(self)
+        sym.save(f"{path}-symbol.json")
+        arg_dict = {}
+        for name, param in self.collect_params().items():
+            tag = "aux" if param.grad_req == "null" else "arg"
+            arg_dict[f"{tag}:{name}"] = param.data()
+        nd_save(f"{path}-{epoch:04d}.params", arg_dict)
+        return sym
+
+    def optimize_for(self, x, *extra, backend="XLA", **kwargs):
+        """A SymbolBlock running this block's graph partitioned for
+        ``backend`` with copies of the current parameters (reference:
+        HybridBlock.optimize_for); ``x`` (and ``extra`` inputs) are run
+        first, as the reference's sample input, and name the inputs
+        ``data`` or ``data0``...  A string second argument is the
+        backend."""
+        from .. import symbol as _sym
+
+        if extra and isinstance(extra[0], str):
+            backend, extra = extra[0], extra[1:]
+        if not self._active:
+            self.hybridize()
+        with _ag.pause(), torch.no_grad():
+            self(x, *extra)
+        n_in = 1 + len(extra)
+        in_names = ["data"] if n_in == 1 else \
+            [f"data{i}" for i in range(n_in)]
+        psym = _sym.trace_block(self, inputs=in_names).optimize_for(
+            backend, **kwargs)
+        sb = SymbolBlock(psym, [_sym.var(n) for n in in_names])
+        params = self.collect_params()
+        for name, p in sb.params.items():
+            if name in params:
+                src = params[name].data()
+                p._load_init(src, src.context, cast_dtype=True,
+                             dtype_source="saved")
+        return sb
 
     def _ensure_initialized(self, *args):
         """Materialise every deferred parameter with one forward in
@@ -455,3 +537,63 @@ def _F():
     from .. import ndarray
 
     return ndarray
+
+
+class SymbolBlock(HybridBlock):
+    """A Symbol graph run as a block (reference: gluon.SymbolBlock): every
+    free variable that is not an input is a parameter of the block under
+    its own name (the ``.params`` file's keys), auxiliary when the graph
+    marks it so.  The forward evaluates the graph on the inputs and the
+    parameters' tensors, under the same NDArray/tensor and tape rules as
+    any HybridBlock; a Group's outputs come back as a list."""
+
+    @staticmethod
+    def imports(symbol_file, input_names, param_file=None, ctx=None):
+        """A SymbolBlock over a ``-symbol.json``, its parameters loaded
+        from ``param_file`` onto ``ctx`` (default ``current_context()``)
+        in their saved dtypes."""
+        from .. import symbol as _sym
+
+        sym = _sym.load(symbol_file)
+        if isinstance(input_names, str):
+            input_names = [input_names]
+        ret = SymbolBlock(sym, [_sym.var(i) for i in input_names])
+        if param_file is not None:
+            ret.collect_params().load(param_file, ctx=ctx, cast_dtype=True,
+                                      dtype_source="saved",
+                                      allow_missing=False, ignore_extra=True)
+        return ret
+
+    def __init__(self, outputs, inputs, params=None):
+        super().__init__(prefix=None, params=params)
+        if isinstance(outputs, (list, tuple)):
+            from .. import symbol as _sym
+
+            outputs = outputs[0] if len(outputs) == 1 else \
+                _sym.Group(list(outputs))
+        if isinstance(inputs, Symbol):
+            inputs = [inputs]
+        self._outputs_sym = outputs
+        self._input_names = [i.name for i in inputs]
+        inputs_set = set(self._input_names)
+        aux = set(outputs.list_auxiliary_states())
+        for name in outputs.list_inputs():
+            if name not in inputs_set and name not in self.params._params:
+                self.params._params[name] = Parameter(
+                    name, allow_deferred_init=True,
+                    grad_req="null" if name in aux else "write")
+
+    def _param_values(self, *args):
+        return {k: p._value() for k, p in self.params.items()}
+
+    def hybrid_forward(self, F, *args, **params):
+        from .. import symbol as _sym
+
+        if F is _sym:
+            raise NotImplementedError(
+                "SymbolBlock inside a symbolic trace is not supported")
+        feed = dict(zip(self._input_names, args))
+        feed.update(params)
+        outs = self._outputs_sym._eval_heads(feed)
+        return outs if isinstance(self._outputs_sym, _sym.Group) \
+            else outs[0]

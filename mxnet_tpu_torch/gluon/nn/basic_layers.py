@@ -25,6 +25,7 @@ import torch
 
 from ... import autograd as _ag
 from ...base import torch_dtype
+from ...symbol.symbol import Symbol
 from ..block import Block, HybridBlock
 from .activations import Activation
 
@@ -236,6 +237,11 @@ class BatchNorm(HybridBlock):
         return super().cast(dtype)
 
     def hybrid_forward(self, F, x, gamma, beta, running_mean, running_var):
+        if isinstance(x, Symbol):
+            # a graph node: its executor picks the mode and, in training,
+            # updates the auxiliary moving statistics (symbol.run_node)
+            return F.BatchNorm(x, gamma, beta, running_mean, running_var,
+                               **self._kwargs)
         training = _ag.is_training() and not self._use_global_stats
         if not training:
             return F.BatchNorm(x, gamma, beta, running_mean, running_var,
@@ -372,8 +378,8 @@ class Embedding(HybridBlock):
                 grad_stype="row_sparse" if sparse_grad else "default")
 
     def hybrid_forward(self, F, x, weight):
-        if self._sparse_grad and torch.is_grad_enabled() \
-                and weight.requires_grad:
+        if self._sparse_grad and isinstance(weight, torch.Tensor) \
+                and torch.is_grad_enabled() and weight.requires_grad:
             # the eager tape: a compact row-sparse weight gradient
             from ...ops.indexing import sparse_embedding
 

@@ -112,6 +112,7 @@ class Parameter:
         self._grad_stype = grad_stype
         self.grad_req = grad_req
         self.init = init
+        self._var = None
 
     def __repr__(self):
         return f"Parameter {self.name} (shape={self.shape}, " \
@@ -124,9 +125,10 @@ class Parameter:
         new = self.__class__.__new__(self.__class__)
         memo[id(self)] = new
         for k, v in self.__dict__.items():
-            if k not in ("_tensor", "_nd", "_owners", "_deferred_init"):
+            if k not in ("_tensor", "_nd", "_owners", "_deferred_init",
+                         "_var"):
                 new.__dict__[k] = copy.deepcopy(v, memo)
-        new._tensor = new._nd = None
+        new._tensor = new._nd = new._var = None
         new._deferred_init = self._deferred_init
         new._owners = [(weakref.ref(memo[id(b)]), attr)
                        for b, attr in ((r(), a) for r, a in self._owners)
@@ -419,9 +421,21 @@ class Parameter:
             init, default_init, _, generator = self._deferred_init
             self._deferred_init = (init, default_init, ctx, generator)
 
+    def var(self):
+        """This parameter as a symbol Variable of its name (reference:
+        Parameter.var), made once."""
+        if self._var is None:
+            from .. import symbol
+
+            self._var = symbol.var(self.name, shape=self.shape,
+                                   dtype=self.dtype, lr_mult=self.lr_mult,
+                                   wd_mult=self.wd_mult, init=self.init)
+        return self._var
+
     def cast(self, dtype):
         """Cast to ``dtype``; a deferred parameter materialises in it."""
         self._dtype = np_dtype(dtype)
+        self._var = None
         if self._tensor is not None:
             self._bind(self._tensor.detach().to(torch_dtype(dtype)),
                        self._ctx)

@@ -69,9 +69,10 @@ class Optimizer:
             raise ValueError("param_idx2name should be a dict of param "
                              "indexes to names.")
         self.idx2name = param_idx2name.copy()
-        if sym is not None:
-            raise MXNetError("Optimizer(sym=...): the symbol API is not "
-                             "ported yet")
+        # a symbol's per-variable multipliers (``lr_mult``/``__lr_mult__``
+        # attributes, what ``AttrScope`` sets) feed lr_mult/wd_mult
+        self.sym_info = (sym.attr_dict(), sym.list_arguments()) \
+            if sym is not None else ()
         self.param_dict = param_dict if param_dict else {}
         self.set_lr_mult({})
         self.set_wd_mult({})
@@ -141,8 +142,28 @@ class Optimizer:
         else:
             self.update(index, weight, grad, state)
 
+    @staticmethod
+    def _sym_mult(attrs, key):
+        """A variable's multiplier attribute: the reference's dunder form
+        (``__lr_mult__``) or ``var(lr_mult=...)``'s plain key."""
+        if f"__{key}__" in attrs:
+            return float(attrs[f"__{key}__"])
+        if key in attrs:
+            return float(attrs[key])
+        return None
+
+    def _sym_mults(self, key):
+        out = {}
+        if self.sym_info:
+            attr, arg_names = self.sym_info
+            for name in arg_names:
+                m = self._sym_mult(attr.get(name, {}), key)
+                if m is not None:
+                    out[name] = m
+        return out
+
     def set_lr_mult(self, args_lr_mult):
-        self.lr_mult = {}
+        self.lr_mult = self._sym_mults("lr_mult")
         self.lr_mult.update(args_lr_mult)
 
     def set_wd_mult(self, args_wd_mult):
@@ -150,6 +171,7 @@ class Optimizer:
         for n in self.idx2name.values():
             if not n.endswith("_weight"):
                 self.wd_mult[n] = 0.0
+        self.wd_mult.update(self._sym_mults("wd_mult"))
         self.wd_mult.update(args_wd_mult)
 
     def _update_count(self, index):
