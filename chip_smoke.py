@@ -333,6 +333,29 @@ Phases; any failure raises, exits non-zero and prints no result line:
    the same net and batch; (d) BucketingModule over two sequence
    buckets (tests/test_symbol_module.py:476's), card against host, the
    buckets' weights one storage.
+22. Deploy and bindings: (a) ResNet-50 v1 (f32, 224x224, weights from a
+   seed) through contrib.quantization.quantize_net, calibrated on 10
+   batches of 32 in naive and then entropy mode (seconds each): the int8
+   SymbolBlock at B=64, the int32 accumulators of the stem, a 3x3, a 1x1
+   and the FC head bitwise card against host on the same int8 inputs, the
+   whole output card against host within the int8 net's own error against
+   the float net (every code into the head within one step), the error and
+   top-1
+   agreement against the float net (printed), ms a forward int8 / f32 /
+   bf16 and the quantize and dequantize share of one profiled forward;
+   (b) GPT-2 small f32 with flash attention, its FFN int8 (naive, one
+   batch of 8 x 1024): 12 flash forward launches a forward and no
+   backward one (the wrappers and a fenced trace), card against host at
+   B=1, T=1024, ms against the float forward; (c) the float ResNet-50 v1
+   through contrib.onnx.export_model and import_to_gluon on the card
+   against the block (bitwise expected), the file's bytes and seconds;
+   (d) the flat C API (csrc/c_api.cc) built with g++ on this host and
+   driven through ctypes: NDArrays, an op, autograd and the KVStore on
+   the card by default, and the predictor over ResNet-50's exported pair
+   equal to its SymbolBlock; (e) runtime.Features, storage.memory_info
+   against torch.cuda.mem_get_info, MXNET_TPU_MEM_FRACTION in a child
+   process, test_utils.check_consistency host against card on the
+   quantization ops and softmax.
 6. The kernel JSON line (f32 numbers at the training shape, and the
    bf16 ones under *_bf16 keys; the same at BERT's shape under
    ``at_bert_shape``, at ViT's under ``at_vit_shape`` and at
@@ -340,8 +363,9 @@ Phases; any failure raises, exits non-zero and prints no result line:
    (non-causal) and decoder (causal), with the forward's errors at
    TFM_DECODE_T; launches by path, [12]'s two training paths, [14]'s
    paths, [16]'s SSD path and zoo, [17]'s three paths, [18]'s autotune
-   and gang paths, [19]'s paths, [20]'s a rank a step and [21]'s
-   SymbolBlock forward and Executor step among them;
+   and gang paths, [19]'s paths, [20]'s a rank a step, [21]'s
+   SymbolBlock forward and Executor step and [22]'s int8 GPT-2 forward
+   among them;
    the errors on [20]'s ring and Ulysses inputs under
    ``at_ring_and_ulysses_inputs``), the nvidia-smi line, then the result
    line.
@@ -418,7 +442,7 @@ LOSS_RTOL = 1e-5
 # bench_resnet's configuration (bench.py:150-154, 2100-2184): B=256, 224x224,
 # bf16, SGD (lr 0.1, momentum 0.9, wd 1e-4), NCHW then NHWC; B=64 is
 # bench.py's own fallback should B=256 not fit.
-RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 256, 224, 10
+RESNET_BATCH, RESNET_IMAGE, RESNET_STEPS = 256, 224, 6
 RESNET_FALLBACK_BATCH = 64
 RESNET_SMALL = ([1, 1, 1, 1], [16, 32, 64, 128, 256])
 # Card against host, f32 (TF32 off): tests/test_parallel.py's tolerances.
@@ -4843,7 +4867,7 @@ SSD_STEPS = 20
 ZOO = (("alexnet", 224), ("vgg16_bn", 224), ("densenet121", 224),
        ("squeezenet1.1", 224), ("mobilenet1.0", 224),
        ("mobilenetv2_1.0", 224), ("inceptionv3", 299))
-ZOO_BATCH, ZOO_WARMUP, ZOO_STEPS = 32, 2, 5
+ZOO_BATCH, ZOO_WARMUP, ZOO_STEPS = 32, 2, 3
 ZOO_TOL = (2e-4, 2e-5)
 # (iv) the detection input path
 DET_REC_IMAGES = 96
@@ -5416,8 +5440,8 @@ def phase_detection(dev, card, rtc_kernels):
 PLANES_STEPS, PLANES_EVERY, PLANES_SIGTERM = 40, 10, 25
 PLANES_BATCHES = 48            # the loader's epoch: 48 batches of B=32
 PLANES_SEED = SEED + 170
-CKPT_REPS = 3                  # saves a median of ckpt_stall_us is over
-OVERHEAD_STEPS = 20            # captured steps a side of the overhead pair
+CKPT_REPS = 2                  # saves a median of ckpt_stall_us is over
+OVERHEAD_STEPS = 10            # captured steps a side of the overhead pair
 ATTEST_ROUNDS = 3
 RECORD_REPS = 2000             # host-only step records timed for their cost
 MFU_AGREE = 0.05               # step-record MFU against bench_bert's
@@ -6375,7 +6399,7 @@ def phase_gang(dev, card, rtc_kernels, bert_peak_gib):
     return launches, {"autotune": tune, "gang": gang}
 
 
-DIST_BATCH, DIST_SEQ, DIST_STEPS, DIST_TIMED = 32, 512, 3, 3
+DIST_BATCH, DIST_SEQ, DIST_STEPS, DIST_TIMED = 32, 512, 3, 1
 DIST_LOSS_TOL = (2e-4, 2e-5)
 DIST_PARAM_TOL = (2e-3, 2e-4)
 DIST_PROBED = ("all_reduce", "broadcast", "all_gather_into_tensor",
@@ -6639,7 +6663,7 @@ def phase_ring_kernels(dev):
     return results
 
 
-SPE_STEPS, SPE_TIMED, SPE_SYNCED = 3, 3, 2
+SPE_STEPS, SPE_TIMED, SPE_SYNCED = 3, 1, 1
 #: each rank's launches of each flash kernel a step: the ring's rank 0
 #: runs its diagonal block only (the causal skip), rank 1 both blocks;
 #: Ulysses one flash over the whole sequence a layer; a pipeline stage its
@@ -6764,7 +6788,7 @@ def phase_seq_pipe_expert(dev, card):
 
 # -- the symbolic path ([21]) -------------------------------------------------
 # (a) bench_resnet's widths; the timed batches of each variant
-SYM_BATCH, SYM_IMAGE, SYM_TIMED = 256, 224, 5
+SYM_BATCH, SYM_IMAGE, SYM_TIMED = 256, 224, 3
 # (c) card against host as [10](i): SGD (momentum 0.9, wd 1e-4) at lr 0.02,
 # 4 images of 64x64 a step, f64; then the timed f32 steps at B=64
 SYM_FIT_SHAPE, SYM_FIT_STEPS, SYM_FIT_LR = (4, 3, 64, 64), 2, 0.02
@@ -7182,6 +7206,641 @@ def phase_symbolic(dev, card, rtc_kernels):
     return launches, res
 
 
+# -- deploy and bindings ([22]) -----------------------------------------------
+# (a) MXNet's int8 ResNet-50 v1 example (example/quantization/
+# imagenet_gen_qsym*.py: calibration batches of 32, 10 of them, naive or
+# entropy); the quantized net run at B=64
+Q_CALIB_BATCH, Q_CALIB_BATCHES, Q_BATCH, Q_IMAGE = 32, 10, 64, 224
+Q_HOST_BATCH = 2      # images the host reruns for card-against-host checks
+Q_TIMED = 5           # forwards a CUDA-event timing
+# (b) GPT-2 small at its training shape, naive calibration on one batch;
+# the fenced traces a launch count may take (a trace can lose its start
+# late in a long process: one on an H100 lost its whole first fence, 64
+# records)
+Q_GPT_BATCH, Q_GPT_SEQ, Q_GPT_TIMED, Q_TRACES = 8, 1024, 3, 5
+# A whole int8 net card against host.  The int8 products are exact on both
+# devices; what differs is a float op upstream of a quantizer (BatchNorm,
+# pooling, LayerNorm, attention, an f32 GEMM) rounding its last bit
+# otherwise, which moves a code by one where the value sits on a rounding
+# edge, and a moved code moves the next layer's values by a fraction of a
+# step, so moves spread through the depth (on an H100, 185 of the 4096
+# codes into ResNet-50's FC head moved, each by one).  Two int8 evaluations
+# apart by such moves are each int8 noise away from the float net: the
+# bound is the int8 net's own relative L2 against the float net on the
+# same inputs, with every code into the head within one step.
+Q_HOST_CODE_STEP = 1
+# (d) the images a predictor call takes through the C API
+Q_CAPI_BATCH = 8
+#: the quantized ops and the ones whose int32 accumulators are held
+Q_OPS = ("_contrib_quantized_conv", "_contrib_quantized_fully_connected")
+
+
+def _q_nodes(sym):
+    """The graph's quantized op nodes, once each, in graph order."""
+    seen, out = set(), []
+    for n in sym._topo():
+        if n.op in Q_OPS and n.name not in seen:
+            seen.add(n.name)
+            out.append(n)
+    return out
+
+
+def _q_picks(sym):
+    """[22](a)'s held accumulators: the stem, the first 3x3 and the first
+    stride-1 1x1 convolution, the FC head."""
+    nodes = _q_nodes(sym)
+    convs = [n for n in nodes if n.op == Q_OPS[0]]
+
+    def k(n):
+        return tuple(n.attrs.get("kernel") or ())
+
+    def s(n):
+        st = n.attrs.get("stride") or 1
+        return tuple(st) if isinstance(st, (list, tuple)) else (st, st)
+
+    return {"stem 7x7/2": convs[0],
+            "3x3": next(n for n in convs if k(n) == (3, 3)),
+            "1x1": next(n for n in convs if k(n) == (1, 1)
+                        and s(n) == (1, 1)),
+            "fc head": next(n for n in nodes if n.op == Q_OPS[1])}
+
+
+def _q_eval(sym, env):
+    """The graph's output and every node's value, one walk, no grad."""
+    import torch
+
+    cache = {}
+    with torch.no_grad():
+        out = sym._eval_heads(env, cache)[0]
+    return out, cache
+
+
+def _q_share(qnet, x):
+    """[22](a) one int8 forward under torch.profiler, each quantize_v2 and
+    dequantize node in a range of its own: the device time of the kernels
+    each kind of range launched (a kernel goes to the range holding its
+    runtime call, found through its correlation id), of the GEMMs, and the
+    whole."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from mxnet_tpu_torch.ops import registry
+
+    saved = []
+    for name in ("_contrib_quantize_v2", "_contrib_dequantize"):
+        opdef = registry.get(name)
+
+        def ranged(*a, _fn=opdef.fn, _tag="q8:" + name, **k):
+            with record_function(_tag):
+                return _fn(*a, **k)
+
+        saved.append((opdef, opdef.fn))
+        opdef.fn = ranged
+    try:
+        with torch.no_grad():
+            qnet(x)
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                qnet(x)
+                torch.cuda.synchronize()
+    finally:
+        for opdef, fn in saved:
+            opdef.fn = fn
+    events = _trace_events(prof, "q8")
+    ranges = sorted((e["ts"], e["ts"] + e.get("dur", 0), e["name"][3:])
+                    for e in events if e.get("cat") == "user_annotation"
+                    and e.get("name", "").startswith("q8:"))
+    calls = {e["args"]["correlation"]: e["ts"] for e in events
+             if e.get("cat") == "cuda_runtime"
+             and "correlation" in e.get("args", {})}
+    us = {"_contrib_quantize_v2": 0.0, "_contrib_dequantize": 0.0,
+          "gemm": 0.0, "all": 0.0}
+    unplaced, by_name = 0, {}
+    for e in events:
+        if e.get("cat") != "kernel":
+            continue
+        dur = float(e.get("dur", 0))
+        us["all"] += dur
+        by_name[e["name"][:60]] = by_name.get(e["name"][:60], 0.0) + dur
+        t = calls.get(e.get("args", {}).get("correlation"))
+        if t is None:
+            unplaced += 1
+        kind = next((r[2] for r in ranges if t is not None
+                     and r[0] <= t <= r[1]), None)
+        if kind is not None:
+            us[kind] += dur
+        elif any(f in e["name"].lower() for f in ("gemm", "xmma",
+                                                  "cutlass", "imma")):
+            us["gemm"] += dur
+    if not us["all"] or len(ranges) < 2:
+        raise AssertionError("[22](a) the profile holds no kernels or no "
+                             "quantize ranges")
+    return {"quantize_share": us["_contrib_quantize_v2"] / us["all"],
+            "dequantize_share": us["_contrib_dequantize"] / us["all"],
+            "gemm_share": us["gemm"] / us["all"],
+            "kernel_ms": us["all"] / 1e3, "ranges": len(ranges),
+            "kernels_unplaced": unplaced,
+            "top_kernels_ms": [(n, round(v / 1e3, 3)) for n, v in sorted(
+                by_name.items(), key=lambda kv: -kv[1])[:8]]}
+
+
+def _q_resnet(dev, card):
+    """[22](a) ResNet-50 v1 int8 through quantize_net: calibration in
+    both modes, the int32 accumulators and the output card against host,
+    the error against the float net, ms a batch.  Returns the results and
+    the float net with its input and output for (c) and (d)."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import convert, initializer
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.contrib import quantization as qz
+    from mxnet_tpu_torch.gluon.model_zoo import vision
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+    from mxnet_tpu_torch.symbol.symbol import _pick, run_node
+
+    ctx = context_of(dev)
+    rng = np.random.RandomState(SEED + 220)
+    net = vision.resnet50_v1(classes=1000)
+    net.initialize(init=initializer.Xavier(), ctx=ctx,
+                   generator=torch.Generator(device=dev).manual_seed(SEED))
+    x = torch.as_tensor(rng.standard_normal(
+        (Q_BATCH, 3, Q_IMAGE, Q_IMAGE)).astype(np.float32), device=dev)
+    net._ensure_initialized(x[:1])
+    convert.load_gluon_params(net, _resnet_numpy(net, rng))
+    net.hybridize()
+    xb = NDArray(x, ctx)
+    with torch.no_grad():
+        ref = net(xb)._data
+    calib = [NDArray(torch.as_tensor(rng.standard_normal(
+        (Q_CALIB_BATCH, 3, Q_IMAGE, Q_IMAGE)).astype(np.float32),
+        device=dev), ctx) for _ in range(Q_CALIB_BATCHES)]
+    qnets, calib_s, vs_float = {}, {}, {}
+    for mode in ("naive", "entropy"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        qnets[mode] = qz.quantize_net(net, calib_data=calib, calib_mode=mode)
+        torch.cuda.synchronize()
+        calib_s[mode] = time.perf_counter() - t0
+        with torch.no_grad():
+            q = qnets[mode](xb)._data
+        if tuple(q.shape) != (Q_BATCH, 1000) or not bool(
+                torch.isfinite(q).all()):
+            raise AssertionError(f"[22](a) {mode}: output {tuple(q.shape)}"
+                                 " or not finite")
+        vs_float[mode] = {"rel_l2": _rel_l2(q, ref), "top1_agree": float(
+            (q.argmax(1) == ref.argmax(1)).double().mean())}
+    del calib
+    qn = qnets["naive"]
+    sym = qn._outputs_sym
+    params = {n: p._value() for n, p in qn.params.items()}
+    int8 = [n for n, t in params.items() if t.dtype == torch.int8]
+    weights = {n.inputs[1].name for n in _q_nodes(sym)}
+    if not weights <= set(int8) or any(params[n].device != dev
+                                       for n in int8):
+        raise AssertionError(f"[22](a) {len(int8)} int8 parameters for "
+                             f"{len(weights)} quantized weights")
+    # the int32 accumulators at B=64 on the card, the host's on the first
+    # images, both from the same int8 inputs
+    env = dict(params, data=x)
+    out, cache = _q_eval(sym, env)
+    acc = {}
+    for what, node in _q_picks(sym).items():
+        args = [_pick(i, cache[i.name]) for i in node.inputs]
+        host = [a.cpu() if isinstance(a, torch.Tensor) else a for a in args]
+        host[0] = host[0][:Q_HOST_BATCH]
+        with torch.no_grad():
+            h = run_node(node, host)[0]
+        c = _pick(node, cache[node.name])[:Q_HOST_BATCH].cpu()
+        acc[what] = {"bitwise": bool(torch.equal(c, h)),
+                     "shape": list(_pick(node, cache[node.name]).shape),
+                     "max_abs_acc": int(c.abs().max()),
+                     "dtype": str(c.dtype).replace("torch.", "")}
+    env_h = {n: t.cpu() for n, t in params.items()}
+    env_h["data"] = x[:Q_HOST_BATCH].cpu()
+    out_h, cache_h = _q_eval(sym, env_h)
+    fc = _q_picks(sym)["fc head"]
+    codes = [_pick(fc.inputs[0], v) for v in (cache[fc.inputs[0].name],
+                                               cache_h[fc.inputs[0].name])]
+    moved = (codes[0][:Q_HOST_BATCH].cpu().int() - codes[1].int()).abs()
+    host_err = _rel_l2(out[:Q_HOST_BATCH].cpu(), out_h)
+    bound = _rel_l2(out[:Q_HOST_BATCH], ref[:Q_HOST_BATCH])
+    with torch.no_grad():
+        ms = {"int8": cuda_ms(lambda: qn(xb), Q_TIMED, warmup=2),
+              "float32": cuda_ms(lambda: net(xb), Q_TIMED, warmup=2)}
+    share = _q_share(qn, xb)
+    log(f"  (a) resnet50_v1 int8 via quantize_net: calibration over "
+        f"{Q_CALIB_BATCHES} batches of {Q_CALIB_BATCH} "
+        f"{ {k: round(v, 3) for k, v in calib_s.items()} } s; "
+        f"{len(_q_nodes(sym))} quantized nodes, {len(int8)} int8 "
+        f"parameters on {dev}; against the float net at B={Q_BATCH}: "
+        f"{vs_float}")
+    log(f"  (a) int32 accumulators, card (B={Q_BATCH}) against host (its "
+        f"first {Q_HOST_BATCH} images) on the same int8 inputs: {acc}")
+    log(f"  (a) whole int8 output card against host: relative L2 "
+        f"{host_err:.3e} (bound: the int8 output's own relative L2 against "
+        f"the float net on these images, {bound:.3e}); FC input codes moved "
+        f"{int((moved > 0).sum())} of {moved.numel()}, by at most "
+        f"{int(moved.max())} (bound {Q_HOST_CODE_STEP})")
+    log(f"  (a) one int8 forward's profile: {share}")
+    if not all(a["bitwise"] for a in acc.values()) or host_err > bound \
+            or int(moved.max()) > Q_HOST_CODE_STEP or \
+            not bool(torch.isfinite(out).all()):
+        raise AssertionError("[22](a) the int8 ResNet-50 card against host")
+    res = {"calib_s": calib_s, "vs_float": vs_float, "accumulators": acc,
+           "host_rel_l2": host_err, "host_bound": bound,
+           "codes_moved": int((moved > 0).sum()), "ms": ms,
+           "profile": share}
+    del qnets, qn, params, env, cache, env_h, cache_h, out, out_h
+    torch.cuda.empty_cache()
+    return res, (net, xb, ref)
+
+
+def _q_gpt(dev, card, rtc_kernels):
+    """[22](b) GPT-2 small f32 with flash attention, int8 FFN: flash
+    launches a quantized forward, card against host at B=1, ms a
+    forward."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import initializer
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.contrib import quantization as qz
+    from mxnet_tpu_torch.gluon.model_zoo import gpt
+    from mxnet_tpu_torch.ndarray.ndarray import NDArray
+
+    ctx = context_of(dev)
+    net = gpt.gpt2_small(attention_impl="flash")
+    net.initialize(initializer.Xavier(),
+                   generator=torch.Generator(device=dev).manual_seed(
+                       SEED + 221), force_reinit=True)
+    rng = np.random.RandomState(SEED + 222)
+    ids = NDArray(torch.as_tensor(rng.randint(
+        0, net._vocab, (Q_GPT_BATCH, Q_GPT_SEQ)).astype(np.float32),
+        device=dev), ctx)
+    net.hybridize()
+    with torch.no_grad():
+        ref = net(ids)._data
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qg = qz.quantize_net(net, calib_data=[ids], calib_mode="naive")
+    torch.cuda.synchronize()
+    calib_s = time.perf_counter() - t0
+    nodes = _q_nodes(qg._outputs_sym)
+    # the main path: every count from 0, read right after
+    _zero_all(rtc_kernels)
+    with torch.no_grad():
+        q = qg(ids)._data
+    torch.cuda.synchronize()
+    launches = _launches(rtc_kernels)
+
+    def fwd():
+        with torch.no_grad():
+            qg(ids)
+
+    # a trace that lost a side holds no count (tools/trace_edges.py): such
+    # a trace is taken again, at most Q_TRACES times, and each loss logged
+    traced, lost = None, []
+    while traced is None and len(lost) < Q_TRACES:
+        try:
+            traced = _kernel_counts(fwd)
+        except AssertionError as e:
+            if "lost a side" not in str(e):
+                raise
+            lost.append(str(e))
+    if traced is None:
+        raise AssertionError(f"[22](b) every fenced trace lost a side: {lost}")
+    if tuple(q.shape) != tuple(ref.shape) or not bool(
+            torch.isfinite(q).all()):
+        raise AssertionError("[22](b) the int8 GPT-2's output")
+    vs_float = {"rel_l2": _rel_l2(q, ref), "next_token_agree": float(
+        (q.argmax(-1) == ref.argmax(-1)).double().mean())}
+    one = NDArray(ids._data[:1], ctx)
+    with torch.no_grad():
+        card1 = qg(one)._data
+        bound = _rel_l2(card1, net(one)._data)
+    env_h = {n: p._value().cpu() for n, p in qg.params.items()}
+    env_h["data"] = one._data.cpu()
+    host1, _ = _q_eval(qg._outputs_sym, env_h)
+    host_err = _rel_l2(card1.cpu(), host1)
+    ms = {"int8": cuda_ms(fwd, Q_GPT_TIMED, warmup=2)}
+    with torch.no_grad():
+        ms["float32"] = cuda_ms(lambda: net(ids), Q_GPT_TIMED, warmup=2)
+    want = dict.fromkeys(launches, 0)
+    want["flash_attention_fwd"] = 12
+    log(f"  (b) gpt2_small f32 flash, int8 through quantize_net (naive, one "
+        f"batch of {Q_GPT_BATCH} x {Q_GPT_SEQ}, {calib_s:.3f} s): "
+        f"{len(nodes)} quantized nodes ({sorted({n.op for n in nodes})}); "
+        f"a forward's launches by the wrappers {launches}, by a fenced "
+        f"trace {traced} (traces that lost a side first: {len(lost)} "
+        f"{lost}); against the float net {vs_float}; card against "
+        f"host at B=1, T={Q_GPT_SEQ}: relative L2 {host_err:.3e} (bound: "
+        f"the int8 output's own against the float net's, {bound:.3e}); ms a "
+        f"forward at B={Q_GPT_BATCH} "
+        f"{ {k: round(v, 3) for k, v in ms.items()} }  [{card}]")
+    if launches != want or traced != want or host_err > bound or \
+            not nodes:
+        raise AssertionError("[22](b) the int8 GPT-2 small forward")
+    res = {"calib_s": calib_s, "quantized_nodes": len(nodes),
+           "vs_float": vs_float, "host_rel_l2": host_err,
+           "host_bound": bound, "ms": ms,
+           "traced": traced, "traces_lost": len(lost)}
+    del net, qg, ids, ref, q, env_h
+    torch.cuda.empty_cache()
+    return launches, res
+
+
+def _q_onnx(dev, card, net, xb, ref, root):
+    """[22](c) the float ResNet-50 v1 through export_model and
+    import_to_gluon on the card."""
+    import torch
+
+    from mxnet_tpu_torch import symbol
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.contrib import onnx as onnx_mx
+
+    sym = symbol.trace_block(net)
+    params = {n: p.data() for n, p in net.collect_params().items()}
+    path = root / "resnet50_v1.onnx"
+    t0 = time.perf_counter()
+    onnx_mx.export_model(sym, params, [tuple(xb.shape)],
+                         onnx_file_path=str(path))
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sb = onnx_mx.import_to_gluon(str(path), ctx=context_of(dev))
+    torch.cuda.synchronize()
+    import_s = time.perf_counter() - t0
+    with torch.no_grad():
+        got = sb(xb)._data
+    same = bool(torch.equal(got, ref))
+    exc = _excess(got.double(), ref.double(), *RESNET_OUT_TOL)
+    res = {"bytes": path.stat().st_size, "export_s": export_s,
+           "import_s": import_s, "bitwise": same, "excess": exc,
+           "max_abs_err": float((got.double() - ref.double()).abs().max())}
+    log(f"  (c) resnet50_v1 f32 through ONNX (export_model, import_to_gluon "
+        f"on the card): {res} (bitwise expected: the imported graph runs "
+        f"the block's ops in its order; else excess over RESNET_OUT_TOL "
+        f"{RESNET_OUT_TOL}, <= 1 passes)")
+    if exc > 1 or not bool(torch.isfinite(got).all()):
+        raise AssertionError("[22](c) the ONNX round trip disagrees")
+    path.unlink()
+    return res
+
+
+def _q_capi(dev, card, net, xb, root):
+    """[22](d) the flat C API built on this host and driven through
+    ctypes: NDArrays, an op, autograd and the KVStore on the card by
+    default, then the predictor over ResNet-50's exported pair against
+    its SymbolBlock."""
+    import ctypes
+
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import _kernels, gluon
+    from mxnet_tpu_torch.context import context_of
+
+    t0 = time.perf_counter()
+    lib_path = _kernels.build_c_api()
+    build_s = time.perf_counter() - t0
+    lib = ctypes.CDLL(str(lib_path))
+    lib.MXGetLastError.restype = ctypes.c_char_p
+
+    def ok(rc, what):
+        if rc != 0:
+            raise AssertionError(f"[22](d) {what}: "
+                                 f"{lib.MXGetLastError().decode()}")
+
+    ok(lib.MXTPUInit(), "MXTPUInit")
+
+    def create(a):
+        a = np.ascontiguousarray(a)
+        h = ctypes.c_void_p()
+        ok(lib.MXNDArrayCreate(a.ctypes.data_as(ctypes.c_void_p), a.nbytes,
+                               (ctypes.c_int64 * a.ndim)(*a.shape), a.ndim,
+                               a.dtype.name.encode(), ctypes.byref(h)),
+           "MXNDArrayCreate")
+        return h
+
+    def read(h, shape):
+        out = np.empty(shape, np.float32)
+        ok(lib.MXNDArraySyncCopyToCPU(h, out.ctypes.data_as(ctypes.c_void_p),
+                                      out.nbytes), "MXNDArraySyncCopyToCPU")
+        return out
+
+    def invoke(name, hs):
+        outs = (ctypes.c_void_p * 4)()
+        n = ctypes.c_int(4)
+        ok(lib.MXImperativeInvoke(name.encode(), (ctypes.c_void_p * len(hs))(
+            *[h.value for h in hs]), len(hs), None, None, 0, outs,
+            ctypes.byref(n)), f"MXImperativeInvoke {name}")
+        return [ctypes.c_void_p(outs[i]) for i in range(n.value)]
+
+    def device_of(h):
+        return ctypes.cast(h, ctypes.py_object).value._data.device
+
+    x = np.linspace(-1, 1, 6, dtype=np.float32).reshape(2, 3)
+    h = create(x)
+    (s,) = invoke("sin", [h])
+    ok(lib.MXAutogradAttachGrad(h), "MXAutogradAttachGrad")
+    ok(lib.MXAutogradRecordStart(), "MXAutogradRecordStart")
+    (sq,) = invoke("square", [h])
+    (loss,) = invoke("sum", [sq])
+    ok(lib.MXAutogradRecordStop(), "MXAutogradRecordStop")
+    ok(lib.MXAutogradBackward(loss), "MXAutogradBackward")
+    g = ctypes.c_void_p()
+    ok(lib.MXNDArrayGetGrad(h, ctypes.byref(g)), "MXNDArrayGetGrad")
+    kv = ctypes.c_int()
+    ok(lib.MXKVStoreCreate(b"local", ctypes.byref(kv)), "MXKVStoreCreate")
+    ok(lib.MXKVStoreInit(kv, 3, h), "MXKVStoreInit")
+    h2 = create(2 * x)
+    ok(lib.MXKVStorePush(kv, 3, h2), "MXKVStorePush")
+    pulled = ctypes.c_void_p()
+    ok(lib.MXKVStorePull(kv, 3, ctypes.byref(pulled)), "MXKVStorePull")
+    devices = {str(device_of(a)) for a in (h, s, g, pulled)}
+    helpers = {
+        "sin": float(np.abs(read(s, (2, 3)) - np.sin(x)).max()),
+        "grad": float(np.abs(read(g, (2, 3)) - 2 * x).max()),
+        "kv_pull": float(np.abs(read(pulled, (2, 3)) - 2 * x).max()),
+        "devices": sorted(devices)}
+    ok(lib.MXKVStoreFree(kv), "MXKVStoreFree")
+    for a in (h, s, sq, loss, g, h2, pulled):
+        ok(lib.MXNDArrayFree(a), "MXNDArrayFree")
+    # the predictor over the exported pair, on card 0 (dev_type 2)
+    prefix = root / "r50"
+    net.export(str(prefix))
+    sb = gluon.SymbolBlock.imports(f"{prefix}-symbol.json", ["data"],
+                                   f"{prefix}-0000.params",
+                                   ctx=context_of(dev))
+    x8 = xb[:Q_CAPI_BATCH]
+    with torch.no_grad():
+        want = sb(x8)._data.cpu().numpy()
+    sym_json = (root / "r50-symbol.json").read_text()
+    param_bytes = (root / "r50-0000.params").read_bytes()
+    ph = ctypes.c_void_p()
+    t0 = time.perf_counter()
+    dev_type = 2 if dev.type == "cuda" else 1
+    ok(lib.MXPredCreate(sym_json.encode(), param_bytes, len(param_bytes),
+                        dev_type, dev.index or 0, 1,
+                        (ctypes.c_char_p * 1)(b"data"), ctypes.byref(ph)),
+       "MXPredCreate")
+    data = np.ascontiguousarray(x8.asnumpy(), np.float32)
+    ok(lib.MXPredSetInput(ph, b"data", data.ctypes.data_as(
+        ctypes.POINTER(ctypes.c_float)), (ctypes.c_int64 * 4)(*data.shape),
+        4), "MXPredSetInput")
+    ok(lib.MXPredForward(ph), "MXPredForward")
+    ndim = ctypes.c_int()
+    shape = (ctypes.c_int64 * 8)()
+    ok(lib.MXPredGetOutputShape(ph, 0, ctypes.byref(ndim), shape),
+       "MXPredGetOutputShape")
+    shp = tuple(shape[i] for i in range(ndim.value))
+    got = np.empty(shp, np.float32)
+    ok(lib.MXPredGetOutput(ph, 0, got.ctypes.data_as(
+        ctypes.POINTER(ctypes.c_float)), got.size), "MXPredGetOutput")
+    pred_s = time.perf_counter() - t0
+    ok(lib.MXPredFree(ph), "MXPredFree")
+    same = bool(np.array_equal(got, want))
+    res = {"library": str(lib_path.relative_to(lib_path.parents[3])),
+           "build_s": build_s, "helpers": helpers, "predict_shape": shp,
+           "predict_bitwise": same, "predict_s": pred_s}
+    log(f"  (d) the flat C API (libmxtpu.so, g++ with python3-config "
+        f"--embed) through ctypes: {res}")
+    if helpers["devices"] != [str(dev)] or max(
+            helpers[k] for k in ("sin", "grad", "kv_pull")) > 1e-6 or \
+            shp != want.shape or not same:
+        raise AssertionError("[22](d) the C API on the card")
+    for f in root.glob("r50*"):
+        f.unlink()
+    return res
+
+
+STORAGE_CHILD = r"""
+import json, os
+os.environ["MXNET_TPU_MEM_FRACTION"] = "0.25"
+import mxnet_tpu_torch, torch
+from mxnet_tpu_torch import storage
+at_import = torch.cuda.is_initialized()
+total = torch.cuda.mem_get_info(0)[1]
+try:
+    torch.empty(int(total * 0.4), dtype=torch.uint8, device="cuda")
+    refused = False
+except torch.cuda.OutOfMemoryError:
+    refused = True
+small = torch.empty(int(total * 0.1), dtype=torch.uint8, device="cuda")
+print(json.dumps({"cuda_at_import": at_import, "settings": storage.settings(),
+                  "refused_0.4": refused, "took_0.1": small.numel() > 0}))
+"""
+
+
+def _q_runtime(dev, card):
+    """[22](e) Features, memory_info against torch.cuda.mem_get_info, the
+    memory fraction knob in a child process, and check_consistency host
+    against card on the quantization ops and a float op."""
+    import numpy as np
+    import torch
+
+    from mxnet_tpu_torch import _kernels, runtime, storage, test_utils
+    from mxnet_tpu_torch.context import context_of
+    from mxnet_tpu_torch.ops import nn
+    from mxnet_tpu_torch.ops import quantization as q
+
+    for name in _kernels.SOURCES:       # loaded at first use: load all
+        _kernels.load(name)
+    feats = runtime.Features()
+    on = sorted(k for k, f in feats.items() if f.enabled)
+    need = {"CUDA", "CUDNN", "PALLAS"}
+    torch.cuda.synchronize()
+    mine = storage.memory_info(context_of(dev))
+    theirs = torch.cuda.mem_get_info(dev)
+    env = dict(os.environ, PYTHONPATH=str(Path(__file__).resolve().parent))
+    child = subprocess.run([sys.executable, "-c", STORAGE_CHILD], env=env,
+                           capture_output=True, text=True, timeout=300)
+    if child.returncode != 0:
+        raise AssertionError(f"[22](e) the storage child: {child.stderr}")
+    knob = json.loads(child.stdout.strip().splitlines()[-1])
+    rs = np.random.RandomState(SEED + 223)
+    x = rs.standard_normal((64, 256)).astype(np.float32)
+    a8 = rs.randint(-127, 128, (40, 147)).astype(np.int8)
+    w8 = rs.randint(-127, 128, (1000, 147)).astype(np.int8)
+    b8 = rs.randint(-127, 128, (1000,)).astype(np.int8)
+    c8 = rs.randint(-127, 128, (2, 64, 56, 56)).astype(np.int8)
+    k8 = rs.randint(-127, 128, (64, 64, 3, 3)).astype(np.int8)
+    acc = rs.randint(-2 ** 30, 2 ** 30, (64, 512)).astype(np.int32)
+    lim = (-0.75, 0.75, -0.02, 0.02, -0.3, 0.3)
+    cases = {
+        "quantize_v2": (lambda t: q.quantize_v2(t), [x], 0),
+        "quantized_fully_connected": (
+            lambda a, w, b: q.quantized_fully_connected(a, w, b, *lim),
+            [a8, w8, b8], 0),
+        "quantized_conv 3x3": (
+            lambda d, w: q.quantized_conv(d, w, None, *lim[:4], pad=(1, 1),
+                                          no_bias=True), [c8, k8], 0),
+        "quantized_conv 1x1/2": (
+            lambda d, w: q.quantized_conv(d, w[:, :, :1, :1], None,
+                                          *lim[:4], stride=(2, 2),
+                                          no_bias=True), [c8, k8], 0),
+        "dequantize": (lambda t: q.dequantize(t, -3.5, 3.5), [acc], 0),
+        "requantize": (lambda t: q.requantize(t, -3.5, 3.5), [acc], 0),
+        "softmax": (lambda t: nn.softmax(t), [x], 1e-5),
+    }
+    consistent = {}
+    for name, (fn, ins, tol) in cases.items():
+        got = test_utils.check_consistency(fn, ins, backends=("cpu", "gpu"),
+                                           rtol=tol, atol=0)
+        if [b for b, _ in got] != ["cpu", "gpu"]:
+            raise AssertionError(f"[22](e) {name} ran on {got}")
+        consistent[name] = "bitwise" if tol == 0 else f"rtol {tol}"
+    res = {"features_on": on, "memory_info": mine,
+           "mem_get_info": list(theirs), "summary": storage.memory_summary(
+               context_of(dev)), "fraction_child": knob,
+           "consistent": consistent}
+    log(f"  (e) runtime.Features on: {on}; storage: {res['summary']}, "
+        f"memory_info {mine} against torch.cuda.mem_get_info "
+        f"{tuple(theirs)}; MXNET_TPU_MEM_FRACTION=0.25 in a child: {knob}; "
+        f"check_consistency cpu against gpu: {consistent}")
+    if not need <= set(on) or {"TPU", "XLA"} & set(on) or \
+            mine[1] != theirs[1] or abs(mine[0] - theirs[0]) > 2 << 20 or \
+            knob["cuda_at_import"] or not knob["refused_0.4"] or \
+            not knob["took_0.1"]:
+        raise AssertionError("[22](e) runtime or storage on the card")
+    return res
+
+
+def phase_deploy(dev, card, rtc_kernels):
+    """[22] deploy and bindings: (a) int8 ResNet-50 v1, (b) int8 GPT-2
+    small on the flash kernels, (c) the ONNX round trip, (d) the C API,
+    (e) runtime, storage, test_utils.  Returns ({path: launches}, the
+    results)."""
+    import shutil
+
+    import torch
+
+    root = Path(__file__).resolve().parent / "build" / "deploy"
+    root.mkdir(parents=True, exist_ok=True)
+    res = {}
+    try:
+        # (b) first: its fenced trace before (a)'s profiler session
+        gpt_launches, res["gpt"] = _q_gpt(dev, card, rtc_kernels)
+        res["resnet"], (net, xb, ref) = _q_resnet(dev, card)
+        res["onnx"] = _q_onnx(dev, card, net, xb, ref, root)
+        res["c_api"] = _q_capi(dev, card, net, xb, root)
+        net.cast("bfloat16")
+        xh = xb.astype("bfloat16")
+        with torch.no_grad():
+            res["resnet"]["ms"]["bfloat16"] = cuda_ms(lambda: net(xh),
+                                                      Q_TIMED, warmup=2)
+        log(f"  (a) ms a forward at B={Q_BATCH}, CUDA events: "
+            f"{ {k: round(v, 3) for k, v in res['resnet']['ms'].items()} }"
+            f"  [{card}]")
+        del net, xb, xh, ref
+        torch.cuda.empty_cache()
+        res["runtime"] = _q_runtime(dev, card)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"int8_gpt2_small_forward": gpt_launches}, res
+
+
 def main():
     import torch
 
@@ -7400,6 +8059,16 @@ def main():
         "and timed beside gluon.Trainer; (d) BucketingModule")
     sym_launches, sym_res = phase_symbolic(dev, card, (s2, ax))
     gluon_launches.update(sym_launches)
+
+    mark("22")
+    log("[22] deploy and bindings: (a) ResNet-50 v1 int8 through "
+        "quantize_net (naive and entropy calibration), its int32 "
+        "accumulators and output card against host, ms beside f32 and bf16; "
+        "(b) GPT-2 small int8 on the flash kernels; (c) ResNet-50 through "
+        "ONNX; (d) the flat C API built here, its predictor; (e) Features, "
+        "memory_info, check_consistency")
+    deploy_launches, deploy_res = phase_deploy(dev, card, (s2, ax))
+    gluon_launches.update(deploy_launches)
     mark("end")
     log("    phase seconds: " + json.dumps(
         {a: round(tb - ta, 1) for (a, ta), (_b, tb) in zip(marks,
@@ -7577,6 +8246,12 @@ def main():
         f"{sym_res['module']['module']['ms_per_step']:.2f} ms a step, "
         f"gluon.Trainer eager "
         f"{sym_res['module']['gluon_eager']['ms_per_step']:.2f} ms; "
+        f"int8 ResNet-50 B={Q_BATCH} "
+        f"{deploy_res['resnet']['ms']['int8']:.2f} ms a forward (f32 "
+        f"{deploy_res['resnet']['ms']['float32']:.2f}, bf16 "
+        f"{deploy_res['resnet']['ms']['bfloat16']:.2f}), int8 GPT-2 small "
+        f"{deploy_res['gpt']['ms']['int8']:.2f} ms (f32 "
+        f"{deploy_res['gpt']['ms']['float32']:.2f}); "
         f"forward O max abs err at BERT's "
         f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")

@@ -9,6 +9,11 @@ the checkout only, into ``build/kernels/`` beside the package (listed in
 every header in ``csrc/`` and of the flags, so an edited source or header
 is rebuilt and a stale library is never loaded.
 
+The flat C API's library (``csrc/c_api.cc``, host code that embeds
+CPython) is built here too, by ``build_c_api()`` with ``g++`` and
+``python3-config`` as ``src/Makefile`` builds the JAX package's, into
+``build/capi/``.
+
 Nothing here runs at import: the CPU test host has no ``nvcc``.
 """
 
@@ -130,3 +135,76 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
             lib = _LIBS[name] = ctypes.CDLL(str(_lib_path(name)))
         return lib
+
+
+# -- the flat C API (host code, no CUDA) ---------------------------------------
+
+#: the C API's sources, relative to the package
+C_API_SOURCES = ("csrc/c_api.cc", "csrc/mxtpu_c_api.h")
+CXX_FLAGS = ("-O2", "-std=c++17", "-fPIC", "-Wall", "-pthread", "-shared")
+
+
+def _python_flags() -> tuple[list[str], list[str]]:
+    """(include flags, link flags) for embedding this interpreter, from
+    its ``python3-config`` (``--includes``; ``--ldflags --embed``, or
+    ``--ldflags`` and ``-lpythonX.Y`` where ``--embed`` is missing), as
+    ``src/Makefile`` takes them."""
+    import sys
+
+    ver = "%d.%d" % sys.version_info[:2]
+    candidates = [Path(sys.executable).with_name(f"python{ver}-config"),
+                  Path(sys.executable).with_name("python3-config")]
+    tool = next((str(c) for c in candidates if c.exists()), None) or \
+        shutil.which(f"python{ver}-config") or shutil.which("python3-config")
+    if tool is None:
+        raise MXNetError("python3-config not found: the C API embeds "
+                         "CPython and needs its headers and link flags")
+    inc = subprocess.run([tool, "--includes"], capture_output=True,
+                         text=True, check=True).stdout.split()
+    emb = subprocess.run([tool, "--ldflags", "--embed"], capture_output=True,
+                         text=True)
+    if emb.returncode == 0 and emb.stdout.strip():
+        ld = emb.stdout.split()
+    else:
+        ld = subprocess.run([tool, "--ldflags"], capture_output=True,
+                            text=True, check=True).stdout.split()
+        ld.append(f"-lpython{ver}")
+    return inc, ld
+
+
+def c_api_path() -> Path:
+    """Where the C API library of these sources and flags lives:
+    ``build/capi/<hash>/libmxtpu.so`` (a directory of its own, so a
+    program links it with ``-L<dir> -lmxtpu``)."""
+    digest = hashlib.sha256()
+    for src in C_API_SOURCES:
+        digest.update(src.encode() + (PACKAGE_DIR / src).read_bytes())
+    digest.update(" ".join(CXX_FLAGS).encode())
+    return BUILD_DIR.parent / "capi" / digest.hexdigest()[:12] / "libmxtpu.so"
+
+
+def build_c_api() -> Path:
+    """Compile ``csrc/c_api.cc`` into ``libmxtpu.so`` with ``g++`` unless
+    it is built already; returns its path (its directory also serves
+    ``-I`` for ``mxtpu_c_api.h`` beside the source).  Raises MXNetError
+    with the compiler's output on a failure."""
+    out = c_api_path()
+    with _LOCK:
+        if out.exists():
+            return out
+        cxx = os.environ.get("CXX") or shutil.which("g++")
+        if cxx is None:
+            raise MXNetError("g++ not found: the C API builds with a C++ "
+                             "compiler")
+        inc, ld = _python_flags()
+        out.parent.mkdir(parents=True, exist_ok=True)
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [cxx, *CXX_FLAGS, *inc, "-o", str(tmp),
+               str(PACKAGE_DIR / C_API_SOURCES[0]), *ld]
+        res = subprocess.run(cmd, capture_output=True, text=True)
+        if res.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise MXNetError("C API build failed:\n" + " ".join(cmd) + "\n"
+                             + res.stdout + res.stderr)
+        os.replace(tmp, out)
+    return out

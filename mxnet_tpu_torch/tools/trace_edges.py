@@ -33,6 +33,12 @@ import torch
 #: a 16-kernel fence and 6 of the work's, every time
 FENCE_KERNELS, FENCE_CYCLES = 64, 2_000_000
 
+#: one long sleep kernel (~100 ms) before the opening fence: late in the
+#: whole chip_smoke.py on the H100 a trace lost its entire 64-kernel opening
+#: fence, so the fence starts after a stretch of device time a trace may
+#: lose
+LEAD_CYCLES = 200_000_000
+
 #: the name of ``torch.cuda._sleep``'s kernel in a trace
 FENCE_NAME = "spin_kernel"
 
@@ -59,6 +65,7 @@ def _trace(fn, fenced):
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         if fenced:
+            torch.cuda._sleep(LEAD_CYCLES)
             fence()
         fn()
         torch.cuda.synchronize()
@@ -78,7 +85,7 @@ def kernel_records(fn):
         raise AssertionError(
             f"torch.profiler's trace lost a side of the traced work: "
             f"{len(events)} device records, {sum(is_fence)} of "
-            f"{2 * FENCE_KERNELS} fence records, first a fence "
+            f"{2 * FENCE_KERNELS + 1} fence records, first a fence "
             f"{bool(events) and is_fence[0]}, last a fence "
             f"{bool(events) and is_fence[-1]}")
     return [e for e, f in zip(events, is_fence) if not f]

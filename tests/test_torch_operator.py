@@ -44,7 +44,7 @@ PORTED = {"mxnet_tpu.ops.elemwise", "mxnet_tpu.ops.reduce",
           "mxnet_tpu.ops.ctc", "mxnet_tpu.ops.linalg",
           "mxnet_tpu.ops.legacy_output", "mxnet_tpu.ops.rnn",
           "mxnet_tpu.ops.contrib_det", "mxnet_tpu.ops.vision_extra",
-          "mxnet_tpu.ops.moe"}
+          "mxnet_tpu.ops.moe", "mxnet_tpu.ops.quantization"}
 RANDOM = "mxnet_tpu.ops.random_ops"
 
 #: canonical JAX ops of the ported families the port leaves out, by reason

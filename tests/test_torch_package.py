@@ -24,7 +24,8 @@ import mxnet_tpu_torch
 for m in pkgutil.walk_packages(mxnet_tpu_torch.__path__, "mxnet_tpu_torch."):
     importlib.import_module(m.name)
 bad = sorted(n for n in sys.modules
-             if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu"))
+             if n.split(".")[0] in ("jax", "jaxlib", "mxnet_tpu")
+             or n.startswith("google.protobuf"))
 print("IMPORTED", len([n for n in sys.modules
                        if n.startswith("mxnet_tpu_torch")]))
 print("MODULES", " ".join(sorted(n for n in sys.modules
@@ -162,6 +163,19 @@ MULTIGPU_MODULES = ("mxnet_tpu_torch.gradient_compression",
                     "mxnet_tpu_torch.tools.dist_bert")
 
 
+#: modules the deploy and bindings slice added; each must be walked and
+#: clean
+DEPLOY_MODULES = ("mxnet_tpu_torch.ops.quantization",
+                  "mxnet_tpu_torch.contrib",
+                  "mxnet_tpu_torch.contrib.quantization",
+                  "mxnet_tpu_torch.contrib.onnx",
+                  "mxnet_tpu_torch.contrib.onnx.onnx_minimal",
+                  "mxnet_tpu_torch.contrib.onnx.mx2onnx",
+                  "mxnet_tpu_torch.contrib.onnx.onnx2mx",
+                  "mxnet_tpu_torch.test_utils", "mxnet_tpu_torch.runtime",
+                  "mxnet_tpu_torch.storage", "mxnet_tpu_torch.c_api_impl")
+
+
 def test_port_imports_no_jax_and_no_jax_package():
     env = dict(os.environ, PYTHONPATH=str(ROOT))
     res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
@@ -182,6 +196,7 @@ def test_port_imports_no_jax_and_no_jax_package():
     assert set(DETECTION_MODULES) <= walked, sorted(walked)
     assert set(PLANES_MODULES) <= walked, sorted(walked)
     assert set(MULTIGPU_MODULES) <= walked, sorted(walked)
+    assert set(DEPLOY_MODULES) <= walked, sorted(walked)
 
 
 def _imported_roots(path):

@@ -605,18 +605,7 @@ def test_monitor_stats_match_jax():
 # -- public names -------------------------------------------------------------
 
 #: JAX names with no counterpart in the port, and why
-LEFT_OUT = {
-    "symbol": {n: "quantization ops: ROADMAP queue 1 item 3, second half"
-               for n in ("dequantize", "quantize", "quantize_v2",
-                         "quantized_conv", "quantized_fully_connected",
-                         "requantize")},
-    "symbol.contrib": {n: "quantization ops: ROADMAP queue 1 item 3, "
-                       "second half"
-                       for n in ("dequantize", "quantize", "quantize_v2",
-                                 "quantized_conv",
-                                 "quantized_fully_connected",
-                                 "requantize")},
-}
+LEFT_OUT = {}
 
 
 @pytest.mark.parametrize("module", ["symbol", "symbol.contrib",

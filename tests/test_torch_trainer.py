@@ -599,3 +599,19 @@ def test_public_names_of_ported_modules(tmp_path, monkeypatch):
         else:
             monkeypatch.setenv("MXTPU_REMAT", value)
         assert tremat.env_policy() == jremat.env_policy(), value
+    # the deploy and bindings modules: every function and class the JAX
+    # module (or package) defines has a counterpart of the same name in
+    # the port's
+    import importlib
+
+    for module in ("test_utils", "runtime", "storage", "c_api_impl",
+                   "contrib", "contrib.quantization", "contrib.onnx",
+                   "contrib.onnx.mx2onnx", "contrib.onnx.onnx2mx",
+                   "ops.quantization"):
+        jm = importlib.import_module(f"mxnet_tpu.{module}")
+        tm = importlib.import_module(f"mxnet_tpu_torch.{module}")
+        names = {n for n in dir(jm) if not n.startswith("_") and getattr(
+            getattr(jm, n), "__module__", "").startswith(jm.__name__)}
+        assert names or module == "contrib", module
+        missing = sorted(n for n in names if not hasattr(tm, n))
+        assert not missing, (module, missing)
