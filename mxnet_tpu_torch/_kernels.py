@@ -172,14 +172,25 @@ def _python_flags() -> tuple[list[str], list[str]]:
     return inc, ld
 
 
+def _cxx() -> str | None:
+    return os.environ.get("CXX") or shutil.which("g++")
+
+
 def c_api_path() -> Path:
     """Where the C API library of these sources and flags lives:
     ``build/capi/<hash>/libmxtpu.so`` (a directory of its own, so a
-    program links it with ``-L<dir> -lmxtpu``)."""
+    program links it with ``-L<dir> -lmxtpu``).  The hash covers the
+    sources, the flags, the compiler's path, the interpreter's version and
+    its ``python3-config`` flags, so a library linked against another
+    libpython is never found under this path."""
+    import sys
+
     digest = hashlib.sha256()
     for src in C_API_SOURCES:
         digest.update(src.encode() + (PACKAGE_DIR / src).read_bytes())
-    digest.update(" ".join(CXX_FLAGS).encode())
+    inc, ld = _python_flags()
+    for part in (CXX_FLAGS, inc, ld, [str(_cxx()), sys.version]):
+        digest.update(("\0".join(part) + "\n").encode())
     return BUILD_DIR.parent / "capi" / digest.hexdigest()[:12] / "libmxtpu.so"
 
 
@@ -192,7 +203,7 @@ def build_c_api() -> Path:
     with _LOCK:
         if out.exists():
             return out
-        cxx = os.environ.get("CXX") or shutil.which("g++")
+        cxx = _cxx()
         if cxx is None:
             raise MXNetError("g++ not found: the C API builds with a C++ "
                              "compiler")

@@ -170,7 +170,9 @@ def run(rank, world, addr, out, steps=28, snap_every=4, batch=32,
             from ..tools.trace_edges import kernel_records
 
             box = []
-            events = kernel_records(lambda: box.append(one()))
+            # one trace: a second would run the step again and move this
+            # rank's state off the run its recovery replays
+            events = kernel_records(lambda: box.append(one()), attempts=1)
             loss = box[0]
             for name in ("flash_fwd", "flash_dq", "flash_dkv"):
                 kernels[name] = sum(1 for e in events

@@ -292,3 +292,51 @@ def test_kernel_library_name_follows_its_headers(tmp_path, monkeypatch):
         before["flash_attention_fwd"]
     assert _kernels._lib_path("flash_attention_bwd") == \
         before["flash_attention_bwd"]
+
+
+def test_c_api_library_name_follows_its_interpreter(monkeypatch):
+    """The C API library's path hashes the interpreter's python3-config
+    flags and the compiler, so a library linked against another libpython
+    is not loaded from it."""
+    from mxnet_tpu_torch import _kernels
+
+    monkeypatch.setattr(_kernels, "_python_flags",
+                        lambda: (["-I/a/include/python3.12"],
+                                 ["-lpython3.12"]))
+    base = _kernels.c_api_path()
+    assert _kernels.c_api_path() == base
+    monkeypatch.setattr(_kernels, "_python_flags",
+                        lambda: (["-I/b/include/python3.12"],
+                                 ["-lpython3.12"]))
+    assert _kernels.c_api_path() != base
+    monkeypatch.setattr(_kernels, "_python_flags",
+                        lambda: (["-I/a/include/python3.12"],
+                                 ["-lpython3.12"]))
+    monkeypatch.setenv("CXX", "clang++")
+    assert _kernels.c_api_path() != base
+
+
+def test_fenced_trace_taken_again_after_a_lost_side(monkeypatch):
+    """kernel_records takes a trace again when one lost a fence side,
+    runs the traced work once a trace, and raises when every trace lost
+    one."""
+    from types import SimpleNamespace
+
+    from mxnet_tpu_torch.tools import trace_edges
+
+    fence = SimpleNamespace(name=trace_edges.FENCE_NAME)
+    work = SimpleNamespace(name="flash_fwd_kernel")
+    traces = [[work, fence], [fence, work, fence]]
+    ran = []
+
+    def fake_trace(fn, fenced):
+        fn()
+        return traces.pop(0)
+
+    monkeypatch.setattr(trace_edges, "_trace", fake_trace)
+    assert trace_edges.kernel_records(lambda: ran.append(1)) == [work]
+    assert len(ran) == 2
+    traces[:] = [[work, fence]] * 3
+    with pytest.raises(AssertionError, match="3 times"):
+        trace_edges.kernel_records(lambda: ran.append(1), attempts=3)
+    assert len(ran) == 5

@@ -42,7 +42,8 @@ tq = importlib.import_module("mxnet_tpu_torch.ops.quantization")
 QNET_TOL = 1e-3
 #: calibration ranges at points whose float inputs the two packages compute
 #: in other summation orders: a few f32 ulps (the max of an activation one
-#: ulp apart, the KL threshold over a histogram of range that max)
+#: ulp apart, the KL threshold over a histogram of range that max);
+#: ``python tests/test_torch_quantization.py`` prints them a point
 RANGE_RTOL = 1e-6
 
 
@@ -262,6 +263,14 @@ def _ranges(sym, fed=None):
             if fed is None or (n.inputs[0].op is None) == fed]
 
 
+def _range_ulps(tsym, jsym):
+    """At each point not fed by a graph input, the f32 ulps between the
+    two packages' calibrated ranges (the larger of min's and max's)."""
+    t, j = (np.array(_ranges(s, fed=False), np.float32).view(np.int32)
+            .astype(np.int64) for s in (tsym, jsym))
+    return np.abs(t - j).max(axis=1).tolist()
+
+
 def _int8_params(block):
     return [p.data().asnumpy() for p in block.collect_params().values()
             if np.dtype(p.data().dtype) == np.int8]
@@ -311,12 +320,16 @@ def conv_nets():
     return _twins(_small_net, x, 3) + (x, calib)
 
 
-@pytest.fixture(scope="module")
-def resnet18_nets():
+def _resnet18_case():
     rs = np.random.RandomState(1)
     x = rs.randn(2, 3, 32, 32).astype(np.float32)
     calib = [rs.randn(2, 3, 32, 32).astype(np.float32) for _ in range(2)]
     return _twins(_resnet18, x, 4) + (x, calib)
+
+
+@pytest.fixture(scope="module")
+def resnet18_nets():
+    return _resnet18_case()
 
 
 def _quantize_both(tnet, jnet, calib, mode):
@@ -352,12 +365,16 @@ def test_quantize_net_resnet18(resnet18_nets):
     _hold(tqn, jqn, x, _jit_forward(jqn), float_bitwise=False)
 
 
-@pytest.fixture(scope="module")
-def gpt_nets():
+def _gpt_case():
     ids = np.random.RandomState(0).randint(0, 128, (4, 16)) \
         .astype(np.float32)
     return _twins(_gpt, ids, 5, port_kw={"attention_impl": "flash",
                                          "device": cpu()}) + (ids,)
+
+
+@pytest.fixture(scope="module")
+def gpt_nets():
+    return _gpt_case()
 
 
 @pytest.mark.parametrize("mode", ["naive", "entropy"])
@@ -438,3 +455,18 @@ def test_quantize_block_and_collector():
     jc = jqz.CalibrationCollector("percentile")
     tc = tqz.CalibrationCollector("percentile")
     assert tc.collect("x", torch.from_numpy(a)) == jc.collect("x", a)
+
+
+if __name__ == "__main__":
+    # the f32 ulps between the packages' ranges at the points RANGE_RTOL
+    # holds, the cases of the two tests above that hold them so; run with
+    # JAX_PLATFORMS=cpu and the repository root on PYTHONPATH
+    tnet, jnet, x, calib = _resnet18_case()
+    tqn, jqn = _quantize_both(tnet, jnet, calib, "naive")
+    print("resnet18_v1 32x32 naive",
+          _range_ulps(tqn._outputs_sym, jqn._outputs_sym))
+    tnet, jnet, ids = _gpt_case()
+    for mode in ("naive", "entropy"):
+        tqn, jqn = _quantize_both(tnet, jnet, [ids], mode)
+        print("gpt_tiny", mode, _range_ulps(tqn._outputs_sym,
+                                            jqn._outputs_sym))
