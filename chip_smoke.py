@@ -2112,7 +2112,7 @@ def _kernel_counts(step, steps=1):
     graph's replay launches kernels no wrapper sees) in a trace that
     fences show held the steps whole: a trace can drop its first records,
     a replay's first kernels among them (``tools/trace_edges.py``)."""
-    from mxnet_tpu_torch.tools.trace_edges import kernel_records
+    from mxnet_tpu_torch.tools.trace_edges import TRACES, kernel_records
 
     def steps_fn():
         for _ in range(steps):
@@ -2121,6 +2121,9 @@ def _kernel_counts(step, steps=1):
     events = kernel_records(steps_fn)
     if not events:
         raise AssertionError("torch.profiler recorded no device kernels")
+    held = TRACES[-1]
+    log(f"    fenced trace held, pad {held['pad_s']} s, first fence "
+        f"{held['lead_ms']:.3f} ms after its launch by the window's clock")
     frags = (("flash_fwd", "flash_attention_fwd"),
              ("flash_dq", "flash_attention_dq"),
              ("flash_dkv", "flash_attention_dkv"),
@@ -8363,6 +8366,12 @@ def main():
         f"forward O max abs err at BERT's "
         f"shape {fwd_errs[(BERT_SHAPE, 'float32', False)]:.3e} f32, "
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")
+    from mxnet_tpu_torch.tools.trace_edges import TRACES
+
+    leads = [t["lead_ms"] for t in TRACES if t["held"]]
+    log(f"fenced traces: {len(TRACES)}, {len(TRACES) - len(leads)} lost a "
+        f"side; first fence after its launch, ms, in order: "
+        f"{[round(x, 3) for x in leads]}")
     log(json.dumps(kernels))
     log(card)
     print(json.dumps({"ok": True, "device": {

@@ -488,6 +488,13 @@ def _run_rank(rank, world, kv_make, num_steps, snap_every, out, *,
                 step = info.snap_step
                 infos.append(info)
                 continue
+            except resilience.GangEvicted:
+                # the others committed the epoch that leaves this rank
+                # out before its own tick of the drain step: a planned
+                # leaver's exit when it runs behind
+                out[rank] = {"status": "evicted", "losses": losses,
+                             "gang": gang, "at": step}
+                return
             losses[step] = loss
             _train_step(state, loss)
             step += 1

@@ -318,8 +318,8 @@ def test_c_api_library_name_follows_its_interpreter(monkeypatch):
 
 def test_fenced_trace_taken_again_after_a_lost_side(monkeypatch):
     """kernel_records takes a trace again when one lost a fence side,
-    runs the traced work once a trace, and raises when every trace lost
-    one."""
+    each new trace padded on the host twice as long, runs the traced work
+    once a trace, and raises when every trace lost one."""
     from types import SimpleNamespace
 
     from mxnet_tpu_torch.tools import trace_edges
@@ -327,16 +327,21 @@ def test_fenced_trace_taken_again_after_a_lost_side(monkeypatch):
     fence = SimpleNamespace(name=trace_edges.FENCE_NAME)
     work = SimpleNamespace(name="flash_fwd_kernel")
     traces = [[work, fence], [fence, work, fence]]
-    ran = []
+    ran, pads = [], []
 
-    def fake_trace(fn, fenced):
+    def fake_trace(fn, fenced, pad=0.0):
+        assert fenced
+        pads.append(pad)
         fn()
         return traces.pop(0)
 
     monkeypatch.setattr(trace_edges, "_trace", fake_trace)
     assert trace_edges.kernel_records(lambda: ran.append(1)) == [work]
     assert len(ran) == 2
+    assert pads == [trace_edges.PAD_S, 2 * trace_edges.PAD_S]
     traces[:] = [[work, fence]] * 3
+    pads.clear()
     with pytest.raises(AssertionError, match="3 times"):
         trace_edges.kernel_records(lambda: ran.append(1), attempts=3)
     assert len(ran) == 5
+    assert pads == [trace_edges.PAD_S * k for k in (1, 2, 4)]
