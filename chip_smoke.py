@@ -254,10 +254,10 @@ Phases; any failure raises, exits non-zero and prints no result line:
 17. The production planes on BERT-base at bench_bert's configuration
    (B=32, T=512, bf16, AdamW on f32 masters, dropout 0.1, the flash
    kernels) through gluon.Trainer's captured step, fed by a seeded
-   resumable DataLoader, MXTPU_INTEGRITY=1: (ii) 40 steps under
+   resumable DataLoader, MXTPU_INTEGRITY=1: (ii) 30 steps under
    run_resilient with an AsyncCheckpointer every 10 (the loader's state
-   in each manifest) and MXTPU_FAULT_INJECT=sigterm_at_step:25, against
-   an uninterrupted 40-step run: one restart, the loader resumed at the
+   in each manifest) and MXTPU_FAULT_INJECT=sigterm_at_step:15, against
+   an uninterrupted 30-step run: one restart, the loader resumed at the
    restored step's batch, every loss (the replayed ones too) and the
    final weights, masters and Adam states bitwise, 12 launches of each
    flash kernel a step (fenced trace), both runs' ms a step; (i) the
@@ -288,13 +288,22 @@ Phases; any failure raises, exits non-zero and prints no result line:
    defaults', the peak memory, any infeasible trial; then a fresh
    trainer under replay applies the stored winner with zero trials and
    one capture, 12 launches of each flash kernel a step (fenced trace);
-   (ii) tools/gang_bert.py: two BERT-base replicas (same seeds, same
-   batches) as an ElasticGang over a GangKVServer on localhost, a peer
-   snapshot every 4 steps through AsyncCheckpointer.attach_peers, rank
-   1 SIGKILLed after step 9: rank 0 confirms the death, recovers from
-   peer RAM with zero restores from disk at the newest common snapshot
-   and replays from it bitwise as it ran first; the push, fetch, stall,
-   detect_s, recover_s, step_tick's host us and the kernels of a step.
+   (ii) tools/gang_bert.py: three BERT-base replicas (T=512, the
+   per-rank batch the largest of 32, 16, ... that lets three of [8]'s
+   peaks fit 0.9 of the card), each on its own batches, their gradients
+   summed over the gang's gloo group (gluon.Trainer over dist_sync), as
+   an ElasticGang over a GangKVServer on localhost, a peer snapshot every
+   4 steps through AsyncCheckpointer.attach_peers, rank 2 SIGKILLed after
+   step 9: ranks 0 and 1 turn the broken collective into a RankFailure,
+   recover from peer RAM with zero restores from disk at the newest
+   common snapshot, form epoch 1's group of two and train on; each
+   survivor's rerun of the restored step its first pass's loss bit for
+   bit, the replicas' weight fingerprints equal at every step both ran, the
+   survivors' first update's summed gradients against one rank fed both
+   their batches (and rank 0's batch alone, which must miss); ms a step
+   and its synced collectives at three ranks and at two, the push,
+   fetch, stall, detect_s, recover_s, step_tick's host us and 12 of each
+   flash kernel in a step of each survivor (fenced traces).
 19. Multi-rank training on BERT-base at bench_bert's width
    (tools/dist_bert.py): two ranks on the one card over gloo, the
    collectives' probe, the dist store and 2-bit compression card against
@@ -360,6 +369,23 @@ Phases; any failure raises, exits non-zero and prints no result line:
    against torch.cuda.mem_get_info, MXNET_TPU_MEM_FRACTION in a child
    process, test_utils.check_consistency host against card on the
    quantization ops and softmax.
+23. Two ranks on the card over gloo (tools/dist_paths.py): (a)
+   DevicePrefetcher over a dp=2 mesh, each rank's rows of 64-image
+   batches bitwise, and the warm row_sparse_pull from a dist_sync store
+   on the producer thread; (b) CachedDecoder and ServingEngine at tp=2 on
+   GPT-2 small (f32 and bf16 first logits against one rank, the bf16
+   tokens of the decoder and the engine equal to one rank's or parting
+   on a rounding tie alone, ms a token, the engine eager with no
+   recording); (c) bench_embedding's tables at
+   vocab 4096 (batch 512) and 2^24 rows (batch 8192) row-sharded over
+   dp=2 through ShardedTrainer against one rank, ids/s and peak memory a
+   rank against replicated; (d) Module.fit over dist_sync on ResNet-50 v1
+   against one rank summing both blocks' gradients (rank 0's block alone
+   must miss); (e) shard_activations on BERT-base's FFN up-projection
+   (the output, and the FFN's after it, bitwise the unannotated ones);
+   (f) 20 fenced traces back to back with no pad in this old process,
+   each one's enter_ms, lead_ms and whether it held, then one
+   kernel_records.
 6. The kernel JSON line (f32 numbers at the training shape, and the
    bf16 ones under *_bf16 keys; the same at BERT's shape under
    ``at_bert_shape``, at ViT's under ``at_vit_shape`` and at
@@ -367,9 +393,9 @@ Phases; any failure raises, exits non-zero and prints no result line:
    (non-causal) and decoder (causal), with the forward's errors at
    TFM_DECODE_T; launches by path, [12]'s two training paths, [14]'s
    paths, [16]'s SSD path and zoo, [17]'s three paths, [18]'s autotune
-   and gang paths, [19]'s paths, [20]'s a rank a step, [21]'s
-   SymbolBlock forward and Executor step and [22]'s int8 GPT-2 forward
-   among them;
+   and gang paths (each survivor), [19]'s paths, [20]'s a rank a step,
+   [21]'s SymbolBlock forward and Executor step, [22]'s int8 GPT-2
+   forward and [23]'s tp decoding among them;
    the errors on [20]'s ring and Ulysses inputs under
    ``at_ring_and_ulysses_inputs``), the nvidia-smi line, then the result
    line.
@@ -5444,7 +5470,7 @@ def phase_detection(dev, card, rtc_kernels):
     return ssd_path, zoo_launches, res
 
 
-PLANES_STEPS, PLANES_EVERY, PLANES_SIGTERM = 40, 10, 25
+PLANES_STEPS, PLANES_EVERY, PLANES_SIGTERM = 30, 10, 15
 PLANES_BATCHES = 48            # the loader's epoch: 48 batches of B=32
 PLANES_SEED = SEED + 170
 CKPT_REPS = 2                  # saves a median of ckpt_stall_us is over
@@ -5631,10 +5657,11 @@ def _planes_resilient(dev, card, root, rtc_kernels):
         raise AssertionError(f"[17](ii) report {rep!r}")
     back = rep.resumed_from[-1]
     periodic = PLANES_SIGTERM - PLANES_SIGTERM % PLANES_EVERY
-    # the step-20 save still in flight at the SIGTERM: the grace window
+    # the periodic save still in flight at the SIGTERM: the grace window
     # completes it and the run resumes there; a save already committed:
-    # PreemptionHandler saves step 25 (without the loader's position, as
-    # the reference's does: in process the loader is already there)
+    # PreemptionHandler saves the SIGTERM's step (without the loader's
+    # position, as the reference's does: in process the loader is already
+    # there)
     if back not in (periodic, PLANES_SIGTERM):
         raise AssertionError(f"[17](ii) resumed from {back}")
     want_at = [back * BERT_BATCH] if back == periodic else []
@@ -6147,11 +6174,19 @@ TUNE_BUDGET = 10               # trials of the search
 TUNE_STEPS = 2                 # timed steps a trial's first rung
 TUNE_HEADROOM = 0.8            # share of the card the cached graphs may fill
 REPLAY_STEPS = 3
-GANG_STEPS = 28
+GANG_STEPS = 16
 GANG_SNAP_EVERY = 4
-GANG_KILL_AFTER = 9            # rank 1 is SIGKILLed after this step
+GANG_WORLD = 3                 # replicas; three keep a majority after one death
+GANG_KILL_RANK = 2
+GANG_KILL_AFTER = 9            # rank 2 is SIGKILLed after this step
 GANG_HB_TIMEOUT = 2.0
 GANG_RETAIN_S = 30.0
+GANG_HEADROOM = 0.9            # share of the card the three ranks' peaks fill
+GANG_RANK_GIB = 2.0            # a rank's own: CUDA context, the store's copy
+#: the first update after the reshape against one rank fed the survivors'
+#: batches: relative L2 of the sampled gradients it applied (summed over
+#: the survivors), and the least rank 0's batch alone must miss them by
+GANG_HOLD_LIMIT, GANG_PLANTED_MIN = 5e-2, 2e-1
 
 
 def _gang_env_clean():
@@ -6283,57 +6318,203 @@ def _tune_bert(dev, card, root, bert_peak_gib, rtc_kernels):
             "replay_launches": replay_counts}
 
 
-def _gang_bert(dev, card, root):
-    """(ii) Two BERT-base replicas as a gang on one card, rank 1 killed."""
+def _gang_batch(dev, bert_peak_gib):
+    """The per-rank batch of [18](ii): the largest of BERT_BATCH, /2, /4,
+    ... whose share of [8]'s peak (at BERT_BATCH) plus ``GANG_RANK_GIB``
+    lets ``GANG_WORLD`` ranks fit ``GANG_HEADROOM`` of the card."""
+    import torch
+
+    total = torch.cuda.get_device_properties(dev).total_memory / 2 ** 30
+    per_rank = GANG_HEADROOM * total / GANG_WORLD
+    b = BERT_BATCH
+    while b > 1 and bert_peak_gib * b / BERT_BATCH + GANG_RANK_GIB > \
+            per_rank:
+        b //= 2
+    return b, per_rank, total
+
+
+def _gang_hold(dev, path, batch, survivors):
+    """The survivors' first update after the reshape, made on one rank:
+    the restored state, each survivor's batch of that step through
+    forward and backward (its dropout seed as the rank drew it), the
+    gradients summed, one ``Trainer.step``; and the same from rank 0's
+    batch alone (the planted fault: no all-reduce).  Returns the sampled
+    optimizer state before the update, after it, and after the fault."""
+    import gc
+
+    import torch
+
+    from mxnet_tpu_torch import autograd, checkpoint
+    from mxnet_tpu_torch import random as mxrandom
     from mxnet_tpu_torch.tools import gang_bert
 
+    net, tr, loss_fn, vocab = gang_bert._build("base", batch, BERT_SEQ, dev,
+                                               0.1)
+    k, state = gang_bert.restored_state(path)
+    params = [p for p in tr._params if p.grad_req != "null"]
+    out = []
+    for ranks in (None, survivors, survivors[:1]):
+        checkpoint.load_trainer_state(tr, state)
+        if ranks is None:
+            out.append(gang_bert.state_sample(tr))
+            continue
+        with autograd.accumulate_grads(params):
+            for r in ranks:
+                mxrandom.seed(gang_bert.data_seed(k, r) + 1000)
+                tok, lab = gang_bert._batch("base", k, r, batch, BERT_SEQ,
+                                            vocab, dev)
+                with autograd.record():
+                    loss = loss_fn(net(tok), lab)
+                loss.backward()
+        tr.step(batch)
+        out.append(gang_bert.state_sample(tr))
+    del net, tr, loss_fn, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k, out
+
+
+def _gang_bert(dev, card, root, bert_peak_gib):
+    """(ii) Three BERT-base replicas as a gang on one card, each on its
+    own batches, their gradients summed over the gang's gloo group;
+    rank 2 killed, the survivors' group formed again."""
+    import statistics
+
+    import torch
+
+    from mxnet_tpu_torch.tools import gang_bert
+
+    batch, per_rank, total = _gang_batch(dev, bert_peak_gib)
+    log(f"    (ii) per-rank batch {batch} (T={BERT_SEQ}): {GANG_WORLD} ranks "
+        f"x ([8]'s {bert_peak_gib:.2f} GiB at B={BERT_BATCH} scaled + "
+        f"{GANG_RANK_GIB} GiB) within {GANG_HEADROOM} of the card's "
+        f"{total:.2f} GiB ({per_rank:.2f} GiB a rank)")
     work = os.path.join(root, "gang")
     os.makedirs(work)
-    out = gang_bert.drive(work, kill_after=GANG_KILL_AFTER, fetch_step=4,
+    out = gang_bert.drive(work, world=GANG_WORLD, kill_rank=GANG_KILL_RANK,
+                          kill_after=GANG_KILL_AFTER, fetch_step=4,
                           steps=GANG_STEPS, snap_every=GANG_SNAP_EVERY,
-                          batch=BERT_BATCH, seq=BERT_SEQ, model="base",
+                          batch=batch, seq=BERT_SEQ, model="base",
                           hb_timeout=GANG_HB_TIMEOUT,
                           retain_s=GANG_RETAIN_S,
                           trace_step=GANG_STEPS - 1, timeout=600)
-    r0 = out[0]
-    if len(r0["recoveries"]) != 1:
-        raise AssertionError(f"[18](ii) recoveries {r0['recoveries']}")
+    survivors = [r for r in range(GANG_WORLD) if r != GANG_KILL_RANK]
+    ranks = [out[r] for r in survivors]
+    epochs = set()
+    for r, res in zip(survivors, ranks):
+        if len(res["recoveries"]) != 1:
+            raise AssertionError(f"[18](ii) rank {r} recoveries "
+                                 f"{res['recoveries']}")
+        (rec,) = res["recoveries"]
+        if rec["source"] != "peer" or res["disk_restores"] != 0 or \
+                rec["members"] != survivors or \
+                rec["dead"] != [GANG_KILL_RANK]:
+            raise AssertionError(f"[18](ii) rank {r} recovery {rec}, disk "
+                                 f"restores {res['disk_restores']}")
+        if res["report"]["final_step"] != GANG_STEPS:
+            raise AssertionError(f"[18](ii) rank {r} report {res['report']}")
+        groups = [(g["epoch"], g["world"], g["place"], g["backend"])
+                  for g in res["groups"]]
+        place = survivors.index(r)
+        if groups != [(0, GANG_WORLD, r, "gloo"),
+                      (rec["epoch"], len(survivors), place, "gloo")]:
+            raise AssertionError(f"[18](ii) rank {r} groups {groups}")
+        epochs.add((rec["epoch"], rec["snap_step"]))
+        traced = res["kernels_traced_step"]
+        if any(traced.get(n) != 12 for n in ("flash_fwd", "flash_dq",
+                                            "flash_dkv")):
+            raise AssertionError(f"[18](ii) rank {r}'s traced step ran "
+                                 f"{traced}")
+        if not all(res["launches"].values()):
+            raise AssertionError(f"[18](ii) rank {r} launched "
+                                 f"{res['launches']}")
+    if len(epochs) != 1:
+        raise AssertionError(f"[18](ii) the survivors disagree: {epochs}")
+    ((epoch, k),) = epochs
+    by = [{(x["epoch"], x["step"]): x for x in res["losses"]}
+          for res in ranks]
+    common = sorted(set(by[0]) & set(by[1]))
+    for key in common:
+        if by[0][key]["fingerprint"] != by[1][key]["fingerprint"]:
+            raise AssertionError(f"[18](ii) the replicas' weights differ "
+                                 f"after (epoch, step) {key}")
+    doomed = {x["step"]: x for x in out["doomed_lines"]}
+    for s, x in doomed.items():
+        if (0, s) in by[0] and x["fingerprint"] != \
+                by[0][(0, s)]["fingerprint"]:
+            raise AssertionError(f"[18](ii) rank {GANG_KILL_RANK}'s weights "
+                                 f"differ from rank 0's after step {s}")
+    if by[0][(0, 0)]["loss"] == by[1][(0, 0)]["loss"]:
+        raise AssertionError("[18](ii) ranks 0 and 1 ran the same batch")
+    # the restored state from the peers' RAM: step k rerun on it (the same
+    # batch and dropout seed, before any update of the new group) gives
+    # each survivor its first pass's loss bit for bit
+    for r, b in zip(survivors, by):
+        if (0, k) not in b or b[(epoch, k)]["loss"] != b[(0, k)]["loss"]:
+            raise AssertionError(
+                f"[18](ii) rank {r}'s rerun of step {k} from the restored "
+                f"state: loss {b[(epoch, k)]['loss']} against its first "
+                f"pass's {b.get((0, k), {}).get('loss')}")
+    # the first update after the reshape against one rank
+    first = [by[i][(epoch, k)]["state_sample"] for i in range(2)]
+    if first[0] != first[1]:
+        raise AssertionError("[18](ii) the survivors' first post-reshape "
+                             "states differ")
+    k_ref, (before, want, alone) = _gang_hold(
+        dev, os.path.join(work, "rank0.json.restored.pkl"), batch, survivors)
+    if k_ref != k:
+        raise AssertionError(f"[18](ii) restored step {k_ref}, not {k}")
+
+    def flat(xs):
+        return torch.cat([torch.as_tensor(x, dtype=torch.float64)
+                          for x in xs])
+
+    def moves(after):
+        return flat(after["state"]) - flat(before["state"])
+
+    hold = _rel_l2(flat(first[0]["grads"]), flat(want["grads"]))
+    planted = _rel_l2(flat(alone["grads"]), flat(want["grads"]))
+    moved = _rel_l2(moves(first[0]), moves(want))
+    log(f"    (ii) the survivors' first update after the reshape (step {k}) "
+        f"against one rank fed both survivors' batches: relative L2 of the "
+        f"sampled gradients it applied {hold:.3e} (limit "
+        f"{GANG_HOLD_LIMIT}), of the optimizer state's moves {moved:.3e}; "
+        f"rank 0's batch alone {planted:.3e} from them (must exceed "
+        f"{GANG_PLANTED_MIN})")
+    if not (hold <= GANG_HOLD_LIMIT and planted >= GANG_PLANTED_MIN):
+        raise AssertionError(f"[18](ii) the post-reshape update: {hold} "
+                             f"against {GANG_HOLD_LIMIT}, planted {planted}")
+
+    def med(xs):
+        return statistics.median(xs) if xs else None
+
+    r0 = ranks[0]
+    pre = [x for x in r0["losses"] if x["epoch"] == 0 and x["step"] >= 2
+           and x["step"] < GANG_KILL_AFTER]
+    post = [x for x in r0["losses"] if x["epoch"] == epoch
+            and x["step"] > k and x["step"] != GANG_STEPS - 1]
+    timing = {
+        "ms_per_step_3_ranks": med([x["step_ms"] for x in pre]),
+        "coll_ms_3_ranks": med([x["coll_ms"] for x in pre]),
+        "ms_per_step_2_ranks": med([x["step_ms"] for x in post]),
+        "coll_ms_2_ranks": med([x["coll_ms"] for x in post])}
+    for w in ("3", "2"):
+        ms, cm = timing[f"ms_per_step_{w}_ranks"], \
+            timing[f"coll_ms_{w}_ranks"]
+        timing[f"coll_share_{w}_ranks"] = cm / ms if ms else None
     (rec,) = r0["recoveries"]
-    if rec["source"] != "peer" or r0["disk_restores"] != 0 or \
-            rec["members"] != [0] or rec["dead"] != [1]:
-        raise AssertionError(f"[18](ii) recovery {rec}, disk restores "
-                             f"{r0['disk_restores']}")
-    if r0["report"]["final_step"] != GANG_STEPS:
-        raise AssertionError(f"[18](ii) report {r0['report']}")
-    first, replayed, seen = {}, {}, set()
-    for step, loss in r0["losses"]:
-        (replayed if step in seen else first)[step] = loss
-        seen.add(step)
-    k = rec["snap_step"]
-    if not replayed or min(replayed) != k:
-        raise AssertionError(f"[18](ii) replayed {sorted(replayed)} from "
-                             f"snapshot step {k}")
-    compared = [s for s in replayed if s in first]
-    for s in compared:
-        if replayed[s] != first[s]:
-            raise AssertionError(f"[18](ii) step {s} replayed as "
-                                 f"{replayed[s]}, first {first[s]}")
-    for line in out["doomed_lines"]:
-        if line["loss"] != first[line["step"]]:
-            raise AssertionError(f"[18](ii) rank 1's step {line['step']} "
-                                 f"differs from rank 0's")
-    traced = r0["kernels_traced_step"]
-    if any(traced.get(n) != 12 for n in ("flash_fwd", "flash_dq",
-                                        "flash_dkv")):
-        raise AssertionError(f"[18](ii) rank 0's traced step ran {traced}")
-    if not all(r0["launches"].values()):
-        raise AssertionError(f"[18](ii) rank 0 launched {r0['launches']}")
     stalls = [s["stall_ms"] for s in r0["snapshot_stalls"]]
     joins = [s["join_ms"] for s in r0["snapshot_stalls"]]
     last = out["doomed_lines"][-1]["stats"]
     res = {
-        "snapshot_step": k, "replayed_steps": len(replayed),
-        "compared_bitwise": len(compared),
+        "batch": batch, "world": GANG_WORLD, "snapshot_step": k,
+        "epoch": epoch, "steps_compared_across_replicas": len(common),
+        "losses_rank0": [(x["epoch"], x["step"], x["loss"])
+                         for x in r0["losses"]],
+        "fingerprints_rank0": [(x["epoch"], x["step"], x["fingerprint"])
+                               for x in r0["losses"]],
+        "groups": r0["groups"], "hold_rel_l2": hold,
+        "planted_rel_l2": planted, "state_moves_rel_l2": moved, **timing,
         "detect_s": rec["detect_t"] - out["kill_t"],
         "recover_s": rec["first_step_t"] - out["kill_t"],
         "recovery_ms": rec["recovery_ms"],
@@ -6346,36 +6527,45 @@ def _gang_bert(dev, card, root):
         "snapshot_stalls_ms": stalls, "snapshot_join_ms": joins,
         "step_tick_us": r0["step_tick_us_median"]["writer_idle"],
         "step_tick_us_writer_busy": r0["step_tick_us_median"]["writer_busy"],
-        "step_ticks_idle_busy": r0["step_tick_us_median"]["ticks"],
         "kv_round_trip_us": r0["kv_round_trip_us_median"],
-        "kernels_per_step": traced, "launches_rank0": r0["launches"],
+        "kernels_per_step": {f"rank{r}": res["kernels_traced_step"]
+                             for r, res in zip(survivors, ranks)},
+        "launches": {f"rank{r}": res["launches"]
+                     for r, res in zip(survivors, ranks)},
         "disk_restores": r0["disk_restores"],
     }
-    log(f"    (ii) 2 ranks of BERT-base on one card, a peer snapshot every "
-        f"{GANG_SNAP_EVERY} steps through attach_peers, rank 1 SIGKILLed "
-        f"after step {GANG_KILL_AFTER}: rank 0 recovered from peer RAM "
-        f"(0 disk restores) at step {k}, replayed {len(replayed)} steps, "
-        f"{len(compared)} of them bitwise its first pass; detect_s "
+    log(f"    (ii) {GANG_WORLD} ranks of BERT-base at B={batch} on one card, "
+        f"each on its own batches, gradients summed over the gang's gloo "
+        f"group, rank {GANG_KILL_RANK} SIGKILLed after step "
+        f"{GANG_KILL_AFTER}: ranks {survivors} recovered from peer RAM (0 "
+        f"disk restores) at step {k}, formed epoch {epoch}'s group of "
+        f"{len(survivors)} and trained to step {GANG_STEPS}; each "
+        f"survivor's rerun of step {k} from the restored state its first "
+        f"pass's loss bit for bit; weights equal "
+        f"across the replicas at all {len(common)} steps both ran "
+        f"(fingerprints); ms a step on rank 0 "
+        f"{timing['ms_per_step_3_ranks']} at 3 ranks (synced collectives "
+        f"{timing['coll_ms_3_ranks']}), {timing['ms_per_step_2_ranks']} at "
+        f"2 ({timing['coll_ms_2_ranks']}); detect_s "
         f"{res['detect_s']:.3f}, recover_s {res['recover_s']:.3f} "
         f"(recover() {rec['recovery_ms']:.1f} ms); a push "
-        f"{res['peer_snap_push_ms']:.1f} ms (pack "
-        f"{res['peer_snap_pack_ms']:.1f}, send "
-        f"{res['peer_snap_send_ms']:.1f}) for {res['peer_snap_bytes']} "
+        f"{res['peer_snap_push_ms']:.1f} ms for {res['peer_snap_bytes']} "
         f"bytes; a TCP fetch {res['peer_fetch_ms']:.1f} ms; the train "
         f"stream held {res['snapshot_stall_ms']:.2f} ms a snapshot "
-        f"(median; waits for the previous writer {joins}); step_tick "
-        f"{res['step_tick_us']} us on other steps with no snapshot in "
-        f"flight, {res['step_tick_us_writer_busy']} us with one (medians, "
-        f"ticks {res['step_ticks_idle_busy']}), one KV round trip "
-        f"{res['kv_round_trip_us']:.1f} us; kernels a step "
-        f"(fenced trace) {traced}  [{card}]")
+        f"(median); kernels a step (fenced traces) "
+        f"{res['kernels_per_step']}  [{card}]")
+    log(f"    (ii) rank 0 (epoch, step, loss): "
+        f"{[(e, s, round(sum(v) / len(v), 5)) for e, s, v in res['losses_rank0']]}")
+    log(f"    (ii) rank 0 (epoch, step, weight fingerprint): "
+        f"{res['fingerprints_rank0']}")
     return res
 
 
 def phase_gang(dev, card, rtc_kernels, bert_peak_gib):
-    """[18] (i) autotune search and replay on BERT-base; (ii) the two-rank
-    BERT-base gang surviving a killed rank.  Returns the flash launches of
-    each path and the numbers."""
+    """[18] (i) autotune search and replay on BERT-base; (ii) the three-rank
+    BERT-base gang, its gradients all-reduced, surviving a killed rank
+    through a group formed again.  Returns the flash launches of each path
+    and the numbers."""
     import shutil
     import tempfile
 
@@ -6383,7 +6573,7 @@ def phase_gang(dev, card, rtc_kernels, bert_peak_gib):
     root = tempfile.mkdtemp(prefix="gang_")
     try:
         tune = _tune_bert(dev, card, root, bert_peak_gib, rtc_kernels)
-        gang = _gang_bert(dev, card, root)
+        gang = _gang_bert(dev, card, root, bert_peak_gib)
     finally:
         _gang_env_clean()
         shutil.rmtree(root, ignore_errors=True)
@@ -6394,11 +6584,12 @@ def phase_gang(dev, card, rtc_kernels, bert_peak_gib):
     launches = {
         "autotune_search_bert": tune["launches"],
         "autotune_replay_bert": tune["replay_launches"],
-        "gang_bert_rank0": dict(gang["launches_rank0"], **zero_rtc),
-        "gang_bert_rank0_traced_step": dict(
-            {names[k]: v for k, v in gang["kernels_per_step"].items()},
-            **zero_rtc),
     }
+    for rank, counts in gang["launches"].items():
+        launches[f"gang_bert_{rank}"] = dict(counts, **zero_rtc)
+        launches[f"gang_bert_{rank}_traced_step"] = dict(
+            {names[k]: v for k, v in gang["kernels_per_step"][rank].items()},
+            **zero_rtc)
     log("    [18] " + json.dumps({"autotune": tune, "gang": gang},
                                  default=str))
     log(f"    [18] done in {time.perf_counter() - t0:.1f} s; flash launches "
@@ -7952,6 +8143,247 @@ def phase_deploy(dev, card, rtc_kernels):
     return {"int8_gpt2_small_forward": gpt_launches}, res
 
 
+R2_TIMEOUT = 700
+R2_DEC_LIMITS = {"float32": 1e-3, "bfloat16": 5e-2}   # of max |logit|
+R2_EMB_LOSS_TOL, R2_EMB_PARAM_TOL = (2e-4, 2e-5), (2e-3, 2e-4)
+#: Module over dist_sync against one rank: relative L2 of the sampled
+#: weights' moves, and the least rank 0's block alone must miss by
+R2_MOD_LIMIT, R2_MOD_PLANTED_MIN = 1e-2, 1e-1
+TRACE_REPRO = 20               # fenced traces back to back, no pad
+
+
+def _r2_embed(dev, card, ranks):
+    """(c) each table against the one-rank ``ShardedTrainer`` (replicated)
+    at the same configuration."""
+    import gc
+
+    import torch
+
+    from mxnet_tpu_torch.tools import dist_paths
+
+    out = {}
+    for tag, (vocab, batch) in dist_paths.EMB_CONFIGS.items():
+        ref = dist_paths.embed_reference(vocab, batch, dev)
+        gc.collect()
+        torch.cuda.empty_cache()
+        got = [r["embed"][tag] for r in ranks]
+        rows = {}
+        for g in got:
+            rows.update(g["rows"])
+        excess = [_excess(torch.as_tensor(g["losses"]),
+                          torch.as_tensor(ref["losses"]), *R2_EMB_LOSS_TOL)
+                  for g in got]
+        excess += [_excess(torch.as_tensor(rows[k]), torch.as_tensor(v),
+                           *R2_EMB_PARAM_TOL)
+                   for k, v in ref["rows"].items() if k in rows]
+        excess += [_excess(torch.as_tensor(g["dense"][k]),
+                           torch.as_tensor(v), *R2_EMB_PARAM_TOL)
+                   for g in got for k, v in ref["dense"].items()]
+        worst = max(excess)
+        local = [g["local_rows"] for g in got]
+        log(f"  (c) {tag}: vocab {vocab}, batch {batch}: the table's rows "
+            f"split {local} over dp=2 (ids to their owner, rows back); "
+            f"against one rank, excess over tolerance (<= 1 passes) "
+            f"{worst:.3e} over the losses "
+            f"{[round(x, 6) for x in ref['losses']]}, {len(ref['rows'])} "
+            f"sampled rows and the Dense; {got[0]['ids_per_sec']:.1f} ids/s "
+            f"on rank 0 ({got[0]['ms_per_step']:.2f} ms a step) against "
+            f"{ref['ids_per_sec']:.1f} on one rank "
+            f"({ref['ms_per_step']:.2f} ms); peak "
+            f"{[g['peak_gib'] for g in got]} GiB a rank against "
+            f"{ref['peak_gib']} GiB replicated  [{card}]")
+        if worst > 1 or local != [vocab // 2] * 2 or \
+                set(rows) != set(ref["rows"]):
+            raise AssertionError(f"[23](c) {tag}: excess {worst}, rows "
+                                 f"{local}, sampled {sorted(rows)}")
+        out[tag] = {"ref": {k: v for k, v in ref.items()
+                            if k not in ("rows", "dense")},
+                    "ranks": [{k: v for k, v in g.items()
+                               if k not in ("rows", "dense")}
+                              for g in got], "excess": worst}
+    return out
+
+
+def _r2_module(dev, card, ranks):
+    """(d) Module over dist_sync against one rank summing both blocks'
+    gradients, and rank 0's block alone (the planted fault)."""
+    import gc
+
+    import torch
+
+    from mxnet_tpu_torch.tools import dist_paths
+
+    want = dist_paths.module_reference(dev)
+    alone = dist_paths.module_reference(dev, ranks=[0])
+    gc.collect()
+    torch.cuda.empty_cache()
+    before = ranks[0]["module"]["before"]
+
+    def moves(after):
+        return torch.cat([torch.as_tensor(after[k], dtype=torch.float64)
+                          - torch.as_tensor(before[k], dtype=torch.float64)
+                          for k in sorted(before)])
+
+    holds = [_rel_l2(moves(r["module"]["after"]), moves(want))
+             for r in ranks]
+    planted = _rel_l2(moves(alone), moves(want))
+    ms = [r["module"]["ms_per_step"] for r in ranks]
+    log(f"  (d) Module.fit over dist_sync on resnet50_v1 as a symbol, f32, "
+        f"{dist_paths.MOD_STEPS} SGD steps of {dist_paths.MOD_GLOBAL} images "
+        f"({ranks[0]['module']['local_batch']} a rank, "
+        f"{ranks[0]['module']['workers']} workers): relative L2 of the "
+        f"sampled weights' moves against one rank {holds} (limit "
+        f"{R2_MOD_LIMIT}); rank 0's block alone {planted:.3e} (must exceed "
+        f"{R2_MOD_PLANTED_MIN}); ms a step {ms}  [{card}]")
+    if max(holds) > R2_MOD_LIMIT or planted < R2_MOD_PLANTED_MIN:
+        raise AssertionError(f"[23](d) Module over dist_sync: {holds}, "
+                             f"planted {planted}")
+    return {"hold_rel_l2": holds, "planted_rel_l2": planted,
+            "ms_per_step": ms}
+
+
+def _trace_repro(dev, card):
+    """(f) ``TRACE_REPRO`` fenced traces of a small fn back to back with no
+    pad, late in the process (every kernel library the script loaded,
+    its traces taken): each trace's ``enter_ms``, ``lead_ms`` and whether
+    it held both fences; then one ``kernel_records`` with its pad."""
+    import torch
+
+    from mxnet_tpu_torch.tools import trace_edges
+
+    a = torch.randn(1024, 1024, device=dev)
+    b = torch.randn(1024, 1024, device=dev)
+
+    def fn():
+        (a @ b).sum()
+
+    got = trace_edges.reproduce(fn, traces=TRACE_REPRO)
+    lost = [i for i, t in enumerate(got) if not t["held"]]
+    held = trace_edges.kernel_records(fn)
+    leads = [None if t["lead_ms"] is None else round(t["lead_ms"], 3)
+             for t in got]
+    log(f"  (f) {TRACE_REPRO} fenced traces, no pad, back to back: "
+        f"{len(lost)} lost a side {lost}; enter_ms "
+        f"{[round(t['enter_ms'], 3) for t in got]}; base_ms "
+        f"{[round(t['base_ms'], 3) for t in got]}; lead_ms {leads}; marks "
+        f"{[t['marks'] for t in got]}; work records "
+        f"{[t['work'] for t in got]}; then kernel_records with its pad "
+        f"held {len(held)} records  [{card}]")
+    if not held:
+        raise AssertionError("[23](f) kernel_records held no record")
+    return {"traces": got, "lost": lost, "held_records": len(held)}
+
+
+def _token_agreement(a, b):
+    """The share of equal tokens of two token lists of lists."""
+    a, b = sum(a, []), sum(b, [])
+    return sum(x == y for x, y in zip(a, b)) / max(1, len(a))
+
+
+def phase_ranks2(dev, card):
+    """[23] two ranks on the card (gloo): (a) the dp prefetcher and the
+    warm pull; (b) tp=2 CachedDecoder and ServingEngine on GPT-2 small;
+    (c) row-sharded recommender tables; (d) Module over dist_sync on
+    ResNet-50 v1; (e) shard_activations; (f) the late-trace
+    reproduction.  Returns the flash launches and the numbers."""
+    import shutil
+    import tempfile
+
+    from mxnet_tpu_torch.tools import dist_paths
+
+    t0 = time.perf_counter()
+    root = tempfile.mkdtemp(prefix="ranks2_")
+    try:
+        ranks = dist_paths.drive(root, world=2, timeout=R2_TIMEOUT)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for r in ranks:
+        secs = {k: round(v, 1) for k, v in r["seconds"].items()}
+        log(f"  rank {r['rank']}: backend {r['backend']} on {r['device']}, "
+            f"seconds {json.dumps(secs)}")
+        if r["backend"] != "gloo":
+            raise AssertionError(f"[23] rank {r['rank']} on {r['backend']}")
+    pf = [r["prefetch"] for r in ranks]
+    for r, p in enumerate(pf):
+        n = len(p["warm_pull_rows"])
+        if not (p["bitwise_depth2"] and p["bitwise_depth0"]
+                and p["warm_pull_bitwise"]
+                and p["pull_threads"] == ["MainThread"] * n
+                + ["mxtpu-device-prefetch"] * n):
+            raise AssertionError(f"[23](a) rank {r}: {p}")
+    log(f"  (a) DevicePrefetcher over dp=2: each rank's {pf[0]['rows']} rows "
+        f"of {pf[0]['batches']} batches of {dist_paths.PF_BATCH} f32 images "
+        f"at {dist_paths.PF_IMAGE}x{dist_paths.PF_IMAGE} bitwise the host's, "
+        f"threaded and synchronous, ms a batch "
+        f"{[round(p['ms_per_batch_depth2'], 2) for p in pf]} threaded, "
+        f"{[round(p['ms_per_batch_depth0'], 2) for p in pf]} synchronous; "
+        f"the warm row_sparse_pull of a (4096, 64) dist_sync table bitwise "
+        f"the rank's rows before each batch "
+        f"({[p['warm_pull_rows'] for p in pf]} rows), threaded on the "
+        f"producer thread  [{card}]")
+    dec = [r["decode"] for r in ranks]
+    for r, d in enumerate(dec):
+        errs = {dt: d[f"first_logits_err_{dt}"] for dt in R2_DEC_LIMITS}
+        if any(errs[dt] > lim for dt, lim in R2_DEC_LIMITS.items()) or \
+                d["tp"]["cache_heads"] * 2 != d["one"]["cache_heads"] or \
+                d["tp"]["engine_recordings"] != 0 or \
+                d["one"]["engine_recordings"] == 0 or \
+                "gloo" not in (d["tp"]["engine_eager_reason"] or "") or \
+                any(d["flash"].values()):
+            raise AssertionError(f"[23](b) rank {r}: errors {errs}, "
+                                 f"{d['tp']}, {d['one']}, {d['flash']}")
+        # the tp tokens, the decoder's and the engine's, one rank's, or
+        # parting from them only on a rounding tie
+        for kind, parts in d["partings"].items():
+            if not all(p["tie"] for p in parts):
+                raise AssertionError(f"[23](b) rank {r}: the tp {kind}'s "
+                                     f"tokens part from one rank's {parts}")
+    d = dec[0]
+    log(f"  (b) GPT-2 small at tp=2: first logits against one rank, max "
+        f"|diff| / max |logit| f32 {d['first_logits_err_float32']:.3e}, bf16 "
+        f"{d['first_logits_err_bfloat16']:.3e} (limits {R2_DEC_LIMITS}); "
+        f"bf16 CachedDecoder {d['tp']['ms_per_token']:.2f} ms a token "
+        f"({d['tp']['tokens_per_sec']:.1f} tokens/s at B={d['batch']}) "
+        f"against {d['one']['ms_per_token']:.2f} "
+        f"({d['one']['tokens_per_sec']:.1f}) on one rank; tokens agreeing "
+        f"with one rank {_token_agreement(d['tp']['tokens'], d['one']['tokens']):.3f}, "
+        f"the engine's with one rank's engine "
+        f"{_token_agreement(d['tp']['engine_tokens'], d['one']['engine_tokens']):.3f} "
+        f"(partings, each a rounding tie: {d['partings']}); "
+        f"ServingEngine decode "
+        f"{d['tp']['engine_decode_us_per_token']:.1f} us a token at tp=2 "
+        f"(eager: {d['tp']['engine_eager_reason']}; recordings "
+        f"{d['tp']['engine_recordings']}, programs "
+        f"{d['tp']['engine_programs']}) against "
+        f"{d['one']['engine_decode_us_per_token']:.1f} on one rank "
+        f"({d['one']['engine_recordings']} graphs); flash launches "
+        f"{d['flash']}  [{card}]")
+    emb = _r2_embed(dev, card, ranks)
+    mod = _r2_module(dev, card, ranks)
+    acts = [r["shard_act"] for r in ranks]
+    for r, a in enumerate(acts):
+        if not all(a[k] for k in ("sharded_bitwise", "whole_bitwise",
+                                  "noop_bitwise", "no_mesh_bitwise",
+                                  "annotated_bitwise")) or a["specs"] != {
+                "sharded": [None, None, "tp"],
+                "noop": [None, None, None], "no_mesh": None}:
+            raise AssertionError(f"[23](e) rank {r}: {a}")
+    log(f"  (e) shard_activations((None, None, 'tp')) on a "
+        f"{acts[0]['shape']} bf16 up-projection: on each rank the output, "
+        f"and the FFN's after it, bitwise the unannotated ones, the layout "
+        f"recorded {acts[0]['specs']}; annotate_activations by name the "
+        f"same; ms annotated "
+        f"{[round(a['ms_annotated'], 3) for a in acts]}  [{card}]")
+    traces = _trace_repro(dev, card)
+    zero = {"flash_attention_fwd": 0, "flash_attention_dq": 0,
+            "flash_attention_dkv": 0, "rtc_scale2": 0, "rtc_axpy": 0}
+    launches = {f"ranks2_decode_tp2_rank{r}":
+                dict(zero, **ranks[r]["decode"]["flash"]) for r in range(2)}
+    log(f"  [23] done in {time.perf_counter() - t0:.1f} s")
+    return launches, {"prefetch": pf, "decode": dec, "embed": emb,
+                      "module": mod, "shard_act": acts, "traces": traces}
+
+
 def main():
     import torch
 
@@ -8113,8 +8545,8 @@ def main():
     mark("17")
     log("[17] the production planes on BERT-base at bench_bert's "
         "configuration: (i) the card's integrity fingerprint against the "
-        "host mirror; (ii) 40 steps under run_resilient through a SIGTERM "
-        "at step 25, bitwise against an uninterrupted run; (iii) "
+        "host mirror; (ii) 30 steps under run_resilient through a SIGTERM "
+        "at step 15, bitwise against an uninterrupted run; (iii) "
         "checkpoint stalls and the crash sites; (iv) the attestation's "
         "cost, a bit_flip_grad caught, the step records, /metrics; (v) "
         "nan_grad and the divergence rollback; (vi) ReplicaServer over "
@@ -8128,11 +8560,13 @@ def main():
         "one-card knobs (device_prefetch, shm_slot_mb, remat, "
         "group_max_items, unique_bucket), MXTPU_CAPTURE_CACHE from [8]'s "
         "peak, then a fresh "
-        "trainer replaying the stored winner with zero trials; (ii) two "
+        "trainer replaying the stored winner with zero trials; (ii) three "
         "BERT-base replicas as an ElasticGang over a GangKVServer "
-        "(tools/gang_bert.py), peer snapshots every 4 steps through "
-        "attach_peers, rank 1 SIGKILLed after step 9, rank 0 recovering "
-        "from peer RAM and replaying bitwise")
+        "(tools/gang_bert.py), each on its own batches, gradients summed "
+        "over the gang's gloo group, peer snapshots every 4 steps through "
+        "attach_peers, rank 2 SIGKILLed after step 9, ranks 0 and 1 "
+        "recovering from peer RAM, forming the group again and training "
+        "on, their first update held against one rank")
     gang_launches, gang_res = phase_gang(dev, card, (s2, ax),
                                          bert_res["peak_mem_gib"])
     gluon_launches.update(gang_launches)
@@ -8180,6 +8614,17 @@ def main():
         "memory_info, check_consistency")
     deploy_launches, deploy_res = phase_deploy(dev, card, (s2, ax))
     gluon_launches.update(deploy_launches)
+
+    mark("23")
+    log("[23] two ranks on the card (gloo): (a) DevicePrefetcher over dp=2 "
+        "and the warm row_sparse_pull; (b) CachedDecoder and ServingEngine "
+        "at tp=2 on GPT-2 small against one rank; (c) the recommender "
+        "tables row-sharded over dp=2 (vocab 4096 at batch 512, 2^24 rows "
+        "at batch 8192) against one rank; (d) Module over dist_sync on "
+        "ResNet-50 v1 against one rank; (e) shard_activations; (f) 20 "
+        "fenced traces with no pad, late in the process")
+    r2_launches, r2_res = phase_ranks2(dev, card)
+    gluon_launches.update(r2_launches)
     mark("end")
     log("    phase seconds: " + json.dumps(
         {a: round(tb - ta, 1) for (a, ta), (_b, tb) in zip(marks,
@@ -8348,7 +8793,13 @@ def main():
         f"gang: autotune {len(gang_res['autotune']['trials'])} trials in "
         f"{gang_res['autotune']['search_s']:.1f} s, detect_s "
         f"{gang_res['gang']['detect_s']:.3f}, recover_s "
-        f"{gang_res['gang']['recover_s']:.3f}; two ranks on one card "
+        f"{gang_res['gang']['recover_s']:.3f}, a step on rank 0 "
+        f"{gang_res['gang']['ms_per_step_3_ranks']} ms at 3 ranks, "
+        f"{gang_res['gang']['ms_per_step_2_ranks']} ms at 2; tp=2 decoding "
+        f"{r2_res['decode'][0]['tp']['ms_per_token']:.2f} ms a token; "
+        f"row-sharded 2^24 table "
+        f"{r2_res['embed']['b']['ranks'][0]['ids_per_sec']:.1f} ids/s; "
+        f"two ranks on one card "
         f"(gloo) bf16 ms a step: "
         f"{ {p: round(t['ms_median'], 2) for p, t in dist_res['timing'][0].items()} }; "
         f"sp/pp/ep bf16 ms a step (rank 0): "
@@ -8368,10 +8819,15 @@ def main():
         f"{fwd_errs[(BERT_SHAPE, 'bfloat16', False)]:.3e} bf16)")
     from mxnet_tpu_torch.tools.trace_edges import TRACES
 
-    leads = [t["lead_ms"] for t in TRACES if t["held"]]
-    log(f"fenced traces: {len(TRACES)}, {len(TRACES) - len(leads)} lost a "
-        f"side; first fence after its launch, ms, in order: "
-        f"{[round(x, 3) for x in leads]}")
+    padded = [t for t in TRACES if t["pad_s"] > 0]
+    leads = [t["lead_ms"] for t in padded if t["held"]]
+    log(f"fenced traces: {len(padded)} padded, "
+        f"{len(padded) - len(leads)} lost a side, first fence after its "
+        f"launch from the profiler's start, ms, in order: "
+        f"{[round(x, 3) for x in leads]}; enter_ms "
+        f"{[round(t['enter_ms'], 3) for t in padded]}; [23](f) "
+        f"{TRACE_REPRO} unpadded, {len(r2_res['traces']['lost'])} lost a "
+        f"side")
     log(json.dumps(kernels))
     log(card)
     print(json.dumps({"ok": True, "device": {

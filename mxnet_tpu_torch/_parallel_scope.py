@@ -43,10 +43,14 @@ class ParallelScope:
     (sp_rank + 1) * T)`` of each sequence, ``seq_offset``).
     ``ep_group``/``ep_shards``: the expert-parallel group and the tensors
     that hold this rank's experts, {id(tensor): (first expert, experts)},
-    consumed like the tp shards."""
+    consumed like the tp shards.  ``row_shards``: the embedding tables
+    whose vocab rows are split over the dp group (``EmbeddingRules``),
+    {id(tensor): (first row, full rows)}, read by ``ShardedEmbedding``
+    and consumed like the tp shards."""
 
     def __init__(self, dp_group=None, tp_group=None, tp_shards=None,
-                 sp_group=None, ep_group=None, ep_shards=None):
+                 sp_group=None, ep_group=None, ep_shards=None,
+                 row_shards=None):
         self.dp_group = dp_group
         self.dp_size = _size(dp_group)
         self.tp_group = tp_group
@@ -60,12 +64,21 @@ class ParallelScope:
             else 0
         self.ep_group = ep_group
         self.ep_shards = dict(ep_shards or {})
+        self.row_shards = dict(row_shards or {})
         self.consumed = set()
 
     def shard_of(self, t):
         """(dim, offset, full size) when ``t`` holds a tp shard, else
         None; marks it consumed."""
         info = self.tp_shards.get(id(t))
+        if info is not None:
+            self.consumed.add(id(t))
+        return info
+
+    def rows_of(self, t):
+        """(first row, full rows) when ``t`` holds this rank's block of a
+        row-sharded table, else None; marks it consumed."""
+        info = self.row_shards.get(id(t))
         if info is not None:
             self.consumed.add(id(t))
         return info

@@ -113,16 +113,7 @@ def _rendezvous(coordinator_address, num_processes, process_id):
         wait = datetime.timedelta(seconds=timeout)
         store, _, _ = next(dist.rendezvous(addr, rank=rank, world_size=n,
                                            timeout=wait))
-        store.set_timeout(wait)
-        store.set(f"mxtpu_member/{rank}", json.dumps(local_member()))
-        members = [json.loads(store.get(f"mxtpu_member/{r}"))
-                   for r in range(n)]
-        backend, reason = backend_rule(members)
-        print(f"[rank {rank}] process group backend {backend}: {reason}",
-              flush=True)
-        dist.init_process_group(
-            backend, store=dist.PrefixStore("default_pg", store),
-            world_size=n, rank=rank, timeout=wait)
+        _open_group(store, "default_pg", n, rank, wait)
 
     resilience.retry_call(
         attempt, retries=retries, deadline=timeout, backoff=0.5,
@@ -130,6 +121,96 @@ def _rendezvous(coordinator_address, num_processes, process_id):
         retryable=(RuntimeError, ConnectionError, OSError,
                    resilience.InjectedFault),
         description=f"rendezvous with {coordinator_address}")
+
+
+def _open_group(store, prefix, n, rank, wait):
+    """The default process group of ``n`` ranks over ``store``: each rank
+    writes its ``local_member()`` under ``prefix``, reads all of them, and
+    the group opens on the backend ``backend_rule`` picks (printed with
+    its reason)."""
+    import torch.distributed as dist
+
+    store.set_timeout(wait)
+    store.set(f"{prefix}/mxtpu_member/{rank}", json.dumps(local_member()))
+    members = [json.loads(store.get(f"{prefix}/mxtpu_member/{r}"))
+               for r in range(n)]
+    backend, reason = backend_rule(members)
+    print(f"[rank {rank}] process group backend {backend}: {reason}",
+          flush=True)
+    dist.init_process_group(
+        backend, store=dist.PrefixStore(prefix, store), world_size=n,
+        rank=rank, timeout=wait)
+    return backend
+
+
+#: the TCP store under the gang's current process group (the leader
+#: serves it; kept for the group's life)
+_GANG_STORE = [None]
+
+
+def form_group(kv, epoch, members, rank, timeout=60.0):
+    """Form the default process group anew over the gang's ``members`` of
+    ``epoch``: world ``len(members)``, this rank's place its index in
+    ``members``.  A group already open (the previous epoch's, perhaps
+    with a dead peer) is destroyed first.  The rendezvous goes through the
+    gang's KV ``kv`` under ``pg/<epoch>/``: the first member serves a TCP
+    store and publishes its address there, the others read it; the group
+    opens on ``backend_rule``'s backend with collectives that time out
+    after ``timeout`` seconds (a dead peer fails the call instead of
+    hanging it).  A gang of one opens no group.  Returns the backend, or
+    None for one member."""
+    import datetime
+
+    import torch.distributed as dist
+
+    leave_group()
+    members = [int(m) for m in members]
+    n, place = len(members), members.index(int(rank))
+    if n == 1:
+        return None
+    wait = datetime.timedelta(seconds=float(timeout))
+    key = f"pg/{int(epoch)}/store"
+    if place == 0:
+        host = _reachable_host(kv)
+        store = dist.TCPStore(host, 0, n, is_master=True, timeout=wait,
+                              wait_for_workers=False)
+        kv.put_json(key, {"host": host, "port": int(store.port)})
+    else:
+        deadline = time.monotonic() + float(timeout)
+        while True:
+            at = kv.get_json(key)
+            if at is not None:
+                break
+            if time.monotonic() > deadline:
+                raise resilience.MXNetError(
+                    f"form_group: no store for epoch {epoch} after "
+                    f"{timeout} s")
+            time.sleep(0.01)
+        store = dist.TCPStore(at["host"], int(at["port"]), n,
+                              is_master=False, timeout=wait)
+    _GANG_STORE[0] = store
+    return _open_group(store, f"gang_pg/{int(epoch)}", n, place, wait)
+
+
+def leave_group():
+    """Destroy the default process group, if one is open, and drop the
+    gang's store: every peer's pending or next collective with this rank
+    fails."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        dist.destroy_process_group()
+    _GANG_STORE[0] = None
+
+
+def _reachable_host(kv):
+    """The address this host reaches the gang KV from (so its peers reach
+    this host at it too); the loopback for a KV without a socket."""
+    sock = getattr(kv, "_conn", None)
+    try:
+        return sock.getsockname()[0]
+    except (AttributeError, OSError):
+        return "127.0.0.1"
 
 
 def init_from_env():

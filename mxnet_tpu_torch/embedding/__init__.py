@@ -18,9 +18,11 @@ Counterpart of ``mxnet_tpu/embedding/``:
 
 ``MXTPU_SPARSE_CAPTURED=0`` pins sparse configurations to the eager
 oracle; every fallback emits a ``sparse_fallback{reason}`` telemetry
-event.  The JAX package's row-sharding over a mesh (``EmbeddingRules``)
-and its symbol path wait for the next multi-GPU slice (ROADMAP queue 1
-item 1b) and the symbol slice.
+event.  Under ``parallel.ShardedTrainer`` on a rank mesh,
+``parallel.EmbeddingRules`` splits a table's vocab rows over the data
+axis and the lookup exchanges ids and rows with their owners
+(``sharded.row_sharded_lookup``); a symbol builds the dense
+``Embedding`` node.
 """
 
 from .prep import (SparsePrep, bucket_for, capture_scope,

@@ -1,8 +1,11 @@
-"""ShardedEmbedding: the capture-eligible row-sparse embedding table."""
+"""ShardedEmbedding: the capture-eligible row-sparse embedding table,
+and its lookup when the table's vocab rows are split over ranks."""
 
 from __future__ import annotations
 
 import torch
+
+from .._parallel_scope import current_scope
 
 from ..gluon.block import HybridBlock
 from ..symbol.symbol import Symbol
@@ -31,9 +34,11 @@ class ShardedEmbedding(HybridBlock):
     The host id prep applies the same selector to the same batch, so the
     block must read the step's ``data`` (or its feature slice) directly.
     Called with a Symbol it builds the dense ``Embedding`` node (feature
-    selection raises there, as in the JAX package).  The JAX package's
-    row-sharding of the table over a mesh waits for the next multi-GPU
-    slice (ROADMAP queue 1 item 1b).
+    selection raises there, as in the JAX package).  Under
+    ``parallel.ShardedTrainer`` on a rank mesh, ``EmbeddingRules`` splits
+    the table's vocab rows over the data axis: a rank holds its block of
+    rows, and the lookup is ``row_sharded_lookup`` over the dp group (a
+    vocab the axis does not divide replicates, and the lookup is local).
     """
 
     def __init__(self, input_dim, output_dim, dtype="float32",
@@ -79,6 +84,12 @@ class ShardedEmbedding(HybridBlock):
                     "path: export the surrounding block with feature=None "
                     "inputs")
             return F.Embedding(x, embed_table, **self._kwargs)
+        scope = current_scope()
+        rows = scope.rows_of(embed_table) if scope is not None else None
+        if rows is not None:
+            ids = x if self._feature is None else x[..., self._feature]
+            return row_sharded_lookup(ids, embed_table, rows[0], rows[1],
+                                      scope.dp_group)
         entry = _prep.scope_entry(id(self.weight))
         if entry is not None:
             rows, inv = entry
@@ -97,3 +108,43 @@ class ShardedEmbedding(HybridBlock):
             name=self.__class__.__name__, i=self._input_dim,
             o=self._output_dim, dt=self.weight.dtype,
             sp=", sparse_grad" if self._sparse_grad else "")
+
+
+def row_sharded_lookup(ids, local, first, vocab, group):
+    """``table[ids]`` where this rank holds rows ``[first, first +
+    local.shape[0])`` of a ``vocab``-row table whose rows are split in
+    equal blocks over ``group``: each id goes to the rank owning its row
+    and the row comes back, through two padded exchanges
+    (``collectives.all_to_all_single``, each rank's block padded to the
+    most ids any rank sends any other, the counts all-gathered first).
+    Differentiable: the gradient rows travel back to their owner, which
+    sums them into its block (its gradient holds every rank's ids).  Ids
+    clip into [0, vocab), as ``Embedding`` clips them."""
+    import torch.distributed as dist
+
+    from ..parallel import collectives as _coll
+
+    n = dist.get_world_size(group)
+    per = local.shape[0]
+    flat = ids.reshape(-1).to(device=local.device, dtype=torch.int64) \
+        .clamp(0, vocab - 1)
+    owner = flat // per
+    order = torch.argsort(owner, stable=True)
+    counts = torch.bincount(owner, minlength=n)
+    table = _coll.all_gather_dim(counts[None], group)     # (src, dst)
+    width = max(int(table.max()), 1)
+    # slot k of block j: this rank's k-th id owned by rank j (padded
+    # with row 0 of the owner's block, whose row is dropped on return)
+    starts = torch.cumsum(counts, 0) - counts
+    rank_of = owner[order]
+    slot = torch.arange(flat.numel(), device=flat.device) - starts[rank_of]
+    send = torch.zeros((n, width), dtype=torch.int64, device=flat.device)
+    send[rank_of, slot] = flat[order] - rank_of * per
+    asked = _coll.all_to_all_single(send, group)          # (src, width)
+    rows = local.index_select(0, asked.reshape(-1)).reshape(
+        n, width, local.shape[1])
+    back = _coll.all_to_all_single(rows, group)           # (owner, ...)
+    got = back[rank_of, slot]
+    out = torch.empty_like(got)
+    out[order] = got
+    return out.reshape(tuple(ids.shape) + (local.shape[1],))

@@ -37,7 +37,13 @@ Called with ``Symbol``s, a HybridBlock builds a graph instead
 ``-symbol.json`` with ``-%04d.params`` (``arg:``/``aux:`` keys);
 ``SymbolBlock.imports`` runs such a pair as a block, and
 ``optimize_for`` runs the partitioned graph (``subgraph.partition``).
-``shard_activations`` is not ported yet.  ``_cache_version`` counts the
+``shard_activations(spec, mesh=None)`` pins a block's forward output to
+a spec through ``parallel.sharding.constrain`` (the default mesh at call
+time when ``mesh`` is None).  As the reference's constraint, it changes
+the layout and never the value: on a rank mesh outside a sharded step
+the output carries the cleaned spec as ``partition_spec``; inside one
+(``parallel.ShardedTrainer``), with no mesh, a one-device mesh or a spec
+longer than the output, it is the output as it is.  ``_cache_version`` counts the
 changes a captured step keys on (``_clear_cached_op`` bumps it, as the
 reference's does: LoRA attach, freeze and merge).
 """
@@ -337,6 +343,10 @@ class HybridBlock(Block):
     """A Block whose computation is ``hybrid_forward(F, x, **params)``
     (reference: gluon.HybridBlock)."""
 
+    #: (spec, mesh) from ``shard_activations``; a class attribute, so
+    #: blocks built before the call carry None
+    _act_spec = None
+
     def __init__(self, prefix=None, params=None):
         super().__init__(prefix=prefix, params=params)
         self._active = False
@@ -393,8 +403,41 @@ class HybridBlock(Block):
         if self._active and not _random.scoped():
             with _random.generator_scope(_random.step_generator(
                     _device_of(_leaves((x, *args))))):
-                return self._remat_forward(x, *args, **kwargs)
-        return self._remat_forward(x, *args, **kwargs)
+                return self._constrain_out(
+                    self._remat_forward(x, *args, **kwargs))
+        return self._constrain_out(self._remat_forward(x, *args, **kwargs))
+
+    def shard_activations(self, spec, mesh=None):
+        """Pin this block's forward output to a PartitionSpec (Megatron
+        activation annotation, e.g. ``('dp', None, 'tp')`` after a
+        column-parallel projection).  ``mesh=None`` resolves the process
+        default mesh at call time.  The output's value never changes: on a
+        rank mesh it carries the cleaned spec as ``partition_spec``
+        (``parallel.sharding.constrain``); inside a sharded step, with no
+        mesh or a one-device one, it is left as it is.  Returns the
+        block."""
+        self._act_spec = (tuple(spec), mesh)
+        self._clear_cached_op()
+        return self
+
+    def _constrain_out(self, out):
+        if self._act_spec is None:
+            return out
+        from ..parallel.mesh import default_mesh
+        from ..parallel.sharding import constrain
+
+        spec, mesh = self._act_spec
+        if mesh is None:
+            mesh = default_mesh()
+        if mesh is None:
+            return out
+
+        for v in out if isinstance(out, (tuple, list)) else (out,):
+            if isinstance(v, NDArray):
+                constrain(v._data, mesh, spec)
+            elif isinstance(v, torch.Tensor):
+                constrain(v, mesh, spec)
+        return out
 
     def _remat_forward(self, *args, **kwargs):
         policy = _remat.env_default(self._flags.get("remat")) \

@@ -53,11 +53,17 @@ for each batch it places, the producer thread reads the batch's ids
 the captured step to pop (``stash_prep``/``pop_prep``), so that work
 overlaps the current step.
 
-``mesh=`` takes the one-device ``parallel.data_parallel_mesh(1)``; a
-``dp>1`` mesh, and ``kvstore=``/``warm_pull=`` (the warm
-``row_sparse_pull`` of a distributed store), wait for the next
-multi-GPU slice (ROADMAP queue 1 item 1b) and raise
-``NotImplementedError``.
+``mesh=`` names the target: a one-device mesh its device; a rank mesh
+(one process a rank) this rank's card, and over its ``axis`` (dp) of n
+ranks the rank keeps its block of rows of every array whose dim 0 n
+divides (rank r rows [r B/n, (r+1) B/n), the reference's batch-dim
+sharding), placing only those; an array n does not divide is placed
+whole, replicated, as the reference places it.  With ``kvstore=`` and
+``warm_pull={key: out}`` the producer thread also pulls, for every
+sparse table whose parameter name is a key, the rows the batch it is
+about to yield will touch (``row_sparse_pull(key, out, row_ids=...)``):
+the store's local rows, no collective, so it never interleaves with the
+step's all-reduce.
 """
 
 from __future__ import annotations
@@ -89,13 +95,57 @@ def default_depth():
 
 
 def _mesh_context(mesh):
-    """The Context of a one-device mesh; a sharded mesh raises."""
+    """The Context this process places on: a one-device mesh's device, a
+    rank mesh's device of this rank.  A mesh of several devices in one
+    process raises (the port runs one process a rank)."""
+    if getattr(mesh, "is_rank_mesh", False):
+        return context_of(mesh.device)
     if mesh.size != 1:
         raise NotImplementedError(
             f"DevicePrefetcher: mesh {mesh.shape} spans {mesh.size} "
-            "devices; placing a batch sharded over a dp>1 mesh waits for "
-            "the next multi-GPU slice (ROADMAP queue 1 item 1b)")
+            "devices of one process; the port runs one process a rank "
+            "(a rank mesh)")
     return context_of(mesh.devices.flat[0])
+
+
+def _row_block(mesh, axis):
+    """(n, r): the ranks over ``axis`` of a rank mesh and this rank's
+    coordinate there; None for no mesh or an axis of one rank."""
+    if mesh is None or not getattr(mesh, "is_rank_mesh", False):
+        return None
+    n = int(mesh.shape.get(axis, 1))
+    return (n, mesh.coord(axis)) if n > 1 else None
+
+
+def _rows_leaf(x, n, r):
+    """Rank r's block of dim 0 of one leaf over n ranks; the leaf whole
+    when n does not divide its dim 0 (or it has none)."""
+    if isinstance(x, Samples):
+        if len(x.samples) % n:
+            return x
+        b = len(x.samples) // n
+        out = Samples.__new__(Samples)
+        out.samples = x.samples[r * b:(r + 1) * b]
+        out.cuda, out.ready = x.cuda, x.ready
+        return out
+    t = _tensor_of(x)
+    shape = tuple(t.shape) if t is not None else getattr(x, "shape", ())
+    if not shape or shape[0] % n:
+        return x
+    b = shape[0] // n
+    if isinstance(x, NDArray):
+        return NDArray(t[r * b:(r + 1) * b], x._ctx)
+    return x[r * b:(r + 1) * b]
+
+
+def shard_rows(batch, mesh, axis="dp"):
+    """``batch`` with every array leaf cut to this rank's block of rows
+    over ``mesh``'s ``axis`` (``_rows_leaf``); unchanged off a rank mesh
+    or over an axis of one rank."""
+    block = _row_block(mesh, axis)
+    if block is None:
+        return batch
+    return _place(batch, None, lambda x: _rows_leaf(x, *block))
 
 
 def _tensor_of(leaf):
@@ -308,24 +358,22 @@ class DevicePrefetcher:
         producer thread computes each table's id prep for the batch it is
         about to yield and stashes it for the captured step.
     kvstore, warm_pull :
-        The warm ``row_sparse_pull`` of a distributed store; they wait
-        for the next multi-GPU slice and raise ``NotImplementedError``.
+        With a kvstore and ``warm_pull={key: out}``, the producer also
+        issues ``row_sparse_pull(key, out, row_ids=<next batch's ids>)``
+        for every table whose parameter name matches ``key``.
     """
 
     def __init__(self, data, depth=None, mesh=None, axis="dp",
                  sparse_tables=None, kvstore=None, warm_pull=None):
-        if kvstore is not None or warm_pull:
-            raise NotImplementedError(
-                "DevicePrefetcher: kvstore= and warm_pull= (the warm "
-                "row_sparse_pull of a distributed store) wait for the next "
-                "multi-GPU slice (ROADMAP queue 1 item 1b)")
         self._sparse_block = sparse_tables
+        self._kvstore = kvstore
+        self._warm_pull = dict(warm_pull or {})
         self._data = data
         self._depth = default_depth() if depth is None else int(depth)
         self._mesh = mesh
         self._axis = axis
         if mesh is not None:
-            _mesh_context(mesh)     # a sharded mesh raises here
+            _mesh_context(mesh)     # several devices of one process raise
         self._stop = None
         self._thread = None
 
@@ -393,6 +441,15 @@ class DevicePrefetcher:
             pr = _prep.prepare_one(data, blk)
             if pr is not None:
                 preps[pid] = pr
+            dest = self._warm_pull.get(blk.weight.name) \
+                if self._kvstore is not None else None
+            if dest is not None:
+                ids = pr.uniq[:pr.n_real] if pr is not None \
+                    else _np.unique(_prep.extract_ids(
+                        data, blk._feature, blk._input_dim))
+                self._kvstore.row_sparse_pull(blk.weight.name, out=dest,
+                                              row_ids=ids)
+                telemetry.count("input.warm_pulls")
         if preps:
             _prep.stash_prep(data, preps)
         telemetry.count("input.id_prep_us",
@@ -447,7 +504,8 @@ class DevicePrefetcher:
                     batch = next(it)
             except StopIteration:
                 return
-            placed = place(batch, ctx=ctx)
+            placed = place(shard_rows(batch, self._mesh, self._axis),
+                           ctx=ctx)
             self._prep_sparse(placed)
             telemetry.count("input.wait_us",
                             int((_time.perf_counter() - t0) * 1e6))
@@ -476,6 +534,7 @@ class DevicePrefetcher:
 
         def produce():
             for batch in src:
+                batch = shard_rows(batch, self._mesh, self._axis)
                 if cuda:
                     placed, event = stage.place(batch, ctx)
                 else:

@@ -20,8 +20,12 @@ share one block step, ``decoder_step``, over the weights
 ``decoder_weights`` lays out head-major; the JAX package has one copy of
 that step in each.  It is the reference's XLA code in PyTorch: dense
 attention over the cache window with a per-row causal mask, no kernel of
-the port's own.  ``CachedDecoder(mesh=...)`` (tensor-parallel decoding)
-waits for several cards, ROADMAP queue 1 item 6, and raises.
+the port's own.  ``CachedDecoder(mesh=...)`` decodes tensor-parallel
+over the mesh's tp axis (``tp_plan``): each rank keeps its heads of the
+packed qkv (``sharding.local_shard``'s split by heads), its rows of the
+projection's input and its block of the FFN hidden dim, its heads of the
+KV cache, and the step all-reduces the projection's and the second FFN
+product's partial sums, two a layer, as Megatron's column/row pair.
 
 Dropout follows ``autograd.is_training()`` (the trainers open training
 mode), its masks drawn from ``random.current_generator``.  A model is
@@ -369,36 +373,88 @@ _MATRICES = ("qkv_stack_weight", "proj_stack_weight", "ffn1_stack_weight",
              "ffn2_stack_weight")
 
 
-def decoder_weights(stacks, lnf, tok, pos, heads, device, dtype=None):
+def tp_plan(mesh, tp_axis, heads, ffn_hidden, what):
+    """(group, size) of ``mesh``'s ``tp_axis`` for a tensor-parallel
+    decoder, or None for no mesh or a tp axis of one rank.  Raises when
+    the axis does not divide the heads or the FFN hidden dim (the
+    reference's check)."""
+    if mesh is None:
+        return None
+    n = int(mesh.shape.get(tp_axis, 1))
+    if heads % n or ffn_hidden % n:
+        raise MXNetError(
+            f"{what}: tp axis size {n} must divide num_heads={heads} and "
+            f"ffn hidden={ffn_hidden}")
+    if n == 1 or not getattr(mesh, "is_rank_mesh", False):
+        return None
+    return mesh.group(tp_axis), n
+
+
+#: each decoder stack's spec under tp: Megatron's column-parallel qkv and
+#: first FFN product, row-parallel projection and second FFN product
+_TP_SPECS = {"qkv_stack_weight": (None, "tp", None),
+             "qkv_stack_bias": (None, "tp"),
+             "proj_stack_weight": (None, None, "tp"),
+             "ffn1_stack_weight": (None, "tp", None),
+             "ffn1_stack_bias": (None, "tp"),
+             "ffn2_stack_weight": (None, None, "tp")}
+
+
+def decoder_weights(stacks, lnf, tok, pos, heads, device, dtype=None,
+                    mesh=None, tp_axis="tp"):
     """The cached decoders' copy of a GPT's weights on ``device``,
     head-major: qkv as (L, 3, H, Dh, C), the projection as (L, C, H, Dh).
     With ``dtype`` (bf16) the four matrix stacks and the two embedding
-    tables take it; LayerNorm, biases and every reduction stay f32."""
+    tables take it; LayerNorm, biases and every reduction stay f32.  On a
+    rank ``mesh`` with a tp axis of n ranks, the rank's shard: its H/n
+    heads of qkv (``sharding.local_shard``'s packed split) and of the
+    projection's input, its block of the FFN hidden dim; the rest
+    replicated."""
+    from ...parallel import sharding as _sh
+
     L, C = stacks["qkv_stack_weight"].shape[0], tok.shape[1]
     Dh = C // heads
+    n = mesh.shape.get(tp_axis, 1) if mesh is not None else 1
 
-    def put(t, big=False):
+    def put(name, t, big=False):
         dt = dtype if big and dtype is not None else torch.float32
+        if n > 1 and name in _TP_SPECS:
+            spec = tuple(tp_axis if a == "tp" else a
+                         for a in _TP_SPECS[name])
+            t = _sh.local_shard(name, torch.as_tensor(t), spec, mesh)
         return t.to(device=device, dtype=dt, copy=True)
 
-    s = {n: put(t, n in _MATRICES) for n, t in stacks.items()}
+    s = {k: put(k, t, k in _MATRICES) for k, t in stacks.items()}
+    h = heads // n
     return {
-        "tok": put(tok, True), "pos": put(pos, True),
-        "qkv": s["qkv_stack_weight"].reshape(L, 3, heads, Dh, C),
-        "qkv_b": s["qkv_stack_bias"].reshape(L, 3, heads, Dh),
-        "proj": s["proj_stack_weight"].reshape(L, C, heads, Dh),
+        "tok": put("tok", tok, True), "pos": put("pos", pos, True),
+        "qkv": s["qkv_stack_weight"].reshape(L, 3, h, Dh, C),
+        "qkv_b": s["qkv_stack_bias"].reshape(L, 3, h, Dh),
+        "proj": s["proj_stack_weight"].reshape(L, C, h, Dh),
         "proj_b": s["proj_stack_bias"],
         "ffn1": s["ffn1_stack_weight"], "ffn1_b": s["ffn1_stack_bias"],
         "ffn2": s["ffn2_stack_weight"], "ffn2_b": s["ffn2_stack_bias"],
         "ln1_g": s["ln1_stack_gamma"], "ln1_b": s["ln1_stack_beta"],
         "ln2_g": s["ln2_stack_gamma"], "ln2_b": s["ln2_stack_beta"],
-        "lnf_g": put(lnf[0]), "lnf_b": put(lnf[1]),
+        "lnf_g": put("lnf_g", lnf[0]), "lnf_b": put("lnf_b", lnf[1]),
     }
 
 
-def decoder_step(w, ck, cv, pos, toks, act, last=None):
+def _tp_sum(x, group):
+    """The sum of the tp ranks' partial products (a no-op for no group)."""
+    if group is None:
+        return x
+    from ...parallel import collectives
+
+    return collectives.all_reduce_(x, group, "tp_decode")
+
+
+def decoder_step(w, ck, cv, pos, toks, act, last=None, group=None):
     """One block step of the cached decoders over ``decoder_weights``
-    ``w``: toks (B, S) int64 at per-row offsets pos (B,).  Writes the S new
+    ``w``: toks (B, S) int64 at per-row offsets pos (B,).  With a tp
+    ``group`` the weights and the cache hold this rank's heads and FFN
+    block, and the projection's and the second FFN product's partial
+    sums are all-reduced over it before their biases.  Writes the S new
     keys and values into ck/cv (L, B, H, W, Dh) in place at slots pos[b]
     .. pos[b] + S - 1, and position s of row b attends the slots <=
     pos[b] + s (stale slots beyond are masked, and each is overwritten
@@ -428,13 +484,14 @@ def decoder_step(w, ck, cv, pos, toks, act, last=None):
         scores = scores.masked_fill(~keep[:, None], _NEG)
         p = torch.softmax(scores, dim=-1)
         attn = torch.einsum("bhsw,bhwd->bhsd", p, cv_l.float())
-        attn = torch.einsum("bhsd,chd->bsc", attn, w["proj"][i].float()) \
+        attn = _tp_sum(torch.einsum("bhsd,chd->bsc", attn,
+                                    w["proj"][i].float()), group) \
             + w["proj_b"][i]
         x = x + attn
         h = layer_norm(x, w["ln2_g"][i], w["ln2_b"][i])
         h = torch.matmul(h, w["ffn1"][i].float().t()) + w["ffn1_b"][i]
         h = activation(h, act)
-        x = x + (torch.matmul(h, w["ffn2"][i].float().t())
+        x = x + (_tp_sum(torch.matmul(h, w["ffn2"][i].float().t()), group)
                  + w["ffn2_b"][i])
     if last is not None:
         x = x[rows[:, 0], last]                                # (B, C)
@@ -457,23 +514,25 @@ class CachedDecoder:
     seed, then one S=1 block step a token.  ``decode`` has ``generate``'s
     sampling surface.  ``dtype`` (``"bfloat16"`` or a torch dtype) puts
     the matrix stacks, the embedding tables and the cache in it, the
-    accumulation and the residual stream in f32.  ``mesh``
-    (tensor-parallel decoding) waits for the next multi-GPU slice: a
-    mesh raises."""
+    accumulation and the residual stream in f32.  ``mesh`` (a rank mesh
+    with a ``tp_axis``) decodes tensor-parallel: every rank of the tp
+    group calls ``decode`` with the same seed and draws the same tokens,
+    holding its heads and FFN block (``decoder_weights``), its heads of
+    the cache, and two all-reduces a layer (``decoder_step``).  A one-
+    device mesh, or a tp axis of one rank, decodes on one device."""
 
-    def __init__(self, model, mesh=None, dtype=None):
-        if mesh is not None:
-            raise MXNetError(
-                "CachedDecoder(mesh=...): tensor-parallel decoding waits "
-                "for the next multi-GPU slice (ROADMAP queue 1 item 1b); "
-                "decode on one device without mesh=")
+    def __init__(self, model, mesh=None, tp_axis="tp", dtype=None):
         stacks, lnf, tok, pos, heads, act = extract_decoder_stacks(model)
+        self._tp = tp_plan(mesh, tp_axis, heads,
+                           int(stacks["ffn1_stack_weight"].shape[1]),
+                           "CachedDecoder")
         self._W = model._max_length
         self._act = act
         self._device = _model_device(model)
         self._dtype = None if dtype is None else torch_dtype(dtype)
         self._w = decoder_weights(stacks, lnf, tok, pos, heads,
-                                  self._device, self._dtype)
+                                  self._device, self._dtype,
+                                  mesh if self._tp else None, tp_axis)
         self._vocab = tok.shape[0]
 
     def _init_cache(self, B):
@@ -491,7 +550,8 @@ class CachedDecoder:
         the logits (B, S, vocab)."""
         p = torch.full((toks.shape[0],), pos, dtype=torch.int64,
                        device=self._device)
-        return decoder_step(self._w, ck, cv, p, toks, self._act)
+        return decoder_step(self._w, ck, cv, p, toks, self._act,
+                            group=self._tp[0] if self._tp else None)
 
     def decode(self, ids, max_new_tokens=16, temperature=None,
                generator=None, return_logits=False):

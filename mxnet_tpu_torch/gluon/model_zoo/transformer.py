@@ -16,8 +16,9 @@ Self-attention in both stacks runs ``attention_impl``: with ``"flash"``
 on a CUDA device the encoder runs the hand-written flash kernels
 non-causal and the decoder causal, forward and backward (on the CPU they
 take their plain path).  Cross-attention stays dense, as in the
-reference.  ``"ring"`` (sequence parallelism) needs several cards, ROADMAP
-queue 1 item 6, and is refused by the attention op.
+reference.  ``"ring"`` and ``"ulysses"`` (sequence parallelism) dispatch
+through the attention op to ``parallel.ring`` inside a sharded step with
+an sp axis, on the same flash kernels.
 
 ``greedy_decode`` and ``beam_search`` grow the target one token a step and
 rerun the whole model each step, as the reference's host loops do; a model

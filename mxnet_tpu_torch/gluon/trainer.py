@@ -41,7 +41,8 @@ turns on the store's gradient compression.  Such a trainer takes the
 eager path (``kvstore.captured_step_compatible``).  Parameters placed as
 DTensors by ``parallel.shard_model`` on a rank mesh train through
 ``parallel.ShardedTrainer``; this trainer refuses them (ROADMAP queue 1
-item 1b).
+item 1b: ``shard_model`` feeding a captured ``train_step`` needs NCCL
+across cards).
 """
 
 from __future__ import annotations

@@ -49,9 +49,19 @@ _MESH_EPOCH = 0
 
 def notify_mesh_reshape(epoch):
     """Called by ``resilience.ElasticGang.recover`` after a membership
-    change: the next captured step records against the new topology."""
+    change: the next captured step records against the new topology, and
+    a default rank mesh is dropped (its axis groups belong to the old
+    process group).  The store's collectives run over the process group
+    current at each call and ``collectives.bucketed_all_reduce`` plans
+    its buckets at each call, so no other group or bucket plan is
+    cached."""
     global _MESH_EPOCH
     _MESH_EPOCH = int(epoch)
+    from .parallel import mesh as _mesh
+
+    cur = _mesh.default_mesh()
+    if cur is not None and cur.is_rank_mesh:
+        _mesh.set_default_mesh(None)
 
 
 def device_fingerprint():
@@ -182,11 +192,8 @@ class KVStore:
                                              merged._rs_values)
             return row_sparse_array((q, union), shape=merged.shape,
                                     ctx=merged._ctx)
-        if isinstance(merged, RowSparseNDArray):
-            raise NotImplementedError(
-                "kvstore: the compressed push of a row-sparse gradient "
-                "across workers waits for the next multi-GPU slice "
-                "(ROADMAP queue 1 item 1b)")
+        # across workers a row-sparse gradient goes through the dense
+        # compressed all-reduce as its dense view, as the reference's does
         raw = merged._data.detach()
         with torch.no_grad():
             if multi and gc.type == "2bit":

@@ -91,9 +91,11 @@ def _tp_fully_connected(data, weight, bias, no_bias, shard, group):
         out = _matmul_nt(coll.copy_to_region(data, group), weight)
         out = coll.gather_from_region(out, group, dim=-1)
     else:
-        x = data[..., offset:offset + weight.shape[1]]
-        out = coll.reduce_from_region(
-            _matmul_nt(coll.copy_to_region(x, group), weight), group)
+        # the slice after the region: its backward sums every rank's
+        # gradient of its own features into the whole input's
+        x = coll.copy_to_region(data, group)[
+            ..., offset:offset + weight.shape[1]]
+        out = coll.reduce_from_region(_matmul_nt(x, weight), group)
     if bias is None or no_bias:
         return out
     return out + bias

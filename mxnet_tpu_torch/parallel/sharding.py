@@ -34,7 +34,19 @@ here a rank holds its shard and the tp-aware ops do the collectives
   parameters as DTensors (``DTensor.from_local``, no collective) over
   ``Mesh.device_mesh``.  ``parallel.ShardedTrainer`` trains such a block;
   ``gluon.Trainer`` and the captured ``train_step`` over a rank mesh wait
-  for the next multi-GPU slice (ROADMAP queue 1 item 1b) and refuse it.
+  for the captured step over NCCL (the last multi-rank bullet of ROADMAP
+  queue 1) and refuse it;
+- ``EmbeddingRules`` row-shards ``ShardedEmbedding`` tables over the
+  data axis: under ``ShardedTrainer`` a rank keeps its block of vocab
+  rows, the lookup sends each id to the rank owning its row and the rows
+  back, and the gradient rows go to their owner
+  (``embedding.sharded.row_sharded_lookup``); a vocab the axis does not
+  divide replicates;
+- ``constrain`` (``HybridBlock.shard_activations``,
+  ``annotate_activations``) lays an activation out as a spec, its value
+  unchanged: on a rank mesh outside a sharded step it records the
+  cleaned spec on the tensor (``partition_spec``), inside one it leaves
+  the rank's activations as they are.
 """
 
 from __future__ import annotations
@@ -94,6 +106,11 @@ class ShardingRules:
     def add(self, pattern, spec):
         self._rules.append((re.compile(pattern), tuple(spec)))
         return self
+
+    def row_sharded(self, name):
+        """Whether these rules split parameter ``name``'s vocab rows as a
+        row-sharded table (``EmbeddingRules``' claim)."""
+        return False
 
 
 def fsdp_min_size():
@@ -250,6 +267,9 @@ class EmbeddingRules(ShardingRules):
         super().__init__(rules=[(pattern, (axis,))])
         self.axis = axis
 
+    def row_sharded(self, name):
+        return self._match(name) is not None
+
 
 def embedding_rules(axis=DP, pattern=r"_embed_table$"):
     """`EmbeddingRules` — named constructor for symmetry with
@@ -378,6 +398,9 @@ class _CombinedRules(ShardingRules):
                             and e not in merged:
                         merged[dim] = e
         return PartitionSpec(*merged)
+
+    def row_sharded(self, name):
+        return any(rs.row_sharded(name) for rs in self._sets)
 
     def add(self, pattern, spec):
         # appended rules have the LOWEST precedence, matching the
@@ -613,22 +636,36 @@ def batch_sharding(mesh, dim_size=None, leading=0, axis=DP):
 
 
 def constrain(x, mesh, spec):
-    """``x`` laid out as ``spec`` says, with ``clean_spec``'s leniencies
-    (and a spec longer than ``x``'s rank a no-op): on a one-device mesh,
-    ``x`` as it is; on a rank mesh, this rank's shard of the full ``x``
-    that every rank holds."""
-    if mesh is None or not getattr(mesh, "is_rank_mesh", False):
+    """``x`` laid out as ``spec`` says, its value unchanged, as the
+    reference's ``with_sharding_constraint``, with ``clean_spec``'s
+    leniencies (and a spec longer than ``x``'s rank a no-op).  On a rank
+    mesh every rank holds the whole value, so the layout is a record:
+    ``x.partition_spec`` is the cleaned spec (``local_shard`` cuts the
+    rank's block of it).  Inside a sharded step (an open
+    ``ParallelScope``) the activations are already this rank's own, and
+    ``x`` is left as it is; so is it with no mesh or a one-device one."""
+    from .._parallel_scope import current_scope
+
+    if mesh is None or not getattr(mesh, "is_rank_mesh", False) \
+            or current_scope() is not None or len(tuple(spec)) > x.dim():
         return x
-    if len(tuple(spec)) > x.dim():
-        return x
-    return local_shard("", x, clean_spec(spec, tuple(x.shape), mesh), mesh)
+    x.partition_spec = clean_spec(spec, tuple(x.shape), mesh)
+    return x
 
 
 def annotate_activations(block, rules, mesh=None):
-    """Activation constraints by block name ride on
-    ``HybridBlock.shard_activations``, which waits for the symbolic slice
-    (ROADMAP queue 1 item 3); the sharded trainer does not need them (its
-    tp-aware ops lay out their own activations)."""
-    raise NotImplementedError(
-        "annotate_activations: HybridBlock.shard_activations is not ported "
-        "yet (ROADMAP queue 1 item 3)")
+    """Walk the block tree; any HybridBlock whose NAME matches a rule
+    pattern gets ``shard_activations(spec, mesh)`` (block names, not
+    parameter names, are matched), the rules-driven way to place
+    Megatron activation constraints without touching model code."""
+    def walk(b):
+        if hasattr(b, "shard_activations"):
+            for pat, spec in getattr(rules, "_rules", []):
+                if pat.search(getattr(b, "name", "") or ""):
+                    b.shard_activations(spec, mesh)
+                    break
+        for child in getattr(b, "_children", {}).values():
+            walk(child)
+
+    walk(block)
+    return block

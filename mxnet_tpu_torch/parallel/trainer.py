@@ -38,7 +38,13 @@ JAX package's GSPMD program becomes explicit collectives:
   consumed by the tp-aware ops (the trunk's heads and FFN columns, the
   vocab-parallel embedding, the column/row-parallel ``FullyConnected``);
   a dim sharded over the batch axis (FSDP) is all-gathered for the step
-  and its gradient reduce-scattered back; an ep shard (``MOE_EP_RULES``)
+  and its gradient reduce-scattered back, except a ``ShardedEmbedding``
+  table whose vocab rows ``EmbeddingRules`` split over it
+  (``rules.row_sharded(name)``): the rank keeps its block of rows and
+  the module's full table is dropped until ``sync_params`` writes it
+  back, the lookup exchanges ids and rows with their owners
+  (``embedding.sharded.row_sharded_lookup``) and the block's gradient
+  already holds every rank's ids; an ep shard (``MOE_EP_RULES``)
   is consumed by ``moe_ffn``; BatchNorm and the masked-token mean take
   the global batch's statistics over the ranks that split its tokens;
 - the step's objective is the mean over the R ranks that split the
@@ -53,7 +59,8 @@ JAX package's GSPMD program becomes explicit collectives:
   pp ranks the same one (their dropped activations are replicated), from
   a seed rank 0 draws at the first step;
 - replicated parameters are written back into the module each step,
-  sharded ones only by ``sync_params`` (a collective);
+  sharded ones only by ``sync_params`` (a collective; a row-sharded
+  table's full value is dropped again at the next step);
 - every parameter and aux value is broadcast from rank 0 at the first
   step, so the ranks start alike.
 
@@ -367,7 +374,7 @@ class ShardedTrainer:
                 base = torch.tensor([_random.next_seed()],
                                     dtype=torch.int64, device=self._device)
                 self._seed = int(_coll.broadcast_(base, 0, g).item())
-        self._specs, self._local = [], []
+        self._specs, self._local, self._row_tables = [], [], []
         for (n, t), spec in zip(self._trainable, self._raw_specs):
             if not self._ranked:
                 self._specs.append(_sh.PartitionSpec())
@@ -387,9 +394,23 @@ class ShardedTrainer:
                     "(FSDP) on a mesh with an sp or ep axis; FSDP runs "
                     "with dp, tp and pp")
             self._specs.append(spec)
-            self._local.append(
-                _sh.local_shard(n, t.detach(), spec, mesh)
-                if any(a is not None for a in spec) else None)
+            loc = _sh.local_shard(n, t.detach(), spec, mesh) \
+                if any(a is not None for a in spec) else None
+            if self._row_sharded(n, spec):
+                # its own storage, so dropping the full table frees it
+                self._row_tables.append(len(self._local))
+                loc = loc.clone()
+            self._local.append(loc)
+        self._drop_full_tables()
+
+    def _drop_full_tables(self):
+        """The row-sharded tables' full values leave the module: a rank
+        holds its block of rows alone (``sync_params`` writes the full
+        table back)."""
+        for i in self._row_tables:
+            t = self._trainable[i][1]
+            if t.numel():
+                t.data = t.data.new_empty((0,) + tuple(t.shape[1:]))
 
     def _update_vals(self):
         return [loc if loc is not None else t.detach()
@@ -411,8 +432,12 @@ class ShardedTrainer:
     def _loss_and_grads(self, x, y, leaves):
         loss = _remat.wrap(self._loss_of, self.remat)(x, y)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(p) if g is None else g
-                               for p, g in zip(leaves, grads)]
+        # a table's row-sparse gradient (``sparse_embedding``) joins the
+        # dense update
+        return loss.detach(), [
+            torch.zeros_like(p) if g is None
+            else g.to_dense() if g.is_sparse else g
+            for p, g in zip(leaves, grads)]
 
     def _microbatches(self, x, y):
         """This rank's rows of each microbatch: microbatch j is rows
@@ -456,11 +481,21 @@ class ShardedTrainer:
         all-gathered (FSDP, ``PPRules``), and the scope's record of its tp
         dim or of the experts it holds (ep, read by ``moe_ffn``)."""
         leaves, tp_shards, ep_shards, override = [], {}, {}, {}
+        self._row_shards = {}
         mesh = self.mesh
         for (n, t), spec, loc, owner in zip(self._trainable, self._specs,
                                             self._local, self._owners):
             if loc is None:
                 leaves.append(t)
+                continue
+            if self._row_sharded(n, spec):
+                leaf = loc.detach().requires_grad_(True)
+                rows = leaf.shape[0]
+                self._row_shards[id(leaf)] = (
+                    mesh.coord(self.batch_axis) * rows,
+                    mesh.shape[self.batch_axis] * rows)
+                leaves.append(leaf)
+                override[owner] = leaf
                 continue
             s = loc
             with torch.no_grad():
@@ -482,6 +517,14 @@ class ShardedTrainer:
             leaves.append(leaf)
             override[owner] = leaf
         return leaves, tp_shards, ep_shards, override
+
+    def _row_sharded(self, name, spec):
+        """Whether the rules row-shard parameter ``name`` (an
+        ``EmbeddingRules`` table) and its cleaned spec splits its vocab
+        rows alone over the batch axis."""
+        return self._rules is not None and self._rules.row_sharded(name) \
+            and len(spec) > 0 and spec[0] == self.batch_axis \
+            and all(a is None for a in spec[1:])
 
     def _forward_scope(self, override):
         """Gluon parameters read their stand-ins through
@@ -516,13 +559,14 @@ class ShardedTrainer:
         t = self._num_update
         lr = self.optimizer.lr_at(t)
         if self._ranked:
+            self._drop_full_tables()
             leaves, tp_shards, ep_shards, override = self._stand_ins()
             mesh = self.mesh
             scope = _coll.ParallelScope(
                 dp_group=mesh.group_over(self._stat_axes),
                 tp_group=mesh.group(TP), tp_shards=tp_shards,
                 sp_group=mesh.group(SP), ep_group=mesh.group(EP),
-                ep_shards=ep_shards)
+                ep_shards=ep_shards, row_shards=self._row_shards)
             # ranks holding other tokens draw distinct streams, tp and pp
             # ranks the same one
             seed = (self._seed * 1000003 + t * 7919
@@ -567,15 +611,16 @@ class ShardedTrainer:
     def _check_consumed(self, scope, leaves):
         missed = [n for (n, _), leaf in zip(self._trainable, leaves)
                   if (id(leaf) in scope.tp_shards
-                      or id(leaf) in scope.ep_shards)
+                      or id(leaf) in scope.ep_shards
+                      or id(leaf) in scope.row_shards)
                   and id(leaf) not in scope.consumed]
         if missed:
             raise MXNetError(
-                f"ShardedTrainer: tp or ep shards {missed} were read by no "
-                "op that runs on a shard (the scanned transformer trunk, "
+                f"ShardedTrainer: tp, ep or row shards {missed} were read by "
+                "no op that runs on a shard (the scanned transformer trunk, "
                 "multi_head_attention's packed qkv, Embedding, "
-                "FullyConnected, moe_ffn); a rule shards a parameter whose "
-                "layer cannot run on its shard")
+                "FullyConnected, moe_ffn, ShardedEmbedding); a rule shards "
+                "a parameter whose layer cannot run on its shard")
 
     def _reduce(self, loss, grads):
         """Sum the gradients over the ranks that split the batch's tokens
@@ -599,7 +644,11 @@ class ShardedTrainer:
             return loss, out
         dense, experts = [], []
         for i, spec in enumerate(self._specs):
-            if self.batch_axis in spec:
+            if self._local[i] is not None and \
+                    self._row_sharded(self._trainable[i][0], spec):
+                # the owner summed every rank's rows in the exchange
+                out[i] = out[i] / R
+            elif self.batch_axis in spec:
                 out[i] = _coll.reduce_scatter_dim(
                     out[i], group, spec.index(self.batch_axis)) / R
             elif EP in spec:
@@ -635,13 +684,19 @@ class ShardedTrainer:
     def sync_params(self):
         """Write the sharded parameters' full values back into the module
         (a collective on a rank mesh: every rank calls it); replicated
-        ones are written back by every step."""
+        ones are written back by every step.  A row-sharded table comes
+        back whole until the next step drops it."""
         if not self._initialized or not self._ranked:
             return
         with torch.no_grad():
             for i, (_, p) in enumerate(self._trainable):
-                if self._local[i] is not None:
-                    p.copy_(self._full(i, self._local[i]))
+                if self._local[i] is None:
+                    continue
+                full = self._full(i, self._local[i])
+                if i in self._row_tables:
+                    p.data = full.to(p.dtype)
+                else:
+                    p.copy_(full)
 
     def _full_state(self, copy=True):
         """``state_dict`` on a rank mesh: every sharded parameter and state

@@ -1682,6 +1682,7 @@ class ElasticGang:
         self.peers = peers
         self._last_snap_step = None
         self._started = False
+        self._group_formed = False     # form_process_group ran
 
     # -- membership helpers ----------------------------------------------------
 
@@ -2018,6 +2019,47 @@ class ElasticGang:
                     f"{timeout or self.reshape_timeout}s")
             time.sleep(0.01)
 
+    # -- the members' process group --------------------------------------------
+
+    def form_process_group(self):
+        """Form the default process group over this epoch's members
+        (``distributed.form_group``: world ``len(members)``, this rank's
+        place its index in them, the rendezvous under the KV prefix of
+        the epoch); a survivor calls it after each ``recover``, every
+        member at the start.  Collectives time out after
+        ``reshape_timeout`` seconds.  Once formed, ``recover`` leaves the
+        group before its consensus.  Returns the backend."""
+        from . import distributed
+
+        self._group_formed = True
+        return distributed.form_group(self.kv, self.epoch, self.members,
+                                      self.rank,
+                                      timeout=self.reshape_timeout)
+
+    def collective_failure(self, exc):
+        """What a collective that failed (a peer's closed socket, gloo's
+        timeout, the ``Watchdog``'s expiry) means for the gang: a
+        :class:`RankFailure` once the detector confirms a member dead
+        within four heartbeat timeouts, for the caller to raise into
+        ``recover``; ``exc`` itself when every member stays alive (a
+        fault that is not a death).  A collective that straddles a death
+        fails on every survivor this way: a member whose call completed
+        fails its next one (the others leave the group in ``recover``),
+        or its next ``step_tick``."""
+        deadline = time.monotonic() + 4 * self.detector.timeout
+        while True:
+            self._check_epoch()
+            dead = self.detector.poll() & set(self.members)
+            dead.discard(self.rank)
+            if dead:
+                _tel_event("collective_failure", epoch=self.epoch,
+                           dead=sorted(dead),
+                           error=f"{type(exc).__name__}: {exc}"[:200])
+                return RankFailure(dead, self.epoch)
+            if time.monotonic() > deadline:
+                return exc
+            time.sleep(0.01)
+
     # -- reshape protocol ------------------------------------------------------
 
     def recover(self, failure=None, checkpointer=None):
@@ -2028,6 +2070,14 @@ class ElasticGang:
         ``info.snap_step``.  Raises :class:`GangFenced` when the KV
         becomes unreachable mid-reshape or the proposal cannot gather a
         strict majority of the previous epoch's acks."""
+        if self._group_formed:
+            # leave the members' process group first: a survivor still
+            # waiting in a collective on this rank fails at once (its
+            # socket closes) instead of at the group's timeout, and comes
+            # to recover too
+            from . import distributed
+
+            distributed.leave_group()
         try:
             return self._recover_inner(failure, checkpointer)
         except _gang_kv_errors() as e:

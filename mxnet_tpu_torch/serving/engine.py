@@ -42,9 +42,15 @@ The step is ``gpt.decoder_step`` (shared with ``gpt.CachedDecoder``):
 dense attention over the cache window, as in the JAX engine; it reaches
 no kernel of the port's own.  A program returns only each row's logits at
 its read position (the JAX program returns every position's and the
-engine reads those).  Tensor-parallel serving (``mesh=``) waits for the
-next multi-GPU slice (ROADMAP queue 1 item 1b); the replicas are
-``serving/replica.py``.
+engine reads those).  ``mesh=`` (a rank mesh with a ``tp_axis``) serves
+tensor-parallel: every rank of the tp group holds its heads and FFN
+block (``gpt.decoder_weights``), its heads of each bucket's cache, and
+runs the same ``serve_group`` calls, the step all-reducing twice a
+layer.  A CUDA graph cannot hold a gloo collective, so over a gloo tp
+group each program is the eager step on the card too (``recordings``
+stays 0 and ``eager_reason`` says why); graphs over an NCCL tp group
+across cards cannot be checked on one card and are refused by name.
+The replicas are ``serving/replica.py``.
 """
 
 from __future__ import annotations
@@ -61,7 +67,7 @@ from ..base import MXNetError, torch_dtype
 from ..convert import as_tensor, match_state
 from ..gluon.model_zoo.gpt import (STACK_NAMES, _model_device, _sample,
                                    decoder_step, decoder_weights,
-                                   extract_decoder_stacks)
+                                   extract_decoder_stacks, tp_plan)
 
 # -- counters (the retrace-free pin) -------------------------------------------
 
@@ -163,8 +169,13 @@ class ServingEngine:
     (``warmup()`` builds them all up front)."""
 
     def __init__(self, model, batch_buckets=None, prefill_floor=8,
-                 dtype=None):
+                 mesh=None, tp_axis="tp", dtype=None):
         stacks, lnf, tok, pos, heads, act = extract_decoder_stacks(model)
+        self._tp = tp_plan(mesh, tp_axis, heads,
+                           int(stacks["ffn1_stack_weight"].shape[1]),
+                           "ServingEngine")
+        self._mesh = mesh if self._tp else None
+        self._tp_axis = tp_axis
         self._W = model._max_length
         self._dtype = None if dtype is None else torch_dtype(dtype)
         self._device = _model_device(model)
@@ -180,10 +191,26 @@ class ServingEngine:
         self._reload_lock = threading.Lock()
         self.generation = 0
         self._weights = decoder_weights(stacks, lnf, tok, pos, heads,
-                                        self._device, self._dtype)
+                                        self._device, self._dtype,
+                                        self._mesh, tp_axis)
         self._buckets = {}
         self._programs = {}     # (B, S) -> (token buffer, run)
         self._pool = None
+        #: CUDA graphs this engine recorded, and why its programs run
+        #: eagerly on the card (None when they are graphs)
+        self.recordings = 0
+        self.eager_reason = None
+        if self._tp and self._device.type == "cuda":
+            import torch.distributed as dist
+
+            backend = dist.get_backend(self._tp[0])
+            if backend == "nccl":
+                raise NotImplementedError(
+                    "ServingEngine(mesh=...): CUDA graphs over an NCCL tp "
+                    "group span cards and cannot be checked on one card; "
+                    "serve over a gloo tp group or without mesh=")
+            self.eager_reason = (f"tp group over {backend}: a CUDA graph "
+                                 "cannot hold its collectives")
 
     # -- weight plumbing -------------------------------------------------------
 
@@ -240,7 +267,8 @@ class ServingEngine:
                 f"serving reload: weight mismatch, qkv stack {got} vs "
                 f"served {want}")
         new_w = decoder_weights(stacks, lnf, tok, pos, self._H,
-                                self._device, self._dtype)
+                                self._device, self._dtype, self._mesh,
+                                self._tp_axis)
         for name, old in self._weights.items():
             new = new_w[name]
             if new.shape != old.shape or new.dtype != old.dtype:
@@ -260,7 +288,8 @@ class ServingEngine:
     def init_cache(self, B):
         """Fresh zeroed (ck, cv) for batch bucket B: (L, B, H, W, Dh) in
         the serving dtype."""
-        shape = (self._L, B, self._H, self._W, self._C // self._H)
+        H = self._weights["qkv"].shape[2]      # this rank's heads under tp
+        shape = (self._L, B, H, self._W, self._C // self._H)
         dtype = self._weights["tok"].dtype
         return (torch.zeros(shape, dtype=dtype, device=self._device),
                 torch.zeros(shape, dtype=dtype, device=self._device))
@@ -279,7 +308,8 @@ class ServingEngine:
         position (position 0 for S=1) written to the bucket's output."""
         S = toks.shape[1]
         logits = decoder_step(self._weights, bk.ck, bk.cv, bk.pos, toks,
-                              self._act, last=bk.last if S > 1 else None)
+                              self._act, last=bk.last if S > 1 else None,
+                              group=self._tp[0] if self._tp else None)
         bk.out.copy_(logits if S > 1 else logits[:, 0])
 
     def _traced_body(self, bk, toks):
@@ -305,6 +335,7 @@ class ServingEngine:
             raise MXNetError(
                 f"serving: recording the {tuple(toks.shape)} step as a CUDA "
                 f"graph failed: {type(e).__name__}: {e}") from e
+        self.recordings += 1
         return graph
 
     def _compile(self, B, S):
@@ -317,7 +348,7 @@ class ServingEngine:
         with torch.no_grad():
             bk.pos.zero_()
             bk.last.zero_()
-            if self._device.type == "cuda":
+            if self._device.type == "cuda" and self.eager_reason is None:
                 run = self._record(bk, toks).replay
             else:
                 self._traced_body(bk, toks)

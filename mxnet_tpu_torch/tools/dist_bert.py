@@ -336,11 +336,13 @@ def rank_main(args):
     distributed.barrier("dist_bert_end")
 
 
-def drive(workdir, world=2, batch=32, seq=512, steps=3, timed=5,
-          model="base", timeout=600.0):
-    """Run a gang of ``world`` rank processes of this tool and return
-    ``[result of rank r]``.  Raises, with the ranks' output, when one
-    fails or the gang outlives ``timeout``."""
+def drive_ranks(module, workdir, world, args=(), env=None, timeout=600.0):
+    """Run ``world`` rank processes of ``python3 -m <module> --rank R
+    --world N --out workdir <args>`` with the launch variables set (and
+    ``env`` beside them) and return ``[result of rank r]`` from
+    ``workdir/rank<r>.json``, each with the rank's output under
+    ``log``.  Raises, with the ranks' output, when one fails or the gang
+    outlives ``timeout``.  The multi-rank tools' ``drive`` is this."""
     import socket
     import subprocess
     from pathlib import Path
@@ -351,16 +353,14 @@ def drive(workdir, world=2, batch=32, seq=512, steps=3, timed=5,
         addr = "127.0.0.1:%d" % probe.getsockname()[1]
     procs, logs = [], []
     for r in range(world):
-        env = dict(os.environ, MXTPU_COORDINATOR=addr,
-                   MXTPU_NUM_WORKERS=str(world), MXTPU_WORKER_RANK=str(r),
-                   PYTHONPATH=root + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
-        args = [sys.executable, "-m", "mxnet_tpu_torch.tools.dist_bert",
-                "--rank", str(r), "--world", str(world), "--out", workdir,
-                "--batch", str(batch), "--seq", str(seq), "--steps",
-                str(steps), "--timed", str(timed), "--model", model]
+        renv = dict(os.environ, **(env or {}), MXTPU_COORDINATOR=addr,
+                    MXTPU_NUM_WORKERS=str(world), MXTPU_WORKER_RANK=str(r),
+                    PYTHONPATH=root + os.pathsep
+                    + os.environ.get("PYTHONPATH", ""))
+        cmd = [sys.executable, "-m", module, "--rank", str(r), "--world",
+               str(world), "--out", workdir, *args]
         logs.append(open(os.path.join(workdir, f"rank{r}.log"), "w+"))
-        procs.append(subprocess.Popen(args, cwd=root, env=env,
+        procs.append(subprocess.Popen(cmd, cwd=root, env=renv,
                                       stdout=logs[-1],
                                       stderr=subprocess.STDOUT))
     deadline = time.monotonic() + timeout
@@ -380,13 +380,24 @@ def drive(workdir, world=2, batch=32, seq=512, steps=3, timed=5,
         text.append(f"-- rank {r} --\n" + f.read())
         f.close()
     if any(p.returncode != 0 for p in procs):
-        raise RuntimeError("dist_bert: a rank failed\n" + "\n".join(text))
+        raise RuntimeError(f"{module.rsplit('.', 1)[-1]}: a rank failed\n"
+                           + "\n".join(text))
     out = []
     for r in range(world):
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
             out.append(json.load(f))
         out[-1]["log"] = text[r]
     return out
+
+
+def drive(workdir, world=2, batch=32, seq=512, steps=3, timed=5,
+          model="base", timeout=600.0):
+    """Run a gang of ``world`` rank processes of this tool and return
+    ``[result of rank r]`` (``drive_ranks``)."""
+    return drive_ranks(
+        "mxnet_tpu_torch.tools.dist_bert", workdir, world,
+        ["--batch", str(batch), "--seq", str(seq), "--steps", str(steps),
+         "--timed", str(timed), "--model", model], timeout=timeout)
 
 
 def main(argv=None):

@@ -56,7 +56,6 @@ import argparse
 import json
 import os
 import statistics
-import sys
 import time
 
 import numpy as np
@@ -470,62 +469,20 @@ def rank_main(args):
 def drive(workdir, world=2, steps=3, timed=5, synced=2, quick=False,
           cpu=False, timeout=900.0, collective_timeout=90):
     """Run a gang of ``world`` rank processes of this tool and return
-    ``[result of rank r]``.  The ranks' process groups time out after
-    ``collective_timeout`` seconds (``MXTPU_RENDEZVOUS_TIMEOUT``), so a
-    mismatched exchange fails the gang instead of hanging it.  Raises,
-    with the ranks' output, when one fails or the gang outlives
-    ``timeout``."""
-    import socket
-    import subprocess
-    from pathlib import Path
+    ``[result of rank r]`` (``dist_bert.drive_ranks``).  The ranks'
+    process groups time out after ``collective_timeout`` seconds
+    (``MXTPU_RENDEZVOUS_TIMEOUT``), so a mismatched exchange fails the
+    gang instead of hanging it."""
+    from .dist_bert import drive_ranks
 
-    root = str(Path(__file__).resolve().parents[2])
-    with socket.socket() as probe:
-        probe.bind(("127.0.0.1", 0))
-        addr = "127.0.0.1:%d" % probe.getsockname()[1]
-    procs, logs = [], []
-    for r in range(world):
-        env = dict(os.environ, MXTPU_COORDINATOR=addr,
-                   MXTPU_NUM_WORKERS=str(world), MXTPU_WORKER_RANK=str(r),
-                   MXTPU_RENDEZVOUS_TIMEOUT=str(collective_timeout),
-                   PYTHONPATH=root + os.pathsep
-                   + os.environ.get("PYTHONPATH", ""))
-        if cpu:
-            env["OMP_NUM_THREADS"] = "1"
-        args = [sys.executable, "-m", "mxnet_tpu_torch.tools.dist_sp_pp_ep",
-                "--rank", str(r), "--world", str(world), "--out", workdir,
-                "--steps", str(steps), "--timed", str(timed), "--synced",
-                str(synced)] + (["--quick"] if quick else []) \
-            + (["--cpu"] if cpu else [])
-        logs.append(open(os.path.join(workdir, f"rank{r}.log"), "w+"))
-        procs.append(subprocess.Popen(args, cwd=root, env=env,
-                                      stdout=logs[-1],
-                                      stderr=subprocess.STDOUT))
-    deadline = time.monotonic() + timeout
-    try:
-        for p in procs:
-            p.wait(timeout=max(1.0, deadline - time.monotonic()))
-    except subprocess.TimeoutExpired:
-        pass
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.wait()
-    text = []
-    for r, f in enumerate(logs):
-        f.seek(0)
-        text.append(f"-- rank {r} --\n" + f.read())
-        f.close()
-    if any(p.returncode != 0 for p in procs):
-        raise RuntimeError("dist_sp_pp_ep: a rank failed\n"
-                           + "\n".join(text))
-    out = []
-    for r in range(world):
-        with open(os.path.join(workdir, f"rank{r}.json")) as f:
-            out.append(json.load(f))
-        out[-1]["log"] = text[r]
-    return out
+    env = {"MXTPU_RENDEZVOUS_TIMEOUT": str(collective_timeout)}
+    if cpu:
+        env["OMP_NUM_THREADS"] = "1"
+    return drive_ranks(
+        "mxnet_tpu_torch.tools.dist_sp_pp_ep", workdir, world,
+        ["--steps", str(steps), "--timed", str(timed), "--synced",
+         str(synced)] + (["--quick"] if quick else [])
+        + (["--cpu"] if cpu else []), env=env, timeout=timeout)
 
 
 def main(argv=None):

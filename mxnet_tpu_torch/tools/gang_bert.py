@@ -1,40 +1,53 @@
-"""One rank of a BERT-base elastic gang: a whole replica trained under
-``run_resilient(gang=...)``, peer snapshots in the buddy's RAM, recovery
-from peer RAM when a rank dies.
+"""One rank of an elastic data-parallel gang: a BERT-base replica (or a
+tiny model on the host) trained under ``run_resilient(gang=...)`` on its
+own batches, its gradients summed over the gang's process group, peer
+snapshots in the buddy's RAM, recovery from peer RAM when a rank dies and
+the group formed again over the survivors.
 
     python3 -m mxnet_tpu_torch.tools.gang_bert --rank R --world N
         --addr HOST:PORT --out PATH [--steps 28] [--snap-every 4]
-        [--batch 32] [--seq 512] [--model base|tiny] [--cpu]
+        [--batch 32] [--seq 512] [--model base|tiny|mlp] [--cpu]
         [--hb-timeout 2.0] [--retain-s 30] [--trace-step S]
-        [--min-step-s 0]
+        [--min-step-s 0] [--start-state PATH]
 
 ``--addr`` is a running ``distributed.GangKVServer``; the rank's
-checkpoints go beside ``--out``.  Every rank builds
-``bench_bert``'s model (BERT-base, bf16, flash trunk, AdamW on f32
-masters through ``gluon.Trainer.train_step``; ``--model tiny`` is
-``bert_tiny`` in f32 for the host) from the same seed and trains on the
-same batches (step s draws its batch and its dropout from seed + s), so
-the replicas stay bitwise equal, as data-parallel replicas are after
-their all-reduce (the replicas' all-reduce through a process group
-formed again after a reshape waits for the next multi-GPU slice,
-ROADMAP queue 1 item 1b).  The gang snapshots every ``--snap-every`` steps through an
-``AsyncCheckpointer`` with a ``PeerSnapshotStore`` attached: the state is
-copied off the card into pinned memory and the writer thread keeps it
-and sends it to the buddy.  A two-rank gang loses its majority with one
-death, so the tool runs with ``MXTPU_QUORUM=0``.
+checkpoints go beside ``--out``.  Every rank builds ``bench_bert``'s
+model (BERT-base, bf16, flash trunk, AdamW on f32 masters; ``--model
+tiny`` is ``bert_tiny`` in f32 and ``--model mlp`` a two-layer MLP under
+SGD, for the host) from the same seed.  Rank r takes its own batch at
+step s, drawn from (seed, s, r) with its dropout, and
+``gluon.Trainer(kvstore="dist_sync", update_on_kvstore=False)`` sums
+every gradient over the members' process group in flat buckets before
+the update, so the replicas stay bitwise equal.  The group is formed over
+the gang's KV at the start and again by the survivors after each
+reshape (``ElasticGang.form_process_group``: world the members left, a
+rank's place its index among them); a collective that a death breaks
+becomes a ``RankFailure`` once the detector confirms the death
+(``ElasticGang.collective_failure``).  The gang snapshots every
+``--snap-every`` steps through an ``AsyncCheckpointer`` with a
+``PeerSnapshotStore`` attached: the state is copied off the card into
+pinned memory and the writer thread keeps it and sends it to the buddy.
+A gang of two loses its majority with one death and runs with
+``MXTPU_QUORUM=0``; a gang of three keeps the quorum on.
+``--start-state`` starts the rank from a state a survivor wrote at its
+reshape (``restored_state``), at that state's step: a clean gang that
+must retrace the survivors' run bit for bit.
 
 The rank writes JSON lines to stdout as it goes, one a step (``{"step",
 "t", "loss", "held", ...}``), and at the end one result to ``--out``:
-every loss in the order run, the recoveries (epoch, members, source,
-snapshot step, ``recovery_ms``, the wall time of the detection and of
-the first step after the reshape), the disk restores, the peer store's
-pack, send and fetch times, the train-stream stall of the snapshot
-steps (the host call and the pinned copy it orders, apart from the wait
-for the previous snapshot's writer), the median host us of a
-``step_tick`` on other steps, apart by whether a snapshot's writer was
-running, the median us of one KV round trip (``ping``), the flash
-wrappers' launches and, with ``--trace-step``,
-the kernels of that step counted from a fenced trace (card only).
+every loss in the order run, with the epoch, the replica's weight
+fingerprint (``integrity``), the step's ms and its synced collectives'
+ms (``collectives.timed_collectives``) and, for the MLP, its weights;
+the groups formed (epoch, world, place, backend, ms); the recoveries
+(epoch, members, source, snapshot step, ``recovery_ms``, the wall time of
+the detection and of the first step after the reshape), the disk
+restores, the peer store's pack, send and fetch times, the train-stream
+stall of the snapshot steps (the host call and the pinned copy it
+orders, apart from the wait for the previous snapshot's writer), the
+median host us of a ``step_tick`` on other steps, apart by whether a
+snapshot's writer was running, the median us of one KV round trip
+(``ping``), the flash wrappers' launches and, with ``--trace-step``, the
+kernels of that step counted from a fenced trace (card only).
 ``--min-step-s`` pads each step to that many seconds, so a rehearsal on
 the host with a tiny model still outlasts the heartbeat timeout.
 """
@@ -48,43 +61,135 @@ import statistics
 import sys
 import time
 
+import numpy as np
 import torch
 
 SEED = 0
 
 
+#: the MLP's input width and classes (``--model mlp``)
+MLP_IN, MLP_OUT = 16, 4
+
+
+def data_seed(step, rank):
+    """The seed of rank ``rank``'s batch (and dropout) at ``step``."""
+    return SEED + 1 + 100003 * int(rank) + int(step)
+
+
+def mlp_params():
+    """The MLP's weights by name without its prefix, from the seed."""
+    rs = np.random.RandomState(SEED)
+    shapes = {"dense0_weight": (32, MLP_IN), "dense0_bias": (32,),
+              "dense1_weight": (MLP_OUT, 32), "dense1_bias": (MLP_OUT,)}
+    return {k: (rs.standard_normal(shapes[k]) * 0.3).astype(np.float32)
+            for k in sorted(shapes)}
+
+
+def mlp_batch(step, rank, batch):
+    """Rank ``rank``'s MLP batch at ``step``: (x, y) numpy."""
+    rs = np.random.RandomState(data_seed(step, rank))
+    return (rs.standard_normal((batch, MLP_IN)).astype(np.float32),
+            rs.randint(0, MLP_OUT, batch).astype(np.float32))
+
+
+#: the MLP's optimizer (a plain one: the host test holds it to the JAX
+#: trainer's)
+MLP_SGD = {"learning_rate": 0.1, "momentum": 0.9}
+
+
+def _trainer(net, optimizer, params):
+    """The gang's trainer: every gradient summed over the process group
+    (``dist_sync``'s flat buckets), the update here."""
+    from .. import gluon
+
+    return gluon.Trainer(net.collect_params(), optimizer, dict(params),
+                         kvstore="dist_sync", update_on_kvstore=False)
+
+
 def _build(model, batch, seq, device, dropout):
     """(net, trainer, loss_fn, vocab) for ``model``."""
-    from .. import gluon
+    from .. import context, gluon
     from ..gluon.model_zoo import bert
     from ..initializer import Xavier
     from . import bench_bert
 
     if model == "base":
-        net, tr, loss_fn, _tok, _lab = bench_bert.build_gluon(
+        net, _tr, loss_fn, _tok, _lab = bench_bert.build_gluon(
             batch, seq, "flash", "bfloat16", device, seed=SEED,
             dropout=dropout)
-        return net, tr, loss_fn, net._vocab
+        return (net, _trainer(net, "adamw", bench_bert.GLUON_ADAMW),
+                loss_fn, net._vocab)
+    if model == "mlp":
+        net = gluon.nn.HybridSequential(prefix="gm_")
+        with net.name_scope():
+            net.add(gluon.nn.Dense(32, activation="relu", in_units=MLP_IN),
+                    gluon.nn.Dense(MLP_OUT, in_units=32))
+        net.initialize(ctx=context.context_of(device))
+        params = net.collect_params()
+        for k, v in mlp_params().items():
+            params[net.prefix + k].set_data(v)
+        return (net, _trainer(net, "sgd", MLP_SGD),
+                gluon.loss.SoftmaxCrossEntropyLoss(), None)
     net = bert.bert_tiny(dropout=dropout, max_length=seq, scan_layers=True,
                          attention_impl="flash", device=device)
     net.initialize(init=Xavier(), generator=torch.Generator(
         device=net.word_embed_weight.data()._data.device).manual_seed(SEED))
     net.hybridize()
-    tr = gluon.Trainer(net.collect_params(), "adamw",
-                       dict(bench_bert.GLUON_ADAMW))
-    return net, tr, bert.BERTPretrainLoss(), net._vocab
+    return (net, _trainer(net, "adamw", bench_bert.GLUON_ADAMW),
+            bert.BERTPretrainLoss(), net._vocab)
 
 
-def _batch(step, batch, seq, vocab, dev):
-    """Step ``step``'s batch, the same on every rank and every replay."""
+def _batch(model, step, rank, batch, seq, vocab, dev):
+    """Rank ``rank``'s batch at ``step``, the same on every replay."""
     from .. import context
     from ..ndarray.ndarray import NDArray
     from . import bench_bert
 
-    tok, mlm, nsp = bench_bert.make_data(batch, seq, vocab, dev,
-                                         seed=SEED + 1 + step)
     ctx = context.context_of(dev)
+    if model == "mlp":
+        x, y = mlp_batch(step, rank, batch)
+        return (NDArray(torch.as_tensor(x, device=dev), ctx),
+                NDArray(torch.as_tensor(y, device=dev), ctx))
+    tok, mlm, nsp = bench_bert.make_data(batch, seq, vocab, dev,
+                                         seed=data_seed(step, rank))
     return NDArray(tok, ctx), (NDArray(mlm, ctx), NDArray(nsp, ctx))
+
+
+def weight_fingerprint(net):
+    """The u64 integrity fingerprint of every parameter of ``net`` (on its
+    device; one readback)."""
+    from .. import integrity
+
+    return int(integrity.combine(integrity.fingerprint_arrays(
+        [p.data()._data for p in net.collect_params().values()])))
+
+
+def state_sample(tr, count=8, n=256):
+    """What one update read and moved, for ``count`` parameters spread
+    over the trainer's order: the first ``n`` values of each one's
+    gradient buffer (after a step over a dist store, the gradients summed
+    over the workers) and of every leaf of its optimizer state (the f32
+    master and the moments), as f32 lists."""
+    from .. import checkpoint
+
+    params = [p for p in tr._params if p.grad_req != "null"]
+    grads = [p.grad()._data.reshape(-1)[:n].float().cpu().tolist()
+             for p in params[::max(1, len(params) // count)][:count]]
+    st = checkpoint.trainer_state(tr, copy=False)["opt_state"]
+    picks = st[::max(1, len(st) // count)][:count]
+    return {"grads": grads,
+            "state": [leaf.reshape(-1)[:n].float().cpu().tolist()
+                      for leaf in checkpoint._flatten(picks)[0]
+                      if torch.is_tensor(leaf)]}
+
+
+def restored_state(path):
+    """(step, state) a survivor wrote at its reshape (``--start-state``)."""
+    import pickle
+
+    with open(path, "rb") as f:
+        got = pickle.load(f)
+    return got["step"], got["state"]
 
 
 def _emit(obj):
@@ -94,14 +199,17 @@ def _emit(obj):
 
 def run(rank, world, addr, out, steps=28, snap_every=4, batch=32,
         seq=512, model="base", device=None, hb_timeout=2.0, retain_s=30.0,
-        trace_step=None, dropout=0.1, min_step_s=0.0):
+        trace_step=None, dropout=0.1, min_step_s=0.0, start_state=None):
     """Train this rank to ``steps`` and write the result to ``out``."""
+    import pickle
+
     from .. import checkpoint, distributed, resilience, telemetry
     from .. import context
     from .. import random as mxrandom
     from ..ops import flash_attention as fa
+    from ..parallel import collectives
 
-    os.environ["MXTPU_QUORUM"] = "0"
+    os.environ["MXTPU_QUORUM"] = "0" if world < 3 else "1"
     dev = context.resolve(device)
     on_card = dev.type == "cuda"
     if on_card:
@@ -125,6 +233,23 @@ def run(rank, world, addr, out, steps=28, snap_every=4, batch=32,
         heartbeat_timeout=hb_timeout)
     gang.start()
     gang.barrier("start")
+    groups = []
+
+    def form_group():
+        t0 = time.perf_counter()
+        backend = gang.form_process_group()
+        groups.append({"epoch": gang.epoch, "world": len(gang.members),
+                       "place": gang.members.index(rank),
+                       "backend": backend,
+                       "ms": (time.perf_counter() - t0) * 1e3})
+
+    form_group()
+    if start_state is not None:
+        # the clean gang: its checkpointer holds the survivors' restored
+        # state at its step, which run_resilient resumes from
+        at, state = restored_state(start_state)
+        ck.save(at, state)
+        ck.wait()
 
     losses, stalls, infos = [], [], []
     ticks_us = {False: [], True: []}    # by whether a snapshot is in flight
@@ -160,35 +285,64 @@ def run(rank, world, addr, out, steps=28, snap_every=4, batch=32,
 
     def step_fn(step):
         t_start = time.perf_counter()
-        mxrandom.seed(SEED + 1000 + step)
-        tok, labels = _batch(step, batch, seq, vocab, dev)
+        mxrandom.seed(data_seed(step, rank) + 1000)
+        data, labels = _batch(model, step, rank, batch, seq, vocab, dev)
 
         def one():
-            return tr.train_step(net, loss_fn, tok, labels)
+            return tr.train_step(net, loss_fn, data, labels)
 
-        if trace_step is not None and step == trace_step and on_card:
-            from ..tools.trace_edges import kernel_records
+        collectives.stats(reset=True)
+        try:
+            with collectives.timed_collectives():
+                if trace_step is not None and step == trace_step \
+                        and on_card:
+                    from ..tools.trace_edges import kernel_records
 
-            box = []
-            # one trace: a second would run the step again and move this
-            # rank's state off the run its recovery replays
-            events = kernel_records(lambda: box.append(one()), attempts=1)
-            loss = box[0]
-            for name in ("flash_fwd", "flash_dq", "flash_dkv"):
-                kernels[name] = sum(1 for e in events
-                                    if name in e.name.lower())
-        else:
-            loss = one()
-        value = loss._data.detach().float().cpu().reshape(-1).tolist()
+                    box = []
+                    # one trace: a second would run the step again and
+                    # move this rank's state off the run its recovery
+                    # replays
+                    events = kernel_records(lambda: box.append(one()),
+                                            attempts=1)
+                    loss = box[0]
+                    for name in ("flash_fwd", "flash_dq", "flash_dkv"):
+                        kernels[name] = sum(1 for e in events
+                                            if name in e.name.lower())
+                else:
+                    loss = one()
+                value = loss._data.detach().float().cpu().reshape(-1) \
+                    .tolist()
+        except (RuntimeError, resilience.WatchdogExpired) as e:
+            if isinstance(e, resilience.RankFailure):
+                raise
+            fail = gang.collective_failure(e)
+            if fail is e:
+                raise
+            raise fail from e
+        step_ms = (time.perf_counter() - t_start) * 1e3
+        coll_ms = collectives.stats()["seconds"] * 1e3
         left = min_step_s - (time.perf_counter() - t_start)
         if left > 0:
             time.sleep(left)
         t = time.time()
-        losses.append((step, value))
+        rec = {"step": step, "epoch": gang.epoch, "loss": value,
+               "fingerprint": weight_fingerprint(net), "step_ms": step_ms,
+               "coll_ms": coll_ms}
+        if model == "mlp":
+            rec["params"] = {k[len(net.prefix):]: v.data().asnumpy()
+                             .tolist()
+                             for k, v in net.collect_params().items()}
+        if marks["reshaped"] is not None and "sampled" not in marks:
+            # the first update after the reshape: what the caller holds
+            # against one rank fed the survivors' batches
+            marks["sampled"] = True
+            rec["state_sample"] = state_sample(tr)
+        losses.append(rec)
         if marks["reshaped"] is not None and "first_step_t" not in \
                 marks:
             marks["first_step_t"] = t
         _emit({"rank": rank, "step": step, "t": t, "loss": value,
+               "epoch": gang.epoch, "fingerprint": rec["fingerprint"],
                "held": store.held_steps(rank),
                "held_from": {str(r): store.held_steps(r)
                              for r in store.held_ranks() if r != rank},
@@ -204,6 +358,10 @@ def run(rank, world, addr, out, steps=28, snap_every=4, batch=32,
                       - info.recovery_ms / 1e3,
                       "reshaped_t": marks["reshaped"]})
         checkpoint.load_trainer_state(tr, info.shards[rank])
+        with open(f"{out}.restored.pkl", "wb") as f:
+            pickle.dump({"step": info.snap_step,
+                         "state": checkpoint.trainer_state(tr)}, f)
+        form_group()
         return info.snap_step
 
     report = resilience.run_resilient(
@@ -223,7 +381,7 @@ def run(rank, world, addr, out, steps=28, snap_every=4, batch=32,
     result = {
         "rank": rank, "world": world, "steps": steps, "model": model,
         "batch": batch, "seq": seq, "device": str(dev),
-        "losses": losses, "recoveries": infos,
+        "losses": losses, "groups": groups, "recoveries": infos,
         "report": {"final_step": report.final_step,
                    "reshapes": report.reshapes,
                    "resumed_from": report.resumed_from},
@@ -247,6 +405,10 @@ def run(rank, world, addr, out, steps=28, snap_every=4, batch=32,
     with open(out, "w") as f:
         json.dump(result, f)
     gang.stop()
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
     kv.close()
     return result
 
@@ -264,14 +426,15 @@ server.stop()
 def drive(workdir, world=2, kill_rank=1, kill_after=9, fetch_step=4,
           steps=28, snap_every=4, batch=32, seq=512, model="base",
           cpu=False, hb_timeout=2.0, retain_s=30.0, trace_step=None,
-          min_step_s=0.0, timeout=900.0):
+          min_step_s=0.0, timeout=900.0, start_state=None):
     """Run a gang of ``world`` rank processes of this tool against a
     ``GangKVServer`` in a process of its own, SIGKILL rank ``kill_rank``
-    once it
-    reports step ``kill_after`` done, and return every surviving rank's
-    result with ``kill_t`` (the wall time of the kill) and ``fetch``: one
-    timed pull, over TCP from the doomed rank's store, of its own
-    snapshot at ``fetch_step`` (ms, bytes), made before the kill."""
+    once it reports step ``kill_after`` done, and return every surviving
+    rank's result with ``kill_t`` (the wall time of the kill) and
+    ``fetch``: one timed pull, over TCP from the doomed rank's store, of
+    its own snapshot at ``fetch_step`` (ms, bytes), made before the kill.
+    ``kill_rank=None`` kills no rank (``start_state`` starts every rank
+    from a survivor's restored state: the clean gang)."""
     import signal
     import socket
     import subprocess
@@ -308,6 +471,8 @@ def drive(workdir, world=2, kill_rank=1, kill_after=9, fetch_step=4,
                 "--min-step-s", str(min_step_s)]
         if cpu:
             args.append("--cpu")
+        if start_state is not None:
+            args += ["--start-state", start_state]
         if trace_step is not None and r != kill_rank:
             args += ["--trace-step", str(trace_step)]
         logs[r] = open(os.path.join(workdir, f"rank{r}.err"), "w")
@@ -319,6 +484,8 @@ def drive(workdir, world=2, kill_rank=1, kill_after=9, fetch_step=4,
     puller = checkpoint.PeerSnapshotStore(world, kv=client)
 
     def fetch(step):
+        if kill_rank is None:
+            return
         t0 = time.perf_counter()
         got = puller.fetch(kill_rank, kill_rank, step, timeout=60.0)
         if got is None:
@@ -330,7 +497,10 @@ def drive(workdir, world=2, kill_rank=1, kill_after=9, fetch_step=4,
 
     fetcher = None
     try:
-        for line in procs[kill_rank].stdout:
+        for line in (procs[kill_rank].stdout if kill_rank is not None
+                     else ()):
+            if not line.startswith("{"):
+                continue        # the rank's other output (its backend)
             rec = json.loads(line)
             out["doomed_lines"].append(rec)
             if fetcher is None and fetch_step in rec.get("held", ()):
@@ -341,7 +511,8 @@ def drive(workdir, world=2, kill_rank=1, kill_after=9, fetch_step=4,
                 procs[kill_rank].send_signal(signal.SIGKILL)
                 out["kill_t"] = time.time()
                 break
-        procs[kill_rank].wait(timeout=60)
+        if kill_rank is not None:
+            procs[kill_rank].wait(timeout=60)
         for r, p in procs.items():
             if r != kill_rank:
                 p.wait(timeout=timeout)
@@ -371,7 +542,7 @@ def drive(workdir, world=2, kill_rank=1, kill_after=9, fetch_step=4,
                                f"{tail}")
         with open(os.path.join(workdir, f"rank{r}.json")) as f:
             out[r] = json.load(f)
-    if out["kill_t"] is None:
+    if out["kill_t"] is None and kill_rank is not None:
         raise RuntimeError(f"rank {kill_rank} never reported step "
                            f"{kill_after}")
     return out
@@ -387,19 +558,21 @@ def main(argv=None):
     ap.add_argument("--snap-every", type=int, default=4)
     ap.add_argument("--batch", type=int, default=32)
     ap.add_argument("--seq", type=int, default=512)
-    ap.add_argument("--model", choices=("base", "tiny"), default="base")
+    ap.add_argument("--model", choices=("base", "tiny", "mlp"),
+                    default="base")
     ap.add_argument("--cpu", action="store_true",
                     help="run on the host instead of the card")
     ap.add_argument("--hb-timeout", type=float, default=2.0)
     ap.add_argument("--retain-s", type=float, default=30.0)
     ap.add_argument("--trace-step", type=int, default=None)
     ap.add_argument("--min-step-s", type=float, default=0.0)
+    ap.add_argument("--start-state", default=None)
     a = ap.parse_args(argv)
     run(a.rank, a.world, a.addr, a.out, steps=a.steps,
         snap_every=a.snap_every, batch=a.batch, seq=a.seq, model=a.model,
         device="cpu" if a.cpu else None, hb_timeout=a.hb_timeout,
         retain_s=a.retain_s, trace_step=a.trace_step,
-        min_step_s=a.min_step_s)
+        min_step_s=a.min_step_s, start_state=a.start_state)
     return 0
 
 

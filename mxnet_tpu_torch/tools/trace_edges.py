@@ -1,22 +1,27 @@
 """Kernel records of a torch.profiler trace held whole by fences, and how
 often a trace without them loses records at its start.
 
-torch.profiler's CUDA trace can drop the first records it should hold: a
-trace opened just before a CUDA graph's replay may miss the replay's
-first kernels, and late in a long process a trace dropped every kernel
-that ran in its first 65 ms or more, the same records trace after
-trace.  ``kernel_records(fn)`` opens the trace, runs a fence of sleep
-kernels, then ``fn``, then another fence, and returns the records
-between the fences in start order.  Each trace waits on the host after
+torch.profiler's CUDA trace can drop records it should hold: a trace
+opened just before a CUDA graph's replay may miss the replay's first
+kernels, late in a long process a trace dropped every kernel that ran in
+its first 65 ms or more, the same records trace after trace, and another
+kept its fences but none of the work between them.  ``kernel_records(fn)``
+opens the trace, runs a fence of sleep kernels and one short sleep (a
+mark), then ``fn``, then a mark and another fence, and returns the
+records between the fences in start order.  Each trace waits on the host after
 it opens and before it closes, ``PAD_S`` the first, so the fences start
 well inside the window.  A trace that kept no fence record on one side
-is taken again, up to ``TRACE_ATTEMPTS`` traces, each loss reported on
-stderr and each new trace padded twice as long as the last; it raises
-when every trace lost a side, so a count read from what it returns
-covers ``fn`` whole.  ``TRACES`` keeps each fenced trace's pad and
-lead: the first fence record's start in the window less the host's
-time of its launch (with no pad, 12 ms early in ``chip_smoke.py`` on
-the H100 and 60 ms at its end).
+or a mark is taken again, up to ``TRACE_ATTEMPTS`` traces, each loss
+reported on stderr and each new trace padded twice as long as the last;
+it raises when every trace lost one, so a count read from what it
+returns covers ``fn`` whole.  ``TRACES`` keeps each fenced trace's pad, the
+host's time in ``profile.__enter__`` and its lead: the first fence
+record's start less the host's time of its launch, both counted from
+the profiler's own start (kineto's trace start, which the records'
+times count from), so a profiler that takes longer to start does not
+show as lead.  ``reproduce(fn)`` takes many fenced traces back to back
+with no pad and no retry, the check that a late trace keeps its
+records.
 
     python3 -m mxnet_tpu_torch.tools.trace_edges [--traces 20]
         [--batch 32] [--seq 512]
@@ -53,8 +58,19 @@ TRACE_ATTEMPTS = 5
 #: it closes; each later trace waits twice as long
 PAD_S = 0.25
 
-#: one dict a fenced trace: ``pad_s``, ``lead_ms`` (None when the first
-#: record is no fence), ``held`` (both sides kept)
+#: one short sleep kernel on each side of the work, inside the fences (a
+#: spin kernel shorter than ``MARK_MAX_US`` is a mark, a longer one a
+#: fence): late in the whole chip_smoke.py on the H100 a trace kept both
+#: fences and none of the work's records, so a trace holds the work whole
+#: only when it holds both marks too.  Not told by place: many late
+#: traces keep both ends but drop some fence records between them
+MARK_CYCLES, MARK_MAX_US = 20_000, 200.0
+
+#: one dict a fenced trace: ``pad_s``, ``enter_ms`` (the host's ms in
+#: ``profile.__enter__``), ``base_ms`` (where in it the profiler's own
+#: start lies), ``lead_ms`` (None when the first record is no fence),
+#: ``marks`` and ``work`` (the marks and the other records it kept),
+#: ``held`` (both fences and both marks kept)
 TRACES = []
 
 #: the name of ``torch.cuda._sleep``'s kernel in a trace
@@ -69,6 +85,21 @@ def fence():
     torch.cuda.synchronize()
 
 
+def _is_mark(e):
+    return FENCE_NAME in e.name and \
+        e.time_range.elapsed_us() < MARK_MAX_US
+
+
+def _held(events):
+    """Whether a fenced trace's records (in start order) begin and end
+    with a fence record and hold both marks."""
+    def fence_at(i):
+        return FENCE_NAME in events[i].name and not _is_mark(events[i])
+
+    return bool(events) and fence_at(0) and fence_at(-1) and \
+        sum(_is_mark(e) for e in events) >= 2
+
+
 def _device_records(prof):
     from torch.autograd import DeviceType
 
@@ -77,31 +108,50 @@ def _device_records(prof):
                   key=lambda e: e.time_range.start)
 
 
+def _base_ns(prof, entered_ns):
+    """The profiler's own start on the host's ``time.time_ns`` clock, the
+    base its records' ``time_range`` counts from (kineto's trace start);
+    ``entered_ns`` where the profiler does not expose it."""
+    try:
+        return int(prof.profiler.kineto_results.trace_start_ns())
+    except (AttributeError, RuntimeError, TypeError):
+        return entered_ns
+
+
 def _trace(fn, fenced, pad=0.0):
     import time
 
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        opened = time.perf_counter()
+    prof = profile(activities=[ProfilerActivity.CUDA])
+    before = time.time_ns()
+    with prof:
+        entered = time.time_ns()
         time.sleep(pad)
-        launched = time.perf_counter() - opened
+        launched = time.time_ns()
         if fenced:
             fence()
+            torch.cuda._sleep(MARK_CYCLES)
         fn()
         torch.cuda.synchronize()
         if fenced:
+            torch.cuda._sleep(MARK_CYCLES)
             fence()
         time.sleep(pad)
     events = _device_records(prof)
     if fenced:
         first = bool(events) and FENCE_NAME in events[0].name
+        base = _base_ns(prof, entered)
         TRACES.append({
             "pad_s": pad,
-            "held": first and FENCE_NAME in events[-1].name,
-            "lead_ms": (events[0].time_range.start / 1e3 - launched * 1e3
-                        if first else None)})
+            "enter_ms": (entered - before) / 1e6,
+            "base_ms": (base - before) / 1e6,
+            "marks": sum(_is_mark(e) for e in events),
+            "work": sum(FENCE_NAME not in e.name for e in events),
+            "held": _held(events),
+            "lead_ms": (events[0].time_range.start / 1e3
+                        - (launched - base) / 1e6 if first else None)})
     return events
 
 
@@ -120,21 +170,33 @@ def kernel_records(fn, attempts=TRACE_ATTEMPTS):
     while len(lost) < attempts:
         pad = _pad(len(lost))
         events = _trace(fn, True, pad)
-        is_fence = [FENCE_NAME in e.name for e in events]
-        if events and is_fence[0] and is_fence[-1]:
+        is_spin = [FENCE_NAME in e.name for e in events]
+        if _held(events):
             if lost:
                 print(f"trace_edges: held with a pad of {pad} s after "
                       f"{len(lost)} lost", file=sys.stderr, flush=True)
-            return [e for e, f in zip(events, is_fence) if not f]
+            return [e for e, f in zip(events, is_spin) if not f]
         lost.append(
-            f"{len(events)} device records, {sum(is_fence)} of "
-            f"{2 * FENCE_KERNELS} fence records, first a fence "
-            f"{bool(events) and is_fence[0]}, last a fence "
-            f"{bool(events) and is_fence[-1]}, pad {pad} s")
+            f"{len(events)} device records, {sum(is_spin)} of "
+            f"{2 * FENCE_KERNELS + 2} fence and mark records "
+            f"({sum(_is_mark(e) for e in events)} of 2 marks), first a "
+            f"fence {bool(events) and is_spin[0]}, last a fence "
+            f"{bool(events) and is_spin[-1]}, pad {pad} s")
         print(f"trace_edges: a trace lost a side of the traced work, "
               f"taken again: {lost[-1]}", file=sys.stderr, flush=True)
     raise AssertionError(f"torch.profiler's traces lost a side of the "
                          f"traced work {len(lost)} times: {lost}")
+
+
+def reproduce(fn, traces=20):
+    """``traces`` fenced traces of ``fn`` back to back with no pad and no
+    retry; returns their ``TRACES`` entries (``enter_ms``, ``lead_ms``,
+    ``held``) in order.  A trace that lost a side is logged, not
+    retaken: this reads whether the traces lose records at all."""
+    start = len(TRACES)
+    for _ in range(traces):
+        _trace(fn, True, 0.0)
+    return TRACES[start:]
 
 
 FLASH = ("flash_fwd", "flash_dq", "flash_dkv")

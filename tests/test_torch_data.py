@@ -467,11 +467,13 @@ def test_prefetcher_mesh_and_what_waits():
     got = list(DevicePrefetcher(DataLoader(PairDataset(n=8), batch_size=4),
                                 depth=2, mesh=mesh))
     assert got[0][0].context == cpu()
+    # several devices of one process: the port runs one process a rank
+    # (a rank mesh places each rank's rows: tests/test_torch_ranks2.py)
     two = Mesh(np.array([torch.device("cpu")] * 2, dtype=object), ("dp",))
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
+    with pytest.raises(NotImplementedError, match="one process a rank"):
         DevicePrefetcher([], mesh=two)
-    with pytest.raises(NotImplementedError, match="multi-GPU slice"):
-        DevicePrefetcher([], kvstore=object())
+    kv = object()
+    assert DevicePrefetcher([], kvstore=kv, warm_pull={})._kvstore is kv
 
 
 def test_h2d_prefetch_spans_reach_torch_profiler():

@@ -89,9 +89,14 @@ def test_cached_decoder_bf16_within_the_references_tolerance():
 
 
 def test_cached_decoder_refuses_what_it_cannot_do():
+    """A tp axis that does not divide the heads and the FFN width raises
+    (the reference's check), as does a seed past the window."""
+    from types import SimpleNamespace
+
     _, model = _pair()
-    with pytest.raises(MXNetError, match="multi-GPU"):
-        tgpt.CachedDecoder(model, mesh=object())
+    mesh = SimpleNamespace(shape={"tp": 3}, is_rank_mesh=True)
+    with pytest.raises(MXNetError, match="must divide num_heads"):
+        tgpt.CachedDecoder(model, mesh=mesh)
     with pytest.raises(ValueError, match="cache window"):
         tgpt.CachedDecoder(model).decode(_ids(0, (1, 30)), max_new_tokens=3)
 

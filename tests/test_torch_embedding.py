@@ -14,8 +14,8 @@ and every routing of a ``sparse_grad=True`` model to the eager oracle
 emits ``sparse_fallback{reason}``.  One case holds the ``bench_embedding``
 model against the JAX package (weights rtol 2e-4 / atol 2e-5); the rest
 hold the port against itself and import no JAX, so the file runs on the
-card's host too (``pytest --noconftest``).  The mesh8 and
-``EmbeddingRules`` cases wait for the multi-GPU slice.
+card's host too (``pytest --noconftest``).  ``EmbeddingRules``'
+row-sharding over two ranks is ``tests/test_torch_ranks2.py``'s.
 """
 
 import json

@@ -815,12 +815,14 @@ def test_run_resilient_with_a_gang_reshapes_instead_of_restarting(
 
 
 def test_gang_bert_tool_two_processes_recover_from_peer_ram(tmp_path):
-    """The one two-process case: ``tools/gang_bert.py`` on the host with
-    ``bert_tiny`` (the card runs BERT-base the same way, ``chip_smoke.py``
-    [18]).  Rank 1 is SIGKILLed after its step 9; rank 0 confirms the death
-    (heartbeat timeout 1 s), recovers from peer RAM with no restore from
-    disk, and replays from the common snapshot bitwise as it ran the first
-    time; both replicas ran the same losses up to the kill."""
+    """The two-process case of ``tools/gang_bert.py`` on the host with
+    ``bert_tiny``: each rank trains on its own batches, its gradients
+    summed over the process group.  Rank 1 is SIGKILLed after its step 9;
+    rank 0 confirms the death (heartbeat timeout 1 s), recovers from peer
+    RAM with no restore from disk, forms its group again (one member: no
+    group) and resumes from the common snapshot, whose step it reruns
+    bitwise as it ran the first time; the replicas' weights were equal at
+    every step up to the kill."""
     from mxnet_tpu_torch.tools import gang_bert
 
     out = gang_bert.drive(str(tmp_path), model="tiny", cpu=True, batch=4,
@@ -832,18 +834,108 @@ def test_gang_bert_tool_two_processes_recover_from_peer_ram(tmp_path):
         ("peer", [0], [1])
     assert r0["disk_restores"] == 0
     assert r0["report"]["final_step"] == 28
+    assert [(g["epoch"], g["world"]) for g in r0["groups"]] == \
+        [(0, 2), (rec["epoch"], 1)]
     assert rec["detect_t"] >= out["kill_t"] and out["fetch"]["leaves"] > 0
-    first, replayed, seen = {}, {}, set()
-    for step, loss in r0["losses"]:
-        (replayed if step in seen else first)[step] = loss
-        seen.add(step)
+    first = {x["step"]: x for x in r0["losses"] if x["epoch"] == 0}
+    replayed = [x for x in r0["losses"] if x["epoch"] == rec["epoch"]]
     k = rec["snap_step"]
-    assert k % 4 == 0 and replayed and min(replayed) == k
-    for step, loss in replayed.items():
-        if step in first:
-            assert loss == first[step], step
+    assert k % 4 == 0 and replayed[0]["step"] == k
+    assert replayed[0]["loss"] == first[k]["loss"]
     for line in out["doomed_lines"]:
-        assert line["loss"] == first[line["step"]], line["step"]
+        if line["step"] in first:
+            assert line["fingerprint"] == \
+                first[line["step"]]["fingerprint"], line["step"]
+            assert line["loss"] != first[line["step"]]["loss"]
+
+
+def _jax_mlp_run(steps, world, batch):
+    """The JAX ``gluon.Trainer`` on the gang's global batch (every rank's
+    batch of a step, concatenated): the MLP's weights after each step."""
+    import mxnet_tpu as jmx
+    from mxnet_tpu_torch.tools import gang_bert
+
+    nn = jmx.gluon.nn
+    net = nn.HybridSequential(prefix="gm_")
+    with net.name_scope():
+        net.add(nn.Dense(32, activation="relu", in_units=gang_bert.MLP_IN),
+                nn.Dense(gang_bert.MLP_OUT, in_units=32))
+    net.initialize()
+    params = net.collect_params()
+    for k, v in gang_bert.mlp_params().items():
+        params[net.prefix + k].set_data(v)
+    tr = jmx.gluon.Trainer(params, "sgd", dict(gang_bert.MLP_SGD))
+    loss_fn = jmx.gluon.loss.SoftmaxCrossEntropyLoss()
+    out = []
+    for step in range(steps):
+        xs, ys = zip(*(gang_bert.mlp_batch(step, r, batch)
+                       for r in range(world)))
+        with jmx.autograd.record():
+            loss = loss_fn(net(jmx.nd.array(np.concatenate(xs))),
+                           jmx.nd.array(np.concatenate(ys)))
+        loss.backward()
+        tr.step(batch)      # each rank's trainer rescales by its batch
+        out.append({k[len(net.prefix):]: p.data().asnumpy()
+                    for k, p in params.items()})
+    return out
+
+
+def test_gang_three_ranks_all_reduce_through_a_reformed_group(tmp_path):
+    """Three rank processes of ``tools/gang_bert.py --model mlp``, each on
+    its own batches, sum their gradients over the gang's process group;
+    rank 2 is SIGKILLed after its step 9.  The survivors turn the broken
+    collective into a ``RankFailure``, recover from peer RAM, form a gloo
+    group of two over the gang's KV (epoch 1's prefix) and train on.
+    Before the reshape every step's weights match the JAX
+    ``gluon.Trainer`` on the concatenated global batch (rtol 2e-3 / atol
+    2e-4); the survivors' weights are equal at every step; after the
+    reshape the survivors' run is bitwise a clean two-rank gang's started
+    from the same snapshot."""
+    from mxnet_tpu_torch.tools import gang_bert
+
+    batch, steps = 4, 16
+    gdir, cdir = tmp_path / "gang", tmp_path / "clean"
+    gdir.mkdir()
+    cdir.mkdir()
+    # a 2 s heartbeat timeout: five processes share the host's cores
+    # with the other test workers
+    out = gang_bert.drive(str(gdir), world=3, kill_rank=2, kill_after=9,
+                          model="mlp", cpu=True, batch=batch, steps=steps,
+                          hb_timeout=2.0, min_step_s=0.1, timeout=240)
+    ranks = [out[0], out[1]]
+    epochs = set()
+    for r, res in enumerate(ranks):
+        (rec,) = res["recoveries"]
+        assert (rec["source"], rec["members"], rec["dead"]) == \
+            ("peer", [0, 1], [2])
+        assert res["report"]["final_step"] == steps
+        assert [(g["epoch"], g["world"], g["place"], g["backend"])
+                for g in res["groups"]] == \
+            [(0, 3, r, "gloo"), (rec["epoch"], 2, r, "gloo")]
+        epochs.add((rec["epoch"], rec["snap_step"]))
+    ((epoch, k),) = epochs
+    by = [{(x["epoch"], x["step"]): x for x in res["losses"]}
+          for res in ranks]
+    for key in set(by[0]) & set(by[1]):
+        assert by[0][key]["fingerprint"] == by[1][key]["fingerprint"], key
+    pre = sorted(s for e, s in by[0] if e == 0)
+    want = _jax_mlp_run(pre[-1] + 1, 3, batch)
+    for s in pre:
+        for name, w in want[s].items():
+            np.testing.assert_allclose(by[0][(0, s)]["params"][name], w,
+                                       rtol=2e-3, atol=2e-4,
+                                       err_msg=f"{name} at step {s}")
+    clean = gang_bert.drive(
+        str(cdir), world=2, kill_rank=None, model="mlp", cpu=True,
+        batch=batch, steps=steps, hb_timeout=2.0, timeout=240,
+        start_state=str(gdir / "rank0.json.restored.pkl"))
+    for r in range(2):
+        runs = [x for x in clean[r]["losses"]]
+        assert runs[0]["step"] == k and len(runs) == steps - k
+        for x in runs:
+            got = by[r][(epoch, x["step"])]
+            assert got["loss"] == x["loss"], x["step"]
+            assert got["params"] == x["params"], x["step"]
 
 
 def test_snapshot_in_flight_across_a_reshape_is_dropped(tmp_path):

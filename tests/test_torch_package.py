@@ -160,7 +160,8 @@ PLANES_MODULES = ("mxnet_tpu_torch.checkpoint",
 MULTIGPU_MODULES = ("mxnet_tpu_torch.gradient_compression",
                     "mxnet_tpu_torch.parallel.collectives",
                     "mxnet_tpu_torch.parallel.sharding",
-                    "mxnet_tpu_torch.tools.dist_bert")
+                    "mxnet_tpu_torch.tools.dist_bert",
+                    "mxnet_tpu_torch.tools.dist_paths")
 
 
 #: modules the deploy and bindings slice added; each must be walked and
@@ -316,17 +317,50 @@ def test_c_api_library_name_follows_its_interpreter(monkeypatch):
     assert _kernels.c_api_path() != base
 
 
+def test_token_partings_allow_only_rounding_ties():
+    """Two greedy decodes' tokens may part only where the reference's
+    logit gap between the two tokens is within twice the runs' logit
+    difference there, and, held by another pair's logits, only while
+    that pair's tokens agree before the parting."""
+    import numpy as np
+
+    from mxnet_tpu_torch.tools.dist_paths import token_partings
+
+    want = [[1, 2, 3], [4, 5, 6]]
+    lg = np.zeros((3, 2, 8), np.float32)
+    lg[1, 1, 5], lg[1, 1, 7] = 1.0, 0.999
+    near = lg.copy()
+    near[1, 1, 7] += 0.001
+    (p,) = token_partings(want, [[1, 2, 3], [4, 7, 6]], lg, near)
+    assert (p["row"], p["step"], p["tie"]) == (1, 1, True)
+    far = lg.copy()
+    far[1, 1, 7] = 0.5
+    assert not token_partings(want, [[1, 2, 3], [4, 7, 6]], far,
+                              far + near - lg)[0]["tie"]
+    assert token_partings(want, want, lg, lg) == []
+    other = ([[1, 2, 3], [0, 5, 6]], want)
+    assert not token_partings(want, [[1, 2, 3], [4, 7, 6]], lg, near,
+                              other)[0]["tie"]
+
+
 def test_fenced_trace_taken_again_after_a_lost_side(monkeypatch):
-    """kernel_records takes a trace again when one lost a fence side,
-    each new trace padded on the host twice as long, runs the traced work
-    once a trace, and raises when every trace lost one."""
+    """kernel_records takes a trace again when one lost a fence side or a
+    mark of the work (both fences kept, the work's records gone between
+    them), each new trace padded on the host twice as long, runs the
+    traced work once a trace, and raises when every trace lost one."""
     from types import SimpleNamespace
 
     from mxnet_tpu_torch.tools import trace_edges
 
-    fence = SimpleNamespace(name=trace_edges.FENCE_NAME)
-    work = SimpleNamespace(name="flash_fwd_kernel")
-    traces = [[work, fence], [fence, work, fence]]
+    def rec(name, us):
+        return SimpleNamespace(name=name, time_range=SimpleNamespace(
+            elapsed_us=lambda: us))
+
+    fence = rec(trace_edges.FENCE_NAME, 1000.0)
+    mark = rec(trace_edges.FENCE_NAME, 10.0)
+    work = rec("flash_fwd_kernel", 50.0)
+    traces = [[work, mark, fence], [fence, fence],
+              [fence, mark, work, mark, fence]]
     ran, pads = [], []
 
     def fake_trace(fn, fenced, pad=0.0):
@@ -337,11 +371,69 @@ def test_fenced_trace_taken_again_after_a_lost_side(monkeypatch):
 
     monkeypatch.setattr(trace_edges, "_trace", fake_trace)
     assert trace_edges.kernel_records(lambda: ran.append(1)) == [work]
-    assert len(ran) == 2
-    assert pads == [trace_edges.PAD_S, 2 * trace_edges.PAD_S]
+    assert len(ran) == 3
+    assert pads == [trace_edges.PAD_S * k for k in (1, 2, 4)]
     traces[:] = [[work, fence]] * 3
     pads.clear()
     with pytest.raises(AssertionError, match="3 times"):
         trace_edges.kernel_records(lambda: ran.append(1), attempts=3)
-    assert len(ran) == 5
+    assert len(ran) == 6
     assert pads == [trace_edges.PAD_S * k for k in (1, 2, 4)]
+
+
+def test_fenced_trace_lead_counts_from_the_profilers_start(monkeypatch):
+    """A fenced trace records the host's time in ``profile.__enter__``
+    (``enter_ms``) and counts its lead from the profiler's own start:
+    a profiler that starts its clock and then takes a known sleep to
+    enter does not show that sleep as lead."""
+    import time
+    from types import SimpleNamespace
+
+    import torch
+    from torch.autograd import DeviceType
+
+    from mxnet_tpu_torch.tools import trace_edges
+
+    enter_s, true_lead_ms = 0.08, 3.0
+    box = {}
+
+    class FakeProfile:
+        def __init__(self, activities=None):
+            pass
+
+        def __enter__(self):
+            box["base"] = time.time_ns()
+            time.sleep(enter_s)
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+        def events(self):
+            start_us = (box["launch"] - box["base"]) / 1e3 \
+                + true_lead_ms * 1e3
+            return [SimpleNamespace(name=trace_edges.FENCE_NAME,
+                                    device_type=DeviceType.CUDA,
+                                    time_range=SimpleNamespace(
+                                        start=start_us + k,
+                                        elapsed_us=lambda us=us: us))
+                    for k, us in enumerate((1000.0, 10.0, 10.0, 1000.0))]
+
+        @property
+        def profiler(self):
+            return SimpleNamespace(kineto_results=SimpleNamespace(
+                trace_start_ns=lambda: box["base"]))
+
+    def fake_fence():
+        box.setdefault("launch", time.time_ns())
+
+    monkeypatch.setattr(torch.profiler, "profile", FakeProfile)
+    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: None)
+    monkeypatch.setattr(torch.cuda, "_sleep", lambda cycles: None)
+    monkeypatch.setattr(trace_edges, "fence", fake_fence)
+    monkeypatch.setattr(trace_edges, "TRACES", [])
+    got = trace_edges.reproduce(lambda: None, traces=1)
+    assert len(got) == 1 and got[0]["held"] and got[0]["marks"] == 2
+    assert got[0]["enter_ms"] >= enter_s * 1e3
+    assert 0.0 <= got[0]["base_ms"] < 5.0
+    assert abs(got[0]["lead_ms"] - true_lead_ms) < 1.0

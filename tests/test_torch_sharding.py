@@ -165,6 +165,21 @@ def test_transformer_rules_and_bulk_resolution_agree():
         assert tuple(emb.spec_for(n, s)) == tuple(jemb.spec_for(n, s))
 
 
+def test_row_sharded_tables_are_the_embedding_rules_claims():
+    """``ShardedTrainer`` row-shards the tables the rules' ``EmbeddingRules``
+    claim, by their own pattern, alone or inside ``combined_rules``."""
+    mine = tparallel.embedding_rules(pattern=r"_user_rows$")
+    assert mine.row_sharded("rec_user_rows")
+    assert not mine.row_sharded("rec_embed_table")
+    both = tparallel.combined_rules(tparallel.TRANSFORMER_TP_RULES, mine)
+    assert both.row_sharded("rec_user_rows")
+    assert not both.row_sharded("word_embed_weight")
+    assert tparallel.embedding_rules().row_sharded("l_embed_table")
+    for rules in (tparallel.TRANSFORMER_TP_RULES,
+                  tparallel.fsdp_rules(axis_size=2)):
+        assert not rules.row_sharded("l_embed_table")
+
+
 def test_make_mesh_forms_and_errors():
     with cpu():
         mesh = tparallel.make_mesh(axes={"dp": 1})

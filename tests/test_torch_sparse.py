@@ -15,9 +15,9 @@ both packages and the results are compared.
   two packages.
 
 Tolerances: outputs rtol 1e-4 / atol 1e-5, gradients rtol 2e-3 / atol
-2e-4, weights after steps rtol 2e-4 / atol 2e-5.  The row-sparse
-gradient compression (``test_compression_rowsparse_error_feedback_
-bitwise``) waits for ``gradient_compression`` (ROADMAP queue 1 item 6).
+2e-4, weights after steps rtol 2e-4 / atol 2e-5, except the row-sparse
+gradient compression through the one-worker store, held bitwise to the
+reference test's numpy oracle in both packages.
 """
 
 from contextlib import nullcontext
@@ -450,6 +450,80 @@ def test_kvstore_row_sparse_pull_duplicate_numpy_ids():
     got, want = _both(case)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("gc_type,threshold", [("2bit", 0.5),
+                                               ("fp16", 0.5)])
+def test_compression_rowsparse_error_feedback_bitwise(gc_type, threshold):
+    """2bit/fp16 on row-sparse gradients through the one-worker
+    ``device`` store: each round's pull is BITWISE equal to a numpy
+    oracle of the error-feedback recurrence in both packages, the
+    residual stays compact (touched rows only), and rows owing residual
+    are re-emitted on later rounds even when the new batch misses them
+    (``tests/test_sparse.py``'s case)."""
+    shape = (12, 2)
+    rounds = [
+        ([[0.7, -0.1], [0.2, 0.9]], [1, 4]),
+        ([[0.4, 0.4]], [4]),               # row 1 only owes residual
+        ([[0.3, -0.8], [0.05, 0.0]], [1, 9]),
+    ]
+    residual = {}  # oracle: row id -> np residual row
+
+    def oracle(vals, ids):
+        acc = {i: np.array(r, np.float32) for i, r in residual.items()}
+        for r, i in zip(np.asarray(vals, np.float32), ids):
+            acc[i] = acc.get(i, np.zeros(shape[1], np.float32)) + r
+        out = {}
+        residual.clear()
+        for i, a in acc.items():
+            if gc_type == "fp16":
+                q = a.astype(np.float16).astype(np.float32)
+            else:
+                q = np.where(a >= threshold, np.float32(threshold),
+                             np.where(a <= -threshold,
+                                      np.float32(-threshold),
+                                      np.float32(0.0)))
+            out[i] = q
+            res = a - q
+            if np.any(res != 0):
+                residual[i] = res
+        return out
+
+    wants, residuals = [], []
+    for vals, ids in rounds:
+        rows = oracle(vals, ids)
+        want = np.zeros(shape, np.float32)
+        for i, q in rows.items():
+            want[i] = q
+        wants.append(want)
+        residuals.append({i: r.copy() for i, r in residual.items()})
+
+    def case(P):
+        kv = P.mx.kv.create("device")
+        kv.set_gradient_compression({"type": gc_type,
+                                     "threshold": threshold})
+        kv.init("emb", P.nd.zeros(shape))
+        touched = set()
+        for (vals, ids), want, res in zip(rounds, wants, residuals):
+            touched.update(ids)
+            kv.push("emb", P.sp.row_sparse_array(
+                (np.asarray(vals, np.float32), list(ids)), shape=shape))
+            got = P.nd.zeros(shape)
+            kv.pull("emb", out=got)
+            np.testing.assert_array_equal(got.asnumpy(), want)
+            gc = kv._compression
+            if res:
+                ids_kept, res_kept = gc._residual["emb"]
+                np.testing.assert_array_equal(np.asarray(ids_kept),
+                                              sorted(res))
+                for row, i in zip(np.asarray(res_kept), sorted(res)):
+                    np.testing.assert_array_equal(row, res[i])
+                assert set(int(i) for i in np.asarray(ids_kept)) <= touched
+            else:
+                assert "emb" not in gc._residual
+        return True
+
+    assert _both(case) == [True, True]
 
 
 # -- CSR compute ---------------------------------------------------------------

@@ -397,9 +397,10 @@ def test_what_waits_for_later_slices():
     with cpu():
         tr_dist._init_kvstore()
     assert tr_dist._kvstore is not None and tr_dist._update_on_kvstore
-    # what still waits names its slice
-    with pytest.raises(NotImplementedError, match="1b"):
-        tmx.gluon.data.DevicePrefetcher([], kvstore=kv)
+    # the prefetcher's warm pull takes the store (run over two ranks in
+    # tests/test_torch_ranks2.py)
+    pf = tmx.gluon.data.DevicePrefetcher([], kvstore=kv, warm_pull={})
+    assert pf._kvstore is kv
 
 
 def test_kvstore_matches_jax():

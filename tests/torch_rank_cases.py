@@ -10,6 +10,7 @@ imports JAX.
 """
 
 import os
+import threading
 
 import numpy as np
 
@@ -917,7 +918,329 @@ SUITES["moe"] = [
     ("moe_dp2ep2_k2", case_moe_dp2ep2_k2),
     ("moe_dp2_k1_drops", case_moe_dp2_k1_drops),
 ]
-WORLD = {"dist": 2, "sharding": 4, "ring": 4, "pipeline": 4, "moe": 4}
+# -- two ranks: the prefetcher over dp, tp decoding and serving, row-sharded
+# tables, the compressed row-sparse push, Module over dist_sync, activation
+# constraints
+
+PF_BATCHES = [(np.random.RandomState(500 + k).randn(n, 3).astype(np.float32),
+               (np.arange(n) % 5).astype(np.float32))
+              for k, n in enumerate((8, 8, 7))]
+PF_IDS = [np.random.RandomState(510 + k).randint(0, 20, (8, 2))
+          .astype(np.float32) for k in range(3)]
+PF_TABLE = np.random.RandomState(520).randn(20, 3).astype(np.float32)
+
+
+def sparse_tower(pkg, vocab=20, dim=3):
+    """A ``ShardedEmbedding`` table (``emb_embed_table``) over ids (B, 2),
+    flattened into a classifier of 5 classes."""
+    nn = pkg.gluon.nn
+    net = nn.HybridSequential(prefix="st_")
+    with net.name_scope():
+        net.add(pkg.embedding.ShardedEmbedding(vocab, dim, prefix="emb_"),
+                nn.Dense(5, in_units=2 * dim))
+    net.initialize()
+    return _fill(net, 7)
+
+
+def case_prefetch_dp2(rank):
+    """Each rank's rows of every batch through ``DevicePrefetcher`` over a
+    dp=2 rank mesh, threaded and synchronous (the 7-row batch whole),
+    and the producer's warm ``row_sparse_pull`` from a dist store of the
+    rows the rank's block of each id batch touches."""
+    mx = _mx()
+    from mxnet_tpu_torch.gluon.data import DevicePrefetcher
+
+    mesh = _mesh(dp=2)
+    out = {}
+    for depth in (2, 0):
+        got = list(DevicePrefetcher(PF_BATCHES, depth=depth, mesh=mesh))
+        for k, (x, y) in enumerate(got):
+            out[f"x{k}.d{depth}"] = x.asnumpy()
+            out[f"y{k}.d{depth}"] = y.asnumpy()
+    net = sparse_tower(mx)
+    kv = mx.kv.create("dist_sync")
+    name = net[0].weight.name
+    kv.init(name, mx.nd.array(PF_TABLE))
+    threads = []
+    pull = kv.row_sparse_pull
+
+    def spy(*a, **kw):
+        threads.append(threading.current_thread().name)
+        return pull(*a, **kw)
+
+    kv.row_sparse_pull = spy
+    # synchronous: each batch's pull lands just before it is yielded;
+    # threaded: the producer runs ahead, so the rows held after the epoch
+    # are the last batch's
+    for depth in (0, 2):
+        dest = mx.nd.sparse.zeros("row_sparse", PF_TABLE.shape)
+        pf = DevicePrefetcher(PF_IDS, depth=depth, mesh=mesh,
+                              sparse_tables=net, kvstore=kv,
+                              warm_pull={name: dest})
+        for k, ids in enumerate(pf):
+            out[f"ids{k}.d{depth}"] = ids.asnumpy()
+            if depth == 0:
+                out[f"pulled_idx{k}"] = dest.indices.asnumpy()
+                out[f"pulled{k}"] = dest.data.asnumpy()
+        out[f"pulled_last_idx.d{depth}"] = dest.indices.asnumpy()
+        out[f"pulled_last.d{depth}"] = dest.data.asnumpy()
+    out["pull_threads"] = np.asarray(threads)
+    return out
+
+
+DEC_IDS = np.random.RandomState(530).randint(0, 128, (2, 6))
+SERVE_PROMPTS = [np.random.RandomState(531).randint(0, 128, 5),
+                 np.random.RandomState(532).randint(0, 128, 3)]
+
+
+def _gpt_from_state():
+    """gpt_tiny (2 layers, window 32) holding the JAX twin's weights the
+    test wrote to ``MXTPU_TEST_GPT_STATE``."""
+    from mxnet_tpu_torch import convert
+    from mxnet_tpu_torch.gluon.model_zoo import gpt
+
+    model = gpt.gpt_tiny(max_length=32, num_layers=2,
+                         device=_mx().cpu())
+    with np.load(os.environ["MXTPU_TEST_GPT_STATE"]) as z:
+        convert.load_state(model, {k: z[k] for k in z.files})
+    return model
+
+
+def case_decode_tp2(rank):
+    """``CachedDecoder(mesh=tp2)`` and ``ServingEngine(mesh=tp2)`` on
+    gpt_tiny, beside the same model on one rank."""
+    from mxnet_tpu_torch import serving
+    from mxnet_tpu_torch.gluon.model_zoo import gpt
+
+    mesh = _mesh(tp=2)
+    model = _gpt_from_state()
+    out = {}
+    for tag, m in (("tp", mesh), ("one", None)):
+        dec = gpt.CachedDecoder(model, mesh=m)
+        toks, lg = dec.decode(DEC_IDS, max_new_tokens=5, return_logits=True)
+        out[f"toks.{tag}"] = toks.asnumpy()
+        out[f"logits.{tag}"] = lg
+        out[f"cache_heads.{tag}"] = dec._init_cache(1)[0].shape[2]
+        eng = serving.ServingEngine(model, batch_buckets=(2,), mesh=m)
+        outs, _ = eng.serve_group(SERVE_PROMPTS, 4)
+        for i, o in enumerate(outs):
+            out[f"serve{i}.{tag}"] = o
+        out[f"recordings.{tag}"] = eng.recordings
+    return out
+
+
+def case_embed_rows_dp2(rank, vocab=20):
+    """A ``ShardedEmbedding`` table row-sharded over dp=2 by
+    ``EmbeddingRules`` through three ``ShardedTrainer`` steps (ids to
+    their owner, rows back, gradient rows to their owner), with the
+    rank's block of the table's rows and whether the lookup exchanged."""
+    mx = _mx()
+    from mxnet_tpu_torch.parallel import collectives
+
+    mesh = _mesh(dp=2)
+    net = sparse_tower(mx, vocab=vocab)
+    rs = np.random.RandomState(540)
+    x = rs.randint(0, vocab, (8, 2)).astype(np.float32)
+    y = (np.arange(8) % 5).astype(np.float32)
+    calls = collectives.stats(reset=True)["calls"]
+    tr, out = _train(rank, mesh, net,
+                     mx.gluon.loss.SoftmaxCrossEntropyLoss(), x, y, SGD,
+                     rules=mx.parallel.EmbeddingRules())
+    i = [n for n, _ in tr._trainable].index(net[0].weight.name)
+    out["local_rows"] = -1 if tr._local[i] is None \
+        else tr._local[i].shape[0]
+    out["calls"] = collectives.stats()["calls"] - calls
+    # the module's table while the trainer holds the rank's block, then
+    # written back whole
+    out["module_rows"] = net[0].weight._value().shape[0]
+    tr.sync_params()
+    out["synced"] = net[0].weight.data().asnumpy()
+    return out
+
+
+def case_embed_rows_uneven_dp2(rank):
+    return case_embed_rows_dp2(rank, vocab=21)
+
+
+RS_ROUNDS = [
+    [([[0.7, -0.1], [0.2, 0.9]], [1, 4]), ([[0.4, 0.4]], [4]),
+     ([[0.3, -0.8], [0.05, 0.0]], [1, 9])],
+    [([[0.6, 0.6]], [4]), ([[-0.9, 0.2], [0.1, 0.55]], [2, 11]),
+     ([[0.25, 0.3]], [2])],
+]
+
+
+def _compress_rowsparse(rank, params):
+    mx = _mx()
+    shape = (12, 2)
+    kv = mx.kv.create("dist_sync")
+    kv.set_gradient_compression(params)
+    kv.init("emb", mx.nd.zeros(shape))
+    pulled, residual = [], []
+    for vals, ids in RS_ROUNDS[rank]:
+        kv.push("emb", mx.nd.sparse.row_sparse_array(
+            (np.asarray(vals, np.float32), list(ids)), shape=shape))
+        got = mx.nd.zeros(shape)
+        kv.pull("emb", out=got)
+        pulled.append(got.asnumpy())
+        residual.append(kv._compression._residual["emb"].numpy())
+    return {"pulled": np.stack(pulled), "residual": np.stack(residual)}
+
+
+def case_compress_rowsparse_2bit(rank):
+    return _compress_rowsparse(rank, {"type": "2bit", "threshold": 0.5})
+
+
+def case_compress_rowsparse_fp16(rank):
+    return _compress_rowsparse(rank, {"type": "fp16", "threshold": 0.5})
+
+
+MOD_X = np.random.RandomState(550).randn(16, 6).astype(np.float32)
+MOD_Y = (np.arange(16) % 3).astype(np.float32)
+MOD_B = 4
+
+
+def module_symbol(pkg):
+    sym = pkg.sym
+    h = sym.FullyConnected(sym.Variable("data"), sym.Variable("fc1_weight"),
+                           sym.Variable("fc1_bias"), num_hidden=8,
+                           name="fc1")
+    h = sym.Activation(h, act_type="relu", name="relu1")
+    out = sym.FullyConnected(h, sym.Variable("fc2_weight"),
+                             sym.Variable("fc2_bias"), num_hidden=3,
+                             name="fc2")
+    return sym.SoftmaxOutput(out, sym.Variable("softmax_label"),
+                             name="softmax")
+
+
+def module_params():
+    rs = np.random.RandomState(551)
+    return {"fc1_weight": rs.randn(8, 6).astype(np.float32) * 0.3,
+            "fc1_bias": rs.randn(8).astype(np.float32) * 0.1,
+            "fc2_weight": rs.randn(3, 8).astype(np.float32) * 0.3,
+            "fc2_bias": rs.randn(3).astype(np.float32) * 0.1}
+
+
+def module_rows(rank, world):
+    """Rank ``rank``'s rows of ``MOD_X``: its block of each global batch
+    of ``world * MOD_B`` rows."""
+    g = world * MOD_B
+    idx = np.concatenate([np.arange(k, k + g)[rank * MOD_B:
+                                              (rank + 1) * MOD_B]
+                          for k in range(0, len(MOD_X), g)])
+    return MOD_X[idx], MOD_Y[idx]
+
+
+def module_fit(pkg, x, y, batch, kvstore, global_batch):
+    """Two epochs of ``Module.fit`` (SGD, rescaled by the global batch)
+    from ``module_params``; returns the trained parameters."""
+    mod = pkg.mod.Module(module_symbol(pkg), data_names=["data"],
+                         label_names=["softmax_label"])
+    it = pkg.io.NDArrayIter(x, y, batch_size=batch, shuffle=False)
+    mod.fit(it, num_epoch=2, kvstore=kvstore, optimizer="sgd",
+            optimizer_params={"learning_rate": 0.5, "momentum": 0.9,
+                              "rescale_grad": 1.0 / global_batch},
+            arg_params={k: pkg.nd.array(v)
+                        for k, v in module_params().items()},
+            eval_metric="acc")
+    args, _ = mod.get_params()
+    return {k: v.asnumpy() for k, v in args.items()}
+
+
+def case_module_dist2(rank):
+    """``Module.fit`` over a ``dist_sync`` store on two ranks, each on its
+    block of every global batch."""
+    mx = _mx()
+    x, y = module_rows(rank, 2)
+    out = module_fit(mx, x, y, MOD_B, "dist_sync", 2 * MOD_B)
+    out["workers"] = mx.kv.create("dist_sync").num_workers
+    return out
+
+
+def _spec_of(t):
+    """The layout ``constrain`` recorded on ``t``, as a string ("" for
+    none)."""
+    spec = getattr(t, "partition_spec", None)
+    return np.asarray("" if spec is None else repr(tuple(spec)))
+
+
+def case_shard_activations_tp2(rank):
+    """``shard_activations`` on a tp=2 rank mesh outside a sharded step:
+    the annotated outputs, their recorded layouts, the whole net with its
+    hidden layer annotated, the no-op annotations, and
+    ``annotate_activations`` by block name."""
+    mx = _mx()
+    import torch
+
+    mesh = _mesh(tp=2)
+    x = mx.nd.array(MLP_X[:4])
+    net = mlp(mx)
+    out = {"plain": net(x).asnumpy(), "first": net[0](x).asnumpy()}
+    net[0].shard_activations((None, "tp"), mesh)
+    h = net[0](x)
+    out["sharded"], out["spec.sharded"] = h.asnumpy(), _spec_of(h._data)
+    out["whole"] = net(x).asnumpy()
+    for tag, spec, m in (("no_axis", (None, "dp"), mesh),
+                         ("too_long", (None, None, "tp"), mesh),
+                         ("no_mesh", (None, "tp"), None)):
+        net[0].shard_activations(spec, m)
+        h = net[0](x)
+        out[tag], out["spec." + tag] = h.asnumpy(), _spec_of(h._data)
+    net2 = mlp(mx)
+    mx.parallel.annotate_activations(
+        net2, mx.parallel.ShardingRules(rules=[(r"dense0$", (None, "tp"))]),
+        mesh)
+    h = net2[0](x)
+    out["annotated"], out["spec.annotated"] = h.asnumpy(), _spec_of(h._data)
+    out["annotated_whole"] = net2(x).asnumpy()
+    with torch.no_grad():
+        t = net[0].shard_activations((None, "tp"), mesh)(
+            torch.as_tensor(MLP_X[:4]))
+    out["tensor"], out["spec.tensor"] = t.numpy(), _spec_of(t)
+    return out
+
+
+#: Megatron over the two Dense layers of ``mlp``: the first column-parallel,
+#: the second row-parallel
+MLP_TP_RULES = [(r"dense0_weight$", ("tp", None)),
+                (r"dense1_weight$", (None, "tp"))]
+
+
+def case_shard_activations_trainer_tp2(rank):
+    """``mlp`` with its hidden projection annotated ``(None, 'tp')`` on
+    the default mesh (the tp mesh, as ``shard_model`` sets it), trained
+    ``STEPS`` ``ShardedTrainer`` steps at tp=2 by ``MLP_TP_RULES``, then
+    run whole outside the trainer."""
+    mx = _mx()
+    mesh = _mesh(tp=2)
+    net = mlp(mx)
+    net[0].shard_activations((None, "tp"))
+    mx.parallel.set_default_mesh(mesh)
+    try:
+        tr, out = _train(rank, mesh, net,
+                         mx.gluon.loss.SoftmaxCrossEntropyLoss(), MLP_X,
+                         MLP_Y, SGD,
+                         rules=mx.parallel.ShardingRules(rules=MLP_TP_RULES))
+        tr.sync_params()
+        out["whole"] = net(mx.nd.array(MLP_X[:4])).asnumpy()
+    finally:
+        mx.parallel.set_default_mesh(None)
+    return out
+
+
+SUITES["ranks2"] = [
+    ("prefetch_dp2", case_prefetch_dp2),
+    ("decode_tp2", case_decode_tp2),
+    ("embed_rows_dp2", case_embed_rows_dp2),
+    ("embed_rows_uneven_dp2", case_embed_rows_uneven_dp2),
+    ("compress_rowsparse_2bit", case_compress_rowsparse_2bit),
+    ("compress_rowsparse_fp16", case_compress_rowsparse_fp16),
+    ("module_dist2", case_module_dist2),
+    ("shard_activations_tp2", case_shard_activations_tp2),
+    ("shard_activations_trainer_tp2", case_shard_activations_trainer_tp2),
+]
+WORLD = {"dist": 2, "sharding": 4, "ring": 4, "pipeline": 4, "moe": 4,
+         "ranks2": 2}
 
 
 class Gang:
